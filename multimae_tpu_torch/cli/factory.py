@@ -1,0 +1,131 @@
+"""Domain configuration + pretrain model/loss factory (counterpart of
+multimae_tpu/cli/factory.py; reference run_pretraining_multimae.py:49-72,
+:243-331)."""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from multimae_tpu_torch.models import (
+    MaskedCrossEntropyLoss,
+    MaskedL1Loss,
+    MaskedMSELoss,
+    PatchedInputAdapter,
+    SemSegInputAdapter,
+    SpatialOutputAdapter,
+)
+from multimae_tpu_torch.models.registry import create_model
+from multimae_tpu_torch.utils.data_constants import COCO_SEMSEG_NUM_CLASSES
+
+DOMAIN_CONF = {
+    "rgb": {
+        "channels": 3,
+        "stride_level": 1,
+        "input_adapter": functools.partial(PatchedInputAdapter, num_channels=3),
+        "output_adapter": functools.partial(SpatialOutputAdapter, num_channels=3),
+        "loss": MaskedMSELoss,
+    },
+    "depth": {
+        "channels": 1,
+        "stride_level": 1,
+        "input_adapter": functools.partial(PatchedInputAdapter, num_channels=1),
+        "output_adapter": functools.partial(SpatialOutputAdapter, num_channels=1),
+        "loss": MaskedL1Loss,
+    },
+    "semseg": {
+        "num_classes": COCO_SEMSEG_NUM_CLASSES,
+        "stride_level": 4,
+        "input_adapter": functools.partial(
+            SemSegInputAdapter, num_classes=COCO_SEMSEG_NUM_CLASSES,
+            dim_class_emb=64),
+        "output_adapter": functools.partial(
+            SpatialOutputAdapter, num_channels=COCO_SEMSEG_NUM_CLASSES),
+        "loss": functools.partial(MaskedCrossEntropyLoss, label_smoothing=0.0),
+    },
+}
+
+
+def build_pretrain_model(
+    *,
+    model_name: str = "pretrain_multimae_base",
+    in_domains: Sequence[str] = ("rgb", "depth", "semseg"),
+    out_domains: Sequence[str] = ("rgb", "depth", "semseg"),
+    patch_size: int = 16,
+    input_size: int = 224,
+    decoder_dim: int = 256,
+    decoder_depth: int = 2,
+    decoder_num_heads: int = 8,
+    extra_norm_pix_loss: bool = True,
+    num_global_tokens: int = 1,
+    fp32_output_adapters: Sequence[str] = (),
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    device="cpu",
+):
+    """Reference get_model (run_pretraining_multimae.py:243-293), with
+    weights drawn from a CPU torch.Generator seeded with `seed`, then
+    moved to `device`."""
+    input_adapters = {
+        d: functools.partial(
+            DOMAIN_CONF[d]["input_adapter"],
+            stride_level=DOMAIN_CONF[d]["stride_level"],
+            patch_size_full=patch_size, image_size=input_size)
+        for d in in_domains
+    }
+
+    def out_spec(domain, task):
+        return functools.partial(
+            DOMAIN_CONF[domain]["output_adapter"],
+            stride_level=DOMAIN_CONF[domain]["stride_level"],
+            patch_size_full=patch_size, image_size=input_size,
+            dim_tokens=decoder_dim, depth=decoder_depth,
+            num_heads=decoder_num_heads, task=task,
+            context_tasks=tuple(in_domains))
+
+    output_adapters = {d: out_spec(d, d) for d in out_domains}
+    if extra_norm_pix_loss:
+        output_adapters["norm_rgb"] = out_spec("rgb", "rgb")
+
+    model = create_model(
+        model_name, input_adapters=input_adapters,
+        output_adapters=output_adapters, num_global_tokens=num_global_tokens,
+        dtype=dtype, fp32_output_adapters=tuple(fp32_output_adapters))
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def build_pretrain_losses(out_domains: Sequence[str], patch_size: int = 16,
+                          extra_norm_pix_loss: bool = True) -> Dict[str, object]:
+    """Reference run_pretraining_multimae.py:317-331."""
+    losses = {
+        d: DOMAIN_CONF[d]["loss"](patch_size=patch_size,
+                                  stride=DOMAIN_CONF[d]["stride_level"])
+        for d in out_domains
+    }
+    if extra_norm_pix_loss:
+        losses["norm_rgb"] = DOMAIN_CONF["rgb"]["loss"](
+            patch_size=patch_size, stride=1, norm_pix=True)
+    return losses
+
+
+def make_synthetic_batch(batch: int, input_size: int = 224,
+                         in_domains: Sequence[str] = ("rgb", "depth", "semseg"),
+                         seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """Random NHWC batch shaped like the real pipeline's output; the same
+    numpy draws as multimae_tpu.cli.factory.make_synthetic_batch."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for d in in_domains:
+        if d == "semseg":
+            arr = rng.integers(0, COCO_SEMSEG_NUM_CLASSES,
+                               (batch, input_size // 4, input_size // 4))
+            out[d] = torch.from_numpy(arr.astype(np.int64))
+        else:
+            c = DOMAIN_CONF[d]["channels"]
+            arr = rng.standard_normal((batch, input_size, input_size, c))
+            out[d] = torch.from_numpy(arr.astype(np.float32))
+    return {d: t.to(device) for d, t in out.items()}

@@ -1,0 +1,522 @@
+// Device building blocks shared by the fused_block_infer (K4) and
+// fused_decoder_fwd (K1) kernel chains, for Hopper (sm_90a).
+//
+//   layer_norm  one warp per row, fp32 two-pass statistics, eps 1e-6,
+//               output in the compute dtype.
+//   gemm        Y = X . W^T on the torch (out, in) weight layout, fp32
+//               accumulation, fused epilogue (bias; bias + exact-erf
+//               GELU; bias + residual). bf16: mma.sync m16n8k16 tensor
+//               core tiles fed by a two-stage cp.async pipeline. fp32:
+//               true fp32 FMA tiles (no TF32).
+//   attention   one block per (query tile, head, sample); the sample-head's
+//               whole K and V rows sit in shared memory; a warp works on
+//               four query rows at once; fp32 logits x scale and softmax,
+//               probabilities rounded to the compute dtype before P . V,
+//               fp32 accumulation. q, k and v are read in place from the
+//               fused projection outputs with row strides, each head a
+//               contiguous run of dh columns.
+//
+// Roundings follow the JAX package's kernels (fused_decoder_pallas.py
+// `_dense`, `_attend_fwd_2d`): a GEMM's fp32 sum is rounded to the
+// compute dtype, then the bias is added in that dtype, then GELU (in
+// fp32) or the residual add, each rounded to the compute dtype.
+//
+// Every launcher enqueues on the caller's stream and returns the CUDA
+// error of its launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace mm {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T and back.
+template <typename T> __device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------- LayerNorm
+
+constexpr int LN_MAX_PER_LANE = 32;  // rows of up to 1024 elements
+constexpr int LN_WARPS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                  const float* __restrict__ b, T* __restrict__ y, int rows, int d) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * d;
+  T* yr = y + (size_t)row * d;
+  float v[LN_MAX_PER_LANE];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
+    const int c = i * 32 + lane;
+    v[i] = c < d ? to_f(xr[c]) : 0.f;
+    s += v[i];
+  }
+  const float mean = warp_sum(s) / d;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
+    const int c = i * 32 + lane;
+    const float t = c < d ? v[i] - mean : 0.f;
+    q += t * t;
+  }
+  const float inv = rsqrtf(warp_sum(q) / d + 1e-6f);
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
+    const int c = i * 32 + lane;
+    if (c < d) yr[c] = from_f<T>((v[i] - mean) * inv * g[c] + b[c]);
+  }
+}
+
+template <typename T>
+cudaError_t layer_norm(const T* x, const float* g, const float* b, T* y,
+                       int rows, int d, cudaStream_t s) {
+  const int blocks = (rows + LN_WARPS - 1) / LN_WARPS;
+  layer_norm_kernel<T><<<blocks, LN_WARPS * 32, 0, s>>>(x, g, b, y, rows, d);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------------- GEMM
+
+enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RES = 2 };
+
+// Y[m, n] (and R, which may alias Y: each element is read, then written,
+// by the same thread).
+template <typename T, int EPI>
+__device__ __forceinline__ void store_out(T* Y, const T* __restrict__ bias,
+                                          const T* R, int n_cols, int m, int n,
+                                          float acc) {
+  float v = rnd<T>(acc);
+  v = rnd<T>(v + to_f(bias[n]));
+  if (EPI == EPI_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752440f));
+  const size_t off = (size_t)m * n_cols + n;
+  if (EPI == EPI_RES) v = to_f(R[off]) + v;
+  Y[off] = from_f<T>(v);
+}
+
+// bf16: a BM x BN output tile per block of (BM/WM) x (BN/WN) warps, each
+// warp a WM x WN tile of m16n8k16 tensor-core products; k-step 32, two
+// shared-memory stages filled by cp.async so the next tile loads while
+// this one multiplies. Smem rows are padded to 40 elements so the
+// fragment loads of a warp's 8 row groups fall on distinct banks.
+constexpr int GB_K = 32, GB_LD = GB_K + 8;
+
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16-byte global -> shared copy; rows past the matrix edge are zero-filled
+// (source size 0, so nothing is read from `src`).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+template <int EPI, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
+gemm_bf16_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W,
+                 const bf16* __restrict__ bias, const bf16* R, bf16* Y,
+                 int M, int N, int K) {
+  constexpr int WARPS_N = BN / WN, THREADS = (BM / WM) * WARPS_N * 32;
+  constexpr int MI = WM / 16, NI = WN / 8;
+  __shared__ __align__(16) bf16 sA[2][BM][GB_LD];
+  __shared__ __align__(16) bf16 sB[2][BN][GB_LD];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  // One stage: BM (BN) rows x 32 columns, 4 chunks of 8 bf16 per row.
+  auto load_stage = [&](int stage, int k0) {
+#pragma unroll
+    for (int idx = tid; idx < BM * 4; idx += THREADS) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = m0 + r < M;
+      cp_async_16(&sA[stage][r][c], X + (size_t)(ok ? m0 + r : 0) * K + k0 + c, ok);
+    }
+#pragma unroll
+    for (int idx = tid; idx < BN * 4; idx += THREADS) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = n0 + r < N;
+      cp_async_16(&sB[stage][r][c], W + (size_t)(ok ? n0 + r : 0) * K + k0 + c, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  const int kt_count = K / GB_K;
+  load_stage(0, 0);
+  for (int kt = 0; kt < kt_count; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < kt_count) {
+      load_stage(st ^ 1, (kt + 1) * GB_K);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GB_K; kk += 16) {
+      uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = wm * WM + mi * 16 + g;
+        a[mi][0] = *reinterpret_cast<const uint32_t*>(&sA[st][r][kk + t * 2]);
+        a[mi][1] = *reinterpret_cast<const uint32_t*>(&sA[st][r + 8][kk + t * 2]);
+        a[mi][2] = *reinterpret_cast<const uint32_t*>(&sA[st][r][kk + t * 2 + 8]);
+        a[mi][3] = *reinterpret_cast<const uint32_t*>(&sA[st][r + 8][kk + t * 2 + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int c = wn * WN + ni * 8 + g;
+        b[ni][0] = *reinterpret_cast<const uint32_t*>(&sB[st][c][kk + t * 2]);
+        b[ni][1] = *reinterpret_cast<const uint32_t*>(&sB[st][c][kk + t * 2 + 8]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni]);
+    }
+    __syncthreads();  // the stage is refilled by the next iteration's loads
+  }
+
+  // Accumulator layout of m16n8: c0,c1 at (g, 2t..2t+1), c2,c3 at (g+8, ...).
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * WM + mi * 16 + g + h * 8;
+        const int n = n0 + wn * WN + ni * 8 + t * 2;
+        if (m < M) {
+          if (n < N) store_out<bf16, EPI>(Y, bias, R, N, m, n, acc[mi][ni][h * 2]);
+          if (n + 1 < N) store_out<bf16, EPI>(Y, bias, R, N, m, n + 1, acc[mi][ni][h * 2 + 1]);
+        }
+      }
+}
+
+// fp32: 64x64 output tile per block of 256 threads, 4x4 outputs each
+// (rows ty + 16i, columns tx + 16j), k-step 16, tiles stored k-major.
+constexpr int GF_M = 64, GF_N = 64, GF_K = 16;
+
+template <int EPI>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                const float* __restrict__ bias, const float* R, float* Y,
+                int M, int N, int K) {
+  __shared__ float sA[GF_K][GF_M + 4];
+  __shared__ float sB[GF_K][GF_N + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * GF_M, n0 = blockIdx.x * GF_N;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += GF_K) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + i * 256;
+      const int r = idx >> 4, c = idx & 15;
+      sA[c][r] = m0 + r < M ? X[(size_t)(m0 + r) * K + k0 + c] : 0.f;
+      sB[c][r] = n0 + r < N ? W[(size_t)(n0 + r) * K + k0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GF_K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sA[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = sB[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < M && n < N) store_out<float, EPI>(Y, bias, R, N, m, n, acc[i][j]);
+    }
+}
+
+// K must be a multiple of 32 (checked by the Python wrappers). 128x128
+// tiles (8 warps of 64x32) where they fill the 132 SMs at least once,
+// else 64x64 tiles (4 warps of 32x32), e.g. the decoders' N=256 GEMMs.
+template <int EPI>
+cudaError_t gemm(const bf16* X, const bf16* W, const bf16* bias, const bf16* R,
+                 bf16* Y, int M, int N, int K, cudaStream_t s) {
+  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128);
+  if (big_tiles >= 132) {
+    dim3 grid((N + 127) / 128, (M + 127) / 128);
+    gemm_bf16_kernel<EPI, 128, 128, 64, 32><<<grid, 256, 0, s>>>(X, W, bias, R, Y, M, N, K);
+  } else {
+    dim3 grid((N + 63) / 64, (M + 63) / 64);
+    gemm_bf16_kernel<EPI, 64, 64, 32, 32><<<grid, 128, 0, s>>>(X, W, bias, R, Y, M, N, K);
+  }
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t gemm(const float* X, const float* W, const float* bias, const float* R,
+                 float* Y, int M, int N, int K, cudaStream_t s) {
+  dim3 grid((N + GF_N - 1) / GF_N, (M + GF_M - 1) / GF_M);
+  gemm_f32_kernel<EPI><<<grid, 256, 0, s>>>(X, W, bias, R, Y, M, N, K);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- attention
+
+constexpr int ATT_WARPS = 8;
+constexpr int ATT_QTILE = 64;  // query rows per block
+constexpr int ATT_ROWS = 4;    // query rows a warp works on together
+
+// Shared memory: per warp, the query rows (DH float4: the 4 rows' values
+// at each column) and their scores (nk float4); then K and V rows in the
+// compute dtype, padded to DH+2 elements so that lanes reading
+// neighbouring keys fall on distinct banks.
+template <typename T>
+inline size_t attention_smem_bytes(int nk, int dh) {
+  return 16 * (size_t)ATT_WARPS * (dh + nk) + 2 * (size_t)nk * (dh + 2) * sizeof(T);
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Row i of sample b, head h: Q + (b*nq + i)*ldq + h*DH (K and V likewise
+// with nk, ldkv); output row at O + (b*nq + i)*ldo + h*DH. A warp takes
+// ATT_ROWS query rows at a time, so every K and V element it reads from
+// shared memory serves four rows: lanes own keys for the scores and
+// output columns for P . V.
+template <typename T, int DH>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attention_kernel(const T* __restrict__ Q, int ldq, const T* __restrict__ Kp,
+                 const T* __restrict__ Vp, int ldkv, T* __restrict__ O, int ldo,
+                 int nq, int nk, float scale) {
+  constexpr int KST = DH + 2;
+  constexpr int DPL = DH / 32;  // output columns per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* sQ = reinterpret_cast<float4*>(smem_raw);
+  float4* sS = sQ + ATT_WARPS * DH;
+  T* sK = reinterpret_cast<T*>(sS + ATT_WARPS * nk);
+  T* sV = sK + (size_t)nk * KST;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_QTILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int idx = threadIdx.x; idx < nk * DH; idx += blockDim.x) {
+    const int j = idx / DH, d = idx % DH;
+    const size_t off = (size_t)(b * nk + j) * ldkv + h * DH + d;
+    sK[j * KST + d] = Kp[off];
+    sV[j * KST + d] = Vp[off];
+  }
+  __syncthreads();
+
+  float4* q = sQ + warp * DH;
+  float4* s = sS + warp * nk;
+  const int q_end = min(q0 + ATT_QTILE, nq);
+  for (int i0 = q0 + warp * ATT_ROWS; i0 < q_end; i0 += ATT_WARPS * ATT_ROWS) {
+    // q[d] = the 4 rows' values at column d (rows past the end are zero).
+#pragma unroll
+    for (int r = 0; r < DPL; ++r) {
+      const int d = lane + 32 * r;
+      float v[ATT_ROWS];
+#pragma unroll
+      for (int u = 0; u < ATT_ROWS; ++u)
+        v[u] = i0 + u < q_end ? to_f(Q[(size_t)(b * nq + i0 + u) * ldq + h * DH + d]) : 0.f;
+      q[d] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    __syncwarp();
+
+    float mx[ATT_ROWS] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    for (int j = lane; j < nk; j += 32) {
+      const T* kr = sK + j * KST;
+      float a[ATT_ROWS] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int d = 0; d < DH; d += 2) {
+        const float2 k2 = load_pair(kr + d);
+        const float4 qa = q[d], qb = q[d + 1];
+        a[0] = fmaf(qa.x, k2.x, a[0]); a[0] = fmaf(qb.x, k2.y, a[0]);
+        a[1] = fmaf(qa.y, k2.x, a[1]); a[1] = fmaf(qb.y, k2.y, a[1]);
+        a[2] = fmaf(qa.z, k2.x, a[2]); a[2] = fmaf(qb.z, k2.y, a[2]);
+        a[3] = fmaf(qa.w, k2.x, a[3]); a[3] = fmaf(qb.w, k2.y, a[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < ATT_ROWS; ++u) {
+        a[u] *= scale;
+        mx[u] = fmaxf(mx[u], a[u]);
+      }
+      s[j] = make_float4(a[0], a[1], a[2], a[3]);
+    }
+    float sum[ATT_ROWS];
+#pragma unroll
+    for (int u = 0; u < ATT_ROWS; ++u) {
+      mx[u] = warp_max(mx[u]);
+      sum[u] = 0.f;
+    }
+    for (int j = lane; j < nk; j += 32) {
+      const float4 v = s[j];
+      const float e[ATT_ROWS] = {expf(v.x - mx[0]), expf(v.y - mx[1]),
+                                 expf(v.z - mx[2]), expf(v.w - mx[3])};
+#pragma unroll
+      for (int u = 0; u < ATT_ROWS; ++u) sum[u] += e[u];
+      s[j] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < ATT_ROWS; ++u) sum[u] = warp_sum(sum[u]);
+    for (int j = lane; j < nk; j += 32) {
+      const float4 v = s[j];
+      s[j] = make_float4(rnd<T>(v.x / sum[0]), rnd<T>(v.y / sum[1]),
+                         rnd<T>(v.z / sum[2]), rnd<T>(v.w / sum[3]));
+    }
+    __syncwarp();
+
+    float o[ATT_ROWS][DPL];
+#pragma unroll
+    for (int u = 0; u < ATT_ROWS; ++u)
+#pragma unroll
+      for (int r = 0; r < DPL; ++r) o[u][r] = 0.f;
+    for (int j = 0; j < nk; ++j) {
+      const float4 p = s[j];
+      const T* vr = sV + j * KST + lane;
+#pragma unroll
+      for (int r = 0; r < DPL; ++r) {
+        const float v = to_f(vr[32 * r]);
+        o[0][r] = fmaf(p.x, v, o[0][r]);
+        o[1][r] = fmaf(p.y, v, o[1][r]);
+        o[2][r] = fmaf(p.z, v, o[2][r]);
+        o[3][r] = fmaf(p.w, v, o[3][r]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < ATT_ROWS; ++u) {
+      if (i0 + u < q_end) {
+        T* orow = O + (size_t)(b * nq + i0 + u) * ldo + h * DH;
+#pragma unroll
+        for (int r = 0; r < DPL; ++r) orow[lane + 32 * r] = from_f<T>(o[u][r]);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T, int DH>
+cudaError_t attention_dh(const T* Q, int ldq, const T* Kp, const T* Vp, int ldkv,
+                         T* O, int ldo, int batch, int heads, int nq, int nk,
+                         cudaStream_t s) {
+  const size_t smem = attention_smem_bytes<T>(nk, DH);
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((nq + ATT_QTILE - 1) / ATT_QTILE, heads, batch);
+  // dh ** -0.5 in double, rounded once to fp32, as the Python side does.
+  const float scale = (float)(1.0 / sqrt((double)DH));
+  attention_kernel<T, DH><<<grid, ATT_WARPS * 32, smem, s>>>(
+      Q, ldq, Kp, Vp, ldkv, O, ldo, nq, nk, scale);
+  return cudaGetLastError();
+}
+
+// Head widths 32, 64, 96 and 128 (checked by the Python wrappers).
+template <typename T>
+cudaError_t attention(const T* Q, int ldq, const T* Kp, const T* Vp, int ldkv,
+                      T* O, int ldo, int batch, int heads, int nq, int nk, int dh,
+                      cudaStream_t s) {
+  switch (dh) {
+    case 32: return attention_dh<T, 32>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);
+    case 64: return attention_dh<T, 64>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);
+    case 96: return attention_dh<T, 96>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);
+    case 128: return attention_dh<T, 128>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------- block chain
+
+// One pre-LN ViT block over M = batch*n rows of width d:
+//   x_out = x_in + proj(attn(qkv(LN1(x_in))));  x_out += fc2(gelu(fc1(LN2(x_out))))
+// x_out may alias x_in. Weights: LN (d,) fp32; wqkv (3d, d), wp (d, d),
+// w1 (hidden, d), w2 (d, hidden) and their biases in T.
+template <typename T>
+struct BlockParams {
+  const float *n1_g, *n1_b;
+  const T *wqkv, *bqkv, *wp, *bp;
+  const float *n2_g, *n2_b;
+  const T *w1, *b1, *w2, *b2;
+};
+
+template <typename T>
+cudaError_t block_chain(const T* x_in, T* x_out, const BlockParams<T>& p,
+                        T* ln, T* qkv, T* att, T* hid, int batch, int n, int d,
+                        int heads, int hidden, cudaStream_t s) {
+  const int M = batch * n, dh = d / heads;
+  cudaError_t e;
+  if ((e = layer_norm<T>(x_in, p.n1_g, p.n1_b, ln, M, d, s)) != cudaSuccess) return e;
+  if ((e = gemm<EPI_BIAS>(ln, p.wqkv, p.bqkv, (const T*)nullptr, qkv, M, 3 * d, d, s)) != cudaSuccess) return e;
+  if ((e = attention<T>(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, att, d, batch,
+                        heads, n, n, dh, s)) != cudaSuccess) return e;
+  if ((e = gemm<EPI_RES>(att, p.wp, p.bp, x_in, x_out, M, d, d, s)) != cudaSuccess) return e;
+  if ((e = layer_norm<T>(x_out, p.n2_g, p.n2_b, ln, M, d, s)) != cudaSuccess) return e;
+  if ((e = gemm<EPI_GELU>(ln, p.w1, p.b1, (const T*)nullptr, hid, M, hidden, d, s)) != cudaSuccess) return e;
+  return gemm<EPI_RES>(hid, p.w2, p.b2, x_out, x_out, M, d, hidden, s);
+}
+
+}  // namespace mm

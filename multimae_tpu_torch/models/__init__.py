@@ -1,0 +1,17 @@
+"""Models of the port: registry entries, adapters, ViT blocks, losses."""
+
+from multimae_tpu_torch.models.criterion import (
+    MaskedCrossEntropyLoss,
+    MaskedL1Loss,
+    MaskedMSELoss,
+)
+from multimae_tpu_torch.models.input_adapters import PatchedInputAdapter, SemSegInputAdapter
+from multimae_tpu_torch.models.multimae import MultiMAE
+from multimae_tpu_torch.models.output_adapters import SpatialOutputAdapter
+from multimae_tpu_torch.models.registry import create_model, list_models
+
+__all__ = [
+    "MaskedCrossEntropyLoss", "MaskedL1Loss", "MaskedMSELoss", "MultiMAE",
+    "PatchedInputAdapter", "SemSegInputAdapter", "SpatialOutputAdapter",
+    "create_model", "list_models",
+]

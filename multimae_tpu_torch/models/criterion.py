@@ -1,0 +1,106 @@
+"""Masked reconstruction losses on NHWC images (counterpart of the
+pixel-space path of multimae_tpu/models/criterion.py; reference
+multimae/criterion.py).
+
+Each sample's masked loss sum is divided by its masked-pixel count, then
+the batch takes the mean over samples that have any masked pixel (0 if
+none has), the reference's nanmean without NaNs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _upsample_mask(mask: torch.Tensor, hw, scale: int) -> torch.Tensor:
+    """(B, nh*nw) token mask -> (B, H, W) fp32 pixel mask (nearest)."""
+    h, w = hw
+    m = mask.reshape(mask.shape[0], h // scale, w // scale).float()
+    return m.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
+
+
+def _masked_mean(loss_pix: torch.Tensor, mask_pix: torch.Tensor) -> torch.Tensor:
+    """Per-sample sum / mask-sum, then mean over non-empty samples."""
+    b = loss_pix.shape[0]
+    loss_flat = loss_pix.reshape(b, -1)
+    mask_flat = mask_pix.reshape(b, -1)
+    mask_sums = mask_flat.sum(dim=1)
+    per_sample = (loss_flat * mask_flat).sum(dim=1) / mask_sums.clamp_min(1.0)
+    valid = mask_sums > 0
+    count = valid.sum().clamp_min(1)
+    return torch.where(valid, per_sample, 0.0).sum() / count
+
+
+def _norm_pix(target: torch.Tensor, scale: int) -> torch.Tensor:
+    """Per-patch standardisation of a (B, H, W, C) target over each
+    scale x scale patch's pixels and channels (criterion.py:89-95)."""
+    b, h, w, c = target.shape
+    nh, nw = h // scale, w // scale
+    t = target.reshape(b, nh, scale, nw, scale, c).permute(0, 1, 3, 2, 4, 5)
+    t = t.reshape(b, nh, nw, scale * scale * c)
+    mean = t.mean(dim=-1, keepdim=True)
+    var = t.var(dim=-1, keepdim=True, unbiased=False)
+    t = (t - mean) / torch.sqrt(var + 1e-6)
+    t = t.reshape(b, nh, nw, scale, scale, c).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(b, h, w, c)
+
+
+class _PixelLoss:
+    def __init__(self, patch_size: int = 16, stride: int = 1,
+                 norm_pix: bool = False):
+        self.scale = patch_size // stride
+        self.norm_pix = norm_pix
+
+    def _pixel_loss(self, input, target):
+        raise NotImplementedError
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """input, target: (B, H, W, C); mask: (B, nh*nw), 1 = masked."""
+        input = input.float()
+        target = target.float()
+        if self.norm_pix:
+            target = _norm_pix(target, self.scale)
+        loss = self._pixel_loss(input, target)
+        if mask is None:
+            return loss.mean()
+        mask_pix = _upsample_mask(mask, input.shape[1:3], self.scale)
+        return _masked_mean(loss.mean(dim=-1), mask_pix)
+
+
+class MaskedMSELoss(_PixelLoss):
+    """reference criterion.py:60-114."""
+
+    def _pixel_loss(self, input, target):
+        return (input - target) ** 2
+
+
+class MaskedL1Loss(_PixelLoss):
+    """reference criterion.py:117-171."""
+
+    def _pixel_loss(self, input, target):
+        return (input - target).abs()
+
+
+class MaskedCrossEntropyLoss:
+    """reference criterion.py:23-57: NHWC logits, (B, H, W) int targets."""
+
+    def __init__(self, patch_size: int = 16, stride: int = 1,
+                 label_smoothing: float = 0.0):
+        self.scale = patch_size // stride
+        self.label_smoothing = label_smoothing
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logp = F.log_softmax(input.float(), dim=-1)
+        nll = -torch.gather(logp, -1, target.long().unsqueeze(-1)).squeeze(-1)
+        if self.label_smoothing > 0.0:
+            nll = ((1.0 - self.label_smoothing) * nll
+                   - self.label_smoothing * logp.mean(dim=-1))
+        if mask is None:
+            return nll.mean()
+        mask_pix = _upsample_mask(mask, input.shape[1:3], self.scale)
+        return _masked_mean(nll, mask_pix)

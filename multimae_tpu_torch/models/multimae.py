@@ -1,0 +1,174 @@
+"""MultiMAE: the masked multi-modal pretraining model (counterpart of
+multimae_tpu/models/multimae.py:40-247; reference
+multimae/multimae.py:40-416).
+
+Adapters are passed as dicts of constructor partials and completed here
+with the encoder width and the compute dtype, as in the JAX package.
+Adapters named in `fp32_output_adapters` compute in fp32 and receive
+fp32 encoder tokens (reference :367-377).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from multimae_tpu_torch.models.registry import register_model
+from multimae_tpu_torch.models.vit import Block, trunc_normal_
+from multimae_tpu_torch.ops import masking
+from multimae_tpu_torch.ops.gather import gather_tokens
+
+AdapterSpec = Callable[..., nn.Module]
+
+
+def generate_input_info(num_tokens_per_task: Dict[str, int],
+                        image_size: Tuple[int, int],
+                        num_global_tokens: int) -> Dict[str, Any]:
+    """Static bookkeeping dict (reference multimae/multimae.py:250-269)."""
+    info: Dict[str, Any] = {"tasks": {}}
+    i = 0
+    for domain, num_tokens in num_tokens_per_task.items():
+        info["tasks"][domain] = {"num_tokens": num_tokens, "has_2d_posemb": True,
+                                 "start_idx": i, "end_idx": i + num_tokens}
+        i += num_tokens
+    info["image_size"] = image_size
+    info["num_task_tokens"] = i
+    info["num_global_tokens"] = num_global_tokens
+    return info
+
+
+def infer_image_size(x: Dict[str, torch.Tensor],
+                     semseg_stride: int = 4) -> Tuple[int, int]:
+    """Full-resolution (H, W): rgb/depth are NHWC, semseg (B, H/4, W/4)."""
+    if "rgb" in x:
+        return x["rgb"].shape[1], x["rgb"].shape[2]
+    if "semseg" in x:
+        return x["semseg"].shape[1] * semseg_stride, x["semseg"].shape[2] * semseg_stride
+    first = next(iter(x.values()))
+    return first.shape[1], first.shape[2]
+
+
+class MultiMAE(nn.Module):
+    """Multi-task multi-modal masked autoencoder."""
+
+    def __init__(self, input_adapters: Dict[str, AdapterSpec],
+                 output_adapters: Optional[Dict[str, AdapterSpec]],
+                 num_global_tokens: int = 1, dim_tokens: int = 768,
+                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 fp32_output_adapters: Sequence[str] = ()):
+        super().__init__()
+        self.dtype = dtype
+        self.num_global_tokens = num_global_tokens
+        self.fp32_output_adapters = tuple(fp32_output_adapters)
+        self.input_adapters = nn.ModuleDict({
+            task: spec(dim_tokens=dim_tokens, dtype=dtype)
+            for task, spec in input_adapters.items()
+        })
+        self.output_adapters = None
+        if output_adapters is not None:
+            self.output_adapters = nn.ModuleDict({
+                task: spec(dim_tokens_enc=dim_tokens,
+                           dtype=torch.float32 if task in self.fp32_output_adapters
+                           else dtype)
+                for task, spec in output_adapters.items()
+            })
+        self.global_tokens = nn.Parameter(torch.empty(1, num_global_tokens, dim_tokens))
+        self.encoder = nn.ModuleList([
+            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype)
+            for _ in range(depth)
+        ])
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "MultiMAE":
+        """Fill every parameter from `generator` (a CPU generator), in
+        module order: xavier-uniform Linear/Conv weights (per-part fan-out
+        for fused qkv/kv), zero biases, trunc-normal(0.02) global tokens,
+        task embeddings and class embeddings, unit/zero LayerNorms."""
+        trunc_normal_(self.global_tokens, generator)
+        for module in self.modules():
+            # torch's own modules (Conv2d, Embedding) would draw from the
+            # global RNG; their owners here initialise them instead.
+            if (type(module).__module__.startswith("multimae_tpu_torch")
+                    and hasattr(module, "reset_parameters")):
+                module.reset_parameters(generator)
+        return self
+
+    def tokenize(self, x: Dict[str, torch.Tensor]):
+        tokens = {d: self.input_adapters[d](t) for d, t in x.items()
+                  if d in self.input_adapters}
+        info = generate_input_info({d: t.shape[1] for d, t in tokens.items()},
+                                   infer_image_size(x), self.num_global_tokens)
+        return tokens, info
+
+    def forward(self, x: Union[Dict[str, torch.Tensor], torch.Tensor], *,
+                mask_inputs: bool = True,
+                task_masks: Optional[Dict[str, torch.Tensor]] = None,
+                num_encoded_tokens: int = 128,
+                alphas: Union[float, Sequence[float]] = 1.0,
+                sample_tasks_uniformly: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Masked forward (reference multimae/multimae.py:271-379).
+
+        Returns (preds, task_masks): NHWC predictions per output adapter
+        and (B, N_task) int64 masks (1 = masked). Without `task_masks` the
+        masks are drawn from `generator`, which must lie on the inputs'
+        device."""
+        if not isinstance(x, dict):
+            x = {"rgb": x}
+        tokens, info = self.tokenize(x)
+        b = next(iter(tokens.values())).shape[0]
+        counts = [t.shape[1] for t in tokens.values()]
+        k = num_encoded_tokens if mask_inputs else sum(counts)
+
+        if task_masks is None:
+            if generator is None:
+                raise ValueError("random masking needs a torch.Generator")
+            mask_list, ids_keep, ids_restore = masking.generate_random_masks(
+                generator, b, counts, k, alphas=alphas,
+                sample_tasks_uniformly=sample_tasks_uniformly)
+            task_masks = dict(zip(tokens.keys(), mask_list))
+        else:
+            task_masks = {d: task_masks[d] for d in tokens}
+            ids_keep, ids_restore = masking.masks_to_indices(task_masks, k)
+
+        input_tokens = gather_tokens(torch.cat(list(tokens.values()), dim=1), ids_keep)
+        global_tokens = self.global_tokens.to(input_tokens.dtype).expand(b, -1, -1)
+        h = torch.cat([input_tokens, global_tokens], dim=1)
+        for blk in self.encoder:
+            h = blk(h)
+
+        if self.output_adapters is None:
+            return h, task_masks
+        preds = {}
+        for domain, adapter in self.output_adapters.items():
+            tokens_in = h.float() if domain in self.fp32_output_adapters else h
+            preds[domain] = adapter(tokens_in, info, ids_keep, ids_restore)
+        return preds, task_masks
+
+
+def _mae(dim, depth, heads):
+    def build(input_adapters, output_adapters, **kwargs):
+        return MultiMAE(input_adapters=input_adapters,
+                        output_adapters=output_adapters, dim_tokens=dim,
+                        depth=depth, num_heads=heads, mlp_ratio=4.0,
+                        qkv_bias=True, **kwargs)
+    return build
+
+
+@register_model
+def pretrain_multimae_base(input_adapters, output_adapters, **kwargs):
+    return _mae(768, 12, 12)(input_adapters, output_adapters, **kwargs)
+
+
+@register_model
+def pretrain_multimae_large(input_adapters, output_adapters, **kwargs):
+    return _mae(1024, 24, 16)(input_adapters, output_adapters, **kwargs)
+
+
+@register_model
+def pretrain_multimae_tiny(input_adapters, output_adapters, **kwargs):
+    """Not in the reference registry: CPU tests; base's structure at 1/12."""
+    return _mae(64, 2, 4)(input_adapters, output_adapters, **kwargs)

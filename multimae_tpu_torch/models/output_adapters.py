@@ -1,0 +1,179 @@
+"""SpatialOutputAdapter: the pretraining decoder (counterpart of
+multimae_tpu/models/output_adapters.py:39-345; reference
+multimae/output_adapters.py:33-282).
+
+Queries are the task's own token positions (the visible encoder token
+where the position was kept, else the mask token) plus the task and
+positional embeddings; the context is the visible encoder tokens plus
+their embeddings, then the global tokens. The decoder body (cross-
+attention, MLP, `depth` blocks) runs as the fused_decoder_core kernel;
+the module path below it runs what the kernel does not take (depth 0,
+other dtypes) and is the reference the core is tested against. Outputs
+are NHWC images with the reference's (c, ph, pw) patch order.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from multimae_tpu_torch.models.input_adapters import pair, pos_tokens, sincos_pos_emb
+from multimae_tpu_torch.models.vit import Block, CrossAttention, Dense, LayerNorm, Mlp, trunc_normal_
+from multimae_tpu_torch.ops import fused_decoder
+from multimae_tpu_torch.ops.gather import gather_tokens
+
+
+class SpatialOutputAdapter(nn.Module):
+    """Cross-attention decoder for spatial outputs."""
+
+    def __init__(self, num_channels: int, stride_level: int,
+                 patch_size_full: Union[int, Tuple[int, int]],
+                 dim_tokens_enc: int, dim_tokens: int = 256, depth: int = 0,
+                 image_size: Union[int, Tuple[int, int]] = 224,
+                 mlp_ratio: float = 4.0, num_heads: int = 8,
+                 qkv_bias: bool = True, task: Optional[str] = None,
+                 context_tasks: Optional[Sequence[str]] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_channels = num_channels
+        self.stride_level = stride_level
+        self.dim_tokens = dim_tokens
+        self.depth = depth
+        self.num_heads = num_heads
+        self.task = task
+        self.dtype = dtype
+        p = pair(patch_size_full)
+        self.patch_hw = (max(1, p[0] // stride_level), max(1, p[1] // stride_level))
+        img = pair(image_size)
+        ph, pw = self.patch_hw
+
+        self.task_embeddings = nn.ParameterDict({
+            t: nn.Parameter(torch.empty(1, 1, dim_tokens))
+            for t in (context_tasks or ())
+        })
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, dim_tokens))
+        self.pos_emb = sincos_pos_emb(img[0] // (stride_level * ph),
+                                      img[1] // (stride_level * pw), dim_tokens)
+        self.proj_context = Dense(dim_tokens_enc, dim_tokens, dtype=dtype)
+        self.query_norm = LayerNorm(dim_tokens, dtype)
+        self.context_norm = LayerNorm(dim_tokens, dtype)
+        self.decoder = CrossAttention(dim_tokens, num_heads, qkv_bias, dtype)
+        self.out_norm = LayerNorm(dim_tokens, dtype)
+        self.mlp = Mlp(dim_tokens, int(dim_tokens * mlp_ratio), dtype)
+        self.decoder_transformer = nn.ModuleList([
+            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype)
+            for _ in range(depth)
+        ])
+        self.out_proj = Dense(dim_tokens, num_channels * ph * pw, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for t in self.task_embeddings.values():
+            trunc_normal_(t, generator)
+
+    # ------------------------------------------------------------------
+
+    def core_weights(self) -> fused_decoder.DecoderCoreWeights:
+        """The decoder body's parameters in the kernel's field order."""
+        blocks = [b.block_weights() for b in self.decoder_transformer]
+
+        def stack(i):
+            return torch.stack([bw[i] for bw in blocks])
+
+        x, m = self.decoder, self.mlp
+        return fused_decoder.DecoderCoreWeights(
+            self.query_norm.weight, self.query_norm.bias,
+            self.context_norm.weight, self.context_norm.bias,
+            self.out_norm.weight, self.out_norm.bias,
+            x.q.weight, x.q.bias, x.kv.weight, x.kv.bias, x.proj.weight, x.proj.bias,
+            m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias,
+            *[stack(i) for i in range(12)],
+        )
+
+    def decode_modules(self, queries: torch.Tensor,
+                       context: torch.Tensor) -> torch.Tensor:
+        """The decoder body through the submodules."""
+        x = self.decoder(self.query_norm(queries), self.context_norm(context))
+        x = x + self.mlp(self.out_norm(x))
+        for blk in self.decoder_transformer:
+            x = blk(x)
+        return x
+
+    def context_embeddings(self, input_info: Dict, size: Tuple[int, int],
+                           device) -> torch.Tensor:
+        """(1, N, D) task + positional embeddings of every input token
+        (reference :160-181), summed in fp32 and cast to the compute dtype."""
+        pe = pos_tokens(self.pos_emb, size, "bilinear", torch.float32)
+        embs = []
+        for task, info in input_info["tasks"].items():
+            if info["num_tokens"] != pe.shape[1]:
+                raise ValueError(f"task {task}: {info['num_tokens']} tokens, "
+                                 f"pos-emb grid has {pe.shape[1]}")
+            if task in self.task_embeddings:
+                emb = self.task_embeddings[task].float() + pe
+            else:
+                emb = pe
+            embs.append(emb.to(self.dtype))
+        return torch.cat(embs, dim=1).to(device)
+
+    def get_queries_and_context(self, context_tokens: torch.Tensor,
+                                input_info: Dict, ids_keep: torch.Tensor,
+                                ids_restore: torch.Tensor):
+        """JAX :196-269: only two pieces of the unshuffled sequence are
+        used, so they are gathered directly:
+          queries[p] = rank[p] < K ? tokens[rank[p]] : mask_token, plus the
+                       embedding of position p, over the task's own slice;
+          context    = visible tokens + their embeddings, then the globals."""
+        b = context_tokens.shape[0]
+        h, w = input_info["image_size"]
+        ph, pw = self.patch_hw
+        nh, nw = h // (self.stride_level * ph), w // (self.stride_level * pw)
+        num_global = input_info.get("num_global_tokens", 0)
+        k = ids_keep.shape[1]
+        visible_tokens = context_tokens[:, :k]
+        ctx_emb = self.context_embeddings(input_info, (nh, nw),
+                                          context_tokens.device)
+        mask_token = self.mask_token.to(self.dtype)
+
+        if self.task in input_info["tasks"]:
+            info = input_info["tasks"][self.task]
+            rank = ids_restore[:, info["start_idx"]:info["end_idx"]]
+            visible = rank < k
+            q_tokens = gather_tokens(visible_tokens,
+                                     torch.where(visible, rank, torch.zeros_like(rank)))
+            queries = torch.where(visible.unsqueeze(-1), q_tokens, mask_token)
+            queries = queries + ctx_emb[:, info["start_idx"]:info["end_idx"]]
+        else:  # a task with no input: mask tokens + its embeddings
+            queries = mask_token.expand(b, nh * nw, -1) + pos_tokens(
+                self.pos_emb, (nh, nw), "bilinear", self.dtype)
+            if self.task in self.task_embeddings:
+                queries = queries + self.task_embeddings[self.task].to(self.dtype)
+
+        context = visible_tokens + gather_tokens(ctx_emb.expand(b, -1, -1), ids_keep)
+        if num_global > 0:
+            context = torch.cat([context, context_tokens[:, -num_global:]], dim=1)
+        return queries, context
+
+    def forward(self, encoder_tokens: torch.Tensor, input_info: Dict,
+                ids_keep: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
+        h, w = input_info["image_size"]
+        ph, pw = self.patch_hw
+        nh, nw = h // (self.stride_level * ph), w // (self.stride_level * pw)
+
+        context_tokens = self.proj_context(encoder_tokens.to(self.dtype))
+        queries, context = self.get_queries_and_context(
+            context_tokens, input_info, ids_keep, ids_restore)
+        if self.depth >= 1 and self.dtype in (torch.bfloat16, torch.float32):
+            x = fused_decoder.fused_decoder_core(
+                queries.contiguous(), context.contiguous(), self.core_weights(),
+                self.num_heads, self.depth)
+        else:
+            x = self.decode_modules(queries, context)
+
+        x = self.out_proj(x)
+        # (B, nh*nw, C*ph*pw) -> NHWC with (c, ph, pw) patch order (JAX :340-344)
+        b = x.shape[0]
+        x = x.reshape(b, nh, nw, self.num_channels, ph, pw)
+        x = x.permute(0, 1, 4, 2, 5, 3)
+        return x.reshape(b, nh * ph, nw * pw, self.num_channels)

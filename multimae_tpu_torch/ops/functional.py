@@ -1,0 +1,95 @@
+"""Plain PyTorch building blocks shared by the modules (models/vit.py)
+and by the kernels' plain twins (ops/fused_block.py, ops/fused_decoder.py).
+
+Dtype policy, mirroring flax's `dtype=` / `param_dtype=` placement in
+the JAX package: parameters stay fp32 and are cast to the compute dtype
+at use; LayerNorm statistics, attention logits and the softmax are fp32
+whatever the compute dtype. `dense` rounds the matmul to the compute
+dtype before it adds the bias in that dtype, as flax's Dense and the
+Pallas kernels' `_dense` do (fused_decoder_pallas.py:297-301).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+LAYERNORM_EPS = 1e-6
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """fp32 statistics (two-pass), eps 1e-6, output in `dtype`."""
+    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
+                        LAYERNORM_EPS).to(dtype)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """x @ weight.T on the torch (out, in) layout, in `dtype`."""
+    y = torch.matmul(x.to(dtype), weight.to(dtype).t())
+    return y if bias is None else y + bias.to(dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU evaluated in fp32, rounded to x's dtype."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, H*dh) -> (B, H, N, dh)."""
+    b, n, c = t.shape
+    return t.reshape(b, n, heads, c // heads).transpose(1, 2)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, dh) -> (B, N, H*dh)."""
+    b, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """Softmax attention on (B, H, N, dh) in the compute dtype of q:
+    fp32 logits and softmax, probabilities rounded to the compute dtype
+    before P @ V, fp32 accumulation (reference multimae_utils.py:170-182)."""
+    dtype = q.dtype
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(dtype).float(), v.float()).to(dtype)
+
+
+# A kernel against its plain twin on the card, as (relative RMS error,
+# max abs error / max |twin|). Both round at the same places and differ
+# in summation order only; in fp32 that leaves ~1e-6 relative noise. In
+# bf16 an fp32 sum that lands next to a rounding boundary flips one bf16
+# ulp (2^-8 relative), and the flip propagates through later steps.
+TWIN_TOLERANCE = {torch.bfloat16: (1e-2, 5e-2), torch.float32: (1e-5, 1e-4)}
+
+
+def twin_error(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, relative RMS error) of `out` against `ref`."""
+    o, r = out.double(), ref.double()
+    err = (o - r).abs()
+    rel = float(torch.sqrt(((o - r) ** 2).mean() / (r ** 2).mean().clamp_min(1e-30)))
+    return float(err.max()), rel
+
+
+def assert_matches_twin(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float, float]:
+    """Raise unless `out` agrees with its twin within TWIN_TOLERANCE;
+    returns (max abs error, relative RMS error)."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {tuple(out.shape)} {out.dtype} vs "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    max_abs, rel = twin_error(out, ref)
+    tol_rel, tol_abs = TWIN_TOLERANCE[ref.dtype]
+    scale = float(ref.double().abs().max())
+    if rel > tol_rel or max_abs > tol_abs * max(scale, 1.0):
+        raise AssertionError(f"{what}: max abs {max_abs:.3e} (limit "
+                             f"{tol_abs * max(scale, 1.0):.3e}), rel RMS {rel:.3e} "
+                             f"(limit {tol_rel:.1e})")
+    return max_abs, rel

@@ -1,0 +1,80 @@
+"""JAX (flax) MultiMAE parameters -> the port's state_dict, in numpy only.
+
+Repeats the key and layout rules of the JAX package's exporter
+(multimae_tpu/utils/torch_compat.py `flax_path_to_torch_key` :85-106 and
+`params_to_state_dict` :270-319) for the pretraining model, so that
+`model.load_state_dict(torch_state_dict(...), strict=True)` loads
+weights trained with either package:
+
+  * the `ln` scope of the LayerNorm wrapper is dropped;
+  * `<prefix>_<name>` scopes become `<prefix>.<name>`;
+  * Dense `kernel` (in, out) becomes `weight` (out, in); `scale` -> `weight`;
+  * `pos_emb` (1, h, w, D) becomes (1, D, h, w);
+  * the patchify Dense kernel (ph*pw*C, D) becomes the Conv2d weight
+    (D, C, ph, pw), given proj_shapes={task: (C, ph, pw)};
+  * `class_emb` becomes `class_emb.weight` (nn.Embedding).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+
+_PREFIXES = (
+    ("input_adapters_", "input_adapters."),
+    ("output_adapters_", "output_adapters."),
+    ("encoder_", "encoder."),
+    ("decoder_transformer_", "decoder_transformer."),
+    ("task_embeddings_", "task_embeddings."),
+)
+
+_LEAF_RENAMES = {"kernel": "weight", "scale": "weight",
+                 "class_emb": "class_emb.weight"}
+
+
+def _flatten(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+    parts = []
+    for comp in path:
+        if comp == "ln":
+            continue
+        for ours, theirs in _PREFIXES:
+            if comp.startswith(ours):
+                comp = theirs + comp[len(ours):]
+                break
+        parts.append(comp)
+    parts[-1] = _LEAF_RENAMES.get(parts[-1], parts[-1])
+    return ".".join(parts)
+
+
+def jax_params_to_state_dict(
+    params: Mapping[str, Any],
+    proj_shapes: Optional[Dict[str, Tuple[int, int, int]]] = None,
+) -> Dict[str, np.ndarray]:
+    """Nested dict of numpy arrays (the flax params) -> {torch key: array}."""
+    out: Dict[str, np.ndarray] = {}
+    for path, leaf in _flatten(params):
+        arr = np.asarray(leaf)
+        name = path[-1]
+        if name == "pos_emb" and arr.ndim == 4:
+            arr = arr.transpose(0, 3, 1, 2)
+        elif name == "kernel" and arr.ndim == 2:
+            task = path[0][len("input_adapters_"):]
+            if (proj_shapes and path[-2] == "proj"
+                    and path[0].startswith("input_adapters_")
+                    and task in proj_shapes):
+                c, ph, pw = proj_shapes[task]
+                arr = arr.reshape(ph, pw, c, arr.shape[1]).transpose(3, 2, 0, 1)
+            else:
+                arr = arr.T
+        out[flax_path_to_torch_key(path)] = np.ascontiguousarray(arr)
+    return out

@@ -26,6 +26,14 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: full-width tests, deselected in tier-1 by -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels have no CPU mode); "
+        "skips without one")
+
+
 def _torch_available():
     try:
         import torch  # noqa: F401

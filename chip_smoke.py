@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving forward once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving forward and pretraining step on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -15,17 +16,34 @@ non-zero:
      tokens, four decoders, fp32 semseg decoder) with seeded random
      weights answers three requests of 32 samples; every pred and loss is
      finite, each forward launches K4 12 times and K1 4 times, and the
-     preds match the same model run on the plain twins.
+     preds match the same model run on the plain twins;
+  6. K1 fused_decoder_bwd against its plain twin at (B, 196, 99, 256,
+     8 heads, depth 2) for B=32 and the training slice's B=128, bf16 and
+     fp32: dq, dc and all 28 fp32 weight gradients, times, and two runs
+     bit-equal;
+  7. the training slice: MultiMAE ViT-B pretraining (bf16, fp32 semseg
+     decoder, return_patches, uncertainty balancer, AdamW (0.9, 0.95) with
+     wd 0.05, cosine LR from 1e-4 * 128 / 256 without warmup,
+     standardize_depth) takes STEPS steps at batch 128 on one synthetic
+     batch with masks drawn once from a seeded generator on the card;
+     every step launches K1 fwd 4 and K1 bwd 4 times and K4 never, its
+     losses and grad norm are finite, the loss falls, and the first step
+     matches the same step on the plain twins (losses, grad norm, and
+     every decoder parameter's gradient); ms per step, samples/s and peak
+     memory for both paths.
 Then it prints the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
-around back-to-back calls (median of 5 windows; kernel and plain twin
+around back-to-back calls (median of windows; kernel and plain twin
 timed in turns).
 
 Without a CUDA card, or without the multimae_tpu_torch package beside
 it, the script exits non-zero and prints no result.
 """
 
+import contextlib
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -40,6 +58,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SLICE_TOLERANCE = 3e-2
 BATCH = 32
 REQUESTS = 3
+
+# The training slice. Its first step against the same step on the plain
+# twins, from the same state and masks: the encoder runs the same module
+# path on both sides, so the differences are the decoders' rounding flips,
+# which average out over the batch. Limits: relative STEP_TOLERANCE for
+# every loss and the grad norm; relative RMS STEP_GRAD_TOLERANCE[dtype]
+# for the gradient of each parameter of a decoder computing in dtype.
+# Each is three to four times the largest reading on an H100 (the run is
+# deterministic): 7.3e-6 (the rgb loss), and 1.4e-3 for a parameter of a
+# bf16 decoder, 3.7e-7 for one of the fp32 semseg decoder.
+TRAIN_BATCH = 128
+STEPS = 6
+TASKS = ("rgb", "depth", "semseg", "norm_rgb")
+STEP_TOLERANCE = 2e-5
+STEP_GRAD_TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float32": 1.5e-6}
 
 
 def log(phase, msg):
@@ -92,6 +125,142 @@ def rand_block_weights(torch, fused_block, d, hidden, gen, device):
         one + rnd(d, scale=0.1), rnd(d, scale=0.1),
         rnd(hidden, d, scale=d ** -0.5), rnd(hidden, scale=0.02),
         rnd(d, hidden, scale=hidden ** -0.5), rnd(d, scale=0.02))
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Every kernel wrapper takes its plain twin, on the card."""
+    from multimae_tpu_torch.ops import fused_block, fused_decoder
+
+    fused_block.set_force_mode("plain")
+    fused_decoder.set_force_mode("plain")
+    try:
+        yield
+    finally:
+        fused_block.set_force_mode(None)
+        fused_decoder.set_force_mode(None)
+
+
+def check_on_card(state, batch, masks):
+    """Raise unless the model, the balancer, the batch, the masks and the
+    optimizer's state all lie on the card."""
+    import torch
+
+    off = [n for n, p in list(state.model.named_parameters())
+           + list(state.balancer.named_parameters()) if not p.is_cuda]
+    off += [t for t, v in list(batch.items()) + list(masks.items()) if not v.is_cuda]
+    off += [f"optimizer {k}" for st in state.optimizer.state.values()
+            for k, v in st.items() if torch.is_tensor(v) and v.dim() > 0 and not v.is_cuda]
+    if off:
+        raise AssertionError(f"the training step would not run on the card: {off[:5]}")
+
+
+def rel_rms(a, b):
+    a, b = a.double(), b.double()
+    return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt().clamp_min(1e-30))
+
+
+def train_slice(torch, dev):
+    """Phase 7; returns each kernel's launches over the STEPS steps."""
+    from multimae_tpu_torch.cli.factory import (
+        build_pretrain_losses, build_pretrain_trainer, make_synthetic_batch)
+    from multimae_tpu_torch.ops import fused_block, fused_decoder, masking
+    from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
+
+    t0 = time.perf_counter()
+    state, step = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=0, device=dev)
+    batch = make_synthetic_batch(TRAIN_BATCH, seed=0, device=dev)
+    mask_gen = torch.Generator(device=dev).manual_seed(1)
+    mask_list, _, _ = masking.generate_random_masks(mask_gen, TRAIN_BATCH, [196] * 3, 98)
+    masks = dict(zip(("rgb", "depth", "semseg"), mask_list))
+    plain_state = copy.deepcopy(state)
+    plain_step = make_pretrain_train_step(plain_state.model, plain_state.balancer,
+                                          build_pretrain_losses(("rgb", "depth", "semseg")))
+    model = state.model
+
+    def decoder_grads(m):
+        """{decoder: {parameter: fp32 copy of its gradient}}."""
+        return {t: {n: p.grad.float().clone() for n, p in a.named_parameters()
+                    if p.grad is not None}
+                for t, a in m.output_adapters.items()}
+
+    check_on_card(state, batch, masks)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(7, f"MultiMAE ViT-B pretraining state ({n_params} parameters, bf16, fp32 semseg "
+           f"decoder, uncertainty balancer, AdamW) built in {time.perf_counter() - t0:.1f} s; "
+           f"batch {TRAIN_BATCH}, lr {state.lr_values[0]:.3e}")
+
+    fused_block.LAUNCHES = fused_decoder.LAUNCHES = fused_decoder.LAUNCHES_BWD = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    history = []
+    for i in range(STEPS):
+        before = (fused_block.LAUNCHES, fused_decoder.LAUNCHES, fused_decoder.LAUNCHES_BWD)
+        metrics = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
+        per_step = (fused_block.LAUNCHES - before[0], fused_decoder.LAUNCHES - before[1],
+                    fused_decoder.LAUNCHES_BWD - before[2])
+        if per_step != (0, 4, 4):
+            raise AssertionError(f"step {i} launched K4, K1 fwd, K1 bwd {per_step}; "
+                                 f"expected (0, 4, 4)")
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+            raise AssertionError(f"step {i}: metrics {metrics}")
+        if i == 0:
+            check_on_card(state, batch, masks)
+            first_grads = decoder_grads(model)
+        history.append(metrics)
+        log(7, f"step {i}: loss {metrics['loss']:.4f}, grad norm {metrics['grad_norm']:.4f}; "
+               + ", ".join(f"{t} {metrics[t + '_loss']:.4f}" for t in TASKS))
+    torch.cuda.synchronize()
+    launches = {"fused_block_infer": fused_block.LAUNCHES,
+                "fused_decoder_fwd": fused_decoder.LAUNCHES,
+                "fused_decoder_bwd": fused_decoder.LAUNCHES_BWD}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != {"fused_block_infer": 0, "fused_decoder_fwd": 4 * STEPS,
+                    "fused_decoder_bwd": 4 * STEPS}:
+        raise AssertionError(f"launch counts over {STEPS} steps: {launches}")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {history[0]['loss']} -> "
+                             f"{history[-1]['loss']}")
+
+    # The first step again, on the plain twins, from the same state and masks.
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_twins():
+        plain = {k: float(v) for k, v in plain_step(plain_state, batch, task_masks=masks).items()}
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    rels = {k: abs(history[0][k] - plain[k]) / abs(plain[k])
+            for k in ["loss", "grad_norm"] + [f"{t}_loss" for t in TASKS]
+            + [f"{t}_loss_weighted" for t in TASKS]}
+    log(7, "step 0 vs plain twins, rel: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    for k, rel in rels.items():
+        if not rel <= STEP_TOLERANCE:
+            raise AssertionError(f"step 0 {k}: {history[0][k]} vs {plain[k]} on the plain "
+                                 f"twins (rel {rel:.3e}, limit {STEP_TOLERANCE})")
+    log(7, f"step 0 vs plain twins: loss {history[0]['loss']:.6f} / {plain['loss']:.6f}, "
+           f"grad norm {history[0]['grad_norm']:.6f} / {plain['grad_norm']:.6f} "
+           f"(limit rel {STEP_TOLERANCE})")
+    for t, grads in decoder_grads(plain_state.model).items():
+        limit = STEP_GRAD_TOLERANCE[str(model.output_adapters[t].dtype)]
+        if set(grads) != set(first_grads[t]):
+            raise AssertionError(f"decoder {t}: gradients of {sorted(first_grads[t])} "
+                                 f"vs {sorted(grads)} on the plain twins")
+        rels = {n: rel_rms(first_grads[t][n], g) for n, g in grads.items()}
+        worst = max(rels, key=rels.get)
+        log(7, f"step 0 decoder {t}: {len(rels)} parameter gradients vs plain twins, worst "
+               f"rel RMS {rels[worst]:.3e} ({worst}; limit {limit})")
+        bad = {n: r for n, r in rels.items() if not r <= limit}
+        if bad:
+            raise AssertionError(f"decoder {t} gradients differ from the plain twins: {bad}")
+
+    def plain_train_step():
+        with plain_twins():
+            plain_step(plain_state, batch, task_masks=masks)
+
+    ms, plain_ms = ab_ms(torch, lambda: step(state, batch, task_masks=masks),
+                         plain_train_step, iters=3, warmup=1, repeats=3)
+    log(7, f"step at batch {TRAIN_BATCH}: {ms:.3f} ms ({TRAIN_BATCH / ms * 1e3:.1f} samples/s) "
+           f"with the kernels, {plain_ms:.3f} ms ({TRAIN_BATCH / plain_ms * 1e3:.1f} "
+           f"samples/s) on the plain twins; peak memory {peak / 2**30:.2f} GiB with the "
+           f"kernels, {plain_peak / 2**30:.2f} GiB on the plain twins")
+    return launches
 
 
 def main():
@@ -235,13 +404,8 @@ def main():
         return model(batch, num_encoded_tokens=98, task_masks=masks)
 
     def plain_forward():
-        fused_block.set_force_mode("plain")
-        fused_decoder.set_force_mode("plain")
-        try:
+        with plain_twins():
             return forward()
-        finally:
-            fused_block.set_force_mode(None)
-            fused_decoder.set_force_mode(None)
 
     with torch.inference_mode():
         kern, _ = forward()
@@ -255,6 +419,54 @@ def main():
             raise AssertionError(f"pred {t} differs from the plain-twin model: {rel}")
     log(5, f"forward at batch {BATCH}: {fwd_ms:.3f} ms ({BATCH / fwd_ms * 1e3:.1f} samples/s) "
            f"with the kernels, {plain_fwd_ms:.3f} ms on the plain twins")
+
+    # 6. K1 backward against its twin, bf16 and fp32, at the batch of
+    # phase 4 and at the training slice's, which phase 7 launches it at
+    k1b = {"name": "fused_decoder_bwd", "route": "cuda",
+           "source": "multimae_tpu_torch/csrc/fused_decoder_bwd.cu",
+           "replaces": "multimae_tpu/ops/fused_decoder_pallas.py:763"}
+    names = ["dq", "dc"] + ["d" + f for f in fused_decoder.DecoderCoreWeights._fields]
+    for bb, btag in ((b, ""), (TRAIN_BATCH, f"b{TRAIN_BATCH}_")):
+        for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "fp32_")):
+            q = torch.randn((bb, nq, dd), generator=gen).to(dev, dtype)
+            c = torch.randn((bb, nc, dd), generator=gen).to(dev, dtype)
+            g = torch.randn((bb, nq, dd), generator=gen).to(dev, dtype)
+
+            def bwd(q=q, c=c, g=g):
+                dq, dc, dw = fused_decoder.fused_decoder_core_bwd(q, c, w1, g, hh, depth)
+                return [dq, dc, *dw]
+
+            def plain_bwd(q=q, c=c, g=g):
+                dq, dc, dw = fused_decoder.decoder_core_bwd_ref(q, c, w1, g, hh, depth)
+                return [dq, dc, *dw]
+
+            out = bwd()
+            again = bwd()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                raise AssertionError(f"K1 bwd {dtype} B={bb}: two runs on the same inputs "
+                                     f"differ")
+            errs = [(assert_matches_twin(o, r, f"K1 bwd {dtype} B={bb} {n}", grad_of=dtype), n)
+                    for o, r, n in zip(out, plain_bwd(), names)]
+            del out, again
+            err = max(e[0] for e, _ in errs)
+            worst_rel, worst = max((e[1], n) for e, n in errs)
+            ms, plain_ms = ab_ms(torch, bwd, plain_bwd, iters=5)
+            log(6, f"K1 bwd {dtype} ({bb},{nq},{nc},{dd}) 30 outputs within GRAD_TOLERANCE, "
+                   f"bit-equal over two runs; max abs {err:.3e}, worst rel RMS "
+                   f"{worst_rel:.3e} ({worst}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            log(6, "rel RMS per output: " + ", ".join(f"{n} {e[1]:.2e}" for e, n in errs))
+            k1b.update({f"{btag}{tag}max_abs_err": err, f"{btag}{tag}ms": ms,
+                        f"{btag}{tag}plain_ms": plain_ms})
+    kernels.append(k1b)
+
+    # 7. the training slice
+    step_launches = train_slice(torch, dev)
+    for k in kernels:
+        if k["name"] == "fused_decoder_bwd":
+            k["launches"] = step_launches["fused_decoder_bwd"]
+        else:
+            k["step_launches"] = step_launches[k["name"]]
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
-"""Domain configuration + pretrain model/loss factory (counterpart of
-multimae_tpu/cli/factory.py; reference run_pretraining_multimae.py:49-72,
-:243-331)."""
+"""Domain configuration + pretrain model/loss/trainer factory (counterpart
+of multimae_tpu/cli/factory.py; reference run_pretraining_multimae.py:49-72,
+:243-331, :353-390)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,11 @@ from multimae_tpu_torch.models import (
     SpatialOutputAdapter,
 )
 from multimae_tpu_torch.models.registry import create_model
+from multimae_tpu_torch.train.optim_factory import create_optimizer
+from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
+from multimae_tpu_torch.train.schedules import cosine_scheduler
+from multimae_tpu_torch.train.task_balancing import build_balancer
+from multimae_tpu_torch.train.train_state import TrainState
 from multimae_tpu_torch.utils.data_constants import COCO_SEMSEG_NUM_CLASSES
 
 DOMAIN_CONF = {
@@ -63,12 +68,22 @@ def build_pretrain_model(
     num_global_tokens: int = 1,
     fp32_output_adapters: Sequence[str] = (),
     dtype: torch.dtype = torch.float32,
+    decoder_return_patches: bool = False,
+    pos_emb_grads: bool = False,
     seed: int = 0,
     device="cpu",
 ):
     """Reference get_model (run_pretraining_multimae.py:243-293), with
     weights drawn from a CPU torch.Generator seeded with `seed`, then
-    moved to `device`."""
+    moved to `device`. decoder_return_patches=True is the training fast
+    path (JAX cli/factory.py:75-105): decoders emit (B, N, C*p*p) token
+    patches and the masked losses take them directly.
+
+    pos_emb_grads=True gives the fixed sin-cos pos-embs gradients (they
+    stay out of every optimizer group, so they are never updated). The
+    JAX step differentiates every parameter, frozen ones included, so its
+    gradient norm, and with it clip and skip, counts the pos-embs: a
+    training model that is to match it takes them into its norm too."""
     input_adapters = {
         d: functools.partial(
             DOMAIN_CONF[d]["input_adapter"],
@@ -84,7 +99,8 @@ def build_pretrain_model(
             patch_size_full=patch_size, image_size=input_size,
             dim_tokens=decoder_dim, depth=decoder_depth,
             num_heads=decoder_num_heads, task=task,
-            context_tasks=tuple(in_domains))
+            context_tasks=tuple(in_domains),
+            return_patches=decoder_return_patches)
 
     output_adapters = {d: out_spec(d, d) for d in out_domains}
     if extra_norm_pix_loss:
@@ -95,6 +111,10 @@ def build_pretrain_model(
         output_adapters=output_adapters, num_global_tokens=num_global_tokens,
         dtype=dtype, fp32_output_adapters=tuple(fp32_output_adapters))
     model.init_weights(torch.Generator().manual_seed(seed))
+    if pos_emb_grads:
+        for name, p in model.named_parameters():
+            if name.endswith("pos_emb"):
+                p.requires_grad_(True)
     return model.to(device)
 
 
@@ -129,3 +149,24 @@ def make_synthetic_batch(batch: int, input_size: int = 224,
             arr = rng.standard_normal((batch, input_size, input_size, c))
             out[d] = torch.from_numpy(arr.astype(np.float32))
     return {d: t.to(device) for d, t in out.items()}
+
+
+def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cpu"):
+    """(TrainState, train_step) of the flagship pretraining recipe
+    (cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml, as the JAX
+    package's bench.py:96-137 runs it): MultiMAE ViT-B in bf16 with the
+    fp32 semseg decoder and `return_patches`, the masked losses, the
+    uncertainty balancer, AdamW (0.9, 0.95), wd 0.05, with the reference's
+    dict-model groups (filter_bias_and_bn=False), and the cosine LR from
+    blr 1e-4 * batch_size / 256 (reference :372-373) to 0 over 1600 epochs
+    of 100 steps, without warmup (with warmup the first step's LR is 0)."""
+    domains = ("rgb", "depth", "semseg")
+    model = build_pretrain_model(dtype=torch.bfloat16, fp32_output_adapters=("semseg",),
+                                 decoder_return_patches=True, pos_emb_grads=True,
+                                 seed=seed, device=device)
+    balancer = build_balancer("uncertainty", domains + ("norm_rgb",)).to(device)
+    optimizer = create_optimizer(model, balancer, weight_decay=0.05, opt_betas=(0.9, 0.95),
+                                 filter_bias_and_bn=False)
+    lr = cosine_scheduler(1e-4 * batch_size / 256, 0.0, epochs=1600, niter_per_ep=100)
+    state = TrainState(model, balancer, optimizer, lr)
+    return state, make_pretrain_train_step(model, balancer, build_pretrain_losses(domains))

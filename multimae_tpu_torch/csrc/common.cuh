@@ -2,12 +2,14 @@
 // fused_decoder_fwd (K1) kernel chains, for Hopper (sm_90a).
 //
 //   layer_norm  one warp per row, fp32 two-pass statistics, eps 1e-6,
-//               output in the compute dtype.
+//               output in the compute dtype; optionally writes each row's
+//               mean and 1/sigma (the backward's recompute keeps them).
 //   gemm        Y = X . W^T on the torch (out, in) weight layout, fp32
 //               accumulation, fused epilogue (bias; bias + exact-erf
-//               GELU; bias + residual). bf16: mma.sync m16n8k16 tensor
-//               core tiles fed by a two-stage cp.async pipeline. fp32:
-//               true fp32 FMA tiles (no TF32).
+//               GELU; bias + residual; none; times GELU'(R), the GELU
+//               backward). bf16: mma.sync m16n8k16 tensor core tiles fed
+//               by a two-stage cp.async pipeline. fp32: true fp32 FMA
+//               tiles (no TF32).
 //   attention   one block per (query tile, head, sample); the sample-head's
 //               whole K and V rows sit in shared memory; a warp works on
 //               four query rows at once; fp32 logits x scale and softmax,
@@ -33,6 +35,14 @@
 namespace mm {
 
 typedef __nv_bfloat16 bf16;
+
+// Weight pointers of the decoder body in DecoderCoreWeights order
+// (ops/fused_decoder.py), shared by fused_decoder_fwd.cu and
+// fused_decoder_bwd.cu.
+enum DecoderField {
+  QN_G, QN_B, CN_G, CN_B, ON_G, ON_B, WQ, BQ, WKV, BKV, WXP, BXP, W1, B1, W2, B2,
+  N1_G, N1_B, WQKV, BQKV, WP, BP, N2_G, N2_B, WF1, BF1, WF2, BF2, NUM_DECODER_FIELDS
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -68,7 +78,8 @@ constexpr int LN_WARPS = 8;
 template <typename T>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ b, T* __restrict__ y, int rows, int d) {
+                  const float* __restrict__ b, T* __restrict__ y, int rows, int d,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out) {
   const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -96,31 +107,54 @@ layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ g,
     const int c = i * 32 + lane;
     if (c < d) yr[c] = from_f<T>((v[i] - mean) * inv * g[c] + b[c]);
   }
+  if (mean_out != nullptr && lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = inv;
+  }
 }
 
 template <typename T>
 cudaError_t layer_norm(const T* x, const float* g, const float* b, T* y,
-                       int rows, int d, cudaStream_t s) {
+                       int rows, int d, cudaStream_t s,
+                       float* mean_out = nullptr, float* rstd_out = nullptr) {
   const int blocks = (rows + LN_WARPS - 1) / LN_WARPS;
-  layer_norm_kernel<T><<<blocks, LN_WARPS * 32, 0, s>>>(x, g, b, y, rows, d);
+  layer_norm_kernel<T><<<blocks, LN_WARPS * 32, 0, s>>>(x, g, b, y, rows, d,
+                                                        mean_out, rstd_out);
   return cudaGetLastError();
 }
 
 // --------------------------------------------------------------------- GEMM
 
-enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RES = 2 };
+enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RES = 2, EPI_NONE = 3, EPI_DGELU = 4 };
+
+__device__ __forceinline__ float gelu_f(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752440f));
+}
+
+// d/dx [x Phi(x)] = Phi(x) + x phi(x), the exact-erf GELU's derivative.
+__device__ __forceinline__ float gelu_grad(float x) {
+  return 0.5f * (1.f + erff(x * 0.70710678118654752440f)) +
+         x * expf(-0.5f * x * x) * 0.39894228040143267794f;
+}
 
 // Y[m, n] (and R, which may alias Y: each element is read, then written,
-// by the same thread).
+// by the same thread). EPI_NONE reads neither bias nor R; EPI_DGELU reads
+// the pre-activation R[m, n] and no bias (the GEMM's sum is rounded to the
+// compute dtype, then multiplied by GELU' in fp32 and rounded again, as
+// fused_decoder_pallas._gelu_bwd does).
 template <typename T, int EPI>
 __device__ __forceinline__ void store_out(T* Y, const T* __restrict__ bias,
                                           const T* R, int n_cols, int m, int n,
                                           float acc) {
   float v = rnd<T>(acc);
-  v = rnd<T>(v + to_f(bias[n]));
-  if (EPI == EPI_GELU) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752440f));
   const size_t off = (size_t)m * n_cols + n;
-  if (EPI == EPI_RES) v = to_f(R[off]) + v;
+  if (EPI == EPI_DGELU) {
+    v = v * gelu_grad(to_f(R[off]));
+  } else if (EPI != EPI_NONE) {
+    v = rnd<T>(v + to_f(bias[n]));
+    if (EPI == EPI_GELU) v = gelu_f(v);
+    if (EPI == EPI_RES) v = to_f(R[off]) + v;
+  }
   Y[off] = from_f<T>(v);
 }
 

@@ -26,11 +26,7 @@
 
 namespace {
 
-// Weight pointers in DecoderCoreWeights order (ops/fused_decoder.py).
-enum {
-  QN_G, QN_B, CN_G, CN_B, ON_G, ON_B, WQ, BQ, WKV, BKV, WXP, BXP, W1, B1, W2, B2,
-  N1_G, N1_B, WQKV, BQKV, WP, BP, N2_G, N2_B, WF1, BF1, WF2, BF2
-};
+using namespace mm;  // DecoderField: weight pointers in DecoderCoreWeights order
 
 template <typename T>
 cudaError_t decoder_fwd(const T* q, const T* c, T* out, const void* const* w,

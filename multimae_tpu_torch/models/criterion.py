@@ -1,6 +1,12 @@
-"""Masked reconstruction losses on NHWC images (counterpart of the
-pixel-space path of multimae_tpu/models/criterion.py; reference
-multimae/criterion.py).
+"""Masked reconstruction losses (counterpart of
+multimae_tpu/models/criterion.py; reference multimae/criterion.py).
+
+Each loss takes an NHWC image prediction, or (B, N, C*p*p) token patches
+straight from a decoder built with `return_patches` (the training path,
+JAX :59-128, :158-168, :200-234): a 3-D input takes the patch path, which
+skips the pixel-space reshapes and mask upsampling. Sums over a patch do
+not depend on the order of its elements, so both paths give the same
+loss.
 
 Each sample's masked loss sum is divided by its masked-pixel count, then
 the batch takes the mean over samples that have any masked pixel (0 if
@@ -48,6 +54,35 @@ def _norm_pix(target: torch.Tensor, scale: int) -> torch.Tensor:
     return t.reshape(b, h, w, c)
 
 
+def patchify_cpp(img: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, N, C*p*p) with (c, ph, pw) minor order, the
+    SpatialOutputAdapter's patch layout."""
+    b, h, w, c = img.shape
+    x = img.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, (h // p) * (w // p), c * p * p)
+
+
+def _norm_pix_patches(t: torch.Tensor) -> torch.Tensor:
+    """Per-patch standardisation of (B, N, D) patch targets, the patch-space
+    form of _norm_pix."""
+    mean = t.mean(dim=-1, keepdim=True)
+    var = t.var(dim=-1, keepdim=True, unbiased=False)
+    return (t - mean) / torch.sqrt(var + 1e-6)
+
+
+def _masked_token_mean(tok_loss: torch.Tensor, mask: torch.Tensor,
+                       pixels_per_token: int) -> torch.Tensor:
+    """Per-sample sum over masked tokens / masked pixels, then the mean over
+    non-empty samples: _masked_mean after the nearest mask upsampling,
+    since each token covers `pixels_per_token` pixels of one mask value."""
+    m = mask.float()
+    mask_sums = m.sum(dim=1) * pixels_per_token
+    per_sample = (tok_loss * m).sum(dim=1) / mask_sums.clamp_min(1.0)
+    valid = mask_sums > 0
+    count = valid.sum().clamp_min(1)
+    return torch.where(valid, per_sample, 0.0).sum() / count
+
+
 class _PixelLoss:
     def __init__(self, patch_size: int = 16, stride: int = 1,
                  norm_pix: bool = False):
@@ -57,11 +92,25 @@ class _PixelLoss:
     def _pixel_loss(self, input, target):
         raise NotImplementedError
 
+    def _patch_call(self, input, target, mask):
+        p = self.scale
+        channels = target.shape[-1]
+        tgt = patchify_cpp(target, p)
+        if self.norm_pix:
+            tgt = _norm_pix_patches(tgt)
+        loss = self._pixel_loss(input, tgt)
+        if mask is None:
+            return loss.mean()
+        return _masked_token_mean(loss.sum(dim=-1) / channels, mask, p * p)
+
     def __call__(self, input: torch.Tensor, target: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """input, target: (B, H, W, C); mask: (B, nh*nw), 1 = masked."""
+        """input: (B, H, W, C) or (B, N, C*p*p) patches; target:
+        (B, H, W, C); mask: (B, nh*nw), 1 = masked."""
         input = input.float()
         target = target.float()
+        if input.dim() == 3:
+            return self._patch_call(input, target, mask)
         if self.norm_pix:
             target = _norm_pix(target, self.scale)
         loss = self._pixel_loss(input, target)
@@ -86,20 +135,39 @@ class MaskedL1Loss(_PixelLoss):
 
 
 class MaskedCrossEntropyLoss:
-    """reference criterion.py:23-57: NHWC logits, (B, H, W) int targets."""
+    """reference criterion.py:23-57: NHWC logits or (B, N, classes*p*p)
+    patches, (B, H, W) int targets."""
 
     def __init__(self, patch_size: int = 16, stride: int = 1,
                  label_smoothing: float = 0.0):
         self.scale = patch_size // stride
         self.label_smoothing = label_smoothing
 
-    def __call__(self, input: torch.Tensor, target: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        logp = F.log_softmax(input.float(), dim=-1)
-        nll = -torch.gather(logp, -1, target.long().unsqueeze(-1)).squeeze(-1)
+    def _nll(self, logp: torch.Tensor, target: torch.Tensor, dim: int) -> torch.Tensor:
+        nll = -torch.gather(logp, dim, target.long().unsqueeze(dim)).squeeze(dim)
         if self.label_smoothing > 0.0:
             nll = ((1.0 - self.label_smoothing) * nll
-                   - self.label_smoothing * logp.mean(dim=-1))
+                   - self.label_smoothing * logp.mean(dim=dim))
+        return nll
+
+    def _patch_call(self, input, target, mask):
+        """input: (B, N, classes*p*p) with (class, ph, pw) minor order;
+        target: (B, H, W) int at the modality's stride resolution."""
+        p = self.scale
+        b, n, d = input.shape
+        logp = F.log_softmax(input.reshape(b, n, d // (p * p), p * p), dim=2)
+        h, w = target.shape[1], target.shape[2]
+        tgt = target.reshape(b, h // p, p, w // p, p).permute(0, 1, 3, 2, 4)
+        nll = self._nll(logp, tgt.reshape(b, n, p * p), dim=2)
+        if mask is None:
+            return nll.mean()
+        return _masked_token_mean(nll.sum(dim=-1), mask, p * p)
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if input.dim() == 3:
+            return self._patch_call(input.float(), target, mask)
+        nll = self._nll(F.log_softmax(input.float(), dim=-1), target, dim=-1)
         if mask is None:
             return nll.mean()
         mask_pix = _upsample_mask(mask, input.shape[1:3], self.scale)

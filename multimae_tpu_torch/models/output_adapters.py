@@ -9,7 +9,9 @@ their embeddings, then the global tokens. The decoder body (cross-
 attention, MLP, `depth` blocks) runs as the fused_decoder_core kernel;
 the module path below it runs what the kernel does not take (depth 0,
 other dtypes) and is the reference the core is tested against. Outputs
-are NHWC images with the reference's (c, ph, pw) patch order.
+are NHWC images with the reference's (c, ph, pw) patch order, or, with
+`return_patches` (the training fast path, JAX :67-70, :336-338), the
+(B, N, C*ph*pw) token patches that the masked losses take directly.
 """
 
 from __future__ import annotations
@@ -35,8 +37,10 @@ class SpatialOutputAdapter(nn.Module):
                  mlp_ratio: float = 4.0, num_heads: int = 8,
                  qkv_bias: bool = True, task: Optional[str] = None,
                  context_tasks: Optional[Sequence[str]] = None,
+                 return_patches: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.return_patches = return_patches
         self.num_channels = num_channels
         self.stride_level = stride_level
         self.dim_tokens = dim_tokens
@@ -172,6 +176,8 @@ class SpatialOutputAdapter(nn.Module):
             x = self.decode_modules(queries, context)
 
         x = self.out_proj(x)
+        if self.return_patches:
+            return x  # (B, nh*nw, C*ph*pw), (c, ph, pw) minor order
         # (B, nh*nw, C*ph*pw) -> NHWC with (c, ph, pw) patch order (JAX :340-344)
         b = x.shape[0]
         x = x.reshape(b, nh, nw, self.num_channels, ph, pw)

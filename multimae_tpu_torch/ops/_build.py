@@ -35,6 +35,7 @@ BUILD_LOG: Optional[Path] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 
 # C signatures (csrc/*.cu); every pointer and the stream are void*.
 _SIGNATURES = {
@@ -44,6 +45,12 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _P],
     "mm_fused_decoder_fwd_f32": [_P, _P, _P, _PP, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "mm_fused_decoder_bwd_bf16": [_P, _P, _P, _P, _P, _PP, _PP, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "mm_fused_decoder_bwd_f32": [_P, _P, _P, _P, _P, _PP, _PP, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    "mm_fused_decoder_bwd_workspace": [_I, _I, _I, _I, _I, _I, _I, _I,
+                                       _LLP, _LLP, _LLP],
 }
 
 

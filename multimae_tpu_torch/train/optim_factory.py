@@ -1,0 +1,100 @@
+"""AdamW with the reference's parameter groups (counterpart of the
+pretraining subset of multimae_tpu/train/optim_factory.py :34-57,
+:127-239; reference utils/optim_factory.py).
+
+* Frozen parameters (the fixed sin-cos `pos_emb`s) get no update and no
+  decay: they are left out of the optimizer (:53-57).
+* With filter_bias_and_bn=False, the pretraining setting, every other
+  model parameter is in one flat group with LR scale 1 and decay on,
+  biases, LayerNorms, `mask_token` and `global_tokens` included: the
+  reference's dict-model quirk (:163-166).
+* With filter_bias_and_bn=True, 1-D parameters, biases and the model's
+  no_weight_decay() set (`default_no_decay`, :34-50) are not decayed.
+* The balancer's parameters form their own group with
+  `balancer_lr_scale`; they are decayed exactly when
+  filter_bias_and_bn is False (:160-162).
+
+Each param group carries `lr_scale` and `wd_flag`; TrainState sets the
+group's `lr` and `weight_decay` from the schedules before each update.
+torch's AdamW applies the decoupled decay p * (1 - lr * wd) before the
+Adam step, the same update as the JAX package's optax chain
+(scale_by_adam, + wd * p, * -lr; :89-124).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+
+def default_no_decay(name: str, param: torch.Tensor) -> bool:
+    """1-D parameters, biases, and the reference's no_weight_decay() set."""
+    parts = name.split(".")
+    if param.dim() <= 1 or parts[-1] == "bias":
+        return True
+    if parts[-1] in ("pos_emb", "mask_token", "global_tokens"):
+        return True
+    if parts[0] == "input_adapters" and "class_emb" in parts:
+        return True
+    return "task_embeddings" in parts
+
+
+def frozen(name: str) -> bool:
+    """Fixed sin-cos pos-embs (requires_grad=False in the reference)."""
+    return name.split(".")[-1] == "pos_emb"
+
+
+def build_param_groups(
+    model: nn.Module,
+    balancer: Optional[nn.Module] = None,
+    *,
+    filter_bias_and_bn: bool = True,
+    balancer_lr_scale: float = 1.0,
+) -> Tuple[List[Dict], List[str]]:
+    """(param groups, names of the frozen parameters). Each group is a dict
+    with `params`, `names`, `group`, `lr_scale` and `wd_flag`."""
+    groups: Dict[str, Dict] = {}
+    frozen_names: List[str] = []
+
+    def add(group: str, name: str, p: torch.Tensor, lr_scale: float, wd_flag: float):
+        g = groups.setdefault(group, {"group": group, "params": [], "names": [],
+                                      "lr_scale": lr_scale, "wd_flag": wd_flag})
+        g["params"].append(p)
+        g["names"].append(name)
+
+    for name, p in model.named_parameters():
+        if frozen(name):
+            frozen_names.append(name)
+        elif not filter_bias_and_bn:
+            add("flat_decay", name, p, 1.0, 1.0)
+        elif default_no_decay(name, p):
+            add("no_decay", name, p, 1.0, 0.0)
+        else:
+            add("decay", name, p, 1.0, 1.0)
+    if balancer is not None:
+        for name, p in balancer.named_parameters():
+            add("balancer", "balancer." + name, p, balancer_lr_scale,
+                0.0 if filter_bias_and_bn else 1.0)
+    return list(groups.values()), frozen_names
+
+
+def create_optimizer(
+    model: nn.Module,
+    balancer: Optional[nn.Module] = None,
+    *,
+    weight_decay: float = 0.05,
+    opt_betas: Tuple[float, float] = (0.9, 0.999),
+    filter_bias_and_bn: bool = True,
+    balancer_lr_scale: float = 1.0,
+) -> torch.optim.AdamW:
+    """AdamW (eps 1e-8) over the groups of build_param_groups; each group's
+    weight decay starts at weight_decay * wd_flag and its LR at 0 until
+    TrainState sets them from the schedules."""
+    groups, _ = build_param_groups(model, balancer, filter_bias_and_bn=filter_bias_and_bn,
+                                   balancer_lr_scale=balancer_lr_scale)
+    for g in groups:
+        g["lr"] = 0.0
+        g["weight_decay"] = weight_decay * g["wd_flag"]
+    return torch.optim.AdamW(groups, lr=0.0, betas=tuple(opt_betas), eps=1e-8)

@@ -1,0 +1,47 @@
+"""Train state (counterpart of multimae_tpu/train/train_state.py :14-64):
+the model, the balancer, the optimizer and the LR/WD schedule arrays,
+updated in place.
+
+A skipped update leaves the parameters and the whole optimizer state
+unchanged, the optimizer's own step counts included, while `step` still
+advances, as the JAX state does. The schedules are therefore indexed by
+`updates`, the count of applied updates (JAX indexes them by the optax
+counts, which a skip does not advance), clamped at their last entry.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class TrainState:
+    def __init__(self, model: nn.Module, balancer: nn.Module,
+                 optimizer: torch.optim.Optimizer, lr_values: np.ndarray,
+                 wd_values: Optional[np.ndarray] = None):
+        self.model = model
+        self.balancer = balancer
+        self.optimizer = optimizer
+        self.lr_values = np.asarray(lr_values, np.float32)
+        self.wd_values = None if wd_values is None else np.asarray(wd_values, np.float32)
+        self.step = 0      # steps taken, skipped ones included
+        self.updates = 0   # updates applied
+
+    def parameters(self) -> List[torch.Tensor]:
+        """Every model and balancer parameter, in a fixed order."""
+        return list(self.model.parameters()) + list(self.balancer.parameters())
+
+    def apply_gradients(self, skip: bool) -> None:
+        """One optimizer update from the parameters' .grad, unless `skip`."""
+        if not skip:
+            i = min(self.updates, len(self.lr_values) - 1)
+            for group in self.optimizer.param_groups:
+                group["lr"] = float(self.lr_values[i]) * group["lr_scale"]
+                if self.wd_values is not None:
+                    group["weight_decay"] = float(self.wd_values[i]) * group["wd_flag"]
+            self.optimizer.step()
+            self.updates += 1
+        self.step += 1

@@ -13,6 +13,10 @@ weights trained with either package:
   * the patchify Dense kernel (ph*pw*C, D) becomes the Conv2d weight
     (D, C, ph, pw), given proj_shapes={task: (C, ph, pw)};
   * `class_emb` becomes `class_emb.weight` (nn.Embedding).
+
+The JAX TrainState's params tree {"model": ..., "balancer": {"log_vars"}}
+maps to the port's model and balancer state_dicts with
+`jax_train_params_to_state_dicts`.
 """
 
 from __future__ import annotations
@@ -78,3 +82,14 @@ def jax_params_to_state_dict(
                 arr = arr.T
         out[flax_path_to_torch_key(path)] = np.ascontiguousarray(arr)
     return out
+
+
+def jax_train_params_to_state_dicts(
+    params: Mapping[str, Any],
+    proj_shapes: Optional[Dict[str, Tuple[int, int, int]]] = None,
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX TrainState's {"model": ..., "balancer": ...} params ->
+    {"model": model state_dict, "balancer": balancer state_dict}."""
+    return {"model": jax_params_to_state_dict(params["model"], proj_shapes),
+            "balancer": {k: np.ascontiguousarray(np.asarray(v))
+                         for k, v in params.get("balancer", {}).items()}}

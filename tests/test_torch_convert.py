@@ -1,6 +1,7 @@
 """utils/convert.jax_params_to_state_dict against the JAX package's own
-exporter (multimae_tpu.utils.torch_compat.params_to_state_dict), and a
-strict load of the result into the port's model."""
+exporter (multimae_tpu.utils.torch_compat.params_to_state_dict), a strict
+load of the result into the port's model, and the round trip of the JAX
+TrainState's {"model", "balancer"} params through the port's modules."""
 
 import jax
 import numpy as np
@@ -10,7 +11,12 @@ import torch
 from multimae_tpu.cli import factory as jfactory
 from multimae_tpu.utils.torch_compat import params_to_state_dict
 from multimae_tpu_torch.cli import factory as tfactory
-from multimae_tpu_torch.utils.convert import flax_path_to_torch_key, jax_params_to_state_dict
+from multimae_tpu_torch.train.task_balancing import build_balancer
+from multimae_tpu_torch.utils.convert import (
+    flax_path_to_torch_key,
+    jax_params_to_state_dict,
+    jax_train_params_to_state_dicts,
+)
 
 PROJ_SHAPES = {"rgb": (3, 16, 16), "depth": (1, 16, 16), "semseg": (64, 4, 4)}
 TINY = dict(model_name="pretrain_multimae_tiny", input_size=64, decoder_dim=64,
@@ -69,3 +75,24 @@ def test_seeded_init_is_reproducible_and_complete():
         if k.endswith(("qkv.weight", "fc1.weight", "proj.weight", "class_emb.weight",
                        "global_tokens", "task_embeddings.rgb")):
             assert v.abs().sum() > 0, f"{k} left uninitialised"
+
+
+def test_train_params_round_trip_is_array_equal(params):
+    """JAX {"model", "balancer": {"log_vars"}} -> state_dicts -> strict load
+    into the port's model and balancer -> their state_dicts, array-equal,
+    with the balancer's log_vars the JAX values."""
+    tasks = ("rgb", "depth", "semseg", "norm_rgb")
+    log_vars = np.array([0.1, -0.2, 0.3, 0.05], np.float32)
+    sds = jax_train_params_to_state_dicts({"model": params,
+                                           "balancer": {"log_vars": log_vars}}, PROJ_SHAPES)
+    np.testing.assert_array_equal(sds["balancer"]["log_vars"], log_vars)
+    modules = {"model": tfactory.build_pretrain_model(**TINY),
+               "balancer": build_balancer("uncertainty", tasks)}
+    for name, module in modules.items():
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in sds[name].items()},
+                               strict=True)
+        back = module.state_dict()
+        assert set(back) == set(sds[name])
+        for k, v in sds[name].items():
+            assert back[k].numpy().dtype == v.dtype, k
+            np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)

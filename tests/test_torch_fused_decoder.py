@@ -1,10 +1,10 @@
-"""fused_decoder_core forward (K1): the port's plain twin against the JAX
-Pallas kernel (interpret mode), the SpatialOutputAdapter's module path
-against its core path, and the CPU path's gradients. The CUDA kernel
-itself is held against the twin in test_torch_kernels.py.
+"""fused_decoder_core (K1), forward and backward: the port's plain twins
+against the JAX Pallas kernels (interpret mode), the SpatialOutputAdapter's
+module path against its core path, and the CPU path's gradients. The CUDA
+kernels themselves are held against the twins in test_torch_kernels.py.
 
-Tolerances as in test_torch_fused_block.py: fp32 within 5e-4 absolute,
-bf16 within 2e-2 relative RMS against JAX.
+Forward tolerances as in test_torch_fused_block.py: fp32 within 5e-4
+absolute, bf16 within 2e-2 relative RMS against JAX.
 """
 
 import jax.numpy as jnp
@@ -121,3 +121,81 @@ def test_cpu_twin_is_differentiable_without_a_launch():
     assert fused_decoder.LAUNCHES == before
     assert torch.isfinite(q.grad).all() and q.grad.abs().sum() > 0
     assert torch.isfinite(c.grad).all() and c.grad.abs().sum() > 0
+
+
+# ------------------------------------------------------------- backward --
+# decoder_core_bwd_ref (the plain twin the CUDA backward kernel is held
+# against) against the JAX backward kernel run in interpret mode, and, in
+# fp32, against torch.autograd of the plain forward. Tolerances: fp32
+# within 5e-4 absolute, scaled by max(1, max|JAX|) for the weight
+# gradients (sums over B*Nq rows); bf16 within 2e-2 relative RMS; the
+# twin against autograd within 1e-5 relative RMS (summation order only).
+
+_FIELDS = fdp.DecoderCoreWeights._fields
+
+
+def jax_vjp(jdtype, seed_g=4):
+    import jax
+
+    w = jax_weights()
+    q, c = inputs()
+    g = np.random.default_rng(seed_g).standard_normal((B, NQ, D)).astype(np.float32)
+    qj, cj, gj = (jnp.asarray(a, jdtype) for a in (q, c, g))
+    fdp.set_force_mode("interpret")
+    try:
+        _, vjp = jax.vjp(lambda a, b, ww: fdp.fused_decoder_core(a, b, ww, HEADS, DEPTH,
+                                                                 jdtype), qj, cj, w)
+        dq, dc, dw = vjp(gj)
+    finally:
+        fdp.set_force_mode(None)
+    return w, q, c, g, (dq, dc, dw)
+
+
+def rel_rms(a, b):
+    return float(np.sqrt(np.mean((a - b) ** 2) / max(np.mean(b ** 2), 1e-30)))
+
+
+@pytest.mark.parametrize("jdtype,tdtype", [(jnp.float32, torch.float32),
+                                           (jnp.bfloat16, torch.bfloat16)])
+def test_backward_twin_matches_jax_kernel(jdtype, tdtype):
+    w, q, c, g, (jdq, jdc, jdw) = jax_vjp(jdtype)
+    tq, tc, tg = (torch.from_numpy(a).to(tdtype) for a in (q, c, g))
+    dq, dc, dw = fused_decoder.decoder_core_bwd_ref(tq, tc, to_torch(w), tg, HEADS, DEPTH)
+    assert dq.dtype == tdtype and dc.dtype == tdtype
+    ref_dw = to_torch(fdp.DecoderCoreWeights(*[np.array(t, np.float32) for t in jdw]))
+    pairs = [("dq", dq, np.asarray(jdq, np.float32)), ("dc", dc, np.asarray(jdc, np.float32))]
+    pairs += [(f"d{n}", a, r.numpy()) for n, a, r in zip(_FIELDS, dw, ref_dw)]
+    for name, out, ref in pairs:
+        out = out.float().numpy()
+        assert out.shape == ref.shape, name
+        if tdtype == torch.float32:
+            atol = 5e-4 * max(1.0, float(np.abs(ref).max()))
+            np.testing.assert_allclose(out, ref, rtol=0, atol=atol, err_msg=name)
+        else:
+            assert rel_rms(out, ref) <= 2e-2, (name, rel_rms(out, ref))
+
+
+def test_backward_twin_matches_autograd():
+    w = to_torch(jax_weights())
+    q, c = (torch.from_numpy(a) for a in inputs())
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal((B, NQ, D))
+                         .astype(np.float32))
+    dq, dc, dw = fused_decoder.decoder_core_bwd_ref(q, c, w, g, HEADS, DEPTH)
+    qa, ca = q.clone().requires_grad_(), c.clone().requires_grad_()
+    wa = fused_decoder.DecoderCoreWeights(*[t.clone().requires_grad_() for t in w])
+    fused_decoder.decoder_core_ref(qa, ca, wa, HEADS, DEPTH).backward(g)
+    for name, out, ref in [("dq", dq, qa.grad), ("dc", dc, ca.grad)] + [
+            (f"d{n}", a, r.grad) for n, a, r in zip(_FIELDS, dw, wa)]:
+        assert rel_rms(out.double().numpy(), ref.double().numpy()) <= 1e-5, name
+
+
+def test_cpu_backward_runs_the_twin_without_a_launch():
+    w = fused_decoder.DecoderCoreWeights(*[t.requires_grad_() for t in to_torch(jax_weights())])
+    q, c = (torch.from_numpy(a).requires_grad_() for a in inputs())
+    g = torch.ones((B, NQ, D))
+    before = fused_decoder.LAUNCHES_BWD
+    fused_decoder.fused_decoder_core(q, c, w, HEADS, DEPTH).backward(g)
+    assert fused_decoder.LAUNCHES_BWD == before
+    dq, dc, dw = fused_decoder.decoder_core_bwd_ref(q.detach(), c.detach(), w, g, HEADS, DEPTH)
+    assert torch.equal(q.grad, dq) and torch.equal(c.grad, dc)
+    assert all(torch.equal(t.grad, r) for t, r in zip(w, dw))

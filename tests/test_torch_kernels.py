@@ -1,11 +1,12 @@
-"""The two CUDA kernels against their plain twins, and the wrappers'
-dispatch. Imports neither jax nor multimae_tpu, so on a machine with a
-card and without JAX it runs on its own:
+"""The CUDA kernels (K4, K1 forward and K1 backward) against their plain
+twins, and the wrappers' dispatch. Imports neither jax nor multimae_tpu,
+so on a machine with a card and without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Without a card the kernel tests (marker `cuda`) skip and the dispatch
-tests run. Kernel vs twin tolerance: ops/functional.TWIN_TOLERANCE.
+tests run. Kernel vs twin tolerance: ops/functional.TWIN_TOLERANCE, and
+GRAD_TOLERANCE for the backward's gradients.
 """
 
 import numpy as np
@@ -80,6 +81,14 @@ def test_non_cuda_device_raises_instead_of_falling_back():
         fused_decoder.fused_decoder_core(q, c, decoder_weights(128, 2, device="meta"), 4, 2)
 
 
+def test_decoder_backward_on_non_cuda_device_raises():
+    q = torch.empty((2, 16, 128), device="meta")
+    c = torch.empty((2, 9, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_decoder.fused_decoder_core_bwd(q, c, decoder_weights(128, 2, device="meta"),
+                                             torch.empty_like(q), 4, 2)
+
+
 @pytest.mark.parametrize("d,heads,hidden,nk", [(100, 4, 400, 16),     # d % 32
                                                (768, 48, 3072, 99),   # dh 16
                                                (768, 12, 3070, 99),   # hidden
@@ -145,11 +154,61 @@ def test_decoder_kernel_matches_twin(cuda, dtype, b, nq, nc, d, heads):
                             f"K1 {dtype}")
 
 
+def decoder_bwd_inputs(cuda, dtype, b, nq, nc, d):
+    return (randn(1, b, nq, d).to(cuda, dtype), randn(2, b, nc, d).to(cuda, dtype),
+            randn(3, b, nq, d).to(cuda, dtype))
+
+
 @pytest.mark.cuda
-def test_decoder_kernel_backward_raises(cuda):
-    w = decoder_weights(128, 2, device=cuda)
-    q = randn(1, 2, 16, 128).to(cuda).requires_grad_()
-    c = randn(2, 2, 9, 128).to(cuda).requires_grad_()
-    out = fused_decoder.fused_decoder_core(q, c, w, 4, 2)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nc,d,heads", [(2, 16, 9, 128, 4),
+                                             (3, 196, 99, 256, 8)])
+def test_decoder_backward_kernel_matches_twin(cuda, dtype, b, nq, nc, d, heads):
+    w = decoder_weights(d, 2, device=cuda)
+    q, c, g = decoder_bwd_inputs(cuda, dtype, b, nq, nc, d)
+    before = fused_decoder.LAUNCHES_BWD
+    dq, dc, dw = fused_decoder.fused_decoder_core_bwd(q, c, w, g, heads, 2)
+    torch.cuda.synchronize()
+    assert fused_decoder.LAUNCHES_BWD == before + 1
+    rq, rc, rw = fused_decoder.decoder_core_bwd_ref(q, c, w, g, heads, 2)
+    assert_matches_twin(dq, rq, f"K1 bwd {dtype} dq", grad_of=dtype)
+    assert_matches_twin(dc, rc, f"K1 bwd {dtype} dc", grad_of=dtype)
+    for name, a, r in zip(fused_decoder.DecoderCoreWeights._fields, dw, rw):
+        assert a.dtype == torch.float32
+        assert_matches_twin(a, r, f"K1 bwd {dtype} d{name}", grad_of=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decoder_backward_kernel_is_bit_deterministic(cuda, dtype):
+    w = decoder_weights(256, 2, device=cuda)
+    q, c, g = decoder_bwd_inputs(cuda, dtype, 3, 196, 99, 256)
+    first = fused_decoder.fused_decoder_core_bwd(q, c, w, g, 8, 2)
+    second = fused_decoder.fused_decoder_core_bwd(q, c, w, g, 8, 2)
+    torch.cuda.synchronize()
+    for a, b in zip([first[0], first[1], *first[2]], [second[0], second[1], *second[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decoder_backward_launches_once_per_call(cuda):
+    w = fused_decoder.DecoderCoreWeights(*[t.requires_grad_() for t in
+                                           decoder_weights(128, 2, device=cuda)])
+    q, c, g = decoder_bwd_inputs(cuda, torch.bfloat16, 2, 16, 9, 128)
+    q.requires_grad_()
+    c.requires_grad_()
+    fwd, bwd = fused_decoder.LAUNCHES, fused_decoder.LAUNCHES_BWD
+    for _ in range(2):
+        fused_decoder.fused_decoder_core(q, c, w, 4, 2).backward(g)
+    torch.cuda.synchronize()
+    assert (fused_decoder.LAUNCHES - fwd, fused_decoder.LAUNCHES_BWD - bwd) == (2, 2)
+    assert q.grad.dtype == torch.bfloat16 and w.wqkv.grad.dtype == torch.float32
+    assert torch.isfinite(q.grad).all() and torch.isfinite(w.wqkv.grad).all()
+
+
+@pytest.mark.cuda
+def test_decoder_backward_refuses_unsupported_head_width(cuda):
+    w = decoder_weights(256, 2, device=cuda)
+    q, c, g = decoder_bwd_inputs(cuda, torch.bfloat16, 2, 16, 9, 256)
+    with pytest.raises(ValueError, match="head width"):
+        fused_decoder.fused_decoder_core_bwd(q, c, w, g, 2, 2)  # dh 128

@@ -210,6 +210,8 @@ def test_port_forward_imports_no_jax():
         "with torch.inference_mode():\n"
         "    preds, masks = m(make_synthetic_batch(2, input_size=64), num_encoded_tokens=24, generator=g)\n"
         "assert preds['rgb'].shape == (2, 64, 64, 3)\n"
+        "import multimae_tpu_torch.train.pretrain_step, multimae_tpu_torch.train.optim_factory\n"
+        "import multimae_tpu_torch.train.schedules, multimae_tpu_torch.train.task_balancing\n"
         "new = {n.split('.')[0] for n in set(sys.modules) - before}\n"
         "bad = new & {'jax', 'jaxlib', 'flax', 'multimae_tpu'}\n"
         "assert not bad, bad\n"
@@ -220,3 +222,22 @@ def test_port_forward_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_return_patches_are_the_pixel_preds_patchified():
+    """decoder_return_patches=True gives each decoder's (B, N, C*p*p) token
+    patches, the NHWC preds cut back into patches (criterion.patchify_cpp)."""
+    from multimae_tpu_torch.models.criterion import patchify_cpp
+
+    masks = {t: torch.from_numpy(m) for t, m in fixed_masks(B).items()}
+    batch = tfactory.make_synthetic_batch(B, input_size=64, seed=1)
+    preds = {}
+    for patches in (False, True):
+        model = tfactory.build_pretrain_model(seed=2, decoder_return_patches=patches,
+                                              **TINY).eval()
+        with torch.inference_mode():
+            preds[patches], _ = model(batch, num_encoded_tokens=K, task_masks=masks)
+    for task, img in preds[False].items():
+        p = 4 if task == "semseg" else 16
+        assert preds[True][task].shape == (B, 16, img.shape[-1] * p * p)
+        torch.testing.assert_close(preds[True][task], patchify_cpp(img, p), rtol=0, atol=0)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving forward and pretraining step on
-one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving forward, pretraining step and
+semantic segmentation fine-tune on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -31,10 +31,36 @@ non-zero:
      matches the same step on the plain twins (losses, grad norm, and
      every decoder parameter's gradient); ms per step, samples/s and peak
      memory for both paths.
+  8. K2 short_attention forward and backward against their plain twins
+     at (4, 2049, 12 heads, 64) and (4, 1025, 12, 64), bf16: o, lse,
+     dq, dk and dv, the backward bit-equal over two runs; kernel, twin
+     and torch's scaled_dot_product_attention (the yardstick, never
+     called by the port) timed at 197, 577, 1025 and 2049 keys;
+  9. K3b fused_ln_mlp_res forward and backward against their plain twins
+     at the ConvNeXt head's (65,536, 384, hidden 1536), bf16: the output
+     and all 8 gradients, bit-equal over two runs, and times;
+ 10. K4 against its twin at the fine-tune's eval shape (4, 2049, 768):
+     its attention step runs the K2 forward kernel;
+ 11. the fine-tune slice: MultiViT-B with RGB + depth at 512 px (2049
+     tokens) and the ConvNeXt head, 40 classes, bf16, batch 4, drop_path
+     0.1 from a seeded generator on the card, AdamW with layer decay 0.75
+     (cfgs/finetune/semseg/nyu/ft_nyu_200e_multimae-b_rgb-depth.yaml)
+     takes STEPS steps on one synthetic batch; every step launches K2 fwd
+     12, K2 bwd 12, K3b fwd 4, K3b bwd 4 times and K4 and K1 never, its
+     metrics are finite, the loss falls, and the first step matches the
+     same step on the plain twins (same state, same drop_path draws);
+     then the eval step (K4 12 and K3b fwd 4 launches) matches the plain
+     twins, its confusion matrix counts every non-ignored pixel, and
+     mIoU is printed; ms per step, samples/s and peak memory for both
+     paths, and ms per eval batch.
 Then it prints the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
-timed in turns).
+timed in turns). Each kernel's `bound_ms` is the least time an H100 SXM
+could take for its work at the main path's shape: the larger of its
+operations over the peak rate for their type (989 TFLOP/s bf16 dense,
+67 TFLOP/s fp32) and its bytes (each input read once, each output
+written once) over 3.35 TB/s.
 
 Without a CUDA card, or without the multimae_tpu_torch package beside
 it, the script exits non-zero and prints no result.
@@ -73,6 +99,27 @@ STEPS = 6
 TASKS = ("rgb", "depth", "semseg", "norm_rgb")
 STEP_TOLERANCE = 2e-5
 STEP_GRAD_TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float32": 1.5e-6}
+
+# The fine-tune slice (phase 11). Its first step against the same step on
+# the plain twins, from the same state and drop_path draws: relative
+# SEMSEG_LOSS_TOLERANCE for the loss, SEMSEG_NORM_TOLERANCE for the grad
+# norm, and relative RMS SEMSEG_GRAD_TOLERANCE for every parameter's
+# gradient. Unlike phase 7 the whole model runs through kernels (K2 in all
+# 12 encoder blocks, K3b in the head), so bf16 rounding flips reach every
+# gradient. Each limit is three to four times the reading on an H100:
+# 4.8e-6 (loss), 8.8e-6 (grad norm), 7.3e-3 (the worst parameter, the rgb
+# patch projection). The eval preds against the plain twins within
+# SLICE_TOLERANCE.
+SEMSEG_BATCH = 4
+SEMSEG_LOSS_TOLERANCE = 2e-5
+SEMSEG_NORM_TOLERANCE = 4e-5
+SEMSEG_GRAD_TOLERANCE = 2.5e-2
+SEMSEG_CLASSES = 40
+
+# The least time an H100 SXM could take (NVIDIA's data sheet, dense).
+BF16_PEAK = 989e12  # FLOP/s, tensor cores
+FP32_PEAK = 67e12   # FLOP/s, outside the tensor cores
+HBM_RATE = 3.35e12  # bytes/s
 
 
 def log(phase, msg):
@@ -127,28 +174,77 @@ def rand_block_weights(torch, fused_block, d, hidden, gen, device):
         rnd(d, hidden, scale=hidden ** -0.5), rnd(d, scale=0.02))
 
 
+def kernel_modules():
+    from multimae_tpu_torch.ops import fused_block, fused_decoder, fused_mlp, short_attention
+
+    return fused_block, fused_decoder, fused_mlp, short_attention
+
+
 @contextlib.contextmanager
 def plain_twins():
     """Every kernel wrapper takes its plain twin, on the card."""
-    from multimae_tpu_torch.ops import fused_block, fused_decoder
-
-    fused_block.set_force_mode("plain")
-    fused_decoder.set_force_mode("plain")
+    for m in kernel_modules():
+        m.set_force_mode("plain")
     try:
         yield
     finally:
-        fused_block.set_force_mode(None)
-        fused_decoder.set_force_mode(None)
+        for m in kernel_modules():
+            m.set_force_mode(None)
 
 
-def check_on_card(state, batch, masks):
-    """Raise unless the model, the balancer, the batch, the masks and the
-    optimizer's state all lie on the card."""
+def launch_counts():
+    """{kernel name: launches so far}."""
+    fused_block, fused_decoder, fused_mlp, short_attention = kernel_modules()
+    return {"fused_block_infer": fused_block.LAUNCHES,
+            "fused_decoder_fwd": fused_decoder.LAUNCHES,
+            "fused_decoder_bwd": fused_decoder.LAUNCHES_BWD,
+            "short_attention_fwd": short_attention.LAUNCHES,
+            "short_attention_bwd": short_attention.LAUNCHES_BWD,
+            "fused_ln_mlp_res_fwd": fused_mlp.LAUNCHES,
+            "fused_ln_mlp_res_bwd": fused_mlp.LAUNCHES_BWD}
+
+
+def reset_launch_counts():
+    fused_block, fused_decoder, fused_mlp, short_attention = kernel_modules()
+    fused_block.LAUNCHES = 0
+    fused_decoder.LAUNCHES = fused_decoder.LAUNCHES_BWD = 0
+    fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BWD = 0
+    short_attention.LAUNCHES = short_attention.LAUNCHES_BWD = 0
+
+
+def bound(flops, nbytes, peak=BF16_PEAK):
+    """(bound_ms, bound_by): the larger of the operations over the peak
+    rate and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def block_work(b, n, d, hidden):
+    """(FLOPs, weight elements) of one pre-LN ViT block over b x n tokens."""
+    m = b * n
+    flops = 2 * m * (3 * d * d + d * d + 2 * d * hidden) + 4 * b * n * n * d
+    return flops, 4 * d * d + 2 * d * hidden + 4 * d + hidden + 4 * d
+
+
+def decoder_work(b, nq, nc, d, hidden, depth):
+    """(FLOPs, weight elements) of the decoder body (K1)."""
+    mq, mc = b * nq, b * nc
+    flops = (2 * mq * d * d + 2 * mc * 2 * d * d + 4 * b * nq * nc * d + 2 * mq * d * d
+             + 4 * mq * d * hidden)
+    weights = 4 * d * d + 2 * d * hidden + 10 * d + hidden
+    blk_flops, blk_weights = block_work(b, nq, d, hidden)
+    return flops + depth * blk_flops, weights + depth * blk_weights
+
+
+def check_on_card(state, *tensors):
+    """Raise unless the model, the balancer (if any), the tensors of each
+    dict in `tensors` and the optimizer's state all lie on the card."""
     import torch
 
-    off = [n for n, p in list(state.model.named_parameters())
-           + list(state.balancer.named_parameters()) if not p.is_cuda]
-    off += [t for t, v in list(batch.items()) + list(masks.items()) if not v.is_cuda]
+    off = [n for n, p in state.model.named_parameters() if not p.is_cuda]
+    if state.balancer is not None:
+        off += [n for n, p in state.balancer.named_parameters() if not p.is_cuda]
+    off += [t for d in tensors for t, v in d.items() if not v.is_cuda]
     off += [f"optimizer {k}" for st in state.optimizer.state.values()
             for k, v in st.items() if torch.is_tensor(v) and v.dim() > 0 and not v.is_cuda]
     if off:
@@ -164,7 +260,7 @@ def train_slice(torch, dev):
     """Phase 7; returns each kernel's launches over the STEPS steps."""
     from multimae_tpu_torch.cli.factory import (
         build_pretrain_losses, build_pretrain_trainer, make_synthetic_batch)
-    from multimae_tpu_torch.ops import fused_block, fused_decoder, masking
+    from multimae_tpu_torch.ops import masking
     from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
 
     t0 = time.perf_counter()
@@ -190,17 +286,17 @@ def train_slice(torch, dev):
            f"decoder, uncertainty balancer, AdamW) built in {time.perf_counter() - t0:.1f} s; "
            f"batch {TRAIN_BATCH}, lr {state.lr_values[0]:.3e}")
 
-    fused_block.LAUNCHES = fused_decoder.LAUNCHES = fused_decoder.LAUNCHES_BWD = 0
+    expect = dict.fromkeys(launch_counts(), 0)
+    expect.update(fused_decoder_fwd=4, fused_decoder_bwd=4)
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     history = []
     for i in range(STEPS):
-        before = (fused_block.LAUNCHES, fused_decoder.LAUNCHES, fused_decoder.LAUNCHES_BWD)
+        before = launch_counts()
         metrics = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
-        per_step = (fused_block.LAUNCHES - before[0], fused_decoder.LAUNCHES - before[1],
-                    fused_decoder.LAUNCHES_BWD - before[2])
-        if per_step != (0, 4, 4):
-            raise AssertionError(f"step {i} launched K4, K1 fwd, K1 bwd {per_step}; "
-                                 f"expected (0, 4, 4)")
+        per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        if per_step != expect:
+            raise AssertionError(f"step {i} launched {per_step}; expected {expect}")
         if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
             raise AssertionError(f"step {i}: metrics {metrics}")
         if i == 0:
@@ -210,12 +306,9 @@ def train_slice(torch, dev):
         log(7, f"step {i}: loss {metrics['loss']:.4f}, grad norm {metrics['grad_norm']:.4f}; "
                + ", ".join(f"{t} {metrics[t + '_loss']:.4f}" for t in TASKS))
     torch.cuda.synchronize()
-    launches = {"fused_block_infer": fused_block.LAUNCHES,
-                "fused_decoder_fwd": fused_decoder.LAUNCHES,
-                "fused_decoder_bwd": fused_decoder.LAUNCHES_BWD}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches != {"fused_block_infer": 0, "fused_decoder_fwd": 4 * STEPS,
-                    "fused_decoder_bwd": 4 * STEPS}:
+    if launches != {k: v * STEPS for k, v in expect.items()}:
         raise AssertionError(f"launch counts over {STEPS} steps: {launches}")
     if not history[-1]["loss"] < history[0]["loss"]:
         raise AssertionError(f"the loss did not fall: {history[0]['loss']} -> "
@@ -261,6 +354,330 @@ def train_slice(torch, dev):
            f"samples/s) on the plain twins; peak memory {peak / 2**30:.2f} GiB with the "
            f"kernels, {plain_peak / 2**30:.2f} GiB on the plain twins")
     return launches
+
+
+def free_card(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def short_attention_phase(torch, dev):
+    """Phase 8; returns the K2 forward and backward entries of the kernel
+    line (times at the slice's 2049 keys)."""
+    import torch.nn.functional as F
+
+    from multimae_tpu_torch.ops import short_attention as sa
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    b, h, dh = SEMSEG_BATCH, 12, 64
+    scale = dh ** -0.5
+    gen = torch.Generator().manual_seed(8)
+
+    def inputs(n):
+        qkv = torch.randn((b, n, 3, h, dh), generator=gen).to(dev, torch.bfloat16)
+        g = torch.randn((b, n, h, dh), generator=gen).to(dev, torch.bfloat16)
+        return (*qkv.unbind(2), g)
+
+    for n in (2049, 1025):
+        q, k, v, g = inputs(n)
+        o, lse = sa.short_attention_fwd(q, k, v, scale)
+        grads = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
+        again = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"K2 bwd at {n} keys: two runs on the same inputs differ")
+        ro, rlse = sa.short_attention_ref(q, k, v, scale)
+        errs = {"o": assert_matches_twin(o, ro, f"K2 fwd o at {n} keys"),
+                "lse": assert_matches_twin(lse, rlse, f"K2 fwd lse at {n} keys")}
+        del ro, rlse
+        refs = sa.short_attention_bwd_ref(q, k, v, g, lse, sa.attention_delta(o, g), scale)
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            errs[name] = assert_matches_twin(a, r, f"K2 bwd {name} at {n} keys",
+                                             grad_of=torch.bfloat16)
+        del refs, grads, again
+        free_card(torch)
+        log(8, f"K2 ({b},{n},{h},{dh}) bf16 within TWIN/GRAD_TOLERANCE, bwd bit-equal over "
+               "two runs; max abs / rel RMS: "
+               + ", ".join(f"{k} {e[0]:.3e} / {e[1]:.3e}" for k, e in errs.items()))
+        if n == 2049:
+            fwd_err = max(errs["o"][0], errs["lse"][0])
+            bwd_err = max(errs[k][0] for k in ("dq", "dk", "dv"))
+
+    sweep = {}
+    for n in (197, 577, 1025, 2049):
+        q, k, v, g = inputs(n)
+        o, lse = sa.short_attention_fwd(q, k, v, scale)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        leaves = [t.detach().clone().requires_grad_() for t in (qt, kt, vt)]
+        gt = g.transpose(1, 2)
+
+        def twin_bwd():
+            with plain_twins():
+                sa.short_attention_bwd(q, k, v, o, lse, g, scale)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(*leaves).backward(gt)
+
+        kw = dict(iters=5, warmup=1, repeats=3)
+        fwd = ab_ms(torch, lambda: sa.short_attention_fwd(q, k, v, scale),
+                    lambda: sa.short_attention_ref(q, k, v, scale), **kw)
+        bwd = ab_ms(torch, lambda: sa.short_attention_bwd(q, k, v, o, lse, g, scale),
+                    twin_bwd, **kw)
+        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), **kw)
+        sdpa_fb = cuda_ms(torch, sdpa_fwd_bwd, **kw)
+        sweep[n] = {"fwd_ms": fwd[0], "fwd_plain_ms": fwd[1], "sdpa_fwd_ms": sdpa,
+                    "bwd_ms": bwd[0], "bwd_plain_ms": bwd[1], "sdpa_fwd_bwd_ms": sdpa_fb}
+        log(8, f"K2 at {n} keys (B={b}, 12 heads of 64): fwd kernel {fwd[0]:.4f} ms, twin "
+               f"{fwd[1]:.4f} ms, SDPA {sdpa:.4f} ms; bwd kernel {bwd[0]:.4f} ms, twin "
+               f"{bwd[1]:.4f} ms; fwd+bwd kernels {fwd[0] + bwd[0]:.4f} ms, SDPA "
+               f"{sdpa_fb:.4f} ms")
+        del q, k, v, g, o, lse, leaves
+        free_card(torch)
+
+    n = 2049
+    fl = 4 * b * h * n * n * dh
+    fwd_bound = bound(fl, 2 * 4 * b * n * h * dh + 4 * b * h * n)
+    bwd_bound = bound(2.5 * fl, 2 * 7 * b * n * h * dh + 2 * 4 * b * h * n)
+    top = sweep[n]
+    return [
+        {"name": "short_attention_fwd", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/short_attention_fwd.cu",
+         "replaces": "multimae_tpu/ops/short_attention_pallas.py:255",
+         "max_abs_err": fwd_err, "ms": top["fwd_ms"], "plain_ms": top["fwd_plain_ms"],
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+         "library_ms": top["sdpa_fwd_ms"], "sweep": sweep},
+        {"name": "short_attention_bwd", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/short_attention_bwd.cu",
+         "replaces": "multimae_tpu/ops/short_attention_pallas.py:319",
+         "max_abs_err": bwd_err, "ms": top["bwd_ms"], "plain_ms": top["bwd_plain_ms"],
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+         "library_ms": top["sdpa_fwd_bwd_ms"],
+         "library_is": "scaled_dot_product_attention forward + backward",
+         "fwd_bwd_ms": top["fwd_ms"] + top["bwd_ms"]},
+    ]
+
+
+def fused_mlp_phase(torch, dev):
+    """Phase 9; returns the K3b forward and backward entries."""
+    from multimae_tpu_torch.ops import fused_mlp
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    m, k, hid = SEMSEG_BATCH * 128 * 128, 384, 1536
+    gen = torch.Generator().manual_seed(9)
+
+    def rnd(*shape, scale, offset=0.0):
+        return (torch.randn(shape, generator=gen) * scale + offset).to(dev)
+
+    w = fused_mlp.MlpWeights(rnd(k, scale=0.1, offset=1.0), rnd(k, scale=0.1),
+                             rnd(hid, k, scale=0.02), rnd(hid, scale=0.02),
+                             rnd(k, hid, scale=0.02), rnd(k, scale=0.02))
+    x, res, dy = (torch.randn((m, k), generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+
+    def grads():
+        """The 8 gradients through the autograd Function: x, res, then the
+        six parameters."""
+        leaves = [x.clone().requires_grad_(), res.clone().requires_grad_()]
+        wl = fused_mlp.MlpWeights(*(t.clone().requires_grad_() for t in w))
+        fused_mlp.fused_ln_mlp_res(*leaves, wl).backward(dy)
+        return [t.grad for t in leaves + list(wl)]
+
+    with torch.inference_mode():
+        out = fused_mlp.fused_ln_mlp_res(x, res, w)
+        torch.cuda.synchronize()
+        fwd_err = assert_matches_twin(out, fused_mlp.fused_ln_mlp_res_ref(x, res, w),
+                                      "K3b fwd")
+    kern, again = grads(), grads()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise AssertionError("K3b bwd: two runs on the same inputs differ")
+    with plain_twins():
+        plain = grads()
+    names = ["dx", "dres"] + ["d" + f for f in fused_mlp.MlpWeights._fields]
+    errs = {n: assert_matches_twin(a, r, f"K3b bwd {n}", grad_of=torch.bfloat16)
+            for n, a, r in zip(names, kern, plain)}
+    del kern, again, plain
+    with torch.inference_mode():
+        fwd = ab_ms(torch, lambda: fused_mlp.fused_ln_mlp_res(x, res, w),
+                    lambda: fused_mlp.fused_ln_mlp_res_ref(x, res, w), iters=10)
+    bwd = ab_ms(torch, lambda: fused_mlp.fused_ln_mlp_res_bwd(x, dy, w),
+                lambda: fused_mlp.fused_ln_mlp_res_bwd_ref(x, dy, w), iters=5)
+    log(9, f"K3b ({m},{k}) hidden {hid} bf16: fwd max abs {fwd_err[0]:.3e}, rel RMS "
+           f"{fwd_err[1]:.3e}; 8 gradients within GRAD_TOLERANCE, bit-equal over two runs; "
+           f"kernel / twin fwd {fwd[0]:.4f} / {fwd[1]:.4f} ms, bwd {bwd[0]:.4f} / "
+           f"{bwd[1]:.4f} ms")
+    log(9, "max abs / rel RMS per gradient: "
+           + ", ".join(f"{n} {e[0]:.2e} / {e[1]:.2e}" for n, e in errs.items()))
+    del x, res, dy
+    free_card(torch)
+    wbytes = 2 * 2 * k * hid
+    fwd_bound = bound(4 * m * k * hid, 2 * 3 * m * k + wbytes)
+    bwd_bound = bound(10 * m * k * hid, 2 * 3 * m * k + wbytes + 4 * 2 * k * hid)
+    return [
+        {"name": "fused_ln_mlp_res_fwd", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/fused_mlp_fwd.cu",
+         "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:298",
+         "max_abs_err": fwd_err[0], "ms": fwd[0], "plain_ms": fwd[1],
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
+        {"name": "fused_ln_mlp_res_bwd", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/fused_mlp_bwd.cu",
+         "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:320",
+         "max_abs_err": max(e[0] for e in errs.values()), "ms": bwd[0], "plain_ms": bwd[1],
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
+    ]
+
+
+def semseg_slice(torch, dev):
+    """Phase 11; returns each kernel's launches over the STEPS steps and
+    over the eval batch."""
+    from multimae_tpu_torch.cli.factory import build_semseg_trainer, make_synthetic_semseg_batch
+    from multimae_tpu_torch.cli.run_finetuning_semseg import seg_cross_entropy
+    from multimae_tpu_torch.train.finetune_step import make_dense_eval_step, make_dense_train_step
+    from multimae_tpu_torch.utils.metrics import confusion_matrix, miou_from_confusion
+
+    t0 = time.perf_counter()
+    domains = ("rgb", "depth")
+    state, step = build_semseg_trainer(batch_size=SEMSEG_BATCH, seed=0, device=dev)
+    batch = make_synthetic_semseg_batch(SEMSEG_BATCH, num_classes=SEMSEG_CLASSES, seed=0,
+                                        device=dev)
+    plain_state = copy.deepcopy(state)
+    plain_step = make_dense_train_step(plain_state.model, "semseg", seg_cross_entropy,
+                                       in_domains=domains)
+    model = state.model
+    drop_gen = torch.Generator(device=dev).manual_seed(11)
+    first_draws = drop_gen.get_state()
+    check_on_card(state, batch)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(11, f"MultiViT-B + ConvNeXt head fine-tune state ({n_params} parameters, bf16, rgb + "
+            f"depth at 512 px, {SEMSEG_CLASSES} classes, drop_path 0.1, AdamW with layer "
+            f"decay 0.75) built in {time.perf_counter() - t0:.1f} s; batch {SEMSEG_BATCH}, "
+            f"lr {state.lr_values[0]:.3e}")
+
+    expect = {"fused_block_infer": 0, "fused_decoder_fwd": 0, "fused_decoder_bwd": 0,
+              "short_attention_fwd": 12, "short_attention_bwd": 12,
+              "fused_ln_mlp_res_fwd": 4, "fused_ln_mlp_res_bwd": 4}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    history = []
+    for i in range(STEPS):
+        before = launch_counts()
+        metrics = {k: float(v) for k, v in step(state, batch, generator=drop_gen).items()}
+        per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        if per_step != expect:
+            raise AssertionError(f"fine-tune step {i} launched {per_step}; expected {expect}")
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+            raise AssertionError(f"fine-tune step {i}: metrics {metrics}")
+        if i == 0:
+            check_on_card(state, batch)
+            first_grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+                           if p.grad is not None}
+        history.append(metrics)
+        log(11, f"step {i}: loss {metrics['loss']:.4f}, grad norm {metrics['grad_norm']:.4f}")
+    torch.cuda.synchronize()
+    step_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if step_launches != {k: v * STEPS for k, v in expect.items()}:
+        raise AssertionError(f"launch counts over {STEPS} fine-tune steps: {step_launches}")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"the fine-tune loss did not fall: {history[0]['loss']} -> "
+                             f"{history[-1]['loss']}")
+
+    # The first step again, on the plain twins, from the same state and draws.
+    plain_gen = torch.Generator(device=dev)
+    plain_gen.set_state(first_draws)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_twins():
+        plain = {k: float(v) for k, v in
+                 plain_step(plain_state, batch, generator=plain_gen).items()}
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    loss_rel = abs(history[0]["loss"] - plain["loss"]) / abs(plain["loss"])
+    norm_rel = abs(history[0]["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
+    log(11, f"step 0 vs plain twins: loss {history[0]['loss']:.6f} / {plain['loss']:.6f} "
+            f"(rel {loss_rel:.2e}, limit {SEMSEG_LOSS_TOLERANCE}), grad norm "
+            f"{history[0]['grad_norm']:.6f} / {plain['grad_norm']:.6f} (rel {norm_rel:.2e}, "
+            f"limit {SEMSEG_NORM_TOLERANCE})")
+    if not (loss_rel <= SEMSEG_LOSS_TOLERANCE and norm_rel <= SEMSEG_NORM_TOLERANCE):
+        raise AssertionError("the fine-tune step differs from the plain twins")
+    plain_grads = {n: p.grad for n, p in plain_state.model.named_parameters()
+                   if p.grad is not None}
+    if set(plain_grads) != set(first_grads):
+        raise AssertionError("the two paths give gradients to different parameters")
+    rels = {n: rel_rms(first_grads[n], g) for n, g in plain_grads.items()}
+    ranked = sorted(rels, key=rels.get, reverse=True)
+    log(11, f"step 0: {len(rels)} parameter gradients vs plain twins, worst rel RMS "
+            + ", ".join(f"{n} {rels[n]:.3e}" for n in ranked[:4])
+            + f"; median {statistics.median(rels.values()):.3e} (limit {SEMSEG_GRAD_TOLERANCE})")
+    bad = {n: r for n, r in rels.items() if not r <= SEMSEG_GRAD_TOLERANCE}
+    if bad:
+        raise AssertionError(f"fine-tune gradients differ from the plain twins: {bad}")
+    del first_grads, plain_grads
+
+    def plain_train_step():
+        with plain_twins():
+            plain_step(plain_state, batch, generator=plain_gen)
+
+    ms, plain_ms = ab_ms(torch, lambda: step(state, batch, generator=drop_gen),
+                         plain_train_step, iters=2, warmup=1, repeats=2)
+    log(11, f"fine-tune step at batch {SEMSEG_BATCH}: {ms:.3f} ms "
+            f"({SEMSEG_BATCH / ms * 1e3:.2f} samples/s) with the kernels, {plain_ms:.3f} ms "
+            f"({SEMSEG_BATCH / plain_ms * 1e3:.2f} samples/s) on the plain twins; peak memory "
+            f"{peak / 2**30:.2f} GiB with the kernels, {plain_peak / 2**30:.2f} GiB on the "
+            "plain twins")
+    del plain_state
+    free_card(torch)
+
+    # The eval step: K4 in every encoder block, K3b forward in the head.
+    eval_step = make_dense_eval_step(model, "semseg", domains)
+    reset_launch_counts()
+    pred = eval_step(batch)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    expect_eval = dict.fromkeys(expect, 0)
+    expect_eval.update(fused_block_infer=12, fused_ln_mlp_res_fwd=4)
+    if eval_launches != expect_eval:
+        raise AssertionError(f"the eval step launched {eval_launches}; expected {expect_eval}")
+    shape = (SEMSEG_BATCH, 512, 512, SEMSEG_CLASSES)
+    if tuple(pred.shape) != shape or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"eval pred {tuple(pred.shape)} not finite or not {shape}")
+    with plain_twins():
+        plain_pred = eval_step(batch)
+    rel = rel_rms(pred, plain_pred)
+    log(11, f"eval pred vs plain twins: rel RMS {rel:.3e} (limit {SLICE_TOLERANCE})")
+    if not rel <= SLICE_TOLERANCE:
+        raise AssertionError(f"the eval preds differ from the plain twins: {rel}")
+    # Where the difference comes from: the encoder (K4) alone, and the head
+    # (K3b) alone on the twins' encoder tokens.
+    with torch.inference_mode():
+        tokens, info = model.process_input({d: batch[d] for d in domains})
+        enc = model.run_encoder(tokens)
+        head = model.output_adapters["semseg"]
+        with plain_twins():
+            plain_enc = model.run_encoder(tokens)
+            plain_head = head(plain_enc, info)
+        log(11, f"eval encoder tokens vs plain twins: rel RMS {rel_rms(enc, plain_enc):.3e}; "
+                f"head on the same tokens: rel RMS {rel_rms(head(plain_enc, info), plain_head):.3e}")
+    del tokens, enc, plain_enc, plain_head
+    target = batch["target"]
+    cm = confusion_matrix(pred.argmax(-1), target, SEMSEG_CLASSES)
+    counted, valid = int(cm.sum()), int((target != 255).sum())
+    if counted != valid:
+        raise AssertionError(f"the confusion matrix counts {counted} pixels, not {valid}")
+    stats = miou_from_confusion(cm)
+
+    def plain_eval():
+        with plain_twins():
+            eval_step(batch)
+
+    eval_ms, plain_eval_ms = ab_ms(torch, lambda: eval_step(batch), plain_eval,
+                                   iters=3, warmup=1, repeats=3)
+    log(11, f"eval batch of {SEMSEG_BATCH}: {counted} of {target.numel()} pixels counted "
+            f"(the rest ignored), mIoU {stats['mIoU']:.4f}, aAcc {stats['aAcc']:.4f} (random "
+            f"weights, random targets); {eval_ms:.3f} ms with the kernels, {plain_eval_ms:.3f} "
+            "ms on the plain twins")
+    del pred, plain_pred
+    free_card(torch)
+    return step_launches, eval_launches
 
 
 def main():
@@ -314,11 +731,14 @@ def main():
                              lambda: fused_block.block_infer_ref(x, w4, heads))
     log(3, f"K4 bf16 ({b},{n},{d}) max abs {err:.3e}, rel RMS {rel:.3e}; "
            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    flops, weights = block_work(b, n, d, hidden)
+    k4_bound = bound(flops, 2 * (2 * b * n * d + weights))
     kernels.append({
         "name": "fused_block_infer", "route": "cuda",
         "source": "multimae_tpu_torch/csrc/fused_block_infer.cu",
         "replaces": "multimae_tpu/ops/fused_block_pallas.py:253",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None})
 
     # 4. K1 forward against its twin, bf16 and fp32
     nq, nc, dd, hh, depth = 196, 99, 256, 8, 2
@@ -332,8 +752,13 @@ def main():
         *[torch.stack([bw[i] for bw in blocks[1:]]) for i in range(12)])
     k1 = {"name": "fused_decoder_fwd", "route": "cuda",
           "source": "multimae_tpu_torch/csrc/fused_decoder_fwd.cu",
-          "replaces": "multimae_tpu/ops/fused_decoder_pallas.py:737"}
+          "replaces": "multimae_tpu/ops/fused_decoder_pallas.py:737", "library_ms": None}
+    k1_flops, k1_weights = decoder_work(b, nq, nc, dd, 4 * dd, depth)
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "fp32_")):
+        size = 2 if dtype == torch.bfloat16 else 4
+        k1_bound = bound(k1_flops, size * (b * (2 * nq + nc) * dd + k1_weights),
+                         BF16_PEAK if size == 2 else FP32_PEAK)
+        k1.update({f"{tag}bound_ms": k1_bound[0], f"{tag}bound_by": k1_bound[1]})
         q = torch.randn((b, nq, dd), generator=gen).to(dev, dtype)
         c = torch.randn((b, nc, dd), generator=gen).to(dev, dtype)
         with torch.inference_mode():
@@ -424,10 +849,19 @@ def main():
     # phase 4 and at the training slice's, which phase 7 launches it at
     k1b = {"name": "fused_decoder_bwd", "route": "cuda",
            "source": "multimae_tpu_torch/csrc/fused_decoder_bwd.cu",
-           "replaces": "multimae_tpu/ops/fused_decoder_pallas.py:763"}
+           "replaces": "multimae_tpu/ops/fused_decoder_pallas.py:763", "library_ms": None}
     names = ["dq", "dc"] + ["d" + f for f in fused_decoder.DecoderCoreWeights._fields]
     for bb, btag in ((b, ""), (TRAIN_BATCH, f"b{TRAIN_BATCH}_")):
+        flops, weights = decoder_work(bb, nq, nc, dd, 4 * dd, depth)
         for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "fp32_")):
+            # The VJP recomputes the forward and then does twice its
+            # products (dX and dW): 3x the forward's operations. In: q, c,
+            # g and the weights in dtype; out: dq, dc, fp32 weight grads.
+            size = 2 if dtype == torch.bfloat16 else 4
+            k1b_bound = bound(3 * flops, size * (bb * (3 * nq + 2 * nc) * dd + weights)
+                              + 4 * weights, BF16_PEAK if size == 2 else FP32_PEAK)
+            k1b.update({f"{btag}{tag}bound_ms": k1b_bound[0],
+                        f"{btag}{tag}bound_by": k1b_bound[1]})
             q = torch.randn((bb, nq, dd), generator=gen).to(dev, dtype)
             c = torch.randn((bb, nc, dd), generator=gen).to(dev, dtype)
             g = torch.randn((bb, nq, dd), generator=gen).to(dev, dtype)
@@ -467,6 +901,40 @@ def main():
             k["launches"] = step_launches["fused_decoder_bwd"]
         else:
             k["step_launches"] = step_launches[k["name"]]
+    del model, results, batches, kern, plain
+    free_card(torch)
+
+    # 8. K2 and 9. K3b against their twins
+    kernels += short_attention_phase(torch, dev)
+    kernels += fused_mlp_phase(torch, dev)
+
+    # 10. K4 at the fine-tune's eval shape, its attention step on K2
+    b, n = SEMSEG_BATCH, 2049
+    x = torch.randn((b, n, d), generator=gen).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        out = fused_block.fused_block_infer(x, w4, heads)
+        torch.cuda.synchronize()
+        err, rel = assert_matches_twin(out, fused_block.block_infer_ref(x, w4, heads),
+                                       f"K4 fused_block_infer at {n} tokens")
+        ms, plain_ms = ab_ms(torch, lambda: fused_block.fused_block_infer(x, w4, heads),
+                             lambda: fused_block.block_infer_ref(x, w4, heads), iters=10)
+    flops, weights = block_work(b, n, d, hidden)
+    k4_bound = bound(flops, 2 * (2 * b * n * d + weights))
+    log(10, f"K4 bf16 ({b},{n},{d}) (attention on the K2 forward) max abs {err:.3e}, rel RMS "
+            f"{rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms")
+    kernels[0].update({"semseg_max_abs_err": err, "semseg_ms": ms, "semseg_plain_ms": plain_ms,
+                       "semseg_bound_ms": k4_bound[0], "semseg_bound_by": k4_bound[1]})
+    del x, out
+    free_card(torch)
+
+    # 11. the fine-tune slice
+    step_launches, eval_launches = semseg_slice(torch, dev)
+    for k in kernels:
+        if k["name"] in ("short_attention_fwd", "short_attention_bwd",
+                         "fused_ln_mlp_res_fwd", "fused_ln_mlp_res_bwd"):
+            k["launches"] = step_launches[k["name"]]
+        k["semseg_step_launches"] = step_launches[k["name"]]
+        k["semseg_eval_launches"] = eval_launches[k["name"]]
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

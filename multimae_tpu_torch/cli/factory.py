@@ -1,6 +1,7 @@
-"""Domain configuration + pretrain model/loss/trainer factory (counterpart
-of multimae_tpu/cli/factory.py; reference run_pretraining_multimae.py:49-72,
-:243-331, :353-390)."""
+"""Domain configuration, the pretrain model/loss/trainer factory
+(counterpart of multimae_tpu/cli/factory.py; reference
+run_pretraining_multimae.py:49-72, :243-331, :353-390), and the
+semantic segmentation fine-tune trainer (the NYUv2 RGB + depth recipe)."""
 
 from __future__ import annotations
 
@@ -18,9 +19,11 @@ from multimae_tpu_torch.models import (
     SemSegInputAdapter,
     SpatialOutputAdapter,
 )
+from multimae_tpu_torch.cli.run_finetuning_semseg import build_semseg_model, seg_cross_entropy
 from multimae_tpu_torch.models.registry import create_model
-from multimae_tpu_torch.train.optim_factory import create_optimizer
-from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
+from multimae_tpu_torch.train.finetune_step import make_dense_train_step
+from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, create_optimizer
+from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step, standardize_depth
 from multimae_tpu_torch.train.schedules import cosine_scheduler
 from multimae_tpu_torch.train.task_balancing import build_balancer
 from multimae_tpu_torch.train.train_state import TrainState
@@ -170,3 +173,74 @@ def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cpu"):
     lr = cosine_scheduler(1e-4 * batch_size / 256, 0.0, epochs=1600, niter_per_ep=100)
     state = TrainState(model, balancer, optimizer, lr)
     return state, make_pretrain_train_step(model, balancer, build_pretrain_losses(domains))
+
+
+# The NYUv2 semantic segmentation fine-tune from RGB + depth
+# (cfgs/finetune/semseg/nyu/ft_nyu_200e_multimae-b_rgb-depth.yaml with the
+# JAX CLI's defaults, multimae_tpu/cli/run_finetuning_semseg.py:27-124),
+# written out here: the card has no YAML reader.
+SEMSEG_RECIPE = dict(
+    model="multivit_base", in_domains=("rgb", "depth"), input_size=512, patch_size=16,
+    num_classes=40, drop_path_encoder=0.1, output_adapter="convnext", decoder_dim=6144,
+    decoder_depth=4, decoder_preds_per_patch=16, decoder_main_tasks=("rgb",),
+    epochs=200, lr=1e-4, min_lr=0.0, weight_decay=0.05, opt_betas=(0.9, 0.999),
+    layer_decay=0.75, clip_grad=None, fp16=True, train_images=795,
+)
+
+
+def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cpu", **overrides):
+    """(TrainState, train_step) of the NYUv2 RGB + depth recipe: MultiViT-B
+    at 512 px (2 x 1024 + 1 tokens) with the ConvNeXt head, 40 classes, in
+    bf16 (the CLI's --fp16 default), drop_path 0.1 rising over the blocks,
+    AdamW (0.9, 0.999) with wd 0.05 and no decay on 1-D parameters and
+    tokens, layer-wise LR decay 0.75, and the cosine LR from 1e-4 to 0 over
+    200 epochs of NYUv2's 795 training images at `batch_size`, without
+    the recipe's 1-epoch warmup (with warmup the first step's LR is ~0).
+    Weights are random, drawn from a CPU generator seeded with `seed`.
+    `overrides` replace recipe entries (the CPU tests' tiny model).
+
+    The frozen sin-cos pos-embs get gradients that the optimizer never
+    applies: the JAX step's gradient norm counts them."""
+    r = dict(SEMSEG_RECIPE, **overrides)
+    dtype = torch.bfloat16 if r["fp16"] else torch.float32
+    model = build_semseg_model(
+        model=r["model"], in_domains=r["in_domains"], patch_size=r["patch_size"],
+        input_size=r["input_size"], num_classes=r["num_classes"],
+        drop_path_encoder=r["drop_path_encoder"], decoder_dim=r["decoder_dim"],
+        decoder_depth=r["decoder_depth"],
+        decoder_preds_per_patch=r["decoder_preds_per_patch"],
+        decoder_main_tasks=r["decoder_main_tasks"], dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    for name, p in model.named_parameters():
+        if name.endswith("pos_emb"):
+            p.requires_grad_(True)
+    model.to(device)
+    depth = len(model.encoder)
+    assigner = LayerDecayValueAssigner(
+        [r["layer_decay"] ** (depth + 1 - i) for i in range(depth + 2)])
+    optimizer = create_optimizer(model, weight_decay=r["weight_decay"],
+                                 opt_betas=r["opt_betas"], filter_bias_and_bn=True,
+                                 layer_decay_assigner=assigner)
+    lr = cosine_scheduler(r["lr"], r["min_lr"], epochs=r["epochs"],
+                          niter_per_ep=max(1, r["train_images"] // batch_size))
+    state = TrainState(model, None, optimizer, lr)
+    step = make_dense_train_step(model, "semseg", seg_cross_entropy,
+                                 in_domains=r["in_domains"], clip_grad=r["clip_grad"])
+    return state, step
+
+
+def make_synthetic_semseg_batch(batch: int, input_size: int = 512, num_classes: int = 40,
+                                seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """Random NHWC rgb, truncated-standardised depth (as the data pipeline
+    gives it) and an int64 target in [0, num_classes) with about 5% of the
+    pixels at the ignore index 255."""
+    rng = np.random.default_rng(seed)
+    s = input_size
+    rgb = rng.standard_normal((batch, s, s, 3)).astype(np.float32)
+    depth = rng.uniform(0.5, 10.0, (batch, s, s, 1)).astype(np.float32)
+    target = rng.integers(0, num_classes, (batch, s, s))
+    target[rng.random((batch, s, s)) < 0.05] = 255
+    out = {"rgb": torch.from_numpy(rgb),
+           "depth": standardize_depth(torch.from_numpy(depth)),
+           "target": torch.from_numpy(target.astype(np.int64))}
+    return {k: v.to(device) for k, v in out.items()}

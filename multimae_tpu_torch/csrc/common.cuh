@@ -16,7 +16,8 @@
 //               probabilities rounded to the compute dtype before P . V,
 //               fp32 accumulation. q, k and v are read in place from the
 //               fused projection outputs with row strides, each head a
-//               contiguous run of dh columns.
+//               contiguous run of dh columns. Key sets too long for shared
+//               memory go to the key-tiled K2 forward (bf16 only).
 //
 // Roundings follow the JAX package's kernels (fused_decoder_pallas.py
 // `_dense`, `_attend_fwd_2d`): a GEMM's fp32 sum is rounded to the
@@ -172,6 +173,12 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 values as one 32-bit mma.sync operand register, `lo` in the
+// low half (the lower k or column index of a fragment pair).
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // 16-byte global -> shared copy; rows past the matrix edge are zero-filled
@@ -509,11 +516,31 @@ cudaError_t attention_dh(const T* Q, int ldq, const T* Kp, const T* Vp, int ldkv
   return cudaGetLastError();
 }
 
-// Head widths 32, 64, 96 and 128 (checked by the Python wrappers).
+constexpr size_t SMEM_LIMIT = 232448;  // shared memory one block may use on sm_90
+
+// The key-tiled K2 forward (short_attention_fwd.cu): bf16 q, k and v rows
+// read in place with row strides ldq, ldk and ldv (elements), o written with
+// row stride ldo; `lse` (batch, heads, nq) fp32 is written unless it is null.
+// Head widths 32, 64, 96 and 128.
+cudaError_t short_attention_fwd(const bf16* Q, int ldq, const bf16* Kp, int ldk,
+                                const bf16* Vp, int ldv, bf16* O, int ldo, float* lse,
+                                int batch, int heads, int nq, int nk, int dh,
+                                cudaStream_t s);
+
+// Head widths 32, 64, 96 and 128 (checked by the Python wrappers). Where one
+// sample-head's K and V rows do not fit in shared memory (more than ~340
+// keys of width 64 in bf16), bf16 attention runs the key-tiled K2 forward
+// instead; fp32 has no such path and is refused by the wrappers.
 template <typename T>
 cudaError_t attention(const T* Q, int ldq, const T* Kp, const T* Vp, int ldkv,
                       T* O, int ldo, int batch, int heads, int nq, int nk, int dh,
                       cudaStream_t s) {
+  if (attention_smem_bytes<T>(nk, dh) > SMEM_LIMIT) {
+    if constexpr (sizeof(T) == 2)
+      return short_attention_fwd(Q, ldq, Kp, ldkv, Vp, ldkv, O, ldo, nullptr, batch, heads,
+                                 nq, nk, dh, s);
+    return cudaErrorInvalidValue;
+  }
   switch (dh) {
     case 32: return attention_dh<T, 32>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);
     case 64: return attention_dh<T, 64>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);

@@ -6,12 +6,13 @@ from multimae_tpu_torch.models.criterion import (
     MaskedMSELoss,
 )
 from multimae_tpu_torch.models.input_adapters import PatchedInputAdapter, SemSegInputAdapter
-from multimae_tpu_torch.models.multimae import MultiMAE
-from multimae_tpu_torch.models.output_adapters import SpatialOutputAdapter
+from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock
+from multimae_tpu_torch.models.multimae import MultiMAE, MultiViT
+from multimae_tpu_torch.models.output_adapters import ConvNeXtAdapter, SpatialOutputAdapter
 from multimae_tpu_torch.models.registry import create_model, list_models
 
 __all__ = [
-    "MaskedCrossEntropyLoss", "MaskedL1Loss", "MaskedMSELoss", "MultiMAE",
-    "PatchedInputAdapter", "SemSegInputAdapter", "SpatialOutputAdapter",
-    "create_model", "list_models",
+    "ConvNeXtAdapter", "ConvNeXtBlock", "MaskedCrossEntropyLoss", "MaskedL1Loss",
+    "MaskedMSELoss", "MultiMAE", "MultiViT", "PatchedInputAdapter", "SemSegInputAdapter",
+    "SpatialOutputAdapter", "create_model", "list_models",
 ]

@@ -1,6 +1,6 @@
-"""MultiMAE: the masked multi-modal pretraining model (counterpart of
-multimae_tpu/models/multimae.py:40-247; reference
-multimae/multimae.py:40-416).
+"""MultiMAE, the masked multi-modal pretraining model, and MultiViT, its
+dense forward for fine-tuning (counterpart of
+multimae_tpu/models/multimae.py:40-300; reference multimae/multimae.py:40-539).
 
 Adapters are passed as dicts of constructor partials and completed here
 with the encoder width and the compute dtype, as in the JAX package.
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -57,7 +58,8 @@ class MultiMAE(nn.Module):
                  output_adapters: Optional[Dict[str, AdapterSpec]],
                  num_global_tokens: int = 1, dim_tokens: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 qkv_bias: bool = True, drop_path_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
                  fp32_output_adapters: Sequence[str] = ()):
         super().__init__()
         self.dtype = dtype
@@ -76,9 +78,11 @@ class MultiMAE(nn.Module):
                 for task, spec in output_adapters.items()
             })
         self.global_tokens = nn.Parameter(torch.empty(1, num_global_tokens, dim_tokens))
+        # stochastic depth rising linearly over the blocks (JAX :124-126)
+        dpr = [float(v) for v in np.linspace(0, drop_path_rate, depth)]
         self.encoder = nn.ModuleList([
-            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype)
-            for _ in range(depth)
+            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype, drop_path_rate=dpr[i])
+            for i in range(depth)
         ])
 
     @torch.no_grad()
@@ -103,6 +107,14 @@ class MultiMAE(nn.Module):
                                    infer_image_size(x), self.num_global_tokens)
         return tokens, info
 
+    def run_encoder(self, tokens: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The encoder blocks in order; in training each block draws its
+        drop_path numbers from `generator`."""
+        for blk in self.encoder:
+            tokens = blk(tokens, generator)
+        return tokens
+
     def forward(self, x: Union[Dict[str, torch.Tensor], torch.Tensor], *,
                 mask_inputs: bool = True,
                 task_masks: Optional[Dict[str, torch.Tensor]] = None,
@@ -115,7 +127,7 @@ class MultiMAE(nn.Module):
         Returns (preds, task_masks): NHWC predictions per output adapter
         and (B, N_task) int64 masks (1 = masked). Without `task_masks` the
         masks are drawn from `generator`, which must lie on the inputs'
-        device."""
+        device; in training the encoder's drop_path draws from it next."""
         if not isinstance(x, dict):
             x = {"rgb": x}
         tokens, info = self.tokenize(x)
@@ -136,9 +148,7 @@ class MultiMAE(nn.Module):
 
         input_tokens = gather_tokens(torch.cat(list(tokens.values()), dim=1), ids_keep)
         global_tokens = self.global_tokens.to(input_tokens.dtype).expand(b, -1, -1)
-        h = torch.cat([input_tokens, global_tokens], dim=1)
-        for blk in self.encoder:
-            h = blk(h)
+        h = self.run_encoder(torch.cat([input_tokens, global_tokens], dim=1), generator)
 
         if self.output_adapters is None:
             return h, task_masks
@@ -149,12 +159,40 @@ class MultiMAE(nn.Module):
         return preds, task_masks
 
 
-def _mae(dim, depth, heads):
+class MultiViT(MultiMAE):
+    """Dense (unmasked) forward for fine-tuning and inference (JAX
+    :250-300; reference multimae/multimae.py:419-539). The DPT head's
+    all-layers branch is not ported."""
+
+    def process_input(self, x: Union[Dict[str, torch.Tensor], torch.Tensor]):
+        """Every input token, then the global tokens: (B, N + G, D) and the
+        input info."""
+        if not isinstance(x, dict):
+            x = {"rgb": x}
+        tokens, info = self.tokenize(x)
+        input_tokens = torch.cat(list(tokens.values()), dim=1)
+        b = input_tokens.shape[0]
+        global_tokens = self.global_tokens.to(input_tokens.dtype).expand(b, -1, -1)
+        return torch.cat([input_tokens, global_tokens], dim=1), info
+
+    def forward(self, x: Union[Dict[str, torch.Tensor], torch.Tensor], *,
+                generator: Optional[torch.Generator] = None):
+        """{task: NHWC pred} of every output adapter, or the encoder tokens
+        without adapters. In training (`model.train()`) drop_path draws
+        from `generator`, which lies on the inputs' device."""
+        input_tokens, info = self.process_input(x)
+        h = self.run_encoder(input_tokens, generator)
+        if self.output_adapters is None:
+            return h
+        return {domain: adapter(h.float() if domain in self.fp32_output_adapters else h, info)
+                for domain, adapter in self.output_adapters.items()}
+
+
+def _mae(dim, depth, heads, cls=MultiMAE):
     def build(input_adapters, output_adapters, **kwargs):
-        return MultiMAE(input_adapters=input_adapters,
-                        output_adapters=output_adapters, dim_tokens=dim,
-                        depth=depth, num_heads=heads, mlp_ratio=4.0,
-                        qkv_bias=True, **kwargs)
+        return cls(input_adapters=input_adapters, output_adapters=output_adapters,
+                   dim_tokens=dim, depth=depth, num_heads=heads, mlp_ratio=4.0,
+                   qkv_bias=True, **kwargs)
     return build
 
 
@@ -172,3 +210,19 @@ def pretrain_multimae_large(input_adapters, output_adapters, **kwargs):
 def pretrain_multimae_tiny(input_adapters, output_adapters, **kwargs):
     """Not in the reference registry: CPU tests; base's structure at 1/12."""
     return _mae(64, 2, 4)(input_adapters, output_adapters, **kwargs)
+
+
+@register_model
+def multivit_base(input_adapters, output_adapters, **kwargs):
+    return _mae(768, 12, 12, MultiViT)(input_adapters, output_adapters, **kwargs)
+
+
+@register_model
+def multivit_large(input_adapters, output_adapters, **kwargs):
+    return _mae(1024, 24, 16, MultiViT)(input_adapters, output_adapters, **kwargs)
+
+
+@register_model
+def multivit_tiny(input_adapters, output_adapters, **kwargs):
+    """Not in the reference registry: CPU tests; base's structure at 1/12."""
+    return _mae(64, 2, 4, MultiViT)(input_adapters, output_adapters, **kwargs)

@@ -1,6 +1,7 @@
-"""SpatialOutputAdapter: the pretraining decoder (counterpart of
-multimae_tpu/models/output_adapters.py:39-345; reference
-multimae/output_adapters.py:33-282).
+"""Output adapters: SpatialOutputAdapter, the pretraining decoder
+(counterpart of multimae_tpu/models/output_adapters.py:39-345; reference
+multimae/output_adapters.py:33-282), and ConvNeXtAdapter, the semantic
+segmentation head (JAX :482-531; reference :481-573).
 
 Queries are the task's own token positions (the visible encoder token
 where the position was kept, else the mask token) plus the task and
@@ -21,10 +22,12 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock, conv2d_nhwc, lecun_normal_, make_conv
 from multimae_tpu_torch.models.input_adapters import pair, pos_tokens, sincos_pos_emb
 from multimae_tpu_torch.models.vit import Block, CrossAttention, Dense, LayerNorm, Mlp, trunc_normal_
 from multimae_tpu_torch.ops import fused_decoder
 from multimae_tpu_torch.ops.gather import gather_tokens
+from multimae_tpu_torch.ops.resize import interpolate_2d
 
 
 class SpatialOutputAdapter(nn.Module):
@@ -183,3 +186,57 @@ class SpatialOutputAdapter(nn.Module):
         x = x.reshape(b, nh, nw, self.num_channels, ph, pw)
         x = x.permute(0, 1, 4, 2, 5, 3)
         return x.reshape(b, nh * ph, nw * pw, self.num_channels)
+
+
+def adapt_tokens(encoder_tokens: torch.Tensor, input_info: Dict,
+                 main_tasks: Sequence[str]) -> torch.Tensor:
+    """The main tasks' token slices, concatenated channel-wise (reference
+    :439-448, JAX :379-387)."""
+    return torch.cat([encoder_tokens[:, input_info["tasks"][t]["start_idx"]:
+                                     input_info["tasks"][t]["end_idx"]]
+                      for t in main_tasks], dim=-1)
+
+
+class ConvNeXtAdapter(nn.Module):
+    """Semantic segmentation head: a Dense to preds_per_patch sub-pixels of
+    embed_dim / preds_per_patch channels per token, the sub-pixel reshape
+    to a (H/4, W/4) map, `depth` ConvNeXt blocks, a 1x1 conv to the classes
+    and a bilinear resize to the image (JAX :482-531)."""
+
+    def __init__(self, num_classes: int, embed_dim: int = 6144,
+                 preds_per_patch: int = 16, main_tasks: Sequence[str] = ("rgb",),
+                 patch_size: int = 16, depth: int = 4,
+                 interpolate_mode: str = "bilinear", dim_tokens_enc: int = 768,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.main_tasks = tuple(main_tasks)
+        self.patch_size = patch_size
+        self.preds_per_patch = preds_per_patch
+        self.class_dim = embed_dim // preds_per_patch
+        self.interpolate_mode = interpolate_mode
+        self.dtype = dtype
+        self.proj_dec = Dense(dim_tokens_enc * len(self.main_tasks), embed_dim,
+                              dtype=dtype, init_std=0.02)
+        self.blocks = nn.ModuleList([ConvNeXtBlock(self.class_dim, dtype=dtype)
+                                     for _ in range(depth)])
+        self.final_layer = make_conv(self.class_dim, num_classes, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.final_layer, generator)
+
+    def forward(self, encoder_tokens: torch.Tensor, input_info: Dict) -> torch.Tensor:
+        h, w = input_info["image_size"]
+        nh, nw = h // self.patch_size, w // self.patch_size
+        sub = int(self.preds_per_patch ** 0.5)
+        x = self.proj_dec(adapt_tokens(encoder_tokens, input_info,
+                                       self.main_tasks).to(self.dtype))
+        # (B, N, p*c): the sub-pixel index p is (ph, pw) row-major
+        # (reference :562-566, JAX :514-518).
+        b = x.shape[0]
+        x = x.reshape(b, nh, nw, sub, sub, self.class_dim)
+        x = x.permute(0, 1, 3, 2, 4, 5)  # (B, nh, ph, nw, pw, c)
+        x = x.reshape(b, nh * sub, nw * sub, self.class_dim)
+        for blk in self.blocks:
+            x = blk(x)
+        x = conv2d_nhwc(x, self.final_layer, self.dtype)
+        return interpolate_2d(x, (h, w), mode=self.interpolate_mode, align_corners=False)

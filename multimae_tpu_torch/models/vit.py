@@ -1,30 +1,27 @@
-"""ViT primitives: LayerNorm, Dense, Mlp, Attention, CrossAttention, Block
-(counterpart of multimae_tpu/models/vit.py; reference
-multimae/multimae_utils.py:138-232).
+"""ViT primitives: LayerNorm, Dense, Mlp, Attention, CrossAttention, Block,
+drop_path (counterpart of multimae_tpu/models/vit.py; reference
+multimae/multimae_utils.py:105-232).
 
 Parameters are fp32 and named as in the reference torch model, so a
 state_dict exported from the JAX package loads with strict=True. Each
 module casts its weights to its compute dtype at use (ops/functional.py).
 Parameters are created empty; `init_weights(generator)` on the model
-fills them from an explicit `torch.Generator`.
+fills them from an explicit `torch.Generator`. Attention runs in the
+JAX layout (B, N, H, dh) through ops/attention.py, which sends long bf16
+sequences on the card to the K2 kernel.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from multimae_tpu_torch.ops import fused_block
-from multimae_tpu_torch.ops.functional import (
-    attention,
-    dense,
-    gelu,
-    layer_norm,
-    merge_heads,
-    split_heads,
-)
+from multimae_tpu_torch.ops.attention import fused_attention_bnhd
+from multimae_tpu_torch.ops.functional import dense, gelu, layer_norm
 
 
 # ------------------------------------------------------------ initialisers --
@@ -61,6 +58,22 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
     t.copy_(x * std)
 
 
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (reference multimae_utils.py:105-120, JAX
+    models/vit.py:92-104): each sample's branch is kept with probability
+    1 - rate, as floor(keep + U[0, 1)), and scaled by 1 / keep. U is drawn
+    from `generator` (on x's device), one fp32 number per sample."""
+    if rate == 0.0 or not training:
+        return x
+    if generator is None:
+        raise ValueError("drop_path in training needs a torch.Generator")
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    u = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32)
+    return (x / keep * torch.floor(keep + u).to(x.dtype)).to(x.dtype)
+
+
 # ---------------------------------------------------------------- modules --
 
 
@@ -81,15 +94,21 @@ class Dense(nn.Module):
     """Linear layer in the compute dtype; weight (out, in) as nn.Linear."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32, num_fused: int = 1):
+                 dtype: torch.dtype = torch.float32, num_fused: int = 1,
+                 init_std: Optional[float] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.dtype = dtype
         self.num_fused = num_fused
+        self.init_std = init_std
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        xavier_uniform_(self.weight, generator, self.num_fused)
+        """Xavier-uniform, or trunc-normal(init_std) where that is given."""
+        if self.init_std is None:
+            xavier_uniform_(self.weight, generator, self.num_fused)
+        else:
+            trunc_normal_(self.weight, generator, self.init_std)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -120,12 +139,11 @@ class Attention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
-        q, k, v = self.qkv(x).split(c, dim=-1)
+        b, n, c = x.shape
         h = self.num_heads
-        out = attention(split_heads(q, h), split_heads(k, h), split_heads(v, h),
-                        (c // h) ** -0.5)
-        return self.proj(merge_heads(out))
+        scale = (c // h) ** -0.5
+        q, k, v = self.qkv(x).reshape(b, n, 3, h, c // h).unbind(2)
+        return self.proj(fused_attention_bnhd(q, k, v, scale).reshape(b, n, c))
 
 
 class CrossAttention(nn.Module):
@@ -140,12 +158,12 @@ class CrossAttention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
+        b, n, c = x.shape
         h = self.num_heads
-        k, v = self.kv(context).split(c, dim=-1)
-        out = attention(split_heads(self.q(x), h), split_heads(k, h),
-                        split_heads(v, h), (c // h) ** -0.5)
-        return self.proj(merge_heads(out))
+        scale = (c // h) ** -0.5
+        q = self.q(x).reshape(b, n, h, c // h)
+        k, v = self.kv(context).reshape(b, context.shape[1], 2, h, c // h).unbind(2)
+        return self.proj(fused_attention_bnhd(q, k, v, scale).reshape(b, n, c))
 
 
 class Block(nn.Module):
@@ -153,12 +171,17 @@ class Block(nn.Module):
 
     Inference on the card (eval, no grad, bf16, qkv bias, CUDA tensor)
     runs the whole block as the fused_block_infer kernel, the gate of
-    the JAX package's models/vit.py:311-336."""
+    the JAX package's models/vit.py:311-336. In training each residual
+    branch goes through drop_path at `drop_path_rate`, drawing from the
+    `generator` the caller hands to forward: the attention branch first,
+    then the MLP's."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.drop_path_rate = drop_path_rate
         self.qkv_bias = qkv_bias
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, dtype)
@@ -174,7 +197,8 @@ class Block(nn.Module):
             m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if (
             not self.training
             and not torch.is_grad_enabled()
@@ -184,5 +208,6 @@ class Block(nn.Module):
         ):
             return fused_block.fused_block_infer(
                 x.to(self.dtype), self.block_weights(), self.num_heads)
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        rate, train = self.drop_path_rate, self.training
+        x = x + drop_path(self.attn(self.norm1(x)), rate, train, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), rate, train, generator)

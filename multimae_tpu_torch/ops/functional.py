@@ -45,6 +45,32 @@ def gelu_grad(x: torch.Tensor) -> torch.Tensor:
             + xf * torch.exp(-0.5 * xf * xf) * 0.3989422804014327)
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1]).float()
+
+
+def dense_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Backward of `dense` as the Pallas kernels write it (JAX
+    fused_decoder_pallas._dense_bwd :304, on the torch (out, in) layout):
+    dx = g . w in the compute dtype, dw = g^T . x and db = colsum(g) in fp32."""
+    gf = _rows(g)
+    return torch.matmul(g, w), gf.t() @ _rows(x), gf.sum(0)
+
+
+def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor):
+    """(dx fp32, dgamma, dbeta) of `layer_norm` at input x (JAX
+    fused_decoder_pallas._ln_bwd :285, with the two-pass statistics)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + LAYERNORM_EPS)
+    xhat = (xf - mu) * inv
+    dyf = dy.float()
+    dxhat = dyf * gamma.float()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, (_rows(dyf) * _rows(xhat)).sum(0), _rows(dyf).sum(0)
+
+
 def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, N, H*dh) -> (B, H, N, dh)."""
     b, n, c = t.shape

@@ -6,7 +6,9 @@ LN2 -> fc1 -> GELU -> fc2 + residual, forward only (no backward, as on
 the TPU). On a CUDA tensor the wrapper launches the hand-written kernel
 chain of csrc/fused_block_infer.cu; on a CPU tensor it runs the plain
 twin `block_infer_ref`. There is no other path: a CUDA tensor the kernel
-does not take raises.
+does not take raises. Sequences whose K/V rows do not fit in shared
+memory (the 512-px fine-tune's 2049 tokens) take the K2 forward kernel
+for the attention step, inside the same chain.
 
 Numerics of the kernel and its twin: fp32 two-pass LayerNorm statistics
 (the Pallas kernel uses the fast variance E[x^2]-E[x]^2), GEMMs with
@@ -96,17 +98,20 @@ def attention_smem_bytes(nk: int, dh: int) -> int:
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
-def check_kernel_shapes(d: int, heads: int, hidden: int, nk: int) -> None:
+def check_kernel_shapes(d: int, heads: int, hidden: int, nk: int,
+                        dtype: torch.dtype = torch.float32) -> None:
     """Raise for shapes the kernels do not take: GEMM depths and widths
     in multiples of 32, head width a multiple of 32 up to 128, a LayerNorm
-    row of at most 1024, and K/V rows that fit shared memory."""
+    row of at most 1024, and in fp32 K/V rows that fit shared memory. In
+    bf16 any key count goes: where K/V do not fit, the chains' attention
+    step runs the key-tiled K2 forward (csrc/short_attention_fwd.cu)."""
     dh = d // heads
     if d % heads or d % 32 or hidden % 32 or d > 1024:
         raise ValueError(f"unsupported widths: dim {d}, heads {heads}, "
                          f"hidden {hidden}")
     if dh % 32 or dh > 128:
         raise ValueError(f"unsupported head width {dh}")
-    if attention_smem_bytes(nk, dh) > SMEM_LIMIT:
+    if dtype != torch.bfloat16 and attention_smem_bytes(nk, dh) > SMEM_LIMIT:
         raise ValueError(f"{nk} keys of width {dh} exceed shared memory")
 
 
@@ -120,7 +125,7 @@ def _launch(x: torch.Tensor, w: BlockWeights, heads: int) -> torch.Tensor:
         raise ValueError("fused_block_infer: x must be a contiguous (B, N, D)")
     b, n, d = x.shape
     hidden = w.w1.shape[0]
-    check_kernel_shapes(d, heads, hidden, n)
+    check_kernel_shapes(d, heads, hidden, n, x.dtype)
     wc = _cast(w, x.dtype)
     expect = [(d,), (d,), (3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,),
               (hidden, d), (hidden,), (d, hidden), (d,)]

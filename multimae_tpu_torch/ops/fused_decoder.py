@@ -28,12 +28,13 @@ import torch
 
 from multimae_tpu_torch.ops import _build
 from multimae_tpu_torch.ops.functional import (
-    LAYERNORM_EPS,
     attention,
     dense,
+    dense_bwd,
     gelu,
     gelu_grad,
     layer_norm,
+    layer_norm_bwd,
     merge_heads,
     split_heads,
 )
@@ -159,31 +160,6 @@ def decoder_core_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights,
 # attention dS = T(P * (dP - rowsum(dP * P)) * scale).
 
 
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1, t.shape[-1]).float()
-
-
-def _dense_bwd(x, w, g):
-    """dx = g . w in the dtype, dw = g^T . x and db = colsum(g) in fp32
-    (JAX `_dense_bwd` :304, on the torch (out, in) layout)."""
-    gf = _rows(g)
-    return torch.matmul(g, w), gf.t() @ _rows(x), gf.sum(0)
-
-
-def _ln_bwd(dy, x, gamma):
-    """(dx fp32, dgamma, dbeta) of a LayerNorm of input x (JAX `_ln_bwd`
-    :285, with the two-pass statistics of ops/functional.layer_norm)."""
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    inv = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + LAYERNORM_EPS)
-    xhat = (xf - mu) * inv
-    dyf = dy.float()
-    dxhat = dyf * gamma.float()
-    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
-                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return dx, (_rows(dyf) * _rows(xhat)).sum(0), _rows(dyf).sum(0)
-
-
 def _attend_bwd(q, k, v, do, scale):
     """(dq, dk, dv) of ops/functional.attention on (B, H, N, dh), with the
     fp32 probabilities recomputed (JAX `_attend_bwd_2d` :477)."""
@@ -216,33 +192,33 @@ def decoder_core_bwd_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights
     blk = {f: [None] * depth for f in DecoderCoreWeights._fields[16:]}
     for i in reversed(range(depth)):
         bw = _block(wc, i)
-        dh, blk["wf2"][i], blk["bf2"][i] = _dense_bwd(s[f"b{i}_h"], bw.w2, g)
+        dh, blk["wf2"][i], blk["bf2"][i] = dense_bwd(s[f"b{i}_h"], bw.w2, g)
         dh_pre = (dh.float() * gelu_grad(s[f"b{i}_h_pre"])).to(dtype)
-        dn2, blk["wf1"][i], blk["bf1"][i] = _dense_bwd(s[f"b{i}_n2"], bw.w1, dh_pre)
-        dx, blk["n2_g"][i], blk["n2_b"][i] = _ln_bwd(dn2, s[f"b{i}_mid"], bw.n2_g)
+        dn2, blk["wf1"][i], blk["bf1"][i] = dense_bwd(s[f"b{i}_n2"], bw.w1, dh_pre)
+        dx, blk["n2_g"][i], blk["n2_b"][i] = layer_norm_bwd(dn2, s[f"b{i}_mid"], bw.n2_g)
         g = _residual(g, dx)
-        da, blk["wp"][i], blk["bp"][i] = _dense_bwd(s[f"b{i}_a"], bw.wp, g)
+        da, blk["wp"][i], blk["bp"][i] = dense_bwd(s[f"b{i}_a"], bw.wp, g)
         dqkv = torch.cat([merge_heads(t) for t in _attend_bwd(
             s[f"b{i}_q"], s[f"b{i}_k"], s[f"b{i}_v"], split_heads(da, heads), scale)],
             dim=-1)
-        dn1, blk["wqkv"][i], blk["bqkv"][i] = _dense_bwd(s[f"b{i}_n1"], bw.wqkv, dqkv)
-        dx, blk["n1_g"][i], blk["n1_b"][i] = _ln_bwd(dn1, s[f"b{i}_in"], bw.n1_g)
+        dn1, blk["wqkv"][i], blk["bqkv"][i] = dense_bwd(s[f"b{i}_n1"], bw.wqkv, dqkv)
+        dx, blk["n1_g"][i], blk["n1_b"][i] = layer_norm_bwd(dn1, s[f"b{i}_in"], bw.n1_g)
         g = _residual(g, dx)
     dw.update({f: torch.stack(v) for f, v in blk.items()})
 
-    dh, dw["w2"], dw["b2"] = _dense_bwd(s["xh"], wc.w2, g)
+    dh, dw["w2"], dw["b2"] = dense_bwd(s["xh"], wc.w2, g)
     dh_pre = (dh.float() * gelu_grad(s["xh_pre"])).to(dtype)
-    don, dw["w1"], dw["b1"] = _dense_bwd(s["on"], wc.w1, dh_pre)
-    dx, dw["on_g"], dw["on_b"] = _ln_bwd(don, s["x_attn"], wc.on_g)
+    don, dw["w1"], dw["b1"] = dense_bwd(s["on"], wc.w1, dh_pre)
+    dx, dw["on_g"], dw["on_b"] = layer_norm_bwd(don, s["x_attn"], wc.on_g)
     g = _residual(g, dx)
-    da, dw["wxp"], dw["bxp"] = _dense_bwd(s["xa"], wc.wxp, g)
+    da, dw["wxp"], dw["bxp"] = dense_bwd(s["xa"], wc.wxp, g)
     dxq, dxk, dxv = _attend_bwd(s["xq"], s["xk"], s["xv"], split_heads(da, heads), scale)
     dxq = merge_heads(dxq)
     dkv = torch.cat([merge_heads(dxk), merge_heads(dxv)], dim=-1)
-    dqn, dw["wq"], dw["bq"] = _dense_bwd(s["qn"], wc.wq, dxq)
-    dcn, dw["wkv"], dw["bkv"] = _dense_bwd(s["cn"], wc.wkv, dkv)
-    dq, dw["qn_g"], dw["qn_b"] = _ln_bwd(dqn, q, wc.qn_g)
-    dc, dw["cn_g"], dw["cn_b"] = _ln_bwd(dcn, c, wc.cn_g)
+    dqn, dw["wq"], dw["bq"] = dense_bwd(s["qn"], wc.wq, dxq)
+    dcn, dw["wkv"], dw["bkv"] = dense_bwd(s["cn"], wc.wkv, dkv)
+    dq, dw["qn_g"], dw["qn_b"] = layer_norm_bwd(dqn, q, wc.qn_g)
+    dc, dw["cn_g"], dw["cn_b"] = layer_norm_bwd(dcn, c, wc.cn_g)
     return dq.to(dtype), dc.to(dtype), DecoderCoreWeights(**dw)
 
 
@@ -272,7 +248,7 @@ def _check(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights,
         raise ValueError(f"fused_decoder_core: context {tuple(c.shape)} does not "
                          f"match queries {tuple(q.shape)}")
     hidden = w.w1.shape[0]
-    check_kernel_shapes(d, heads, hidden, max(nq, nc))
+    check_kernel_shapes(d, heads, hidden, max(nq, nc), q.dtype)
     wc = _cast(w, q.dtype)
     expect = {"wq": (d, d), "wkv": (2 * d, d), "wxp": (d, d), "w1": (hidden, d),
               "w2": (d, hidden), "wqkv": (depth, 3 * d, d), "wp": (depth, d, d),

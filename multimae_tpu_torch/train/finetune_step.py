@@ -1,0 +1,65 @@
+"""Dense-prediction fine-tuning steps (counterpart of
+multimae_tpu/train/finetune_step.py:70-137; reference
+run_finetuning_semseg.py:593-682): the dense forward in training mode
+(drop_path drawing from an explicit torch.Generator), the fp32 loss on
+the task's pred, backward, the global gradient norm, optional clip, the
+skip on a non-finite norm, and the AdamW update with the schedules.
+
+The step updates the TrainState in place. Deciding the skip reads the
+gradient norm on the host, one synchronisation per step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from multimae_tpu_torch.train.pretrain_step import global_norm
+from multimae_tpu_torch.train.train_state import TrainState
+
+
+def make_dense_train_step(model, task: str, loss_fn: Callable,
+                          in_domains: Sequence[str] = ("rgb",), *,
+                          clip_grad: Optional[float] = None):
+    """Build train_step(state, batch, *, generator=None) -> metrics
+    {"loss", "grad_norm", "skipped"}. The batch holds the input
+    modalities and "target"; `generator` (on the batch's device) feeds
+    drop_path."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
+                   generator: Optional[torch.Generator] = None):
+        params = state.parameters()
+        for p in params:
+            p.grad = None
+        model.train()
+        inputs = {d: batch[d] for d in in_domains if d in batch}
+        pred = model(inputs, generator=generator)[task]
+        loss = loss_fn(pred.float(), batch["target"])
+        loss.backward()
+
+        grads = [p.grad for p in params if p.grad is not None]
+        grad_norm = global_norm(grads)
+        if clip_grad is not None:
+            scale = torch.clamp(clip_grad / (grad_norm + 1e-6), max=1.0)
+            for g in grads:
+                g.mul_(scale)
+        skip = not math.isfinite(float(grad_norm))
+        state.apply_gradients(skip)
+        return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
+                "skipped": float(skip)}
+
+    return train_step
+
+
+def make_dense_eval_step(model, task: str, in_domains: Sequence[str] = ("rgb",)):
+    """Build eval_step(batch) -> the task's pred, from the model in eval
+    mode under inference_mode (the encoder blocks then take the K4 gate)."""
+
+    def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            return model({d: batch[d] for d in in_domains if d in batch})[task]
+
+    return eval_step

@@ -1,6 +1,6 @@
-"""AdamW with the reference's parameter groups (counterpart of the
-pretraining subset of multimae_tpu/train/optim_factory.py :34-57,
-:127-239; reference utils/optim_factory.py).
+"""AdamW with the reference's parameter groups (counterpart of
+multimae_tpu/train/optim_factory.py :34-82, :127-239; reference
+utils/optim_factory.py).
 
 * Frozen parameters (the fixed sin-cos `pos_emb`s) get no update and no
   decay: they are left out of the optimizer (:53-57).
@@ -10,6 +10,11 @@ pretraining subset of multimae_tpu/train/optim_factory.py :34-57,
   reference's dict-model quirk (:163-166).
 * With filter_bias_and_bn=True, 1-D parameters, biases and the model's
   no_weight_decay() set (`default_no_decay`, :34-50) are not decayed.
+* With a LayerDecayValueAssigner (fine-tuning), each of those groups is
+  split by layer, `layer_{id}_{decay|no_decay}`, with LR scale
+  values[id]: input adapters and global tokens are layer 0, encoder
+  block i is layer i + 1, everything else (the heads) the last (:60-82,
+  :170-178).
 * The balancer's parameters form their own group with
   `balancer_lr_scale`; they are decayed exactly when
   filter_bias_and_bn is False (:160-162).
@@ -23,7 +28,7 @@ Adam step, the same update as the JAX package's optax chain
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -46,12 +51,39 @@ def frozen(name: str) -> bool:
     return name.split(".")[-1] == "pos_emb"
 
 
+def get_num_layer_for_vit(name: str, num_values: int) -> int:
+    """The layer of a parameter for layer-wise LR decay (reference
+    utils/optim_factory.py:22-35, JAX :60-69, on torch parameter names)."""
+    parts = name.split(".")
+    if parts[0] in ("cls_token", "mask_token", "pos_embed", "global_tokens"):
+        return 0
+    if parts[0].startswith("patch_embed") or parts[0] == "input_adapters":
+        return 0
+    if parts[0] in ("encoder", "blocks"):
+        return int(parts[1]) + 1
+    return num_values - 1
+
+
+class LayerDecayValueAssigner:
+    """Reference utils/optim_factory.py:38-46: LR scale values[layer]."""
+
+    def __init__(self, values: Sequence[float]):
+        self.values = list(values)
+
+    def get_scale(self, layer_id: int) -> float:
+        return self.values[layer_id]
+
+    def get_layer_id(self, name: str) -> int:
+        return get_num_layer_for_vit(name, len(self.values))
+
+
 def build_param_groups(
     model: nn.Module,
     balancer: Optional[nn.Module] = None,
     *,
     filter_bias_and_bn: bool = True,
     balancer_lr_scale: float = 1.0,
+    layer_decay_assigner: Optional[LayerDecayValueAssigner] = None,
 ) -> Tuple[List[Dict], List[str]]:
     """(param groups, names of the frozen parameters). Each group is a dict
     with `params`, `names`, `group`, `lr_scale` and `wd_flag`."""
@@ -69,10 +101,15 @@ def build_param_groups(
             frozen_names.append(name)
         elif not filter_bias_and_bn:
             add("flat_decay", name, p, 1.0, 1.0)
-        elif default_no_decay(name, p):
-            add("no_decay", name, p, 1.0, 0.0)
         else:
-            add("decay", name, p, 1.0, 1.0)
+            kind = "no_decay" if default_no_decay(name, p) else "decay"
+            wd_flag = 0.0 if kind == "no_decay" else 1.0
+            if layer_decay_assigner is None:
+                add(kind, name, p, 1.0, wd_flag)
+            else:
+                layer = layer_decay_assigner.get_layer_id(name)
+                add(f"layer_{layer}_{kind}", name, p,
+                    layer_decay_assigner.get_scale(layer), wd_flag)
     if balancer is not None:
         for name, p in balancer.named_parameters():
             add("balancer", "balancer." + name, p, balancer_lr_scale,
@@ -88,12 +125,14 @@ def create_optimizer(
     opt_betas: Tuple[float, float] = (0.9, 0.999),
     filter_bias_and_bn: bool = True,
     balancer_lr_scale: float = 1.0,
+    layer_decay_assigner: Optional[LayerDecayValueAssigner] = None,
 ) -> torch.optim.AdamW:
     """AdamW (eps 1e-8) over the groups of build_param_groups; each group's
     weight decay starts at weight_decay * wd_flag and its LR at 0 until
     TrainState sets them from the schedules."""
     groups, _ = build_param_groups(model, balancer, filter_bias_and_bn=filter_bias_and_bn,
-                                   balancer_lr_scale=balancer_lr_scale)
+                                   balancer_lr_scale=balancer_lr_scale,
+                                   layer_decay_assigner=layer_decay_assigner)
     for g in groups:
         g["lr"] = 0.0
         g["weight_decay"] = weight_decay * g["wd_flag"]

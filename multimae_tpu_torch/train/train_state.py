@@ -1,6 +1,6 @@
 """Train state (counterpart of multimae_tpu/train/train_state.py :14-64):
-the model, the balancer, the optimizer and the LR/WD schedule arrays,
-updated in place.
+the model, the loss balancer (None for fine-tuning), the optimizer and
+the LR/WD schedule arrays, updated in place.
 
 A skipped update leaves the parameters and the whole optimizer state
 unchanged, the optimizer's own step counts included, while `step` still
@@ -19,7 +19,7 @@ from torch import nn
 
 
 class TrainState:
-    def __init__(self, model: nn.Module, balancer: nn.Module,
+    def __init__(self, model: nn.Module, balancer: Optional[nn.Module],
                  optimizer: torch.optim.Optimizer, lr_values: np.ndarray,
                  wd_values: Optional[np.ndarray] = None):
         self.model = model
@@ -32,7 +32,8 @@ class TrainState:
 
     def parameters(self) -> List[torch.Tensor]:
         """Every model and balancer parameter, in a fixed order."""
-        return list(self.model.parameters()) + list(self.balancer.parameters())
+        extra = [] if self.balancer is None else list(self.balancer.parameters())
+        return list(self.model.parameters()) + extra
 
     def apply_gradients(self, skip: bool) -> None:
         """One optimizer update from the parameters' .grad, unless `skip`."""

@@ -2,13 +2,16 @@
 
 Repeats the key and layout rules of the JAX package's exporter
 (multimae_tpu/utils/torch_compat.py `flax_path_to_torch_key` :85-106 and
-`params_to_state_dict` :270-319) for the pretraining model, so that
+`params_to_state_dict` :270-319) for the pretraining model and the
+semantic segmentation fine-tune model (ConvNeXt head), so that
 `model.load_state_dict(torch_state_dict(...), strict=True)` loads
 weights trained with either package:
 
   * the `ln` scope of the LayerNorm wrapper is dropped;
-  * `<prefix>_<name>` scopes become `<prefix>.<name>`;
+  * `<prefix>_<name>` scopes become `<prefix>.<name>` (`blocks_i` too);
   * Dense `kernel` (in, out) becomes `weight` (out, in); `scale` -> `weight`;
+  * Conv `kernel` (kh, kw, in, out) becomes `weight` (out, in, kh, kw): the
+    depthwise (7, 7, 1, C) -> (C, 1, 7, 7), the 1x1 (1, 1, C, K) -> (K, C, 1, 1);
   * `pos_emb` (1, h, w, D) becomes (1, D, h, w);
   * the patchify Dense kernel (ph*pw*C, D) becomes the Conv2d weight
     (D, C, ph, pw), given proj_shapes={task: (C, ph, pw)};
@@ -31,6 +34,7 @@ _PREFIXES = (
     ("encoder_", "encoder."),
     ("decoder_transformer_", "decoder_transformer."),
     ("task_embeddings_", "task_embeddings."),
+    ("blocks_", "blocks."),
 )
 
 _LEAF_RENAMES = {"kernel": "weight", "scale": "weight",
@@ -80,6 +84,8 @@ def jax_params_to_state_dict(
                 arr = arr.reshape(ph, pw, c, arr.shape[1]).transpose(3, 2, 0, 1)
             else:
                 arr = arr.T
+        elif name == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
         out[flax_path_to_torch_key(path)] = np.ascontiguousarray(arr)
     return out
 

@@ -1,0 +1,35 @@
+"""Segmentation metrics (counterpart of multimae_tpu/utils/metrics.py:29-60;
+reference utils/semseg_metrics.py): a confusion matrix counted on the
+device, and mIoU, pixel accuracy and mean class accuracy from it."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
+                     ignore_index: int = 255) -> torch.Tensor:
+    """(num_classes, num_classes) int64 counts, rows = label, columns =
+    pred, over the pixels whose label is not `ignore_index`."""
+    valid = label != ignore_index
+    idx = label[valid].long() * num_classes + pred[valid].long()
+    return torch.bincount(idx, minlength=num_classes * num_classes).reshape(
+        num_classes, num_classes)
+
+
+def miou_from_confusion(cm) -> Dict[str, object]:
+    """aAcc, mIoU, mAcc and the per-class IoU and Acc (mean_iou semantics
+    of utils/semseg_metrics.py:107-141): classes absent from both label
+    and pred are NaN and left out of the means."""
+    cm = np.asarray(torch.as_tensor(cm).cpu(), np.float64)
+    inter = np.diag(cm)
+    union = cm.sum(axis=0) + cm.sum(axis=1) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = inter / union
+        acc = inter / cm.sum(axis=1)
+    return {"aAcc": float(inter.sum() / max(cm.sum(), 1)),
+            "mIoU": float(np.nanmean(iou)), "mAcc": float(np.nanmean(acc)),
+            "IoU": iou, "Acc": acc}

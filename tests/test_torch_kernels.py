@@ -1,5 +1,6 @@
-"""The CUDA kernels (K4, K1 forward and K1 backward) against their plain
-twins, and the wrappers' dispatch. Imports neither jax nor multimae_tpu,
+"""The CUDA kernels (K4, K1 forward and backward, K2 forward and backward,
+K3b forward and backward) against their plain twins, and the wrappers'
+dispatch. Imports neither jax nor multimae_tpu,
 so on a machine with a card and without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -13,7 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from multimae_tpu_torch.ops import fused_block, fused_decoder
+from multimae_tpu_torch.ops import (
+    attention,
+    fused_block,
+    fused_decoder,
+    fused_mlp,
+    short_attention,
+)
 from multimae_tpu_torch.ops.functional import assert_matches_twin
 
 
@@ -102,6 +109,62 @@ def test_kernel_shape_checks_raise(d, heads, hidden, nk):
 def test_serving_shapes_pass_the_checks():
     fused_block.check_kernel_shapes(768, 12, 3072, 99)   # encoder, ViT-B
     fused_block.check_kernel_shapes(256, 8, 1024, 196)   # decoders
+
+
+def test_bf16_block_takes_any_key_count():
+    """K4 in bf16 runs its attention as the key-tiled K2 forward where K/V
+    do not fit in shared memory; fp32 still has no such path."""
+    fused_block.check_kernel_shapes(768, 12, 3072, 2049, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_block.check_kernel_shapes(768, 12, 3072, 2049, torch.float32)
+
+
+def qkv_views(seed, b, n, h, dh, device="cpu", dtype=torch.bfloat16):
+    """q, k, v as the (B, N, H, dh) slices of one fused (B, N, 3, H, dh)
+    projection output, the layout the model hands to K2."""
+    qkv = randn(seed, b, n, 3, h, dh).to(device, dtype)
+    return qkv.unbind(2)
+
+
+def test_cpu_short_attention_takes_the_twins_without_a_launch():
+    q, k, v = (t.float().requires_grad_() for t in qkv_views(1, 2, 19, 2, 32))
+    fwd, bwd = short_attention.LAUNCHES, short_attention.LAUNCHES_BWD
+    out = short_attention.short_attention(q, k, v, 32 ** -0.5)
+    out.backward(randn(2, 2, 19, 2, 32))
+    assert (short_attention.LAUNCHES, short_attention.LAUNCHES_BWD) == (fwd, bwd)
+    ref, _ = short_attention.short_attention_ref(q, k, v, 32 ** -0.5)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+
+
+def mlp_weights(k, h, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    w = fused_mlp.MlpWeights(
+        _rnd(rng, k, scale=0.1, offset=1.0), _rnd(rng, k, scale=0.1),
+        _rnd(rng, h, k, scale=k ** -0.5), _rnd(rng, h, scale=0.02),
+        _rnd(rng, k, h, scale=h ** -0.5), _rnd(rng, k, scale=0.02))
+    return fused_mlp.MlpWeights(*[t.to(device) for t in w])
+
+
+def test_cpu_fused_mlp_takes_the_twins_without_a_launch():
+    x, res = randn(1, 40, 64).requires_grad_(), randn(2, 40, 64).requires_grad_()
+    w = fused_mlp.MlpWeights(*[t.requires_grad_() for t in mlp_weights(64, 256)])
+    fwd, bwd = fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BWD
+    out = fused_mlp.fused_ln_mlp_res(x, res, w)
+    out.backward(randn(3, 40, 64))
+    assert (fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BWD) == (fwd, bwd)
+    torch.testing.assert_close(out, fused_mlp.fused_ln_mlp_res_ref(x, res, w), rtol=0, atol=0)
+    assert torch.equal(res.grad, randn(3, 40, 64))
+
+
+def test_new_kernels_on_non_cuda_device_raise():
+    q, k, v = (torch.empty((2, 600, 2, 64), dtype=torch.bfloat16, device="meta")
+               for _ in range(3))
+    with pytest.raises(ValueError, match="no kernel"):
+        short_attention.short_attention(q, k, v, 64 ** -0.5)
+    x = torch.empty((16384, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_mlp.fused_ln_mlp_res(x, x, mlp_weights(128, 512, device="meta"))
 
 
 # ------------------------------------------------------------- the card --
@@ -212,3 +275,110 @@ def test_decoder_backward_refuses_unsupported_head_width(cuda):
     q, c, g = decoder_bwd_inputs(cuda, torch.bfloat16, 2, 16, 9, 256)
     with pytest.raises(ValueError, match="head width"):
         fused_decoder.fused_decoder_core_bwd(q, c, w, g, 2, 2)  # dh 128
+
+
+# ------------------------------------------------------------ K2 on the card --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,h,dh", [(2, 40, 40, 2, 32), (3, 130, 130, 4, 64),
+                                          (1, 577, 577, 2, 128), (2, 2049, 2049, 3, 64),
+                                          (2, 100, 700, 2, 64)])
+def test_short_attention_kernels_match_twins(cuda, b, nq, nk, h, dh):
+    scale = dh ** -0.5
+    q = qkv_views(1, b, nq, h, dh, cuda)[0]
+    _, k, v = qkv_views(2, b, nk, h, dh, cuda)
+    before = short_attention.LAUNCHES
+    o, lse = short_attention.short_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert short_attention.LAUNCHES == before + 1
+    ro, rlse = short_attention.short_attention_ref(q, k, v, scale)
+    assert_matches_twin(o, ro, "K2 fwd o")
+    assert_matches_twin(lse, rlse, "K2 fwd lse")
+    g = randn(3, b, nq, h, dh).to(cuda, torch.bfloat16)
+    before = short_attention.LAUNCHES_BWD
+    out = short_attention.short_attention_bwd(q, k, v, o, lse, g, scale)
+    again = short_attention.short_attention_bwd(q, k, v, o, lse, g, scale)
+    torch.cuda.synchronize()
+    assert short_attention.LAUNCHES_BWD == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    delta = short_attention.attention_delta(o, g)
+    ref = short_attention.short_attention_bwd_ref(q, k, v, g, lse, delta, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+        assert_matches_twin(a, r, f"K2 bwd {name}", grad_of=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_short_attention_autograd_launches_both_kernels(cuda):
+    qkv = randn(1, 2, 600, 3, 2, 64).to(cuda, torch.bfloat16).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    fwd, bwd = short_attention.LAUNCHES, short_attention.LAUNCHES_BWD
+    short_attention.short_attention(q, k, v, 64 ** -0.5).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (short_attention.LAUNCHES - fwd, short_attention.LAUNCHES_BWD - bwd) == (1, 1)
+    assert qkv.grad.dtype == torch.bfloat16 and torch.isfinite(qkv.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk,launches", [(511, 0), (512, 1)])
+def test_attention_gate_launches_k2_from_512_keys(cuda, nk, launches):
+    q = randn(1, 2, 64, 2, 64).to(cuda, torch.bfloat16)
+    k, v = (randn(s, 2, nk, 2, 64).to(cuda, torch.bfloat16) for s in (2, 3))
+    before = short_attention.LAUNCHES
+    out = attention.fused_attention_bnhd(q, k, v, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert short_attention.LAUNCHES - before == launches
+    assert_matches_twin(out, attention.einsum_attention_bnhd(q, k, v, 64 ** -0.5), "gate")
+
+
+@pytest.mark.cuda
+def test_short_attention_refuses_fp32(cuda):
+    q, k, v = qkv_views(1, 2, 600, 2, 64, cuda, torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        short_attention.short_attention(q, k, v, 64 ** -0.5)
+
+
+# ----------------------------------------------------------- K3b on the card --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,h", [(20000, 128, 512), (65536, 384, 1536)])
+def test_fused_mlp_kernels_match_twins(cuda, m, k, h):
+    w = mlp_weights(k, h, device=cuda)
+    x = randn(1, m, k).to(cuda, torch.bfloat16)
+    res = randn(2, m, k).to(cuda, torch.bfloat16)
+    before = fused_mlp.LAUNCHES
+    with torch.inference_mode():
+        out = fused_mlp.fused_ln_mlp_res(x, res, w)
+        torch.cuda.synchronize()
+    assert fused_mlp.LAUNCHES == before + 1
+    assert_matches_twin(out, fused_mlp.fused_ln_mlp_res_ref(x, res, w), "K3b fwd")
+    dy = randn(3, m, k).to(cuda, torch.bfloat16)
+    before = fused_mlp.LAUNCHES_BWD
+    dx, dw = fused_mlp.fused_ln_mlp_res_bwd(x, dy, w)
+    dx2, dw2 = fused_mlp.fused_ln_mlp_res_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    assert fused_mlp.LAUNCHES_BWD == before + 2
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(dw, dw2))
+    rdx, rdw = fused_mlp.fused_ln_mlp_res_bwd_ref(x, dy, w)
+    assert_matches_twin(dx, rdx, "K3b bwd dx", grad_of=torch.bfloat16)
+    for name, a, r in zip(fused_mlp.MlpWeights._fields, dw, rdw):
+        assert a.dtype == torch.float32
+        assert_matches_twin(a, r, f"K3b bwd d{name}", grad_of=torch.bfloat16)
+
+
+# --------------------------------------------------- K4 at long sequences --
+
+
+@pytest.mark.cuda
+def test_block_kernel_matches_twin_at_2049_tokens(cuda):
+    """K4 at the 512-px fine-tune's eval shape: its attention step runs
+    the K2 forward kernel, as K/V of 2049 keys do not fit in shared memory."""
+    w = block_weights(768, 3072, device=cuda)
+    x = randn(1, 4, 2049, 768).to(cuda, torch.bfloat16)
+    before = fused_block.LAUNCHES
+    with torch.inference_mode():
+        out = fused_block.fused_block_infer(x, w, 12)
+        torch.cuda.synchronize()
+        assert fused_block.LAUNCHES == before + 1
+        assert_matches_twin(out, fused_block.block_infer_ref(x, w, 12), "K4 at 2049 tokens")

@@ -210,8 +210,9 @@ def test_port_forward_imports_no_jax():
         "with torch.inference_mode():\n"
         "    preds, masks = m(make_synthetic_batch(2, input_size=64), num_encoded_tokens=24, generator=g)\n"
         "assert preds['rgb'].shape == (2, 64, 64, 3)\n"
-        "import multimae_tpu_torch.train.pretrain_step, multimae_tpu_torch.train.optim_factory\n"
-        "import multimae_tpu_torch.train.schedules, multimae_tpu_torch.train.task_balancing\n"
+        "import importlib, pkgutil, multimae_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(multimae_tpu_torch.__path__, 'multimae_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
         "new = {n.split('.')[0] for n in set(sys.modules) - before}\n"
         "bad = new & {'jax', 'jaxlib', 'flax', 'multimae_tpu'}\n"
         "assert not bad, bad\n"

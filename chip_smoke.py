@@ -32,13 +32,16 @@ non-zero:
      every decoder parameter's gradient); ms per step, samples/s and peak
      memory for both paths.
   8. K2 short_attention forward and backward against their plain twins
-     at (4, 2049, 12 heads, 64) and (4, 1025, 12, 64), bf16: o, lse,
-     dq, dk and dv, the backward bit-equal over two runs; kernel, twin
-     and torch's scaled_dot_product_attention (the yardstick, never
-     called by the port) timed at 197, 577, 1025 and 2049 keys;
-  9. K3b fused_ln_mlp_res forward and backward against their plain twins
-     at the ConvNeXt head's (65,536, 384, hidden 1536), bf16: the output
-     and all 8 gradients, bit-equal over two runs, and times;
+     at (4, 2049, 12 heads, 64), (4, 1025, 12, 64) and (4, 577, 12, 64)
+     (the regime of the JAX package's flash wrapper, which K2 serves),
+     bf16: o, lse, dq, dk and dv, the backward bit-equal over two runs;
+     kernel, twin and torch's scaled_dot_product_attention (the
+     yardstick, never called by the port) timed at 197, 577, 1025 and
+     2049 keys;
+  9. K3b fused_ln_mlp_res and K3a fused_mlp forward and backward against
+     their plain twins at the ConvNeXt head's (65,536, 384, hidden 1536),
+     bf16: the outputs and all gradients, bit-equal over two runs, and
+     times (no path runs K3a: the ConvNeXt block takes K3b);
  10. K4 against its twin at the fine-tune's eval shape (4, 2049, 768):
      its attention step runs the K2 forward kernel;
  11. the fine-tune slice: MultiViT-B with RGB + depth at 512 px (2049
@@ -107,12 +110,19 @@ STEP_GRAD_TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float32": 1.5e-6}
 # gradient. Unlike phase 7 the whole model runs through kernels (K2 in all
 # 12 encoder blocks, K3b in the head), so bf16 rounding flips reach every
 # gradient. Each limit is three to four times the reading on an H100:
-# 4.8e-6 (loss), 8.8e-6 (grad norm), 7.3e-3 (the worst parameter, the rgb
-# patch projection). The eval preds against the plain twins within
-# SLICE_TOLERANCE.
+# 4.8e-6 (loss), 7.3e-3 (the worst parameter, the rgb patch projection).
+# The grad norm's reading depends on which of K2's bf16 roundings of p flip
+# against the twin's: 8.8e-6 and 1.35e-5 with the first K2 kernels,
+# 3.13e-5 to 3.50e-5 with the current two-pass forward (six runs with the
+# same kernel outputs; the twin path moves by up to 3e-6, atomic adds in
+# torch's bilinear-resize backward), and 8.11e-5 with a variant of that
+# forward that summed each row over 128-key steps (o within 1.54e-4 rel
+# RMS of the twin, as the kept kernel's); the limit is three times that
+# largest reading, within the 1e-2 cap set for it. The eval preds against
+# the plain twins within SLICE_TOLERANCE.
 SEMSEG_BATCH = 4
 SEMSEG_LOSS_TOLERANCE = 2e-5
-SEMSEG_NORM_TOLERANCE = 4e-5
+SEMSEG_NORM_TOLERANCE = 2.5e-4
 SEMSEG_GRAD_TOLERANCE = 2.5e-2
 SEMSEG_CLASSES = 40
 
@@ -201,7 +211,9 @@ def launch_counts():
             "short_attention_fwd": short_attention.LAUNCHES,
             "short_attention_bwd": short_attention.LAUNCHES_BWD,
             "fused_ln_mlp_res_fwd": fused_mlp.LAUNCHES,
-            "fused_ln_mlp_res_bwd": fused_mlp.LAUNCHES_BWD}
+            "fused_ln_mlp_res_bwd": fused_mlp.LAUNCHES_BWD,
+            "fused_mlp_fwd": fused_mlp.LAUNCHES_MLP,
+            "fused_mlp_bwd": fused_mlp.LAUNCHES_MLP_BWD}
 
 
 def reset_launch_counts():
@@ -209,6 +221,7 @@ def reset_launch_counts():
     fused_block.LAUNCHES = 0
     fused_decoder.LAUNCHES = fused_decoder.LAUNCHES_BWD = 0
     fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BWD = 0
+    fused_mlp.LAUNCHES_MLP = fused_mlp.LAUNCHES_MLP_BWD = 0
     short_attention.LAUNCHES = short_attention.LAUNCHES_BWD = 0
 
 
@@ -365,7 +378,8 @@ def free_card(torch):
 
 def short_attention_phase(torch, dev):
     """Phase 8; returns the K2 forward and backward entries of the kernel
-    line (times at the slice's 2049 keys)."""
+    line (times at the slice's 2049 keys) and the flash wrapper's, which
+    the K2 forward serves (times at 577 keys)."""
     import torch.nn.functional as F
 
     from multimae_tpu_torch.ops import short_attention as sa
@@ -380,7 +394,8 @@ def short_attention_phase(torch, dev):
         g = torch.randn((b, n, h, dh), generator=gen).to(dev, torch.bfloat16)
         return (*qkv.unbind(2), g)
 
-    for n in (2049, 1025):
+    errors = {}
+    for n in (2049, 1025, 577):
         q, k, v, g = inputs(n)
         o, lse = sa.short_attention_fwd(q, k, v, scale)
         grads = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
@@ -401,9 +416,8 @@ def short_attention_phase(torch, dev):
         log(8, f"K2 ({b},{n},{h},{dh}) bf16 within TWIN/GRAD_TOLERANCE, bwd bit-equal over "
                "two runs; max abs / rel RMS: "
                + ", ".join(f"{k} {e[0]:.3e} / {e[1]:.3e}" for k, e in errs.items()))
-        if n == 2049:
-            fwd_err = max(errs["o"][0], errs["lse"][0])
-            bwd_err = max(errs[k][0] for k in ("dq", "dk", "dv"))
+        errors[n] = (max(errs["o"][0], errs["lse"][0]),
+                     max(errs[k][0] for k in ("dq", "dk", "dv")))
 
     sweep = {}
     for n in (197, 577, 1025, 2049):
@@ -436,31 +450,66 @@ def short_attention_phase(torch, dev):
         del q, k, v, g, o, lse, leaves
         free_card(torch)
 
-    n = 2049
-    fl = 4 * b * h * n * n * dh
-    fwd_bound = bound(fl, 2 * 4 * b * n * h * dh + 4 * b * h * n)
-    bwd_bound = bound(2.5 * fl, 2 * 7 * b * n * h * dh + 2 * 4 * b * h * n)
-    top = sweep[n]
+    # Where the forward's time goes at 2049 keys: each pass alone, and both
+    # passes without the exponentials (stage entry of the kernel; dh 64).
+    from multimae_tpu_torch.ops import _build
+
+    q, k, v, _ = inputs(2049)
+    ldq, ldk, ldv = sa._check(q, k, v)
+    o = torch.empty_like(q)
+    lib = _build.load()
+
+    def stage(mode):
+        rc = lib.mm_short_attention_fwd_stage_bf16(
+            q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, o.data_ptr(), b, 2049,
+            2049, h, mode, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "short_attention forward stage")
+
+    stages = {name: cuda_ms(torch, lambda m=mode: stage(m), iters=10, warmup=2, repeats=3)
+              for name, mode in (("pass 1", 1), ("pass 2", 2), ("both", 3),
+                                 ("both without exponentials", 7))}
+    log(8, "K2 fwd stages at 2049 keys (launched bare): "
+           + ", ".join(f"{name} {ms:.4f} ms" for name, ms in stages.items()))
+    del q, k, v, o
+    free_card(torch)
+
+    def bounds(n):
+        """(forward, backward) bounds at n keys: q . k^T and p . v; the
+        backward's five products. Forward in: q, k, v; out: o and the fp32
+        lse. Backward in: q, k, v, o, do and the lse; out: dq, dk, dv."""
+        fl = 4 * b * h * n * n * dh
+        return (bound(fl, 2 * 4 * b * n * h * dh + 4 * b * h * n),
+                bound(2.5 * fl, 2 * 8 * b * n * h * dh + 4 * b * h * n))
+
+    (fwd_bound, bwd_bound), top = bounds(2049), sweep[2049]
+    flash_bound, flash = bounds(577)[0], sweep[577]
     return [
         {"name": "short_attention_fwd", "route": "cuda",
          "source": "multimae_tpu_torch/csrc/short_attention_fwd.cu",
          "replaces": "multimae_tpu/ops/short_attention_pallas.py:255",
-         "max_abs_err": fwd_err, "ms": top["fwd_ms"], "plain_ms": top["fwd_plain_ms"],
+         "max_abs_err": errors[2049][0], "ms": top["fwd_ms"], "plain_ms": top["fwd_plain_ms"],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-         "library_ms": top["sdpa_fwd_ms"], "sweep": sweep},
+         "library_ms": top["sdpa_fwd_ms"], "sweep": sweep, "stages_ms": stages},
         {"name": "short_attention_bwd", "route": "cuda",
          "source": "multimae_tpu_torch/csrc/short_attention_bwd.cu",
          "replaces": "multimae_tpu/ops/short_attention_pallas.py:319",
-         "max_abs_err": bwd_err, "ms": top["bwd_ms"], "plain_ms": top["bwd_plain_ms"],
+         "max_abs_err": errors[2049][1], "ms": top["bwd_ms"], "plain_ms": top["bwd_plain_ms"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
          "library_ms": top["sdpa_fwd_bwd_ms"],
          "library_is": "scaled_dot_product_attention forward + backward",
          "fwd_bwd_ms": top["fwd_ms"] + top["bwd_ms"]},
+        {"name": "flash_attention_padded", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/short_attention_fwd.cu",
+         "replaces": "multimae_tpu/ops/attention.py:176",
+         "served_by": "short_attention_fwd", "shape": [b, 577, h, dh],
+         "max_abs_err": errors[577][0], "ms": flash["fwd_ms"],
+         "plain_ms": flash["fwd_plain_ms"], "bound_ms": flash_bound[0],
+         "bound_by": flash_bound[1], "library_ms": flash["sdpa_fwd_ms"]},
     ]
 
 
 def fused_mlp_phase(torch, dev):
-    """Phase 9; returns the K3b forward and backward entries."""
+    """Phase 9; returns the K3b and K3a forward and backward entries."""
     from multimae_tpu_torch.ops import fused_mlp
     from multimae_tpu_torch.ops.functional import assert_matches_twin
 
@@ -509,12 +558,13 @@ def fused_mlp_phase(torch, dev):
            f"{bwd[1]:.4f} ms")
     log(9, "max abs / rel RMS per gradient: "
            + ", ".join(f"{n} {e[0]:.2e} / {e[1]:.2e}" for n, e in errs.items()))
-    del x, res, dy
-    free_card(torch)
     wbytes = 2 * 2 * k * hid
     fwd_bound = bound(4 * m * k * hid, 2 * 3 * m * k + wbytes)
     bwd_bound = bound(10 * m * k * hid, 2 * 3 * m * k + wbytes + 4 * 2 * k * hid)
-    return [
+    k3a = fused_mlp_core_part(torch, fused_mlp, x, dy, w, wbytes)
+    del x, res, dy
+    free_card(torch)
+    return k3a + [
         {"name": "fused_ln_mlp_res_fwd", "route": "cuda",
          "source": "multimae_tpu_torch/csrc/fused_mlp_fwd.cu",
          "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:298",
@@ -523,6 +573,55 @@ def fused_mlp_phase(torch, dev):
         {"name": "fused_ln_mlp_res_bwd", "route": "cuda",
          "source": "multimae_tpu_torch/csrc/fused_mlp_bwd.cu",
          "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:320",
+         "max_abs_err": max(e[0] for e in errs.values()), "ms": bwd[0], "plain_ms": bwd[1],
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
+    ]
+
+
+def fused_mlp_core_part(torch, fused_mlp, x, dy, w, wbytes):
+    """Phase 9, K3a: fc2(GELU(fc1(x))) with K3b's fc1 and fc2 weights on its
+    x and dy; returns the K3a forward and backward entries."""
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    (m, k), hid = x.shape, w.w1.shape[0]
+    wc = fused_mlp.MlpCoreWeights(*w[2:])
+    with torch.inference_mode():
+        out = fused_mlp.fused_mlp(x, wc)
+        torch.cuda.synchronize()
+        fwd_err = assert_matches_twin(out, fused_mlp.fused_mlp_ref(x, wc), "K3a fwd")
+    kern, again = fused_mlp.fused_mlp_bwd(x, dy, wc), fused_mlp.fused_mlp_bwd(x, dy, wc)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip([kern[0], *kern[1]], [again[0], *again[1]])):
+        raise AssertionError("K3a bwd: two runs on the same inputs differ")
+    plain = fused_mlp.fused_mlp_bwd_ref(x, dy, wc)
+    names = ["dx"] + ["d" + f for f in fused_mlp.MlpCoreWeights._fields]
+    errs = {n: assert_matches_twin(a, r, f"K3a bwd {n}", grad_of=torch.bfloat16)
+            for n, a, r in zip(names, [kern[0], *kern[1]], [plain[0], *plain[1]])}
+    del out, kern, again, plain
+    with torch.inference_mode():
+        fwd = ab_ms(torch, lambda: fused_mlp.fused_mlp(x, wc),
+                    lambda: fused_mlp.fused_mlp_ref(x, wc), iters=10)
+    bwd = ab_ms(torch, lambda: fused_mlp.fused_mlp_bwd(x, dy, wc),
+                lambda: fused_mlp.fused_mlp_bwd_ref(x, dy, wc), iters=5)
+    log(9, f"K3a ({m},{k}) hidden {hid} bf16: fwd max abs {fwd_err[0]:.3e}, rel RMS "
+           f"{fwd_err[1]:.3e}; 5 gradients within GRAD_TOLERANCE, bit-equal over two runs "
+           "(max abs / rel RMS: " + ", ".join(f"{n} {e[0]:.2e} / {e[1]:.2e}"
+                                              for n, e in errs.items())
+           + f"); kernel / twin fwd {fwd[0]:.4f} / {fwd[1]:.4f} ms, bwd {bwd[0]:.4f} / "
+           f"{bwd[1]:.4f} ms")
+    # In: x (and dy), the bf16 weights; out: y, or dx and the fp32 dW, db.
+    # The backward's five GEMMs: fc1 recomputed, dW2, dh, dW1, dx.
+    fwd_bound = bound(4 * m * k * hid, 2 * 2 * m * k + wbytes)
+    bwd_bound = bound(10 * m * k * hid, 2 * 3 * m * k + wbytes + 4 * (2 * k * hid + k + hid))
+    return [
+        {"name": "fused_mlp_fwd", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/fused_mlp_fwd.cu",
+         "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:169",
+         "max_abs_err": fwd_err[0], "ms": fwd[0], "plain_ms": fwd[1],
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
+        {"name": "fused_mlp_bwd", "route": "cuda",
+         "source": "multimae_tpu_torch/csrc/fused_mlp_bwd.cu",
+         "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:190",
          "max_abs_err": max(e[0] for e in errs.values()), "ms": bwd[0], "plain_ms": bwd[1],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
     ]
@@ -554,9 +653,9 @@ def semseg_slice(torch, dev):
             f"decay 0.75) built in {time.perf_counter() - t0:.1f} s; batch {SEMSEG_BATCH}, "
             f"lr {state.lr_values[0]:.3e}")
 
-    expect = {"fused_block_infer": 0, "fused_decoder_fwd": 0, "fused_decoder_bwd": 0,
-              "short_attention_fwd": 12, "short_attention_bwd": 12,
-              "fused_ln_mlp_res_fwd": 4, "fused_ln_mlp_res_bwd": 4}
+    expect = dict.fromkeys(launch_counts(), 0)
+    expect.update(short_attention_fwd=12, short_attention_bwd=12, fused_ln_mlp_res_fwd=4,
+                  fused_ln_mlp_res_bwd=4)
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     history = []
@@ -904,7 +1003,7 @@ def main():
     del model, results, batches, kern, plain
     free_card(torch)
 
-    # 8. K2 and 9. K3b against their twins
+    # 8. K2 and 9. K3b and K3a against their twins
     kernels += short_attention_phase(torch, dev)
     kernels += fused_mlp_phase(torch, dev)
 
@@ -930,11 +1029,12 @@ def main():
     # 11. the fine-tune slice
     step_launches, eval_launches = semseg_slice(torch, dev)
     for k in kernels:
-        if k["name"] in ("short_attention_fwd", "short_attention_bwd",
-                         "fused_ln_mlp_res_fwd", "fused_ln_mlp_res_bwd"):
-            k["launches"] = step_launches[k["name"]]
-        k["semseg_step_launches"] = step_launches[k["name"]]
-        k["semseg_eval_launches"] = eval_launches[k["name"]]
+        name = k.get("served_by", k["name"])
+        if name in ("short_attention_fwd", "short_attention_bwd", "fused_ln_mlp_res_fwd",
+                    "fused_ln_mlp_res_bwd", "fused_mlp_fwd", "fused_mlp_bwd"):
+            k["launches"] = step_launches[name]
+        k["semseg_step_launches"] = step_launches[name]
+        k["semseg_eval_launches"] = eval_launches[name]
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

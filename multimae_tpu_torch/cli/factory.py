@@ -29,6 +29,17 @@ from multimae_tpu_torch.train.task_balancing import build_balancer
 from multimae_tpu_torch.train.train_state import TrainState
 from multimae_tpu_torch.utils.data_constants import COCO_SEMSEG_NUM_CLASSES
 
+def entry_device(device="cuda") -> torch.device:
+    """The device an entry point builds on: the CUDA card unless the caller
+    names another (the CPU tests pass device="cpu"). Raises where the card
+    is asked for and torch sees none, instead of carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is visible to torch; pass device='cpu' "
+                           "to build on the CPU")
+    return device
+
+
 DOMAIN_CONF = {
     "rgb": {
         "channels": 3,
@@ -74,7 +85,7 @@ def build_pretrain_model(
     decoder_return_patches: bool = False,
     pos_emb_grads: bool = False,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ):
     """Reference get_model (run_pretraining_multimae.py:243-293), with
     weights drawn from a CPU torch.Generator seeded with `seed`, then
@@ -87,6 +98,7 @@ def build_pretrain_model(
     JAX step differentiates every parameter, frozen ones included, so its
     gradient norm, and with it clip and skip, counts the pos-embs: a
     training model that is to match it takes them into its norm too."""
+    device = entry_device(device)
     input_adapters = {
         d: functools.partial(
             DOMAIN_CONF[d]["input_adapter"],
@@ -137,9 +149,10 @@ def build_pretrain_losses(out_domains: Sequence[str], patch_size: int = 16,
 
 def make_synthetic_batch(batch: int, input_size: int = 224,
                          in_domains: Sequence[str] = ("rgb", "depth", "semseg"),
-                         seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+                         seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
     """Random NHWC batch shaped like the real pipeline's output; the same
     numpy draws as multimae_tpu.cli.factory.make_synthetic_batch."""
+    device = entry_device(device)
     rng = np.random.default_rng(seed)
     out = {}
     for d in in_domains:
@@ -154,7 +167,7 @@ def make_synthetic_batch(batch: int, input_size: int = 224,
     return {d: t.to(device) for d, t in out.items()}
 
 
-def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cpu"):
+def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda"):
     """(TrainState, train_step) of the flagship pretraining recipe
     (cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml, as the JAX
     package's bench.py:96-137 runs it): MultiMAE ViT-B in bf16 with the
@@ -163,6 +176,7 @@ def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cpu"):
     dict-model groups (filter_bias_and_bn=False), and the cosine LR from
     blr 1e-4 * batch_size / 256 (reference :372-373) to 0 over 1600 epochs
     of 100 steps, without warmup (with warmup the first step's LR is 0)."""
+    device = entry_device(device)
     domains = ("rgb", "depth", "semseg")
     model = build_pretrain_model(dtype=torch.bfloat16, fp32_output_adapters=("semseg",),
                                  decoder_return_patches=True, pos_emb_grads=True,
@@ -188,7 +202,7 @@ SEMSEG_RECIPE = dict(
 )
 
 
-def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cpu", **overrides):
+def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cuda", **overrides):
     """(TrainState, train_step) of the NYUv2 RGB + depth recipe: MultiViT-B
     at 512 px (2 x 1024 + 1 tokens) with the ConvNeXt head, 40 classes, in
     bf16 (the CLI's --fp16 default), drop_path 0.1 rising over the blocks,
@@ -201,6 +215,7 @@ def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cpu", **over
 
     The frozen sin-cos pos-embs get gradients that the optimizer never
     applies: the JAX step's gradient norm counts them."""
+    device = entry_device(device)
     r = dict(SEMSEG_RECIPE, **overrides)
     dtype = torch.bfloat16 if r["fp16"] else torch.float32
     model = build_semseg_model(
@@ -230,10 +245,11 @@ def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cpu", **over
 
 
 def make_synthetic_semseg_batch(batch: int, input_size: int = 512, num_classes: int = 40,
-                                seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+                                seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
     """Random NHWC rgb, truncated-standardised depth (as the data pipeline
     gives it) and an int64 target in [0, num_classes) with about 5% of the
     pixels at the ignore index 255."""
+    device = entry_device(device)
     rng = np.random.default_rng(seed)
     s = input_size
     rgb = rng.standard_normal((batch, s, s, 3)).astype(np.float32)

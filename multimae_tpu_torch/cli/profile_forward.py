@@ -40,17 +40,21 @@ from multimae_tpu_torch.ops import fused_block, fused_decoder, fused_mlp, short_
 
 TOP = 24
 
-# Kernel-name substrings -> kind, first match wins. The common.cuh kernels
-# serve K4, K1 fwd, K3b fwd and the backwards' recompute and dX GEMMs
-# alike; the backward.cuh pieces serve K1 bwd and K3b bwd.
+# Kernel-name substrings -> kind, first match wins. K2's four kernels are
+# told apart (its forward also runs inside K4 at long key sets). The
+# common.cuh kernels serve K4, K1 fwd, K3a and K3b fwd and the backwards'
+# recompute and dX GEMMs alike; the backward.cuh pieces serve K1 bwd, K3a
+# bwd and K3b bwd (K3a runs on no profiled path).
 CATEGORIES = (
-    ("K2 fwd + bwd (csrc/short_attention_*.cu)",
-     ("short_attention_fwd_kernel", "dkdv_kernel", "dq_kernel")),
+    ("K2 fwd (csrc/short_attention_fwd.cu)", ("short_attention_fwd_kernel",)),
+    ("K2 bwd dK/dV pass (csrc/short_attention_bwd.cu)", ("dkdv_kernel",)),
+    ("K2 bwd dQ pass (csrc/short_attention_bwd.cu)", ("dq_kernel",)),
+    ("K2 bwd delta and lse prep (csrc/short_attention_bwd.cu)", ("prep_kernel",)),
     ("K1 bwd attention (csrc/fused_decoder_bwd.cu)", ("attention_bwd_kernel",)),
-    ("backward.cuh pieces (K1 bwd, K3b bwd: dW, db, LN backward)",
+    ("backward.cuh pieces (K1 bwd, K3a/K3b bwd: dW, db, LN backward)",
      ("tn_bf16_kernel", "tn_f32_kernel", "ln_bwd_kernel", "ln_grad_partial_kernel",
       "colsum_partial_kernel", "sum_slices_kernel", "transpose_kernel", "gelu_kernel")),
-    ("common.cuh chains (K4, K1 fwd, K3b fwd, the backwards' GEMMs)",
+    ("common.cuh chains (K4, K1 fwd, K3a/K3b fwd, the backwards' GEMMs)",
      ("mm::gemm_", "mm::attention_kernel", "mm::layer_norm_kernel")),
     ("convolutions (cuDNN / torch: patch embedding, ConvNeXt depthwise, 1x1)",
      ("conv_depthwise", "convolve", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm")),

@@ -54,11 +54,15 @@ _SIGNATURES = {
                                        _LLP, _LLP, _LLP],
     "mm_short_attention_fwd_bf16": [_P, _I, _P, _I, _P, _I, _P, _P,
                                     _I, _I, _I, _I, _I, _P],
-    "mm_short_attention_bwd_bf16": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+    "mm_short_attention_bwd_bf16": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P],
+    "mm_short_attention_bwd_workspace": [_I, _I, _I, _LLP],
+    "mm_short_attention_fwd_stage_bf16": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "mm_fused_ln_mlp_res_fwd_bf16": [_P, _P, _P, _PP, _P, _P, _I, _I, _I, _P],
     "mm_fused_ln_mlp_res_bwd_bf16": [_P, _P, _P, _PP, _PP, _P, _P, _I, _I, _I, _P],
-    "mm_fused_ln_mlp_res_bwd_workspace": [_I, _I, _I, _LLP, _LLP],
+    "mm_fused_mlp_bwd_workspace": [_I, _I, _I, _I, _LLP, _LLP],
+    "mm_fused_mlp_fwd_bf16": [_P, _P, _PP, _P, _I, _I, _I, _P],
+    "mm_fused_mlp_bwd_bf16": [_P, _P, _P, _PP, _PP, _P, _P, _I, _I, _I, _P],
 }
 
 

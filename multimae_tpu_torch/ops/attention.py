@@ -3,9 +3,19 @@ multimae_tpu/ops/attention.py:62-86, :224-307).
 
 `fused_attention_bnhd` takes the K2 kernel (ops/short_attention.py) for
 CUDA bf16 tensors with at least SHORT_KERNEL_MIN_KV keys, else the einsum
-path with the reference's numerics. The TPU package's tensor-parallel,
-mesh and environment switches, its remat and light-residual variants and
-the shipped flash wrapper have no counterpart here.
+path with the reference's numerics.
+
+K2 also serves the JAX package's flash wrapper (`flash_attention_padded`,
+multimae_tpu/ops/attention.py:176, around JAX's shipped TPU flash kernel,
+taken at :297-302 where MULTIMAE_TPU_FLASH_ATTENTION=1 is set and the K2
+gate refused): that wrapper computes K2's function with 128-padding and
+segment ids, and every shape its gate takes (bf16, Nk >= 512, Nq >= 128,
+head widths 32, 64 and 128; its 256 fits no model in the repo) passes
+K2's gate, so it needs no kernel of its own: padding and segment ids are
+what K2's masked ragged tails already do.
+The TPU package's tensor-parallel, mesh and environment switches (the
+flash switch among them) and its remat and light-residual variants have
+no counterpart here.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ Counterpart of multimae_tpu/ops/short_attention_pallas.py
 `short_attention` (forward `_fwd`, backward `_short_attention_bwd` ->
 `_bwd`): o = softmax(q . k^T * scale) . v per (sample, head), with the fp32
 row logsumexp saved for a backward that recomputes the probabilities with
-one exp, p = exp(s * scale - lse), and takes delta = rowsum(do * o) from
-outside the kernel.
+one exp, p = exp(s * scale - lse), and takes delta = rowsum(do * o): the
+plain twin from `attention_delta` (as the JAX package computes it in XLA
+outside the kernel), the CUDA backward in its own first launch.
 
 The op is a torch.autograd.Function, as the JAX op is a custom_vjp. On a
 CUDA tensor its forward launches csrc/short_attention_fwd.cu and its
@@ -26,6 +27,8 @@ product summed in fp32 and rounded to the compute dtype.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -141,24 +144,30 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return o, lse
 
 
-def _launch_bwd(q, k, v, do, lse, delta):
+def _launch_bwd(q, k, v, o, do, lse):
     global LAUNCHES_BWD
     ldq, ldk, ldv = _check(q, k, v)
     b, nq, h, dh = q.shape
-    if (do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous()
-            or lse.shape != (b, h, nq, 1) or delta.shape != lse.shape
-            or lse.dtype != torch.float32 or delta.dtype != torch.float32):
-        raise ValueError("short_attention backward: do must be a contiguous "
-                         f"{tuple(q.shape)} {q.dtype}, lse and delta fp32 {(b, h, nq, 1)}")
-    lse, delta = lse.contiguous(), delta.contiguous()
+    for name, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"short_attention backward: {name} must be a contiguous "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if lse.shape != (b, h, nq, 1) or lse.dtype != torch.float32:
+        raise ValueError(f"short_attention backward: lse must be fp32 {(b, h, nq, 1)}")
+    lse = lse.contiguous()
     dq = torch.empty_like(do)
     dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
     dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
     lib = _build.load()
+    elems = ctypes.c_longlong()
+    lib.mm_short_attention_bwd_workspace(b, nq, h, ctypes.byref(elems))
+    ws = torch.empty(elems.value, device=q.device, dtype=torch.float32)
     rc = lib.mm_short_attention_bwd_bf16(
-        q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, nq, k.shape[1], h, dh, torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, nq, k.shape[1], h, dh,
+        torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES_BWD += 1
     _build.check(lib, rc, "short_attention backward")
     return dq, dk, dv
@@ -181,12 +190,11 @@ def short_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
 
 def short_attention_bwd(q, k, v, o, lse, do, scale: float):
     """(dq, dk, dv) from the forward's o and lse and the gradient do."""
-    delta = attention_delta(o, do)
     if _plain(q):
-        return short_attention_bwd_ref(q, k, v, do, lse, delta, scale)
+        return short_attention_bwd_ref(q, k, v, do, lse, attention_delta(o, do), scale)
     if scale != q.shape[-1] ** -0.5:
         raise ValueError(f"short_attention: the kernel's scale is dh ** -0.5, not {scale}")
-    return _launch_bwd(q, k, v, do.contiguous(), lse, delta)
+    return _launch_bwd(q, k, v, o.contiguous(), do.contiguous(), lse)
 
 
 class _ShortAttention(torch.autograd.Function):

@@ -44,7 +44,7 @@ def test_matches_the_jax_exporter(params):
 
 def test_strict_load_into_the_port(params):
     sd = jax_params_to_state_dict(params, PROJ_SHAPES)
-    model = tfactory.build_pretrain_model(**TINY)
+    model = tfactory.build_pretrain_model(**TINY, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     loaded = model.state_dict()
     assert set(loaded) == set(sd)
@@ -65,9 +65,9 @@ def test_key_mapping(path, key):
 
 
 def test_seeded_init_is_reproducible_and_complete():
-    a = tfactory.build_pretrain_model(seed=3, **TINY).state_dict()
-    b = tfactory.build_pretrain_model(seed=3, **TINY).state_dict()
-    c = tfactory.build_pretrain_model(seed=4, **TINY).state_dict()
+    a = tfactory.build_pretrain_model(seed=3, **TINY, device="cpu").state_dict()
+    b = tfactory.build_pretrain_model(seed=3, **TINY, device="cpu").state_dict()
+    c = tfactory.build_pretrain_model(seed=4, **TINY, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["encoder.0.attn.qkv.weight"], c["encoder.0.attn.qkv.weight"])
     for k, v in a.items():
@@ -86,7 +86,7 @@ def test_train_params_round_trip_is_array_equal(params):
     sds = jax_train_params_to_state_dicts({"model": params,
                                            "balancer": {"log_vars": log_vars}}, PROJ_SHAPES)
     np.testing.assert_array_equal(sds["balancer"]["log_vars"], log_vars)
-    modules = {"model": tfactory.build_pretrain_model(**TINY),
+    modules = {"model": tfactory.build_pretrain_model(**TINY, device="cpu"),
                "balancer": build_balancer("uncertainty", tasks)}
     for name, module in modules.items():
         module.load_state_dict({k: torch.from_numpy(v) for k, v in sds[name].items()},

@@ -1,5 +1,6 @@
-"""The K3b plain twins against the JAX fused_ln_mlp_res kernel, and the
-ConvNeXt block and head against the JAX modules.
+"""The K3b plain twins against the JAX fused_ln_mlp_res kernel, the K3a
+plain twins against the JAX fused_mlp kernel (at the end of the file), and
+the ConvNeXt block and head against the JAX modules.
 
 The same numpy inputs go through JAX `fused_ln_mlp_res` (forward and its
 custom VJP), run in Pallas interpret mode on the CPU
@@ -155,3 +156,122 @@ def test_convnext_adapter_matches_jax():
     out = ad(torch.from_numpy(tokens), info)
     assert tuple(out.shape) == (2, 64, 64, 5)
     assert_close(out, ref, 5e-4, "ConvNeXtAdapter")
+
+
+# ---------------------------------------------------------------- K3a --
+#
+# The K3a twins `fused_mlp_ref` / `fused_mlp_bwd_ref` (through the port's
+# autograd Function) against JAX `fused_mlp` and its custom VJP, run in
+# Pallas interpret mode with a 128-row tile as tests/test_fused_mlp.py runs
+# it, at 256 rows (two whole tiles) and 300 (a padded remainder). The JAX
+# kernel takes w1 (K, H) and w2 (H, K); the port's torch layout is their
+# transpose. fp32: within 1e-5 (forward) and 1e-4 (gradients) of each
+# tensor's largest |value| (the JAX GELU is the tanh-basis fit of erf,
+# within 3e-6). bf16: relative RMS 1e-2, the twins' TWIN tolerance.
+
+MLP_K, MLP_H = 128, 256
+MLP_GRADS = ["dx", "w1", "b1", "w2", "b2"]
+
+
+def mlp_weights_np(seed=6):
+    """fp32 numpy weights in the torch layout: (w1 (H, K), b1, w2 (K, H), b2)."""
+    rng = np.random.default_rng(seed)
+    return tuple((rng.standard_normal(s) * 0.3).astype(np.float32)
+                 for s in ((MLP_H, MLP_K), (MLP_H,), (MLP_K, MLP_H), (MLP_K,)))
+
+
+@pytest.fixture(scope="module", params=[(256, "float32"), (300, "float32"),
+                                        (256, "bfloat16"), (300, "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def mlp_run(request):
+    m, dtype = request.param
+    rng = np.random.default_rng(m)
+    x, dy = (rng.standard_normal((m, MLP_K)).astype(np.float32) for _ in range(2))
+    w = mlp_weights_np()
+    jdt = jnp.dtype(dtype)
+    jx, jdy = (jnp.asarray(a).astype(jdt) for a in (x, dy))
+    w1, b1, w2, b2 = (jnp.asarray(a) for a in w)
+    old_tile = fmp._ROW_TILE
+    fmp.set_force_mode("interpret")
+    fmp._ROW_TILE = 128
+    try:
+        out, vjp = jax.vjp(fmp.fused_mlp, jx, w1.T, b1, w2.T, b2)
+        grads = vjp(jdy)
+    finally:
+        fmp.set_force_mode(None)
+        fmp._ROW_TILE = old_tile
+    jgrads = [np.asarray(g.astype(jnp.float32)) for g in grads]
+    jgrads[1], jgrads[3] = jgrads[1].T, jgrads[3].T  # to the torch layout
+    tdt = getattr(torch, dtype)
+    return (dtype, torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt), w,
+            np.asarray(out.astype(jnp.float32)), jgrads)
+
+
+def assert_mlp_close(out, ref, dtype, tol_fp32, what):
+    out = out.detach().float().numpy()
+    assert out.shape == ref.shape, (what, out.shape, ref.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=tol_fp32 * np.abs(ref).max(),
+                                   err_msg=what)
+    else:
+        rel = float(np.sqrt(((out - ref) ** 2).mean() / (ref ** 2).mean()))
+        assert rel <= 1e-2, (what, rel)
+
+
+def test_fused_mlp_twin_matches_jax_kernel(mlp_run):
+    dtype, x, _, w, jout, _ = mlp_run
+    out = fused_mlp.fused_mlp_ref(x, fused_mlp.MlpCoreWeights(*map(torch.from_numpy, w)))
+    assert out.dtype == x.dtype
+    assert_mlp_close(out, jout, dtype, 1e-5, "y")
+
+
+@pytest.mark.parametrize("i", range(len(MLP_GRADS)), ids=MLP_GRADS)
+def test_fused_mlp_backward_matches_jax_vjp(mlp_run, i):
+    dtype, x, dy, w, _, jgrads = mlp_run
+    tx = x.clone().requires_grad_()
+    tw = fused_mlp.MlpCoreWeights(*(torch.from_numpy(a).requires_grad_() for a in w))
+    fused_mlp.fused_mlp(tx, tw).backward(dy)
+    got = [tx.grad] + [t.grad for t in tw]
+    assert got[i].dtype == (x.dtype if i == 0 else torch.float32)
+    assert_mlp_close(got[i], jgrads[i], dtype, 1e-4, MLP_GRADS[i])
+
+
+def test_fused_mlp_backward_twin_matches_autograd():
+    """The written-out K3a backward twin against autograd through the
+    forward twin (fp32): the same gradients by two routes."""
+    rng = np.random.default_rng(7)
+    x, dy = (torch.from_numpy(rng.standard_normal((300, MLP_K)).astype(np.float32))
+             for _ in range(2))
+    w = fused_mlp.MlpCoreWeights(*(torch.from_numpy(a).requires_grad_()
+                                   for a in mlp_weights_np(8)))
+    x.requires_grad_()
+    fused_mlp.fused_mlp_ref(x, w).backward(dy)
+    dx, dw = fused_mlp.fused_mlp_bwd_ref(x.detach(), dy, w)
+    for name, a, t in zip(["x"] + list(fused_mlp.MlpCoreWeights._fields), [dx, *dw], [x, *w]):
+        torch.testing.assert_close(a, t.grad, rtol=0, atol=2e-5 * float(t.grad.abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("m,k,h,dtype", [
+    (16384, 384, 1536, torch.bfloat16), (16383, 384, 1536, torch.bfloat16),
+    (65536, 128, 512, torch.bfloat16), (65536, 384, 1536, torch.float32),
+    (65536, 192, 768, torch.bfloat16), (65536, 384, 1000, torch.bfloat16),
+    (262144, 4096, 4096, torch.bfloat16)])
+def test_fused_mlp_supported_is_the_jax_predicate(m, k, h, dtype):
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    assert fused_mlp.fused_mlp_supported(m, k, h, dtype) == fmp.supported(m, k, h, jdt)
+
+
+def test_fused_mlp_cpu_path_takes_the_twins_without_a_launch():
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((40, MLP_K)).astype(np.float32)).requires_grad_()
+    w = fused_mlp.MlpCoreWeights(*(torch.from_numpy(a).requires_grad_()
+                                   for a in mlp_weights_np()))
+    before = (fused_mlp.LAUNCHES_MLP, fused_mlp.LAUNCHES_MLP_BWD,
+              fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BWD)
+    out = fused_mlp.fused_mlp(x, w)
+    out.backward(torch.ones_like(out))
+    assert (fused_mlp.LAUNCHES_MLP, fused_mlp.LAUNCHES_MLP_BWD,
+            fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BWD) == before
+    torch.testing.assert_close(out, fused_mlp.fused_mlp_ref(x, w), rtol=0, atol=0)
+    assert all(t.grad is not None for t in (x, *w))

@@ -81,13 +81,13 @@ def run_both(params, jdtype, tdtype, fp32_adapters=(),
 
     tmodel = tfactory.build_pretrain_model(dtype=tdtype, in_domains=in_domains,
                                            fp32_output_adapters=fp32_adapters,
-                                           **TINY)
+                                           **TINY, device="cpu")
     sd = jax_params_to_state_dict(jax.tree.map(np.array, params), PROJ_SHAPES)
     tmodel.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                            strict=True)
     tmodel.eval()
     tbatch = tfactory.make_synthetic_batch(B, input_size=64, in_domains=in_domains,
-                                           seed=1)
+                                           seed=1, device="cpu")
     with torch.inference_mode():
         tpreds, tmasks = tmodel(tbatch, num_encoded_tokens=K,
                                 task_masks={t: torch.from_numpy(m)
@@ -184,10 +184,10 @@ def test_full_width_vit_b_matches_jax():
                 params, jbatch, {t: jnp.asarray(m) for t, m in masks.items()})
     finally:
         fdp.set_force_mode(None)
-    tmodel = tfactory.build_pretrain_model(**base)
+    tmodel = tfactory.build_pretrain_model(**base, device="cpu")
     sd = jax_params_to_state_dict(jax.tree.map(np.array, params), PROJ_SHAPES)
     tmodel.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
-    tbatch = tfactory.make_synthetic_batch(1, seed=5)
+    tbatch = tfactory.make_synthetic_batch(1, seed=5, device="cpu")
     with torch.inference_mode():
         tpreds, _ = tmodel.eval()(tbatch, num_encoded_tokens=98,
                                   task_masks={t: torch.from_numpy(m) for t, m in masks.items()})
@@ -205,10 +205,11 @@ def test_port_forward_imports_no_jax():
         "import torch\n"
         "from multimae_tpu_torch.cli.factory import build_pretrain_model, make_synthetic_batch\n"
         "m = build_pretrain_model(model_name='pretrain_multimae_tiny', input_size=64,\n"
-        "                         decoder_dim=64, decoder_num_heads=4).eval()\n"
+        "                         decoder_dim=64, decoder_num_heads=4, device='cpu').eval()\n"
         "g = torch.Generator().manual_seed(0)\n"
         "with torch.inference_mode():\n"
-        "    preds, masks = m(make_synthetic_batch(2, input_size=64), num_encoded_tokens=24, generator=g)\n"
+        "    preds, masks = m(make_synthetic_batch(2, input_size=64, device='cpu'),\n"
+        "                     num_encoded_tokens=24, generator=g)\n"
         "assert preds['rgb'].shape == (2, 64, 64, 3)\n"
         "import importlib, pkgutil, multimae_tpu_torch\n"
         "for mod in pkgutil.walk_packages(multimae_tpu_torch.__path__, 'multimae_tpu_torch.'):\n"
@@ -231,11 +232,11 @@ def test_return_patches_are_the_pixel_preds_patchified():
     from multimae_tpu_torch.models.criterion import patchify_cpp
 
     masks = {t: torch.from_numpy(m) for t, m in fixed_masks(B).items()}
-    batch = tfactory.make_synthetic_batch(B, input_size=64, seed=1)
+    batch = tfactory.make_synthetic_batch(B, input_size=64, seed=1, device="cpu")
     preds = {}
     for patches in (False, True):
         model = tfactory.build_pretrain_model(seed=2, decoder_return_patches=patches,
-                                              **TINY).eval()
+                                              **TINY, device="cpu").eval()
         with torch.inference_mode():
             preds[patches], _ = model(batch, num_encoded_tokens=K, task_masks=masks)
     for task, img in preds[False].items():

@@ -76,7 +76,8 @@ def jax_args():
 
 
 def batch_np(seed=1):
-    b = factory.make_synthetic_semseg_batch(B, input_size=S, num_classes=CLASSES, seed=seed)
+    b = factory.make_synthetic_semseg_batch(B, input_size=S, num_classes=CLASSES, seed=seed,
+                                            device="cpu")
     return {k: v.numpy() for k, v in b.items()}
 
 
@@ -299,14 +300,15 @@ def test_trainer_recipe_matches_the_yaml():
 
 
 def test_tiny_trainer_steps_and_its_batch():
-    b = factory.make_synthetic_semseg_batch(2, input_size=64, num_classes=40, seed=3)
+    b = factory.make_synthetic_semseg_batch(2, input_size=64, num_classes=40, seed=3,
+                                            device="cpu")
     t = b["target"]
     assert t.dtype == torch.int64 and set(t.unique().tolist()) <= set(range(40)) | {255}
     assert 0.03 < float((t == 255).float().mean()) < 0.07
     assert abs(float(b["depth"].mean())) < 0.1
     state, step = factory.build_semseg_trainer(
         batch_size=2, model="multivit_tiny", input_size=64, decoder_dim=256, decoder_depth=2,
-        fp16=False)
+        fp16=False, device="cpu")
     assert state.model.encoder[-1].drop_path_rate == pytest.approx(0.1)
     gen = torch.Generator().manual_seed(0)
     history = [step(state, b, generator=gen) for _ in range(3)]

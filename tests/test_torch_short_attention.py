@@ -109,6 +109,27 @@ def test_einsum_path_matches_jax(nk):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_twin_matches_jax_einsum_in_the_flash_regime(dtype):
+    """The flash wrapper's padded regime (multimae_tpu/ops/attention.py:176,
+    taken at :297-302): Nq 130 and Nk 577 pad to 256 and 640 there. The
+    flash kernel cannot run on the CPU; the function it computes is the
+    einsum attention, which the K2 twin (forward and gradients) matches."""
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    scale = 64 ** -0.5
+    q, g = inputs((2, 130, 3, 64), seed=6)[:2]
+    k, v = inputs((2, 577, 3, 64), seed=7)[:2]
+    jq, jk, jv, jg = (to_jax(a, jdt) for a in (q, k, v, g))
+    jo, vjp = jax.vjp(lambda a, b_, c: jeinsum(a, b_, c, scale), jq, jk, jv)
+    jgrads = vjp(jg)
+    tq, tk, tv = (to_torch(a, tdt).requires_grad_() for a in (q, k, v))
+    out = short_attention.short_attention(tq, tk, tv, scale)
+    assert_close(out.detach(), jo, dtype, 1e-5, "o")
+    out.backward(to_torch(g, tdt))
+    for name, t, jt in zip(("dq", "dk", "dv"), (tq, tk, tv), jgrads):
+        assert_close(t.grad, jt, dtype, 1e-4, name)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nk", [511, 512, 2049])
 def test_dispatch_takes_the_einsum_path_off_the_card(dtype, nk):

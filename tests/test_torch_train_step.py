@@ -123,7 +123,7 @@ def jax_run():
 
 def port_state(params0, **step_kw):
     """The port's model, balancer, TrainState and step from JAX params."""
-    model = tfactory.build_pretrain_model(**TINY, pos_emb_grads=True)
+    model = tfactory.build_pretrain_model(**TINY, pos_emb_grads=True, device="cpu")
     balancer = build_balancer("uncertainty", TASKS)
     sds = jax_train_params_to_state_dicts(params0, PROJ_SHAPES)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sds["model"].items()},
@@ -140,7 +140,7 @@ def port_state(params0, **step_kw):
 
 
 def port_batch():
-    return tfactory.make_synthetic_batch(B, input_size=64, seed=1)
+    return tfactory.make_synthetic_batch(B, input_size=64, seed=1, device="cpu")
 
 
 def torch_masks():
@@ -272,7 +272,7 @@ def test_param_groups_match_jax(jax_run, filter_bias_and_bn):
         else:
             expect[name] = (float(lr), float(wd))
 
-    model = tfactory.build_pretrain_model(**TINY)
+    model = tfactory.build_pretrain_model(**TINY, device="cpu")
     balancer = build_balancer("uncertainty", TASKS)
     groups, port_frozen = build_param_groups(
         model, balancer, filter_bias_and_bn=filter_bias_and_bn,

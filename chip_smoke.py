@@ -11,7 +11,10 @@ non-zero:
   3. K4 fused_block_infer against its plain twin at the encoder's shape
      (B=32, N=99, D=768, 12 heads, hidden 3072, bf16): errors and times;
   4. K1 fused_decoder_fwd against its plain twin at the decoders' shape
-     (B=32, 196 queries, 99 context, D=256, 8 heads, depth 2), bf16 and fp32;
+     (B=32, 196 queries, 99 context, D=256, 8 heads, depth 2) and at the
+     training slice's B=128, bf16 and fp32: errors, times, at B=128 two
+     runs bit-equal and the device time of each kernel of one launch
+     (torch.profiler);
   5. the slice: MultiMAE ViT-B (224 px, RGB + depth + semseg, 98 visible
      tokens, four decoders, fp32 semseg decoder) with seeded random
      weights answers three requests of 32 samples; every pred and loss is
@@ -19,8 +22,9 @@ non-zero:
      preds match the same model run on the plain twins;
   6. K1 fused_decoder_bwd against its plain twin at (B, 196, 99, 256,
      8 heads, depth 2) for B=32 and the training slice's B=128, bf16 and
-     fp32: dq, dc and all 28 fp32 weight gradients, times, and two runs
-     bit-equal;
+     fp32: dq, dc and all 28 fp32 weight gradients, times, two runs
+     bit-equal, and at B=128 the device time of each kernel of one launch
+     (the stage split, torch.profiler);
   7. the training slice: MultiMAE ViT-B pretraining (bf16, fp32 semseg
      decoder, return_patches, uncertainty balancer, AdamW (0.9, 0.95) with
      wd 0.05, cosine LR from 1e-4 * 128 / 256 without warmup,
@@ -230,6 +234,33 @@ def bound(flops, nbytes, peak=BF16_PEAK):
     rate and the bytes over the memory rate."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_split(torch, fn, iters=3):
+    """{kernel: device ms per call of fn()}, from torch.profiler over
+    `iters` calls after one warm-up; names without namespaces and
+    arguments, template arguments kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ").replace("mm::dtc::", "").replace("mm::", "")
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def log_split(phase, what, split):
+    log(phase, f"{what}: device {sum(split.values()):.4f} ms in {len(split)} kernels: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
 
 
 def block_work(b, n, d, hidden):
@@ -871,6 +902,38 @@ def main():
         log(4, f"K1 {dtype} ({b},{nq},{nc},{dd}) max abs {err:.3e}, rel RMS {rel:.3e}; "
                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         k1.update({f"{tag}max_abs_err": err, f"{tag}ms": ms, f"{tag}plain_ms": plain_ms})
+    # ... and at the training slice's batch, which phase 7 launches it at
+    bb, btag = TRAIN_BATCH, f"b{TRAIN_BATCH}_"
+    flops, weights = decoder_work(bb, nq, nc, dd, 4 * dd, depth)
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "fp32_")):
+        size = 2 if dtype == torch.bfloat16 else 4
+        k1_bound = bound(flops, size * (bb * (2 * nq + nc) * dd + weights),
+                         BF16_PEAK if size == 2 else FP32_PEAK)
+        q = torch.randn((bb, nq, dd), generator=gen).to(dev, dtype)
+        c = torch.randn((bb, nc, dd), generator=gen).to(dev, dtype)
+        with torch.inference_mode():
+            out = fused_decoder.fused_decoder_core(q, c, w1, hh, depth)
+            again = fused_decoder.fused_decoder_core(q, c, w1, hh, depth)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"K1 fwd {dtype} B={bb}: two runs on the same inputs differ")
+            ref = fused_decoder.decoder_core_ref(q, c, w1, hh, depth)
+            err, rel = assert_matches_twin(out, ref, f"K1 fused_decoder_fwd {dtype} B={bb}")
+            del out, again, ref
+            ms, plain_ms = ab_ms(
+                torch, lambda: fused_decoder.fused_decoder_core(q, c, w1, hh, depth),
+                lambda: fused_decoder.decoder_core_ref(q, c, w1, hh, depth), iters=5)
+            split = kernel_split(torch, lambda: fused_decoder.fused_decoder_core(
+                q, c, w1, hh, depth))
+        log(4, f"K1 {dtype} ({bb},{nq},{nc},{dd}) max abs {err:.3e}, rel RMS {rel:.3e}, "
+               f"bit-equal over two runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+               f"{k1_bound[0]:.4f} ms")
+        log_split(4, f"K1 fwd {dtype} B={bb} by kernel", split)
+        k1.update({f"{btag}{tag}max_abs_err": err, f"{btag}{tag}ms": ms,
+                   f"{btag}{tag}plain_ms": plain_ms, f"{btag}{tag}bound_ms": k1_bound[0],
+                   f"{btag}{tag}bound_by": k1_bound[1], f"{btag}{tag}stages_ms": split})
+        del q, c
+        free_card(torch)
     kernels.append(k1)
 
     # 5. the slice
@@ -987,10 +1050,15 @@ def main():
             ms, plain_ms = ab_ms(torch, bwd, plain_bwd, iters=5)
             log(6, f"K1 bwd {dtype} ({bb},{nq},{nc},{dd}) 30 outputs within GRAD_TOLERANCE, "
                    f"bit-equal over two runs; max abs {err:.3e}, worst rel RMS "
-                   f"{worst_rel:.3e} ({worst}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                   f"{worst_rel:.3e} ({worst}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                   f"bound {k1b_bound[0]:.4f} ms")
             log(6, "rel RMS per output: " + ", ".join(f"{n} {e[1]:.2e}" for e, n in errs))
             k1b.update({f"{btag}{tag}max_abs_err": err, f"{btag}{tag}ms": ms,
                         f"{btag}{tag}plain_ms": plain_ms})
+            if bb == TRAIN_BATCH:  # where one launch's time goes
+                split = kernel_split(torch, bwd)
+                log_split(6, f"K1 bwd {dtype} B={bb} by kernel", split)
+                k1b[f"{btag}{tag}stages_ms"] = split
     kernels.append(k1b)
 
     # 7. the training slice

@@ -16,6 +16,9 @@ from multimae_tpu.ops import fused_decoder_pallas as fdp
 from multimae_tpu_torch.ops import fused_decoder
 
 B, NQ, NC, D, HEADS, DEPTH = 2, 16, 9, 64, 4, 2
+# (B, Nq, Nc, D, heads): the module's shape, and ragged ones at head width
+# 32 whose edges the CUDA tiles mask (16-row tiles, 64-key chunks).
+SHAPES = [(B, NQ, NC, D, HEADS), (2, 20, 13, 64, 2), (3, 17, 5, 64, 2)]
 _KERNELS = {"wq", "wkv", "wxp", "w1", "w2", "wqkv", "wp", "wf1", "wf2"}
 
 
@@ -61,20 +64,22 @@ def inputs(seed=1, b=B, nq=NQ, nc=NC, d=D):
             rng.standard_normal((b, nc, d)).astype(np.float32))
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("jdtype,tdtype", [(jnp.float32, torch.float32),
                                            (jnp.bfloat16, torch.bfloat16)])
-def test_twin_matches_jax_kernel(jdtype, tdtype):
-    w = jax_weights()
-    q, c = inputs()
+def test_twin_matches_jax_kernel(jdtype, tdtype, shape):
+    b, nq, nc, d, heads = shape
+    w = jax_weights(d=d)
+    q, c = inputs(b=b, nq=nq, nc=nc, d=d)
     fdp.set_force_mode("interpret")
     try:
         ref = np.asarray(fdp.fused_decoder_core(jnp.asarray(q), jnp.asarray(c), w,
-                                                HEADS, DEPTH, jdtype), np.float32)
+                                                heads, DEPTH, jdtype), np.float32)
     finally:
         fdp.set_force_mode(None)
     out = fused_decoder.decoder_core_ref(
         torch.from_numpy(q).to(tdtype), torch.from_numpy(c).to(tdtype),
-        to_torch(w), HEADS, DEPTH).float().numpy()
+        to_torch(w), heads, DEPTH).float().numpy()
     if tdtype == torch.float32:
         np.testing.assert_allclose(out, ref, rtol=0, atol=5e-4)
     else:
@@ -134,17 +139,18 @@ def test_cpu_twin_is_differentiable_without_a_launch():
 _FIELDS = fdp.DecoderCoreWeights._fields
 
 
-def jax_vjp(jdtype, seed_g=4):
+def jax_vjp(jdtype, seed_g=4, shape=SHAPES[0]):
     import jax
 
-    w = jax_weights()
-    q, c = inputs()
-    g = np.random.default_rng(seed_g).standard_normal((B, NQ, D)).astype(np.float32)
+    b, nq, nc, d, heads = shape
+    w = jax_weights(d=d)
+    q, c = inputs(b=b, nq=nq, nc=nc, d=d)
+    g = np.random.default_rng(seed_g).standard_normal((b, nq, d)).astype(np.float32)
     qj, cj, gj = (jnp.asarray(a, jdtype) for a in (q, c, g))
     fdp.set_force_mode("interpret")
     try:
-        _, vjp = jax.vjp(lambda a, b, ww: fdp.fused_decoder_core(a, b, ww, HEADS, DEPTH,
-                                                                 jdtype), qj, cj, w)
+        _, vjp = jax.vjp(lambda a, bb, ww: fdp.fused_decoder_core(a, bb, ww, heads, DEPTH,
+                                                                  jdtype), qj, cj, w)
         dq, dc, dw = vjp(gj)
     finally:
         fdp.set_force_mode(None)
@@ -155,12 +161,14 @@ def rel_rms(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2) / max(np.mean(b ** 2), 1e-30)))
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("jdtype,tdtype", [(jnp.float32, torch.float32),
                                            (jnp.bfloat16, torch.bfloat16)])
-def test_backward_twin_matches_jax_kernel(jdtype, tdtype):
-    w, q, c, g, (jdq, jdc, jdw) = jax_vjp(jdtype)
+def test_backward_twin_matches_jax_kernel(jdtype, tdtype, shape):
+    heads = shape[4]
+    w, q, c, g, (jdq, jdc, jdw) = jax_vjp(jdtype, shape=shape)
     tq, tc, tg = (torch.from_numpy(a).to(tdtype) for a in (q, c, g))
-    dq, dc, dw = fused_decoder.decoder_core_bwd_ref(tq, tc, to_torch(w), tg, HEADS, DEPTH)
+    dq, dc, dw = fused_decoder.decoder_core_bwd_ref(tq, tc, to_torch(w), tg, heads, DEPTH)
     assert dq.dtype == tdtype and dc.dtype == tdtype
     ref_dw = to_torch(fdp.DecoderCoreWeights(*[np.array(t, np.float32) for t in jdw]))
     pairs = [("dq", dq, np.asarray(jdq, np.float32)), ("dc", dc, np.asarray(jdc, np.float32))]

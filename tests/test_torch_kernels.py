@@ -319,6 +319,90 @@ def test_decoder_backward_refuses_unsupported_head_width(cuda):
         fused_decoder.fused_decoder_core_bwd(q, c, w, g, 2, 2)  # dh 128
 
 
+# The ragged shapes the K1 tiles mask: 16-row mma tiles, 64-row blocks and
+# 64-key chunks (196 = 3 * 64 + 4 queries, 99 = 64 + 35 keys; 200 and 197
+# past the 192-row mark); head widths 32 (8 heads) and 64 (4 heads) at
+# d 256.
+K1_RAGGED = [(1, 1, 1), (2, 17, 9), (3, 196, 99), (2, 200, 197)]
+
+
+def decoder_inputs(cuda, dtype, b, nq, nc, d, depth, seed=0):
+    w = decoder_weights(d, max(depth, 1), seed=seed, device=cuda)
+    w = fused_decoder.DecoderCoreWeights(*w[:16], *[t[:depth] for t in w[16:]])
+    return (w, randn(seed + 1, b, nq, d).to(cuda, dtype),
+            randn(seed + 2, b, nc, d).to(cuda, dtype), randn(seed + 3, b, nq, d).to(cuda, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("depth", [0, 1, 2])
+@pytest.mark.parametrize("b,nq,nc", K1_RAGGED)
+def test_decoder_kernel_matches_twin_at_ragged_shapes(cuda, dtype, heads, depth, b, nq, nc):
+    w, q, c, _ = decoder_inputs(cuda, dtype, b, nq, nc, 256, depth)
+    with torch.inference_mode():
+        out = fused_decoder.fused_decoder_core(q, c, w, heads, depth)
+        torch.cuda.synchronize()
+        assert_matches_twin(out, fused_decoder.decoder_core_ref(q, c, w, heads, depth),
+                            f"K1 {dtype} ({b},{nq},{nc}) heads {heads} depth {depth}")
+
+
+def _bwd_refused(dtype, heads, nq, nc):
+    """The backward's shared-memory gate: fp32 K and V rows of width 64
+    fit up to 166 keys."""
+    return dtype == torch.float32 and heads == 4 and max(nq, nc) > 166
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("b,nq,nc", K1_RAGGED)
+def test_decoder_backward_matches_twin_at_ragged_shapes(cuda, dtype, heads, depth, b, nq, nc):
+    w, q, c, g = decoder_inputs(cuda, dtype, b, nq, nc, 256, depth)
+    if _bwd_refused(dtype, heads, nq, nc):
+        with pytest.raises(ValueError, match="exceed shared memory"):
+            fused_decoder.fused_decoder_core_bwd(q, c, w, g, heads, depth)
+        return
+    dq, dc, dw = fused_decoder.fused_decoder_core_bwd(q, c, w, g, heads, depth)
+    torch.cuda.synchronize()
+    rq, rc, rw = fused_decoder.decoder_core_bwd_ref(q, c, w, g, heads, depth)
+    what = f"K1 bwd {dtype} ({b},{nq},{nc}) heads {heads} depth {depth}"
+    assert_matches_twin(dq, rq, f"{what} dq", grad_of=dtype)
+    assert_matches_twin(dc, rc, f"{what} dc", grad_of=dtype)
+    for name, a, r in zip(fused_decoder.DecoderCoreWeights._fields, dw, rw):
+        assert_matches_twin(a, r, f"{what} d{name}", grad_of=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decoder_kernel_is_bit_deterministic(cuda, dtype):
+    w, q, c, _ = decoder_inputs(cuda, dtype, 3, 196, 99, 256, 2)
+    with torch.inference_mode():
+        first = fused_decoder.fused_decoder_core(q, c, w, 8, 2)
+        second = fused_decoder.fused_decoder_core(q, c, w, 8, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decoder_kernels_match_twins_at_the_pretraining_batch(cuda, dtype):
+    """Forward and backward at the pretraining step's shape (B=128)."""
+    w, q, c, g = decoder_inputs(cuda, dtype, 128, 196, 99, 256, 2)
+    with torch.inference_mode():
+        out = fused_decoder.fused_decoder_core(q, c, w, 8, 2)
+        torch.cuda.synchronize()
+        assert_matches_twin(out, fused_decoder.decoder_core_ref(q, c, w, 8, 2),
+                            f"K1 {dtype} B=128")
+    dq, dc, dw = fused_decoder.fused_decoder_core_bwd(q, c, w, g, 8, 2)
+    torch.cuda.synchronize()
+    rq, rc, rw = fused_decoder.decoder_core_bwd_ref(q, c, w, g, 8, 2)
+    for name, a, r in zip(["dq", "dc"] + ["d" + f for f in fused_decoder.DecoderCoreWeights._fields],
+                          [dq, dc, *dw], [rq, rc, *rw]):
+        assert_matches_twin(a, r, f"K1 bwd {dtype} B=128 {name}", grad_of=dtype)
+
+
 # ------------------------------------------------------------ K2 on the card --
 
 

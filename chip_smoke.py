@@ -9,7 +9,9 @@ non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. kernel build: nvcc builds multimae_tpu_torch/csrc/*.cu (first use);
   3. K4 fused_block_infer against its plain twin at the encoder's shape
-     (B=32, N=99, D=768, 12 heads, hidden 3072, bf16): errors and times;
+     (B=32, N=99, D=768, 12 heads, hidden 3072, bf16): errors, two runs
+     bit-equal, times, bound and the device time of each kernel of one
+     launch (the stage split, torch.profiler);
   4. K1 fused_decoder_fwd against its plain twin at the decoders' shape
      (B=32, 196 queries, 99 context, D=256, 8 heads, depth 2) and at the
      training slice's B=128, bf16 and fp32: errors, times, at B=128 two
@@ -44,10 +46,14 @@ non-zero:
      2049 keys;
   9. K3b fused_ln_mlp_res and K3a fused_mlp forward and backward against
      their plain twins at the ConvNeXt head's (65,536, 384, hidden 1536),
-     bf16: the outputs and all gradients, bit-equal over two runs, and
-     times (no path runs K3a: the ConvNeXt block takes K3b);
+     bf16: the outputs and all gradients, bit-equal over two runs, times,
+     bounds and K3b's stage splits (no path runs K3a: the ConvNeXt block
+     takes K3b); then K3b against the block's module path at 4096, 16384
+     and 65536 rows, forward and training forward + backward (the data
+     for the gate's row floor, fused_mlp.MIN_ROWS);
  10. K4 against its twin at the fine-tune's eval shape (4, 2049, 768):
-     its attention step runs the K2 forward kernel;
+     its attention step runs the K2 forward kernel; times, bound and the
+     stage split;
  11. the fine-tune slice: MultiViT-B with RGB + depth at 512 px (2049
      tokens) and the ConvNeXt head, 40 classes, bf16, batch 4, drop_path
      0.1 from a seeded generator on the card, AdamW with layer decay 0.75
@@ -583,15 +589,21 @@ def fused_mlp_phase(torch, dev):
                     lambda: fused_mlp.fused_ln_mlp_res_ref(x, res, w), iters=10)
     bwd = ab_ms(torch, lambda: fused_mlp.fused_ln_mlp_res_bwd(x, dy, w),
                 lambda: fused_mlp.fused_ln_mlp_res_bwd_ref(x, dy, w), iters=5)
-    log(9, f"K3b ({m},{k}) hidden {hid} bf16: fwd max abs {fwd_err[0]:.3e}, rel RMS "
-           f"{fwd_err[1]:.3e}; 8 gradients within GRAD_TOLERANCE, bit-equal over two runs; "
-           f"kernel / twin fwd {fwd[0]:.4f} / {fwd[1]:.4f} ms, bwd {bwd[0]:.4f} / "
-           f"{bwd[1]:.4f} ms")
-    log(9, "max abs / rel RMS per gradient: "
-           + ", ".join(f"{n} {e[0]:.2e} / {e[1]:.2e}" for n, e in errs.items()))
     wbytes = 2 * 2 * k * hid
     fwd_bound = bound(4 * m * k * hid, 2 * 3 * m * k + wbytes)
     bwd_bound = bound(10 * m * k * hid, 2 * 3 * m * k + wbytes + 4 * 2 * k * hid)
+    log(9, f"K3b ({m},{k}) hidden {hid} bf16: fwd max abs {fwd_err[0]:.3e}, rel RMS "
+           f"{fwd_err[1]:.3e}; 8 gradients within GRAD_TOLERANCE, bit-equal over two runs; "
+           f"kernel / twin / bound fwd {fwd[0]:.4f} / {fwd[1]:.4f} / {fwd_bound[0]:.4f} ms, "
+           f"bwd {bwd[0]:.4f} / {bwd[1]:.4f} / {bwd_bound[0]:.4f} ms")
+    log(9, "max abs / rel RMS per gradient: "
+           + ", ".join(f"{n} {e[0]:.2e} / {e[1]:.2e}" for n, e in errs.items()))
+    with torch.inference_mode():
+        fwd_split = kernel_split(torch, lambda: fused_mlp.fused_ln_mlp_res(x, res, w))
+    bwd_split = kernel_split(torch, lambda: fused_mlp.fused_ln_mlp_res_bwd(x, dy, w))
+    log_split(9, f"K3b fwd ({m},{k}) by kernel", fwd_split)
+    log_split(9, f"K3b bwd ({m},{k}) by kernel", bwd_split)
+    sweep = fused_mlp_rows_sweep(torch, fused_mlp, w, gen, dev)
     k3a = fused_mlp_core_part(torch, fused_mlp, x, dy, w, wbytes)
     del x, res, dy
     free_card(torch)
@@ -600,13 +612,54 @@ def fused_mlp_phase(torch, dev):
          "source": "multimae_tpu_torch/csrc/fused_mlp_fwd.cu",
          "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:298",
          "max_abs_err": fwd_err[0], "ms": fwd[0], "plain_ms": fwd[1],
-         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None},
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
+         "stages_ms": fwd_split, "rows_sweep": sweep},
         {"name": "fused_ln_mlp_res_bwd", "route": "cuda",
          "source": "multimae_tpu_torch/csrc/fused_mlp_bwd.cu",
          "replaces": "multimae_tpu/ops/fused_mlp_pallas.py:320",
          "max_abs_err": max(e[0] for e in errs.values()), "ms": bwd[0], "plain_ms": bwd[1],
-         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None},
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
+         "stages_ms": bwd_split},
     ]
+
+
+def fused_mlp_rows_sweep(torch, fused_mlp, w, gen, dev):
+    """Phase 9: K3b against the ConvNeXt block's module path (the plain
+    twin's LayerNorm, cuBLAS GEMMs and torch GELU, which is what the block
+    runs where the gate refuses) at 4096, 16384 and 65536 rows of
+    (384, hidden 1536): the forward under inference_mode, and a training
+    forward + backward through autograd. The gate's row floor
+    (fused_mlp.MIN_ROWS) is set from these numbers; it is lifted for the
+    sweep. Returns {rows: {fwd, fwd_plain, train, train_plain} ms}."""
+    k = w.ln_g.shape[0]
+    out = {}
+    saved = fused_mlp.MIN_ROWS
+    fused_mlp.MIN_ROWS = 0
+    try:
+        for rows in (4096, 16384, 65536):
+            x, res, dy = (torch.randn((rows, k), generator=gen).to(dev, torch.bfloat16)
+                          for _ in range(3))
+            leaves = [x.clone().requires_grad_(), res.clone().requires_grad_()]
+            wl = fused_mlp.MlpWeights(*(t.clone().requires_grad_() for t in w))
+
+            def train(fn):
+                for t in leaves + list(wl):
+                    t.grad = None
+                fn(*leaves, wl).backward(dy)
+
+            with torch.inference_mode():
+                fwd = ab_ms(torch, lambda: fused_mlp.fused_ln_mlp_res(x, res, w),
+                            lambda: fused_mlp.fused_ln_mlp_res_ref(x, res, w), iters=10)
+            tr = ab_ms(torch, lambda: train(fused_mlp.fused_ln_mlp_res),
+                       lambda: train(fused_mlp.fused_ln_mlp_res_ref), iters=5)
+            out[rows] = {"fwd_ms": fwd[0], "fwd_plain_ms": fwd[1], "train_ms": tr[0],
+                         "train_plain_ms": tr[1]}
+            log(9, f"K3b at {rows} rows vs the module path: forward {fwd[0]:.4f} / "
+                   f"{fwd[1]:.4f} ms, training forward + backward {tr[0]:.4f} / {tr[1]:.4f} ms")
+            del x, res, dy, leaves, wl
+    finally:
+        fused_mlp.MIN_ROWS = saved
+    return out
 
 
 def fused_mlp_core_part(torch, fused_mlp, x, dy, w, wbytes):
@@ -857,18 +910,26 @@ def main():
         torch.cuda.synchronize()
         ref = fused_block.block_infer_ref(x, w4, heads)
         err, rel = assert_matches_twin(out, ref, "K4 fused_block_infer")
+        again = fused_block.fused_block_infer(x, w4, heads)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError("K4: two runs on the same inputs differ")
         ms, plain_ms = ab_ms(torch, lambda: fused_block.fused_block_infer(x, w4, heads),
                              lambda: fused_block.block_infer_ref(x, w4, heads))
-    log(3, f"K4 bf16 ({b},{n},{d}) max abs {err:.3e}, rel RMS {rel:.3e}; "
-           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        split = kernel_split(torch, lambda: fused_block.fused_block_infer(x, w4, heads))
     flops, weights = block_work(b, n, d, hidden)
     k4_bound = bound(flops, 2 * (2 * b * n * d + weights))
+    log(3, f"K4 bf16 ({b},{n},{d}) max abs {err:.3e}, rel RMS {rel:.3e}, bit-equal over two "
+           f"runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
+           f"({k4_bound[1]})")
+    log_split(3, f"K4 ({b},{n},{d}) by kernel", split)
     kernels.append({
         "name": "fused_block_infer", "route": "cuda",
         "source": "multimae_tpu_torch/csrc/fused_block_infer.cu",
         "replaces": "multimae_tpu/ops/fused_block_pallas.py:253",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None})
+        "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+        "stages_ms": split})
 
     # 4. K1 forward against its twin, bf16 and fp32
     nq, nc, dd, hh, depth = 196, 99, 256, 8, 2
@@ -1085,12 +1146,16 @@ def main():
                                        f"K4 fused_block_infer at {n} tokens")
         ms, plain_ms = ab_ms(torch, lambda: fused_block.fused_block_infer(x, w4, heads),
                              lambda: fused_block.block_infer_ref(x, w4, heads), iters=10)
+        split = kernel_split(torch, lambda: fused_block.fused_block_infer(x, w4, heads))
     flops, weights = block_work(b, n, d, hidden)
     k4_bound = bound(flops, 2 * (2 * b * n * d + weights))
     log(10, f"K4 bf16 ({b},{n},{d}) (attention on the K2 forward) max abs {err:.3e}, rel RMS "
-            f"{rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms")
+            f"{rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
+            f"({k4_bound[1]})")
+    log_split(10, f"K4 ({b},{n},{d}) by kernel", split)
     kernels[0].update({"semseg_max_abs_err": err, "semseg_ms": ms, "semseg_plain_ms": plain_ms,
-                       "semseg_bound_ms": k4_bound[0], "semseg_bound_by": k4_bound[1]})
+                       "semseg_bound_ms": k4_bound[0], "semseg_bound_by": k4_bound[1],
+                       "semseg_stages_ms": split})
     del x, out
     free_card(torch)
 

@@ -44,34 +44,33 @@ from multimae_tpu_torch.ops import fused_block, fused_decoder, fused_mlp, short_
 
 TOP = 24
 
-# Kernel-name substrings -> kind, first match wins. K1's own tiles
-# (csrc/decoder_tc.cuh) come first: their GEMM's name contains "gemm",
-# which would otherwise land with cuBLAS. K2's four kernels are told apart
-# (its forward also runs inside K4 at long key sets). The common.cuh
-# kernels serve K4, K3a and K3b (and K1 at shapes its own tiles do not
-# take); the backward.cuh pieces serve K3a bwd and K3b bwd (K3a runs on no
-# profiled path).
+# Kernel-name substrings -> kind, first match wins. The tiles of
+# csrc/decoder_tc.cuh come first: their GEMM's name contains "gemm", which
+# would otherwise land with cuBLAS; K1, K3a, K3b and K4 run their GEMMs and
+# LayerNorms there, and K4 its attention at short key sets. K2's four
+# kernels are told apart (its forward also runs inside K4 at long key
+# sets). common.cuh's kernels are fallbacks: K1's fp32 attention and
+# LayerNorm rows the vectorised kernel does not take.
 CATEGORIES = (
-    ("K1 GEMMs, bf16 wgmma (csrc/decoder_tc.cuh)", ("tc_gemm_kernel",)),
+    ("K1 GEMMs, bf16 wgmma (csrc/decoder_tc.cuh; K3 and K4 run them too)", ("tc_gemm_kernel",)),
     ("K1 GEMMs, fp32 FMA (csrc/decoder_tc.cuh)", ("f32_gemm_kernel",)),
-    ("K1 attention fwd, bf16 mma.sync (csrc/decoder_tc.cuh)", ("attn_fwd_kernel",)),
+    ("K1 attention fwd, bf16 mma.sync (csrc/decoder_tc.cuh; K4 runs it too)",
+     ("attn_fwd_kernel",)),
     ("K1 attention bwd rows pass, bf16 (csrc/decoder_tc.cuh)", ("attn_bwd_rows_kernel",)),
     ("K1 attention bwd keys pass, bf16 (csrc/decoder_tc.cuh)", ("attn_bwd_keys_kernel",)),
     ("K1 attention, fp32 FMA (csrc/decoder_tc.cuh)",
      ("fa_fwd_kernel", "fa_bwd_rows_kernel", "fa_bwd_keys_kernel")),
-    ("K1 LayerNorm and slice sums (csrc/decoder_tc.cuh)",
-     ("ln_fwd_kernel", "ln_bwd_row_kernel", "ln_param_partial_kernel", "sum_slices2_kernel")),
+    ("K1 LayerNorm and slice sums (csrc/decoder_tc.cuh; K3 and K4 run them too)",
+     ("ln_fwd_kernel", "ln_bwd_row_kernel", "ln_bwd_kernel", "ln_param_partial_kernel",
+      "sum_slices2_kernel")),
     ("K1 attention bwd, warp per row (fused_decoder_bwd.cu before decoder_tc.cuh)",
      ("attention_bwd_kernel",)),
     ("K2 fwd (csrc/short_attention_fwd.cu)", ("short_attention_fwd_kernel",)),
     ("K2 bwd dK/dV pass (csrc/short_attention_bwd.cu)", ("dkdv_kernel",)),
     ("K2 bwd dQ pass (csrc/short_attention_bwd.cu)", ("dq_kernel",)),
     ("K2 bwd delta and lse prep (csrc/short_attention_bwd.cu)", ("prep_kernel",)),
-    ("backward.cuh pieces (K3a/K3b bwd: dW, db, LN backward)",
-     ("tn_bf16_kernel", "tn_f32_kernel", "ln_bwd_kernel", "ln_grad_partial_kernel",
-      "colsum_partial_kernel", "sum_slices_kernel", "transpose_kernel", "gelu_kernel")),
-    ("common.cuh chains (K4, K3a/K3b fwd, the K3 backwards' GEMMs)",
-     ("mm::gemm_", "mm::attention_kernel", "mm::layer_norm_kernel")),
+    ("common.cuh kernels (fp32 attention and LayerNorm fallbacks)",
+     ("mm::attention_kernel", "mm::layer_norm_kernel")),
     ("convolutions (cuDNN / torch: patch embedding, ConvNeXt depthwise, 1x1)",
      ("conv_depthwise", "convolve", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm")),
     ("cuBLAS/CUTLASS GEMMs (encoder, adapters, plain twins)",

@@ -1,15 +1,13 @@
-// Device building blocks shared by the fused_block_infer (K4) and
-// fused_decoder_fwd (K1) kernel chains, for Hopper (sm_90a).
+// Device building blocks shared by the kernel chains, for Hopper (sm_90a):
+// the bf16 / fp32 conversions and roundings, warp reductions, the GELU and
+// its derivative, cp.async copies and the m16n8k16 mma.sync product, the
+// weight-pointer order of the decoder body (K1), and
 //
 //   layer_norm  one warp per row, fp32 two-pass statistics, eps 1e-6,
 //               output in the compute dtype; optionally writes each row's
-//               mean and 1/sigma (the backward's recompute keeps them).
-//   gemm        Y = X . W^T on the torch (out, in) weight layout, fp32
-//               accumulation, fused epilogue (bias; bias + exact-erf
-//               GELU; bias + residual; none; times GELU'(R), the GELU
-//               backward). bf16: mma.sync m16n8k16 tensor core tiles fed
-//               by a two-stage cp.async pipeline. fp32: true fp32 FMA
-//               tiles (no TF32).
+//               mean and 1/sigma (the backward's recompute keeps them). Any
+//               width up to 1024: decoder_tc.cuh falls back to it at widths
+//               its vectorised rows do not take.
 //   attention   one block per (query tile, head, sample); the sample-head's
 //               whole K and V rows sit in shared memory; a warp works on
 //               four query rows at once; fp32 logits x scale and softmax,
@@ -17,12 +15,16 @@
 //               fp32 accumulation. q, k and v are read in place from the
 //               fused projection outputs with row strides, each head a
 //               contiguous run of dh columns. Key sets too long for shared
-//               memory go to the key-tiled K2 forward (bf16 only).
+//               memory go to the key-tiled K2 forward (bf16 only). K1's
+//               fp32 attention falls back to it where its own kernel's
+//               shared memory does not fit.
 //
-// Roundings follow the JAX package's kernels (fused_decoder_pallas.py
-// `_dense`, `_attend_fwd_2d`): a GEMM's fp32 sum is rounded to the
-// compute dtype, then the bias is added in that dtype, then GELU (in
-// fp32) or the residual add, each rounded to the compute dtype.
+// The GEMMs and the vectorised LayerNorms of K1, K3 and K4 live in
+// decoder_tc.cuh; their roundings follow the JAX package's kernels
+// (fused_decoder_pallas.py `_dense`, `_attend_fwd_2d`): a GEMM's fp32 sum
+// is rounded to the compute dtype, then the bias is added in that dtype,
+// then GELU (in fp32) or the residual add, each rounded to the compute
+// dtype.
 //
 // Every launcher enqueues on the caller's stream and returns the CUDA
 // error of its launch.
@@ -124,9 +126,7 @@ cudaError_t layer_norm(const T* x, const float* g, const float* b, T* y,
   return cudaGetLastError();
 }
 
-// --------------------------------------------------------------------- GEMM
-
-enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RES = 2, EPI_NONE = 3, EPI_DGELU = 4 };
+// ------------------------------------------------------ shared pieces
 
 __device__ __forceinline__ float gelu_f(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752440f));
@@ -138,34 +138,7 @@ __device__ __forceinline__ float gelu_grad(float x) {
          x * expf(-0.5f * x * x) * 0.39894228040143267794f;
 }
 
-// Y[m, n] (and R, which may alias Y: each element is read, then written,
-// by the same thread). EPI_NONE reads neither bias nor R; EPI_DGELU reads
-// the pre-activation R[m, n] and no bias (the GEMM's sum is rounded to the
-// compute dtype, then multiplied by GELU' in fp32 and rounded again, as
-// fused_decoder_pallas._gelu_bwd does).
-template <typename T, int EPI>
-__device__ __forceinline__ void store_out(T* Y, const T* __restrict__ bias,
-                                          const T* R, int n_cols, int m, int n,
-                                          float acc) {
-  float v = rnd<T>(acc);
-  const size_t off = (size_t)m * n_cols + n;
-  if (EPI == EPI_DGELU) {
-    v = v * gelu_grad(to_f(R[off]));
-  } else if (EPI != EPI_NONE) {
-    v = rnd<T>(v + to_f(bias[n]));
-    if (EPI == EPI_GELU) v = gelu_f(v);
-    if (EPI == EPI_RES) v = to_f(R[off]) + v;
-  }
-  Y[off] = from_f<T>(v);
-}
-
-// bf16: a BM x BN output tile per block of (BM/WM) x (BN/WN) warps, each
-// warp a WM x WN tile of m16n8k16 tensor-core products; k-step 32, two
-// shared-memory stages filled by cp.async so the next tile loads while
-// this one multiplies. Smem rows are padded to 40 elements so the
-// fragment loads of a warp's 8 row groups fall on distinct banks.
-constexpr int GB_K = 32, GB_LD = GB_K + 8;
-
+// One m16n8k16 bf16 tensor-core product with fp32 accumulation.
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
                                           const uint32_t* b) {
   asm volatile(
@@ -173,12 +146,6 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two bf16 values as one 32-bit mma.sync operand register, `lo` in the
-// low half (the lower k or column index of a fragment pair).
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // 16-byte global -> shared copy; rows past the matrix edge are zero-filled
@@ -193,173 +160,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-template <int EPI, int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
-gemm_bf16_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W,
-                 const bf16* __restrict__ bias, const bf16* R, bf16* Y,
-                 int M, int N, int K) {
-  constexpr int WARPS_N = BN / WN, THREADS = (BM / WM) * WARPS_N * 32;
-  constexpr int MI = WM / 16, NI = WN / 8;
-  __shared__ __align__(16) bf16 sA[2][BM][GB_LD];
-  __shared__ __align__(16) bf16 sB[2][BN][GB_LD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  // One stage: BM (BN) rows x 32 columns, 4 chunks of 8 bf16 per row.
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int idx = tid; idx < BM * 4; idx += THREADS) {
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      const bool ok = m0 + r < M;
-      cp_async_16(&sA[stage][r][c], X + (size_t)(ok ? m0 + r : 0) * K + k0 + c, ok);
-    }
-#pragma unroll
-    for (int idx = tid; idx < BN * 4; idx += THREADS) {
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      const bool ok = n0 + r < N;
-      cp_async_16(&sB[stage][r][c], W + (size_t)(ok ? n0 + r : 0) * K + k0 + c, ok);
-    }
-    cp_async_commit();
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  const int kt_count = K / GB_K;
-  load_stage(0, 0);
-  for (int kt = 0; kt < kt_count; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < kt_count) {
-      load_stage(st ^ 1, (kt + 1) * GB_K);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int r = wm * WM + mi * 16 + g;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(&sA[st][r][kk + t * 2]);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(&sA[st][r + 8][kk + t * 2]);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(&sA[st][r][kk + t * 2 + 8]);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(&sA[st][r + 8][kk + t * 2 + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int c = wn * WN + ni * 8 + g;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(&sB[st][c][kk + t * 2]);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(&sB[st][c][kk + t * 2 + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();  // the stage is refilled by the next iteration's loads
-  }
-
-  // Accumulator layout of m16n8: c0,c1 at (g, 2t..2t+1), c2,c3 at (g+8, ...).
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * WM + mi * 16 + g + h * 8;
-        const int n = n0 + wn * WN + ni * 8 + t * 2;
-        if (m < M) {
-          if (n < N) store_out<bf16, EPI>(Y, bias, R, N, m, n, acc[mi][ni][h * 2]);
-          if (n + 1 < N) store_out<bf16, EPI>(Y, bias, R, N, m, n + 1, acc[mi][ni][h * 2 + 1]);
-        }
-      }
-}
-
-// fp32: 64x64 output tile per block of 256 threads, 4x4 outputs each
-// (rows ty + 16i, columns tx + 16j), k-step 16, tiles stored k-major.
-constexpr int GF_M = 64, GF_N = 64, GF_K = 16;
-
-template <int EPI>
-__global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                const float* __restrict__ bias, const float* R, float* Y,
-                int M, int N, int K) {
-  __shared__ float sA[GF_K][GF_M + 4];
-  __shared__ float sB[GF_K][GF_N + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * GF_M, n0 = blockIdx.x * GF_N;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GF_K) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 256;
-      const int r = idx >> 4, c = idx & 15;
-      sA[c][r] = m0 + r < M ? X[(size_t)(m0 + r) * K + k0 + c] : 0.f;
-      sB[c][r] = n0 + r < N ? W[(size_t)(n0 + r) * K + k0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GF_K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sB[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) store_out<float, EPI>(Y, bias, R, N, m, n, acc[i][j]);
-    }
-}
-
-// K must be a multiple of 32 (checked by the Python wrappers). 128x128
-// tiles (8 warps of 64x32) where they fill the 132 SMs at least once,
-// else 64x64 tiles (4 warps of 32x32), e.g. the decoders' N=256 GEMMs.
-template <int EPI>
-cudaError_t gemm(const bf16* X, const bf16* W, const bf16* bias, const bf16* R,
-                 bf16* Y, int M, int N, int K, cudaStream_t s) {
-  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= 132) {
-    dim3 grid((N + 127) / 128, (M + 127) / 128);
-    gemm_bf16_kernel<EPI, 128, 128, 64, 32><<<grid, 256, 0, s>>>(X, W, bias, R, Y, M, N, K);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
-    gemm_bf16_kernel<EPI, 64, 64, 32, 32><<<grid, 128, 0, s>>>(X, W, bias, R, Y, M, N, K);
-  }
-  return cudaGetLastError();
-}
-
-template <int EPI>
-cudaError_t gemm(const float* X, const float* W, const float* bias, const float* R,
-                 float* Y, int M, int N, int K, cudaStream_t s) {
-  dim3 grid((N + GF_N - 1) / GF_N, (M + GF_M - 1) / GF_M);
-  gemm_f32_kernel<EPI><<<grid, 256, 0, s>>>(X, W, bias, R, Y, M, N, K);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- attention
@@ -548,36 +348,6 @@ cudaError_t attention(const T* Q, int ldq, const T* Kp, const T* Vp, int ldkv,
     case 128: return attention_dh<T, 128>(Q, ldq, Kp, Vp, ldkv, O, ldo, batch, heads, nq, nk, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// ------------------------------------------------------------- block chain
-
-// One pre-LN ViT block over M = batch*n rows of width d:
-//   x_out = x_in + proj(attn(qkv(LN1(x_in))));  x_out += fc2(gelu(fc1(LN2(x_out))))
-// x_out may alias x_in. Weights: LN (d,) fp32; wqkv (3d, d), wp (d, d),
-// w1 (hidden, d), w2 (d, hidden) and their biases in T.
-template <typename T>
-struct BlockParams {
-  const float *n1_g, *n1_b;
-  const T *wqkv, *bqkv, *wp, *bp;
-  const float *n2_g, *n2_b;
-  const T *w1, *b1, *w2, *b2;
-};
-
-template <typename T>
-cudaError_t block_chain(const T* x_in, T* x_out, const BlockParams<T>& p,
-                        T* ln, T* qkv, T* att, T* hid, int batch, int n, int d,
-                        int heads, int hidden, cudaStream_t s) {
-  const int M = batch * n, dh = d / heads;
-  cudaError_t e;
-  if ((e = layer_norm<T>(x_in, p.n1_g, p.n1_b, ln, M, d, s)) != cudaSuccess) return e;
-  if ((e = gemm<EPI_BIAS>(ln, p.wqkv, p.bqkv, (const T*)nullptr, qkv, M, 3 * d, d, s)) != cudaSuccess) return e;
-  if ((e = attention<T>(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, att, d, batch,
-                        heads, n, n, dh, s)) != cudaSuccess) return e;
-  if ((e = gemm<EPI_RES>(att, p.wp, p.bp, x_in, x_out, M, d, d, s)) != cudaSuccess) return e;
-  if ((e = layer_norm<T>(x_out, p.n2_g, p.n2_b, ln, M, d, s)) != cudaSuccess) return e;
-  if ((e = gemm<EPI_GELU>(ln, p.w1, p.b1, (const T*)nullptr, hid, M, hidden, d, s)) != cudaSuccess) return e;
-  return gemm<EPI_RES>(hid, p.w2, p.b2, x_out, x_out, M, d, hidden, s);
 }
 
 }  // namespace mm

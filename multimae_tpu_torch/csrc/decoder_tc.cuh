@@ -1,6 +1,9 @@
-// Tiles of the K1 decoder body (fused_decoder_fwd.cu, fused_decoder_bwd.cu)
-// for Hopper (sm_90a). K1 alone includes this header; K4, K2 and K3 keep
-// their own tiles (common.cuh, short_attention*.cu, backward.cuh).
+// Hopper (sm_90a) tiles shared by the kernel chains of K1 (fused_decoder_
+// fwd.cu, fused_decoder_bwd.cu), K3a and K3b (fused_mlp_fwd.cu,
+// fused_mlp_bwd.cu) and K4 (fused_block_infer.cu): their GEMMs and
+// LayerNorms run here, and K4 runs K1's bf16 attention forward; the
+// attention backward and the fp32 kernels are K1's alone (K2 keeps its own
+// tiles in short_attention*.cu).
 //
 //   gemm         bf16 C = A . B on wgmma in three forms: the forward's
 //                Y = X . W^T (NT), the backward's dX = G . W (NN) and
@@ -11,7 +14,9 @@
 //                (.trans where A's rows are the k index), B goes to wgmma
 //                through a descriptor: K-major for W's rows (NT), with the
 //                transpose bit where B's rows are k (NN, TN), one 64-column
-//                group at a time. Epilogues fused: bias, bias + GELU
+//                group at a time. Rows of K (and of N) are read in 16-byte
+//                chunks, so both are multiples of 8; a ragged last k-step
+//                is zero-filled. Epilogues fused: bias, bias + GELU
 //                (writing the pre-activation beside it), bias + residual,
 //                none, GELU'; the TN form adds the column sums of G (db)
 //                in the same pass over G.
@@ -39,20 +44,21 @@
 //     (fp32)     register-tiled FMA, each thread 8 rows x 4 columns of a
 //                64 x 64 score tile, probabilities staged in shared memory
 //                for the products that contract the keys.
-//   layer_norm,  one warp per row as common.cuh's and backward.cuh's, each
+//   layer_norm,  one warp per row as common.cuh's LayerNorm, each
 //   ln_backward  lane a contiguous run of the row in 16-byte pieces (d of
-//                128 to 1024); dgamma / dbeta from partial sums over
-//                128-row slices (one block per slice: the whole card, not
-//                25 blocks), added in order.
+//                128 to 1024; 384, the ConvNeXt head's, in 8-byte pieces);
+//                dgamma / dbeta from partial sums over 128-row slices (one
+//                block per slice: the whole card, not 25 blocks), added in
+//                order.
 //
 // Roundings follow fused_decoder_pallas.py `_core_fwd` / `_core_bwd` (see
-// common.cuh for the epilogues). Every sum that reaches an output is taken
+// epi_value below for the epilogues). Every sum that reaches an output is taken
 // in a fixed order by one thread or one fixed reduction; no atomics. The
-// definitions sit in an anonymous namespace, as backward.cuh's do: each
-// translation unit that includes the header gets its own copy.
+// definitions sit in an anonymous namespace: each translation unit that
+// includes the header gets its own copy, so the shared library links
+// without duplicate symbols.
 #pragma once
 
-#include "backward.cuh"
 #include "short_attention.cuh"
 
 namespace mm {
@@ -625,7 +631,8 @@ cudaError_t weight_grad(const T* G, const T* X, int R, int Mo, int Ni, float* pa
 
 // --------------------------------------------------------------- LayerNorm
 
-// VPL contiguous elements of a row (16-byte loads and stores where they fit).
+// VPL contiguous elements of a row (16-byte loads and stores where they fit,
+// else 8-byte ones where VPL is a multiple of 4).
 template <int VPL>
 __device__ __forceinline__ void loadv(const bf16* p, float (&v)[VPL]) {
   if constexpr (VPL % 8 == 0) {
@@ -635,6 +642,14 @@ __device__ __forceinline__ void loadv(const bf16* p, float (&v)[VPL]) {
       load8(p + e, w);
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[e + k] = w[k];
+    }
+  } else if constexpr (VPL % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < VPL; e += 4) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p + e);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      v[e] = lo.x, v[e + 1] = lo.y, v[e + 2] = hi.x, v[e + 3] = hi.y;
     }
   } else {
 #pragma unroll
@@ -661,6 +676,14 @@ __device__ __forceinline__ void storev(bf16* p, const float (&v)[VPL]) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) w[k] = v[e + k];
       store8(p + e, w);
+    }
+  } else if constexpr (VPL % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < VPL; e += 4) {
+      uint2 u;
+      *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[e], v[e + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[e + 2], v[e + 3]);
+      *reinterpret_cast<uint2*>(p + e) = u;
     }
   } else {
 #pragma unroll
@@ -709,9 +732,51 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ g, const float*
   }
 }
 
-// LayerNorm backward of one row per warp (backward.cuh ln_bwd_kernel's
-// arithmetic): out = T(res + dx), or T(dx) where res is null; res may
-// alias out.
+// LayerNorm backward, one warp per row of any width up to 1024, lane l
+// holding elements l, l + 32, ... (fused_decoder_pallas._ln_bwd):
+//   xhat = (x - mean) * rstd, dxhat = dy * gamma,
+//   dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
+// out = T(res + dx) where res is given (it may alias out), else T(dx).
+template <typename T>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const float* __restrict__ gamma, const T* res, T* out, int rows, int d) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t base = (size_t)row * d;
+  const float mu = mean[row], inv = rstd[row];
+  float xh[LN_MAX_PER_LANE], dxh[LN_MAX_PER_LANE];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
+    const int c = i * 32 + lane;
+    if (c < d) {
+      xh[i] = (to_f(x[base + c]) - mu) * inv;
+      dxh[i] = to_f(dy[base + c]) * gamma[c];
+    } else {
+      xh[i] = 0.f;
+      dxh[i] = 0.f;
+    }
+    s1 += dxh[i];
+    s2 += dxh[i] * xh[i];
+  }
+  const float m1 = warp_sum(s1) / d, m2 = warp_sum(s2) / d;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
+    const int c = i * 32 + lane;
+    if (c < d) {
+      float v = inv * (dxh[i] - m1 - xh[i] * m2);
+      if (res != nullptr) v = to_f(res[base + c]) + v;
+      out[base + c] = from_f<T>(v);
+    }
+  }
+}
+
+// LayerNorm backward of one row per warp of d = 32 * VPL in VPL-element
+// pieces (ln_bwd_kernel's arithmetic): out = T(res + dx), or T(dx) where
+// res is null; res may alias out.
 template <typename T, int VPL>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_bwd_row_kernel(const T* __restrict__ dy, const T* __restrict__ x,
@@ -745,10 +810,10 @@ ln_bwd_row_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   storev(out + at, xh);
 }
 
-#define DTC_LN_WIDTHS(X) X(4) X(8) X(16) X(24) X(32)
+#define DTC_LN_WIDTHS(X) X(4) X(8) X(12) X(16) X(24) X(32)
 
 // LayerNorm forward of rows (rows, d) on the vectorised kernel where d is
-// 128, 256, 512, 768 or 1024, else common.cuh's.
+// 128, 256, 384, 512, 768 or 1024, else common.cuh's.
 template <typename T>
 cudaError_t layer_norm(const T* x, const float* g, const float* b, T* y, int rows, int d,
                        cudaStream_t s, float* mean_out = nullptr, float* rstd_out = nullptr) {
@@ -792,7 +857,7 @@ inline int ln_slices(int rows) { return (rows + LN_SLICE - 1) / LN_SLICE; }
 
 // LayerNorm backward of rows (rows, d): out = T(res + dx) (or T(dx) when
 // res is null; res may alias out), one warp per row (vectorised where d
-// is 128, 256, 512, 768 or 1024, else backward.cuh's kernel), and fp32
+// is 128, 256, 384, 512, 768 or 1024, else ln_bwd_kernel), and fp32
 // dgamma, dbeta (d,) from partial sums over slices of LN_SLICE rows
 // (2 * ln_slices(rows) * d floats of `part`), added in order.
 template <typename T>

@@ -39,7 +39,7 @@
 //    sequential grid; here M is cut into fixed slices, each (slice, output
 //    tile) block writes fp32 partial sums, and a second pass adds the
 //    slices in a fixed order; the same blocks sum G's columns for db in
-//    the same pass over G. LayerNorm dgamma/dbeta use backward.cuh's
+//    the same pass over G. LayerNorm dgamma/dbeta are summed over 128-row
 //    slices. No atomics: the result is bit-identical from run to run.
 //  * Attention backward in two launches (decoder_tc.cuh): a row pass (dQ
 //    and each query row's max, sum and delta) and a key pass (dK, dV
@@ -180,33 +180,33 @@ cudaError_t decoder_bwd(const T* q, const T* c, const T* gout, T* dq, T* dc,
   auto stat = [&](int i, int k) { return fws + L.st_blk + ((size_t)4 * i + k) * mq; };
 
   // ---- forward recompute (fused_decoder_fwd.cu's chain, keeping activations)
-  MM_TRY(dtc::layer_norm<T>(q, F(QN_G), F(QN_B), qn, mq, d, s, mean_q, rstd_q));
-  MM_TRY(dtc::layer_norm<T>(c, F(CN_G), F(CN_B), cn, mc, d, s, mean_c, rstd_c));
-  MM_TRY(dtc::dense<dtc::BIAS>(qn, W(WQ), W(BQ), none, xq, mq, d, d, s));
-  MM_TRY(dtc::dense<dtc::BIAS>(cn, W(WKV), W(BKV), none, kv, mc, 2 * d, d, s));
-  MM_TRY(dtc::attention_fwd(xq, d, kv, kv + d, 2 * d, att, d, batch, heads, nq, nc, dh, s));
-  MM_TRY(dtc::dense<dtc::BIAS>(att, W(WXP), W(BXP), none, xattn, mq, d, d, s));
-  MM_TRY(dtc::layer_norm<T>(xattn, F(ON_G), F(ON_B), on, mq, d, s, mean_on, rstd_on));
-  MM_TRY(dtc::dense<dtc::GELU2>(on, W(W1), W(B1), none, xh, mq, H, d, s, xhpre));
+  DTC_TRY(dtc::layer_norm<T>(q, F(QN_G), F(QN_B), qn, mq, d, s, mean_q, rstd_q));
+  DTC_TRY(dtc::layer_norm<T>(c, F(CN_G), F(CN_B), cn, mc, d, s, mean_c, rstd_c));
+  DTC_TRY(dtc::dense<dtc::BIAS>(qn, W(WQ), W(BQ), none, xq, mq, d, d, s));
+  DTC_TRY(dtc::dense<dtc::BIAS>(cn, W(WKV), W(BKV), none, kv, mc, 2 * d, d, s));
+  DTC_TRY(dtc::attention_fwd(xq, d, kv, kv + d, 2 * d, att, d, batch, heads, nq, nc, dh, s));
+  DTC_TRY(dtc::dense<dtc::BIAS>(att, W(WXP), W(BXP), none, xattn, mq, d, d, s));
+  DTC_TRY(dtc::layer_norm<T>(xattn, F(ON_G), F(ON_B), on, mq, d, s, mean_on, rstd_on));
+  DTC_TRY(dtc::dense<dtc::GELU2>(on, W(W1), W(B1), none, xh, mq, H, d, s, xhpre));
   if (depth > 0)
-    MM_TRY(dtc::dense<dtc::RES>(xh, W(W2), W(B2), xattn, blk(0, L.b_in), mq, d, H, s));
+    DTC_TRY(dtc::dense<dtc::RES>(xh, W(W2), W(B2), xattn, blk(0, L.b_in), mq, d, H, s));
   for (int i = 0; i < depth; ++i) {
     T *in = blk(i, L.b_in), *n1 = blk(i, L.b_n1), *qkv = blk(i, L.b_qkv);
     T *a = blk(i, L.b_a), *mid = blk(i, L.b_mid), *n2 = blk(i, L.b_n2);
     T *hpre = blk(i, L.b_hpre), *hh = blk(i, L.b_h);
-    MM_TRY(dtc::layer_norm<T>(in, F(N1_G) + i * D, F(N1_B) + i * D, n1, mq, d, s,
+    DTC_TRY(dtc::layer_norm<T>(in, F(N1_G) + i * D, F(N1_B) + i * D, n1, mq, d, s,
                          stat(i, 0), stat(i, 1)));
-    MM_TRY(dtc::dense<dtc::BIAS>(n1, W(WQKV) + i * 3 * D * D, W(BQKV) + i * 3 * D, none, qkv,
+    DTC_TRY(dtc::dense<dtc::BIAS>(n1, W(WQKV) + i * 3 * D * D, W(BQKV) + i * 3 * D, none, qkv,
                                  mq, 3 * d, d, s));
-    MM_TRY(dtc::attention_fwd(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, a, d, batch, heads, nq,
+    DTC_TRY(dtc::attention_fwd(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, a, d, batch, heads, nq,
                               nq, dh, s));
-    MM_TRY(dtc::dense<dtc::RES>(a, W(WP) + i * D * D, W(BP) + i * D, in, mid, mq, d, d, s));
-    MM_TRY(dtc::layer_norm<T>(mid, F(N2_G) + i * D, F(N2_B) + i * D, n2, mq, d, s,
+    DTC_TRY(dtc::dense<dtc::RES>(a, W(WP) + i * D * D, W(BP) + i * D, in, mid, mq, d, d, s));
+    DTC_TRY(dtc::layer_norm<T>(mid, F(N2_G) + i * D, F(N2_B) + i * D, n2, mq, d, s,
                          stat(i, 2), stat(i, 3)));
-    MM_TRY(dtc::dense<dtc::GELU2>(n2, W(WF1) + i * H * D, W(BF1) + (size_t)i * H, none, hh, mq,
+    DTC_TRY(dtc::dense<dtc::GELU2>(n2, W(WF1) + i * H * D, W(BF1) + (size_t)i * H, none, hh, mq,
                                   H, d, s, hpre));
     if (i + 1 < depth)
-      MM_TRY(dtc::dense<dtc::RES>(hh, W(WF2) + i * D * H, W(BF2) + i * D, mid,
+      DTC_TRY(dtc::dense<dtc::RES>(hh, W(WF2) + i * D * H, W(BF2) + i * D, mid,
                                   blk(i + 1, L.b_in), mq, d, H, s));
   }
 
@@ -218,48 +218,48 @@ cudaError_t decoder_bwd(const T* q, const T* c, const T* gout, T* dq, T* dc,
     T *a = blk(i, L.b_a), *mid = blk(i, L.b_mid), *n2 = blk(i, L.b_n2);
     T *hpre = blk(i, L.b_hpre), *hh = blk(i, L.b_h);
     // x_out = mid + fc2(gelu(fc1(LN2(mid))))
-    MM_TRY(dtc::input_grad<dtc::DGELU>(gc, W(WF2) + i * D * H, hpre, dhid, mq, H, d, s));
-    MM_TRY(dtc::weight_grad(gc, hh, mq, d, H, part, part_b, DW(WF2) + i * D * H,
+    DTC_TRY(dtc::input_grad<dtc::DGELU>(gc, W(WF2) + i * D * H, hpre, dhid, mq, H, d, s));
+    DTC_TRY(dtc::weight_grad(gc, hh, mq, d, H, part, part_b, DW(WF2) + i * D * H,
                             DW(BF2) + i * D, s));
-    MM_TRY(dtc::input_grad<dtc::NONE>(dhid, W(WF1) + i * H * D, none, dn, mq, d, H, s));
-    MM_TRY(dtc::weight_grad(dhid, n2, mq, H, d, part, part_b, DW(WF1) + i * H * D,
+    DTC_TRY(dtc::input_grad<dtc::NONE>(dhid, W(WF1) + i * H * D, none, dn, mq, d, H, s));
+    DTC_TRY(dtc::weight_grad(dhid, n2, mq, H, d, part, part_b, DW(WF1) + i * H * D,
                             DW(BF1) + (size_t)i * H, s));
-    MM_TRY(dtc::ln_backward<T>(dn, mid, stat(i, 2), stat(i, 3), F(N2_G) + i * D, gc, g,
+    DTC_TRY(dtc::ln_backward<T>(dn, mid, stat(i, 2), stat(i, 3), F(N2_G) + i * D, gc, g,
                           DW(N2_G) + i * D, DW(N2_B) + i * D, part, mq, d, s));
     gc = g;
     // mid = in + proj(attn(qkv(LN1(in))))
-    MM_TRY(dtc::input_grad<dtc::NONE>(g, W(WP) + i * D * D, none, da, mq, d, d, s));
-    MM_TRY(dtc::weight_grad(g, a, mq, d, d, part, part_b, DW(WP) + i * D * D, DW(BP) + i * D,
+    DTC_TRY(dtc::input_grad<dtc::NONE>(g, W(WP) + i * D * D, none, da, mq, d, d, s));
+    DTC_TRY(dtc::weight_grad(g, a, mq, d, d, part, part_b, DW(WP) + i * D * D, DW(BP) + i * D,
                             s));
-    MM_TRY(dtc::attention_bwd(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, da, d, dqkv, 3 * d,
+    DTC_TRY(dtc::attention_bwd(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, da, d, dqkv, 3 * d,
                               dqkv + d, dqkv + 2 * d, 3 * d, astat, batch, heads, nq, nq, dh, s));
-    MM_TRY(dtc::input_grad<dtc::NONE>(dqkv, W(WQKV) + i * 3 * D * D, none, dn, mq, d, 3 * d,
+    DTC_TRY(dtc::input_grad<dtc::NONE>(dqkv, W(WQKV) + i * 3 * D * D, none, dn, mq, d, 3 * d,
                                       s));
-    MM_TRY(dtc::weight_grad(dqkv, n1, mq, 3 * d, d, part, part_b, DW(WQKV) + i * 3 * D * D,
+    DTC_TRY(dtc::weight_grad(dqkv, n1, mq, 3 * d, d, part, part_b, DW(WQKV) + i * 3 * D * D,
                             DW(BQKV) + i * 3 * D, s));
-    MM_TRY(dtc::ln_backward<T>(dn, in, stat(i, 0), stat(i, 1), F(N1_G) + i * D, g, g,
+    DTC_TRY(dtc::ln_backward<T>(dn, in, stat(i, 0), stat(i, 1), F(N1_G) + i * D, g, g,
                           DW(N1_G) + i * D, DW(N1_B) + i * D, part, mq, d, s));
   }
 
   // cross-attention MLP: x = x_attn + fc2(gelu(fc1(out_norm(x_attn))))
-  MM_TRY(dtc::input_grad<dtc::DGELU>(gc, W(W2), xhpre, dhid, mq, H, d, s));
-  MM_TRY(dtc::weight_grad(gc, xh, mq, d, H, part, part_b, DW(W2), DW(B2), s));
-  MM_TRY(dtc::input_grad<dtc::NONE>(dhid, W(W1), none, dn, mq, d, H, s));
-  MM_TRY(dtc::weight_grad(dhid, on, mq, H, d, part, part_b, DW(W1), DW(B1), s));
-  MM_TRY(dtc::ln_backward<T>(dn, xattn, mean_on, rstd_on, F(ON_G), gc, g, DW(ON_G), DW(ON_B),
+  DTC_TRY(dtc::input_grad<dtc::DGELU>(gc, W(W2), xhpre, dhid, mq, H, d, s));
+  DTC_TRY(dtc::weight_grad(gc, xh, mq, d, H, part, part_b, DW(W2), DW(B2), s));
+  DTC_TRY(dtc::input_grad<dtc::NONE>(dhid, W(W1), none, dn, mq, d, H, s));
+  DTC_TRY(dtc::weight_grad(dhid, on, mq, H, d, part, part_b, DW(W1), DW(B1), s));
+  DTC_TRY(dtc::ln_backward<T>(dn, xattn, mean_on, rstd_on, F(ON_G), gc, g, DW(ON_G), DW(ON_B),
                         part, mq, d, s));
 
   // x_attn = proj(cross-attention(q(LN q), kv(LN c)))
-  MM_TRY(dtc::input_grad<dtc::NONE>(g, W(WXP), none, da, mq, d, d, s));
-  MM_TRY(dtc::weight_grad(g, att, mq, d, d, part, part_b, DW(WXP), DW(BXP), s));
+  DTC_TRY(dtc::input_grad<dtc::NONE>(g, W(WXP), none, da, mq, d, d, s));
+  DTC_TRY(dtc::weight_grad(g, att, mq, d, d, part, part_b, DW(WXP), DW(BXP), s));
   T* dqa = dqkv;  // (mq, d): dqkv is free here
-  MM_TRY(dtc::attention_bwd(xq, d, kv, kv + d, 2 * d, da, d, dqa, d, dkv, dkv + d, 2 * d,
+  DTC_TRY(dtc::attention_bwd(xq, d, kv, kv + d, 2 * d, da, d, dqa, d, dkv, dkv + d, 2 * d,
                             astat, batch, heads, nq, nc, dh, s));
-  MM_TRY(dtc::input_grad<dtc::NONE>(dqa, W(WQ), none, dn, mq, d, d, s));
-  MM_TRY(dtc::weight_grad(dqa, qn, mq, d, d, part, part_b, DW(WQ), DW(BQ), s));
-  MM_TRY(dtc::input_grad<dtc::NONE>(dkv, W(WKV), none, dcn, mc, d, 2 * d, s));
-  MM_TRY(dtc::weight_grad(dkv, cn, mc, 2 * d, d, part, part_b, DW(WKV), DW(BKV), s));
-  MM_TRY(dtc::ln_backward<T>(dn, q, mean_q, rstd_q, F(QN_G), none, dq, DW(QN_G), DW(QN_B), part,
+  DTC_TRY(dtc::input_grad<dtc::NONE>(dqa, W(WQ), none, dn, mq, d, d, s));
+  DTC_TRY(dtc::weight_grad(dqa, qn, mq, d, d, part, part_b, DW(WQ), DW(BQ), s));
+  DTC_TRY(dtc::input_grad<dtc::NONE>(dkv, W(WKV), none, dcn, mc, d, 2 * d, s));
+  DTC_TRY(dtc::weight_grad(dkv, cn, mc, 2 * d, d, part, part_b, DW(WKV), DW(BKV), s));
+  DTC_TRY(dtc::ln_backward<T>(dn, q, mean_q, rstd_q, F(QN_G), none, dq, DW(QN_G), DW(QN_B), part,
                         mq, d, s));
   return dtc::ln_backward<T>(dcn, c, mean_c, rstd_c, F(CN_G), none, dc, DW(CN_G), DW(CN_B), part,
                         mc, d, s);

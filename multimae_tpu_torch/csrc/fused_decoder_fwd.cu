@@ -15,7 +15,7 @@
 // fp32 rate instead (about 1.9 ms at B=128).
 //
 // Design: a fixed chain of launches on the caller's stream, on K1's own
-// tiles (decoder_tc.cuh): LN q, LN c (common.cuh's LayerNorm), GEMM q
+// tiles (decoder_tc.cuh): LN q, LN c, GEMM q
 // (D -> D), GEMM kv (D -> 2D), cross-attention (196 x 99), GEMM proj (no
 // residual: the cross-attention output replaces the queries), LN, GEMM
 // fc1 + GELU, GEMM fc2 + residual, then `depth` pre-LN blocks at dim D.
@@ -44,28 +44,28 @@ cudaError_t decoder_fwd(const T* q, const T* c, T* out, const void* const* w,
   const T* none = nullptr;
   const int mq = batch * nq, mc = batch * nc, dh = d / heads;
   const size_t D = d, H = hidden;
-  MM_TRY(dtc::layer_norm<T>(q, F(QN_G), F(QN_B), qn, mq, d, s));
-  MM_TRY(dtc::layer_norm<T>(c, F(CN_G), F(CN_B), cn, mc, d, s));
-  MM_TRY(dtc::dense<dtc::BIAS>(qn, W(WQ), W(BQ), none, xq, mq, d, d, s));
-  MM_TRY(dtc::dense<dtc::BIAS>(cn, W(WKV), W(BKV), none, kv, mc, 2 * d, d, s));
-  MM_TRY(dtc::attention_fwd(xq, d, kv, kv + d, 2 * d, att, d, batch, heads, nq, nc, dh, s));
-  MM_TRY(dtc::dense<dtc::BIAS>(att, W(WXP), W(BXP), none, out, mq, d, d, s));
-  MM_TRY(dtc::layer_norm<T>(out, F(ON_G), F(ON_B), qn, mq, d, s));
-  MM_TRY(dtc::dense<dtc::GELU>(qn, W(W1), W(B1), none, hid, mq, hidden, d, s));
-  MM_TRY(dtc::dense<dtc::RES>(hid, W(W2), W(B2), out, out, mq, d, hidden, s));
+  DTC_TRY(dtc::layer_norm<T>(q, F(QN_G), F(QN_B), qn, mq, d, s));
+  DTC_TRY(dtc::layer_norm<T>(c, F(CN_G), F(CN_B), cn, mc, d, s));
+  DTC_TRY(dtc::dense<dtc::BIAS>(qn, W(WQ), W(BQ), none, xq, mq, d, d, s));
+  DTC_TRY(dtc::dense<dtc::BIAS>(cn, W(WKV), W(BKV), none, kv, mc, 2 * d, d, s));
+  DTC_TRY(dtc::attention_fwd(xq, d, kv, kv + d, 2 * d, att, d, batch, heads, nq, nc, dh, s));
+  DTC_TRY(dtc::dense<dtc::BIAS>(att, W(WXP), W(BXP), none, out, mq, d, d, s));
+  DTC_TRY(dtc::layer_norm<T>(out, F(ON_G), F(ON_B), qn, mq, d, s));
+  DTC_TRY(dtc::dense<dtc::GELU>(qn, W(W1), W(B1), none, hid, mq, hidden, d, s));
+  DTC_TRY(dtc::dense<dtc::RES>(hid, W(W2), W(B2), out, out, mq, d, hidden, s));
 
   // depth x (x + proj(attn(qkv(LN1(x)))); x + fc2(gelu(fc1(LN2(x))))), in place
   for (int i = 0; i < depth; ++i) {
-    MM_TRY(dtc::layer_norm<T>(out, F(N1_G) + i * D, F(N1_B) + i * D, qn, mq, d, s));
-    MM_TRY(dtc::dense<dtc::BIAS>(qn, W(WQKV) + i * 3 * D * D, W(BQKV) + i * 3 * D, none, qkv,
+    DTC_TRY(dtc::layer_norm<T>(out, F(N1_G) + i * D, F(N1_B) + i * D, qn, mq, d, s));
+    DTC_TRY(dtc::dense<dtc::BIAS>(qn, W(WQKV) + i * 3 * D * D, W(BQKV) + i * 3 * D, none, qkv,
                                  mq, 3 * d, d, s));
-    MM_TRY(dtc::attention_fwd(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, att, d, batch, heads,
+    DTC_TRY(dtc::attention_fwd(qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, att, d, batch, heads,
                               nq, nq, dh, s));
-    MM_TRY(dtc::dense<dtc::RES>(att, W(WP) + i * D * D, W(BP) + i * D, out, out, mq, d, d, s));
-    MM_TRY(dtc::layer_norm<T>(out, F(N2_G) + i * D, F(N2_B) + i * D, qn, mq, d, s));
-    MM_TRY(dtc::dense<dtc::GELU>(qn, W(WF1) + i * H * D, W(BF1) + i * H, none, hid, mq,
+    DTC_TRY(dtc::dense<dtc::RES>(att, W(WP) + i * D * D, W(BP) + i * D, out, out, mq, d, d, s));
+    DTC_TRY(dtc::layer_norm<T>(out, F(N2_G) + i * D, F(N2_B) + i * D, qn, mq, d, s));
+    DTC_TRY(dtc::dense<dtc::GELU>(qn, W(WF1) + i * H * D, W(BF1) + i * H, none, hid, mq,
                                  hidden, d, s));
-    MM_TRY(dtc::dense<dtc::RES>(hid, W(WF2) + i * D * H, W(BF2) + i * D, out, out, mq, d,
+    DTC_TRY(dtc::dense<dtc::RES>(hid, W(WF2) + i * D * H, W(BF2) + i * D, out, out, mq, d,
                                 hidden, s));
   }
   return cudaSuccess;

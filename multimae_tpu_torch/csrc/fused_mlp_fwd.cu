@@ -19,34 +19,34 @@
 // y plus the weights (~0.2 GB, 60 us at 3.35 TB/s): tensor-core bound.
 //
 // Design: the TPU kernel keeps each 2048-row tile's (2048, 1536) hidden
-// strip in VMEM. This first version is a chain of launches on the caller's
-// stream from common.cuh, with the (M, 1536) hidden (201 MB) in device
-// scratch: [LN ->] GEMM fc1 + bias + GELU -> GEMM fc2 + bias [+ residual],
-// mma.sync bf16 tiles with fp32 accumulation and the roundings in the
-// epilogues. Keeping the hidden strip on chip (a fused two-GEMM kernel over
-// row tiles) is later work.
+// strip in VMEM. Here a chain of three launches on the caller's stream, on
+// the wgmma tiles of decoder_tc.cuh: [LN (one warp per row, 8-byte pieces
+// at K = 384) ->] fc1 with bias + GELU in its epilogue -> fc2 with bias
+// [+ residual] in its epilogue, the (M, 1536) hidden (201 MB) in device
+// scratch between them. The GEMMs read the torch (out, in) weights as
+// they lie (the NT form: no transposes). Keeping the hidden strip on chip
+// (a fused two-GEMM kernel over row tiles) is later work.
 
-#include "common.cuh"
+#include "decoder_tc.cuh"
 
 namespace {
 
-using mm::bf16;
+using namespace mm;  // bf16 and the dtc tiles
 
 // hid = GELU(fc1(x)); y = fc2(hid) (+ res where res is not null).
 cudaError_t mlp_chain(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
                       const bf16* b2, const bf16* res, bf16* hid, bf16* y, int m, int k,
                       int hidden, cudaStream_t s) {
-  cudaError_t e = mm::gemm<mm::EPI_GELU>(x, w1, b1, (const bf16*)nullptr, hid, m, hidden, k, s);
-  if (e != cudaSuccess) return e;
-  if (res == nullptr)
-    return mm::gemm<mm::EPI_BIAS>(hid, w2, b2, (const bf16*)nullptr, y, m, k, hidden, s);
-  return mm::gemm<mm::EPI_RES>(hid, w2, b2, res, y, m, k, hidden, s);
+  const bf16* none = nullptr;
+  DTC_TRY(dtc::dense<dtc::GELU>(x, w1, b1, none, hid, m, hidden, k, s));
+  if (res == nullptr) return dtc::dense<dtc::BIAS>(hid, w2, b2, none, y, m, k, hidden, s);
+  return dtc::dense<dtc::RES>(hid, w2, b2, res, y, m, k, hidden, s);
 }
 
 // Pointers in the K3b wrapper's order (ops/fused_mlp.py): LayerNorm gamma
 // and beta (K,) fp32; w1 (H, K), b1 (H,), w2 (K, H), b2 (K,) bf16. K3a's
 // are the last four.
-enum { LN_G, LN_B, W1, B1, W2, B2 };
+enum { P_LN_G, P_LN_B, P_W1, P_B1, P_W2, P_B2 };
 
 }  // namespace
 
@@ -68,10 +68,10 @@ extern "C" int mm_fused_ln_mlp_res_fwd_bf16(const void* x, const void* res, void
   auto W = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto s = static_cast<cudaStream_t>(stream);
   bf16* lnb = static_cast<bf16*>(ln);
-  cudaError_t e = mm::layer_norm<bf16>(static_cast<const bf16*>(x), F(LN_G), F(LN_B), lnb, m,
-                                       k, s);
+  cudaError_t e = dtc::layer_norm<bf16>(static_cast<const bf16*>(x), F(P_LN_G), F(P_LN_B), lnb,
+                                        m, k, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(mlp_chain(lnb, W(W1), W(B1), W(W2), W(B2),
+  return static_cast<int>(mlp_chain(lnb, W(P_W1), W(P_B1), W(P_W2), W(P_B2),
                                     static_cast<const bf16*>(res), static_cast<bf16*>(hid),
                                     static_cast<bf16*>(y), m, k, hidden, s));
 }

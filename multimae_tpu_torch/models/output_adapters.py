@@ -7,9 +7,12 @@ Queries are the task's own token positions (the visible encoder token
 where the position was kept, else the mask token) plus the task and
 positional embeddings; the context is the visible encoder tokens plus
 their embeddings, then the global tokens. The decoder body (cross-
-attention, MLP, `depth` blocks) runs as the fused_decoder_core kernel;
-the module path below it runs what the kernel does not take (depth 0,
-other dtypes) and is the reference the core is tested against. Outputs
+attention, MLP, `depth` blocks) runs as the fused_decoder_core kernel
+where `fused_decoder.supported` admits the shape, on every device, as the
+JAX adapter consults its gate (JAX :295-303); the module path below it
+runs what the kernel does not take (depth 0, other dtypes, head widths
+other than 32 and 64, key sets past the backward's shared memory) and is
+the reference the core is tested against. Outputs
 are NHWC images with the reference's (c, ph, pw) patch order, or, with
 `return_patches` (the training fast path, JAX :67-70, :336-338), the
 (B, N, C*ph*pw) token patches that the masked losses take directly.
@@ -171,7 +174,9 @@ class SpatialOutputAdapter(nn.Module):
         context_tokens = self.proj_context(encoder_tokens.to(self.dtype))
         queries, context = self.get_queries_and_context(
             context_tokens, input_info, ids_keep, ids_restore)
-        if self.depth >= 1 and self.dtype in (torch.bfloat16, torch.float32):
+        if fused_decoder.supported(queries.shape[1], context.shape[1], self.dim_tokens,
+                                   self.num_heads, self.depth, self.dtype,
+                                   self.mlp.fc1.weight.shape[0]):
             x = fused_decoder.fused_decoder_core(
                 queries.contiguous(), context.contiguous(), self.core_weights(),
                 self.num_heads, self.depth)

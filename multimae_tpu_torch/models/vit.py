@@ -169,9 +169,11 @@ class CrossAttention(nn.Module):
 class Block(nn.Module):
     """Pre-LN ViT block (reference multimae_utils.py:217-232).
 
-    Inference on the card (eval, no grad, bf16, qkv bias, CUDA tensor)
-    runs the whole block as the fused_block_infer kernel, the gate of
-    the JAX package's models/vit.py:311-336. In training each residual
+    Inference on the card (eval, no grad, bf16, qkv bias, CUDA tensor,
+    a shape fused_block.supported admits) runs the whole block as the
+    fused_block_infer kernel, the gate of the JAX package's
+    models/vit.py:311-336; other shapes (the tiny models' head width of
+    16) take the module path. In training each residual
     branch goes through drop_path at `drop_path_rate`, drawing from the
     `generator` the caller hands to forward: the attention branch first,
     then the MLP's."""
@@ -205,6 +207,8 @@ class Block(nn.Module):
             and self.dtype == torch.bfloat16
             and self.qkv_bias
             and x.is_cuda
+            and fused_block.supported(x.shape[1], x.shape[-1], self.num_heads,
+                                      self.mlp.fc1.weight.shape[0], self.dtype)
         ):
             return fused_block.fused_block_infer(
                 x.to(self.dtype), self.block_weights(), self.num_heads)

@@ -6,9 +6,11 @@ LN2 -> fc1 -> GELU -> fc2 + residual, forward only (no backward, as on
 the TPU). On a CUDA tensor the wrapper launches the hand-written kernel
 chain of csrc/fused_block_infer.cu; on a CPU tensor it runs the plain
 twin `block_infer_ref`. There is no other path: a CUDA tensor the kernel
-does not take raises. Sequences whose K/V rows do not fit in shared
-memory (the 512-px fine-tune's 2049 tokens) take the K2 forward kernel
-for the attention step, inside the same chain.
+does not take raises. `supported` is the gate the ViT block consults
+before it calls this op; the shapes it refuses take the module path.
+Sequences whose K/V rows do not fit in shared memory (the 512-px
+fine-tune's 2049 tokens) take the K2 forward kernel for the attention
+step, inside the same chain.
 
 Numerics of the kernel and its twin: fp32 two-pass LayerNorm statistics
 (the Pallas kernel uses the fast variance E[x^2]-E[x]^2), GEMMs with
@@ -98,21 +100,41 @@ def attention_smem_bytes(nk: int, dh: int) -> int:
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
+def shape_problem(d: int, heads: int, hidden: int, nk: int,
+                  dtype: torch.dtype = torch.float32):
+    """Why the kernel chains do not take a shape, or None: GEMM depths and
+    widths in multiples of 32, head width a multiple of 32 up to 128, a
+    LayerNorm row of at most 1024, and in fp32 K/V rows that fit shared
+    memory. In bf16 any key count goes: where K/V do not fit, the chains'
+    attention step runs the key-tiled K2 forward
+    (csrc/short_attention_fwd.cu)."""
+    if heads <= 0 or d % heads or d % 32 or hidden % 32 or d > 1024:
+        return f"unsupported widths: dim {d}, heads {heads}, hidden {hidden}"
+    dh = d // heads
+    if dh % 32 or dh > 128:
+        return f"unsupported head width {dh}"
+    if dtype != torch.bfloat16 and attention_smem_bytes(nk, dh) > SMEM_LIMIT:
+        return f"{nk} keys of width {dh} exceed shared memory"
+    return None
+
+
 def check_kernel_shapes(d: int, heads: int, hidden: int, nk: int,
                         dtype: torch.dtype = torch.float32) -> None:
-    """Raise for shapes the kernels do not take: GEMM depths and widths
-    in multiples of 32, head width a multiple of 32 up to 128, a LayerNorm
-    row of at most 1024, and in fp32 K/V rows that fit shared memory. In
-    bf16 any key count goes: where K/V do not fit, the chains' attention
-    step runs the key-tiled K2 forward (csrc/short_attention_fwd.cu)."""
-    dh = d // heads
-    if d % heads or d % 32 or hidden % 32 or d > 1024:
-        raise ValueError(f"unsupported widths: dim {d}, heads {heads}, "
-                         f"hidden {hidden}")
-    if dh % 32 or dh > 128:
-        raise ValueError(f"unsupported head width {dh}")
-    if dtype != torch.bfloat16 and attention_smem_bytes(nk, dh) > SMEM_LIMIT:
-        raise ValueError(f"{nk} keys of width {dh} exceed shared memory")
+    """Raise ValueError for the shapes `shape_problem` names."""
+    problem = shape_problem(d, heads, hidden, nk, dtype)
+    if problem is not None:
+        raise ValueError(problem)
+
+
+def supported(n: int, d: int, heads: int, hidden: int, dtype) -> bool:
+    """Whether K4 takes a block of n tokens: bf16, D and the hidden width
+    in whole 64-element k-steps of the wgmma tiles (csrc/decoder_tc.cuh),
+    and the chains' limits (`shape_problem`: head width 32, 64, 96 or 128,
+    D at most 1024). The counterpart of the JAX `fused_block_pallas.
+    supported`, which the JAX block consults (multimae_tpu/models/vit.py:
+    334); every shape it refuses takes the module path."""
+    return (dtype == torch.bfloat16 and d % 64 == 0 and hidden % 64 == 0
+            and shape_problem(d, heads, hidden, n, dtype) is None)
 
 
 def _launch(x: torch.Tensor, w: BlockWeights, heads: int) -> torch.Tensor:
@@ -125,7 +147,9 @@ def _launch(x: torch.Tensor, w: BlockWeights, heads: int) -> torch.Tensor:
         raise ValueError("fused_block_infer: x must be a contiguous (B, N, D)")
     b, n, d = x.shape
     hidden = w.w1.shape[0]
-    check_kernel_shapes(d, heads, hidden, n, x.dtype)
+    if not supported(n, d, heads, hidden, x.dtype):
+        raise ValueError(f"fused_block_infer: no kernel for {n} tokens of dim {d}, "
+                         f"{heads} heads, hidden {hidden}")
     wc = _cast(w, x.dtype)
     expect = [(d,), (d,), (3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,),
               (hidden, d), (hidden,), (d, hidden), (d,)]

@@ -16,7 +16,9 @@ not TF32); on a CPU tensor the same Function runs the plain twins
 `decoder_core_ref` and `decoder_core_bwd_ref`, as the JAX op runs
 `_core_fwd`/`_core_bwd` in its "ref" mode. The backward returns dq and dc
 in the compute dtype and fp32 gradients for the 28 weight tensors.
-Numerics as in ops/fused_block.py.
+Numerics as in ops/fused_block.py. `supported` is the gate the
+SpatialOutputAdapter consults before it calls this op; the shapes it
+refuses take the adapter's module path.
 """
 
 from __future__ import annotations
@@ -38,7 +40,12 @@ from multimae_tpu_torch.ops.functional import (
     merge_heads,
     split_heads,
 )
-from multimae_tpu_torch.ops.fused_block import SMEM_LIMIT, BlockWeights, check_kernel_shapes
+from multimae_tpu_torch.ops.fused_block import (
+    SMEM_LIMIT,
+    BlockWeights,
+    check_kernel_shapes,
+    shape_problem,
+)
 
 LAUNCHES = 0      # forward kernel launches made by fused_decoder_core
 LAUNCHES_BWD = 0  # backward kernel launches made by its gradient
@@ -223,6 +230,34 @@ def decoder_core_bwd_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights
 
 
 # ---------------------------------------------------------------- kernels --
+
+
+def bwd_attention_smem(nk: int, dh: int, dtype) -> int:
+    """The shared-memory figure the backward's gate holds against
+    SMEM_LIMIT: a copy of `attention_bwd_smem_bytes` in
+    csrc/fused_decoder_bwd.cu, which `mm_fused_decoder_bwd_workspace`
+    returns (fp32 dK and dV accumulators, a 32-row tile's P and dS and its
+    Q and dO rows, then K and V rows padded to dh + 2 in the compute dtype)."""
+    size = 4 if dtype == torch.float32 else 2
+    return 4 * (2 * nk * dh + 2 * 32 * nk + 2 * 32 * dh) + 2 * nk * (dh + 2) * size
+
+
+def supported(nq: int, nc: int, dim: int, heads: int, depth: int, dtype,
+              hidden: int) -> bool:
+    """Whether both K1 kernels take the decoder body: bf16 or fp32, depth of
+    at least 1, the chains' widths (fused_block.shape_problem: in fp32 the
+    forward's K/V rows within shared memory), head width 32 or 64, and the
+    backward's shared memory within SMEM_LIMIT. The counterpart of the JAX
+    `fused_decoder_pallas.supported`, which the JAX adapter consults on
+    every backend (multimae_tpu/models/output_adapters.py:295-303); every
+    shape it refuses takes the adapter's module path."""
+    if dtype not in (torch.bfloat16, torch.float32) or depth < 1 or heads <= 0:
+        return False
+    nk = max(nq, nc)
+    if shape_problem(dim, heads, hidden, nk, dtype) is not None:
+        return False
+    dh = dim // heads
+    return dh in (32, 64) and bwd_attention_smem(nk, dh, dtype) <= SMEM_LIMIT
 
 
 _ENTRY = {torch.bfloat16: "mm_fused_decoder_fwd_bf16",

@@ -9,7 +9,8 @@ forward `_fwd_kernel`, backward `_bwd_kernel`, which recomputes fc1) and
 residual's gradient). Each op is a torch.autograd.Function, as each JAX op
 is a custom_vjp. On a CUDA tensor its forward launches csrc/fused_mlp_fwd.cu
 and its backward csrc/fused_mlp_bwd.cu (bf16; both kernels run one shared
-MLP chain there); on a CPU tensor the same Function runs the plain twins
+MLP chain there, on the wgmma GEMMs and LayerNorm rows of
+csrc/decoder_tc.cuh); on a CPU tensor the same Function runs the plain twins
 (`fused_mlp_ref`, `fused_mlp_bwd_ref`; `fused_ln_mlp_res_ref`,
 `fused_ln_mlp_res_bwd_ref`).
 
@@ -57,9 +58,18 @@ LAUNCHES_MLP_BWD = 0  # K3a backward kernel launches made by its gradient
 
 _FORCE_MODE = None  # None | "plain" (tests and the kernel-vs-twin check)
 
+# K3b's row floor, from the H100 (chip_smoke.py phase 9, PERF.md §6; H100
+# 80GB HBM3, 700 W): at (rows, 384, hidden 1536) the kernels beat the
+# ConvNeXt block's module path in 21 of 24 pairs at 4096, 16384 and 65536
+# rows, forward and training forward + backward; the three losses, at
+# most 0.15 ms, came where both paths are bound by the host. Below 4096
+# rows nothing was measured, so the module path serves there.
+MIN_ROWS = 4096
+
 # The JAX predicate's row floor (`supported`, :73-84: 8 row tiles of
-# 2048): below it the MLP is GEMM-bound and the module path serves.
-MIN_ROWS = 16384
+# 2048), which K3a's gate keeps: no path runs K3a, so the card has given
+# no reason to move it.
+JAX_MIN_ROWS = 16384
 
 
 def set_force_mode(mode):
@@ -69,23 +79,25 @@ def set_force_mode(mode):
 
 
 def supported(m: int, k: int, h: int, dtype) -> bool:
-    """bf16 with at least MIN_ROWS rows (the JAX predicate's meaning), and
-    widths the kernels take: K a multiple of 32 up to 1024 (a LayerNorm row
-    per warp), H a multiple of 32."""
-    return (dtype == torch.bfloat16 and m >= MIN_ROWS and k % 32 == 0
-            and k <= 1024 and h % 32 == 0)
+    """The gate the ConvNeXt block consults (models/conv_utils.py): bf16
+    with at least MIN_ROWS rows, and widths the kernels take: K and H in
+    whole 64-element k-steps of the wgmma tiles (csrc/decoder_tc.cuh), K
+    at most 1024 (a LayerNorm row per warp). Every shape it refuses takes
+    the block's module path."""
+    return (dtype == torch.bfloat16 and m >= MIN_ROWS and k % 64 == 0
+            and k <= 1024 and h % 64 == 0)
 
 
 def fused_mlp_supported(m: int, k: int, h: int, dtype) -> bool:
     """The JAX predicate of `fused_mlp` (:73-84) as it stands: bf16, K and H
-    multiples of 128, at least MIN_ROWS rows, and a 2048-row tile with the
+    multiples of 128, at least JAX_MIN_ROWS rows, and a 2048-row tile with the
     weights and their fp32 gradients within 80 MiB (the TPU's VMEM budget,
     kept so that both packages take a kernel at the same shapes)."""
     if k % 128 or h % 128 or dtype != torch.bfloat16:
         return False
     tile = 2048 * (2 * k + h) * 2 * 2
     weights = 2 * 2 * k * h + 4 * (k * h * 2 + k + h)
-    return m >= MIN_ROWS and tile + weights <= 80 * 1024 * 1024
+    return m >= JAX_MIN_ROWS and tile + weights <= 80 * 1024 * 1024
 
 
 class MlpCoreWeights(NamedTuple):

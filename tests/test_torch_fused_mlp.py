@@ -116,11 +116,15 @@ def test_backward_twin_matches_autograd():
 
 @pytest.mark.parametrize("m,k,h,dtype,ok", [
     (65536, 384, 1536, torch.bfloat16, True), (16384, 384, 1536, torch.bfloat16, True),
-    (16383, 384, 1536, torch.bfloat16, False), (65536, 384, 1536, torch.float32, False),
+    (16383, 384, 1536, torch.bfloat16, True), (4096, 384, 1536, torch.bfloat16, True),
+    (4095, 384, 1536, torch.bfloat16, False), (65536, 384, 1536, torch.float32, False),
     (65536, 100, 400, torch.bfloat16, False)])
 def test_supported_is_the_jax_predicate(m, k, h, dtype, ok):
+    """The JAX predicate's dtype and widths; its row floor of 16384 (a TPU
+    number) is the H100's MIN_ROWS = 4096 here, so the two agree outside
+    rows 4096-16383."""
     assert fused_mlp.supported(m, k, h, dtype) == ok
-    if k % 128 == 0 and h % 128 == 0:
+    if k % 128 == 0 and h % 128 == 0 and not fused_mlp.MIN_ROWS <= m < fused_mlp.JAX_MIN_ROWS:
         assert fmp.supported(m, k, h, jnp.bfloat16 if dtype == torch.bfloat16
                              else jnp.float32) == ok
 

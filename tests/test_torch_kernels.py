@@ -223,7 +223,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,heads", [(2, 13, 128, 4), (3, 99, 768, 12),
-                                         (2, 197, 256, 8)])
+                                         (2, 197, 256, 8), (3, 99, 256, 2)])
 def test_block_kernel_matches_twin(cuda, b, n, d, heads):
     w = block_weights(d, 4 * d, device=cuda)
     x = randn(1, b, n, d).to(cuda, torch.bfloat16)
@@ -494,7 +494,7 @@ def test_short_attention_refuses_fp32(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,h", [(20000, 128, 512), (65536, 384, 1536)])
+@pytest.mark.parametrize("m,k,h", [(20000, 128, 512), (65536, 384, 1536), (20000, 384, 1536)])
 def test_fused_mlp_kernels_match_twins(cuda, m, k, h):
     w = mlp_weights(k, h, device=cuda)
     x = randn(1, m, k).to(cuda, torch.bfloat16)
@@ -523,7 +523,7 @@ def test_fused_mlp_kernels_match_twins(cuda, m, k, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,h", [(20000, 128, 512), (65536, 384, 1536)])
+@pytest.mark.parametrize("m,k,h", [(20000, 128, 512), (65536, 384, 1536), (20000, 384, 1536)])
 def test_fused_mlp_core_kernels_match_twins(cuda, m, k, h):
     w = mlp_core_weights(k, h, device=cuda)
     x = randn(1, m, k).to(cuda, torch.bfloat16)
@@ -579,3 +579,160 @@ def test_block_kernel_matches_twin_at_2049_tokens(cuda, heads):
         assert fused_block.LAUNCHES == before + 1
         assert_matches_twin(out, fused_block.block_infer_ref(x, w, heads),
                             f"K4 at 2049 tokens, {heads} heads")
+
+
+# ------------------------------------------------ the gates on the card --
+
+
+def _adapter(cuda, dtype, heads, d=256, depth=2, dim_enc=768, seed=0):
+    from multimae_tpu_torch.models.output_adapters import SpatialOutputAdapter
+
+    m = SpatialOutputAdapter(num_channels=3, stride_level=1, patch_size_full=16,
+                             dim_tokens_enc=dim_enc, dim_tokens=d, depth=depth,
+                             image_size=224, num_heads=heads, context_tasks=("rgb",),
+                             task="rgb", dtype=dtype)
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, v in m.state_dict().items():
+        scale = 0.02 if v.dim() > 1 else 0.1
+        offset = 1.0 if k.endswith(".weight") and "norm" in k.split(".")[-2] else 0.0
+        state[k] = _rnd(rng, *v.shape, scale=scale, offset=offset)
+    m.load_state_dict(state, strict=True)
+    return m.to(cuda)
+
+
+def _key_part(name, n):
+    """The key part of an attention in-projection bias of n elements, or
+    None: its exact gradient is 0 (a bias on every key adds the same logit
+    to a whole softmax row), so both paths hold rounding noise there."""
+    if name.endswith("attn.qkv.bias"):
+        return slice(n // 3, 2 * n // 3)
+    if name.endswith("decoder.kv.bias"):
+        return slice(0, n // 2)
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,heads", [(torch.bfloat16, 2), (torch.float32, 4)])
+def test_adapter_takes_its_modules_on_the_card_where_k1_refuses(cuda, dtype, heads,
+                                                                monkeypatch):
+    """bf16 at head width 128, and fp32 at head width 64 with 196 queries
+    (past the backward's 166 keys): the adapter's gate sends the decoder
+    body to its submodules, forward and backward, with no K1 launch; the
+    output and every gradient match the same adapter driven through K1's
+    plain twins (fused_decoder_core in "plain" mode)."""
+    from multimae_tpu_torch.models.multimae import generate_input_info
+    from multimae_tpu_torch.ops import masking
+
+    b, n, k, d, depth = 2, 196, 98, 256, 2
+    m = _adapter(cuda, dtype, heads)
+    assert not fused_decoder.supported(n, k + 1, d, heads, depth, dtype, 4 * d)
+    rng = np.random.default_rng(1)
+    mask = np.ones((b, n), np.int64)
+    for i in range(b):
+        mask[i, rng.permutation(n)[:k]] = 0
+    ids_keep, ids_restore = masking.masks_to_indices(
+        {"rgb": torch.from_numpy(mask).to(cuda)}, k)
+    info = generate_input_info({"rgb": n}, (224, 224), 1)
+    tokens = randn(2, b, k + 1, 768).to(cuda, dtype)
+    g = randn(3, b, 224, 224, 3).to(cuda, dtype)
+
+    def run():
+        m.zero_grad(set_to_none=True)
+        t = tokens.clone().requires_grad_()
+        out = m(t, info, ids_keep, ids_restore)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return {"out": out.detach(), "dtokens": t.grad,
+                **{name: p.grad for name, p in m.named_parameters()}}
+
+    core = fused_decoder.fused_decoder_core
+
+    def refuse(*args, **kw):
+        raise AssertionError("fused_decoder_core called at a shape its gate refuses")
+
+    monkeypatch.setattr(fused_decoder, "fused_decoder_core", refuse)
+    launches = (fused_decoder.LAUNCHES, fused_decoder.LAUNCHES_BWD)
+    got = run()
+    assert (fused_decoder.LAUNCHES, fused_decoder.LAUNCHES_BWD) == launches
+    with torch.inference_mode():  # eval: the decoder blocks' K4 gate, then
+        before = fused_block.LAUNCHES
+        inferred = m.eval()(tokens, info, ids_keep, ids_restore)
+        torch.cuda.synchronize()
+    # bf16 decoder blocks of width 256 at head width 128 run K4 at eval
+    assert fused_block.LAUNCHES - before == (depth if dtype == torch.bfloat16 else 0)
+    assert_matches_twin(inferred, got["out"], f"adapter {dtype} eval vs training forward")
+
+    monkeypatch.setattr(fused_decoder, "fused_decoder_core", core)
+    monkeypatch.setattr(fused_decoder, "supported", lambda *a, **kw: True)
+    fused_decoder.set_force_mode("plain")
+    try:
+        ref = run()
+    finally:
+        fused_decoder.set_force_mode(None)
+    assert set(got) == set(ref)
+    assert_matches_twin(got["out"], ref["out"], f"adapter {dtype} out")
+    for name, a in got.items():
+        r = ref[name]
+        if name == "out" or (a is None and r is None):
+            continue
+        key = _key_part(name, a.shape[0])
+        if key is not None:
+            keep = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+            keep[key] = False
+            assert torch.isfinite(a).all()
+            a, r = a[keep], r[keep]
+        assert_matches_twin(a, r, f"adapter {dtype} d{name}", grad_of=dtype)
+
+
+@pytest.mark.cuda
+def test_decoder_gate_copies_the_cuda_shared_memory_figure(cuda):
+    """fused_decoder.supported's Python copy of the backward's shared-memory
+    figure equals mm_fused_decoder_bwd_workspace's over a grid of shapes."""
+    import ctypes
+
+    from multimae_tpu_torch.ops import _build
+
+    lib = _build.load()
+    t, f, smem = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    for dtype in (torch.bfloat16, torch.float32):
+        for heads in (8, 4):  # head widths 32 and 64 at d 256
+            for nq in (1, 17, 166, 167, 196, 287, 400, 784):
+                for nc in (9, 99, 210, 347):
+                    lib.mm_fused_decoder_bwd_workspace(2, nq, nc, 256, heads, 1024, 2,
+                                                       int(dtype == torch.float32),
+                                                       ctypes.byref(t), ctypes.byref(f),
+                                                       ctypes.byref(smem))
+                    assert smem.value == fused_decoder.bwd_attention_smem(
+                        max(nq, nc), 256 // heads, dtype), (dtype, heads, nq, nc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads,launches", [(64, 4, 0), (128, 4, 1)])
+def test_block_gate_on_the_card(cuda, d, heads, launches):
+    """At eval in bf16 the ViT block launches K4 where its gate admits the
+    shape and takes its submodules where it does not (the tiny models'
+    head width of 16); both match the plain twin."""
+    from multimae_tpu_torch.models.vit import Block
+
+    blk = Block(d, heads, dtype=torch.bfloat16).to(cuda).eval()
+    w = block_weights(d, 4 * d, device=cuda)
+    with torch.no_grad():
+        for p, t in zip(blk.block_weights(), w):
+            p.copy_(t)
+    x = randn(1, 2, 13, d).to(cuda, torch.bfloat16)
+    before = fused_block.LAUNCHES
+    with torch.inference_mode():
+        out = blk(x)
+        torch.cuda.synchronize()
+    assert fused_block.LAUNCHES - before == launches
+    assert_matches_twin(out, fused_block.block_infer_ref(x, w, heads),
+                        f"block d {d} heads {heads}")
+
+
+@pytest.mark.cuda
+def test_fused_mlp_refuses_widths_its_gate_refuses(cuda):
+    """K3b takes K and H in whole 64-wide k-steps: K = 96 raises."""
+    x = randn(1, 16384, 96).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_mlp.fused_ln_mlp_res(x, x, mlp_weights(96, 384, device=cuda))

@@ -1,7 +1,8 @@
 """The profiler's kernel categories (cli/profile_forward.CATEGORIES) name
-the K1 kernels of csrc/decoder_tc.cuh, so that their GEMM, whose name
-contains "gemm", is not counted with cuBLAS, and keep the other kinds
-apart. Kernel names as torch.profiler reports them on the card."""
+the kernels of csrc/decoder_tc.cuh (K1's, and K3's and K4's GEMMs and
+LayerNorms), so that their GEMM, whose name contains "gemm", is not
+counted with cuBLAS, and keep the other kinds apart. Kernel names as
+torch.profiler reports them on the card."""
 
 import pytest
 
@@ -32,10 +33,10 @@ NAMES = [
     ("mm::dtc::(anonymous namespace)::sum_slices2_kernel(float const*, ...)",
      "K1 LayerNorm and slice sums"),
     ("void mm::layer_norm_kernel<__nv_bfloat16>(...)", "common.cuh"),
-    ("void (anonymous namespace)::tn_bf16_kernel(...)", "backward.cuh"),
+    ("void mm::dtc::(anonymous namespace)::ln_bwd_kernel<__nv_bfloat16>(...)", "K1 LayerNorm"),
     ("void (anonymous namespace)::short_attention_fwd_kernel<64, 3>(...)", "K2 fwd"),
     ("void (anonymous namespace)::dkdv_kernel<64>(...)", "K2 bwd dK/dV"),
-    ("void mm::gemm_bf16_kernel<0, 64, 64, 32, 32>(...)", "common.cuh"),
+    ("void mm::attention_kernel<float, 64>(...)", "common.cuh"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NNT", "cuBLAS"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS"),
 ]

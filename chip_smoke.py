@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving forward, pretraining step and
-semantic segmentation fine-tune on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving forward, pretraining step,
+semantic segmentation fine-tune and pretraining CLI on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -66,6 +66,22 @@ non-zero:
      twins, its confusion matrix counts every non-ignored pixel, and
      mIoU is printed; ms per step, samples/s and peak memory for both
      paths, and ms per eval batch.
+ 12. the pretraining CLI (multimae_tpu_torch.cli.run_pretraining_multimae,
+     get_args + main) at full width from a dataset folder: a tree of
+     CLI_SAMPLES aligned samples in 2 classes at 256 x 320 (8-bit RGB,
+     16-bit depth, palette semseg PNGs written by the port's PNG writer)
+     under build/; the flagship YAML with batch 32, 2 epochs of 2 steps,
+     no warmup, 4 loader workers and a save every epoch: the losses are
+     finite, log.txt has 2 lines, checkpoint-0.pth and checkpoint-1.pth
+     exist, K1 fwd and bwd launch 4 times per step and nothing else
+     launches; then checkpoint-1.pth is truncated and the CLI relaunched
+     with --epochs 3: it falls back to checkpoint-0.pth, resumes at epoch
+     1 with the parameters bit-equal to the save, and finishes. Printed:
+     the loader's samples/s (one process, and 4 workers, at batch 8), the CLI's step
+     ms fed by the loader against the same CLI on synthetic batches of
+     32, the share of each step spent waiting for data, and the
+     checkpoint save and load seconds. The tree and the checkpoints are
+     deleted.
 Then it prints the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -135,6 +151,14 @@ SEMSEG_LOSS_TOLERANCE = 2e-5
 SEMSEG_NORM_TOLERANCE = 2.5e-4
 SEMSEG_GRAD_TOLERANCE = 2.5e-2
 SEMSEG_CLASSES = 40
+
+# The pretraining CLI (phase 12): a written tree of CLI_SAMPLES samples at
+# CLI_HW, the flagship YAML at CLI_BATCH per step.
+CLI_SAMPLES = 64
+CLI_HW = (256, 320)
+CLI_BATCH = 32
+CLI_WORKERS = 4
+CLI_YAML = "cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml"
 
 # The least time an H100 SXM could take (NVIDIA's data sheet, dense).
 BF16_PEAK = 989e12  # FLOP/s, tensor cores
@@ -863,6 +887,118 @@ def semseg_slice(torch, dev):
     return step_launches, eval_launches
 
 
+
+def loader_rate(root, workers, batch=8, epochs=4):
+    """Samples/s of the port's Loader over the tree, after its first batch
+    (worker start-up excluded). A worker makes whole batches, so the batch
+    is small enough to give each of CLI_WORKERS workers two per epoch."""
+    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
+    from multimae_tpu_torch.data.loader import Loader
+    from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
+
+    dataset = MultiTaskImageFolder(root, ["depth", "rgb", "semseg"])
+    loader = Loader(dataset, DataAugmentationForMultiMAE(224), global_batch_size=batch,
+                    num_workers=workers)
+    next(loader)
+    n = epochs * loader.steps_per_epoch
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(loader)
+    rate = n * batch / (time.perf_counter() - t0)
+    loader.close()
+    return rate
+
+
+def cli_slice(torch, dev):
+    """Phase 12; returns K1's launches over the CLI's first run."""
+    import shutil
+
+    from multimae_tpu_torch.cli.run_pretraining_multimae import get_args, main
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+
+    root = os.path.join(HERE, "build", "chip_smoke_cli")
+    tree, out = os.path.join(root, "tree"), os.path.join(root, "out")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_random_tree(tree, CLI_SAMPLES, CLI_HW)
+    log(12, f"wrote {CLI_SAMPLES} samples at {CLI_HW[0]}x{CLI_HW[1]} (rgb, depth, semseg "
+            f"PNG) in {time.perf_counter() - t0:.1f} s")
+    try:
+        base = ["-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(CLI_BATCH),
+                "--warmup_epochs", "0", "--num_workers", str(CLI_WORKERS)]
+        run = base + ["--data_path", tree, "--save_ckpt_freq", "1", "--output_dir", out]
+        reset_launch_counts()
+        first = main(get_args(run + ["--epochs", "2"]))
+        launches = launch_counts()
+        steps = len(first["steps"])
+        expect = dict.fromkeys(launches, 0)
+        expect.update(fused_decoder_fwd=4 * steps, fused_decoder_bwd=4 * steps)
+        if steps != 4 or launches != expect:
+            raise AssertionError(f"CLI run: {steps} steps, launches {launches}; expected 4 "
+                                 f"steps and {expect}")
+        losses = [r["metrics"]["loss"] for r in first["steps"]]
+        if not all(math.isfinite(v) for r in first["steps"] for v in r["metrics"].values()):
+            raise AssertionError(f"CLI run: metrics {[r['metrics'] for r in first['steps']]}")
+        with open(os.path.join(out, "log.txt")) as f:
+            lines = f.read().splitlines()
+        saves = [os.path.join(out, f"checkpoint-{e}.pth") for e in (0, 1)]
+        if len(lines) != 2 or not all(os.path.exists(p) for p in saves):
+            raise AssertionError(f"CLI run: {len(lines)} log lines, {os.listdir(out)}")
+        log(12, "CLI run: losses " + ", ".join(f"{v:.4f}" for v in losses) + f"; K1 fwd "
+                f"{launches['fused_decoder_fwd']}, bwd {launches['fused_decoder_bwd']} "
+                f"launches over {steps} steps; log.txt 2 lines; checkpoint-0.pth and "
+                f"checkpoint-1.pth ({os.path.getsize(saves[1]) / 2**30:.2f} GiB); saved in "
+                + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
+
+        size = os.path.getsize(saves[1])
+        with open(saves[1], "r+b") as f:
+            f.truncate(size // 2)
+        relaunch = main(get_args(run + ["--epochs", "3"]))
+        if (relaunch["start_epoch"], relaunch["resumed_from"], relaunch["resume_bit_equal"],
+                [e["epoch"] for e in relaunch["epochs"]]) != (1, saves[0], True, [1, 2]):
+            raise AssertionError(f"relaunch: start epoch {relaunch['start_epoch']}, from "
+                                 f"{relaunch['resumed_from']}, bit-equal "
+                                 f"{relaunch.get('resume_bit_equal')}, epochs "
+                                 f"{[e['epoch'] for e in relaunch['epochs']]}")
+        if not all(math.isfinite(r["metrics"]["loss"]) for r in relaunch["steps"]):
+            raise AssertionError("relaunch: a loss is not finite")
+        log(12, f"relaunch after truncating checkpoint-1.pth to {size // 2} of {size} bytes: "
+                f"resumed from checkpoint-0.pth at epoch 1, parameters bit-equal to the "
+                f"save, loaded in {relaunch['load_s']:.2f} s, trained epochs 1 and 2 "
+                f"(losses " + ", ".join(f"{r['metrics']['loss']:.4f}"
+                                        for r in relaunch["steps"]) + ")")
+
+        synthetic = main(get_args(base + ["--synthetic_data", "--synthetic_steps_per_epoch",
+                                          "6", "--epochs", "1", "--no_auto_resume"]))
+        # Each run's first batch waits for the workers to start: the steady
+        # share leaves it out.
+        fed = first["steps"] + relaunch["steps"]
+        steady = first["steps"][1:] + relaunch["steps"][1:]
+        step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
+        synth_ms = statistics.median(r["step_s"] for r in synthetic["steps"][1:]) * 1e3
+        wait = sum(r["wait_s"] for r in fed)
+        share = wait / (wait + sum(r["step_s"] for r in fed))
+        steady_wait = sum(r["wait_s"] for r in steady)
+        steady_share = steady_wait / (steady_wait + sum(r["step_s"] for r in steady))
+        one, many = loader_rate(tree, 0), loader_rate(tree, CLI_WORKERS)
+        log(12, f"loader over the tree (256x320 PNG -> 224, batches of 8): {one:.1f} "
+                f"samples/s in one process, {many:.1f} samples/s with {CLI_WORKERS} workers "
+                f"({many / CLI_WORKERS:.1f} per worker)")
+        log(12, f"CLI step at batch {CLI_BATCH}: {step_ms:.3f} ms fed by the loader (median "
+                f"of {len(fed)}), {synth_ms:.3f} ms on synthetic batches (median of "
+                f"{len(synthetic['steps']) - 1}); data wait {wait * 1e3:.1f} ms in all, "
+                f"{share:.4f} of the loader-fed steps' time; {steady_share:.4f} without "
+                f"each run's first step (worker start-up)")
+        return launches, {"cli_step_ms": step_ms, "cli_synthetic_step_ms": synth_ms,
+                          "cli_data_wait_share": share,
+                          "cli_data_wait_share_steady": steady_share,
+                          "loader_samples_per_s": one,
+                          "loader_samples_per_s_workers": many,
+                          "ckpt_save_s": first["save_s"], "ckpt_load_s": relaunch["load_s"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "multimae_tpu_torch")):
         raise SystemExit("chip_smoke.py: the multimae_tpu_torch package is not "
@@ -1168,6 +1304,15 @@ def main():
             k["launches"] = step_launches[name]
         k["semseg_step_launches"] = step_launches[name]
         k["semseg_eval_launches"] = eval_launches[name]
+
+    free_card(torch)
+
+    # 12. the pretraining CLI from a dataset folder
+    cli_launches, cli_numbers = cli_slice(torch, dev)
+    for k in kernels:
+        if k["name"] in ("fused_decoder_fwd", "fused_decoder_bwd"):
+            k["cli_launches"] = cli_launches[k["name"]]
+    log(12, "numbers: " + json.dumps(cli_numbers))
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

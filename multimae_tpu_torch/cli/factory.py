@@ -80,6 +80,7 @@ def build_pretrain_model(
     decoder_num_heads: int = 8,
     extra_norm_pix_loss: bool = True,
     num_global_tokens: int = 1,
+    drop_path: float = 0.0,
     fp32_output_adapters: Sequence[str] = (),
     dtype: torch.dtype = torch.float32,
     decoder_return_patches: bool = False,
@@ -124,7 +125,8 @@ def build_pretrain_model(
     model = create_model(
         model_name, input_adapters=input_adapters,
         output_adapters=output_adapters, num_global_tokens=num_global_tokens,
-        dtype=dtype, fp32_output_adapters=tuple(fp32_output_adapters))
+        drop_path_rate=drop_path, dtype=dtype,
+        fp32_output_adapters=tuple(fp32_output_adapters))
     model.init_weights(torch.Generator().manual_seed(seed))
     if pos_emb_grads:
         for name, p in model.named_parameters():

@@ -1,0 +1,168 @@
+"""Host-side data loading: a torch DataLoader over the folder datasets
+(counterpart of multimae_tpu/data/loader.py, which uses grain).
+
+* Sharding: each epoch is one permutation of the records drawn from
+  (seed, epoch); rank r of R takes every R-th record of it from r on, after
+  the permutation is cut to a multiple of R (DistributedSampler with
+  drop_last, grain's ShardOptions with drop_remainder): each record appears
+  at most once per epoch across the ranks.
+* Per-record randomness comes from (seed, epoch, record index), as grain's
+  per-record generator does for `_LoadAndAugment.random_map` (JAX
+  loader.py:49-61): the corrupt-file resample (at most 20 attempts) and
+  the transform's random.Random. Batches are therefore the same for any
+  number of worker processes.
+* `get_state` / `set_state`: the seed, the epoch and the number of batches
+  of it already handed out, saved with a checkpoint so a resumed run
+  continues the same order. The position is global, so it is the same on
+  every rank.
+Workers are spawned processes, kept for the life of the loader.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+MAX_ATTEMPTS = 20
+
+
+def steps_per_epoch(dataset_len: int, global_batch_size: int) -> int:
+    return dataset_len // global_batch_size
+
+
+def epoch_shard(num_records: int, epoch: int, *, seed: int, shard_index: int,
+                shard_count: int, shuffle: bool = True) -> np.ndarray:
+    """The record indices rank `shard_index` of `shard_count` reads in `epoch`."""
+    order = (np.random.default_rng([seed, epoch]).permutation(num_records) if shuffle
+             else np.arange(num_records))
+    per_shard = num_records // shard_count
+    return order[:per_shard * shard_count][shard_index::shard_count]
+
+
+class ShardSampler(torch.utils.data.Sampler):
+    """Yields (epoch, record index) over this rank's shard of `epoch`, from
+    its `start`-th record on."""
+
+    def __init__(self, num_records: int, *, seed: int, shard_index: int, shard_count: int,
+                 shuffle: bool = True):
+        self.num_records = num_records
+        self.kw = dict(seed=seed, shard_index=shard_index, shard_count=shard_count,
+                       shuffle=shuffle)
+        self.epoch = 0
+        self.start = 0
+
+    def __iter__(self):
+        shard = epoch_shard(self.num_records, self.epoch, **self.kw)
+        return ((self.epoch, int(i)) for i in shard[self.start:])
+
+    def __len__(self) -> int:
+        return self.num_records // self.kw["shard_count"] - self.start
+
+
+class LoadAndAugment(torch.utils.data.Dataset):
+    """Loads and augments one record, drawing from (seed, epoch, index)."""
+
+    def __init__(self, dataset, transform: Optional[Callable], seed: int):
+        self.dataset = dataset
+        self.transform = transform
+        self.seed = seed
+
+    def _load(self, index: int, rng: np.random.Generator):
+        """The corrupt-file retry (reference utils/dataset_folder.py:166-173):
+        a record that fails to load is replaced by one drawn from the
+        record's own generator."""
+        for _ in range(MAX_ATTEMPTS):
+            try:
+                return self.dataset.load_raw(index)
+            except (OSError, ValueError) as e:
+                print(f"[loader] sample {index} failed ({e}); resampling", flush=True)
+                index = int(rng.integers(0, len(self.dataset)))
+        raise RuntimeError(f"{MAX_ATTEMPTS} consecutive corrupt samples: the dataset "
+                           "looks damaged")
+
+    def __getitem__(self, key) -> Dict[str, np.ndarray]:
+        epoch, index = key
+        rng = np.random.default_rng([self.seed, epoch, index])
+        sample, target = self._load(index, rng)
+        if self.transform is not None:
+            sample = self.transform(sample, rng=random.Random(int(rng.integers(0, 2**63 - 1))))
+        sample = dict(sample)
+        sample["label"] = np.asarray(target, np.int64)
+        return sample
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+
+def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
+    """Stack each key; integer arrays become int64."""
+    out = {}
+    for k in samples[0]:
+        arr = np.stack([s[k] for s in samples])
+        if arr.dtype.kind in "iu":
+            arr = arr.astype(np.int64)
+        out[k] = torch.from_numpy(arr)
+    return out
+
+
+class Loader:
+    """Endless iterator of this rank's batches ({task: tensor}, "label"),
+    epoch after epoch, each epoch `steps_per_epoch` batches."""
+
+    def __init__(self, dataset, transform: Optional[Callable], *, global_batch_size: int,
+                 seed: int = 0, shuffle: bool = True, num_workers: int = 0,
+                 shard_index: int = 0, shard_count: int = 1, pin_memory: bool = False):
+        if global_batch_size % shard_count:
+            raise ValueError(f"global batch {global_batch_size} does not split over "
+                             f"{shard_count} ranks")
+        self.seed = seed
+        self.local_batch = global_batch_size // shard_count
+        self.steps_per_epoch = steps_per_epoch(len(dataset), global_batch_size)
+        if self.steps_per_epoch == 0:
+            raise ValueError(f"{len(dataset)} records make no global batch of "
+                             f"{global_batch_size}")
+        self.sampler = ShardSampler(len(dataset), seed=seed, shard_index=shard_index,
+                                    shard_count=shard_count, shuffle=shuffle)
+        workers = dict(multiprocessing_context="spawn", persistent_workers=True,
+                       prefetch_factor=4) if num_workers else {}
+        self.loader = torch.utils.data.DataLoader(
+            LoadAndAugment(dataset, transform, seed), batch_size=self.local_batch,
+            sampler=self.sampler, drop_last=True, num_workers=num_workers,
+            collate_fn=collate, pin_memory=pin_memory, **workers)
+        self.epoch = 0
+        self.batch = 0
+        self._it = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        if self.batch == self.steps_per_epoch:
+            self.epoch, self.batch, self._it = self.epoch + 1, 0, None
+        if self._it is None:
+            self.sampler.epoch = self.epoch
+            self.sampler.start = self.batch * self.local_batch
+            self._it = iter(self.loader)
+        out = next(self._it)
+        self.batch += 1
+        return out
+
+    def close(self) -> None:
+        """Stop the worker processes."""
+        self._it = None
+        self.loader._iterator = None  # the persistent workers' iterator
+
+    def get_state(self) -> Dict[str, int]:
+        return {"seed": self.seed, "epoch": self.epoch, "batch": self.batch}
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError(f"the saved data order was drawn with seed {state['seed']}, "
+                             f"this loader's with {self.seed}")
+        if not 0 <= int(state["batch"]) <= self.steps_per_epoch:
+            raise ValueError(f"saved position {state} lies outside an epoch of "
+                             f"{self.steps_per_epoch} batches")
+        self.epoch, self.batch, self._it = int(state["epoch"]), int(state["batch"]), None

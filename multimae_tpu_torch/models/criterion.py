@@ -10,7 +10,10 @@ loss.
 
 Each sample's masked loss sum is divided by its masked-pixel count, then
 the batch takes the mean over samples that have any masked pixel (0 if
-none has), the reference's nanmean without NaNs.
+none has), the reference's nanmean without NaNs. `parts` returns that
+mean's numerator and denominator (without a mask: the loss sum and the
+element count), so data-parallel ranks can sum them into the loss of the
+global batch; calling a loss returns num / max(den, 1).
 """
 
 from __future__ import annotations
@@ -28,16 +31,30 @@ def _upsample_mask(mask: torch.Tensor, hw, scale: int) -> torch.Tensor:
     return m.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
 
 
-def _masked_mean(loss_pix: torch.Tensor, mask_pix: torch.Tensor) -> torch.Tensor:
-    """Per-sample sum / mask-sum, then mean over non-empty samples."""
+def _over_valid(per_sample: torch.Tensor, mask_sums: torch.Tensor):
+    """(sum of the per-sample losses of non-empty samples, their count)."""
+    valid = mask_sums > 0
+    return torch.where(valid, per_sample, 0.0).sum(), valid.sum().float()
+
+
+def _all_parts(loss: torch.Tensor):
+    """Unmasked: (loss sum, element count)."""
+    return loss.sum(), torch.full((), float(loss.numel()), device=loss.device)
+
+
+def ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """The loss from its parts: num / max(den, 1)."""
+    return num / den.clamp_min(1.0)
+
+
+def _masked_parts(loss_pix: torch.Tensor, mask_pix: torch.Tensor):
+    """Per-sample sum / mask-sum, over non-empty samples."""
     b = loss_pix.shape[0]
     loss_flat = loss_pix.reshape(b, -1)
     mask_flat = mask_pix.reshape(b, -1)
     mask_sums = mask_flat.sum(dim=1)
     per_sample = (loss_flat * mask_flat).sum(dim=1) / mask_sums.clamp_min(1.0)
-    valid = mask_sums > 0
-    count = valid.sum().clamp_min(1)
-    return torch.where(valid, per_sample, 0.0).sum() / count
+    return _over_valid(per_sample, mask_sums)
 
 
 def _norm_pix(target: torch.Tensor, scale: int) -> torch.Tensor:
@@ -70,17 +87,15 @@ def _norm_pix_patches(t: torch.Tensor) -> torch.Tensor:
     return (t - mean) / torch.sqrt(var + 1e-6)
 
 
-def _masked_token_mean(tok_loss: torch.Tensor, mask: torch.Tensor,
-                       pixels_per_token: int) -> torch.Tensor:
-    """Per-sample sum over masked tokens / masked pixels, then the mean over
-    non-empty samples: _masked_mean after the nearest mask upsampling,
-    since each token covers `pixels_per_token` pixels of one mask value."""
+def _masked_token_parts(tok_loss: torch.Tensor, mask: torch.Tensor,
+                        pixels_per_token: int):
+    """Per-sample sum over masked tokens / masked pixels, over non-empty
+    samples: _masked_parts after the nearest mask upsampling, since each
+    token covers `pixels_per_token` pixels of one mask value."""
     m = mask.float()
     mask_sums = m.sum(dim=1) * pixels_per_token
     per_sample = (tok_loss * m).sum(dim=1) / mask_sums.clamp_min(1.0)
-    valid = mask_sums > 0
-    count = valid.sum().clamp_min(1)
-    return torch.where(valid, per_sample, 0.0).sum() / count
+    return _over_valid(per_sample, mask_sums)
 
 
 class _PixelLoss:
@@ -100,11 +115,11 @@ class _PixelLoss:
             tgt = _norm_pix_patches(tgt)
         loss = self._pixel_loss(input, tgt)
         if mask is None:
-            return loss.mean()
-        return _masked_token_mean(loss.sum(dim=-1) / channels, mask, p * p)
+            return _all_parts(loss)
+        return _masked_token_parts(loss.sum(dim=-1) / channels, mask, p * p)
 
-    def __call__(self, input: torch.Tensor, target: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def parts(self, input: torch.Tensor, target: torch.Tensor,
+              mask: Optional[torch.Tensor] = None):
         """input: (B, H, W, C) or (B, N, C*p*p) patches; target:
         (B, H, W, C); mask: (B, nh*nw), 1 = masked."""
         input = input.float()
@@ -115,9 +130,13 @@ class _PixelLoss:
             target = _norm_pix(target, self.scale)
         loss = self._pixel_loss(input, target)
         if mask is None:
-            return loss.mean()
+            return _all_parts(loss)
         mask_pix = _upsample_mask(mask, input.shape[1:3], self.scale)
-        return _masked_mean(loss.mean(dim=-1), mask_pix)
+        return _masked_parts(loss.mean(dim=-1), mask_pix)
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ratio(*self.parts(input, target, mask))
 
 
 class MaskedMSELoss(_PixelLoss):
@@ -160,15 +179,19 @@ class MaskedCrossEntropyLoss:
         tgt = target.reshape(b, h // p, p, w // p, p).permute(0, 1, 3, 2, 4)
         nll = self._nll(logp, tgt.reshape(b, n, p * p), dim=2)
         if mask is None:
-            return nll.mean()
-        return _masked_token_mean(nll.sum(dim=-1), mask, p * p)
+            return _all_parts(nll)
+        return _masked_token_parts(nll.sum(dim=-1), mask, p * p)
 
-    def __call__(self, input: torch.Tensor, target: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def parts(self, input: torch.Tensor, target: torch.Tensor,
+              mask: Optional[torch.Tensor] = None):
         if input.dim() == 3:
             return self._patch_call(input.float(), target, mask)
         nll = self._nll(F.log_softmax(input.float(), dim=-1), target, dim=-1)
         if mask is None:
-            return nll.mean()
+            return _all_parts(nll)
         mask_pix = _upsample_mask(mask, input.shape[1:3], self.scale)
-        return _masked_mean(nll, mask_pix)
+        return _masked_parts(nll, mask_pix)
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return ratio(*self.parts(input, target, mask))

@@ -121,19 +121,25 @@ def create_optimizer(
     model: nn.Module,
     balancer: Optional[nn.Module] = None,
     *,
+    opt: str = "adamw",
     weight_decay: float = 0.05,
     opt_betas: Tuple[float, float] = (0.9, 0.999),
+    opt_eps: float = 1e-8,
     filter_bias_and_bn: bool = True,
     balancer_lr_scale: float = 1.0,
     layer_decay_assigner: Optional[LayerDecayValueAssigner] = None,
 ) -> torch.optim.AdamW:
-    """AdamW (eps 1e-8) over the groups of build_param_groups; each group's
-    weight decay starts at weight_decay * wd_flag and its LR at 0 until
-    TrainState sets them from the schedules."""
+    """`opt` (the JAX signature's, :191-239) over the groups of
+    build_param_groups; each group's weight decay starts at weight_decay *
+    wd_flag and its LR at 0 until TrainState sets them from the schedules.
+    AdamW, the recipes' optimizer, is the one ported."""
+    if opt.lower() != "adamw":
+        raise NotImplementedError(f"optimizer {opt!r} is not ported yet (ROADMAP.md "
+                                  "queue 1 item 14 brings SGD and Adam); use adamw")
     groups, _ = build_param_groups(model, balancer, filter_bias_and_bn=filter_bias_and_bn,
                                    balancer_lr_scale=balancer_lr_scale,
                                    layer_decay_assigner=layer_decay_assigner)
     for g in groups:
         g["lr"] = 0.0
         g["weight_decay"] = weight_decay * g["wd_flag"]
-    return torch.optim.AdamW(groups, lr=0.0, betas=tuple(opt_betas), eps=1e-8)
+    return torch.optim.AdamW(groups, lr=0.0, betas=tuple(opt_betas), eps=opt_eps)

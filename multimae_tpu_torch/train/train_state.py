@@ -7,11 +7,13 @@ unchanged, the optimizer's own step counts included, while `step` still
 advances, as the JAX state does. The schedules are therefore indexed by
 `updates`, the count of applied updates (JAX indexes them by the optax
 counts, which a skip does not advance), clamped at their last entry.
+`state_dict` / `load_state_dict` carry all of it for a checkpoint
+(train/checkpoint.py).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,3 +48,20 @@ class TrainState:
             self.optimizer.step()
             self.updates += 1
         self.step += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The model's, the balancer's and the optimizer's state_dicts and the
+        step counters, in the reference checkpoint's key names."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "loss_balancer": None if self.balancer is None else self.balancer.state_dict(),
+                "step": self.step, "updates": self.updates}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore what state_dict() saved (strict: every key and shape)."""
+        self.model.load_state_dict(state["model"], strict=True)
+        if self.balancer is not None:
+            self.balancer.load_state_dict(state["loss_balancer"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.updates = int(state["updates"])

@@ -1,0 +1,176 @@
+"""Data parallelism in the port (multimae_tpu_torch/parallel/dist.py and
+the pretraining step under torch.distributed), with two real gloo
+processes on the CPU, as tests/test_multiprocess.py runs the JAX
+package's (worker body: tests/_torch_dist_worker.py).
+
+* `initialize_distributed` under each launcher's variables (env://,
+  OpenMPI as the reference's --dist_on_itp sets it, SLURM): rank, world
+  size, backend, the process helpers and the metric logger's sum.
+* A 2-process step over 2 x 2 samples equals the 1-process step over the
+  same 4 samples, the JAX step's result (the loss of the global batch),
+  with fixed masks that leave rank 0 one sample with an empty RGB mask
+  and rank 1 one with an empty depth mask, so the ranks' counts of
+  non-empty samples differ and a mean of per-rank losses would be wrong.
+  Losses, weighted losses and the grad norm within 1e-5 relative; every
+  gradient within 1e-6 of its tensor's largest (measured: 3e-7, the
+  order of the fp32 sums); the updated parameters within 1e-6 absolute
+  wherever |gradient| >= 1e-6. Where a gradient is within a hundred times
+  of Adam's eps (1e-8), AdamW's first update lr * g / (|g| + eps) turns
+  those last-bit differences into up to ~1e-5 (measured 2.3e-6 at a
+  gradient of 1.6e-8): there the parameters must differ by exactly the
+  difference of that update computed from the two runs' gradients,
+  within 1e-6.
+* Coordinated auto-resume: rank 0 damages the newest save; both ranks
+  resume from the one before.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from multimae_tpu_torch.cli import factory
+from multimae_tpu_torch.train.optim_factory import create_optimizer
+from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
+from multimae_tpu_torch.train.schedules import cosine_scheduler
+from multimae_tpu_torch.train.task_balancing import build_balancer
+from multimae_tpu_torch.train.train_state import TrainState
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_worker.py")
+TASKS = ("rgb", "depth", "semseg", "norm_rgb")
+K = 24
+
+
+def build(seed=0):
+    """The tiny MultiMAE's training state and step (uncertainty balancer
+    with non-zero log-variances, AdamW, clip 1.0)."""
+    model = factory.build_pretrain_model(
+        model_name="pretrain_multimae_tiny", input_size=64, decoder_dim=64,
+        decoder_num_heads=4, decoder_depth=2, decoder_return_patches=True,
+        pos_emb_grads=True, seed=seed, device="cpu")
+    balancer = build_balancer("uncertainty", TASKS)
+    with torch.no_grad():
+        balancer.log_vars.copy_(torch.tensor([0.1, -0.2, 0.3, 0.05]))
+    opt = create_optimizer(model, balancer, opt_betas=(0.9, 0.95), filter_bias_and_bn=False)
+    state = TrainState(model, balancer, opt, cosine_scheduler(1e-3, 0.0, 1, 4),
+                       cosine_scheduler(0.05, 0.05, 1, 4))
+    step = make_pretrain_train_step(model, balancer, factory.build_pretrain_losses(
+        ("rgb", "depth", "semseg")), num_encoded_tokens=K, clip_grad=1.0)
+    return state, step
+
+
+def global_batch():
+    return factory.make_synthetic_batch(4, input_size=64, seed=1, device="cpu")
+
+
+def fixed_masks():
+    """24 of 48 tokens visible per sample; sample 0 sees all of RGB (its
+    RGB mask is empty), sample 3 all of depth."""
+    rng = np.random.default_rng(3)
+    masks = np.ones((4, 48), np.int64)
+    for i in range(4):
+        if i == 0:
+            keep = np.r_[np.arange(16), 16 + rng.permutation(32)[:8]]
+        elif i == 3:
+            keep = np.r_[16 + np.arange(16), rng.permutation(np.r_[0:16, 32:48])[:8]]
+        else:
+            keep = rng.permutation(48)[:K]
+        masks[i, keep] = 0
+    return {t: torch.from_numpy(masks[:, 16 * j:16 * (j + 1)])
+            for j, t in enumerate(("rgb", "depth", "semseg"))}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SLURM_", "OMPI_", "MASTER_")) and k not in (
+               "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def _run_pair(envs, timeout=240):
+    procs = [subprocess.Popen([sys.executable, WORKER], env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for e in envs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and "DIST_OK" in out, f"rank {rank}:\n{out}"
+
+
+LAUNCHERS = {
+    "env": lambda r: {"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r)},
+    "openmpi": lambda r: {"OMPI_COMM_WORLD_RANK": str(r), "OMPI_COMM_WORLD_SIZE": "2",
+                          "OMPI_COMM_WORLD_LOCAL_RANK": str(r)},
+    "slurm": lambda r: {"SLURM_PROCID": str(r), "SLURM_NTASKS": "2", "SLURM_LOCALID": str(r)},
+}
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_initialize_distributed_under_each_launcher(launcher):
+    port = _free_port()
+    _run_pair([dict(_clean_env(), MODE="launcher", EXPECT_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port), **LAUNCHERS[launcher](r)) for r in range(2)])
+
+
+def test_single_process_needs_no_group(monkeypatch):
+    from multimae_tpu_torch.parallel import dist as dist_lib
+
+    for k in ("RANK", "WORLD_SIZE", "OMPI_COMM_WORLD_RANK", "SLURM_PROCID"):
+        monkeypatch.delenv(k, raising=False)
+    assert not dist_lib.initialize_distributed("cpu")
+    monkeypatch.setenv("SLURM_PROCID", "0")
+    monkeypatch.setenv("SLURM_NTASKS", "1")
+    assert not dist_lib.initialize_distributed("cpu")
+    assert (dist_lib.world_size(), dist_lib.process_index()) == (1, 0)
+    assert dist_lib.local_batch_slice(8) == slice(0, 8)
+
+
+def test_two_process_step_equals_the_global_batch_step(tmp_path):
+    state, step = build()
+    metrics = {k: float(v) for k, v in step(state, global_batch(), task_masks=fixed_masks()).items()}
+    masks = fixed_masks()
+    assert int(masks["rgb"][0].sum()) == 0 and int(masks["depth"][3].sum()) == 0
+
+    port = _free_port()
+    env = dict(_clean_env(), MODE="step", OUT=str(tmp_path), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2",
+               PYTHONPATH=os.path.dirname(WORKER) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    _run_pair([dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(2)])
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+        keys = ["loss", "grad_norm"] + [f"{t}_loss" for t in TASKS] + [
+            f"{t}_loss_weighted" for t in TASKS]
+        for k in keys:
+            rel = abs(got["metrics"][k] - metrics[k]) / max(abs(metrics[k]), 1e-30)
+            assert rel <= 1e-5, (r, k, got["metrics"][k], metrics[k])
+        lr = float(state.lr_values[0])
+        for k, p in state.model.named_parameters():
+            g1, g2 = p.grad.double(), got["grads"][k].double()
+            assert float((g2 - g1).abs().max()) <= 1e-6 * float(g1.abs().max()), (r, k)
+            diff = (got["model"][k].double() - p.detach().double())
+            if k.endswith("pos_emb"):  # frozen: no update on either side
+                assert float(diff.abs().max()) == 0.0, k
+                continue
+            # AdamW's first update is lr * g / (|g| + eps): where |g| is
+            # near eps, the gradients' last-bit differences move it.
+            sensitive = g1.abs() < 1e-6
+            assert float(torch.where(sensitive, 0.0, diff).abs().max()) <= 1e-6, (r, k)
+            adam = lr * (g2 / (g2.abs() + 1e-8) - g1 / (g1.abs() + 1e-8))
+            assert float((diff + adam).abs().max()) <= 1e-6, (r, k)
+        assert float((got["balancer"]["log_vars"] - state.balancer.log_vars.detach()).abs().max()) <= 1e-6

@@ -11,6 +11,7 @@ GRAD_TOLERANCE for the backward's gradients.
 """
 
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -736,3 +737,30 @@ def test_fused_mlp_refuses_widths_its_gate_refuses(cuda):
     x = randn(1, 16384, 96).to(cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="no kernel"):
         fused_mlp.fused_ln_mlp_res(x, x, mlp_weights(96, 384, device=cuda))
+
+
+@pytest.mark.cuda
+def test_cli_first_step_on_the_card_matches_the_plain_twins(cuda, tmp_path):
+    """One ViT-B step of the flagship recipe at phase 7's batch of 128 from
+    a written tree: K1 fwd and bwd launch 4 times each, and the losses and
+    grad norm match the same step on the plain twins within phase 7's
+    limit, 2e-5 relative."""
+    import chip_smoke
+    from multimae_tpu_torch.cli import run_pretraining_multimae as tcli
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+
+    tree = str(tmp_path / "tree")
+    write_random_tree(tree, chip_smoke.TRAIN_BATCH, (256, 320))
+    cfg = Path(__file__).resolve().parents[1] / "cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml"
+    args = ["-c", str(cfg),
+            "--data_path", tree, "--batch_size", str(chip_smoke.TRAIN_BATCH), "--epochs", "1",
+            "--warmup_epochs", "0",
+            "--num_workers", "0", "--no_auto_resume"]
+    fused_decoder.LAUNCHES = fused_decoder.LAUNCHES_BWD = 0
+    kern = tcli.main(tcli.get_args(args))["steps"][0]["metrics"]
+    assert (fused_decoder.LAUNCHES, fused_decoder.LAUNCHES_BWD) == (4, 4)
+    with chip_smoke.plain_twins():
+        plain = tcli.main(tcli.get_args(args))["steps"][0]["metrics"]
+    for k, v in plain.items():
+        if k != "skipped":
+            assert abs(kern[k] - v) <= chip_smoke.STEP_TOLERANCE * abs(v), (k, kern[k], v)

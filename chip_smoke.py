@@ -38,8 +38,9 @@ non-zero:
      every decoder parameter's gradient); ms per step, samples/s and peak
      memory for both paths.
   8. K2 short_attention forward and backward against their plain twins
-     at (4, 2049, 12 heads, 64), (4, 1025, 12, 64) and (4, 577, 12, 64)
-     (the regime of the JAX package's flash wrapper, which K2 serves),
+     at (4, 2049, 12 heads, 64), (4, 1174, 12, 64) (the Segmenter
+     head's blocks), (4, 1025, 12, 64) and (4, 577, 12, 64) (the regime
+     of the JAX package's flash wrapper, which K2 serves),
      bf16: o, lse, dq, dk and dv, the backward bit-equal over two runs;
      kernel, twin and torch's scaled_dot_product_attention (the
      yardstick, never called by the port) timed at 197, 577, 1025 and
@@ -81,7 +82,34 @@ non-zero:
      ms fed by the loader against the same CLI on synthetic batches of
      32, the share of each step spent waiting for data, and the
      checkpoint save and load seconds. The tree and the checkpoints are
-     deleted.
+     deleted, but for the newest checkpoint, which phase 13 starts from.
+ 13. the semantic segmentation fine-tune CLI
+     (multimae_tpu_torch.cli.run_finetuning_semseg, get_args + main): K4
+     against its twin at the Segmenter's eval shapes (4, 1025, 768) and
+     (4, 1174, 768), where its attention step runs the K2 forward; then
+     NYUv2-shaped trees of FT_TRAIN and FT_VAL samples (640 x 480 PNGs:
+     RGB, 16-bit depth, 40 classes with patches of 255, mask_valid) under
+     the NYU rgb-depth recipe (MultiViT-B at 512 px, ConvNeXt head, bf16,
+     batch 4, layer decay 0.75, 1-epoch warmup, 4 workers), started with
+     --finetune from phase 12's checkpoint (pos-embs 14x14 -> 32x32): run A
+     trains 2 epochs with a save and an mIoU eval over all FT_VAL images
+     (a partial batch of 2 included) per epoch; run B (--epochs 3)
+     auto-resumes from checkpoint-1.pth at epoch 2 with bit-equal
+     parameters; run C starts from a copy of checkpoint-0.pth alone and
+     its first loss equals run A's first loss of epoch 1. Every loss and
+     mIoU is finite, 0 <= mIoU <= 1, checkpoint-best.pth exists. An
+     --eval run from checkpoint-1.pth counts the launches per eval batch,
+     and run A's totals less its two evals' give those per training step:
+     each training step launches K2 fwd and bwd 12 and K3b fwd and bwd 4
+     times and each eval batch K4 12 and K3b fwd 4 times. Then run D: the
+     Segmenter head (dim 768, depth 2) under the ADE recipe (rgb, 150
+     classes, reduce_zero_label) for one epoch, and its --eval run: K2 fwd
+     and bwd 14 times per step (the encoder's 1025 keys and the head's
+     1174) and K4 14 per eval batch. Printed: the launches, the fine-tune
+     start's missing and
+     unexpected keys, the loader's samples/s over the NYU tree (one
+     process and 4 workers), the loader-fed step's host ms and data-wait
+     share, eval ms per batch, checkpoint save and load seconds.
 Then it prints the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -159,6 +187,16 @@ CLI_HW = (256, 320)
 CLI_BATCH = 32
 CLI_WORKERS = 4
 CLI_YAML = "cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml"
+
+# The semseg fine-tune CLI (phase 13): NYUv2-shaped trees (640 x 480 RGB,
+# 16-bit depth, 40 classes with patches of 255, mask_valid) of FT_TRAIN +
+# FT_VAL samples under the NYU rgb-depth recipe, started from phase 12's
+# pretraining checkpoint; then the Segmenter head under the ADE recipe.
+FT_TRAIN, FT_VAL = 16, 6
+FT_HW = (480, 640)
+FT_YAML = "cfgs/finetune/semseg/nyu/ft_nyu_200e_multimae-b_rgb-depth.yaml"
+ADE_YAML = "cfgs/finetune/semseg/ade/ft_ade_64e_multimae-b_rgb.yaml"
+ADE_TRAIN, ADE_HW = 8, (384, 512)
 
 # The least time an H100 SXM could take (NVIDIA's data sheet, dense).
 BF16_PEAK = 989e12  # FLOP/s, tensor cores
@@ -456,7 +494,7 @@ def short_attention_phase(torch, dev):
         return (*qkv.unbind(2), g)
 
     errors = {}
-    for n in (2049, 1025, 577):
+    for n in (2049, 1174, 1025, 577):
         q, k, v, g = inputs(n)
         o, lse = sa.short_attention_fwd(q, k, v, scale)
         grads = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
@@ -739,7 +777,7 @@ def semseg_slice(torch, dev):
     """Phase 11; returns each kernel's launches over the STEPS steps and
     over the eval batch."""
     from multimae_tpu_torch.cli.factory import build_semseg_trainer, make_synthetic_semseg_batch
-    from multimae_tpu_torch.cli.run_finetuning_semseg import seg_cross_entropy
+    from multimae_tpu_torch.cli.run_finetuning_semseg import seg_cross_entropy_parts
     from multimae_tpu_torch.train.finetune_step import make_dense_eval_step, make_dense_train_step
     from multimae_tpu_torch.utils.metrics import confusion_matrix, miou_from_confusion
 
@@ -749,7 +787,7 @@ def semseg_slice(torch, dev):
     batch = make_synthetic_semseg_batch(SEMSEG_BATCH, num_classes=SEMSEG_CLASSES, seed=0,
                                         device=dev)
     plain_state = copy.deepcopy(state)
-    plain_step = make_dense_train_step(plain_state.model, "semseg", seg_cross_entropy,
+    plain_step = make_dense_train_step(plain_state.model, "semseg", seg_cross_entropy_parts,
                                        in_domains=domains)
     model = state.model
     drop_gen = torch.Generator(device=dev).manual_seed(11)
@@ -888,17 +926,12 @@ def semseg_slice(torch, dev):
 
 
 
-def loader_rate(root, workers, batch=8, epochs=4):
-    """Samples/s of the port's Loader over the tree, after its first batch
-    (worker start-up excluded). A worker makes whole batches, so the batch
-    is small enough to give each of CLI_WORKERS workers two per epoch."""
-    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
+def loader_rate(dataset, transform, workers, batch, epochs):
+    """Samples/s of the port's Loader over `dataset`, after its first batch
+    (worker start-up excluded)."""
     from multimae_tpu_torch.data.loader import Loader
-    from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
 
-    dataset = MultiTaskImageFolder(root, ["depth", "rgb", "semseg"])
-    loader = Loader(dataset, DataAugmentationForMultiMAE(224), global_batch_size=batch,
-                    num_workers=workers)
+    loader = Loader(dataset, transform, global_batch_size=batch, num_workers=workers)
     next(loader)
     n = epochs * loader.steps_per_epoch
     t0 = time.perf_counter()
@@ -909,8 +942,20 @@ def loader_rate(root, workers, batch=8, epochs=4):
     return rate
 
 
-def cli_slice(torch, dev):
-    """Phase 12; returns K1's launches over the CLI's first run."""
+def pretrain_loader_rate(root, workers):
+    """Phase 12's tree with the pretraining transform. A worker makes whole
+    batches, so the batch of 8 gives each of CLI_WORKERS workers two per
+    epoch."""
+    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
+    from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
+
+    return loader_rate(MultiTaskImageFolder(root, ["depth", "rgb", "semseg"]),
+                       DataAugmentationForMultiMAE(224), workers, batch=8, epochs=4)
+
+
+def cli_slice(torch, dev, keep):
+    """Phase 12; returns K1's launches over the CLI's first run. The newest
+    checkpoint is moved to `keep`."""
     import shutil
 
     from multimae_tpu_torch.cli.run_pretraining_multimae import get_args, main
@@ -980,7 +1025,7 @@ def cli_slice(torch, dev):
         share = wait / (wait + sum(r["step_s"] for r in fed))
         steady_wait = sum(r["wait_s"] for r in steady)
         steady_share = steady_wait / (steady_wait + sum(r["step_s"] for r in steady))
-        one, many = loader_rate(tree, 0), loader_rate(tree, CLI_WORKERS)
+        one, many = pretrain_loader_rate(tree, 0), pretrain_loader_rate(tree, CLI_WORKERS)
         log(12, f"loader over the tree (256x320 PNG -> 224, batches of 8): {one:.1f} "
                 f"samples/s in one process, {many:.1f} samples/s with {CLI_WORKERS} workers "
                 f"({many / CLI_WORKERS:.1f} per worker)")
@@ -989,6 +1034,8 @@ def cli_slice(torch, dev):
                 f"{len(synthetic['steps']) - 1}); data wait {wait * 1e3:.1f} ms in all, "
                 f"{share:.4f} of the loader-fed steps' time; {steady_share:.4f} without "
                 f"each run's first step (worker start-up)")
+        os.makedirs(os.path.dirname(keep), exist_ok=True)
+        os.replace(os.path.join(out, "checkpoint-2.pth"), keep)
         return launches, {"cli_step_ms": step_ms, "cli_synthetic_step_ms": synth_ms,
                           "cli_data_wait_share": share,
                           "cli_data_wait_share_steady": steady_share,
@@ -997,6 +1044,258 @@ def cli_slice(torch, dev):
                           "ckpt_save_s": first["save_s"], "ckpt_load_s": relaunch["load_s"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def k4_at(torch, fused_block, w4, n, gen, dev):
+    """K4 against its twin at (SEMSEG_BATCH, n, 768): max abs error, rel
+    RMS, kernel and twin ms, bound."""
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    b, d, heads, hidden = SEMSEG_BATCH, 768, 12, 3072
+    x = torch.randn((b, n, d), generator=gen).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        out = fused_block.fused_block_infer(x, w4, heads)
+        torch.cuda.synchronize()
+        err, rel = assert_matches_twin(out, fused_block.block_infer_ref(x, w4, heads),
+                                       f"K4 fused_block_infer at {n} tokens")
+        ms, plain_ms = ab_ms(torch, lambda: fused_block.fused_block_infer(x, w4, heads),
+                             lambda: fused_block.block_infer_ref(x, w4, heads), iters=10)
+    flops, weights = block_work(b, n, d, hidden)
+    return err, rel, ms, plain_ms, bound(flops, 2 * (2 * b * n * d + weights))
+
+
+def semseg_data(root):
+    """The NYU tree with the fine-tune's training transform (512 px)."""
+    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
+    from multimae_tpu_torch.data.semseg_transforms import (
+        DataAugmentationForSemSeg, SimpleTransform)
+
+    return (MultiTaskImageFolder(root, ["depth", "rgb", "semseg", "mask_valid"]),
+            DataAugmentationForSemSeg(SimpleTransform(True, 512),
+                                      seg_num_classes=SEMSEG_CLASSES))
+
+
+def ft_sample_split(root):
+    """Where one loader process spends a sample of the NYU tree: ms per
+    sample reading and decoding its four PNGs, and ms augmenting them
+    (the fine-tune's training transform at 512 px), means over the tree."""
+    import random
+
+    dataset, transform = semseg_data(root)
+    decode = augment = 0.0
+    for i in range(len(dataset)):
+        t0 = time.perf_counter()
+        sample, _ = dataset.load_raw(i)
+        t1 = time.perf_counter()
+        transform(sample, rng=random.Random(i))
+        decode, augment = decode + t1 - t0, augment + time.perf_counter() - t1
+    return decode / len(dataset) * 1e3, augment / len(dataset) * 1e3
+
+
+def check_run(name, summary, steps, evals, images):
+    """Raise unless the run took `steps` steps and `evals` evaluations over
+    `images` images each, with finite losses and 0 <= mIoU <= 1."""
+    losses = [r["metrics"]["loss"] for r in summary["steps"]]
+    mious = [e["mIoU"] for e in summary["evals"]]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}; expected {steps} finite")
+    if len(mious) != evals or not all(0.0 <= v <= 1.0 for v in mious):
+        raise AssertionError(f"{name}: mIoU {mious}; expected {evals} in [0, 1]")
+    if any(e["images"] != images for e in summary["evals"]):
+        raise AssertionError(f"{name}: evaluated {[e['images'] for e in summary['evals']]} "
+                             f"images; expected {images} each")
+    return losses, mious
+
+
+def split_launches(name, launches, steps, evals, eval_run, eval_batches, images):
+    """({kernel: launches per training step}, {kernel: launches per eval
+    batch}) of a CLI run that counted `launches` over `steps` steps and
+    `evals` evals. `eval_run` is the summary of an --eval run of the same
+    recipe, made with the counts set to 0 just before it and read here;
+    the steps take what the evals leave."""
+    per_eval_run = launch_counts()
+    if ([e["batches"] for e in eval_run["evals"]], eval_run["steps"]) != ([eval_batches], []):
+        raise AssertionError(f"{name}: the --eval run took {eval_run['evals']} and "
+                             f"{len(eval_run['steps'])} steps")
+    check_run(f"{name} --eval", eval_run, 0, 1, images)
+    per_step, per_eval = {}, {}
+    for k, n in launches.items():
+        per_eval[k], rest = divmod(per_eval_run[k], eval_batches)
+        per_step[k], rest_step = divmod(n - evals * per_eval_run[k], steps)
+        if rest or rest_step or per_step[k] < 0:
+            raise AssertionError(f"{name}: {k} launched {n} times over {steps} steps and "
+                                 f"{evals} evals, {per_eval_run[k]} in an eval of "
+                                 f"{eval_batches} batches: not a whole count per step")
+    return per_step, per_eval
+
+
+def ft_cli_slice(torch, dev, pretrain):
+    """Phase 13; returns ({kernel: launches per training step}, {kernel:
+    launches per eval batch}) of the NYU run and the numbers it prints."""
+    import shutil
+
+    from multimae_tpu_torch.cli.run_finetuning_semseg import get_args, main
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+
+    root = os.path.join(HERE, "build", "chip_smoke_ft")
+    train, val = os.path.join(root, "train"), os.path.join(root, "val")
+    out = os.path.join(root, "out")
+    t0 = time.perf_counter()
+    nyu = dict(semseg_classes=SEMSEG_CLASSES, ignore_patches=True, mask_valid=True)
+    write_random_tree(train, FT_TRAIN, FT_HW, **nyu)
+    write_random_tree(val, FT_VAL, FT_HW, seed=1, **nyu)
+    log(13, f"wrote {FT_TRAIN} + {FT_VAL} NYUv2-shaped samples at {FT_HW[1]}x{FT_HW[0]} "
+            f"(rgb, 16-bit depth, {SEMSEG_CLASSES}-class semseg with 255 patches, mask_valid "
+            f"PNG) in {time.perf_counter() - t0:.1f} s")
+    try:
+        base = ["-c", os.path.join(HERE, FT_YAML), "--finetune", pretrain,
+                "--save_ckpt_freq", "1", "--num_workers", str(CLI_WORKERS),
+                "--data_path", train, "--eval_data_path", val]
+        steps_per_epoch, eval_batches = FT_TRAIN // SEMSEG_BATCH, math.ceil(FT_VAL / SEMSEG_BATCH)
+        reset_launch_counts()
+        first = main(get_args(base + ["--output_dir", out, "--epochs", "2"]))
+        launches = launch_counts()
+        losses, mious = check_run("run A", first, 2 * steps_per_epoch, 2, FT_VAL)
+        reset_launch_counts()
+        evaluated = main(get_args(base + ["--output_dir", out, "--eval", "--resume",
+                                          os.path.join(out, "checkpoint-1.pth")]))
+        per_step, per_eval = split_launches("run A", launches, len(losses), 2, evaluated,
+                                            eval_batches, FT_VAL)
+        expect_step = dict.fromkeys(launches, 0)
+        expect_step.update(short_attention_fwd=12, short_attention_bwd=12,
+                           fused_ln_mlp_res_fwd=4, fused_ln_mlp_res_bwd=4)
+        expect_eval = dict.fromkeys(launches, 0)
+        expect_eval.update(fused_block_infer=12, fused_ln_mlp_res_fwd=4)
+        if (per_step, per_eval) != (expect_step, expect_eval):
+            raise AssertionError(f"run A: launches {per_step} per step and {per_eval} per "
+                                 f"eval batch; expected {expect_step} and {expect_eval}")
+        report = first["finetune"]
+        missing, unexpected = report["missing"], report["unexpected"]
+        if (any(not k.startswith("output_adapters.semseg.") for k in missing)
+                or any(k.startswith("encoder.") or "pos_emb" in k and k.startswith(
+                    ("input_adapters.rgb", "input_adapters.depth")) for k in unexpected)):
+            raise AssertionError(f"fine-tune start: missing {missing}, unexpected "
+                                 f"{unexpected[:20]}")
+        saves = [os.path.join(out, f"checkpoint-{e}.pth") for e in ("0", "1", "best")]
+        with open(os.path.join(out, "log.txt")) as f:
+            lines = f.read().splitlines()
+        if len(lines) != 2 or not all(os.path.exists(p) for p in saves):
+            raise AssertionError(f"run A: {len(lines)} log lines, {os.listdir(out)}")
+        log(13, f"fine-tune start from {os.path.basename(pretrain)}: {len(missing)} missing "
+                f"(the head's), {len(unexpected)} unexpected (the pretraining decoders and "
+                f"the semseg input adapter), rgb and depth pos-embs 14x14 -> 32x32")
+        log(13, "run A: losses " + ", ".join(f"{v:.4f}" for v in losses) + "; mIoU "
+                + ", ".join(f"{v:.4f}" for v in mious) + f" over {FT_VAL} images each; "
+                f"per training step K2 fwd {per_step['short_attention_fwd']}, bwd "
+                f"{per_step['short_attention_bwd']}, K3b fwd {per_step['fused_ln_mlp_res_fwd']}"
+                f", bwd {per_step['fused_ln_mlp_res_bwd']}; per eval batch K4 "
+                f"{per_eval['fused_block_infer']}, K3b fwd {per_eval['fused_ln_mlp_res_fwd']} "
+                f"(measured: totals {launches} over {len(losses)} steps and 2 evals, an "
+                f"--eval run over {eval_batches} batches); "
+                f"checkpoint-0, -1, -best.pth saved in "
+                + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
+
+        resumed = main(get_args(base + ["--output_dir", out, "--epochs", "3"]))
+        if (resumed["start_epoch"], resumed["resumed_from"], resumed.get("resume_bit_equal"),
+                [e["epoch"] for e in resumed["epochs"]]) != (2, saves[1], True, [2]):
+            raise AssertionError(f"run B: start epoch {resumed['start_epoch']}, from "
+                                 f"{resumed['resumed_from']}, bit-equal "
+                                 f"{resumed.get('resume_bit_equal')}, epochs "
+                                 f"{[e['epoch'] for e in resumed['epochs']]}")
+        check_run("run B", resumed, steps_per_epoch, 1, FT_VAL)
+        log(13, f"run B (--epochs 3): auto-resumed from checkpoint-1.pth at epoch 2, "
+                f"parameters bit-equal to the save, loaded in {resumed['load_s']:.2f} s; "
+                f"losses " + ", ".join(f"{r['metrics']['loss']:.4f}" for r in resumed["steps"])
+                + f", mIoU {resumed['evals'][0]['mIoU']:.4f}")
+
+        out_c = os.path.join(root, "out_c")
+        os.makedirs(out_c)
+        shutil.copy(saves[0], out_c)
+        again = main(get_args(base + ["--output_dir", out_c, "--epochs", "2"]))
+        check_run("run C", again, steps_per_epoch, 1, FT_VAL)
+        a_loss = first["steps"][steps_per_epoch]["metrics"]["loss"]
+        c_loss = again["steps"][0]["metrics"]["loss"]
+        if (again["start_epoch"], again.get("resume_bit_equal"), c_loss) != (1, True, a_loss):
+            raise AssertionError(f"run C: start epoch {again['start_epoch']}, bit-equal "
+                                 f"{again.get('resume_bit_equal')}, first loss {c_loss}, run "
+                                 f"A's at that step {a_loss}")
+        log(13, f"run C (from checkpoint-0.pth alone): resumed at epoch 1, first loss "
+                f"{c_loss:.6f} equal to run A's at that step")
+        shutil.rmtree(out_c)
+
+        fed = first["steps"] + resumed["steps"] + again["steps"]
+        steady = [r for run in (first, resumed, again) for r in run["steps"][1:]]
+        step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
+        wait = sum(r["wait_s"] for r in fed)
+        share = wait / (wait + sum(r["step_s"] for r in fed))
+        steady_wait = sum(r["wait_s"] for r in steady)
+        steady_share = steady_wait / (steady_wait + sum(r["step_s"] for r in steady))
+        evals = first["evals"] + resumed["evals"] + again["evals"]
+        eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
+        eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
+        one, many = (loader_rate(*semseg_data(train), workers, batch=SEMSEG_BATCH, epochs=3)
+                     for workers in (0, CLI_WORKERS))
+        decode_ms, augment_ms = ft_sample_split(train)
+        log(13, f"loader over the NYU tree (640x480 PNG -> 512 crops, batches of "
+                f"{SEMSEG_BATCH}): {one:.1f} samples/s in one process, {many:.1f} samples/s "
+                f"with {CLI_WORKERS} workers; the ~70 ms step of the recipe's batch of 4 needs "
+                f"~57; one process spends {decode_ms:.1f} ms per sample decoding its 4 PNGs "
+                f"and {augment_ms:.1f} ms augmenting")
+        log(13, f"CLI step at batch {SEMSEG_BATCH} fed by the loader: {step_ms:.3f} ms host "
+                f"(median of {len(fed)}); data wait {wait * 1e3:.1f} ms in all, {share:.4f} of "
+                f"the steps' time, {steady_share:.4f} without each run's first step; eval "
+                f"{eval_ms:.3f} ms per batch on the card ({eval_data_ms:.3f} with the data)")
+        numbers = {"ft_step_ms": step_ms, "ft_data_wait_share": share,
+                   "ft_data_wait_share_steady": steady_share, "ft_eval_ms_per_batch": eval_ms,
+                   "ft_eval_ms_per_batch_with_data": eval_data_ms,
+                   "ft_loader_samples_per_s": one, "ft_loader_samples_per_s_workers": many,
+                   "ft_decode_ms_per_sample": decode_ms, "ft_augment_ms_per_sample": augment_ms,
+                   "ft_ckpt_save_s": first["save_s"], "ft_ckpt_load_s": resumed["load_s"],
+                   "ft_missing": len(missing), "ft_unexpected": len(unexpected),
+                   "ft_losses": losses, "ft_mIoU": mious}
+        shutil.rmtree(out)
+        free_card(torch)
+
+        # The Segmenter head under the ADE recipe.
+        ade = os.path.join(root, "ade")
+        write_random_tree(os.path.join(ade, "train"), ADE_TRAIN, ADE_HW, seed=2,
+                          semseg_classes=151)
+        write_random_tree(os.path.join(ade, "val"), FT_VAL, ADE_HW, seed=3, semseg_classes=151)
+        seg_args = [
+            "-c", os.path.join(HERE, ADE_YAML), "--finetune", pretrain,
+            "--output_adapter", "segmenter", "--decoder_dim", "768", "--decoder_depth", "2",
+            "--epochs", "1", "--num_workers", str(CLI_WORKERS),
+            "--data_path", os.path.join(ade, "train"), "--eval_data_path",
+            os.path.join(ade, "val"), "--output_dir", os.path.join(ade, "out")]
+        reset_launch_counts()
+        seg = main(get_args(seg_args))
+        seg_launches = launch_counts()
+        seg_losses, seg_miou = check_run("run D", seg, ADE_TRAIN // SEMSEG_BATCH, 1, FT_VAL)
+        reset_launch_counts()
+        evaluated = main(get_args(seg_args + ["--eval"]))
+        seg_step, seg_eval = split_launches("run D", seg_launches, len(seg_losses), 1,
+                                            evaluated, eval_batches, FT_VAL)
+        expect_step = dict.fromkeys(seg_launches, 0)
+        expect_step.update(short_attention_fwd=14, short_attention_bwd=14)
+        expect_eval = dict.fromkeys(seg_launches, 0)
+        expect_eval.update(fused_block_infer=14)
+        if (seg_step, seg_eval) != (expect_step, expect_eval):
+            raise AssertionError(f"run D: launches {seg_step} per step and {seg_eval} per "
+                                 f"eval batch; expected {expect_step} and {expect_eval}")
+        log(13, f"run D (Segmenter, ADE recipe, rgb, 150 classes): losses "
+                + ", ".join(f"{v:.4f}" for v in seg_losses) + f", mIoU {seg_miou[0]:.4f}; K2 "
+                f"fwd {seg_step['short_attention_fwd']} and bwd "
+                f"{seg_step['short_attention_bwd']} per step (12 encoder blocks at 1025 keys, "
+                f"2 head blocks at 1174), K4 {seg_eval['fused_block_infer']} per eval batch "
+                f"(measured as in run A); eval {seg['evals'][0]['ms_per_batch']:.3f} ms "
+                f"per batch")
+        numbers.update(seg_losses=seg_losses, seg_mIoU=seg_miou[0],
+                       seg_eval_ms_per_batch=seg["evals"][0]["ms_per_batch"],
+                       seg_step_ms=statistics.median(r["step_s"] for r in seg["steps"]) * 1e3)
+        return per_step, per_eval, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
 
 
 def main():
@@ -1308,11 +1607,35 @@ def main():
     free_card(torch)
 
     # 12. the pretraining CLI from a dataset folder
-    cli_launches, cli_numbers = cli_slice(torch, dev)
+    pretrain = os.path.join(HERE, "build", "chip_smoke_pretrain", "checkpoint-2.pth")
+    try:
+        cli_launches, cli_numbers = cli_slice(torch, dev, pretrain)
+        for k in kernels:
+            if k["name"] in ("fused_decoder_fwd", "fused_decoder_bwd"):
+                k["cli_launches"] = cli_launches[k["name"]]
+        log(12, "numbers: " + json.dumps(cli_numbers))
+        free_card(torch)
+
+        # 13. the semantic segmentation fine-tune CLI: K4 at the Segmenter's
+        # eval shapes first, then the CLI runs
+        for n in (1025, 1174):
+            err, rel, ms, plain_ms, k4_bound = k4_at(torch, fused_block, w4, n, gen, dev)
+            log(13, f"K4 bf16 ({SEMSEG_BATCH},{n},768) (attention on the K2 forward) max abs "
+                    f"{err:.3e}, rel RMS {rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]})")
+            kernels[0].update({f"n{n}_max_abs_err": err, f"n{n}_ms": ms,
+                               f"n{n}_plain_ms": plain_ms, f"n{n}_bound_ms": k4_bound[0]})
+        free_card(torch)
+        per_step, per_eval, ft_numbers = ft_cli_slice(torch, dev, pretrain)
+    finally:
+        import shutil
+
+        shutil.rmtree(os.path.dirname(pretrain), ignore_errors=True)
     for k in kernels:
-        if k["name"] in ("fused_decoder_fwd", "fused_decoder_bwd"):
-            k["cli_launches"] = cli_launches[k["name"]]
-    log(12, "numbers: " + json.dumps(cli_numbers))
+        name = k.get("served_by", k["name"])
+        k["ft_cli_launches"] = per_step[name]
+        k["ft_cli_eval_launches"] = per_eval[name]
+    log(13, "numbers: " + json.dumps(ft_numbers))
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,10 @@ from multimae_tpu_torch.models import (
     SemSegInputAdapter,
     SpatialOutputAdapter,
 )
-from multimae_tpu_torch.cli.run_finetuning_semseg import build_semseg_model, seg_cross_entropy
+from multimae_tpu_torch.cli.run_finetuning_semseg import (
+    build_semseg_model,
+    seg_cross_entropy_parts,
+)
 from multimae_tpu_torch.models.registry import create_model
 from multimae_tpu_torch.train.finetune_step import make_dense_train_step
 from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, create_optimizer
@@ -241,7 +244,7 @@ def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cuda", **ove
     lr = cosine_scheduler(r["lr"], r["min_lr"], epochs=r["epochs"],
                           niter_per_ep=max(1, r["train_images"] // batch_size))
     state = TrainState(model, None, optimizer, lr)
-    step = make_dense_train_step(model, "semseg", seg_cross_entropy,
+    step = make_dense_train_step(model, "semseg", seg_cross_entropy_parts,
                                  in_domains=r["in_domains"], clip_grad=r["clip_grad"])
     return state, step
 

@@ -161,24 +161,42 @@ class MultiTaskImageFolder:
 
 
 def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: int = 0,
-                      classes: int = 2) -> None:
+                      classes: int = 2, semseg_classes: int = 133,
+                      ignore_patches: bool = False, mask_valid: bool = False) -> None:
     """Write an aligned MultiTaskImageFolder tree of random PNGs drawn from
     `seed`: root/<task>/c<k>/i<n>.png with 8-bit RGB, 16-bit depth and
-    palette semseg (133 classes, the pretraining recipe's), for tests and
-    chip runs."""
+    palette semseg with labels in [0, semseg_classes) (133 by default, the
+    pretraining recipe's), for tests and chip runs. `ignore_patches` sets
+    a random rectangle of each class map to the ignore label 255;
+    `mask_valid` adds root/mask_valid/ maps of 0 (invalid: a border and
+    a random rectangle) and 255. NYUv2-shaped: hw (480, 640),
+    semseg_classes 40, both on."""
     from multimae_tpu_torch.data.image_io import write_png
 
     rng = np.random.default_rng(seed)
     palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
     h, w = hw
+    tasks = ("rgb", "depth", "semseg") + (("mask_valid",) if mask_valid else ())
+
+    def rectangle():
+        y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
+        return slice(y, y + int(rng.integers(1, h // 4 + 2))), slice(x, x + int(rng.integers(1, w // 4 + 2)))
+
     for i in range(num_samples):
         cls = f"c{i % classes}"
-        for task in ("rgb", "depth", "semseg"):
+        for task in tasks:
             os.makedirs(os.path.join(root, task, cls), exist_ok=True)
         name = f"i{i:04d}.png"
         write_png(os.path.join(root, "rgb", cls, name),
                   rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
         write_png(os.path.join(root, "depth", cls, name),
                   rng.integers(0, 65536, (h, w), dtype=np.uint16))
-        write_png(os.path.join(root, "semseg", cls, name),
-                  rng.integers(0, 133, (h, w), dtype=np.uint8), palette=palette)
+        labels = rng.integers(0, semseg_classes, (h, w), dtype=np.uint8)
+        if ignore_patches:
+            labels[rectangle()] = 255
+        write_png(os.path.join(root, "semseg", cls, name), labels, palette=palette)
+        if mask_valid:
+            valid = np.zeros((h, w), np.uint8)
+            valid[h // 40:h - h // 40, w // 40:w - w // 40] = 255
+            valid[rectangle()] = 0
+            write_png(os.path.join(root, "mask_valid", cls, name), valid)

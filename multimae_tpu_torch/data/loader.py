@@ -15,6 +15,13 @@
   of it already handed out, saved with a checkpoint so a resumed run
   continues the same order. The position is global, so it is the same on
   every rank.
+* `EvalLoader`: one unshuffled pass per iteration that hands out the last
+  partial batch (the JAX CLI's `build_loader(..., shuffle=False,
+  num_epochs=1, drop_remainder=False)`). Across R ranks it shards as
+  grain's ShardOptions(drop_remainder=True) does there: the records are
+  cut to a multiple of R and rank r reads the r-th contiguous block, so
+  each record the JAX sharding keeps is read once, and the last
+  len % R records by no rank. One process reads every record.
 Workers are spawned processes, kept for the life of the loader.
 """
 
@@ -97,6 +104,19 @@ class LoadAndAugment(torch.utils.data.Dataset):
         return len(self.dataset)
 
 
+def data_loader(dataset, transform: Optional[Callable], seed: int, batch_size: int, sampler,
+                drop_last: bool, num_workers: int,
+                pin_memory: bool) -> torch.utils.data.DataLoader:
+    """A DataLoader of LoadAndAugment over `sampler`'s (epoch, index) keys,
+    its workers spawned and kept for the loader's life."""
+    workers = dict(multiprocessing_context="spawn", persistent_workers=True,
+                   prefetch_factor=4) if num_workers else {}
+    return torch.utils.data.DataLoader(
+        LoadAndAugment(dataset, transform, seed), batch_size=batch_size, sampler=sampler,
+        drop_last=drop_last, num_workers=num_workers, collate_fn=collate,
+        pin_memory=pin_memory, **workers)
+
+
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
     """Stack each key; integer arrays become int64."""
     out = {}
@@ -126,12 +146,8 @@ class Loader:
                              f"{global_batch_size}")
         self.sampler = ShardSampler(len(dataset), seed=seed, shard_index=shard_index,
                                     shard_count=shard_count, shuffle=shuffle)
-        workers = dict(multiprocessing_context="spawn", persistent_workers=True,
-                       prefetch_factor=4) if num_workers else {}
-        self.loader = torch.utils.data.DataLoader(
-            LoadAndAugment(dataset, transform, seed), batch_size=self.local_batch,
-            sampler=self.sampler, drop_last=True, num_workers=num_workers,
-            collate_fn=collate, pin_memory=pin_memory, **workers)
+        self.loader = data_loader(dataset, transform, seed, self.local_batch, self.sampler,
+                                  True, num_workers, pin_memory)
         self.epoch = 0
         self.batch = 0
         self._it = None
@@ -166,3 +182,37 @@ class Loader:
             raise ValueError(f"saved position {state} lies outside an epoch of "
                              f"{self.steps_per_epoch} batches")
         self.epoch, self.batch, self._it = int(state["epoch"]), int(state["batch"]), None
+
+
+def eval_shard(num_records: int, *, shard_index: int, shard_count: int) -> np.ndarray:
+    """The record indices rank `shard_index` of `shard_count` evaluates:
+    its contiguous block of the records cut to a multiple of shard_count."""
+    per_shard = num_records // shard_count
+    return np.arange(shard_index * per_shard, (shard_index + 1) * per_shard)
+
+
+class EvalLoader:
+    """Each iteration is one pass over this rank's shard in record order, in
+    batches of global_batch_size / shard_count, the last one partial."""
+
+    def __init__(self, dataset, transform: Optional[Callable], *, global_batch_size: int,
+                 seed: int = 0, num_workers: int = 0, shard_index: int = 0,
+                 shard_count: int = 1, pin_memory: bool = False):
+        if global_batch_size % shard_count:
+            raise ValueError(f"global batch {global_batch_size} does not split over "
+                             f"{shard_count} ranks")
+        self.indices = eval_shard(len(dataset), shard_index=shard_index,
+                                  shard_count=shard_count)
+        self.loader = data_loader(dataset, transform, seed, global_batch_size // shard_count,
+                                  [(0, int(i)) for i in self.indices], False, num_workers,
+                                  pin_memory)
+
+    def __iter__(self):
+        return iter(self.loader)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def close(self) -> None:
+        """Stop the worker processes."""
+        self.loader._iterator = None

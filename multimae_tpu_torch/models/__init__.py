@@ -8,11 +8,16 @@ from multimae_tpu_torch.models.criterion import (
 from multimae_tpu_torch.models.input_adapters import PatchedInputAdapter, SemSegInputAdapter
 from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock
 from multimae_tpu_torch.models.multimae import MultiMAE, MultiViT
-from multimae_tpu_torch.models.output_adapters import ConvNeXtAdapter, SpatialOutputAdapter
+from multimae_tpu_torch.models.output_adapters import (
+    ConvNeXtAdapter,
+    SegmenterMaskTransformerAdapter,
+    SpatialOutputAdapter,
+)
 from multimae_tpu_torch.models.registry import create_model, list_models
 
 __all__ = [
     "ConvNeXtAdapter", "ConvNeXtBlock", "MaskedCrossEntropyLoss", "MaskedL1Loss",
-    "MaskedMSELoss", "MultiMAE", "MultiViT", "PatchedInputAdapter", "SemSegInputAdapter",
-    "SpatialOutputAdapter", "create_model", "list_models",
+    "MaskedMSELoss", "MultiMAE", "MultiViT", "PatchedInputAdapter",
+    "SegmenterMaskTransformerAdapter", "SemSegInputAdapter", "SpatialOutputAdapter",
+    "create_model", "list_models",
 ]

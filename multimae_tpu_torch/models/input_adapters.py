@@ -11,7 +11,7 @@ frozen parameters stored (1, D, h, w) as in the reference.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -85,25 +85,39 @@ class PatchedInputAdapter(nn.Module):
 
 
 class SemSegInputAdapter(nn.Module):
-    """Class-map tokenizer (reference input_adapters.py:122-241); input is
-    an int class map (B, H/stride, W/stride)."""
+    """Class-map tokenizer (reference input_adapters.py:122-241, JAX
+    :130-245); input is an int class map (B, H/stride, W/stride).
+
+    With `emb_padding_idx` the class embedding has one more row, the void
+    class the fine-tune CLI maps invalid pseudo labels to, and that row is
+    zero in every forward and gets no gradient (JAX :191-195; the
+    reference's nn.Embedding(padding_idx=...)). With
+    `interpolate_class_emb` the per-pixel embeddings are resized
+    bilinearly to the patch grid and projected by a 1x1 convolution
+    (JAX :211-224) instead of the patch-sized one."""
 
     def __init__(self, num_classes: int, stride_level: int,
                  patch_size_full: Union[int, Tuple[int, int]], dim_tokens: int,
                  image_size: Union[int, Tuple[int, int]] = 224,
-                 dim_class_emb: int = 64, dtype: torch.dtype = torch.float32):
+                 dim_class_emb: int = 64, interpolate_class_emb: bool = False,
+                 emb_padding_idx: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.interpolate_class_emb = interpolate_class_emb
+        self.emb_padding_idx = emb_padding_idx
         p = pair(patch_size_full)
         self.patch_hw = (max(1, p[0] // stride_level), max(1, p[1] // stride_level))
         img = pair(image_size)
         ph, pw = self.patch_hw
         self.pos_emb = sincos_pos_emb(img[0] // (stride_level * ph),
                                       img[1] // (stride_level * pw), dim_tokens)
-        self.class_emb = nn.Embedding(num_classes, dim_class_emb, device="meta")
-        self.class_emb.weight = nn.Parameter(torch.empty(num_classes, dim_class_emb))
-        self.proj = nn.Conv2d(dim_class_emb, dim_tokens, kernel_size=self.patch_hw,
-                              stride=self.patch_hw, device="meta")
+        rows = num_classes + (emb_padding_idx is not None)
+        self.class_emb = nn.Embedding(rows, dim_class_emb, device="meta")
+        self.class_emb.weight = nn.Parameter(torch.empty(rows, dim_class_emb))
+        kernel = (1, 1) if interpolate_class_emb else self.patch_hw
+        self.proj = nn.Conv2d(dim_class_emb, dim_tokens, kernel_size=kernel,
+                              stride=kernel, device="meta")
         self.proj.weight = nn.Parameter(torch.empty(self.proj.weight.shape))
         self.proj.bias = nn.Parameter(torch.empty(dim_tokens))
 
@@ -117,7 +131,13 @@ class SemSegInputAdapter(nn.Module):
         ph, pw = self.patch_hw
         if h % ph or w % pw:
             raise ValueError(f"class map {h}x{w} not divisible by patch {ph}x{pw}")
-        emb = self.class_emb(x.long()).to(self.dtype)  # (B, h, w, 64)
+        nh, nw = h // ph, w // pw
+        table = self.class_emb.weight
+        if self.emb_padding_idx is not None:
+            table = table.index_fill(
+                0, torch.tensor([self.emb_padding_idx], device=table.device), 0.0)
+        emb = F.embedding(x.long(), table).to(self.dtype)  # (B, h, w, 64)
+        if self.interpolate_class_emb:
+            emb = interpolate_2d(emb, (nh, nw), mode="bilinear")
         tokens = patch_project(emb.permute(0, 3, 1, 2), self.proj, self.dtype)
-        return tokens + pos_tokens(self.pos_emb, (h // ph, w // pw), "bilinear",
-                                   self.dtype)
+        return tokens + pos_tokens(self.pos_emb, (nh, nw), "bilinear", self.dtype)

@@ -179,12 +179,14 @@ class MultiViT(MultiMAE):
                 generator: Optional[torch.Generator] = None):
         """{task: NHWC pred} of every output adapter, or the encoder tokens
         without adapters. In training (`model.train()`) drop_path draws
-        from `generator`, which lies on the inputs' device."""
+        from `generator`, which lies on the inputs' device: the encoder's
+        blocks first, then a head's own (the Segmenter's)."""
         input_tokens, info = self.process_input(x)
         h = self.run_encoder(input_tokens, generator)
         if self.output_adapters is None:
             return h
-        return {domain: adapter(h.float() if domain in self.fp32_output_adapters else h, info)
+        return {domain: adapter(h.float() if domain in self.fp32_output_adapters else h, info,
+                                generator=generator)
                 for domain, adapter in self.output_adapters.items()}
 
 

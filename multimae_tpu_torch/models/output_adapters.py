@@ -1,7 +1,8 @@
 """Output adapters: SpatialOutputAdapter, the pretraining decoder
 (counterpart of multimae_tpu/models/output_adapters.py:39-345; reference
-multimae/output_adapters.py:33-282), and ConvNeXtAdapter, the semantic
-segmentation head (JAX :482-531; reference :481-573).
+multimae/output_adapters.py:33-282), and the semantic segmentation heads,
+SegmenterMaskTransformerAdapter (JAX :390-479; reference :359-478) and
+ConvNeXtAdapter (JAX :482-531; reference :481-573).
 
 Queries are the task's own token positions (the visible encoder token
 where the position was kept, else the mask token) plus the task and
@@ -22,7 +23,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock, conv2d_nhwc, lecun_normal_, make_conv
@@ -202,6 +205,69 @@ def adapt_tokens(encoder_tokens: torch.Tensor, input_info: Dict,
                       for t in main_tasks], dim=-1)
 
 
+class SegmenterMaskTransformerAdapter(nn.Module):
+    """Segmenter's mask transformer: the main tasks' tokens projected to
+    embed_dim, one learned embedding per class appended, `depth` ViT
+    blocks (drop_path rising linearly to drop_path_rate) over both, a
+    LayerNorm, bias-free projections of the patch and class tokens, each
+    l2-normalised in fp32, their products accumulated in fp32, a fp32
+    LayerNorm over the classes (eps 1e-6) and a bilinear resize of the
+    (H/16, W/16) masks to the image. The blocks take the kernels' gates as
+    the encoder's do: K2 in training for bf16 key sets of 512 and more,
+    K4 in eval."""
+
+    def __init__(self, num_classes: int, depth: int = 2, num_heads: int = 12,
+                 embed_dim: int = 768, mlp_ratio: float = 4.0,
+                 drop_path_rate: float = 0.1, qkv_bias: bool = True,
+                 main_tasks: Sequence[str] = ("rgb",), patch_size: int = 16,
+                 dim_tokens_enc: int = 768, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.main_tasks = tuple(main_tasks)
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.proj_dec = Dense(dim_tokens_enc * len(self.main_tasks), embed_dim, dtype=dtype,
+                              init_std=0.02)
+        self.cls_emb = nn.Parameter(torch.empty(1, num_classes, embed_dim))
+        dpr = [float(v) for v in np.linspace(0, drop_path_rate, depth)]
+        self.blocks = nn.ModuleList([
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dtype, drop_path_rate=dpr[i])
+            for i in range(depth)])
+        self.decoder_norm = LayerNorm(embed_dim, dtype)
+        self.patch_proj = Dense(embed_dim, embed_dim, bias=False, dtype=dtype, init_std=0.02)
+        self.classes_proj = Dense(embed_dim, embed_dim, bias=False, dtype=dtype,
+                                  init_std=0.02)
+        self.mask_norm = nn.LayerNorm(num_classes, eps=1e-6)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.cls_emb, generator)
+
+    def _l2norm(self, v: torch.Tensor) -> torch.Tensor:
+        v = v.float()
+        return (v / torch.linalg.vector_norm(v, dim=2, keepdim=True).clamp_min(1e-12)
+                ).to(self.dtype)
+
+    def forward(self, encoder_tokens: torch.Tensor, input_info: Dict,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, num_classes) fp32 masks; in training the blocks'
+        drop_path draws from `generator`."""
+        h, w = input_info["image_size"]
+        nh, nw = h // self.patch_size, w // self.patch_size
+        x = self.proj_dec(adapt_tokens(encoder_tokens, input_info,
+                                       self.main_tasks).to(self.dtype))
+        b, c = x.shape[0], self.num_classes
+        x = torch.cat([x, self.cls_emb.to(self.dtype).expand(b, -1, -1)], dim=1)
+        for blk in self.blocks:
+            x = blk(x, generator)
+        x = self.decoder_norm(x)
+        patches = self._l2norm(self.patch_proj(x[:, :-c]))
+        classes = self._l2norm(self.classes_proj(x[:, -c:]))
+        masks = torch.matmul(patches.float(), classes.float().transpose(1, 2))
+        masks = F.layer_norm(masks, (c,), self.mask_norm.weight, self.mask_norm.bias, eps=1e-6)
+        return interpolate_2d(masks.reshape(b, nh, nw, c), (h, w), mode="bilinear",
+                              align_corners=False)
+
+
 class ConvNeXtAdapter(nn.Module):
     """Semantic segmentation head: a Dense to preds_per_patch sub-pixels of
     embed_dim / preds_per_patch channels per token, the sub-pixel reshape
@@ -229,7 +295,10 @@ class ConvNeXtAdapter(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.final_layer, generator)
 
-    def forward(self, encoder_tokens: torch.Tensor, input_info: Dict) -> torch.Tensor:
+    def forward(self, encoder_tokens: torch.Tensor, input_info: Dict,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, num_classes) logits; `generator` is unused (the head has
+        no stochastic depth)."""
         h, w = input_info["image_size"]
         nh, nw = h // self.patch_size, w // self.patch_size
         sub = int(self.preds_per_patch ** 0.5)

@@ -82,6 +82,19 @@ def local_batch_slice(global_batch: int) -> slice:
     return slice(start, start + per_rank)
 
 
+def sum_across_processes(t: torch.Tensor) -> torch.Tensor:
+    """The element-wise sum of `t` over every process (`t` itself for one
+    process): one all_reduce, on the card under NCCL, on the CPU under
+    gloo. The counterpart of the JAX package's sum_across_processes
+    (multimae_tpu/utils/metrics.py:90)."""
+    if world_size() == 1:
+        return t
+    on_card = dist.get_backend() == "nccl"
+    out = t.to("cuda" if on_card else "cpu").clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out.to(t.device)
+
+
 def barrier() -> None:
     if world_size() > 1:
         dist.barrier()

@@ -7,7 +7,16 @@ keys, `model` (the state_dict, keyed like the reference's torch model),
 `optimizer`, `epoch`, `loss_balancer` and `args` (plain values), and the
 port's `step`, `updates` and `data_iter_state` (the loader's position).
 Rank 0 alone writes it, to `.tmp` first and then `os.replace`, with an
-`args.json` beside it. Every load is `torch.load(weights_only=True)`.
+`args.json` beside it; a `tag` names the file instead (`checkpoint-best`,
+which auto-resume does not consider). Every load is
+`torch.load(weights_only=True)`, with argparse.Namespace allow-listed for
+the reference's own training checkpoints.
+
+`load_checkpoint` (the --resume path) also takes such a reference
+training checkpoint, which has no `step` or `updates`: its weights load
+through the fine-tune start's surgeries (utils/torch_compat.py) and its
+epoch is kept, while the optimizer and the counters start fresh, as the
+JAX package does for a `.pth` (multimae_tpu/train/checkpoint.py:306-329).
 
 Auto-resume walks the saves newest epoch first. Each candidate is read
 in full and its every key and shape checked against the live state
@@ -29,21 +38,25 @@ import torch
 
 from multimae_tpu_torch.parallel.dist import is_main_process, world_size
 from multimae_tpu_torch.train.train_state import TrainState
+from multimae_tpu_torch.utils.torch_compat import load_pretrained, torch_load_checkpoint
 
 _NAME = re.compile(r"checkpoint-(\d+)\.pth$")
 
 
 def save_checkpoint(output_dir: str, epoch: int, state: TrainState, *,
                     args: Optional[Dict[str, Any]] = None,
-                    data_iter_state: Optional[Dict[str, int]] = None) -> Optional[str]:
-    """Write checkpoint-{epoch}.pth on rank 0; returns its path (None on
-    the other ranks)."""
+                    data_iter_state: Optional[Dict[str, int]] = None,
+                    tag: Optional[str] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
+    """Write checkpoint-{epoch}.pth (or {tag}.pth) on rank 0, with the
+    plain values of `extra` as further keys; returns its path (None on the
+    other ranks)."""
     if not is_main_process():
         return None
     os.makedirs(output_dir, exist_ok=True)
     payload = dict(state.state_dict(), epoch=int(epoch), args=dict(args or {}),
-                   data_iter_state=data_iter_state)
-    path = os.path.join(output_dir, f"checkpoint-{epoch}.pth")
+                   data_iter_state=data_iter_state, **(extra or {}))
+    path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.pth")
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -107,14 +120,28 @@ def validate_payload(payload: Any, state: TrainState) -> None:
 
 def read_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
     """torch.load (weights only) and validate; raises on a damaged file."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    payload = torch_load_checkpoint(path)
     validate_payload(payload, state)
     return payload
 
 
+def is_reference_training_payload(payload: Any) -> bool:
+    """A reference training checkpoint: weights without the port's counters."""
+    return (isinstance(payload, dict) and isinstance(payload.get("model"), dict)
+            and "step" not in payload and "updates" not in payload)
+
+
 def load_checkpoint(path: str, state: TrainState) -> Tuple[int, Dict[str, Any]]:
-    """Restore `state` in place from `path`; returns (epoch, payload)."""
-    payload = read_checkpoint(path, state)
+    """Restore `state` in place from `path`; returns (epoch, payload). A
+    reference training checkpoint restores the weights and the epoch only,
+    and returns an empty payload (nothing else of it applies)."""
+    payload = torch_load_checkpoint(path)
+    if is_reference_training_payload(payload):
+        load_pretrained(state.model, payload)
+        print("[checkpoint] reference .pth resume: weights and epoch restored; the "
+              "optimizer starts fresh", flush=True)
+        return int(payload.get("epoch", -1)), {}
+    validate_payload(payload, state)
     state.load_state_dict(payload)
     return int(payload["epoch"]), payload
 

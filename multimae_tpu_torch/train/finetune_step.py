@@ -7,6 +7,12 @@ skip on a non-finite norm, and the AdamW update with the schedules.
 
 The step updates the TrainState in place. Deciding the skip reads the
 gradient norm on the host, one synchronisation per step.
+
+Under torch.distributed each rank steps on its slice of the global batch
+and the loss is the global batch's, as the JAX step's over a sharded
+batch: one differentiable all_reduce sums each rank's (numerator,
+denominator) of the loss, and the gradients are then averaged over the
+ranks (the mechanism of train/pretrain_step.py).
 """
 
 from __future__ import annotations
@@ -16,17 +22,21 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from multimae_tpu_torch.train.pretrain_step import global_norm
+from torch.distributed.nn.functional import all_reduce as differentiable_all_reduce
+
+from multimae_tpu_torch.parallel.dist import world_size
+from multimae_tpu_torch.train.pretrain_step import average_gradients, global_norm
 from multimae_tpu_torch.train.train_state import TrainState
 
 
-def make_dense_train_step(model, task: str, loss_fn: Callable,
+def make_dense_train_step(model, task: str, loss_parts_fn: Callable,
                           in_domains: Sequence[str] = ("rgb",), *,
                           clip_grad: Optional[float] = None):
     """Build train_step(state, batch, *, generator=None) -> metrics
     {"loss", "grad_norm", "skipped"}. The batch holds the input
     modalities and "target"; `generator` (on the batch's device) feeds
-    drop_path."""
+    drop_path. loss_parts_fn(pred, target) gives the loss as (sum, count):
+    the loss is sum / max(count, 1) over the global batch."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    generator: Optional[torch.Generator] = None):
@@ -36,10 +46,16 @@ def make_dense_train_step(model, task: str, loss_fn: Callable,
         model.train()
         inputs = {d: batch[d] for d in in_domains if d in batch}
         pred = model(inputs, generator=generator)[task]
-        loss = loss_fn(pred.float(), batch["target"])
+        parts = torch.stack(loss_parts_fn(pred.float(), batch["target"]))
+        world = world_size()
+        if world > 1:
+            parts = differentiable_all_reduce(parts)
+        loss = parts[0] / parts[1].clamp_min(1)
         loss.backward()
 
         grads = [p.grad for p in params if p.grad is not None]
+        if world > 1:
+            average_gradients(grads, world)
         grad_norm = global_norm(grads)
         if clip_grad is not None:
             scale = torch.clamp(clip_grad / (grad_norm + 1e-6), max=1.0)

@@ -3,7 +3,9 @@ multimae_tpu/train/optim_factory.py :34-82, :127-239; reference
 utils/optim_factory.py).
 
 * Frozen parameters (the fixed sin-cos `pos_emb`s) get no update and no
-  decay: they are left out of the optimizer (:53-57).
+  decay: they are left out of the optimizer (:53-57), unless
+  learnable_pos_emb is set (the fine-tune CLIs' flag), which trains them
+  without decay.
 * With filter_bias_and_bn=False, the pretraining setting, every other
   model parameter is in one flat group with LR scale 1 and decay on,
   biases, LayerNorms, `mask_token` and `global_tokens` included: the
@@ -84,6 +86,7 @@ def build_param_groups(
     filter_bias_and_bn: bool = True,
     balancer_lr_scale: float = 1.0,
     layer_decay_assigner: Optional[LayerDecayValueAssigner] = None,
+    learnable_pos_emb: bool = False,
 ) -> Tuple[List[Dict], List[str]]:
     """(param groups, names of the frozen parameters). Each group is a dict
     with `params`, `names`, `group`, `lr_scale` and `wd_flag`."""
@@ -97,7 +100,7 @@ def build_param_groups(
         g["names"].append(name)
 
     for name, p in model.named_parameters():
-        if frozen(name):
+        if frozen(name) and not learnable_pos_emb:
             frozen_names.append(name)
         elif not filter_bias_and_bn:
             add("flat_decay", name, p, 1.0, 1.0)
@@ -128,6 +131,7 @@ def create_optimizer(
     filter_bias_and_bn: bool = True,
     balancer_lr_scale: float = 1.0,
     layer_decay_assigner: Optional[LayerDecayValueAssigner] = None,
+    learnable_pos_emb: bool = False,
 ) -> torch.optim.AdamW:
     """`opt` (the JAX signature's, :191-239) over the groups of
     build_param_groups; each group's weight decay starts at weight_decay *
@@ -138,7 +142,8 @@ def create_optimizer(
                                   "queue 1 item 14 brings SGD and Adam); use adamw")
     groups, _ = build_param_groups(model, balancer, filter_bias_and_bn=filter_bias_and_bn,
                                    balancer_lr_scale=balancer_lr_scale,
-                                   layer_decay_assigner=layer_decay_assigner)
+                                   layer_decay_assigner=layer_decay_assigner,
+                                   learnable_pos_emb=learnable_pos_emb)
     for g in groups:
         g["lr"] = 0.0
         g["weight_decay"] = weight_decay * g["wd_flag"]

@@ -1,6 +1,7 @@
-"""Segmentation metrics (counterpart of multimae_tpu/utils/metrics.py:29-60;
-reference utils/semseg_metrics.py): a confusion matrix counted on the
-device, and mIoU, pixel accuracy and mean class accuracy from it."""
+"""Segmentation metrics (counterpart of multimae_tpu/utils/metrics.py:29-60,
+:90; reference utils/semseg_metrics.py): a confusion matrix counted on
+the device, summed over processes by parallel/dist.sum_across_processes,
+and mIoU, pixel accuracy and mean class accuracy from it."""
 
 from __future__ import annotations
 
@@ -13,11 +14,14 @@ import torch
 def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
                      ignore_index: int = 255) -> torch.Tensor:
     """(num_classes, num_classes) int64 counts, rows = label, columns =
-    pred, over the pixels whose label is not `ignore_index`."""
+    pred, over the pixels whose label is not `ignore_index`. As in the JAX
+    function, the flat index label * num_classes + pred is counted, and
+    one at or past num_classes**2 (a void-class pred in the last row) is
+    dropped."""
+    n = num_classes * num_classes
     valid = label != ignore_index
-    idx = label[valid].long() * num_classes + pred[valid].long()
-    return torch.bincount(idx, minlength=num_classes * num_classes).reshape(
-        num_classes, num_classes)
+    idx = (label[valid].long() * num_classes + pred[valid].long()).clamp_max(n)
+    return torch.bincount(idx, minlength=n + 1)[:n].reshape(num_classes, num_classes)
 
 
 def miou_from_confusion(cm) -> Dict[str, object]:

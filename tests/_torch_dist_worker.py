@@ -2,7 +2,10 @@
 group on the CPU. MODE=launcher checks initialize_distributed and the
 process helpers under the launcher's variables the test set; MODE=step
 takes one pretraining step on this rank's half of the batch, saves the
-result to OUT/rank{r}.pt, then resumes from a coordinated auto-load."""
+result to OUT/rank{r}.pt, then resumes from a coordinated auto-load;
+MODE=semseg runs the semseg CLI's --eval with the JSON argv in ARGV and
+one fine-tune step on this rank's half of a batch, and saves both to
+OUT/semseg{r}.pt."""
 
 import os
 import sys
@@ -71,7 +74,28 @@ def step():
     dist_lib.barrier()
 
 
+def semseg():
+    import json
+
+    from test_torch_dist import semseg_batch, semseg_trainer
+
+    from multimae_tpu_torch.cli import run_finetuning_semseg as cli
+
+    assert dist_lib.initialize_distributed("cpu")
+    rank = dist_lib.process_index()
+    summary = cli.main(cli.get_args(json.loads(os.environ["ARGV"])))
+    assert dist.is_initialized()  # main leaves a group it did not create
+    state, step_fn = semseg_trainer()
+    sl = dist_lib.local_batch_slice(4)
+    metrics = step_fn(state, {k: v[sl] for k, v in semseg_batch().items()})
+    torch.save({"eval": summary["evals"][0],
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {n: p.grad for n, p in state.model.named_parameters()}},
+               os.path.join(os.environ["OUT"], f"semseg{rank}.pt"))
+    dist_lib.barrier()
+
+
 if __name__ == "__main__":
-    {"launcher": launcher, "step": step}[os.environ["MODE"]]()
+    {"launcher": launcher, "step": step, "semseg": semseg}[os.environ["MODE"]]()
     dist.destroy_process_group()
     print(f"DIST_OK {os.environ.get('EXPECT_RANK', '')}", flush=True)

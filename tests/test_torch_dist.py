@@ -22,9 +22,18 @@ package's (worker body: tests/_torch_dist_worker.py).
   within 1e-6.
 * Coordinated auto-resume: rank 0 damages the newest save; both ranks
   resume from the one before.
+* The semseg fine-tune CLI's --eval in two processes over 7 validation
+  records: as under the JAX sharding, the ranks read the first 6 in two
+  blocks of 3 and the summed confusion matrix is the one process's over
+  those 6 (the same mIoU, every pixel counted once); and the fine-tune
+  step over 2 x 2 samples equals the 1-process step over the 4: loss and
+  grad norm within 1e-5 relative, every gradient within 1e-6 of its
+  tensor's largest.
 """
 
+import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -174,3 +183,57 @@ def test_two_process_step_equals_the_global_batch_step(tmp_path):
             adam = lr * (g2 / (g2.abs() + 1e-8) - g1 / (g1.abs() + 1e-8))
             assert float((diff + adam).abs().max()) <= 1e-6, (r, k)
         assert float((got["balancer"]["log_vars"] - state.balancer.log_vars.detach()).abs().max()) <= 1e-6
+
+
+def semseg_trainer():
+    """The tiny MultiViT's fine-tune state and step (drop_path off)."""
+    return factory.build_semseg_trainer(
+        batch_size=4, model="multivit_tiny", input_size=64, decoder_dim=256,
+        decoder_depth=2, drop_path_encoder=0.0, fp16=False, device="cpu")
+
+
+def semseg_batch():
+    return factory.make_synthetic_semseg_batch(4, input_size=64, seed=5, device="cpu")
+
+
+def test_two_process_semseg_eval_and_step(tmp_path):
+    from multimae_tpu_torch.cli import run_finetuning_semseg as cli
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+
+    val, six = tmp_path / "val7", tmp_path / "val6"
+    write_random_tree(str(val), 7, (48, 64), semseg_classes=40, ignore_patches=True)
+    shutil.copytree(val, six)
+    for task in ("rgb", "depth", "semseg"):  # the 7th record in the sorted walk
+        os.remove(six / task / "c1" / "i0005.png")
+    argv = ["-c", "cfgs/finetune/semseg/nyu/ft_nyu_200e_multimae-b_rgb-depth.yaml",
+            "--device", "cpu", "--model", "multivit_tiny", "--input_size", "64",
+            "--decoder_dim", "256", "--decoder_depth", "2", "--no_fp16", "--num_workers", "0",
+            "--no_mask_valid", "--finetune", "", "--eval", "--batch_size", "2"]
+    repo = os.path.dirname(os.path.dirname(WORKER))
+    port = _free_port()
+    env = dict(_clean_env(), MODE="semseg", OUT=str(tmp_path), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2", ARGV=json.dumps(
+                   argv + ["--data_path", str(val), "--eval_data_path", str(val)]),
+               PYTHONPATH=os.path.dirname(WORKER) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        _run_pair([dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(2)])
+        one = cli.main(cli.get_args(argv + ["--batch_size", "4", "--data_path", str(six),
+                                            "--eval_data_path", str(six)]))["evals"][0]
+    finally:
+        os.chdir(cwd)
+    state, step = semseg_trainer()
+    metrics = {k: float(v) for k, v in step(state, semseg_batch()).items()}
+    for r in range(2):
+        got = torch.load(tmp_path / f"semseg{r}.pt", weights_only=True)
+        ev = got["eval"]
+        assert (ev["images"], ev["batches"]) == (3, 2), ev  # a full batch of 2 and one of 1
+        assert ev["pixels"] == one["pixels"] and one["images"] == 6
+        for k in ("mIoU", "aAcc", "mAcc"):
+            assert ev[k] == one[k], (k, ev[k], one[k])
+        for k in ("loss", "grad_norm"):
+            assert abs(got["metrics"][k] - metrics[k]) <= 1e-5 * abs(metrics[k]), (r, k)
+        for k, p in state.model.named_parameters():
+            g = got["grads"][k].double() - p.grad.double()
+            assert float(g.abs().max()) <= 1e-6 * float(p.grad.abs().max()), (r, k)

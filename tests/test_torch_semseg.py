@@ -43,7 +43,8 @@ from multimae_tpu.train.train_state import TrainState as JTrainState
 from multimae_tpu.utils import metrics as jmetrics
 from multimae_tpu.utils.torch_compat import params_to_state_dict
 from multimae_tpu_torch.cli import factory
-from multimae_tpu_torch.cli.run_finetuning_semseg import build_semseg_model, seg_cross_entropy
+from multimae_tpu_torch.cli.run_finetuning_semseg import (
+    build_semseg_model, seg_cross_entropy_parts)
 from multimae_tpu_torch.models.input_adapters import PatchedInputAdapter
 from multimae_tpu_torch.models.vit import drop_path
 from multimae_tpu_torch.train.finetune_step import make_dense_eval_step, make_dense_train_step
@@ -147,7 +148,8 @@ def port_state(params):
     opt = create_optimizer(model, opt_betas=BETAS, filter_bias_and_bn=True,
                            layer_decay_assigner=LayerDecayValueAssigner(LAYER_VALUES))
     state = TrainState(model, None, opt, LR, WD)
-    return state, make_dense_train_step(model, "semseg", seg_cross_entropy, in_domains=DOMAINS)
+    return state, make_dense_train_step(model, "semseg", seg_cross_entropy_parts,
+                                        in_domains=DOMAINS)
 
 
 @pytest.fixture(scope="module")
@@ -326,7 +328,7 @@ PORT_FILES = sorted(str(p.relative_to(REPO))
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_no_jax(path):
     """The port and chip_smoke.py import neither JAX nor the JAX package,
-    nor PIL, PyYAML, grain or orbax, at any depth of the file
+    nor PIL, cv2, PyYAML, grain or orbax, at any depth of the file
     (function-level imports included). wandb stays allowed, imported
     lazily where asked for."""
     tree = ast.parse((REPO / path).read_text())
@@ -334,6 +336,6 @@ def test_port_file_imports_no_jax(path):
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module and n.level == 0]
     bad = {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                                   "multimae_tpu", "PIL", "yaml", "grain",
-                                                   "orbax")}
+                                                   "multimae_tpu", "PIL", "cv2", "yaml",
+                                                   "grain", "orbax")}
     assert not bad, bad

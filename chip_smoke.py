@@ -70,46 +70,58 @@ non-zero:
  12. the pretraining CLI (multimae_tpu_torch.cli.run_pretraining_multimae,
      get_args + main) at full width from a dataset folder: a tree of
      CLI_SAMPLES aligned samples in 2 classes at 256 x 320 (8-bit RGB,
-     16-bit depth, palette semseg PNGs written by the port's PNG writer)
-     under build/; the flagship YAML with batch 32, 2 epochs of 2 steps,
-     no warmup, 4 loader workers and a save every epoch: the losses are
-     finite, log.txt has 2 lines, checkpoint-0.pth and checkpoint-1.pth
-     exist, K1 fwd and bwd launch 4 times per step and nothing else
-     launches; then checkpoint-1.pth is truncated and the CLI relaunched
-     with --epochs 3: it falls back to checkpoint-0.pth, resumes at epoch
-     1 with the parameters bit-equal to the save, and finishes. Printed:
-     the loader's samples/s (one process, and 4 workers, at batch 8), the CLI's step
-     ms fed by the loader against the same CLI on synthetic batches of
-     32, the share of each step spent waiting for data, and the
-     checkpoint save and load seconds. The tree and the checkpoints are
-     deleted, but for the newest checkpoint, which phase 13 starts from.
+     16-bit depth, palette semseg PNGs of photo-like scenes, written by the
+     port's PNG writer with adaptive row filters as PIL and libpng write
+     them; the rows per filter type are printed) under build/; the flagship
+     YAML with batch 32, 2 epochs of 2 steps, no warmup, 4 loader workers
+     and a save every epoch: the losses are finite, log.txt has 2 lines,
+     checkpoint-0.pth and checkpoint-1.pth exist, K1 fwd and bwd launch 4
+     times per step and nothing else launches; then checkpoint-1.pth is
+     truncated and the CLI relaunched with --epochs 3: it falls back to
+     checkpoint-0.pth, resumes at epoch 1 with the parameters bit-equal to
+     the save, and finishes. Then the same CLI for 2 epochs with its data
+     read through the numpy twins (the data path before the native
+     library). Printed for the native library and the twins: the loader's
+     samples/s (one process, and 4 workers, at batch 8), ms per sample
+     decoding, augmenting and in the rgb resample alone (the two paths'
+     arrays must be equal), the loader in one process over a second tree
+     of uniform noise written with filter 0 (the kind earlier runs
+     timed), the CLI's step ms fed by the loader (and on
+     synthetic batches of 32), the share of each step spent waiting for
+     data; and the checkpoint save and load seconds. Every loader's close
+     raises if a worker did not exit cleanly. The tree and the checkpoints
+     are deleted, but for the newest checkpoint, which phase 13 starts
+     from.
  13. the semantic segmentation fine-tune CLI
      (multimae_tpu_torch.cli.run_finetuning_semseg, get_args + main): K4
      against its twin at the Segmenter's eval shapes (4, 1025, 768) and
      (4, 1174, 768), where its attention step runs the K2 forward; then
-     NYUv2-shaped trees of FT_TRAIN and FT_VAL samples (640 x 480 PNGs:
-     RGB, 16-bit depth, 40 classes with patches of 255, mask_valid) under
-     the NYU rgb-depth recipe (MultiViT-B at 512 px, ConvNeXt head, bf16,
-     batch 4, layer decay 0.75, 1-epoch warmup, 4 workers), started with
-     --finetune from phase 12's checkpoint (pos-embs 14x14 -> 32x32): run A
-     trains 2 epochs with a save and an mIoU eval over all FT_VAL images
-     (a partial batch of 2 included) per epoch; run B (--epochs 3)
-     auto-resumes from checkpoint-1.pth at epoch 2 with bit-equal
-     parameters; run C starts from a copy of checkpoint-0.pth alone and
-     its first loss equals run A's first loss of epoch 1. Every loss and
-     mIoU is finite, 0 <= mIoU <= 1, checkpoint-best.pth exists. An
-     --eval run from checkpoint-1.pth counts the launches per eval batch,
-     and run A's totals less its two evals' give those per training step:
-     each training step launches K2 fwd and bwd 12 and K3b fwd and bwd 4
-     times and each eval batch K4 12 and K3b fwd 4 times. Then run D: the
-     Segmenter head (dim 768, depth 2) under the ADE recipe (rgb, 150
-     classes, reduce_zero_label) for one epoch, and its --eval run: K2 fwd
-     and bwd 14 times per step (the encoder's 1025 keys and the head's
-     1174) and K4 14 per eval batch. Printed: the launches, the fine-tune
-     start's missing and
-     unexpected keys, the loader's samples/s over the NYU tree (one
-     process and 4 workers), the loader-fed step's host ms and data-wait
-     share, eval ms per batch, checkpoint save and load seconds.
+     NYUv2-shaped trees of FT_TRAIN and FT_VAL samples (640 x 480 PNGs of
+     photo-like scenes with adaptive row filters: RGB, 16-bit depth, 40
+     classes with patches of 255, mask_valid) under the NYU rgb-depth
+     recipe (MultiViT-B at 512 px, ConvNeXt head, bf16, batch 4, layer
+     decay 0.75, 1-epoch warmup, 4 workers), started with --finetune from
+     phase 12's checkpoint (pos-embs 14x14 -> 32x32): run A trains 2
+     epochs with a save and an mIoU eval over all FT_VAL images (a partial
+     batch of 2 included) per epoch; run B (--epochs 3) auto-resumes from
+     checkpoint-1.pth at epoch 2 with bit-equal parameters; run C starts
+     from a copy of checkpoint-0.pth alone and its first loss equals run
+     A's first loss of epoch 1. Every loss and mIoU is finite, 0 <= mIoU
+     <= 1, checkpoint-best.pth exists. An --eval run from checkpoint-1.pth
+     counts the launches per eval batch, and run A's totals less its two
+     evals' give those per training step: each training step launches K2
+     fwd and bwd 12 and K3b fwd and bwd 4 times and each eval batch K4 12
+     and K3b fwd 4 times. Then run A's recipe once more with the data read
+     through the numpy twins. Then run D: the Segmenter head (dim 768,
+     depth 2) under the ADE recipe (rgb, 150 classes, reduce_zero_label)
+     for one epoch, and its --eval run: K2 fwd and bwd 14 times per step
+     (the encoder's 1025 keys and the head's 1174) and K4 14 per eval
+     batch. Printed: the launches, the fine-tune start's missing and
+     unexpected keys, and for the native library and the twins the
+     loader's samples/s over the NYU tree (one process and 4 workers), ms
+     per sample decoding and augmenting (the two paths' arrays must be
+     equal), the loader-fed step's host ms and data-wait share; eval ms
+     per batch, checkpoint save and load seconds.
 Then it prints the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -928,7 +940,8 @@ def semseg_slice(torch, dev):
 
 def loader_rate(dataset, transform, workers, batch, epochs):
     """Samples/s of the port's Loader over `dataset`, after its first batch
-    (worker start-up excluded)."""
+    (worker start-up excluded). Loader.close raises if a worker did not
+    exit cleanly."""
     from multimae_tpu_torch.data.loader import Loader
 
     loader = Loader(dataset, transform, global_batch_size=batch, num_workers=workers)
@@ -942,15 +955,116 @@ def loader_rate(dataset, transform, workers, batch, epochs):
     return rate
 
 
-def pretrain_loader_rate(root, workers):
-    """Phase 12's tree with the pretraining transform. A worker makes whole
-    batches, so the batch of 8 gives each of CLI_WORKERS workers two per
-    epoch."""
+@contextlib.contextmanager
+def twin_data():
+    """While inside, the CLIs read their trees through the numpy twins (the
+    PNG reader, PIL's resampling and cv2's operations in numpy, the data
+    path before the native library): the dataset and transform classes they
+    build are made with twin=True, which their instances carry into the
+    loader's worker processes."""
+    import functools
+
+    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
+    from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
+    from multimae_tpu_torch.data.semseg_transforms import SimpleTransform
+
+    classes = (MultiTaskImageFolder, DataAugmentationForMultiMAE, SimpleTransform)
+    inits = [c.__init__ for c in classes]
+    for c, init in zip(classes, inits):
+        c.__init__ = functools.partialmethod(init, twin=True)
+    try:
+        yield
+    finally:
+        for c, init in zip(classes, inits):
+            c.__init__ = init
+
+
+def filter_line(counts):
+    """The rows written per PNG filter type."""
+    names = ("none", "sub", "up", "average", "paeth")
+    return ", ".join(f"{n} {int(c)}" for n, c in zip(names, counts))
+
+
+def steady_share(runs):
+    """(data-wait share of the loader-fed steps, the same without each
+    run's first step, which waits for the workers to start)."""
+    fed = [r for run in runs for r in run["steps"]]
+    steady = [r for run in runs for r in run["steps"][1:]]
+    wait, steady_wait = (sum(r["wait_s"] for r in x) for x in (fed, steady))
+    return (wait / (wait + sum(r["step_s"] for r in fed)),
+            steady_wait / (steady_wait + sum(r["step_s"] for r in steady)))
+
+
+def sample_split(dataset, transform, rgb_fn=None):
+    """Where one loader process spends a sample: ms reading and decoding its
+    PNGs, ms augmenting them, and (with `rgb_fn`, called on the decoded rgb
+    image) ms in rgb_fn; means over `dataset`. Also the augmented samples."""
+    import random
+
+    decode = augment = rgb = 0.0
+    outs = []
+    for i in range(len(dataset)):
+        t0 = time.perf_counter()
+        sample, _ = dataset.load_raw(i)
+        t1 = time.perf_counter()
+        outs.append(transform(sample, rng=random.Random(i)))
+        t2 = time.perf_counter()
+        if rgb_fn is not None:
+            rgb_fn(sample["rgb"], random.Random(i))
+        decode, augment, rgb = (decode + t1 - t0, augment + t2 - t1,
+                                rgb + time.perf_counter() - t2)
+    n = len(dataset) / 1e3
+    return decode / n, augment / n, rgb / n, outs
+
+
+def check_twin_split(phase, what, native_outs, twin_outs):
+    """Raise unless the native and twin paths gave the same arrays."""
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(native_outs, twin_outs)):
+        for k in b:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"[{phase}] {what}: sample {i} {k} differs between the "
+                                     f"native library and the numpy twins")
+
+
+def pretrain_data(root, twin):
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
     from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
 
-    return loader_rate(MultiTaskImageFolder(root, ["depth", "rgb", "semseg"]),
-                       DataAugmentationForMultiMAE(224), workers, batch=8, epochs=4)
+    return (MultiTaskImageFolder(root, ["depth", "rgb", "semseg"], twin=twin),
+            DataAugmentationForMultiMAE(224, twin=twin))
+
+
+def pretrain_loader_rate(root, workers, twin=False, epochs=4):
+    """Phase 12's tree with the pretraining transform. A worker makes whole
+    batches, so the batch of 8 gives each of CLI_WORKERS workers two per
+    epoch."""
+    return loader_rate(*pretrain_data(root, twin), workers, batch=8, epochs=epochs)
+
+
+def pretrain_split(root):
+    """Phase 12's per-sample split, native and twin: {path: (decode ms,
+    augment ms, rgb resample ms)}; the two paths' outputs must agree."""
+    from multimae_tpu_torch import native
+    from multimae_tpu_torch.data import pretrain_transforms as T
+
+    aug = T.DataAugmentationForMultiMAE(224)
+
+    def rgb_resample(twin):
+        def run(img, rng):
+            crop = T.random_resized_crop_params(*img.shape[:2], rng=rng)
+            if twin:
+                T.crop_resize_normalize_twin(img, crop, 224, aug.rgb_mean, aug.rgb_std, False)
+            else:
+                native.crop_resize_normalize(img, crop, (224, 224), aug.rgb_mean, aug.rgb_std)
+        return run
+
+    splits, outs = {}, {}
+    for twin, path in ((False, "native"), (True, "twin")):
+        *splits[path], outs[path] = sample_split(*pretrain_data(root, twin), rgb_resample(twin))
+    check_twin_split(12, "the pretraining transform", outs["native"], outs["twin"])
+    return splits
 
 
 def cli_slice(torch, dev, keep):
@@ -965,9 +1079,10 @@ def cli_slice(torch, dev, keep):
     tree, out = os.path.join(root, "tree"), os.path.join(root, "out")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
-    write_random_tree(tree, CLI_SAMPLES, CLI_HW)
-    log(12, f"wrote {CLI_SAMPLES} samples at {CLI_HW[0]}x{CLI_HW[1]} (rgb, depth, semseg "
-            f"PNG) in {time.perf_counter() - t0:.1f} s")
+    counts = write_random_tree(tree, CLI_SAMPLES, CLI_HW, smooth=True)
+    log(12, f"wrote {CLI_SAMPLES} photo-like samples at {CLI_HW[0]}x{CLI_HW[1]} (rgb, depth, "
+            f"semseg PNG) in {time.perf_counter() - t0:.1f} s; rows per filter type: "
+            f"{filter_line(counts)}")
     try:
         base = ["-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(CLI_BATCH),
                 "--warmup_epochs", "0", "--num_workers", str(CLI_WORKERS)]
@@ -1015,32 +1130,66 @@ def cli_slice(torch, dev, keep):
 
         synthetic = main(get_args(base + ["--synthetic_data", "--synthetic_steps_per_epoch",
                                           "6", "--epochs", "1", "--no_auto_resume"]))
-        # Each run's first batch waits for the workers to start: the steady
-        # share leaves it out.
+        with twin_data():
+            twin = main(get_args(base + ["--data_path", tree, "--output_dir",
+                                         os.path.join(root, "out_twin"), "--epochs", "2",
+                                         "--save_ckpt_freq", "100", "--no_auto_resume"]))
+        if not all(math.isfinite(r["metrics"]["loss"]) for r in twin["steps"]):
+            raise AssertionError("the CLI run on the numpy twins: a loss is not finite")
         fed = first["steps"] + relaunch["steps"]
-        steady = first["steps"][1:] + relaunch["steps"][1:]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
+        twin_ms = statistics.median(r["step_s"] for r in twin["steps"]) * 1e3
         synth_ms = statistics.median(r["step_s"] for r in synthetic["steps"][1:]) * 1e3
         wait = sum(r["wait_s"] for r in fed)
-        share = wait / (wait + sum(r["step_s"] for r in fed))
-        steady_wait = sum(r["wait_s"] for r in steady)
-        steady_share = steady_wait / (steady_wait + sum(r["step_s"] for r in steady))
-        one, many = pretrain_loader_rate(tree, 0), pretrain_loader_rate(tree, CLI_WORKERS)
-        log(12, f"loader over the tree (256x320 PNG -> 224, batches of 8): {one:.1f} "
-                f"samples/s in one process, {many:.1f} samples/s with {CLI_WORKERS} workers "
-                f"({many / CLI_WORKERS:.1f} per worker)")
+        share, steady = steady_share([first, relaunch])
+        twin_share, twin_steady = steady_share([twin])
+        rates = {path: (pretrain_loader_rate(tree, 0, twin=path == "twin",
+                                             epochs=1 if path == "twin" else 4),
+                        pretrain_loader_rate(tree, CLI_WORKERS, twin=path == "twin"))
+                 for path in ("native", "twin")}
+        split = pretrain_split(tree)
+        noise = os.path.join(root, "noise")
+        write_random_tree(noise, CLI_SAMPLES // 2, CLI_HW)
+        noise_rates = {path: pretrain_loader_rate(noise, 0, twin=path == "twin", epochs=2)
+                       for path in ("native", "twin")}
+        for path in ("native", "twin"):
+            (one, many), (dec, aug, rgb) = rates[path], split[path]
+            log(12, f"loader over the tree ({path}; 256x320 PNG -> 224, batches of 8): "
+                    f"{one:.1f} samples/s in one process, {many:.1f} samples/s with "
+                    f"{CLI_WORKERS} workers ({many / CLI_WORKERS:.1f} per worker); one process "
+                    f"spends {dec:.2f} ms per sample decoding its 3 PNGs and {aug:.2f} ms "
+                    f"augmenting; the rgb resample alone {rgb:.3f} ms")
+        log(12, f"the native and twin transforms gave the same arrays on all {CLI_SAMPLES} "
+                f"samples; rgb resample {split['twin'][2] / split['native'][2]:.1f}x faster "
+                f"native")
+        log(12, f"loader over {CLI_SAMPLES // 2} samples of uniform noise written with filter "
+                f"0 (the trees of earlier runs), one process: {noise_rates['native']:.1f} "
+                f"samples/s native, {noise_rates['twin']:.1f} on the numpy twins")
         log(12, f"CLI step at batch {CLI_BATCH}: {step_ms:.3f} ms fed by the loader (median "
                 f"of {len(fed)}), {synth_ms:.3f} ms on synthetic batches (median of "
                 f"{len(synthetic['steps']) - 1}); data wait {wait * 1e3:.1f} ms in all, "
-                f"{share:.4f} of the loader-fed steps' time; {steady_share:.4f} without "
-                f"each run's first step (worker start-up)")
+                f"{share:.4f} of the loader-fed steps' time; {steady:.4f} without "
+                f"each run's first step (worker start-up); on the numpy twins {twin_ms:.3f} ms "
+                f"per step, wait share {twin_share:.4f}, {twin_steady:.4f} without the first")
         os.makedirs(os.path.dirname(keep), exist_ok=True)
         os.replace(os.path.join(out, "checkpoint-2.pth"), keep)
         return launches, {"cli_step_ms": step_ms, "cli_synthetic_step_ms": synth_ms,
-                          "cli_data_wait_share": share,
-                          "cli_data_wait_share_steady": steady_share,
-                          "loader_samples_per_s": one,
-                          "loader_samples_per_s_workers": many,
+                          "cli_data_wait_share": share, "cli_data_wait_share_steady": steady,
+                          "cli_twin_step_ms": twin_ms, "cli_twin_data_wait_share": twin_share,
+                          "cli_twin_data_wait_share_steady": twin_steady,
+                          "loader_samples_per_s": rates["native"][0],
+                          "loader_samples_per_s_workers": rates["native"][1],
+                          "twin_loader_samples_per_s": rates["twin"][0],
+                          "twin_loader_samples_per_s_workers": rates["twin"][1],
+                          "decode_ms_per_sample": split["native"][0],
+                          "augment_ms_per_sample": split["native"][1],
+                          "rgb_resample_ms": split["native"][2],
+                          "twin_decode_ms_per_sample": split["twin"][0],
+                          "twin_augment_ms_per_sample": split["twin"][1],
+                          "twin_rgb_resample_ms": split["twin"][2],
+                          "tree_rows_per_filter": [int(c) for c in counts],
+                          "noise_loader_samples_per_s": noise_rates["native"],
+                          "twin_noise_loader_samples_per_s": noise_rates["twin"],
                           "ckpt_save_s": first["save_s"], "ckpt_load_s": relaunch["load_s"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1064,32 +1213,28 @@ def k4_at(torch, fused_block, w4, n, gen, dev):
     return err, rel, ms, plain_ms, bound(flops, 2 * (2 * b * n * d + weights))
 
 
-def semseg_data(root):
+def semseg_data(root, twin=False):
     """The NYU tree with the fine-tune's training transform (512 px)."""
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
     from multimae_tpu_torch.data.semseg_transforms import (
         DataAugmentationForSemSeg, SimpleTransform)
 
-    return (MultiTaskImageFolder(root, ["depth", "rgb", "semseg", "mask_valid"]),
-            DataAugmentationForSemSeg(SimpleTransform(True, 512),
+    return (MultiTaskImageFolder(root, ["depth", "rgb", "semseg", "mask_valid"], twin=twin),
+            DataAugmentationForSemSeg(SimpleTransform(True, 512, twin=twin),
                                       seg_num_classes=SEMSEG_CLASSES))
 
 
 def ft_sample_split(root):
-    """Where one loader process spends a sample of the NYU tree: ms per
-    sample reading and decoding its four PNGs, and ms augmenting them
-    (the fine-tune's training transform at 512 px), means over the tree."""
-    import random
-
-    dataset, transform = semseg_data(root)
-    decode = augment = 0.0
-    for i in range(len(dataset)):
-        t0 = time.perf_counter()
-        sample, _ = dataset.load_raw(i)
-        t1 = time.perf_counter()
-        transform(sample, rng=random.Random(i))
-        decode, augment = decode + t1 - t0, augment + time.perf_counter() - t1
-    return decode / len(dataset) * 1e3, augment / len(dataset) * 1e3
+    """Where one loader process spends a sample of the NYU tree, native and
+    twin: {path: (ms reading and decoding its four PNGs, ms augmenting them
+    with the fine-tune's training transform at 512 px)}, means over the
+    tree; the two paths' outputs must agree."""
+    splits, outs = {}, {}
+    for twin, path in ((False, "native"), (True, "twin")):
+        dec, aug, _, outs[path] = sample_split(*semseg_data(root, twin))
+        splits[path] = (dec, aug)
+    check_twin_split(13, "the semseg training transform", outs["native"], outs["twin"])
+    return splits
 
 
 def check_run(name, summary, steps, evals, images):
@@ -1141,12 +1286,13 @@ def ft_cli_slice(torch, dev, pretrain):
     train, val = os.path.join(root, "train"), os.path.join(root, "val")
     out = os.path.join(root, "out")
     t0 = time.perf_counter()
-    nyu = dict(semseg_classes=SEMSEG_CLASSES, ignore_patches=True, mask_valid=True)
-    write_random_tree(train, FT_TRAIN, FT_HW, **nyu)
-    write_random_tree(val, FT_VAL, FT_HW, seed=1, **nyu)
-    log(13, f"wrote {FT_TRAIN} + {FT_VAL} NYUv2-shaped samples at {FT_HW[1]}x{FT_HW[0]} "
-            f"(rgb, 16-bit depth, {SEMSEG_CLASSES}-class semseg with 255 patches, mask_valid "
-            f"PNG) in {time.perf_counter() - t0:.1f} s")
+    nyu = dict(semseg_classes=SEMSEG_CLASSES, ignore_patches=True, mask_valid=True, smooth=True)
+    counts = (write_random_tree(train, FT_TRAIN, FT_HW, **nyu)
+              + write_random_tree(val, FT_VAL, FT_HW, seed=1, **nyu))
+    log(13, f"wrote {FT_TRAIN} + {FT_VAL} photo-like NYUv2-shaped samples at "
+            f"{FT_HW[1]}x{FT_HW[0]} (rgb, 16-bit depth, {SEMSEG_CLASSES}-class semseg with 255 "
+            f"patches, mask_valid PNG) in {time.perf_counter() - t0:.1f} s; rows per filter "
+            f"type: {filter_line(counts)}")
     try:
         base = ["-c", os.path.join(HERE, FT_YAML), "--finetune", pretrain,
                 "--save_ckpt_freq", "1", "--num_workers", str(CLI_WORKERS),
@@ -1223,33 +1369,56 @@ def ft_cli_slice(torch, dev, pretrain):
                 f"{c_loss:.6f} equal to run A's at that step")
         shutil.rmtree(out_c)
 
+        with twin_data():
+            twin = main(get_args(base + ["--output_dir", os.path.join(root, "out_twin"),
+                                         "--epochs", "2", "--save_ckpt_freq", "100"]))
+        check_run("the run on the numpy twins", twin, 2 * steps_per_epoch, 2, FT_VAL)
+        shutil.rmtree(os.path.join(root, "out_twin"))
         fed = first["steps"] + resumed["steps"] + again["steps"]
-        steady = [r for run in (first, resumed, again) for r in run["steps"][1:]]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
+        twin_ms = statistics.median(r["step_s"] for r in twin["steps"]) * 1e3
         wait = sum(r["wait_s"] for r in fed)
-        share = wait / (wait + sum(r["step_s"] for r in fed))
-        steady_wait = sum(r["wait_s"] for r in steady)
-        steady_share = steady_wait / (steady_wait + sum(r["step_s"] for r in steady))
+        share, steady = steady_share([first, resumed, again])
+        twin_share, twin_steady = steady_share([twin])
         evals = first["evals"] + resumed["evals"] + again["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
-        one, many = (loader_rate(*semseg_data(train), workers, batch=SEMSEG_BATCH, epochs=3)
-                     for workers in (0, CLI_WORKERS))
-        decode_ms, augment_ms = ft_sample_split(train)
-        log(13, f"loader over the NYU tree (640x480 PNG -> 512 crops, batches of "
-                f"{SEMSEG_BATCH}): {one:.1f} samples/s in one process, {many:.1f} samples/s "
-                f"with {CLI_WORKERS} workers; the ~70 ms step of the recipe's batch of 4 needs "
-                f"~57; one process spends {decode_ms:.1f} ms per sample decoding its 4 PNGs "
-                f"and {augment_ms:.1f} ms augmenting")
+        rates = {path: tuple(loader_rate(*semseg_data(train, path == "twin"), workers,
+                                         batch=SEMSEG_BATCH, epochs=epochs)
+                             for workers, epochs in ((0, 1 if path == "twin" else 3),
+                                                     (CLI_WORKERS, 3)))
+                 for path in ("native", "twin")}
+        split = ft_sample_split(train)
+        for path in ("native", "twin"):
+            (one, many), (dec, aug) = rates[path], split[path]
+            log(13, f"loader over the NYU tree ({path}; 640x480 PNG -> 512 crops, batches of "
+                    f"{SEMSEG_BATCH}): {one:.1f} samples/s in one process, {many:.1f} "
+                    f"samples/s with {CLI_WORKERS} workers; the ~70 ms step of the recipe's "
+                    f"batch of 4 needs ~57; one process spends {dec:.2f} ms per sample "
+                    f"decoding its 4 PNGs and {aug:.2f} ms augmenting")
+        log(13, f"the native and twin transforms gave the same arrays on all {FT_TRAIN} "
+                f"samples")
         log(13, f"CLI step at batch {SEMSEG_BATCH} fed by the loader: {step_ms:.3f} ms host "
                 f"(median of {len(fed)}); data wait {wait * 1e3:.1f} ms in all, {share:.4f} of "
-                f"the steps' time, {steady_share:.4f} without each run's first step; eval "
-                f"{eval_ms:.3f} ms per batch on the card ({eval_data_ms:.3f} with the data)")
+                f"the steps' time, {steady:.4f} without each run's first step; on the numpy "
+                f"twins {twin_ms:.3f} ms per step, wait share {twin_share:.4f}, "
+                f"{twin_steady:.4f} without the first; eval {eval_ms:.3f} ms per batch on the "
+                f"card ({eval_data_ms:.3f} with the data)")
         numbers = {"ft_step_ms": step_ms, "ft_data_wait_share": share,
-                   "ft_data_wait_share_steady": steady_share, "ft_eval_ms_per_batch": eval_ms,
+                   "ft_data_wait_share_steady": steady, "ft_twin_step_ms": twin_ms,
+                   "ft_twin_data_wait_share": twin_share,
+                   "ft_twin_data_wait_share_steady": twin_steady,
+                   "ft_eval_ms_per_batch": eval_ms,
                    "ft_eval_ms_per_batch_with_data": eval_data_ms,
-                   "ft_loader_samples_per_s": one, "ft_loader_samples_per_s_workers": many,
-                   "ft_decode_ms_per_sample": decode_ms, "ft_augment_ms_per_sample": augment_ms,
+                   "ft_loader_samples_per_s": rates["native"][0],
+                   "ft_loader_samples_per_s_workers": rates["native"][1],
+                   "ft_twin_loader_samples_per_s": rates["twin"][0],
+                   "ft_twin_loader_samples_per_s_workers": rates["twin"][1],
+                   "ft_decode_ms_per_sample": split["native"][0],
+                   "ft_augment_ms_per_sample": split["native"][1],
+                   "ft_twin_decode_ms_per_sample": split["twin"][0],
+                   "ft_twin_augment_ms_per_sample": split["twin"][1],
+                   "ft_tree_rows_per_filter": [int(c) for c in counts],
                    "ft_ckpt_save_s": first["save_s"], "ft_ckpt_load_s": resumed["load_s"],
                    "ft_missing": len(missing), "ft_unexpected": len(unexpected),
                    "ft_losses": losses, "ft_mIoU": mious}
@@ -1259,8 +1428,9 @@ def ft_cli_slice(torch, dev, pretrain):
         # The Segmenter head under the ADE recipe.
         ade = os.path.join(root, "ade")
         write_random_tree(os.path.join(ade, "train"), ADE_TRAIN, ADE_HW, seed=2,
-                          semseg_classes=151)
-        write_random_tree(os.path.join(ade, "val"), FT_VAL, ADE_HW, seed=3, semseg_classes=151)
+                          semseg_classes=151, smooth=True)
+        write_random_tree(os.path.join(ade, "val"), FT_VAL, ADE_HW, seed=3, semseg_classes=151,
+                          smooth=True)
         seg_args = [
             "-c", os.path.join(HERE, ADE_YAML), "--finetune", pretrain,
             "--output_adapter", "segmenter", "--decoder_dim", "768", "--decoder_depth", "2",

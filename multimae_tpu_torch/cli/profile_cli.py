@@ -3,8 +3,8 @@ loader and on synthetic batches.
 
     python -m multimae_tpu_torch.cli.profile_cli [--batches 32 128] [--workers 6]
 
-For each batch size it writes a tree of 16 batches of random 256 x 320
-PNG samples under build/profile_cli/ (deleted afterwards), runs
+For each batch size it writes a tree of 16 batches of photo-like 256 x 320
+PNG samples (adaptive row filters) under build/profile_cli/ (deleted afterwards), runs
 `run_pretraining_multimae` with the flagship YAML for one epoch of 16
 steps with `--profile_dir` (torch.profiler over steps 10-13), once on
 synthetic batches and once from the tree, and prints per run: the median
@@ -62,7 +62,7 @@ def main():
         for batch in opts.batches:
             tree = BUILD / f"tree{batch}"
             t0 = time.perf_counter()
-            write_random_tree(str(tree), batch * STEPS, (256, 320))
+            write_random_tree(str(tree), batch * STEPS, (256, 320), smooth=True)
             print(f"tree of {batch * STEPS} samples written in {time.perf_counter() - t0:.1f} s",
                   flush=True)
             for kind in ("synthetic", "loader"):

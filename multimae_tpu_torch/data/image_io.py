@@ -2,11 +2,15 @@
 package's native helper, multimae_tpu/native/__init__.py + fastimage.cpp,
 and of dataset_folder.pil_loader).
 
-* PNG: a reader in numpy and the standard library's zlib: 8-bit gray,
-  gray + alpha, RGB and RGBA, 16-bit gray (depth maps), palette images
-  (semantic segmentation maps; 1, 2, 4 or 8 bits), every row filter of
-  the PNG standard. Interlaced files raise. `write_png` writes the same
-  kinds with filter 0, so tests and scripts make their trees without PIL.
+* PNG: the standard library's zlib inflates, the port's native library
+  (native/fastimage.cpp `mm_png_decode`) undoes the row filters and
+  expands the samples: 8-bit gray, gray + alpha, RGB and RGBA, 16-bit
+  gray (depth maps), palette images (semantic segmentation maps; 1, 2, 4
+  or 8 bits), every row filter of the PNG standard. Interlaced files
+  raise. `read_png_twin` is the same reader in numpy, for tests and A/B
+  runs; no loader path takes it. `write_png` writes the same kinds with
+  filter 0, or choosing each row's filter as PIL and libpng do, so tests
+  and scripts make their trees without PIL.
 * JPEG: libjpeg through the port's own copy of the JAX helper's decoder
   (multimae_tpu_torch/native/jpeg_decode.cpp), built with g++ at first use
   into build/native/ in the repository. Where that cannot be built (no
@@ -22,22 +26,22 @@ gray (H, W) uint8 or uint16, RGB (H, W, 3) uint8, alpha dropped.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import struct
-import subprocess
 import zlib
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from multimae_tpu_torch import native
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SOURCE = Path(__file__).resolve().parent.parent / "native" / "jpeg_decode.cpp"
-NATIVE_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 
-# PNG colour types -> samples per pixel
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# PNG colour types -> samples per pixel, and the bit depths the standard allows
+_CHANNELS = native.PNG_CHANNELS
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
 class PngImage:
@@ -50,7 +54,7 @@ class PngImage:
         self.palette = palette
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+def _unfilter_twin(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-row filters (PNG spec 9.2): (height, stride) uint8."""
     data = np.frombuffer(raw, np.uint8)
     if data.size != height * (stride + 1):
@@ -91,42 +95,69 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+class _PngFile:
+    """A PNG file's header, palette and inflated image data."""
+
+    def __init__(self, data: bytes):
+        if data[:8] != PNG_SIGNATURE:
+            raise ValueError("not a PNG file")
+        pos, idat, palette, header = 8, [], None, None
+        while pos < len(data):
+            if pos + 8 > len(data):
+                raise ValueError("PNG file truncated")
+            length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+            body = data[pos + 8:pos + 8 + length]
+            if len(body) != length:
+                raise ValueError("PNG file truncated")
+            pos += 12 + length
+            if kind == b"IHDR":
+                header = struct.unpack(">IIBBBBB", body)
+            elif kind == b"PLTE":
+                palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"IEND":
+                break
+        else:
+            raise ValueError("PNG file truncated: no IEND chunk")
+        if header is None:
+            raise ValueError("PNG file has no IHDR chunk")
+        self.width, self.height, self.depth, self.color_type, _, _, interlace = header
+        if interlace:
+            raise ValueError("interlaced PNG files are not supported")
+        if self.depth not in _DEPTHS.get(self.color_type, ()):
+            raise ValueError(f"unsupported PNG colour type {self.color_type} at bit depth "
+                             f"{self.depth}")
+        if self.color_type == 3 and palette is None:
+            raise ValueError("palette PNG without a PLTE chunk")
+        self.palette = palette
+        self.raw = zlib.decompress(b"".join(idat))
+
+    def decode(self, mode: str) -> np.ndarray:
+        return native.png_decode(self.raw, self.width, self.height, self.depth,
+                                 self.color_type, self.palette, mode)
+
+
 def read_png(data: bytes) -> PngImage:
-    """Decode PNG bytes."""
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, idat, palette, header = 8, [], None, None
-    while pos < len(data):
-        if pos + 8 > len(data):
-            raise ValueError("PNG file truncated")
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        if len(body) != length:
-            raise ValueError("PNG file truncated")
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    else:
-        raise ValueError("PNG file truncated: no IEND chunk")
-    if header is None:
-        raise ValueError("PNG file has no IHDR chunk")
-    width, height, depth, color_type, _, _, interlace = header
-    if interlace:
-        raise ValueError("interlaced PNG files are not supported")
-    if color_type not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
-        raise ValueError(f"unsupported PNG colour type {color_type} at bit depth {depth}")
-    if color_type == 3 and palette is None:
-        raise ValueError("palette PNG without a PLTE chunk")
+    """Decode PNG bytes: every sample (alpha included)."""
+    f = _PngFile(data)
+    return PngImage(f.decode("samples"), f.color_type, f.palette)
+
+
+def decode_png(data: bytes, convert_rgb: bool) -> np.ndarray:
+    """PNG bytes -> what `load_image` returns for them."""
+    return _PngFile(data).decode("rgb" if convert_rgb else "raw")
+
+
+def read_png_twin(data: bytes) -> PngImage:
+    """`read_png` in numpy (the rows unfiltered in a Python loop where a
+    filter needs the byte before)."""
+    f = _PngFile(data)
+    width, height, depth, color_type = f.width, f.height, f.depth, f.color_type
     channels = _CHANNELS[color_type]
     bits = channels * depth
     stride = (width * bits + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride, max(1, bits // 8))
+    rows = _unfilter_twin(f.raw, height, stride, max(1, bits // 8))
     if depth == 16:
         pixels = rows.view(">u2").astype(np.uint16).reshape(height, width, channels)
     elif depth == 8:
@@ -140,7 +171,7 @@ def read_png(data: bytes) -> PngImage:
             pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
     if channels == 1:
         pixels = pixels[:, :, 0]
-    return PngImage(np.ascontiguousarray(pixels), color_type, palette)
+    return PngImage(np.ascontiguousarray(pixels), color_type, f.palette)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -148,10 +179,39 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path, pixels: np.ndarray, palette: Optional[np.ndarray] = None) -> None:
+PNG_FILTERS = ("none", "adaptive")
+
+
+def _filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Each row filtered with the type of least sum of |signed byte| over
+    the five of PNG spec 9.2 (the heuristic of libpng and PIL): (height,
+    1 + stride) uint8, the filter byte first."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    filtered = np.stack([x, x - a, x - b, x - (a + b) // 2, x - paeth]).astype(np.uint8)
+    signed = np.abs(filtered.view(np.int8).astype(np.int32)).sum(axis=2)  # (5, height)
+    best = np.argmin(signed, axis=0)
+    chosen = filtered[best, np.arange(len(rows))]
+    return np.concatenate([best.astype(np.uint8)[:, None], chosen], axis=1)
+
+
+def write_png(path, pixels: np.ndarray, palette: Optional[np.ndarray] = None,
+              filters: str = "none") -> np.ndarray:
     """Write (H, W) uint8 or uint16 gray, (H, W, 3) RGB or (H, W, 4) RGBA
-    uint8, or (H, W) uint8 palette indices with `palette` ((n, 3) uint8),
-    every row with filter 0."""
+    uint8, or (H, W) uint8 palette indices with `palette` ((n, 3) uint8).
+    `filters` "none" gives every row filter 0; "adaptive" chooses each
+    row's filter as libpng and PIL do, and as they do leaves palette images
+    at filter 0. Returns the count of rows per filter type (5,)."""
+    if filters not in PNG_FILTERS:
+        raise ValueError(f"filters must be one of {PNG_FILTERS}, not {filters!r}")
     pixels = np.asarray(pixels)
     height, width = pixels.shape[:2]
     channels = 1 if pixels.ndim == 2 else pixels.shape[2]
@@ -169,16 +229,20 @@ def write_png(path, pixels: np.ndarray, palette: Optional[np.ndarray] = None) ->
         raise ValueError(f"cannot write {pixels.dtype} pixels with {channels} channels")
     stride = width * channels * depth // 8
     rows = np.frombuffer(body, np.uint8).reshape(height, stride)
-    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1).tobytes()
+    if filters == "adaptive" and color_type != 3:
+        raw = _filter_rows(rows, channels * depth // 8)
+    else:
+        raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
     out = [PNG_SIGNATURE,
            _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, color_type, 0, 0, 0))]
     if palette is not None:
         out.append(_chunk(b"PLTE", np.asarray(palette, np.uint8).reshape(-1, 3).tobytes()))
-    out += [_chunk(b"IDAT", zlib.compress(raw, 6)), _chunk(b"IEND", b"")]
+    out += [_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)), _chunk(b"IEND", b"")]
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
         f.write(b"".join(out))
     os.replace(tmp, path)
+    return np.bincount(raw[:, 0], minlength=5)
 
 
 def png_to_rgb(img: PngImage) -> np.ndarray:
@@ -218,21 +282,11 @@ def _jpeg_lib():
     if _JPEG_LIB is not None:
         return _JPEG_LIB
     if _JPEG_ERROR is None:
-        src = JPEG_SOURCE.read_bytes()
-        out_dir = NATIVE_BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
-        lib_path = out_dir / "libmm_jpeg.so"
         try:
-            if not lib_path.exists():
-                out_dir.mkdir(parents=True, exist_ok=True)
-                tmp = out_dir / f"lib.{os.getpid()}.so"
-                cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(JPEG_SOURCE),
-                       "-o", str(tmp), "-ljpeg"]
-                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
-                if proc.returncode != 0:
-                    raise OSError(f"{' '.join(cmd)} failed: {proc.stderr.strip()[-400:]}")
-                os.replace(tmp, lib_path)
+            lib_path = native.build(JPEG_SOURCE, flags=["-O2", "-shared", "-fPIC", "-std=c++17"],
+                                    libs=["-ljpeg"], name="libmm_jpeg.so")
             lib = ctypes.CDLL(str(lib_path))
-        except (OSError, subprocess.SubprocessError) as e:
+        except (OSError, RuntimeError) as e:
             _JPEG_ERROR = (f"the JPEG decoder needs g++ and libjpeg (its headers and "
                            f"library), and could not be built: {e}")
         else:
@@ -259,13 +313,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out
 
 
-def load_image(path: str, convert_rgb: bool = True) -> np.ndarray:
-    """Decode one image file (see the module docstring for what comes back)."""
+def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.ndarray:
+    """Decode one image file (see the module docstring for what comes back);
+    `twin` reads a PNG with `read_png_twin`."""
     with open(path, "rb") as f:
         data = f.read()
     try:
         if data[:8] == PNG_SIGNATURE:
-            img = read_png(data)
+            if not twin:
+                return decode_png(data, convert_rgb)
+            img = read_png_twin(data)
             return png_to_rgb(img) if convert_rgb else png_raw(img)
         if data[:3] == b"\xff\xd8\xff":
             return decode_jpeg(data)

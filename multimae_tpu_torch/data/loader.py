@@ -22,7 +22,17 @@
   cut to a multiple of R and rank r reads the r-th contiguous block, so
   each record the JAX sharding keeps is read once, and the last
   len % R records by no rank. One process reads every record.
-Workers are spawned processes, kept for the life of the loader.
+Workers are spawned processes, kept for the life of the loader. The
+training batches run on from one epoch into the next, so the workers
+prefetch the next epoch's first batches while the current one ends, as
+grain's sampler does over its epochs. The parent builds the native image
+library before the workers start, so no worker compiles it. `close` lets
+the workers hand over the batches they are making before it stops them:
+a worker that exits while its queue's feeder thread still sends a batch
+aborts ("terminate called without an active exception": CPython stops
+that daemon thread with pthread_exit inside torch's pickling of a tensor,
+and the unwind through the C++ frame calls std::terminate). `close`
+raises if a worker did not exit cleanly.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from multimae_tpu_torch import native
 
 MAX_ATTEMPTS = 20
 
@@ -49,24 +61,27 @@ def epoch_shard(num_records: int, epoch: int, *, seed: int, shard_index: int,
     return order[:per_shard * shard_count][shard_index::shard_count]
 
 
-class ShardSampler(torch.utils.data.Sampler):
-    """Yields (epoch, record index) over this rank's shard of `epoch`, from
-    its `start`-th record on."""
+class ShardBatches(torch.utils.data.Sampler):
+    """Yields this rank's batches of (epoch, record index) keys, epoch after
+    epoch without end, from batch `start` of `epoch` on; each epoch's shard
+    is cut to whole batches."""
 
-    def __init__(self, num_records: int, *, seed: int, shard_index: int, shard_count: int,
-                 shuffle: bool = True):
+    def __init__(self, num_records: int, batch: int, *, seed: int, shard_index: int,
+                 shard_count: int, shuffle: bool = True):
         self.num_records = num_records
+        self.batch = batch
         self.kw = dict(seed=seed, shard_index=shard_index, shard_count=shard_count,
                        shuffle=shuffle)
         self.epoch = 0
         self.start = 0
 
     def __iter__(self):
-        shard = epoch_shard(self.num_records, self.epoch, **self.kw)
-        return ((self.epoch, int(i)) for i in shard[self.start:])
-
-    def __len__(self) -> int:
-        return self.num_records // self.kw["shard_count"] - self.start
+        epoch, start = self.epoch, self.start
+        while True:
+            shard = epoch_shard(self.num_records, epoch, **self.kw)
+            for b in range(start, len(shard) // self.batch):
+                yield [(epoch, int(i)) for i in shard[b * self.batch:(b + 1) * self.batch]]
+            epoch, start = epoch + 1, 0
 
 
 class LoadAndAugment(torch.utils.data.Dataset):
@@ -104,17 +119,35 @@ class LoadAndAugment(torch.utils.data.Dataset):
         return len(self.dataset)
 
 
-def data_loader(dataset, transform: Optional[Callable], seed: int, batch_size: int, sampler,
-                drop_last: bool, num_workers: int,
-                pin_memory: bool) -> torch.utils.data.DataLoader:
-    """A DataLoader of LoadAndAugment over `sampler`'s (epoch, index) keys,
-    its workers spawned and kept for the loader's life."""
+def data_loader(dataset, transform: Optional[Callable], seed: int, num_workers: int,
+                pin_memory: bool, **batching) -> torch.utils.data.DataLoader:
+    """A DataLoader of LoadAndAugment, batched by `batching` (DataLoader's
+    batch_sampler, or sampler, batch_size and drop_last), its workers
+    spawned and kept for the loader's life. Builds the native image library
+    first, so that no worker compiles it."""
+    native.lib()
     workers = dict(multiprocessing_context="spawn", persistent_workers=True,
                    prefetch_factor=4) if num_workers else {}
     return torch.utils.data.DataLoader(
-        LoadAndAugment(dataset, transform, seed), batch_size=batch_size, sampler=sampler,
-        drop_last=drop_last, num_workers=num_workers, collate_fn=collate,
-        pin_memory=pin_memory, **workers)
+        LoadAndAugment(dataset, transform, seed), num_workers=num_workers, collate_fn=collate,
+        pin_memory=pin_memory, **batching, **workers)
+
+
+def stop_workers(loader: torch.utils.data.DataLoader) -> None:
+    """Stop `loader`'s persistent workers once they have handed over the
+    batches they were making (see the module docstring); raise if one did
+    not exit cleanly."""
+    it, loader._iterator = loader._iterator, None
+    workers = getattr(it, "_workers", None)
+    if not workers:
+        return
+    for _ in range(it._tasks_outstanding):
+        it._get_data()
+    it._tasks_outstanding = 0
+    it._shutdown_workers()
+    failed = [(w.pid, w.exitcode) for w in workers if w.exitcode != 0]
+    if failed:
+        raise RuntimeError(f"loader workers did not exit cleanly: (pid, exit code) {failed}")
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
@@ -144,10 +177,11 @@ class Loader:
         if self.steps_per_epoch == 0:
             raise ValueError(f"{len(dataset)} records make no global batch of "
                              f"{global_batch_size}")
-        self.sampler = ShardSampler(len(dataset), seed=seed, shard_index=shard_index,
-                                    shard_count=shard_count, shuffle=shuffle)
-        self.loader = data_loader(dataset, transform, seed, self.local_batch, self.sampler,
-                                  True, num_workers, pin_memory)
+        self.batches = ShardBatches(len(dataset), self.local_batch, seed=seed,
+                                    shard_index=shard_index, shard_count=shard_count,
+                                    shuffle=shuffle)
+        self.loader = data_loader(dataset, transform, seed, num_workers, pin_memory,
+                                  batch_sampler=self.batches)
         self.epoch = 0
         self.batch = 0
         self._it = None
@@ -157,10 +191,9 @@ class Loader:
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         if self.batch == self.steps_per_epoch:
-            self.epoch, self.batch, self._it = self.epoch + 1, 0, None
+            self.epoch, self.batch = self.epoch + 1, 0
         if self._it is None:
-            self.sampler.epoch = self.epoch
-            self.sampler.start = self.batch * self.local_batch
+            self.batches.epoch, self.batches.start = self.epoch, self.batch
             self._it = iter(self.loader)
         out = next(self._it)
         self.batch += 1
@@ -169,7 +202,7 @@ class Loader:
     def close(self) -> None:
         """Stop the worker processes."""
         self._it = None
-        self.loader._iterator = None  # the persistent workers' iterator
+        stop_workers(self.loader)
 
     def get_state(self) -> Dict[str, int]:
         return {"seed": self.seed, "epoch": self.epoch, "batch": self.batch}
@@ -203,9 +236,9 @@ class EvalLoader:
                              f"{shard_count} ranks")
         self.indices = eval_shard(len(dataset), shard_index=shard_index,
                                   shard_count=shard_count)
-        self.loader = data_loader(dataset, transform, seed, global_batch_size // shard_count,
-                                  [(0, int(i)) for i in self.indices], False, num_workers,
-                                  pin_memory)
+        self.loader = data_loader(dataset, transform, seed, num_workers, pin_memory,
+                                  batch_size=global_batch_size // shard_count,
+                                  sampler=[(0, int(i)) for i in self.indices], drop_last=False)
 
     def __iter__(self):
         return iter(self.loader)
@@ -215,4 +248,4 @@ class EvalLoader:
 
     def close(self) -> None:
         """Stop the worker processes."""
-        self.loader._iterator = None
+        stop_workers(self.loader)

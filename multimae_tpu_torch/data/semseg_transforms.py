@@ -1,9 +1,12 @@
-"""Semantic segmentation fine-tune augmentations in numpy, without cv2
-(counterpart of multimae_tpu/data/semseg_transforms.py; reference
+"""Semantic segmentation fine-tune augmentations without cv2 (counterpart
+of multimae_tpu/data/semseg_transforms.py; reference
 utils/datasets_semseg.py:33-172).
 
-The JAX package builds these on cv2. Its arithmetic is rebuilt here so
-that the same `random.Random` gives the same arrays:
+The JAX package builds these on cv2. Its arithmetic is rebuilt in the
+port's native library (native/fastimage.cpp: `resize_linear`,
+`resize_nearest`, `rgb_to_gray`, `rgb_to_hsv`, `hsv_to_rgb` here are its
+functions) and, bit-equal to it, in numpy (the functions named *_twin),
+so that the same `random.Random` gives the same arrays:
 
 * `resize_linear` is cv2.resize with INTER_LINEAR. For uint8 it is
   OpenCV's fixed-point path: 11-bit coefficients rounded from float32
@@ -24,7 +27,8 @@ that the same `random.Random` gives the same arrays:
   HSV2RGB_LANES pixels from the start of each row) and rounded in the
   rest of the row, its scalar tail.
 Each was checked bit for bit against cv2 over every uint8 colour and
-over resizes of random sizes, up and down.
+over resizes of random sizes, up and down. The twins serve tests and
+chip_smoke.py's A/B (`SimpleTransform(twin=True)`); no CLI selects them.
 
 `SimpleTransform` (hflip, LongestMaxSize, colour jitter on rgb, the
 large-scale jitter RandomScale(0.1, 2.0), pad bottom and right with 128 /
@@ -37,10 +41,11 @@ mask_valid) follow the JAX package line for line, draws included.
 from __future__ import annotations
 
 import random
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from multimae_tpu_torch import native
 from multimae_tpu_torch.utils.data_constants import (
     IMAGENET_DEFAULT_MEAN,
     IMAGENET_DEFAULT_STD,
@@ -84,7 +89,7 @@ def _linear_taps(src_len: int, dst_len: int, clamp: bool, exact_float: bool):
     return i0, i1, np.float32(1.0) - frac, frac
 
 
-def resize_linear(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+def resize_linear_twin(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     """cv2.resize(arr, size_wh, interpolation=INTER_LINEAR) for uint8 and
     float32 (H, W) or (H, W, C) arrays."""
     if arr.dtype not in (np.uint8, np.float32):
@@ -113,7 +118,7 @@ def resize_linear(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     return out
 
 
-def resize_nearest(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+def resize_nearest_twin(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     """cv2.resize(arr, size_wh, interpolation=INTER_NEAREST), any dtype."""
     dw, dh = size_wh
     h, w = arr.shape[:2]
@@ -125,7 +130,7 @@ def resize_nearest(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     return out
 
 
-def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+def rgb_to_gray_twin(rgb: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(rgb, COLOR_RGB2GRAY) on uint8 (..., 3)."""
     x = rgb.astype(np.int32)
     y = x[..., 0] * 9798 + x[..., 1] * 19235 + x[..., 2] * 3735 + (1 << 14)
@@ -140,7 +145,7 @@ with np.errstate(divide="ignore"):
 del _DIV
 
 
-def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+def rgb_to_hsv_twin(rgb: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(rgb, COLOR_RGB2HSV) on uint8 (..., 3): H in [0, 180)."""
     x = rgb.astype(np.int32)
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
@@ -161,7 +166,7 @@ HSV2RGB_LANES = 32
 _SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
 
 
-def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+def hsv_to_rgb_twin(hsv: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(hsv, COLOR_HSV2RGB) on uint8 (H, W, 3) with H in [0, 180)."""
     f32, one = np.float32, np.float32(1.0)
     h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
@@ -183,12 +188,31 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
-def _resize(arr: np.ndarray, size_wh: Tuple[int, int], is_mask: bool) -> np.ndarray:
-    return resize_nearest(arr, size_wh) if is_mask else resize_linear(arr, size_wh)
+class ImageOps(NamedTuple):
+    """The cv2 operations the transforms call."""
+    resize_linear: Callable
+    resize_nearest: Callable
+    rgb_to_gray: Callable
+    rgb_to_hsv: Callable
+    hsv_to_rgb: Callable
+
+
+NATIVE_OPS = ImageOps(native.resize_linear, native.resize_nearest, native.rgb_to_gray,
+                      native.rgb_to_hsv, native.hsv_to_rgb)
+TWIN_OPS = ImageOps(resize_linear_twin, resize_nearest_twin, rgb_to_gray_twin,
+                    rgb_to_hsv_twin, hsv_to_rgb_twin)
+resize_linear, resize_nearest = native.resize_linear, native.resize_nearest
+rgb_to_gray, rgb_to_hsv, hsv_to_rgb = native.rgb_to_gray, native.rgb_to_hsv, native.hsv_to_rgb
+
+
+def _resize(arr: np.ndarray, size_wh: Tuple[int, int], is_mask: bool,
+            ops: ImageOps) -> np.ndarray:
+    return ops.resize_nearest(arr, size_wh) if is_mask else ops.resize_linear(arr, size_wh)
 
 
 def _color_jitter(img: np.ndarray, rng: random.Random,
-                  brightness=0.4, contrast=0.4, saturation=0.2, hue=0.1) -> np.ndarray:
+                  brightness=0.4, contrast=0.4, saturation=0.2, hue=0.1,
+                  image_ops: ImageOps = NATIVE_OPS) -> np.ndarray:
     """torchvision-style jitter on a uint8 RGB array (random order). The
     ops are closures over one `f`, as in the JAX package: the brightness,
     contrast and saturation ops all blend with the last factor drawn
@@ -199,24 +223,25 @@ def _color_jitter(img: np.ndarray, rng: random.Random,
     def blend(a, b, f):
         return np.clip(a * f + b * (1 - f), 0, 255)
 
+    gray, to_hsv, to_rgb = image_ops.rgb_to_gray, image_ops.rgb_to_hsv, image_ops.hsv_to_rgb
     ops = []
     if brightness > 0:
         f = rng.uniform(max(0, 1 - brightness), 1 + brightness)
         ops.append(lambda x: blend(x, 0.0, f))
     if contrast > 0:
         f = rng.uniform(max(0, 1 - contrast), 1 + contrast)
-        ops.append(lambda x: blend(x, rgb_to_gray(x.astype(np.uint8)).mean(), f))
+        ops.append(lambda x: blend(x, gray(x.astype(np.uint8)).mean(), f))
     if saturation > 0:
         f = rng.uniform(max(0, 1 - saturation), 1 + saturation)
         ops.append(lambda x: blend(
-            x, rgb_to_gray(x.astype(np.uint8))[..., None].astype(np.float32), f))
+            x, gray(x.astype(np.uint8))[..., None].astype(np.float32), f))
     if hue > 0:
         shift = rng.uniform(-hue, hue)
 
         def hue_op(x):
-            hsv = rgb_to_hsv(x.astype(np.uint8)).astype(np.int16)
+            hsv = to_hsv(x.astype(np.uint8)).astype(np.int16)
             hsv[..., 0] = (hsv[..., 0] + int(shift * 180)) % 180
-            return hsv_to_rgb(hsv.astype(np.uint8)).astype(np.float32)
+            return to_rgb(hsv.astype(np.uint8)).astype(np.float32)
 
         ops.append(hue_op)
     rng.shuffle(ops)
@@ -230,8 +255,9 @@ class SimpleTransform:
 
     def __init__(self, train: bool, input_size: int = 512,
                  pad_value: int = 128, pad_mask_value: int = PAD_MASK_VALUE,
-                 color_jitter_p: float = 0.5, hflip_p: float = 0.5):
+                 color_jitter_p: float = 0.5, hflip_p: float = 0.5, twin: bool = False):
         self.train = train
+        self.ops = TWIN_OPS if twin else NATIVE_OPS  # the twins for comparisons; no CLI
         self.input_size = input_size
         self.pad_value = pad_value
         self.pad_mask_value = pad_mask_value
@@ -257,16 +283,16 @@ class SimpleTransform:
         scale = s / max(h, w)
         if scale != 1.0:
             size_wh = (round(w * scale), round(h * scale))
-            out = {k: _resize(v, size_wh, is_mask(k)) for k, v in out.items()}
+            out = {k: _resize(v, size_wh, is_mask(k), self.ops) for k, v in out.items()}
 
         if self.train:
             if rng.random() < self.color_jitter_p and "rgb" in out:
-                out["rgb"] = _color_jitter(out["rgb"], rng)
+                out["rgb"] = _color_jitter(out["rgb"], rng, image_ops=self.ops)
             # LSJ RandomScale(0.1, 2.0)
             factor = 1.0 + rng.uniform(0.1 - 1.0, 2.0 - 1.0)
             h, w = next(iter(out.values())).shape[:2]
             size_wh = (max(1, round(w * factor)), max(1, round(h * factor)))
-            out = {k: _resize(v, size_wh, is_mask(k)) for k, v in out.items()}
+            out = {k: _resize(v, size_wh, is_mask(k), self.ops) for k, v in out.items()}
 
         # PadIfNeeded (top-left anchored: pad bottom/right)
         h, w = next(iter(out.values())).shape[:2]
@@ -358,7 +384,8 @@ class DataAugmentationForSemSeg:
                 out[task] = self.seg_adapt_labels(v).astype(np.int32)
             elif task == "pseudo_semseg":
                 h, w = v.shape[:2]
-                out[task] = resize_nearest(v, (w // 4, h // 4)).astype(np.int32)
+                out[task] = self.transform.ops.resize_nearest(v, (w // 4, h // 4)).astype(
+                    np.int32)
             elif task == "mask_valid":
                 out[task] = (v == 255)[..., None]
             else:

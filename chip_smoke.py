@@ -91,7 +91,19 @@ non-zero:
      data; and the checkpoint save and load seconds. Every loader's close
      raises if a worker did not exit cleanly. The tree and the checkpoints
      are deleted, but for the newest checkpoint, which phase 13 starts
-     from.
+     from. Then JPEG: every committed fixture of tests/fixtures/jpeg/,
+     decoded by the native library this machine's g++ built, must have the
+     SHA-256 that expected.json holds (PIL's decode where the fixtures were
+     written; the one file the decoder must refuse raises naming what
+     expected.json says), and each 500 x 375 photo's decode is timed, in
+     one thread and (4:2:0) in 4 threads at once; then
+     the same CLI for one epoch (batch 32, 4 workers, no save) over an
+     ImageNet-layout tree of CLI_SAMPLES samples at 375 x 500 whose rgb
+     images are those photos as .jpg, beside depth and semseg PNGs written
+     by the port's writer: K1 fwd and bwd launch 4 times per step and
+     nothing else launches, the losses are finite; printed with the card
+     line: the loader's samples/s (one process, and 4 workers) and ms per
+     sample decoding the JPEG.
  13. the semantic segmentation fine-tune CLI
      (multimae_tpu_torch.cli.run_finetuning_semseg, get_args + main): K4
      against its twin at the Segmenter's eval shapes (4, 1025, 768) and
@@ -199,6 +211,12 @@ CLI_HW = (256, 320)
 CLI_BATCH = 32
 CLI_WORKERS = 4
 CLI_YAML = "cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml"
+# Phase 12's JPEG tree: the committed photo-like fixtures at JPEG_HW
+# (ImageNet's typical 500 x 375) as rgb .jpg under CLI_SAMPLES names, with
+# depth and semseg PNGs of the same size; one epoch of the same CLI.
+JPEG_FIXTURES = os.path.join(HERE, "tests", "fixtures", "jpeg")
+JPEG_HW = (375, 500)
+JPEG_TIMED_FILES = 40
 
 # The semseg fine-tune CLI (phase 13): NYUv2-shaped trees (640 x 480 RGB,
 # 16-bit depth, 40 classes with patches of 255, mask_valid) of FT_TRAIN +
@@ -1195,6 +1213,146 @@ def cli_slice(torch, dev, keep):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def jpeg_fixture_check(card):
+    """Every committed JPEG fixture (tests/fixtures/jpeg/) through the native
+    library this machine's g++ built: the SHA-256 of its pixels must equal
+    expected.json's (PIL's decode where the fixtures were written), and the
+    file the decoder must refuse raises naming what expected.json says.
+    Returns ms per decode of each 500 x 375 photo, on this host."""
+    import hashlib
+
+    from multimae_tpu_torch import native
+
+    with open(os.path.join(JPEG_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    t0 = time.perf_counter()
+    native.lib()
+    ready_s = time.perf_counter() - t0
+    refused = []
+    for name, want in sorted(expected.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        if "error" in want:
+            try:
+                native.decode_jpeg(data)
+            except ValueError as e:
+                if want["error"] not in str(e):
+                    raise AssertionError(f"[12] {name}: {e}; expected an error naming "
+                                         f"{want['error']!r}") from e
+                refused.append(name)
+                continue
+            raise AssertionError(f"[12] {name} decoded; expected an error naming "
+                                 f"{want['error']!r}")
+        rgb = native.decode_jpeg(data)
+        digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+        if list(rgb.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"[12] {name}: {rgb.shape} sha256 {digest}; expected "
+                                 f"{want['shape']} {want['sha256']}")
+    log(12, f"JPEG fixtures: {len(expected) - len(refused)} files decode to the SHA-256 of "
+            f"expected.json (PIL's decode), {', '.join(refused)} refused as expected; native "
+            f"library ready in {ready_s:.2f} s "
+            f"({'built now' if native.BUILD_SECONDS is not None else 'cached build'}; card "
+            f"{card})")
+    ms = {}
+    for name in sorted(n for n in expected if n.startswith("photo_")):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        native.decode_jpeg(data)
+        t0 = time.perf_counter()
+        for _ in range(JPEG_TIMED_FILES):
+            native.decode_jpeg(data)
+        ms[name] = (time.perf_counter() - t0) / JPEG_TIMED_FILES * 1e3
+    log(12, "JPEG decode, ms per 500x375 file on this host (one thread; card " + card + "): "
+            + ", ".join(f"{n} {v:.3f}" for n, v in ms.items()))
+    rates = {threads: jpeg_threads_rate(native, os.path.join(JPEG_FIXTURES, "photo_420_q90.jpg"),
+                                        threads) for threads in (1, CLI_WORKERS)}
+    log(12, f"JPEG decode of photo_420_q90.jpg in threads (the call drops the GIL): "
+            f"{rates[1]:.1f} files/s in one, {rates[CLI_WORKERS]:.1f} in {CLI_WORKERS} "
+            f"({rates[CLI_WORKERS] / rates[1]:.2f}x; card {card})")
+    return ms, rates
+
+
+def jpeg_threads_rate(native, path, threads):
+    """Files/s decoding `path` JPEG_TIMED_FILES times in each of `threads`
+    threads at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with open(path, "rb") as f:
+        data = f.read()
+
+    def work(_):
+        for _ in range(JPEG_TIMED_FILES):
+            native.decode_jpeg(data)
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(work, range(threads)))  # warm the threads
+        t0 = time.perf_counter()
+        list(pool.map(work, range(threads)))
+        return threads * JPEG_TIMED_FILES / (time.perf_counter() - t0)
+
+
+def jpeg_cli_slice(card):
+    """Phase 12's run of the pretraining CLI over an ImageNet-layout tree
+    whose rgb images are JPEG files; returns K1's launches and its numbers."""
+    import shutil
+
+    from multimae_tpu_torch.cli.run_pretraining_multimae import get_args, main
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+    from multimae_tpu_torch.data.image_io import load_image
+
+    root = os.path.join(HERE, "build", "chip_smoke_jpeg")
+    tree = os.path.join(root, "tree")
+    shutil.rmtree(root, ignore_errors=True)
+    photos = sorted(os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
+                    if n.startswith("photo_"))
+    t0 = time.perf_counter()
+    write_random_tree(tree, CLI_SAMPLES, JPEG_HW, smooth=True, rgb_files=photos)
+    log(12, f"JPEG tree: {CLI_SAMPLES} samples at {JPEG_HW[0]}x{JPEG_HW[1]}, rgb the "
+            f"{len(photos)} photo fixtures as .jpg, depth and semseg PNG written in "
+            f"{time.perf_counter() - t0:.1f} s (card {card})")
+    try:
+        reset_launch_counts()
+        run = main(get_args([
+            "-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(CLI_BATCH),
+            "--warmup_epochs", "0", "--num_workers", str(CLI_WORKERS), "--data_path", tree,
+            "--output_dir", "", "--epochs", "1", "--no_auto_resume"]))
+        launches = launch_counts()
+        steps = len(run["steps"])
+        expect = dict.fromkeys(launches, 0)
+        expect.update(fused_decoder_fwd=4 * steps, fused_decoder_bwd=4 * steps)
+        if steps != CLI_SAMPLES // CLI_BATCH or launches != expect:
+            raise AssertionError(f"JPEG-tree CLI run: {steps} steps, launches {launches}; "
+                                 f"expected {CLI_SAMPLES // CLI_BATCH} steps and {expect}")
+        if not all(math.isfinite(v) for r in run["steps"] for v in r["metrics"].values()):
+            raise AssertionError(f"JPEG-tree CLI run: metrics "
+                                 f"{[r['metrics'] for r in run['steps']]}")
+        log(12, "JPEG-tree CLI run: losses " + ", ".join(
+            f"{r['metrics']['loss']:.4f}" for r in run["steps"]) + f"; K1 fwd "
+            f"{launches['fused_decoder_fwd']}, bwd {launches['fused_decoder_bwd']} launches "
+            f"over {steps} steps, nothing else launched")
+        one = pretrain_loader_rate(tree, 0, epochs=2)
+        many = pretrain_loader_rate(tree, CLI_WORKERS)
+        dataset, transform = pretrain_data(tree, twin=False)
+        paths = [p for p, _ in dataset.samples["rgb"]]
+        t0 = time.perf_counter()
+        for p in paths:
+            load_image(p)
+        jpeg_ms = (time.perf_counter() - t0) / len(paths) * 1e3
+        decode_ms, augment_ms, _, _ = sample_split(dataset, transform)
+        step_ms = statistics.median(r["step_s"] for r in run["steps"]) * 1e3
+        log(12, f"loader over the JPEG tree (500x375 .jpg + 2 PNGs -> 224, batches of 8; card "
+                f"{card}): {one:.1f} samples/s in one process, {many:.1f} samples/s with "
+                f"{CLI_WORKERS} workers; one process spends {jpeg_ms:.3f} ms per sample "
+                f"decoding its JPEG ({decode_ms:.3f} ms on all 3 files) and {augment_ms:.3f} "
+                f"ms augmenting; CLI step {step_ms:.3f} ms (median of {steps})")
+        return launches, {"jpeg_losses": [r["metrics"]["loss"] for r in run["steps"]],
+                "jpeg_loader_samples_per_s": one, "jpeg_loader_samples_per_s_workers": many,
+                "jpeg_decode_ms_per_sample": jpeg_ms, "jpeg_tree_decode_ms_per_sample": decode_ms,
+                "jpeg_tree_augment_ms_per_sample": augment_ms, "jpeg_cli_step_ms": step_ms}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def k4_at(torch, fused_block, w4, n, gen, dev):
     """K4 against its twin at (SEMSEG_BATCH, n, 768): max abs error, rel
     RMS, kernel and twin ms, bound."""
@@ -1783,6 +1941,15 @@ def main():
         for k in kernels:
             if k["name"] in ("fused_decoder_fwd", "fused_decoder_bwd"):
                 k["cli_launches"] = cli_launches[k["name"]]
+        free_card(torch)
+        jpeg_ms, jpeg_rates = jpeg_fixture_check(card)
+        jpeg_launches, jpeg_numbers = jpeg_cli_slice(card)
+        for k in kernels:
+            if k["name"] in ("fused_decoder_fwd", "fused_decoder_bwd"):
+                k["jpeg_cli_launches"] = jpeg_launches[k["name"]]
+        cli_numbers.update(jpeg_numbers)
+        cli_numbers.update(jpeg_decode_ms_per_file=jpeg_ms,
+                           jpeg_files_per_s_threads={str(k): v for k, v in jpeg_rates.items()})
         log(12, "numbers: " + json.dumps(cli_numbers))
         free_card(torch)
 

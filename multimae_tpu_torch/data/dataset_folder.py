@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 import random
+import shutil
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -198,7 +199,7 @@ def _smooth_sample(rng: np.random.Generator, h: int, w: int, semseg_classes: int
 def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: int = 0,
                       classes: int = 2, semseg_classes: int = 133,
                       ignore_patches: bool = False, mask_valid: bool = False,
-                      smooth: bool = False) -> np.ndarray:
+                      smooth: bool = False, rgb_files: Sequence[str] = ()) -> np.ndarray:
     """Write an aligned MultiTaskImageFolder tree of random PNGs drawn from
     `seed`: root/<task>/c<k>/i<n>.png with 8-bit RGB, 16-bit depth and
     palette semseg with labels in [0, semseg_classes) (133 by default, the
@@ -209,7 +210,9 @@ def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: in
     datasets. `ignore_patches` sets a random rectangle of each class map
     to the ignore label 255; `mask_valid` adds root/mask_valid/ maps of 0
     (invalid: a border and a random rectangle) and 255. NYUv2-shaped: hw
-    (480, 640), semseg_classes 40, both on. Returns the count of rows
+    (480, 640), semseg_classes 40, both on. `rgb_files` (JPEG files, say)
+    are copied in turn as the rgb images, each under the sample's name with
+    its own extension, in place of the RGB PNGs. Returns the count of rows
     written per filter type (5,)."""
     from multimae_tpu_torch.data.image_io import write_png
 
@@ -238,7 +241,12 @@ def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: in
             rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
             depth = rng.integers(0, 65536, (h, w), dtype=np.uint16)
             labels = None
-        write("rgb", name, rgb)
+        if rgb_files:
+            src = rgb_files[i % len(rgb_files)]
+            shutil.copyfile(src, os.path.join(root, "rgb", cls,
+                                              f"i{i:04d}{os.path.splitext(src)[1]}"))
+        else:
+            write("rgb", name, rgb)
         write("depth", name, depth)
         if labels is None:
             labels = rng.integers(0, semseg_classes, (h, w), dtype=np.uint8)

@@ -11,11 +11,14 @@ and of dataset_folder.pil_loader).
   runs; no loader path takes it. `write_png` writes the same kinds with
   filter 0, or choosing each row's filter as PIL and libpng do, so tests
   and scripts make their trees without PIL.
-* JPEG: libjpeg through the port's own copy of the JAX helper's decoder
-  (multimae_tpu_torch/native/jpeg_decode.cpp), built with g++ at first use
-  into build/native/ in the repository. Where that cannot be built (no
-  g++, no libjpeg), decoding a .jpg raises an error that names the file
-  and what is missing; it never skips the file.
+* JPEG: the port's own decoder in its native library
+  (native/jpeg_decode.cpp, no libjpeg): baseline, extended and progressive
+  Huffman-coded files, gray, YCbCr, RGB, CMYK and YCCK, bit-equal to PIL's
+  convert("RGB"). Damaged and unsupported files (arithmetic coding,
+  lossless, hierarchical, 12-bit, unrefined progressive coefficients)
+  raise ValueError naming what was met. Where the library cannot be built
+  (no g++), decoding raises RuntimeError with g++'s message and the file's
+  name; it never skips the file.
 
 `load_image(path, convert_rgb)` returns what PIL's loader gives the
 pipeline: (H, W, 3) uint8 for convert_rgb (palette and gray expanded,
@@ -25,11 +28,9 @@ gray (H, W) uint8 or uint16, RGB (H, W, 3) uint8, alpha dropped.
 
 from __future__ import annotations
 
-import ctypes
 import os
 import struct
 import zlib
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -37,7 +38,6 @@ import numpy as np
 from multimae_tpu_torch import native
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_SOURCE = Path(__file__).resolve().parent.parent / "native" / "jpeg_decode.cpp"
 
 # PNG colour types -> samples per pixel, and the bit depths the standard allows
 _CHANNELS = native.PNG_CHANNELS
@@ -269,50 +269,6 @@ def png_raw(img: PngImage) -> np.ndarray:
     return img.pixels
 
 
-# --- JPEG through libjpeg ------------------------------------------------------
-
-_JPEG_LIB = None
-_JPEG_ERROR: Optional[str] = None
-
-
-def _jpeg_lib():
-    """The ctypes-bound decoder, built at first use; raises with the reason
-    where it cannot be built or loaded."""
-    global _JPEG_LIB, _JPEG_ERROR
-    if _JPEG_LIB is not None:
-        return _JPEG_LIB
-    if _JPEG_ERROR is None:
-        try:
-            lib_path = native.build(JPEG_SOURCE, flags=["-O2", "-shared", "-fPIC", "-std=c++17"],
-                                    libs=["-ljpeg"], name="libmm_jpeg.so")
-            lib = ctypes.CDLL(str(lib_path))
-        except (OSError, RuntimeError) as e:
-            _JPEG_ERROR = (f"the JPEG decoder needs g++ and libjpeg (its headers and "
-                           f"library), and could not be built: {e}")
-        else:
-            lib.mm_decode_jpeg.restype = ctypes.c_int
-            lib.mm_decode_jpeg.argtypes = [
-                ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-            _JPEG_LIB = lib
-            return lib
-    raise RuntimeError(_JPEG_ERROR)
-
-
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB (libjpeg, islow DCT)."""
-    lib = _jpeg_lib()
-    h, w = ctypes.c_int(), ctypes.c_int()
-    rc = lib.mm_decode_jpeg(data, len(data), None, 0, ctypes.byref(h), ctypes.byref(w))
-    if rc == -3:
-        out = np.empty((h.value, w.value, 3), np.uint8)
-        rc = lib.mm_decode_jpeg(data, len(data), out.ctypes.data, out.nbytes,
-                                ctypes.byref(h), ctypes.byref(w))
-    if rc != 0:
-        raise ValueError(f"JPEG decode failed (libjpeg code {rc})")
-    return out
-
-
 def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.ndarray:
     """Decode one image file (see the module docstring for what comes back);
     `twin` reads a PNG with `read_png_twin`."""
@@ -325,9 +281,9 @@ def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.nd
             img = read_png_twin(data)
             return png_to_rgb(img) if convert_rgb else png_raw(img)
         if data[:3] == b"\xff\xd8\xff":
-            return decode_jpeg(data)
+            return native.decode_jpeg(data)
     except (ValueError, struct.error, zlib.error) as e:  # a damaged file
         raise ValueError(f"{path}: {e}") from e
-    except RuntimeError as e:  # no decoder on this machine: not the file's fault
+    except RuntimeError as e:  # the native library did not build: not the file's fault
         raise RuntimeError(f"{path}: {e}") from e
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")

@@ -1,11 +1,12 @@
-"""ctypes bindings for the port's native image library (fastimage.cpp),
-the counterpart of the JAX package's multimae_tpu/native/__init__.py.
+"""ctypes bindings for the port's native image library (fastimage.cpp and
+jpeg_decode.cpp), the counterpart of the JAX package's
+multimae_tpu/native/__init__.py.
 
 The library is built with g++ at first use:
 
-    g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp -o <lib>
+    g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp -o <lib>
 
-into build/native/<hash of the source and the command>/ in the repository
+into build/native/<hash of the sources and the command>/ in the repository
 (listed in .gitignore). The compiler writes a per-process temporary that
 is moved into place with os.replace, so processes building at once never
 see a partial file. -ffp-contract=off keeps every multiply and add rounded
@@ -26,11 +27,13 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "fastimage.cpp"
+JPEG_SOURCE = SOURCE.with_name("jpeg_decode.cpp")
+SOURCES = (SOURCE, JPEG_SOURCE)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
@@ -54,18 +57,21 @@ _SIGNATURES = {
     "mm_rgb_to_gray": [_P, _L, _P],
     "mm_rgb_to_hsv": [_P, _L, _P],
     "mm_hsv_to_rgb": [_P, _L, _I, _P],
+    "mm_decode_jpeg": [_P, _L, _P, _L, _P, _P, _P, _L],
 }
 
 
-def build(source: Path = SOURCE, build_root: Path = BUILD_ROOT, *,
+def build(sources: Union[Path, Sequence[Path]] = SOURCES, build_root: Path = BUILD_ROOT, *,
           flags: Sequence[str] = tuple(CXX_FLAGS), libs: Sequence[str] = (),
           name: str = "libmm_fastimage.so") -> Path:
-    """Compile `source` with g++ `flags` and linker `libs` into
-    build_root/<hash>/`name` unless it is there; return its path. Raises
-    RuntimeError with g++'s message when the compiler fails or is missing."""
+    """Compile `sources` (one path or several) with g++ `flags` and linker
+    `libs` into build_root/<hash>/`name` unless it is there; return its
+    path. Raises RuntimeError with g++'s message when the compiler fails or
+    is missing."""
     global BUILD_SECONDS
+    sources = [sources] if isinstance(sources, Path) else list(sources)
     flags = list(flags)
-    text = source.read_bytes()
+    text = b"".join(s.read_bytes() for s in sources)
     digest = hashlib.sha256(text + " ".join(flags + list(libs)).encode()).hexdigest()[:16]
     out_dir = build_root / digest
     lib_path = out_dir / name
@@ -73,7 +79,7 @@ def build(source: Path = SOURCE, build_root: Path = BUILD_ROOT, *,
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{name}.{os.getpid()}.tmp"
-    cmd = ["g++", *flags, str(source), "-o", str(tmp), *libs]
+    cmd = ["g++", *flags, *map(str, sources), "-o", str(tmp), *libs]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -83,7 +89,7 @@ def build(source: Path = SOURCE, build_root: Path = BUILD_ROOT, *,
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stderr.strip()[-2000:]}")
     os.replace(tmp, lib_path)
-    if source == SOURCE:
+    if tuple(sources) == SOURCES:
         BUILD_SECONDS = time.perf_counter() - t0
     return lib_path
 
@@ -94,7 +100,7 @@ def lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    path = build()
+    path = build(SOURCES, BUILD_ROOT)
     try:
         handle = ctypes.CDLL(str(path))
     except OSError as e:
@@ -236,6 +242,26 @@ def png_decode(raw: bytes, width: int, height: int, depth: int, color_type: int,
         row = rc - 1
         raise ValueError(f"PNG row {row} has unknown filter type {raw[row * (stride + 1)]}")
     _check(rc, "png_decode")
+    return out
+
+
+# --- JPEG ------------------------------------------------------------------------
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, equal to PIL's
+    Image.open(...).convert("RGB") (jpeg_decode.cpp). Raises ValueError
+    naming what it met for damaged data and unsupported files."""
+    fn = lib().mm_decode_jpeg
+    h, w = ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(256)
+    hp, wp = ctypes.addressof(h), ctypes.addressof(w)
+    rc = fn(data, len(data), None, 0, hp, wp, msg, len(msg))
+    if rc == -3:
+        out = np.empty((h.value, w.value, 3), np.uint8)
+        rc = fn(data, len(data), _ptr(out), out.nbytes, hp, wp, msg, len(msg))
+    if rc != 0:
+        raise ValueError(f"JPEG: {msg.value.decode(errors='replace')}")
     return out
 
 

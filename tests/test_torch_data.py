@@ -9,7 +9,8 @@ Trees are written with PIL here, as tests/test_cli_end_to_end.py does.
   gray + alpha, RGB, RGBA, 16-bit gray, palette at 8 and 2 bits, 1-bit
   gray) and on files written with each of the five row filters; files
   the port writes read back bit-equal through PIL.
-* JPEG: bit-equal to the JAX package's native decoder (libjpeg).
+* JPEG: the port's own decoder bit-equal to the JAX package's native
+  decoder (libjpeg); a failed native build raises naming the file.
 * Crop parameters equal under the same random.Random seed.
 * The transform against the JAX package's DataAugmentationForMultiMAE
   (its native rgb path here): depth and semseg bit-equal; rgb within 1e-5
@@ -226,13 +227,19 @@ def test_jpeg_matches_jax_native(tree):
         assert np.array_equal(image_io.load_image(path), jnative.decode_jpeg(data))
 
 
-def test_jpeg_without_decoder_raises_naming_file(tree, monkeypatch):
-    """A machine without g++ or libjpeg: the error names the file and the
-    library, and the corrupt-file retry does not swallow it."""
-    monkeypatch.setattr(image_io, "_JPEG_LIB", None)
-    monkeypatch.setattr(image_io, "_JPEG_ERROR", "the JPEG decoder needs g++ and libjpeg")
+def test_jpeg_without_decoder_raises_naming_file(tree, tmp_path, monkeypatch):
+    """The native library does not build (here a broken copy of the JPEG
+    source): the error names the file and carries g++'s message, and the
+    corrupt-file retry does not swallow it."""
+    from multimae_tpu_torch import native
+
+    broken = tmp_path / "jpeg_decode.cpp"
+    broken.write_text(native.JPEG_SOURCE.read_text() + "\nint broken(\n")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "SOURCES", (native.SOURCE, broken))
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
     ds = tdf.MultiTaskImageFolder(tree, ["rgb_jpg"])
-    with pytest.raises(RuntimeError, match=r"i00\.jpg: the JPEG decoder needs g\+\+ and libjpeg"):
+    with pytest.raises(RuntimeError, match=r"(?s)i00\.jpg: g\+\+ .* failed:\n.*jpeg_decode\.cpp.*error"):
         ds[0]
 
 

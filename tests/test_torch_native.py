@@ -387,6 +387,22 @@ def test_semseg_transform_matches_jax_cv2(jitter):
 # --- the build ---------------------------------------------------------------------
 
 
+def test_build_hash_covers_both_sources(tmp_path):
+    """The library holds fastimage.cpp and jpeg_decode.cpp; an edit to
+    either gives a new build directory."""
+    lib_dirs = set()
+    for edited in (None, "fastimage.cpp", "jpeg_decode.cpp"):
+        sources = []
+        for src in native.SOURCES:
+            copy = tmp_path / str(edited) / src.name
+            copy.parent.mkdir(exist_ok=True)
+            copy.write_bytes(src.read_bytes() + (b"\n// edited\n" if src.name == edited else b""))
+            sources.append(copy)
+        lib_dirs.add(native.build(sources, tmp_path / "build").parent.name)
+    assert len(lib_dirs) == 3
+    assert hasattr(native.lib(), "mm_decode_jpeg") and hasattr(native.lib(), "mm_png_decode")
+
+
 def test_second_process_loads_without_building():
     path = native.build()
     mtime = path.stat().st_mtime_ns
@@ -398,12 +414,17 @@ def test_second_process_loads_without_building():
 
 
 def test_broken_source_raises_without_fallback(tmp_path, monkeypatch):
-    src = tmp_path / "fastimage.cpp"
-    shutil.copy(native.SOURCE, src)
-    with open(src, "a") as f:
-        f.write("\nint broken(\n")
-    with pytest.raises(RuntimeError, match=r"g\+\+ .* failed:\n.*error"):
-        native.build(src, tmp_path / "build")
+    for broken_name in ("fastimage.cpp", "jpeg_decode.cpp"):
+        sources = []
+        for src in native.SOURCES:
+            copy = tmp_path / broken_name / src.name
+            copy.parent.mkdir(exist_ok=True)
+            shutil.copy(src, copy)
+            sources.append(copy)
+        with open(tmp_path / broken_name / broken_name, "a") as f:
+            f.write("\nint broken(\n")
+        with pytest.raises(RuntimeError, match=rf"(?s)g\+\+ .* failed:\n.*{broken_name}.*error"):
+            native.build(sources, tmp_path / "build")
     assert not list((tmp_path / "build").rglob("*.so"))
 
     def fail(*args, **kw):

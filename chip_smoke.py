@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving forward, pretraining step,
-semantic segmentation fine-tune and pretraining CLI on one NVIDIA card.
+semantic segmentation fine-tune, and the pretraining, semseg and
+classification CLIs on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -134,6 +135,30 @@ non-zero:
      per sample decoding and augmenting (the two paths' arrays must be
      equal), the loader-fed step's host ms and data-wait share; eval ms
      per batch, checkpoint save and load seconds.
+ 14. the classification fine-tune CLI
+     (multimae_tpu_torch.cli.run_finetuning_cls, get_args + main): K4
+     against its twin at the cls eval shape (CLS_BATCH, 197, 768), bit-equal
+     over two runs; K2 against the module path that training takes at the
+     recipe's 197 keys (the gate, SHORT_KERNEL_MIN_KV, stays at 512), at
+     (CLS_BATCH, 197, 12, 64) bf16, forward and forward + backward; then an
+     ImageNet-layout tree of CLS_TRAIN + CLS_VAL samples in CLS_CLASSES
+     classes (links to the 500 x 375 photo fixtures) under the ImageNet-1K
+     recipe (MultiViT-B at 224 px, mean-pooling head, bf16, batch
+     CLS_BATCH, RandAugment rand-m9-mstd0.5-inc1, mixup 0.8 and cutmix 1.0,
+     label smoothing 0.1, layer decay 0.65, 4 workers) with the EMA on,
+     started with --finetune from phase 12's checkpoint: run A trains 2
+     epochs with a top-1/5 eval over all CLS_VAL images per epoch and
+     saves checkpoint-0, -1 and -best.pth; an --eval run from
+     checkpoint-1.pth counts the launches per eval batch and run A's totals
+     less its evals' give those per step: no kernel in a training step, K4
+     12 times per eval batch; run B (--epochs 3 at LR 0) auto-resumes from
+     checkpoint-1.pth with bit-equal parameters, evaluates to run A's
+     epoch-1 top-1, and keeps the best top-1 and checkpoint-best.pth
+     untouched. Printed: the loader-fed step's host ms and data-wait share,
+     eval ms per batch with top-1/5, save and load seconds, and for the
+     native library and the numpy twins the loader's samples/s (one
+     process and 4 workers) and ms per sample decoding and augmenting, with
+     RandAugment's part (the two paths' arrays must be equal).
 Then it prints the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -227,6 +252,14 @@ FT_HW = (480, 640)
 FT_YAML = "cfgs/finetune/semseg/nyu/ft_nyu_200e_multimae-b_rgb-depth.yaml"
 ADE_YAML = "cfgs/finetune/semseg/ade/ft_ade_64e_multimae-b_rgb.yaml"
 ADE_TRAIN, ADE_HW = 8, (384, 512)
+
+# The classification fine-tune CLI (phase 14): an ImageNet-layout tree of
+# CLS_TRAIN + CLS_VAL samples in CLS_CLASSES classes, links to the photo
+# fixtures, under the ImageNet-1K recipe at its batch of CLS_BATCH, started
+# from phase 12's pretraining checkpoint.
+CLS_TRAIN, CLS_VAL, CLS_CLASSES = 256, 128, 8
+CLS_BATCH = 128
+CLS_YAML = "cfgs/finetune/cls/ft_in1k_100e_multimae-b.yaml"
 
 # The least time an H100 SXM could take (NVIDIA's data sheet, dense).
 BF16_PEAK = 989e12  # FLOP/s, tensor cores
@@ -1353,18 +1386,22 @@ def jpeg_cli_slice(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def k4_at(torch, fused_block, w4, n, gen, dev):
-    """K4 against its twin at (SEMSEG_BATCH, n, 768): max abs error, rel
-    RMS, kernel and twin ms, bound."""
+def k4_at(torch, fused_block, w4, n, gen, dev, b=SEMSEG_BATCH):
+    """K4 against its twin at (b, n, 768), bit-equal over two runs: max abs
+    error, rel RMS, kernel and twin ms, bound."""
     from multimae_tpu_torch.ops.functional import assert_matches_twin
 
-    b, d, heads, hidden = SEMSEG_BATCH, 768, 12, 3072
+    d, heads, hidden = 768, 12, 3072
     x = torch.randn((b, n, d), generator=gen).to(dev, torch.bfloat16)
     with torch.inference_mode():
         out = fused_block.fused_block_infer(x, w4, heads)
+        again = fused_block.fused_block_infer(x, w4, heads)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"K4 at ({b},{n},{d}): two runs on the same inputs differ")
         err, rel = assert_matches_twin(out, fused_block.block_infer_ref(x, w4, heads),
-                                       f"K4 fused_block_infer at {n} tokens")
+                                       f"K4 fused_block_infer at ({b},{n},{d})")
+        del again
         ms, plain_ms = ab_ms(torch, lambda: fused_block.fused_block_infer(x, w4, heads),
                              lambda: fused_block.block_infer_ref(x, w4, heads), iters=10)
     flops, weights = block_work(b, n, d, hidden)
@@ -1410,17 +1447,18 @@ def check_run(name, summary, steps, evals, images):
     return losses, mious
 
 
-def split_launches(name, launches, steps, evals, eval_run, eval_batches, images):
+def split_launches(name, launches, steps, evals, eval_run, eval_batches, images,
+                   check=check_run):
     """({kernel: launches per training step}, {kernel: launches per eval
     batch}) of a CLI run that counted `launches` over `steps` steps and
     `evals` evals. `eval_run` is the summary of an --eval run of the same
-    recipe, made with the counts set to 0 just before it and read here;
-    the steps take what the evals leave."""
+    recipe, made with the counts set to 0 just before it and read here
+    (and checked by `check`); the steps take what the evals leave."""
     per_eval_run = launch_counts()
     if ([e["batches"] for e in eval_run["evals"]], eval_run["steps"]) != ([eval_batches], []):
         raise AssertionError(f"{name}: the --eval run took {eval_run['evals']} and "
                              f"{len(eval_run['steps'])} steps")
-    check_run(f"{name} --eval", eval_run, 0, 1, images)
+    check(f"{name} --eval", eval_run, 0, 1, images)
     per_step, per_eval = {}, {}
     for k, n in launches.items():
         per_eval[k], rest = divmod(per_eval_run[k], eval_batches)
@@ -1625,6 +1663,233 @@ def ft_cli_slice(torch, dev, pretrain):
         shutil.rmtree(root, ignore_errors=True)
         free_card(torch)
 
+
+
+def cls_data(root, twin=False):
+    """An ImageNet-layout folder with the cls recipe's training transform."""
+    from multimae_tpu_torch.data.cls_transforms import ClsTrainTransform, ImageRecord
+    from multimae_tpu_torch.data.dataset_folder import ImageFolder
+
+    return ImageFolder(root), ImageRecord(ClsTrainTransform(224, twin=twin))
+
+
+def cls_sample_split(root):
+    """Where one loader process spends a sample of the cls tree, native and
+    twin: {path: (ms reading and decoding its JPEG, ms augmenting it with
+    the recipe's training transform, of which ms in RandAugment)}, means
+    over the folder; the two paths' outputs must agree."""
+    import random
+
+    splits, outs = {}, {}
+    for twin, path in ((False, "native"), (True, "twin")):
+        dataset, record = cls_data(root, twin)
+        bare = copy.copy(record.transform)
+        bare.aa = None
+        decode = augment = without = 0.0
+        outs[path] = []
+        for i in range(len(dataset)):
+            t0 = time.perf_counter()
+            img, _ = dataset.load_raw(i)
+            t1 = time.perf_counter()
+            outs[path].append(record(img, random.Random(i)))
+            t2 = time.perf_counter()
+            bare(img, random.Random(i))
+            decode, augment, without = (decode + t1 - t0, augment + t2 - t1,
+                                        without + time.perf_counter() - t2)
+        n = len(dataset) / 1e3
+        splits[path] = (decode / n, augment / n, (augment - without) / n)
+    check_twin_split(14, "the cls training transform", outs["native"], outs["twin"])
+    return splits
+
+
+def check_cls_run(name, summary, steps, evals, images):
+    """Raise unless the run took `steps` steps and `evals` evaluations over
+    `images` images each, with finite losses and 0 <= top-1 <= top-5 <= 100."""
+    losses = [r["metrics"]["loss"] for r in summary["steps"]]
+    accs = [(e["acc1"], e["acc5"]) for e in summary["evals"]]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}; expected {steps} finite")
+    if len(accs) != evals or not all(0.0 <= a <= b <= 100.0 for a, b in accs):
+        raise AssertionError(f"{name}: top-1/5 {accs}; expected {evals} in order in [0, 100]")
+    if any(e["images"] != images for e in summary["evals"]):
+        raise AssertionError(f"{name}: evaluated {[e['images'] for e in summary['evals']]} "
+                             f"images; expected {images} each")
+    return losses, accs
+
+
+def cls_attention_phase(torch, dev, card):
+    """K2 against the module path at the cls recipe's 197 keys, (CLS_BATCH,
+    197, 12, 64) bf16: the path the gate (SHORT_KERNEL_MIN_KV = 512) sends
+    training to today, forward and forward + backward."""
+    from multimae_tpu_torch.ops import attention
+    from multimae_tpu_torch.ops import short_attention as sa
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    b, n, h, dh = CLS_BATCH, 197, 12, 64
+    scale = dh ** -0.5
+    gen = torch.Generator().manual_seed(14)
+    qkv = torch.randn((b, n, 3, h, dh), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((b, n, h, dh), generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (t.contiguous() for t in qkv.unbind(2))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        err, rel = assert_matches_twin(sa.short_attention(q, k, v, scale),
+                                       attention.einsum_attention_bnhd(q, k, v, scale),
+                                       "K2 against the module path at 197 keys")
+
+    def fwd_bwd(fn):
+        def run():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves, scale).backward(g)
+        return run
+
+    kw = dict(iters=10, warmup=2, repeats=3)
+    with torch.no_grad():
+        fwd = ab_ms(torch, lambda: sa.short_attention(q, k, v, scale),
+                    lambda: attention.einsum_attention_bnhd(q, k, v, scale), **kw)
+    both = ab_ms(torch, fwd_bwd(sa.short_attention),
+                 fwd_bwd(attention.einsum_attention_bnhd), **kw)
+    log(14, f"K2 against the module path at ({b},{n},{h},{dh}) bf16 (card {card}): max abs "
+            f"{err:.3e}, rel RMS {rel:.3e}; forward {fwd[0]:.4f} ms, module path {fwd[1]:.4f} "
+            f"ms; forward + backward {both[0]:.4f} ms, module path {both[1]:.4f} ms "
+            f"(SHORT_KERNEL_MIN_KV stays {attention.SHORT_KERNEL_MIN_KV}: training takes the "
+            f"module path at 197 keys, as the JAX package does)")
+    del qkv, g, q, k, v, leaves
+    free_card(torch)
+    return {"shape": [b, n, h, dh], "max_abs_err": err, "fwd_ms": fwd[0],
+            "module_fwd_ms": fwd[1], "fwd_bwd_ms": both[0], "module_fwd_bwd_ms": both[1]}
+
+
+def cls_cli_slice(torch, dev, pretrain, card):
+    """Phase 14; returns ({kernel: launches per training step}, {kernel:
+    launches per eval batch}) of the cls run and the numbers it prints."""
+    import shutil
+
+    from multimae_tpu_torch.cli.run_finetuning_cls import get_args, main
+    from multimae_tpu_torch.data.dataset_folder import write_imagenet_tree
+
+    root = os.path.join(HERE, "build", "chip_smoke_cls")
+    shutil.rmtree(root, ignore_errors=True)
+    photos = sorted(os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
+                    if n.startswith("photo_"))
+    train, val = write_imagenet_tree(os.path.join(root, "tree"), photos, CLS_TRAIN, CLS_VAL,
+                                     CLS_CLASSES)
+    out = os.path.join(root, "out")
+    log(14, f"ImageNet-layout tree: {CLS_TRAIN} training and {CLS_VAL} validation samples in "
+            f"{CLS_CLASSES} classes, links to the {len(photos)} 500x375 photo fixtures")
+    try:
+        base = ["-c", os.path.join(HERE, CLS_YAML), "--finetune", pretrain,
+                "--data_set", "image_folder", "--nb_classes", str(CLS_CLASSES),
+                "--data_path", train, "--eval_data_path", val, "--batch_size", str(CLS_BATCH),
+                "--warmup_epochs", "0", "--num_workers", str(CLI_WORKERS),
+                "--save_ckpt_freq", "1", "--model_ema", "--output_dir", out]
+        steps_per_epoch, eval_batches = CLS_TRAIN // CLS_BATCH, math.ceil(CLS_VAL / CLS_BATCH)
+        reset_launch_counts()
+        first = main(get_args(base + ["--epochs", "2"]))
+        launches = launch_counts()
+        losses, accs = check_cls_run("run A", first, 2 * steps_per_epoch, 2, CLS_VAL)
+        saves = [os.path.join(out, f"checkpoint-{e}.pth") for e in ("0", "1", "best")]
+        if not all(os.path.exists(p) for p in saves):
+            raise AssertionError(f"run A: {os.listdir(out)}")
+        reset_launch_counts()
+        evaluated = main(get_args(base + ["--eval", "--resume", saves[1]]))
+        per_step, per_eval = split_launches("run A", launches, len(losses), 2, evaluated,
+                                            eval_batches, CLS_VAL, check=check_cls_run)
+        expect_step = dict.fromkeys(launches, 0)
+        expect_eval = dict(expect_step, fused_block_infer=12)
+        if (per_step, per_eval) != (expect_step, expect_eval):
+            raise AssertionError(f"run A: launches {per_step} per step and {per_eval} per "
+                                 f"eval batch; expected {expect_step} and {expect_eval}")
+        if evaluated["evals"][0]["acc1"] != accs[1][0]:
+            raise AssertionError(f"--eval from checkpoint-1.pth: top-1 "
+                                 f"{evaluated['evals'][0]['acc1']}, run A's epoch 1 {accs[1][0]}")
+        report = first["finetune"]
+        head = sorted(f"output_adapters.cls.{m}.{p}" for m in ("head", "norm")
+                      for p in ("bias", "weight"))
+        if sorted(report["missing"]) != head or any(
+                k.startswith(("encoder.", "input_adapters.rgb.", "global_tokens"))
+                for k in report["unexpected"]):
+            raise AssertionError(f"fine-tune start: missing {report['missing']}, unexpected "
+                                 f"{report['unexpected'][:20]}")
+        log(14, f"fine-tune start from {os.path.basename(pretrain)}: missing the head's 4 "
+                f"keys, {len(report['unexpected'])} unexpected (the pretraining decoders, the "
+                f"depth and semseg input adapters), rgb pos-emb 14x14 as saved")
+        log(14, f"run A (batch {CLS_BATCH}, RandAugment rand-m9-mstd0.5-inc1, mixup 0.8 / "
+                "cutmix 1.0, EMA on): losses " + ", ".join(f"{v:.4f}" for v in losses) + "; top-1/5 "
+                + ", ".join(f"{a:.2f}/{b:.2f}" for a, b in accs) + f" over {CLS_VAL} images; "
+                f"per training step {sum(per_step.values())} kernel launches (the 197-key "
+                f"attention takes the module path), per eval batch K4 "
+                f"{per_eval['fused_block_infer']} (measured: totals {launches} over "
+                f"{len(losses)} steps and 2 evals, an --eval run over {eval_batches} batches); "
+                f"checkpoint-best, -0, -1.pth ({os.path.getsize(saves[1]) / 2**30:.2f} GiB with "
+                f"the EMA) saved in " + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
+
+        best_stat = os.stat(saves[2])
+        resumed = main(get_args(base + ["--epochs", "3", "--blr", "0", "--min_lr", "0"]))
+        check_cls_run("run B", resumed, steps_per_epoch, 1, CLS_VAL)
+        if (resumed["start_epoch"], resumed["resumed_from"], resumed.get("resume_bit_equal"),
+                resumed["evals"][0]["acc1"]) != (2, saves[1], True, accs[1][0]):
+            raise AssertionError(f"run B: start epoch {resumed['start_epoch']}, from "
+                                 f"{resumed['resumed_from']}, bit-equal "
+                                 f"{resumed.get('resume_bit_equal')}, top-1 "
+                                 f"{resumed['evals'][0]['acc1']} (run A's epoch 1 {accs[1][0]})")
+        after = os.stat(saves[2])
+        best = max(a for a, _ in accs)
+        if (resumed["best_acc1"], after.st_mtime_ns, after.st_size) != (
+                best, best_stat.st_mtime_ns, best_stat.st_size):
+            raise AssertionError(f"run B: best top-1 {resumed['best_acc1']} (run A's {best}); "
+                                 f"checkpoint-best.pth rewritten")
+        log(14, f"run B (--epochs 3 at LR 0): auto-resumed from checkpoint-1.pth at epoch 2, "
+                f"parameters bit-equal to the save, loaded in {resumed['load_s']:.2f} s; top-1 "
+                f"{resumed['evals'][0]['acc1']:.2f} as run A's epoch 1; the best top-1 "
+                f"{best:.2f} kept and checkpoint-best.pth not rewritten"
+                + ("" if resumed['evals'][0]['acc1'] > 0 else
+                   " (top-1 0: the JAX CLI would not have rewritten it either)"))
+
+        fed = first["steps"] + resumed["steps"]
+        step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
+        share, steady = steady_share([first, resumed])
+        evals = first["evals"] + resumed["evals"]
+        eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
+        eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
+        rates = {path: tuple(loader_rate(*cls_data(val, path == "twin"), workers, batch=8,
+                                         epochs=epochs)
+                             for workers, epochs in ((0, 1), (CLI_WORKERS, 2)))
+                 for path in ("native", "twin")}
+        split = cls_sample_split(val)
+        for path in ("native", "twin"):
+            (one, many), (dec, aug, ra) = rates[path], split[path]
+            log(14, f"loader over the cls tree ({path}; 500x375 JPEG -> 224, batches of 8; "
+                    f"card {card}): {one:.1f} samples/s in one process, {many:.1f} samples/s "
+                    f"with {CLI_WORKERS} workers; one process spends {dec:.3f} ms per sample "
+                    f"decoding its JPEG and {aug:.3f} ms augmenting, {ra:.3f} of it "
+                    f"({ra / aug:.2f}) in RandAugment")
+        log(14, f"the native and twin transforms gave the same arrays on all {CLS_VAL} samples")
+        log(14, f"CLI step at batch {CLS_BATCH} fed by the loader: {step_ms:.3f} ms host "
+                f"(median of {len(fed)}; card {card}); data wait {share:.4f} of the steps' "
+                f"time, {steady:.4f} without each run's first step; eval {eval_ms:.3f} ms per "
+                f"batch of {CLS_BATCH} on the card ({eval_data_ms:.3f} with the data)")
+        numbers = {"cls_losses": losses, "cls_top1_top5": accs, "cls_step_ms": step_ms,
+                   "cls_data_wait_share": share, "cls_data_wait_share_steady": steady,
+                   "cls_eval_ms_per_batch": eval_ms,
+                   "cls_eval_ms_per_batch_with_data": eval_data_ms,
+                   "cls_loader_samples_per_s": rates["native"][0],
+                   "cls_loader_samples_per_s_workers": rates["native"][1],
+                   "cls_twin_loader_samples_per_s": rates["twin"][0],
+                   "cls_twin_loader_samples_per_s_workers": rates["twin"][1],
+                   "cls_decode_ms_per_sample": split["native"][0],
+                   "cls_augment_ms_per_sample": split["native"][1],
+                   "cls_randaugment_ms_per_sample": split["native"][2],
+                   "cls_twin_decode_ms_per_sample": split["twin"][0],
+                   "cls_twin_augment_ms_per_sample": split["twin"][1],
+                   "cls_twin_randaugment_ms_per_sample": split["twin"][2],
+                   "cls_ckpt_save_s": first["save_s"], "cls_ckpt_load_s": resumed["load_s"],
+                   "cls_best_top1": best}
+        return per_step, per_eval, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "multimae_tpu_torch")):
@@ -1964,6 +2229,21 @@ def main():
                                f"n{n}_plain_ms": plain_ms, f"n{n}_bound_ms": k4_bound[0]})
         free_card(torch)
         per_step, per_eval, ft_numbers = ft_cli_slice(torch, dev, pretrain)
+        log(13, "numbers: " + json.dumps(ft_numbers))
+
+        # 14. the classification fine-tune CLI: K4 at its eval shape and K2
+        # against the module path at its 197 keys first, then the CLI runs
+        err, rel, ms, plain_ms, k4_bound = k4_at(torch, fused_block, w4, 197, gen, dev,
+                                                 b=CLS_BATCH)
+        log(14, f"K4 bf16 ({CLS_BATCH},197,768) max abs {err:.3e}, rel RMS {rel:.3e}, bit-equal "
+                f"over two runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{k4_bound[0]:.4f} ms ({k4_bound[1]}; card {card})")
+        kernels[0].update({"cls_max_abs_err": err, "cls_ms": ms, "cls_plain_ms": plain_ms,
+                           "cls_bound_ms": k4_bound[0], "cls_bound_by": k4_bound[1]})
+        free_card(torch)
+        k2 = next(k for k in kernels if k["name"] == "short_attention_fwd")
+        k2["cls_module_path"] = cls_attention_phase(torch, dev, card)
+        cls_step, cls_eval, cls_numbers = cls_cli_slice(torch, dev, pretrain, card)
     finally:
         import shutil
 
@@ -1972,7 +2252,9 @@ def main():
         name = k.get("served_by", k["name"])
         k["ft_cli_launches"] = per_step[name]
         k["ft_cli_eval_launches"] = per_eval[name]
-    log(13, "numbers: " + json.dumps(ft_numbers))
+        k["cls_cli_launches"] = cls_step[name]
+        k["cls_cli_eval_launches"] = cls_eval[name]
+    log(14, "numbers: " + json.dumps(cls_numbers))
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

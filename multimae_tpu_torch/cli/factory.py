@@ -1,7 +1,9 @@
 """Domain configuration, the pretrain model/loss/trainer factory
 (counterpart of multimae_tpu/cli/factory.py; reference
-run_pretraining_multimae.py:49-72, :243-331, :353-390), and the
-semantic segmentation fine-tune trainer (the NYUv2 RGB + depth recipe)."""
+run_pretraining_multimae.py:49-72, :243-331, :353-390), the semantic
+segmentation fine-tune trainer (the NYUv2 RGB + depth recipe), and the
+classification model and trainer (the ImageNet-1K recipe; the JAX
+`build_cls_model`, multimae_tpu/cli/run_finetuning_cls.py:149-176)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from multimae_tpu_torch.models import (
+    LinearOutputAdapter,
     MaskedCrossEntropyLoss,
     MaskedL1Loss,
     MaskedMSELoss,
@@ -24,7 +27,8 @@ from multimae_tpu_torch.cli.run_finetuning_semseg import (
     seg_cross_entropy_parts,
 )
 from multimae_tpu_torch.models.registry import create_model
-from multimae_tpu_torch.train.finetune_step import make_dense_train_step
+from multimae_tpu_torch.train.cross_entropy import soft_target_cross_entropy
+from multimae_tpu_torch.train.finetune_step import make_cls_train_step, make_dense_train_step
 from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, create_optimizer
 from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step, standardize_depth
 from multimae_tpu_torch.train.schedules import cosine_scheduler
@@ -265,3 +269,82 @@ def make_synthetic_semseg_batch(batch: int, input_size: int = 512, num_classes: 
            "depth": standardize_depth(torch.from_numpy(depth)),
            "target": torch.from_numpy(target.astype(np.int64))}
     return {k: v.to(device) for k, v in out.items()}
+
+
+def build_cls_model(*, model: str = "multivit_base", patch_size: int = 16,
+                    input_size: int = 224, nb_classes: int = 1000,
+                    use_mean_pooling: bool = True, init_scale: float = 0.001,
+                    num_global_tokens: int = 1, drop_path: float = 0.1, drop: float = 0.0,
+                    attn_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+    """MultiViT with the rgb input adapter and the `cls` LinearOutputAdapter
+    (the JAX `build_cls_model`), weights left empty: the caller fills them
+    (`init_weights(generator)` or a state_dict)."""
+    input_adapters = {"rgb": functools.partial(
+        PatchedInputAdapter, num_channels=3, stride_level=1, patch_size_full=patch_size,
+        image_size=input_size)}
+    output_adapters = {"cls": functools.partial(
+        LinearOutputAdapter, num_classes=nb_classes, use_mean_pooling=use_mean_pooling,
+        init_scale=init_scale)}
+    return create_model(model, input_adapters=input_adapters, output_adapters=output_adapters,
+                        num_global_tokens=num_global_tokens, drop_path_rate=drop_path,
+                        drop_rate=drop, attn_drop_rate=attn_drop_rate, dtype=dtype)
+
+
+# The ImageNet-1K classification fine-tune
+# (cfgs/finetune/cls/ft_in1k_100e_multimae-b.yaml with the JAX CLI's
+# defaults, multimae_tpu/cli/run_finetuning_cls.py:22-146), written out here.
+CLS_RECIPE = dict(
+    model="multivit_base", input_size=224, patch_size=16, nb_classes=1000,
+    drop_path=0.1, init_scale=0.001, epochs=100, blr=5e-4, min_lr=1e-6, weight_decay=0.05,
+    opt_betas=(0.9, 0.999), layer_decay=0.65, clip_grad=None, model_ema_decay=None,
+    dtype=torch.bfloat16, train_images=1281167,
+)
+
+
+def build_cls_trainer(*, batch_size: int, seed: int = 0, device="cuda", **overrides):
+    """(TrainState, train_step) of the ImageNet-1K recipe: MultiViT-B at 224
+    px (196 + 1 tokens) with the mean-pooling head over 1000 classes, bf16,
+    drop_path 0.1 rising over the blocks, AdamW (0.9, 0.999) with wd 0.05,
+    layer-wise LR decay 0.65, the cosine LR from 5e-4 * batch_size / 256 to
+    1e-6 over 100 epochs of ImageNet's 1281167 images, without the recipe's
+    5-epoch warmup, and the soft-target loss of mixup. Weights are random,
+    drawn from a CPU generator seeded with `seed`; `overrides` replace
+    recipe entries (the CPU tests' tiny model, an EMA decay). The frozen
+    sin-cos pos-embs get the gradients the JAX step's norm counts."""
+    device = entry_device(device)
+    r = dict(CLS_RECIPE, **overrides)
+    model = build_cls_model(model=r["model"], patch_size=r["patch_size"],
+                            input_size=r["input_size"], nb_classes=r["nb_classes"],
+                            init_scale=r["init_scale"], drop_path=r["drop_path"],
+                            dtype=r["dtype"])
+    model.init_weights(torch.Generator().manual_seed(seed))
+    for name, p in model.named_parameters():
+        if name.endswith("pos_emb"):
+            p.requires_grad_(True)
+    model.to(device)
+    depth = len(model.encoder)
+    assigner = LayerDecayValueAssigner(
+        [r["layer_decay"] ** (depth + 1 - i) for i in range(depth + 2)])
+    optimizer = create_optimizer(model, weight_decay=r["weight_decay"],
+                                 opt_betas=r["opt_betas"], filter_bias_and_bn=True,
+                                 layer_decay_assigner=assigner)
+    lr = cosine_scheduler(r["blr"] * batch_size / 256, r["min_lr"], epochs=r["epochs"],
+                          niter_per_ep=max(1, r["train_images"] // batch_size))
+    state = TrainState(model, None, optimizer, lr, ema_decay=r["model_ema_decay"])
+    return state, make_cls_train_step(model, soft_target_cross_entropy,
+                                      clip_grad=r["clip_grad"])
+
+
+def make_synthetic_cls_batch(batch: int, input_size: int = 224, nb_classes: int = 1000,
+                             seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    """Random NHWC rgb and (batch, nb_classes) soft targets, two classes
+    mixed per sample as mixup leaves them."""
+    device = entry_device(device)
+    rng = np.random.default_rng(seed)
+    rgb = rng.standard_normal((batch, input_size, input_size, 3)).astype(np.float32)
+    lam = rng.uniform(0.5, 1.0, batch).astype(np.float32)
+    a, b = rng.integers(0, nb_classes, (2, batch))
+    target = np.zeros((batch, nb_classes), np.float32)
+    target[np.arange(batch), a] += lam
+    target[np.arange(batch), b] += 1.0 - lam
+    return {"rgb": torch.from_numpy(rgb).to(device), "target": torch.from_numpy(target).to(device)}

@@ -16,8 +16,9 @@ zero void row), starts it from a reference-layout `.pth` (--finetune:
 pos-embs resized to the input size, utils/torch_compat.py), reads
 MultiTaskImageFolder trees through the cv2-free augmentations
 (data/semseg_transforms.py) and the port's loader (or trains on one
-synthetic batch with --synthetic_data), trains with AdamW, layer decay
-0.75 ** (depth + 1 - i), the cosine LR with warmup and the WD schedule,
+synthetic batch with --synthetic_data), trains with --opt (the recipes'
+AdamW), layer decay 0.75 ** (depth + 1 - i), the cosine LR with warmup and
+the WD schedule,
 evaluates mIoU every --eval_freq epochs over the whole validation set
 (the confusion matrix summed over processes), saves checkpoint-best.pth
 whenever mIoU improves and checkpoint-{epoch}.pth every --save_ckpt_freq
@@ -201,9 +202,6 @@ def refuse_unported(args) -> None:
          "PP, the hybrid mesh)"),
         (args.output_adapter == "dpt",
          "--output_adapter dpt is not ported yet: ROADMAP.md queue 1 item 16 (DPT)"),
-        (args.opt.lower() != "adamw",
-         f"--opt {args.opt} is not ported yet: ROADMAP.md queue 1 item 14 brings SGD and "
-         "Adam; the recipes use adamw"),
         (bool(args.finetune) and not args.finetune.endswith(".pth"),
          f"--finetune {args.finetune}: not a .pth file; the port starts from "
          "reference-layout .pth files (the JAX package's msgpack and orbax checkpoints "
@@ -436,7 +434,8 @@ def main(args) -> Dict[str, Any]:
     wd_values = cosine_scheduler(args.weight_decay, wd_end, args.epochs, num_steps_per_epoch)
     optimizer = create_optimizer(
         model, opt=args.opt, weight_decay=args.weight_decay,
-        opt_betas=tuple(args.opt_betas), opt_eps=args.opt_eps, filter_bias_and_bn=True,
+        opt_betas=tuple(args.opt_betas), opt_eps=args.opt_eps, momentum=args.momentum,
+        filter_bias_and_bn=True,
         layer_decay_assigner=assigner, learnable_pos_emb=args.learnable_pos_emb)
     state = TrainState(model, None, optimizer, lr_values, wd_values)
 

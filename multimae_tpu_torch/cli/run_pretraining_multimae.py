@@ -281,7 +281,7 @@ def main(args) -> Dict[str, Any]:
 
     optimizer = create_optimizer(
         model, balancer, opt=args.opt, weight_decay=args.weight_decay,
-        opt_betas=tuple(args.opt_betas), opt_eps=args.opt_eps,
+        opt_betas=tuple(args.opt_betas), opt_eps=args.opt_eps, momentum=args.momentum,
         filter_bias_and_bn=False,  # reference dict-model quirk (:138-150)
         balancer_lr_scale=args.balancer_lr_scale)
     state = TrainState(model, balancer, optimizer, lr_values, wd_values)

@@ -4,6 +4,8 @@ utils/dataset_folder.py).
 
 * `make_dataset`: the sorted walk of root/<class>/..., same order.
 * `ImageFolder`: one modality, (image, target).
+* `CIFAR100`: the `cifar-100-python` pickles (JAX :180-238), read by an
+  unpickler that builds numpy arrays and nothing else.
 * `MultiTaskImageFolder`: aligned per-modality trees
   root/<prefix><task>/<class>/<name>.<ext>, the `max_images` subset drawn
   from np.random.RandomState(0), `load_raw`, and the corrupt-file retry.
@@ -19,6 +21,7 @@ ValueError), not the RuntimeError of a machine without a JPEG decoder.
 from __future__ import annotations
 
 import os
+import pickle
 import random
 import shutil
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -95,6 +98,94 @@ class ImageFolder:
         if self.transform is not None:
             sample = self.transform(sample)
         return sample, target
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    """Unpickles dicts, lists, numbers, strings and numpy arrays only: a
+    dataset file from outside the program must not run code."""
+
+    ALLOWED = {("numpy.core.multiarray", "_reconstruct"),
+               ("numpy._core.multiarray", "_reconstruct"), ("numpy", "ndarray"),
+               ("numpy", "dtype"), ("_codecs", "encode")}
+
+    def find_class(self, module: str, name: str):
+        if (module, name) not in self.ALLOWED:
+            raise pickle.UnpicklingError(f"{module}.{name} is not allowed in a CIFAR pickle")
+        return super().find_class(module, name)
+
+
+class CIFAR100:
+    """CIFAR-100 from `<root>/cifar-100-python/{train,test}` (the pickles
+    with b'data', (N, 3072) uint8 rows in CHW order, and b'fine_labels'),
+    as torchvision's CIFAR100 reads them for the reference's --data_set
+    CIFAR; returns ((32, 32, 3) uint8, target) as ImageFolder does. No
+    download: the files must be there."""
+
+    base_folder = "cifar-100-python"
+
+    def __init__(self, root: str, train: bool = True, transform: Optional[Callable] = None):
+        path = os.path.join(root, self.base_folder, "train" if train else "test")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"CIFAR-100 pickle not found: {path} (no download; place "
+                                    "cifar-100-python/ under the data path)")
+        with open(path, "rb") as f:
+            entry = _ArrayUnpickler(f, encoding="bytes").load()
+        data = np.asarray(entry[b"data"], np.uint8)
+        self.data = np.ascontiguousarray(data.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+        self.targets = [int(t) for t in entry[b"fine_labels"]]
+        if len(self.targets) != len(self.data):
+            raise ValueError(f"{path}: {len(self.data)} images, {len(self.targets)} labels")
+        self.transform = transform
+        self.classes = [str(i) for i in range(100)]
+        self.class_to_idx = {c: i for i, c in enumerate(self.classes)}
+
+    def __len__(self) -> int:
+        return len(self.targets)
+
+    def load_raw(self, index: int) -> Tuple[np.ndarray, int]:
+        return self.data[index], self.targets[index]
+
+    def __getitem__(self, index: int):
+        img, target = self.load_raw(index)
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, target
+
+
+def write_cifar100(root: str, images: np.ndarray, labels: Sequence[int], train: bool = True
+                   ) -> str:
+    """Write (N, 32, 32, 3) uint8 `images` and their fine labels as
+    `<root>/cifar-100-python/{train,test}` in the dataset's pickle layout,
+    for tests; returns the file's path."""
+    folder = os.path.join(root, CIFAR100.base_folder)
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "train" if train else "test")
+    rows = np.ascontiguousarray(np.asarray(images, np.uint8).transpose(0, 3, 1, 2)).reshape(
+        len(images), 3072)
+    with open(path, "wb") as f:
+        pickle.dump({b"data": rows, b"fine_labels": [int(v) for v in labels]}, f, protocol=2)
+    return path
+
+
+def write_imagenet_tree(root: str, files: Sequence[str], num_train: int, num_val: int,
+                        classes: int, link: bool = True) -> Tuple[str, str]:
+    """An ImageNet-layout tree of the given image files, taken in turn:
+    `<root>/train/c<k>/i<n><ext>` (num_train samples) and `<root>/val/...`
+    (num_val), sample n in class n % classes; symbolic links to the files,
+    or copies with link=False. Returns the train and val folders."""
+    out = []
+    for split, count in (("train", num_train), ("val", num_val)):
+        for i in range(count):
+            src = os.path.abspath(files[i % len(files)])
+            folder = os.path.join(root, split, f"c{i % classes}")
+            os.makedirs(folder, exist_ok=True)
+            dst = os.path.join(folder, f"i{i:05d}{os.path.splitext(src)[1]}")
+            if link:
+                os.symlink(src, dst)
+            else:
+                shutil.copyfile(src, dst)
+        out.append(os.path.join(root, split))
+    return out[0], out[1]
 
 
 class MultiTaskImageFolder:

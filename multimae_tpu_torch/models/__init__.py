@@ -10,14 +10,15 @@ from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock
 from multimae_tpu_torch.models.multimae import MultiMAE, MultiViT
 from multimae_tpu_torch.models.output_adapters import (
     ConvNeXtAdapter,
+    LinearOutputAdapter,
     SegmenterMaskTransformerAdapter,
     SpatialOutputAdapter,
 )
 from multimae_tpu_torch.models.registry import create_model, list_models
 
 __all__ = [
-    "ConvNeXtAdapter", "ConvNeXtBlock", "MaskedCrossEntropyLoss", "MaskedL1Loss",
-    "MaskedMSELoss", "MultiMAE", "MultiViT", "PatchedInputAdapter",
+    "ConvNeXtAdapter", "ConvNeXtBlock", "LinearOutputAdapter", "MaskedCrossEntropyLoss",
+    "MaskedL1Loss", "MaskedMSELoss", "MultiMAE", "MultiViT", "PatchedInputAdapter",
     "SegmenterMaskTransformerAdapter", "SemSegInputAdapter", "SpatialOutputAdapter",
     "create_model", "list_models",
 ]

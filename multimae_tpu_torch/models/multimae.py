@@ -59,6 +59,7 @@ class MultiMAE(nn.Module):
                  num_global_tokens: int = 1, dim_tokens: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32,
                  fp32_output_adapters: Sequence[str] = ()):
         super().__init__()
@@ -81,7 +82,8 @@ class MultiMAE(nn.Module):
         # stochastic depth rising linearly over the blocks (JAX :124-126)
         dpr = [float(v) for v in np.linspace(0, drop_path_rate, depth)]
         self.encoder = nn.ModuleList([
-            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype, drop_path_rate=dpr[i])
+            Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype, drop_path_rate=dpr[i],
+                  drop=drop_rate, attn_drop=attn_drop_rate)
             for i in range(depth)
         ])
 

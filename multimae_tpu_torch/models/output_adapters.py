@@ -1,6 +1,7 @@
 """Output adapters: SpatialOutputAdapter, the pretraining decoder
 (counterpart of multimae_tpu/models/output_adapters.py:39-345; reference
-multimae/output_adapters.py:33-282), and the semantic segmentation heads,
+multimae/output_adapters.py:33-282), the classification head
+LinearOutputAdapter (JAX :347-376), and the semantic segmentation heads,
 SegmenterMaskTransformerAdapter (JAX :390-479; reference :359-478) and
 ConvNeXtAdapter (JAX :482-531; reference :481-573).
 
@@ -194,6 +195,31 @@ class SpatialOutputAdapter(nn.Module):
         x = x.reshape(b, nh, nw, self.num_channels, ph, pw)
         x = x.permute(0, 1, 4, 2, 5, 3)
         return x.reshape(b, nh * ph, nw * pw, self.num_channels)
+
+
+class LinearOutputAdapter(nn.Module):
+    """The classification head (JAX :347-376; reference :285-356): the mean
+    of every encoder token, global tokens included (or the last token, the
+    global one, without mean pooling), a LayerNorm and a Dense to the
+    classes, its weight drawn trunc-normal(0.02) times `init_scale`."""
+
+    def __init__(self, num_classes: int, dim_tokens_enc: int = 768,
+                 use_mean_pooling: bool = True, init_scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_mean_pooling = use_mean_pooling
+        self.norm = LayerNorm(dim_tokens_enc, dtype)
+        self.head = Dense(dim_tokens_enc, num_classes, dtype=dtype, init_std=0.02 * init_scale)
+
+    def forward(self, encoder_tokens: torch.Tensor, input_info: Optional[Dict] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, num_classes) logits in the compute dtype; the mean is summed
+        in fp32 and rounded to the tokens' dtype, as jnp.mean does."""
+        if self.use_mean_pooling:
+            x = encoder_tokens.float().mean(dim=1).to(encoder_tokens.dtype)
+        else:
+            x = encoder_tokens[:, -1]
+        return self.head(self.norm(x))
 
 
 def adapt_tokens(encoder_tokens: torch.Tensor, input_info: Dict,

@@ -1,5 +1,5 @@
 """ViT primitives: LayerNorm, Dense, Mlp, Attention, CrossAttention, Block,
-drop_path (counterpart of multimae_tpu/models/vit.py; reference
+drop_path, dropout (counterpart of multimae_tpu/models/vit.py; reference
 multimae/multimae_utils.py:105-232).
 
 Parameters are fp32 and named as in the reference torch model, so a
@@ -8,7 +8,10 @@ module casts its weights to its compute dtype at use (ops/functional.py).
 Parameters are created empty; `init_weights(generator)` on the model
 fills them from an explicit `torch.Generator`. Attention runs in the
 JAX layout (B, N, H, dh) through ops/attention.py, which sends long bf16
-sequences on the card to the K2 kernel.
+sequences on the card to the K2 kernel. Dropout (`drop`, after the MLP and
+the projections) and attention dropout (`attn_drop`, on the softmax
+probabilities, which then takes the dense path) act in training only and
+draw from the caller's generator (JAX models/vit.py:126-237).
 """
 
 from __future__ import annotations
@@ -74,6 +77,31 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     return (x / keep * torch.floor(keep + u).to(x.dtype)).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Element-wise dropout as flax's nn.Dropout: an element is kept where
+    U[0, 1) < 1 - rate and scaled by 1 / (1 - rate), else zeroed; U is
+    drawn from `generator` (on x's device), fp32."""
+    if rate == 0.0 or not training:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_dropped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                      rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dense attention with dropout on the probabilities, (B, N, H, dh) in
+    and out (JAX `_attention_core_dropped`): fp32 logits and softmax, the
+    dropped probabilities rounded to q's dtype before P @ V, fp32 sums."""
+    dtype = q.dtype
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    p = dropout(torch.softmax(s, dim=-1), rate, True, generator)
+    return torch.einsum("bhnm,bmhd->bnhd", p.to(dtype).float(), v.float()).to(dtype)
+
+
 # ---------------------------------------------------------------- modules --
 
 
@@ -117,33 +145,47 @@ class Dense(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2."""
+    """fc1 -> exact-erf GELU -> fc2 -> dropout at `drop` in training."""
 
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, dim, dtype=dtype)
+        self.drop = drop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(self.fc2(gelu(self.fc1(x))), self.drop, self.training, generator)
 
 
 class Attention(nn.Module):
-    """Self-attention with a fused qkv projection; scale head_dim**-0.5."""
+    """Self-attention with a fused qkv projection; scale head_dim**-0.5. In
+    training, `attn_drop` > 0 takes the dense path with dropout on the
+    probabilities, and `proj_drop` drops the projection's output."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, num_fused=3)
         self.proj = Dense(dim, dim, dtype=dtype)
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, c = x.shape
         h = self.num_heads
         scale = (c // h) ** -0.5
         q, k, v = self.qkv(x).reshape(b, n, 3, h, c // h).unbind(2)
-        return self.proj(fused_attention_bnhd(q, k, v, scale).reshape(b, n, c))
+        if self.attn_drop > 0.0 and self.training:
+            out = attention_dropped(q, k, v, scale, self.attn_drop, generator)
+        else:
+            out = fused_attention_bnhd(q, k, v, scale)
+        return dropout(self.proj(out.reshape(b, n, c)), self.proj_drop, self.training,
+                       generator)
 
 
 class CrossAttention(nn.Module):
@@ -176,20 +218,21 @@ class Block(nn.Module):
     16) take the module path. In training each residual
     branch goes through drop_path at `drop_path_rate`, drawing from the
     `generator` the caller hands to forward: the attention branch first,
-    then the MLP's."""
+    then the MLP's; dropout at `drop` and `attn_drop` draws from it too,
+    each branch's before its drop_path."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.drop_path_rate = drop_path_rate
         self.qkv_bias = qkv_bias
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = Attention(dim, num_heads, qkv_bias, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, dtype, attn_drop, drop)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop)
 
     def block_weights(self) -> fused_block.BlockWeights:
         a, m = self.attn, self.mlp
@@ -213,5 +256,5 @@ class Block(nn.Module):
             return fused_block.fused_block_infer(
                 x.to(self.dtype), self.block_weights(), self.num_heads)
         rate, train = self.drop_path_rate, self.training
-        x = x + drop_path(self.attn(self.norm1(x)), rate, train, generator)
-        return x + drop_path(self.mlp(self.norm2(x)), rate, train, generator)
+        x = x + drop_path(self.attn(self.norm1(x), generator), rate, train, generator)
+        return x + drop_path(self.mlp(self.norm2(x), generator), rate, train, generator)

@@ -1,10 +1,11 @@
-"""ctypes bindings for the port's native image library (fastimage.cpp and
-jpeg_decode.cpp), the counterpart of the JAX package's
+"""ctypes bindings for the port's native image library (fastimage.cpp,
+jpeg_decode.cpp and pil_ops.cpp), the counterpart of the JAX package's
 multimae_tpu/native/__init__.py.
 
 The library is built with g++ at first use:
 
-    g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp -o <lib>
+    g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp \
+        pil_ops.cpp -o <lib>
 
 into build/native/<hash of the sources and the command>/ in the repository
 (listed in .gitignore). The compiler writes a per-process temporary that
@@ -33,7 +34,8 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "fastimage.cpp"
 JPEG_SOURCE = SOURCE.with_name("jpeg_decode.cpp")
-SOURCES = (SOURCE, JPEG_SOURCE)
+PIL_SOURCE = SOURCE.with_name("pil_ops.cpp")
+SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
@@ -43,6 +45,7 @@ BUILD_SECONDS: Optional[float] = None  # set when this process compiled the libr
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
+_F = ctypes.c_float
 
 # C signatures (fastimage.cpp); every pointer is void*.
 _SIGNATURES = {
@@ -58,6 +61,11 @@ _SIGNATURES = {
     "mm_rgb_to_hsv": [_P, _L, _P],
     "mm_hsv_to_rgb": [_P, _L, _I, _P],
     "mm_decode_jpeg": [_P, _L, _P, _L, _P, _P, _P, _L],
+    "mm_pil_resize": [_P, _I, _I, _I, _P, _I, _I, _I],
+    "mm_pil_affine": [_P, _I, _I, _I, _P, _P, _I, _P],
+    "mm_pil_gray": [_P, _L, _P],
+    "mm_pil_smooth": [_P, _I, _I, _I, _P],
+    "mm_pil_blend": [_P, _P, _L, _F, _P],
 }
 
 
@@ -333,4 +341,67 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     width = src.shape[-2]
     rows = src.size // (3 * width) if width else 0
     lib().mm_hsv_to_rgb(_ptr(src), rows, width, _ptr(dst))
+    return dst
+
+
+# --- Pillow's 8-bit operations (pil_ops.cpp) --------------------------------------
+
+
+def _hwc_u8(img: np.ndarray, what: str) -> np.ndarray:
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or 0 in img.shape:
+        raise ValueError(f"{what} takes (H, W) or (H, W, C) uint8, not {img.dtype} {img.shape}")
+    return np.ascontiguousarray(img)
+
+
+def pil_resize(img: np.ndarray, size_hw: Tuple[int, int], bicubic: bool = True) -> np.ndarray:
+    """Image.resize((w, h), BICUBIC or BILINEAR) of (H, W) or (H, W, C) uint8."""
+    src = _hwc_u8(img, "pil_resize")
+    dh, dw = _size_args(size_hw)
+    c = src.shape[2] if src.ndim == 3 else 1
+    dst = np.empty((dh, dw) + src.shape[2:], np.uint8)
+    _check(lib().mm_pil_resize(_ptr(src), src.shape[0], src.shape[1], c, _ptr(dst), dh, dw,
+                               int(bicubic)), "pil_resize")
+    return dst
+
+
+def pil_affine(img: np.ndarray, matrix: Sequence[float], bicubic: bool,
+               fill: Sequence[int]) -> np.ndarray:
+    """Image.transform(size, AFFINE, matrix, BICUBIC or BILINEAR,
+    fillcolor=fill) of (H, W, C) uint8."""
+    src = _hwc_u8(img, "pil_affine")
+    if src.ndim != 3:
+        raise ValueError(f"pil_affine takes (H, W, C), not {src.shape}")
+    m = np.ascontiguousarray(np.asarray(matrix, np.float64).reshape(6))
+    fill = np.ascontiguousarray(np.broadcast_to(np.asarray(fill, np.uint8), (src.shape[2],)))
+    dst = np.empty_like(src)
+    _check(lib().mm_pil_affine(_ptr(src), src.shape[0], src.shape[1], src.shape[2], _ptr(dst),
+                               _ptr(m), int(bicubic), _ptr(fill)), "pil_affine")
+    return dst
+
+
+def pil_gray(img: np.ndarray) -> np.ndarray:
+    """convert("L") of (..., 3) uint8 RGB."""
+    src = _rgb_pixels(img, "pil_gray")
+    dst = np.empty(src.shape[:-1], np.uint8)
+    lib().mm_pil_gray(_ptr(src), dst.size, _ptr(dst))
+    return dst
+
+
+def pil_smooth(img: np.ndarray) -> np.ndarray:
+    """filter(ImageFilter.SMOOTH) of (H, W, C) uint8."""
+    src = _hwc_u8(img, "pil_smooth")
+    c = src.shape[2] if src.ndim == 3 else 1
+    dst = np.empty_like(src)
+    _check(lib().mm_pil_smooth(_ptr(src), src.shape[0], src.shape[1], c, _ptr(dst)),
+           "pil_smooth")
+    return dst
+
+
+def pil_blend(a: np.ndarray, b: np.ndarray, alpha: float) -> np.ndarray:
+    """Image.blend(a, b, alpha) of two uint8 arrays of one shape."""
+    a, b = _hwc_u8(a, "pil_blend"), _hwc_u8(b, "pil_blend")
+    if a.shape != b.shape:
+        raise ValueError(f"pil_blend: shapes {a.shape} and {b.shape} differ")
+    dst = np.empty_like(a)
+    lib().mm_pil_blend(_ptr(a), _ptr(b), a.size, float(alpha), _ptr(dst))
     return dst

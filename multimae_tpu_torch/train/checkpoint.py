@@ -5,7 +5,11 @@ utils/checkpoint.py:75-152).
 `checkpoint-{epoch}.pth` is a torch.save of a dict with the reference's
 keys, `model` (the state_dict, keyed like the reference's torch model),
 `optimizer`, `epoch`, `loss_balancer` and `args` (plain values), and the
-port's `step`, `updates` and `data_iter_state` (the loader's position).
+port's `step`, `updates` and `data_iter_state` (the loader's position),
+and where they are kept the parameter EMA (`ema_params`, the device EMA
+of TrainState or a HostEMA's), the --update_freq accumulation and what a
+CLI adds (the best accuracy or mIoU so far, so a resume keeps
+`checkpoint-best`).
 Rank 0 alone writes it, to `.tmp` first and then `os.replace`, with an
 `args.json` beside it; a `tag` names the file instead (`checkpoint-best`,
 which auto-resume does not consider). Every load is
@@ -104,6 +108,8 @@ def validate_payload(payload: Any, state: TrainState) -> None:
     _check_tensors(payload["model"], state.model.state_dict(), "model")
     if state.balancer is not None:
         _check_tensors(payload["loss_balancer"], state.balancer.state_dict(), "loss_balancer")
+    if state.ema is not None and payload.get("ema_params") is not None:
+        _check_tensors(payload["ema_params"], state.ema, "ema_params")
     saved_opt, groups = payload["optimizer"], state.optimizer.param_groups
     if len(saved_opt["param_groups"]) != len(groups) or any(
             len(s["params"]) != len(g["params"])

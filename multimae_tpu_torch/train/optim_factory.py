@@ -1,6 +1,6 @@
-"""AdamW with the reference's parameter groups (counterpart of
+"""The optimizers with the reference's parameter groups (counterpart of
 multimae_tpu/train/optim_factory.py :34-82, :127-239; reference
-utils/optim_factory.py).
+utils/optim_factory.py): AdamW, Adam, and SGD with momentum.
 
 * Frozen parameters (the fixed sin-cos `pos_emb`s) get no update and no
   decay: they are left out of the optimizer (:53-57), unless
@@ -25,7 +25,15 @@ Each param group carries `lr_scale` and `wd_flag`; TrainState sets the
 group's `lr` and `weight_decay` from the schedules before each update.
 torch's AdamW applies the decoupled decay p * (1 - lr * wd) before the
 Adam step, the same update as the JAX package's optax chain
-(scale_by_adam, + wd * p, * -lr; :89-124).
+(scale_by_adam, + wd * p, * -lr; :89-124). The others follow the JAX
+chains (:222-239), not torch's own optimizers:
+* `adam`: scale_by_adam and the LR only. The JAX package leaves the
+  weight decay out (torch's Adam would add an L2 term to the gradient,
+  and no recipe sets adam with decay), so every group's wd_flag is 0.
+* `sgd` and `nesterov` (Nesterov momentum, as timm's `sgd`) and
+  `momentum` (heavy ball): `TraceSGD`, optax.trace, then the decoupled
+  decay added to the update, then the LR; torch's SGD adds the decay to
+  the gradient before the momentum instead.
 """
 
 from __future__ import annotations
@@ -120,6 +128,36 @@ def build_param_groups(
     return list(groups.values()), frozen_names
 
 
+class TraceSGD(torch.optim.Optimizer):
+    """optax.trace(decay=momentum, nesterov) + decoupled weight decay + the
+    LR (JAX :232-235): t = g + momentum * t; u = g + momentum * t with
+    Nesterov, else t; p -= lr * (u + weight_decay * p). The trace starts at
+    zero and is kept per parameter as `momentum_buffer`."""
+
+    def __init__(self, params, momentum: float = 0.9, nesterov: bool = True):
+        super().__init__(params, dict(lr=0.0, weight_decay=0.0, momentum=momentum,
+                                      nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("TraceSGD takes no closure")
+        for group in self.param_groups:
+            m, wd = group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                trace = state["momentum_buffer"]
+                trace.mul_(m).add_(p.grad)
+                u = p.grad + m * trace if group["nesterov"] else trace.clone()
+                if wd:
+                    u.add_(p, alpha=wd)
+                p.add_(u, alpha=-group["lr"])
+
+
 def create_optimizer(
     model: nn.Module,
     balancer: Optional[nn.Module] = None,
@@ -128,23 +166,30 @@ def create_optimizer(
     weight_decay: float = 0.05,
     opt_betas: Tuple[float, float] = (0.9, 0.999),
     opt_eps: float = 1e-8,
+    momentum: float = 0.9,
     filter_bias_and_bn: bool = True,
     balancer_lr_scale: float = 1.0,
     layer_decay_assigner: Optional[LayerDecayValueAssigner] = None,
     learnable_pos_emb: bool = False,
-) -> torch.optim.AdamW:
-    """`opt` (the JAX signature's, :191-239) over the groups of
+) -> torch.optim.Optimizer:
+    """`opt` (the JAX signature's, :191-239: adamw, adam, sgd, nesterov or
+    momentum, after an optional `<prefix>_`) over the groups of
     build_param_groups; each group's weight decay starts at weight_decay *
-    wd_flag and its LR at 0 until TrainState sets them from the schedules.
-    AdamW, the recipes' optimizer, is the one ported."""
-    if opt.lower() != "adamw":
-        raise NotImplementedError(f"optimizer {opt!r} is not ported yet (ROADMAP.md "
-                                  "queue 1 item 14 brings SGD and Adam); use adamw")
+    wd_flag and its LR at 0 until TrainState sets them from the schedules."""
+    kind = opt.lower().split("_")[-1]
+    if kind not in ("adamw", "adam", "sgd", "nesterov", "momentum"):
+        raise ValueError(f"Invalid optimizer {opt}")
     groups, _ = build_param_groups(model, balancer, filter_bias_and_bn=filter_bias_and_bn,
                                    balancer_lr_scale=balancer_lr_scale,
                                    layer_decay_assigner=layer_decay_assigner,
                                    learnable_pos_emb=learnable_pos_emb)
     for g in groups:
+        if kind == "adam":
+            g["wd_flag"] = 0.0
         g["lr"] = 0.0
         g["weight_decay"] = weight_decay * g["wd_flag"]
-    return torch.optim.AdamW(groups, lr=0.0, betas=tuple(opt_betas), eps=opt_eps)
+    if kind == "adamw":
+        return torch.optim.AdamW(groups, lr=0.0, betas=tuple(opt_betas), eps=opt_eps)
+    if kind == "adam":
+        return torch.optim.Adam(groups, lr=0.0, betas=tuple(opt_betas), eps=opt_eps)
+    return TraceSGD(groups, momentum=momentum, nesterov=kind != "momentum")

@@ -2,8 +2,11 @@
 
 Repeats the key and layout rules of the JAX package's exporter
 (multimae_tpu/utils/torch_compat.py `flax_path_to_torch_key` :85-106 and
-`params_to_state_dict` :270-319) for the pretraining model and the
-semantic segmentation fine-tune model (ConvNeXt head), so that
+`params_to_state_dict` :270-319) for the pretraining model, the
+semantic segmentation fine-tune model (ConvNeXt head) and the
+classification model (the LinearOutputAdapter's `output_adapters_cls`
+`norm` and `head` become `output_adapters.cls.norm.*` and
+`output_adapters.cls.head.*`, the reference's keys), so that
 `model.load_state_dict(torch_state_dict(...), strict=True)` loads
 weights trained with either package:
 

@@ -1,14 +1,27 @@
-"""Segmentation metrics (counterpart of multimae_tpu/utils/metrics.py:29-60,
-:90; reference utils/semseg_metrics.py): a confusion matrix counted on
-the device, summed over processes by parallel/dist.sum_across_processes,
-and mIoU, pixel accuracy and mean class accuracy from it."""
+"""Evaluation metrics (counterpart of multimae_tpu/utils/metrics.py:19-60,
+:90): top-k accuracy (reference utils/metrics.py:31-38), and for
+segmentation (reference utils/semseg_metrics.py) a confusion matrix
+counted on the device, summed over processes by
+parallel/dist.sum_across_processes, with mIoU, pixel accuracy and mean
+class accuracy from it."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+
+def accuracy(logits: torch.Tensor, targets: torch.Tensor,
+             topk: Sequence[int] = (1,)) -> List[torch.Tensor]:
+    """Top-k accuracy in percent, one fp32 scalar per k. The classes are
+    ranked as the JAX function ranks them, by a stable ascending argsort
+    reversed: of equal logits the higher class index comes first."""
+    maxk = max(topk)
+    order = torch.argsort(logits, dim=-1, stable=True).flip(-1)[:, :maxk]
+    correct = order == targets.reshape(-1, 1)
+    return [correct[:, :k].any(dim=1).float().mean() * 100.0 for k in topk]
 
 
 def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, num_classes: int,

@@ -95,7 +95,28 @@ def semseg():
     dist_lib.barrier()
 
 
+def cls():
+    import json
+
+    from test_torch_dist import cls_batch, cls_trainer
+
+    from multimae_tpu_torch.cli import run_finetuning_cls as cli
+
+    assert dist_lib.initialize_distributed("cpu")
+    rank = dist_lib.process_index()
+    summary = cli.main(cli.get_args(json.loads(os.environ["ARGV"])))
+    assert dist.is_initialized()  # main leaves a group it did not create
+    state, step_fn = cls_trainer()
+    sl = dist_lib.local_batch_slice(4)
+    metrics = step_fn(state, {k: v[sl] for k, v in cls_batch().items()})
+    torch.save({"eval": summary["evals"][0],
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {n: p.grad for n, p in state.model.named_parameters()}},
+               os.path.join(os.environ["OUT"], f"cls{rank}.pt"))
+    dist_lib.barrier()
+
+
 if __name__ == "__main__":
-    {"launcher": launcher, "step": step, "semseg": semseg}[os.environ["MODE"]]()
+    {"launcher": launcher, "step": step, "semseg": semseg, "cls": cls}[os.environ["MODE"]]()
     dist.destroy_process_group()
     print(f"DIST_OK {os.environ.get('EXPECT_RANK', '')}", flush=True)

@@ -29,6 +29,9 @@ package's (worker body: tests/_torch_dist_worker.py).
   step over 2 x 2 samples equals the 1-process step over the 4: loss and
   grad norm within 1e-5 relative, every gradient within 1e-6 of its
   tensor's largest.
+* The same for the cls fine-tune CLI's --eval over 7 JPEG records (the
+  top-1/5 summed over the ranks equal the one process's over the first 6)
+  and its step (mixed soft targets) over 2 x 2 samples.
 """
 
 import json
@@ -232,6 +235,60 @@ def test_two_process_semseg_eval_and_step(tmp_path):
         assert ev["pixels"] == one["pixels"] and one["images"] == 6
         for k in ("mIoU", "aAcc", "mAcc"):
             assert ev[k] == one[k], (k, ev[k], one[k])
+        for k in ("loss", "grad_norm"):
+            assert abs(got["metrics"][k] - metrics[k]) <= 1e-5 * abs(metrics[k]), (r, k)
+        for k, p in state.model.named_parameters():
+            g = got["grads"][k].double() - p.grad.double()
+            assert float(g.abs().max()) <= 1e-6 * float(p.grad.abs().max()), (r, k)
+
+
+def cls_trainer():
+    """The tiny MultiViT's cls fine-tune state and step (drop_path off)."""
+    return factory.build_cls_trainer(batch_size=4, model="multivit_tiny", input_size=32,
+                                     nb_classes=10, drop_path=0.0, dtype=torch.float32,
+                                     device="cpu")
+
+
+def cls_batch():
+    return factory.make_synthetic_cls_batch(4, input_size=32, nb_classes=10, seed=5,
+                                            device="cpu")
+
+
+def test_two_process_cls_eval_and_step(tmp_path):
+    import glob
+
+    from multimae_tpu_torch.cli import run_finetuning_cls as cli
+    from multimae_tpu_torch.data.dataset_folder import write_imagenet_tree
+
+    repo = os.path.dirname(os.path.dirname(WORKER))
+    photos = sorted(glob.glob(os.path.join(repo, "tests", "fixtures", "jpeg", "photo_*.jpg")))
+    _, val = write_imagenet_tree(str(tmp_path / "t7"), photos, 0, 7, 2)
+    _, six = write_imagenet_tree(str(tmp_path / "t6"), photos, 0, 7, 2)
+    os.remove(os.path.join(six, "c1", "i00005.jpg"))  # the 7th record in the sorted walk
+    argv = ["-c", "cfgs/finetune/cls/ft_in1k_100e_multimae-b.yaml", "--device", "cpu",
+            "--model", "multivit_tiny", "--input_size", "32", "--dtype", "float32",
+            "--data_set", "image_folder", "--nb_classes", "2", "--num_workers", "0",
+            "--finetune", "", "--eval", "--batch_size", "2"]
+    port = _free_port()
+    env = dict(_clean_env(), MODE="cls", OUT=str(tmp_path), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2", ARGV=json.dumps(
+                   argv + ["--data_path", val, "--eval_data_path", val]),
+               PYTHONPATH=os.path.dirname(WORKER) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        _run_pair([dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(2)])
+        one = cli.main(cli.get_args(argv + ["--batch_size", "4", "--data_path", six,
+                                            "--eval_data_path", six]))["evals"][0]
+    finally:
+        os.chdir(cwd)
+    state, step = cls_trainer()
+    metrics = {k: float(v) for k, v in step(state, cls_batch()).items()}
+    for r in range(2):
+        got = torch.load(tmp_path / f"cls{r}.pt", weights_only=True)
+        ev = got["eval"]
+        assert (ev["images"], ev["batches"]) == (6, 2), ev  # the sum; a batch of 2 and one of 1
+        assert one["images"] == 6 and (ev["acc1"], ev["acc5"]) == (one["acc1"], one["acc5"])
         for k in ("loss", "grad_norm"):
             assert abs(got["metrics"][k] - metrics[k]) <= 1e-5 * abs(metrics[k]), (r, k)
         for k, p in state.model.named_parameters():

@@ -196,6 +196,10 @@ ENTRY_POINTS = {
         decoder_depth=1, device=dev),
     "make_synthetic_semseg_batch": lambda dev: factory.make_synthetic_semseg_batch(
         2, input_size=64, device=dev),
+    "build_cls_trainer": lambda dev: factory.build_cls_trainer(
+        batch_size=2, model="multivit_tiny", input_size=32, nb_classes=10, device=dev),
+    "make_synthetic_cls_batch": lambda dev: factory.make_synthetic_cls_batch(
+        2, input_size=32, nb_classes=10, device=dev),
 }
 
 
@@ -234,6 +238,21 @@ def test_block_kernel_matches_twin(cuda, b, n, d, heads):
         torch.cuda.synchronize()
         assert fused_block.LAUNCHES == before + 1
         assert_matches_twin(out, fused_block.block_infer_ref(x, w, heads), "K4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 128])
+def test_block_kernel_matches_twin_at_the_cls_eval_shape(cuda, b):
+    """K4 at the classification eval's (B, 197, 768), 12 heads: within
+    TWIN_TOLERANCE of its twin, bit-equal over two runs."""
+    w = block_weights(768, 3072, device=cuda)
+    x = randn(2, b, 197, 768).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        out = fused_block.fused_block_infer(x, w, 12)
+        again = fused_block.fused_block_infer(x, w, 12)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert_matches_twin(out, fused_block.block_infer_ref(x, w, 12), f"K4 ({b},197,768)")
 
 
 @pytest.mark.cuda
@@ -926,3 +945,91 @@ def test_semseg_cli_first_step_on_the_card_matches_the_plain_twins(cuda, semseg_
     assert loss_rel <= SEMSEG_CLI_LOSS_TOLERANCE
     assert norm_rel <= chip_smoke.SEMSEG_NORM_TOLERANCE
     assert rels[worst] <= chip_smoke.SEMSEG_GRAD_TOLERANCE, (worst, rels[worst])
+
+
+# The cls CLI's first step against the plain twins. Its training step runs
+# no kernel (the 197-key attention is below the K2 gate, and K4 serves eval
+# only), so both paths run the same operations in the step: on an H100 at
+# 700 W the loss, the grad norm and every gradient read equal on both (this
+# test with -s, two runs: relative differences 0). CLS_CLI_STEP_TOLERANCE
+# allows the last bits of an fp32 sum and no more. The eval batch runs K4
+# in all 12 blocks; its logits read 3.05e-3 relative RMS from the twins'
+# (both runs) against the eval limit of the other slices,
+# chip_smoke.SLICE_TOLERANCE (3e-2).
+CLS_CLI_STEP_TOLERANCE = 1e-6
+
+
+@pytest.mark.cuda
+def test_cls_cli_first_step_on_the_card_matches_the_plain_twins(cuda, tmp_path):
+    """The ImageNet-1K recipe's first step at batch 128 from a --finetune
+    start (a 224-px pretraining .pth of the port's ViT-B, seed 0) over a
+    tree of the JPEG fixtures, with RandAugment, mixup/cutmix and the EMA:
+    no kernel launches in the step and K4 12 times in the eval batch; the
+    loss and grad norm within CLS_CLI_STEP_TOLERANCE relative of the same
+    step on the plain twins, every gradient within it in relative RMS, and
+    the eval logits within SLICE_TOLERANCE."""
+    import chip_smoke
+    from multimae_tpu_torch.cli import run_finetuning_cls as ccli
+    from multimae_tpu_torch.data.dataset_folder import write_imagenet_tree
+    from multimae_tpu_torch.train import finetune_step
+
+    photos = sorted(str(p) for p in (Path(chip_smoke.JPEG_FIXTURES)).glob("photo_*.jpg"))
+    train, val = write_imagenet_tree(str(tmp_path / "tree"), photos, chip_smoke.CLS_BATCH,
+                                     chip_smoke.CLS_BATCH, chip_smoke.CLS_CLASSES)
+    torch.save({"model": factory.build_pretrain_model(seed=0, device="cpu").state_dict(),
+                "epoch": 0}, tmp_path / "pretrain.pth")
+    cfg = Path(__file__).resolve().parents[1] / chip_smoke.CLS_YAML
+    argv = ["-c", str(cfg), "--finetune", str(tmp_path / "pretrain.pth"),
+            "--data_set", "image_folder", "--nb_classes", str(chip_smoke.CLS_CLASSES),
+            "--data_path", train, "--eval_data_path", val, "--warmup_epochs", "0",
+            "--epochs", "1", "--num_workers", "0", "--model_ema", "--no_auto_resume"]
+
+    def run():
+        make_train, make_eval, seen = (finetune_step.make_cls_train_step,
+                                       finetune_step.make_cls_eval_step, {})
+
+        def keep_train(model, *a, **kw):
+            step = make_train(model, *a, **kw)
+
+            def run_step(state, batch, **k):
+                metrics = step(state, batch, **k)
+                seen["grads"] = {n: p.grad.float().clone() for n, p in model.named_parameters()
+                                 if p.grad is not None}
+                seen["launches"] = chip_smoke.launch_counts()
+                return metrics
+            return run_step
+
+        def keep_eval(model):
+            fn = make_eval(model)
+
+            def run_eval(batch):
+                logits = fn(batch)
+                seen.setdefault("logits", logits.float().clone())
+                return logits
+            return run_eval
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(finetune_step, "make_cls_train_step", keep_train)
+            mp.setattr(finetune_step, "make_cls_eval_step", keep_eval)
+            chip_smoke.reset_launch_counts()
+            summary = ccli.main(ccli.get_args(argv))
+            total = chip_smoke.launch_counts()
+        rest = {k: n - seen["launches"][k] for k, n in total.items()}
+        return summary["steps"][0]["metrics"], seen, rest
+
+    kern, seen, rest = run()
+    assert seen["launches"] == dict.fromkeys(seen["launches"], 0)
+    assert rest == dict(dict.fromkeys(rest, 0), fused_block_infer=12)
+    with chip_smoke.plain_twins():
+        plain, plain_seen, _ = run()
+    rels = {n: chip_smoke.rel_rms(g, plain_seen["grads"][n]) for n, g in seen["grads"].items()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    norm_rel = abs(kern["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
+    logits_rel = chip_smoke.rel_rms(seen["logits"], plain_seen["logits"])
+    print(f"cls: loss {kern['loss']} / {plain['loss']} (rel {loss_rel:.3e}), grad norm "
+          f"{kern['grad_norm']} / {plain['grad_norm']} (rel {norm_rel:.3e}), worst gradient "
+          f"{worst} rel RMS {rels[worst]:.3e}, eval logits rel RMS {logits_rel:.3e}")
+    assert loss_rel <= CLS_CLI_STEP_TOLERANCE and norm_rel <= CLS_CLI_STEP_TOLERANCE
+    assert rels[worst] <= CLS_CLI_STEP_TOLERANCE, (worst, rels[worst])
+    assert logits_rel <= chip_smoke.SLICE_TOLERANCE

@@ -337,7 +337,6 @@ def test_get_args_matches_jax(path):
 UNPORTED = {
     "dpt": (["--output_adapter", "dpt"], "item 16"),
     "model_parallel": (["--model_parallel", "2"], "item 18"),
-    "sgd": (["--opt", "sgd"], "item 14"),
     "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
     "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
 }

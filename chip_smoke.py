@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving forward, pretraining step,
-semantic segmentation fine-tune, and the pretraining, semseg and
-classification CLIs on one NVIDIA card.
+semantic segmentation fine-tune, and the pretraining, semseg,
+classification, depth and Taskonomy CLIs on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -80,14 +80,13 @@ non-zero:
      times per step and nothing else launches; then checkpoint-1.pth is
      truncated and the CLI relaunched with --epochs 3: it falls back to
      checkpoint-0.pth, resumes at epoch 1 with the parameters bit-equal to
-     the save, and finishes. Then the same CLI for 2 epochs with its data
-     read through the numpy twins (the data path before the native
-     library). Printed for the native library and the twins: the loader's
+     the save, and finishes. Printed for the native library and its numpy
+     twins (the data path before it): the loader's
      samples/s (one process, and 4 workers, at batch 8), ms per sample
      decoding, augmenting and in the rgb resample alone (the two paths'
      arrays must be equal), the loader in one process over a second tree
      of uniform noise written with filter 0 (the kind earlier runs
-     timed), the CLI's step ms fed by the loader (and on
+     timed); the CLI's step ms fed by the loader (and on
      synthetic batches of 32), the share of each step spent waiting for
      data; and the checkpoint save and load seconds. Every loader's close
      raises if a worker did not exit cleanly. The tree and the checkpoints
@@ -124,12 +123,14 @@ non-zero:
      counts the launches per eval batch, and run A's totals less its two
      evals' give those per training step: each training step launches K2
      fwd and bwd 12 and K3b fwd and bwd 4 times and each eval batch K4 12
-     and K3b fwd 4 times. Then run A's recipe once more with the data read
-     through the numpy twins. Then run D: the Segmenter head (dim 768,
+     and K3b fwd 4 times. Then run D: the Segmenter head (dim 768,
      depth 2) under the ADE recipe (rgb, 150 classes, reduce_zero_label)
      for one epoch, and its --eval run: K2 fwd and bwd 14 times per step
      (the encoder's 1025 keys and the head's 1174) and K4 14 per eval
-     batch. Printed: the launches, the fine-tune start's missing and
+     batch. Then run E: the DPT semseg head (--output_adapter dpt) under
+     the NYU recipe for one epoch, and its --eval run: K2 fwd and bwd 12
+     times per step, K4 12 per eval batch, nothing else. Printed: the
+     launches, the fine-tune start's missing and
      unexpected keys, and for the native library and the twins the
      loader's samples/s over the NYU tree (one process and 4 workers), ms
      per sample decoding and augmenting (the two paths' arrays must be
@@ -159,7 +160,42 @@ non-zero:
      native library and the numpy twins the loader's samples/s (one
      process and 4 workers) and ms per sample decoding and augmenting, with
      RandAugment's part (the two paths' arrays must be equal).
-Then it prints the card line, a JSON line of the kernels and, last,
+ 15. the depth fine-tune CLI (multimae_tpu_torch.cli.run_finetuning_depth,
+     get_args + main) under the NYUv2 depth recipe as it stands (MultiViT-B
+     with the DPT head at 256 px, fp32 with TF32 off, batch DEPTH_BATCH,
+     berhu against mask_valid, layer decay 0.75, 4 workers; without its
+     100-epoch warmup), started with --finetune from phase 12's checkpoint,
+     over a NYUv2-shaped tree (640 x 480 photo-like rgb, 16-bit depth and
+     mask_valid PNGs) of DEPTH_TRAIN training records linked to
+     DEPTH_WRITTEN written samples and DEPTH_VAL validation samples: run A
+     trains 2 epochs with an evaluation each (rmse ... delta_3 over all
+     DEPTH_VAL images) and saves checkpoint-0, -1 and -best.pth; an --eval
+     run of checkpoint-1.pth counts the launches per eval batch (run A's
+     totals less its evals' give those per step: none in either, the fp32
+     path takes the modules, as in the JAX package) and evaluates to run
+     A's epoch-1 delta_1; run B (--epochs 3 at LR 0) auto-resumes at epoch
+     2 with bit-equal parameters, evaluates to the same delta_1 and keeps
+     the best delta_1 and checkpoint-best.pth; since run A launched no
+     kernel, its first loss is the plain path's, and no rerun on the plain
+     twins is made. Printed: the launches, the
+     fine-tune start's keys, the losses and delta_1, the loader's samples/s
+     (one process and 4 workers, native and twin, over the written
+     samples), the loader-fed step's host ms and data-wait share, eval ms
+     per batch, save and load seconds, with the card line.
+ 16. the Taskonomy fine-tune CLI
+     (multimae_tpu_torch.cli.run_finetuning_taskonomy): K2 forward and
+     backward at (TK_BATCH, 577, 12, 64) and K4 at (TK_BATCH, 577, 768),
+     bf16, against their twins, bit-equal over two runs, with their
+     twins', SDPA's and the bounds' times; then the rgb2depth_zbuffer
+     recipe (MultiViT-B with the DPT head at 384 px, bf16, batch TK_BATCH,
+     drop_path 0.1, masked L1, 4 workers; no warmup) from phase 12's
+     checkpoint (pos-embs 14 x 14 -> 24 x 24) over a written Taskonomy
+     tree of TK_TRAIN + TK_VAL rows at 512 x 512 with its CSV splits, the
+     runs of phase 15 (the best L1 kept): each step launches K2 fwd and bwd
+     12 times and each eval batch K4 12 times; run A's first epoch again
+     on the plain twins: the first loss and grad norm within
+     TK_CLI_LOSS_TOLERANCE and TK_CLI_NORM_TOLERANCE of those.
+Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
 timed in turns). Each kernel's `bound_ms` is the least time an H100 SXM
@@ -261,14 +297,47 @@ CLS_TRAIN, CLS_VAL, CLS_CLASSES = 256, 128, 8
 CLS_BATCH = 128
 CLS_YAML = "cfgs/finetune/cls/ft_in1k_100e_multimae-b.yaml"
 
+# The depth fine-tune CLI (phase 15): the NYUv2 depth recipe (fp32, berhu,
+# mask_valid) at its batch of DEPTH_BATCH over a NYUv2-shaped tree whose
+# DEPTH_TRAIN training records are links to DEPTH_WRITTEN written samples,
+# and DEPTH_VAL validation samples.
+DEPTH_YAML = "cfgs/finetune/depth/ft_nyu_2000e_multimae-b.yaml"
+DEPTH_WRITTEN, DEPTH_TRAIN, DEPTH_VAL, DEPTH_BATCH = 16, 128, 16, 64
+# The Taskonomy fine-tune CLI (phase 16): rgb -> depth_zbuffer (bf16, 384
+# px: 577 tokens) at its batch of TK_BATCH over a Taskonomy-layout tree of
+# TK_TRAIN + TK_VAL rows at TK_HW with its CSV splits.
+TK_YAML = "cfgs/finetune/taskonomy/rgb2depth-1k/ft_rgb2depth_multimae-b.yaml"
+TK_TRAIN, TK_VAL, TK_BATCH, TK_HW = 16, 8, 8, (512, 512)
+# The Taskonomy CLI's first loader-fed step against the same step on the
+# plain twins (same data and drop_path draws): relative gaps of the loss
+# and of the gradient norm. K2 runs the training attention of all 12
+# blocks, and its bf16 roundings of P move the L1 loss of the DPT head's
+# regression directly. Readings on an H100 at 700 W, from a random-weight
+# pretraining .pth: loss up to 1.66e-4 in this phase and 2.49e-4 in the
+# card test, grad norm up to 3.0e-4 here and 9.0e-5 there; the card test's
+# control with K2's ragged tail dropped read 2.71e-2 and 1.60e-2. Each
+# limit sits between the two, at about 4-7 times the sound readings.
+TK_CLI_LOSS_TOLERANCE = 1e-3
+TK_CLI_NORM_TOLERANCE = 2e-3
+
 # The least time an H100 SXM could take (NVIDIA's data sheet, dense).
 BF16_PEAK = 989e12  # FLOP/s, tensor cores
 FP32_PEAK = 67e12   # FLOP/s, outside the tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 
 
+PHASE_SPAN = {}  # phase: [the time of its first line, of its last]
+
+
 def log(phase, msg):
+    now = time.perf_counter()
+    PHASE_SPAN.setdefault(phase, [now, now])[1] = now
     print(f"[{phase}] {msg}", flush=True)
+
+
+def log_phase_times():
+    log("timing", "seconds from each phase's first line to its last: " + ", ".join(
+        f"{p} {t1 - t0:.1f}" for p, (t0, t1) in PHASE_SPAN.items()))
 
 
 def card_line():
@@ -1006,30 +1075,6 @@ def loader_rate(dataset, transform, workers, batch, epochs):
     return rate
 
 
-@contextlib.contextmanager
-def twin_data():
-    """While inside, the CLIs read their trees through the numpy twins (the
-    PNG reader, PIL's resampling and cv2's operations in numpy, the data
-    path before the native library): the dataset and transform classes they
-    build are made with twin=True, which their instances carry into the
-    loader's worker processes."""
-    import functools
-
-    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
-    from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
-    from multimae_tpu_torch.data.semseg_transforms import SimpleTransform
-
-    classes = (MultiTaskImageFolder, DataAugmentationForMultiMAE, SimpleTransform)
-    inits = [c.__init__ for c in classes]
-    for c, init in zip(classes, inits):
-        c.__init__ = functools.partialmethod(init, twin=True)
-    try:
-        yield
-    finally:
-        for c, init in zip(classes, inits):
-            c.__init__ = init
-
-
 def filter_line(counts):
     """The rows written per PNG filter type."""
     names = ("none", "sub", "up", "average", "paeth")
@@ -1181,19 +1226,11 @@ def cli_slice(torch, dev, keep):
 
         synthetic = main(get_args(base + ["--synthetic_data", "--synthetic_steps_per_epoch",
                                           "6", "--epochs", "1", "--no_auto_resume"]))
-        with twin_data():
-            twin = main(get_args(base + ["--data_path", tree, "--output_dir",
-                                         os.path.join(root, "out_twin"), "--epochs", "2",
-                                         "--save_ckpt_freq", "100", "--no_auto_resume"]))
-        if not all(math.isfinite(r["metrics"]["loss"]) for r in twin["steps"]):
-            raise AssertionError("the CLI run on the numpy twins: a loss is not finite")
         fed = first["steps"] + relaunch["steps"]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
-        twin_ms = statistics.median(r["step_s"] for r in twin["steps"]) * 1e3
         synth_ms = statistics.median(r["step_s"] for r in synthetic["steps"][1:]) * 1e3
         wait = sum(r["wait_s"] for r in fed)
         share, steady = steady_share([first, relaunch])
-        twin_share, twin_steady = steady_share([twin])
         rates = {path: (pretrain_loader_rate(tree, 0, twin=path == "twin",
                                              epochs=1 if path == "twin" else 4),
                         pretrain_loader_rate(tree, CLI_WORKERS, twin=path == "twin"))
@@ -1220,14 +1257,11 @@ def cli_slice(torch, dev, keep):
                 f"of {len(fed)}), {synth_ms:.3f} ms on synthetic batches (median of "
                 f"{len(synthetic['steps']) - 1}); data wait {wait * 1e3:.1f} ms in all, "
                 f"{share:.4f} of the loader-fed steps' time; {steady:.4f} without "
-                f"each run's first step (worker start-up); on the numpy twins {twin_ms:.3f} ms "
-                f"per step, wait share {twin_share:.4f}, {twin_steady:.4f} without the first")
+                f"each run's first step (worker start-up)")
         os.makedirs(os.path.dirname(keep), exist_ok=True)
         os.replace(os.path.join(out, "checkpoint-2.pth"), keep)
         return launches, {"cli_step_ms": step_ms, "cli_synthetic_step_ms": synth_ms,
                           "cli_data_wait_share": share, "cli_data_wait_share_steady": steady,
-                          "cli_twin_step_ms": twin_ms, "cli_twin_data_wait_share": twin_share,
-                          "cli_twin_data_wait_share_steady": twin_steady,
                           "loader_samples_per_s": rates["native"][0],
                           "loader_samples_per_s_workers": rates["native"][1],
                           "twin_loader_samples_per_s": rates["twin"][0],
@@ -1565,17 +1599,10 @@ def ft_cli_slice(torch, dev, pretrain):
                 f"{c_loss:.6f} equal to run A's at that step")
         shutil.rmtree(out_c)
 
-        with twin_data():
-            twin = main(get_args(base + ["--output_dir", os.path.join(root, "out_twin"),
-                                         "--epochs", "2", "--save_ckpt_freq", "100"]))
-        check_run("the run on the numpy twins", twin, 2 * steps_per_epoch, 2, FT_VAL)
-        shutil.rmtree(os.path.join(root, "out_twin"))
         fed = first["steps"] + resumed["steps"] + again["steps"]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
-        twin_ms = statistics.median(r["step_s"] for r in twin["steps"]) * 1e3
         wait = sum(r["wait_s"] for r in fed)
         share, steady = steady_share([first, resumed, again])
-        twin_share, twin_steady = steady_share([twin])
         evals = first["evals"] + resumed["evals"] + again["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
@@ -1596,14 +1623,10 @@ def ft_cli_slice(torch, dev, pretrain):
                 f"samples")
         log(13, f"CLI step at batch {SEMSEG_BATCH} fed by the loader: {step_ms:.3f} ms host "
                 f"(median of {len(fed)}); data wait {wait * 1e3:.1f} ms in all, {share:.4f} of "
-                f"the steps' time, {steady:.4f} without each run's first step; on the numpy "
-                f"twins {twin_ms:.3f} ms per step, wait share {twin_share:.4f}, "
-                f"{twin_steady:.4f} without the first; eval {eval_ms:.3f} ms per batch on the "
-                f"card ({eval_data_ms:.3f} with the data)")
+                f"the steps' time, {steady:.4f} without each run's first step; eval "
+                f"{eval_ms:.3f} ms per batch on the card ({eval_data_ms:.3f} with the data)")
         numbers = {"ft_step_ms": step_ms, "ft_data_wait_share": share,
-                   "ft_data_wait_share_steady": steady, "ft_twin_step_ms": twin_ms,
-                   "ft_twin_data_wait_share": twin_share,
-                   "ft_twin_data_wait_share_steady": twin_steady,
+                   "ft_data_wait_share_steady": steady,
                    "ft_eval_ms_per_batch": eval_ms,
                    "ft_eval_ms_per_batch_with_data": eval_data_ms,
                    "ft_loader_samples_per_s": rates["native"][0],
@@ -1658,6 +1681,37 @@ def ft_cli_slice(torch, dev, pretrain):
         numbers.update(seg_losses=seg_losses, seg_mIoU=seg_miou[0],
                        seg_eval_ms_per_batch=seg["evals"][0]["ms_per_batch"],
                        seg_step_ms=statistics.median(r["step_s"] for r in seg["steps"]) * 1e3)
+        free_card(torch)
+
+        # Run E: the DPT semseg head (--output_adapter dpt) under the NYU
+        # recipe for one epoch, and its --eval run.
+        dpt_args = base + ["--output_dir", os.path.join(root, "out_dpt"), "--epochs", "1",
+                           "--output_adapter", "dpt"]
+        reset_launch_counts()
+        dpt = main(get_args(dpt_args))
+        dpt_launches = launch_counts()
+        dpt_losses, dpt_miou = check_run("run E", dpt, steps_per_epoch, 1, FT_VAL)
+        reset_launch_counts()
+        evaluated = main(get_args(dpt_args + ["--eval"]))
+        dpt_step, dpt_eval = split_launches("run E", dpt_launches, len(dpt_losses), 1,
+                                            evaluated, eval_batches, FT_VAL)
+        expect_step = dict(dict.fromkeys(dpt_launches, 0), short_attention_fwd=12,
+                           short_attention_bwd=12)
+        expect_eval = dict(dict.fromkeys(dpt_launches, 0), fused_block_infer=12)
+        if (dpt_step, dpt_eval) != (expect_step, expect_eval):
+            raise AssertionError(f"run E: launches {dpt_step} per step and {dpt_eval} per "
+                                 f"eval batch; expected {expect_step} and {expect_eval}")
+        dpt_ms = statistics.median(r["step_s"] for r in dpt["steps"]) * 1e3
+        log(13, f"run E (--output_adapter dpt, NYU recipe, 512 px, batch {SEMSEG_BATCH}): "
+                "losses " + ", ".join(f"{v:.4f}" for v in dpt_losses) + f", mIoU "
+                f"{dpt_miou[0]:.4f}; K2 fwd {dpt_step['short_attention_fwd']} and bwd "
+                f"{dpt_step['short_attention_bwd']} per step, K4 {dpt_eval['fused_block_infer']}"
+                f" per eval batch, nothing else (measured as in run A); step {dpt_ms:.3f} ms "
+                f"host (median of {len(dpt_losses)}), eval {dpt['evals'][0]['ms_per_batch']:.3f}"
+                f" ms per batch")
+        numbers.update(dpt_losses=dpt_losses, dpt_mIoU=dpt_miou[0], dpt_step_ms=dpt_ms,
+                       dpt_eval_ms_per_batch=dpt["evals"][0]["ms_per_batch"],
+                       dpt_step_launches=dpt_step, dpt_eval_launches=dpt_eval)
         return per_step, per_eval, numbers
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1890,6 +1944,304 @@ def cls_cli_slice(torch, dev, pretrain, card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
         free_card(torch)
+
+def link_records(src, dst, copies):
+    """dst: the MultiTaskImageFolder tree `src` with each file linked
+    `copies` times under new names (more records than written samples)."""
+    for task in os.listdir(src):
+        for cls in os.listdir(os.path.join(src, task)):
+            os.makedirs(os.path.join(dst, task, cls))
+            for name in os.listdir(os.path.join(src, task, cls)):
+                stem, ext = os.path.splitext(name)
+                for k in range(copies):
+                    os.symlink(os.path.join(src, task, cls, name),
+                               os.path.join(dst, task, cls, f"{stem}_{k}{ext}"))
+
+
+def check_regression_run(name, summary, steps, evals, images, key):
+    """Raise unless the run took `steps` steps and `evals` evaluations over
+    `images` images each, with finite losses and a finite `key` metric."""
+    losses = [r["metrics"]["loss"] for r in summary["steps"]]
+    values = [e[key] for e in summary["evals"]]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}; expected {steps} finite")
+    if len(values) != evals or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{name}: {key} {values}; expected {evals} finite")
+    if any(e["images"] != images for e in summary["evals"]):
+        raise AssertionError(f"{name}: evaluated {[e['images'] for e in summary['evals']]} "
+                             f"images; expected {images} each")
+    return losses, values
+
+
+def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better,
+                        expect_step, expect_eval, data, card, twin_tolerance):
+    """Phases 15 and 16: run A (2 epochs, an evaluation each, checkpoint-0,
+    -1 and -best.pth), an --eval run of checkpoint-1.pth that counts the
+    launches per eval batch, run B (--epochs 3 at LR 0: it resumes at epoch
+    2, evaluates to run A's epoch-1 metric and keeps the best one and
+    checkpoint-best.pth), where the recipe launches a kernel run A's first
+    epoch again on the plain twins (the first step's loss and grad norm
+    within `twin_tolerance` = (loss, norm) relative), and the loader's
+    samples/s, native and twin (`data(twin)` -> dataset, transform).
+    Returns (launches per step, per eval batch, numbers)."""
+    import functools
+
+    steps_per_epoch, eval_batches = train // batch, math.ceil(val / batch)
+    check = functools.partial(check_regression_run, key=key)
+    reset_launch_counts()
+    first = cli.main(cli.get_args(base + ["--output_dir", out, "--epochs", "2"]))
+    launches = launch_counts()
+    losses, values = check("run A", first, 2 * steps_per_epoch, 2, val)
+    saves = [os.path.join(out, f"checkpoint-{e}.pth") for e in ("0", "1", "best")]
+    if not all(os.path.exists(p) for p in saves):
+        raise AssertionError(f"[{phase}] run A: {os.listdir(out)}")
+    reset_launch_counts()
+    evaluated = cli.main(cli.get_args(base + ["--output_dir", out, "--eval", "--resume",
+                                              saves[1]]))
+    per_step, per_eval = split_launches(f"[{phase}] run A", launches, len(losses), 2, evaluated,
+                                        eval_batches, val, check=check)
+    want_step = dict(dict.fromkeys(launches, 0), **expect_step)
+    want_eval = dict(dict.fromkeys(launches, 0), **expect_eval)
+    if (per_step, per_eval) != (want_step, want_eval):
+        raise AssertionError(f"[{phase}] run A: launches {per_step} per step and {per_eval} "
+                             f"per eval batch; expected {want_step} and {want_eval}")
+    if evaluated["evals"][0][key] != values[1]:
+        raise AssertionError(f"[{phase}] --eval of checkpoint-1.pth: {key} "
+                             f"{evaluated['evals'][0][key]}, run A's epoch 1 {values[1]}")
+    report = first["finetune"]
+    best = better(values)
+    log(phase, f"fine-tune start from phase 12's .pth: {len(report['missing'])} missing (the "
+               f"DPT head's), {len(report['unexpected'])} unexpected (the pretraining decoders "
+               f"and input adapters)")
+    log(phase, f"run A: losses " + ", ".join(f"{v:.4f}" for v in losses) + f"; {key} "
+               + ", ".join(f"{v:.4f}" for v in values) + f" over {val} images; per training "
+               f"step {per_step}, per eval batch {per_eval} (measured: totals {launches} over "
+               f"{len(losses)} steps and 2 evals, an --eval run over {eval_batches} batch(es)); "
+               f"checkpoint-best, -0, -1.pth ({os.path.getsize(saves[1]) / 2**30:.2f} GiB) saved "
+               f"in " + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
+
+    best_stat = os.stat(saves[2])
+    resumed = cli.main(cli.get_args(base + ["--output_dir", out, "--epochs", "3", "--lr", "0",
+                                            "--min_lr", "0"]))
+    check("run B", resumed, steps_per_epoch, 1, val)
+    after = os.stat(saves[2])
+    if ((resumed["start_epoch"], resumed["resumed_from"], resumed.get("resume_bit_equal"),
+         resumed["evals"][0][key], resumed[f"best_{key}"], after.st_mtime_ns, after.st_size)
+            != (2, saves[1], True, values[1], best, best_stat.st_mtime_ns, best_stat.st_size)):
+        raise AssertionError(f"[{phase}] run B: start epoch {resumed['start_epoch']}, from "
+                             f"{resumed['resumed_from']}, bit-equal "
+                             f"{resumed.get('resume_bit_equal')}, {key} "
+                             f"{resumed['evals'][0][key]} (run A's epoch 1 {values[1]}), best "
+                             f"{resumed[f'best_{key}']} (run A's {best}); checkpoint-best.pth "
+                             f"{'kept' if after.st_mtime_ns == best_stat.st_mtime_ns else 'rewritten'}")
+    log(phase, f"run B (--epochs 3 at LR 0): auto-resumed from checkpoint-1.pth at epoch 2, "
+               f"parameters bit-equal to the save, loaded in {resumed['load_s']:.2f} s; {key} "
+               f"{resumed['evals'][0][key]:.4f} as run A's epoch 1; the best {key} {best:.4f} "
+               f"kept and checkpoint-best.pth not rewritten")
+
+    gaps = None
+    if any(per_step.values()):
+        with plain_twins():  # one epoch, no eval, no save: the same first batch as run A's
+            plain = cli.main(cli.get_args(base + [
+                "--output_dir", out + "_plain", "--epochs", "1", "--no_save_ckpt",
+                "--eval_freq", "100"]))
+        pairs = [(first["steps"][0]["metrics"][m], plain["steps"][0]["metrics"][m])
+                 for m in ("loss", "grad_norm")]
+        gaps = [abs(k - p) / abs(p) for k, p in pairs]
+        if not all(g <= t for g, t in zip(gaps, twin_tolerance)):
+            raise AssertionError(f"[{phase}] the first step's (loss, grad norm) {pairs} with "
+                                 f"the kernels and on the plain twins: relative gaps {gaps}, "
+                                 f"limits {twin_tolerance}")
+        log(phase, "first step on the plain twins: " + "; ".join(
+            f"{m} {p:.6f} against {k:.6f} (relative gap {g:.3e}, limit {t})"
+            for m, (k, p), g, t in zip(("loss", "grad norm"), pairs, gaps, twin_tolerance)))
+    else:
+        log(phase, "run A launched no kernel: its steps ran the plain path, so its first "
+                   "loss is the plain twins' (no rerun)")
+
+    fed = first["steps"] + resumed["steps"]
+    step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
+    share, steady = steady_share([first, resumed])
+    evals = first["evals"] + resumed["evals"]
+    eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
+    eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
+    rates = {path: tuple(loader_rate(*data(path == "twin"), workers, batch=8, epochs=2)
+                         for workers in (0, CLI_WORKERS))
+             for path in ("native", "twin")}
+    for path in ("native", "twin"):
+        log(phase, f"loader ({path}; the training transform over 16 samples in batches of 8; "
+                   f"card {card}): {rates[path][0]:.1f} samples/s in one process, "
+                   f"{rates[path][1]:.1f} with {CLI_WORKERS} workers")
+    log(phase, f"CLI step at batch {batch} fed by the loader: {step_ms:.3f} ms host (median of "
+               f"{len(fed)}; card {card}), {batch / step_ms * 1e3:.1f} samples/s; data wait "
+               f"{share:.4f} of the steps' time, {steady:.4f} without each run's first step; "
+               f"eval {eval_ms:.3f} ms per batch on the card ({eval_data_ms:.3f} with the data)")
+    numbers = {"losses": losses, key: values, "best": best, "step_ms": step_ms,
+               "data_wait_share": share, "data_wait_share_steady": steady,
+               "eval_ms_per_batch": eval_ms, "eval_ms_per_batch_with_data": eval_data_ms,
+               "first_step_plain_gaps": gaps,
+               "loader_samples_per_s": rates["native"][0],
+               "loader_samples_per_s_workers": rates["native"][1],
+               "twin_loader_samples_per_s": rates["twin"][0],
+               "twin_loader_samples_per_s_workers": rates["twin"][1],
+               "ckpt_save_s": first["save_s"], "ckpt_load_s": resumed["load_s"],
+               "missing": len(report["missing"]), "unexpected": len(report["unexpected"])}
+    return per_step, per_eval, numbers
+
+
+def depth_cli_slice(torch, dev, pretrain, card):
+    """Phase 15; returns ({kernel: launches per step}, {kernel: launches per
+    eval batch}) of the depth run and the numbers it prints."""
+    import shutil
+
+    from multimae_tpu_torch.cli import run_finetuning_depth as cli
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+
+    root = os.path.join(HERE, "build", "chip_smoke_depth")
+    shutil.rmtree(root, ignore_errors=True)
+    written, train, val = (os.path.join(root, d) for d in ("written", "train", "val"))
+    t0 = time.perf_counter()
+    nyu = dict(semseg_classes=SEMSEG_CLASSES, mask_valid=True, smooth=True)
+    write_random_tree(written, DEPTH_WRITTEN, FT_HW, seed=5, **nyu)
+    write_random_tree(val, DEPTH_VAL, FT_HW, seed=6, **nyu)
+    link_records(written, train, DEPTH_TRAIN // DEPTH_WRITTEN)
+    log(15, f"wrote {DEPTH_WRITTEN} + {DEPTH_VAL} photo-like NYUv2-shaped samples at "
+            f"{FT_HW[1]}x{FT_HW[0]} (rgb, 16-bit depth, mask_valid) in "
+            f"{time.perf_counter() - t0:.1f} s; {DEPTH_TRAIN} training records link to the "
+            f"{DEPTH_WRITTEN}")
+    base = ["-c", os.path.join(HERE, DEPTH_YAML), "--finetune", pretrain,
+            "--warmup_epochs", "0", "--eval_freq", "1", "--save_ckpt_freq", "1",
+            "--num_workers", str(CLI_WORKERS), "--data_path", train, "--eval_data_path", val]
+    domains = ["depth", "rgb", "mask_valid"]
+
+    def data(twin):  # the written samples, with the training transform
+        dataset, transform, _, _ = cli.nyu_datasets(
+            cli.get_args(base + ["--data_path", written]), domains, twin=twin)
+        return dataset, transform
+
+    try:
+        per_step, per_eval, numbers = regression_cli_runs(
+            15, cli, base, os.path.join(root, "out"), batch=DEPTH_BATCH, train=DEPTH_TRAIN,
+            val=DEPTH_VAL, key="delta_1", better=max, expect_step={}, expect_eval={},
+            data=data, card=card, twin_tolerance=None)
+        log(15, "the depth recipe (fp32, TF32 off) launches no kernel in a step or an eval "
+                "batch, as in the JAX package: K2 and K4 take bf16 only")
+        return per_step, per_eval, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
+
+
+def taskonomy_attention_and_block(torch, fused_block, w4, gen, dev, card):
+    """K2 forward and backward at (TK_BATCH, 577, 12, 64) and K4 at
+    (TK_BATCH, 577, 768), bf16, against their twins, bit-equal over two
+    runs, timed with their twins, SDPA and bounds: the Taskonomy recipe's
+    shapes. Returns (K2 fwd numbers, K2 bwd numbers, K4 numbers)."""
+    import torch.nn.functional as F
+
+    from multimae_tpu_torch.ops import short_attention as sa
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    b, n, h, dh = TK_BATCH, 577, 12, 64
+    scale = dh ** -0.5
+    g16 = torch.Generator().manual_seed(16)
+    qkv = torch.randn((b, n, 3, h, dh), generator=g16).to(dev, torch.bfloat16)
+    q, k, v = (t.contiguous() for t in qkv.unbind(2))
+    g = torch.randn((b, n, h, dh), generator=g16).to(dev, torch.bfloat16)
+    o, lse = sa.short_attention_fwd(q, k, v, scale)
+    o2, lse2 = sa.short_attention_fwd(q, k, v, scale)
+    grads = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
+    again = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(x, y) for x, y in zip(grads, again))):
+        raise AssertionError(f"K2 at ({b},{n},{h},{dh}): two runs on the same inputs differ")
+    ro, rlse = sa.short_attention_ref(q, k, v, scale)
+    fwd_err = max(assert_matches_twin(o, ro, "K2 fwd o at the Taskonomy shape")[0],
+                  assert_matches_twin(lse, rlse, "K2 fwd lse at the Taskonomy shape")[0])
+    refs = sa.short_attention_bwd_ref(q, k, v, g, lse, sa.attention_delta(o, g), scale)
+    bwd_err = max(assert_matches_twin(a, r, f"K2 bwd {nm} at the Taskonomy shape",
+                                      grad_of=torch.bfloat16)[0]
+                  for nm, a, r in zip(("dq", "dk", "dv"), grads, refs))
+    del ro, rlse, refs, o2, lse2, again
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    leaves = [t.detach().clone().requires_grad_() for t in (qt, kt, vt)]
+    gt = g.transpose(1, 2)
+
+    def twin_bwd():
+        with plain_twins():
+            sa.short_attention_bwd(q, k, v, o, lse, g, scale)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*leaves).backward(gt)
+
+    kw = dict(iters=10, warmup=2, repeats=3)
+    fwd = ab_ms(torch, lambda: sa.short_attention_fwd(q, k, v, scale),
+                lambda: sa.short_attention_ref(q, k, v, scale), **kw)
+    bwd = ab_ms(torch, lambda: sa.short_attention_bwd(q, k, v, o, lse, g, scale), twin_bwd, **kw)
+    sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), **kw)
+    sdpa_fb = cuda_ms(torch, sdpa_fwd_bwd, **kw)
+    fl = 4 * b * h * n * n * dh
+    fwd_bound = bound(fl, 2 * 4 * b * n * h * dh + 4 * b * h * n)
+    bwd_bound = bound(2.5 * fl, 2 * 8 * b * n * h * dh + 4 * b * h * n)
+    log(16, f"K2 ({b},{n},{h},{dh}) bf16 within TWIN/GRAD_TOLERANCE, fwd and bwd bit-equal over "
+            f"two runs (max abs fwd {fwd_err:.3e}, bwd {bwd_err:.3e}); fwd kernel {fwd[0]:.4f} "
+            f"ms, twin {fwd[1]:.4f} ms, SDPA {sdpa:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+            f"({fwd_bound[1]}); bwd kernel {bwd[0]:.4f} ms, twin {bwd[1]:.4f} ms, bound "
+            f"{bwd_bound[0]:.4f} ms; fwd+bwd {fwd[0] + bwd[0]:.4f} ms, SDPA {sdpa_fb:.4f} ms "
+            f"(card {card})")
+    del q, k, v, g, o, lse, grads, leaves, qkv
+    free_card(torch)
+    err, rel, ms, plain_ms, k4_bound = k4_at(torch, fused_block, w4, n, gen, dev, b=b)
+    log(16, f"K4 bf16 ({b},{n},768) max abs {err:.3e}, rel RMS {rel:.3e}, bit-equal over two "
+            f"runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
+            f"({k4_bound[1]}; card {card})")
+    free_card(torch)
+    return ({"taskonomy_max_abs_err": fwd_err, "taskonomy_ms": fwd[0],
+             "taskonomy_plain_ms": fwd[1], "taskonomy_bound_ms": fwd_bound[0],
+             "taskonomy_bound_by": fwd_bound[1], "taskonomy_library_ms": sdpa},
+            {"taskonomy_max_abs_err": bwd_err, "taskonomy_ms": bwd[0],
+             "taskonomy_plain_ms": bwd[1], "taskonomy_bound_ms": bwd_bound[0],
+             "taskonomy_bound_by": bwd_bound[1], "taskonomy_library_ms": sdpa_fb},
+            {"taskonomy_max_abs_err": err, "taskonomy_ms": ms, "taskonomy_plain_ms": plain_ms,
+             "taskonomy_bound_ms": k4_bound[0], "taskonomy_bound_by": k4_bound[1]})
+
+
+def taskonomy_cli_slice(torch, dev, pretrain, card):
+    """Phase 16's CLI runs; returns ({kernel: launches per step}, {kernel:
+    launches per eval batch}) and the numbers it prints."""
+    import shutil
+
+    from multimae_tpu_torch.cli import run_finetuning_taskonomy as cli
+    from multimae_tpu_torch.data.taskonomy import TaskonomyDataset, write_taskonomy_tree
+
+    root = os.path.join(HERE, "build", "chip_smoke_taskonomy")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    domains = ["depth_zbuffer", "rgb", "mask_valid"]
+    write_taskonomy_tree(root, domains, {"train": TK_TRAIN, "val": TK_VAL}, hw=TK_HW, seed=7)
+    log(16, f"wrote a Taskonomy-layout tree of {TK_TRAIN} + {TK_VAL} rows at "
+            f"{TK_HW[1]}x{TK_HW[0]} (rgb/, depth_zbuffer/ and mask_valid/<building>/"
+            f"point_P_view_V_domain_*.png, 16-bit depth with an invalid patch, the "
+            f"splits CSVs) in {time.perf_counter() - t0:.1f} s")
+    base = ["-c", os.path.join(HERE, TK_YAML), "--finetune", pretrain, "--data_path", root,
+            "--warmup_epochs", "0", "--eval_freq", "1", "--save_ckpt_freq", "1",
+            "--num_workers", str(CLI_WORKERS)]
+
+    def data(twin):
+        return TaskonomyDataset(root, domains, split="train", image_size=384, twin=twin), None
+
+    try:
+        return regression_cli_runs(
+            16, cli, base, os.path.join(root, "out"), batch=TK_BATCH, train=TK_TRAIN,
+            val=TK_VAL, key="l1", better=min,
+            expect_step={"short_attention_fwd": 12, "short_attention_bwd": 12},
+            expect_eval={"fused_block_infer": 12}, data=data, card=card,
+            twin_tolerance=(TK_CLI_LOSS_TOLERANCE, TK_CLI_NORM_TOLERANCE))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "multimae_tpu_torch")):
@@ -2244,6 +2596,19 @@ def main():
         k2 = next(k for k in kernels if k["name"] == "short_attention_fwd")
         k2["cls_module_path"] = cls_attention_phase(torch, dev, card)
         cls_step, cls_eval, cls_numbers = cls_cli_slice(torch, dev, pretrain, card)
+        log(14, "numbers: " + json.dumps(cls_numbers))
+
+        # 15. the depth fine-tune CLI (fp32: no kernel on its path)
+        depth_step, depth_eval, depth_numbers = depth_cli_slice(torch, dev, pretrain, card)
+        log(15, "numbers: " + json.dumps(depth_numbers))
+
+        # 16. the Taskonomy fine-tune CLI: K2 and K4 at its shapes first
+        k2f, k2b, k4t = taskonomy_attention_and_block(torch, fused_block, w4, gen, dev, card)
+        for name, extra in (("short_attention_fwd", k2f), ("short_attention_bwd", k2b),
+                            ("fused_block_infer", k4t)):
+            next(k for k in kernels if k["name"] == name).update(extra)
+        tk_step, tk_eval, tk_numbers = taskonomy_cli_slice(torch, dev, pretrain, card)
+        log(16, "numbers: " + json.dumps(tk_numbers))
     finally:
         import shutil
 
@@ -2254,8 +2619,14 @@ def main():
         k["ft_cli_eval_launches"] = per_eval[name]
         k["cls_cli_launches"] = cls_step[name]
         k["cls_cli_eval_launches"] = cls_eval[name]
-    log(14, "numbers: " + json.dumps(cls_numbers))
+        k["dpt_semseg_cli_launches"] = ft_numbers["dpt_step_launches"][name]
+        k["dpt_semseg_cli_eval_launches"] = ft_numbers["dpt_eval_launches"][name]
+        k["depth_cli_launches"] = depth_step[name]
+        k["depth_cli_eval_launches"] = depth_eval[name]
+        k["taskonomy_cli_launches"] = tk_step[name]
+        k["taskonomy_cli_eval_launches"] = tk_eval[name]
 
+    log_phase_times()
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2264,4 +2635,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except BaseException:
+        if PHASE_SPAN:
+            log_phase_times()
+        raise

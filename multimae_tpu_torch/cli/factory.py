@@ -1,9 +1,11 @@
 """Domain configuration, the pretrain model/loss/trainer factory
 (counterpart of multimae_tpu/cli/factory.py; reference
 run_pretraining_multimae.py:49-72, :243-331, :353-390), the semantic
-segmentation fine-tune trainer (the NYUv2 RGB + depth recipe), and the
+segmentation fine-tune trainer (the NYUv2 RGB + depth recipe), the
 classification model and trainer (the ImageNet-1K recipe; the JAX
-`build_cls_model`, multimae_tpu/cli/run_finetuning_cls.py:149-176)."""
+`build_cls_model`, multimae_tpu/cli/run_finetuning_cls.py:149-176), and
+the dense-regression trainers with the DPT head (the NYUv2 depth recipe,
+fp32, and the Taskonomy rgb -> depth_zbuffer recipe, bf16 at 384 px)."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from multimae_tpu_torch.models import (
     SemSegInputAdapter,
     SpatialOutputAdapter,
 )
+from multimae_tpu_torch.cli.run_finetuning_depth import build_regression_model
 from multimae_tpu_torch.cli.run_finetuning_semseg import (
     build_semseg_model,
     seg_cross_entropy_parts,
@@ -31,6 +34,7 @@ from multimae_tpu_torch.train.cross_entropy import soft_target_cross_entropy
 from multimae_tpu_torch.train.finetune_step import make_cls_train_step, make_dense_train_step
 from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, create_optimizer
 from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step, standardize_depth
+from multimae_tpu_torch.train.regression_losses import LOSS_PARTS
 from multimae_tpu_torch.train.schedules import cosine_scheduler
 from multimae_tpu_torch.train.task_balancing import build_balancer
 from multimae_tpu_torch.train.train_state import TrainState
@@ -348,3 +352,91 @@ def make_synthetic_cls_batch(batch: int, input_size: int = 224, nb_classes: int 
     target[np.arange(batch), a] += lam
     target[np.arange(batch), b] += 1.0 - lam
     return {"rgb": torch.from_numpy(rgb).to(device), "target": torch.from_numpy(target).to(device)}
+
+
+# The NYUv2 depth fine-tune (cfgs/finetune/depth/ft_nyu_2000e_multimae-b.yaml
+# with the JAX CLI's defaults, multimae_tpu/cli/run_finetuning_depth.py:23-145)
+# and the Taskonomy rgb -> depth_zbuffer fine-tune
+# (cfgs/finetune/taskonomy/rgb2depth-1k/ft_rgb2depth_multimae-b.yaml with the
+# JAX CLI's defaults, multimae_tpu/cli/run_finetuning_taskonomy.py:38-135),
+# written out here.
+DEPTH_RECIPE = dict(
+    model="multivit_base", input_size=256, patch_size=16, output_adapter="dpt",
+    task="depth", channels=1, loss="berhu", drop_path_encoder=0.0, epochs=2000, lr=1e-4,
+    min_lr=0.0, weight_decay=1e-4, opt_betas=(0.9, 0.999), layer_decay=0.75, clip_grad=None,
+    dtype=torch.float32, train_images=795,
+)
+TASKONOMY_RECIPE = dict(
+    DEPTH_RECIPE, input_size=384, task="depth_zbuffer", loss="l1", drop_path_encoder=0.1,
+    epochs=100, lr=3e-4, dtype=torch.bfloat16, train_images=800,
+)
+
+
+def build_regression_trainer(recipe: dict, *, batch_size: int, seed: int = 0,
+                             device="cuda", **overrides):
+    """(TrainState, train_step) of a dense-regression recipe: MultiViT with
+    the rgb input and the DPT regression head (hooks 2/5/8/11, layer dims
+    96/192/384/768, features 256) over `task`, AdamW (0.9, 0.999) with no
+    decay on 1-D parameters and tokens, layer-wise LR decay, the cosine LR
+    over the recipe's epochs of its training images at `batch_size`
+    without its warmup, and the masked loss against mask_valid. Weights
+    are random, drawn from a CPU generator seeded with `seed`; `overrides`
+    replace recipe entries (the CPU tests' tiny model). The frozen sin-cos
+    pos-embs get the gradients the JAX step's norm counts."""
+    device = entry_device(device)
+    r = dict(recipe, **overrides)
+    model = build_regression_model(
+        model=r["model"], in_channels={"rgb": 3}, out_channels={r["task"]: r["channels"]},
+        patch_size=r["patch_size"], input_size=r["input_size"],
+        output_adapter=r["output_adapter"], decoder_main_tasks=("rgb",),
+        drop_path_encoder=r["drop_path_encoder"], dtype=r["dtype"])
+    model.init_weights(torch.Generator().manual_seed(seed))
+    for name, p in model.named_parameters():
+        if name.endswith("pos_emb"):
+            p.requires_grad_(True)
+    model.to(device)
+    depth = len(model.encoder)
+    assigner = LayerDecayValueAssigner(
+        [r["layer_decay"] ** (depth + 1 - i) for i in range(depth + 2)])
+    optimizer = create_optimizer(model, weight_decay=r["weight_decay"],
+                                 opt_betas=r["opt_betas"], filter_bias_and_bn=True,
+                                 layer_decay_assigner=assigner)
+    lr = cosine_scheduler(r["lr"], r["min_lr"], epochs=r["epochs"],
+                          niter_per_ep=max(1, r["train_images"] // batch_size))
+    state = TrainState(model, None, optimizer, lr)
+    step = make_dense_train_step(model, r["task"], LOSS_PARTS[r["loss"]], in_domains=("rgb",),
+                                 clip_grad=r["clip_grad"])
+    return state, step
+
+
+def build_depth_trainer(*, batch_size: int, seed: int = 0, device="cuda", **overrides):
+    """The NYUv2 depth recipe: MultiViT-B at 256 px (257 tokens), fp32, the
+    berhu loss, lr 1e-4 over 2000 epochs of NYUv2's 795 training images,
+    layer decay 0.75, no drop_path (build_regression_trainer)."""
+    return build_regression_trainer(DEPTH_RECIPE, batch_size=batch_size, seed=seed,
+                                    device=device, **overrides)
+
+
+def build_taskonomy_trainer(*, batch_size: int, seed: int = 0, device="cuda", **overrides):
+    """The Taskonomy rgb -> depth_zbuffer recipe: MultiViT-B at 384 px (577
+    tokens), bf16 (the K2 kernels train every encoder block's attention),
+    drop_path 0.1, the masked L1 loss, lr 3e-4 over 100 epochs of 800
+    images, layer decay 0.75 (build_regression_trainer)."""
+    return build_regression_trainer(TASKONOMY_RECIPE, batch_size=batch_size, seed=seed,
+                                    device=device, **overrides)
+
+
+def make_synthetic_regression_batch(batch: int, input_size: int, channels: int = 1,
+                                    seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    """Random NHWC rgb, a smooth target of `channels` channels and a
+    mask_valid with about a fifth of the pixels invalid (B, H, W, 1)."""
+    device = entry_device(device)
+    rng = np.random.default_rng(seed)
+    s = input_size
+    rgb = rng.standard_normal((batch, s, s, 3)).astype(np.float32)
+    ramp = np.linspace(-1.0, 1.0, s, dtype=np.float32)
+    target = (ramp[None, :, None, None] * rng.uniform(0.5, 2.0, (batch, 1, 1, channels))
+              + rng.normal(0, 0.1, (batch, s, s, channels))).astype(np.float32)
+    mask = rng.random((batch, s, s, 1)) > 0.2
+    return {"rgb": torch.from_numpy(rgb).to(device), "target": torch.from_numpy(target).to(device),
+            "mask_valid": torch.from_numpy(mask).to(device)}

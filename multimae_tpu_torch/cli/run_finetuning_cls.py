@@ -210,7 +210,7 @@ def main(args) -> Dict[str, Any]:
     log line."""
     refuse_unported(args)
     from multimae_tpu_torch.cli.factory import build_cls_model, entry_device
-    from multimae_tpu_torch.cli.run_finetuning_semseg import step_seed
+    from multimae_tpu_torch.cli.finetune_loop import step_seed
     from multimae_tpu_torch.data.cls_transforms import (
         ClsEvalTransform, ClsTrainTransform, ImageRecord)
     from multimae_tpu_torch.data.dataset_folder import CIFAR100, ImageFolder

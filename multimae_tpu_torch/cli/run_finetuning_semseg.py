@@ -10,24 +10,21 @@ run_finetuning_semseg.py).
 
 The same flags and YAML precedence as the JAX CLI (-c sets the parser's
 defaults, flags override them), reading the shared cfgs/. It builds a
-MultiViT with the Segmenter or ConvNeXt head (the void label adds a
+MultiViT with the Segmenter, ConvNeXt or DPT head (the void label adds a
 class; a pseudo_semseg input becomes the semseg input adapter with a
-zero void row), starts it from a reference-layout `.pth` (--finetune:
+zero void row; the DPT head hooks encoder layers 2, 5, 8 and 11, or the
+last block of each quarter of a shallower encoder's depth), starts it from a reference-layout `.pth` (--finetune:
 pos-embs resized to the input size, utils/torch_compat.py), reads
 MultiTaskImageFolder trees through the cv2-free augmentations
 (data/semseg_transforms.py) and the port's loader (or trains on one
-synthetic batch with --synthetic_data), trains with --opt (the recipes'
-AdamW), layer decay 0.75 ** (depth + 1 - i), the cosine LR with warmup and
-the WD schedule,
-evaluates mIoU every --eval_freq epochs over the whole validation set
-(the confusion matrix summed over processes), saves checkpoint-best.pth
-whenever mIoU improves and checkpoint-{epoch}.pth every --save_ckpt_freq
-epochs and at the end, writes a JSON line per epoch to log.txt, and
-auto-resumes from the newest loadable save in --output_dir with the data
-order and the best mIoU so far (the JAX CLI forgets the best mIoU on a
-resume, so its first evaluation overwrites checkpoint-best). Several
-processes (torchrun, OpenMPI, SLURM; parallel/dist.py) train
-data-parallel on the global batch, --batch_size per process.
+synthetic batch with --synthetic_data), and trains in the shared
+fine-tune loop (cli/finetune_loop.py: --opt, the recipes' AdamW, layer
+decay 0.75 ** (depth + 1 - i), the cosine schedules, checkpoints and
+auto-resume, several processes). It evaluates mIoU every --eval_freq
+epochs over the whole validation set (the confusion matrix summed over
+processes) and keeps checkpoint-best.pth on mIoU, whose best value
+survives a resume (the JAX CLI forgets it, so its first evaluation after
+a resume overwrites checkpoint-best).
 
 It runs on the card unless --device cpu is given, and raises where the
 card is asked for and torch sees none. Flags whose function is not
@@ -39,24 +36,23 @@ CLI ignores them.
 from __future__ import annotations
 
 import argparse
-import datetime
 import functools
-import math
 import os
-import sys
-import time
 from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimae_tpu_torch.cli.finetune_loop import finetune
 from multimae_tpu_torch.models import (
     ConvNeXtAdapter,
+    DPTOutputAdapter,
     PatchedInputAdapter,
     SegmenterMaskTransformerAdapter,
     SemSegInputAdapter,
 )
+from multimae_tpu_torch.models.output_adapters import set_dpt_hooks
 from multimae_tpu_torch.models.registry import create_model
 from multimae_tpu_torch.utils.data_constants import COCO_SEMSEG_NUM_CLASSES, SEG_IGNORE_INDEX
 
@@ -191,27 +187,6 @@ def get_args(argv=None):
     return parser.parse_args(remaining)
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for every flag whose function the port does not have."""
-    refused = [
-        (args.ckpt_backend is not None,
-         "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (args.model_parallel > 1,
-         "--model_parallel > 1 is not ported yet: ROADMAP.md queue 1 item 18 (FSDP, TP, "
-         "PP, the hybrid mesh)"),
-        (args.output_adapter == "dpt",
-         "--output_adapter dpt is not ported yet: ROADMAP.md queue 1 item 16 (DPT)"),
-        (bool(args.finetune) and not args.finetune.endswith(".pth"),
-         f"--finetune {args.finetune}: not a .pth file; the port starts from "
-         "reference-layout .pth files (the JAX package's msgpack and orbax checkpoints "
-         "are not read)"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise SystemExit(msg)
-
-
 INPUT_ADAPTERS = {
     "rgb": functools.partial(PatchedInputAdapter, num_channels=3, stride_level=1),
     "depth": functools.partial(PatchedInputAdapter, num_channels=1, stride_level=1),
@@ -249,18 +224,16 @@ def build_semseg_model(*, model: str = "multivit_base",
         "convnext": functools.partial(
             ConvNeXtAdapter, embed_dim=decoder_dim, preds_per_patch=decoder_preds_per_patch,
             depth=decoder_depth, interpolate_mode=decoder_interpolate_mode),
+        "dpt": functools.partial(DPTOutputAdapter, stride_level=1, head_type="semseg"),
     }
-    if output_adapter not in heads:
-        raise SystemExit(f"--output_adapter {output_adapter} is not ported yet: ROADMAP.md "
-                         "queue 1 item 16 (DPT)")
     output_adapters = {
         "semseg": functools.partial(heads[output_adapter], num_classes=num_classes,
                                     main_tasks=tuple(decoder_main_tasks),
                                     patch_size=patch_size),
     }
-    return create_model(model, input_adapters=input_adapters,
-                        output_adapters=output_adapters,
-                        drop_path_rate=drop_path_encoder, dtype=dtype)
+    return set_dpt_hooks(create_model(model, input_adapters=input_adapters,
+                                      output_adapters=output_adapters,
+                                      drop_path_rate=drop_path_encoder, dtype=dtype))
 
 
 def model_domains(args) -> Tuple[list, int]:
@@ -299,12 +272,6 @@ def seg_cross_entropy_parts(logits: torch.Tensor, target: torch.Tensor,
     return torch.where(valid, nll, 0.0).sum(), valid.sum().to(logits.dtype)
 
 
-def step_seed(seed: int, step: int, rank: int) -> int:
-    """The drop_path generator's seed for one step of one rank: the draws
-    depend on the step, so a resumed run draws what it would have."""
-    return int(np.random.SeedSequence([seed, step, rank]).generate_state(1)[0])
-
-
 def prepare_batch(b: Dict[str, torch.Tensor], in_domains: Sequence[str],
                   device: torch.device) -> Dict[str, torch.Tensor]:
     """The model's inputs and "target" from a loader batch (JAX :429-441):
@@ -335,255 +302,74 @@ def synthetic_batch(b: int, args, in_domains: Sequence[str]) -> Dict[str, torch.
     return {k: torch.from_numpy(v) for k, v in out.items()}
 
 
-def main(args) -> Dict[str, Any]:
-    """Fine-tune; returns a summary: the fine-tune start's report, where it
-    started and resumed from, the per-step metrics and host times (wait
-    for the batch, the step), each evaluation (mIoU, aAcc, mAcc, ms per
-    batch, images), the checkpoint save and load times, and each epoch's
-    log line."""
-    refuse_unported(args)
-    from multimae_tpu_torch.cli.factory import entry_device
+class ConfusionEval:
+    """The semseg CLI's evaluation: the confusion matrix of the argmax
+    predictions, summed over the processes, and mIoU, aAcc and mAcc from
+    it; log.txt gets mIoU in percent as val_mIoU (JAX :443-472)."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.cm = None
+
+    def add(self, pred: torch.Tensor, prep: Dict[str, torch.Tensor]) -> None:
+        from multimae_tpu_torch.utils.metrics import confusion_matrix
+
+        cm = confusion_matrix(pred.argmax(dim=-1), prep["target"], self.num_classes,
+                              ignore_index=SEG_IGNORE_INDEX)
+        self.cm = cm if self.cm is None else self.cm + cm
+
+    def finish(self) -> Tuple[Dict[str, Any], Dict[str, float]]:
+        from multimae_tpu_torch.parallel import dist as dist_lib
+        from multimae_tpu_torch.utils.metrics import miou_from_confusion
+
+        cm = dist_lib.sum_across_processes(self.cm)
+        stats = miou_from_confusion(cm)
+        return ({"mIoU": stats["mIoU"], "aAcc": stats["aAcc"], "mAcc": stats["mAcc"],
+                 "pixels": int(cm.sum())}, {"mIoU": stats["mIoU"] * 100})
+
+
+def semseg_datasets(args, all_domains: Sequence[str]):
+    """(train, train transform, val, val transform) of the
+    MultiTaskImageFolder trees."""
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
-    from multimae_tpu_torch.data.loader import EvalLoader, Loader
     from multimae_tpu_torch.data.semseg_transforms import (
         DataAugmentationForSemSeg, SimpleTransform)
-    from multimae_tpu_torch.parallel import dist as dist_lib
-    from multimae_tpu_torch.train.checkpoint import (
-        auto_load_checkpoint, load_checkpoint, save_checkpoint)
-    from multimae_tpu_torch.train.finetune_step import (
-        make_dense_eval_step, make_dense_train_step)
-    from multimae_tpu_torch.train.optim_factory import (
-        LayerDecayValueAssigner, create_optimizer)
-    from multimae_tpu_torch.train.schedules import cosine_scheduler
-    from multimae_tpu_torch.train.train_state import TrainState
-    from multimae_tpu_torch.utils.logger import MetricLogger, write_log_line
-    from multimae_tpu_torch.utils.metrics import confusion_matrix, miou_from_confusion
-    from multimae_tpu_torch.utils.torch_compat import load_pretrained
 
-    device = entry_device(args.device)
-    created = not (torch.distributed.is_available() and torch.distributed.is_initialized())
-    created &= dist_lib.initialize_distributed(args.device)
-    rank, world = dist_lib.process_index(), dist_lib.world_size()
-    if device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
-          f"{world} process(es)")
+    def transform(train):
+        return DataAugmentationForSemSeg(
+            SimpleTransform(train=train, input_size=args.input_size),
+            seg_num_classes=args.num_classes, standardize_depth=args.standardize_depth,
+            seg_reduce_zero_label=args.seg_reduce_zero_label,
+            seg_use_void_label=args.seg_use_void_label)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    prefixes = {"depth": "pseudo_"} if args.load_pseudo_depth else None
+    return (MultiTaskImageFolder(args.data_path, all_domains, prefixes=prefixes),
+            transform(True),
+            MultiTaskImageFolder(args.eval_data_path, all_domains, prefixes=prefixes,
+                                 max_images=args.max_val_images),
+            transform(False))
 
-    dtype = torch.bfloat16 if args.fp16 else torch.float32
-    model, in_domains, num_classes = build_model_from_args(args, dtype)
-    model.init_weights(torch.Generator().manual_seed(args.seed))
-    raw_in_domains = args.in_domains.split("-")
-    all_domains = sorted(set(raw_in_domains) | {"semseg", "rgb"})
+
+def main(args) -> Dict[str, Any]:
+    """Fine-tune; returns cli/finetune_loop.py `finetune`'s summary (each
+    evaluation with mIoU, aAcc, mAcc and the pixels counted)."""
+    in_domains, _ = model_domains(args)
+    all_domains = sorted(set(args.in_domains.split("-")) | {"semseg", "rgb"})
     if args.use_mask_valid:
         all_domains.append("mask_valid")
-
-    summary: Dict[str, Any] = {"finetune": None, "start_epoch": args.start_epoch,
-                               "resumed_from": None, "load_s": None, "save_s": [],
-                               "saved": [], "steps": [], "evals": [], "epochs": []}
-    if args.finetune:
-        summary["finetune"] = load_pretrained(model, args.finetune)
-    # The frozen sin-cos pos-embs get gradients that the optimizer never
-    # applies: the JAX step's gradient norm, and so its clip, counts them.
-    for name, p in model.named_parameters():
-        if name.endswith("pos_emb"):
-            p.requires_grad_(True)
-    model.to(device)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"params: {n_params / 1e6:.2f}M")
-
-    global_batch = args.batch_size * world
-    loader = eval_loader = None
-    if args.synthetic_data:
-        num_steps_per_epoch = args.synthetic_steps_per_epoch
-    else:
-        def transform(train):
-            return DataAugmentationForSemSeg(
-                SimpleTransform(train=train, input_size=args.input_size),
-                seg_num_classes=args.num_classes, standardize_depth=args.standardize_depth,
-                seg_reduce_zero_label=args.seg_reduce_zero_label,
-                seg_use_void_label=args.seg_use_void_label)
-
-        prefixes = {"depth": "pseudo_"} if args.load_pseudo_depth else None
-        dataset_train = MultiTaskImageFolder(args.data_path, all_domains, prefixes=prefixes)
-        dataset_val = MultiTaskImageFolder(args.eval_data_path, all_domains, prefixes=prefixes,
-                                           max_images=args.max_val_images)
-        pin = args.pin_mem and device.type == "cuda"
-        loader = Loader(dataset_train, transform(True), global_batch_size=global_batch,
-                        seed=args.seed, num_workers=args.num_workers, shard_index=rank,
-                        shard_count=world, pin_memory=pin)
-        eval_loader = EvalLoader(dataset_val, transform(False),
-                                 global_batch_size=global_batch, num_workers=args.num_workers,
-                                 shard_index=rank, shard_count=world, pin_memory=pin)
-        num_steps_per_epoch = loader.steps_per_epoch
-        print(f"dataset: {len(dataset_train)} training and {len(dataset_val)} validation "
-              f"samples, {num_steps_per_epoch} steps/epoch, global batch {global_batch}")
-
-    depth = len(model.encoder)
-    assigner = None
-    if args.layer_decay < 1.0:
-        assigner = LayerDecayValueAssigner(
-            [args.layer_decay ** (depth + 1 - i) for i in range(depth + 2)])
-    lr_values = cosine_scheduler(args.lr, args.min_lr, args.epochs, num_steps_per_epoch,
-                                 warmup_epochs=args.warmup_epochs,
-                                 warmup_steps=args.warmup_steps)
-    wd_end = args.weight_decay_end if args.weight_decay_end is not None else args.weight_decay
-    wd_values = cosine_scheduler(args.weight_decay, wd_end, args.epochs, num_steps_per_epoch)
-    optimizer = create_optimizer(
-        model, opt=args.opt, weight_decay=args.weight_decay,
-        opt_betas=tuple(args.opt_betas), opt_eps=args.opt_eps, momentum=args.momentum,
-        filter_bias_and_bn=True,
-        layer_decay_assigner=assigner, learnable_pos_emb=args.learnable_pos_emb)
-    state = TrainState(model, None, optimizer, lr_values, wd_values)
-
-    start_epoch, payload = args.start_epoch, {}
-    t0 = time.perf_counter()
-    if args.resume:
-        last_epoch, payload = load_checkpoint(args.resume, state)
-        start_epoch = last_epoch + 1
-        summary["resumed_from"] = args.resume
-        print(f"[checkpoint] resumed from {args.resume} (epoch {last_epoch})")
-    elif args.auto_resume and args.output_dir:
-        start_epoch, payload = auto_load_checkpoint(args.output_dir, state)
-        if payload:
-            summary["resumed_from"] = os.path.join(args.output_dir,
-                                                   f"checkpoint-{start_epoch - 1}.pth")
-    if summary["resumed_from"]:
-        summary["load_s"] = time.perf_counter() - t0
-    if payload:
-        saved = payload["model"]
-        summary["resume_bit_equal"] = set(saved) == set(model.state_dict()) and all(
-            torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
-        if loader is not None and payload.get("data_iter_state"):
-            try:
-                loader.set_state(payload["data_iter_state"])
-                print("[checkpoint] data iterator state restored")
-            except ValueError as e:
-                print(f"[checkpoint] data iterator restore failed ({e}); "
-                      "continuing with a fresh shuffle")
-    summary["start_epoch"] = start_epoch
-
-    step_fn = make_dense_train_step(model, "semseg", seg_cross_entropy_parts,
-                                    in_domains=tuple(in_domains), clip_grad=args.clip_grad)
-    eval_fwd = make_dense_eval_step(model, "semseg", in_domains=tuple(in_domains))
-    generator = torch.Generator(device=device)
-
-    def run_eval() -> Dict[str, Any]:
-        cm = torch.zeros((args.num_classes, args.num_classes), dtype=torch.int64,
-                         device=device)
-        batches = images = 0
-        compute_s = 0.0
-        t_eval = time.perf_counter()
-        for b in eval_loader:
-            prep = prepare_batch(b, in_domains, device)
-            t1 = time.perf_counter()
-            pred = eval_fwd(prep).argmax(dim=-1)
-            cm += confusion_matrix(pred, prep["target"], args.num_classes,
-                                   ignore_index=SEG_IGNORE_INDEX)
-            sync()
-            compute_s += time.perf_counter() - t1
-            batches += 1
-            images += int(prep["target"].shape[0])
-        cm = dist_lib.sum_across_processes(cm)
-        stats = miou_from_confusion(cm)
-        total_s = time.perf_counter() - t_eval
-        return {"mIoU": stats["mIoU"], "aAcc": stats["aAcc"], "mAcc": stats["mAcc"],
-                "batches": batches, "images": images, "pixels": int(cm.sum()),
-                "ms_per_batch": compute_s / max(batches, 1) * 1e3,
-                "ms_per_batch_with_data": total_s / max(batches, 1) * 1e3}
 
     def report(stats):
         print(f"* mIoU {stats['mIoU'] * 100:.3f} aAcc {stats['aAcc'] * 100:.3f} "
               f"Acc {stats['mAcc'] * 100:.3f}")
 
-    if args.eval and not args.synthetic_data:
-        stats = run_eval()
-        report(stats)
-        summary["evals"].append(stats)
-        if eval_loader is not None:
-            loader.close()
-            eval_loader.close()
-        return summary
-
-    synthetic = None
-    if loader is None:
-        synthetic = prepare_batch(synthetic_batch(args.batch_size, args, in_domains),
-                                  in_domains, device)
-    fetch_s = [0.0]  # the wait for the last batch: the loader and the copy to the device
-
-    def batches():
-        for _ in range(num_steps_per_epoch):
-            if loader is None:
-                yield synthetic
-            else:
-                t1 = time.perf_counter()
-                b = prepare_batch(next(loader), in_domains, device)
-                fetch_s[0] = time.perf_counter() - t1
-                yield b
-
-    best_miou = float(payload.get("best_mIoU", 0.0))
-    print(f"Start training for {args.epochs} epochs")
-    start_time = time.time()
-    for epoch in range(start_epoch, args.epochs):
-        metric_logger = MetricLogger(delimiter="  ")
-        header = f"Epoch: [{epoch}]"
-        for batch in metric_logger.log_every(batches(), 20, header, total=num_steps_per_epoch):
-            t_step = time.perf_counter()
-            generator.manual_seed(step_seed(args.seed, state.step, rank))
-            step_idx = state.step
-            metrics = {k: float(v) for k, v in step_fn(state, batch, generator=generator).items()}
-            summary["steps"].append({"epoch": epoch, "step": step_idx, "wait_s": fetch_s[0],
-                                     "step_s": time.perf_counter() - t_step,
-                                     "metrics": metrics})
-            if not math.isfinite(metrics["loss"]):
-                print(f"Loss is {metrics['loss']}, stopping training")
-                sys.exit(1)
-            metric_logger.update(loss=metrics["loss"], grad_norm=metrics["grad_norm"],
-                                 lr=float(lr_values[min(step_idx, len(lr_values) - 1)]))
-
-        metric_logger.synchronize_between_processes()
-        print("Averaged stats:", metric_logger)
-        log_stats = {**{f"train_{k}": m.global_avg for k, m in metric_logger.meters.items()},
-                     "epoch": epoch}
-
-        def save(tag=None):
-            t1 = time.perf_counter()
-            path = save_checkpoint(args.output_dir, epoch, state, args=vars(args), tag=tag,
-                                   data_iter_state=None if loader is None
-                                   else loader.get_state(), extra={"best_mIoU": best_miou})
-            if path is not None:
-                summary["save_s"].append(time.perf_counter() - t1)
-                summary["saved"].append(path)
-                print(f"[checkpoint] saved {path} in {summary['save_s'][-1]:.2f} s")
-
-        if not args.synthetic_data and (epoch + 1) % args.eval_freq == 0:
-            stats = run_eval()
-            report(stats)
-            summary["evals"].append({"epoch": epoch, **stats})
-            miou = stats["mIoU"] * 100
-            if miou > best_miou:
-                best_miou = miou
-                if args.output_dir and args.save_ckpt:
-                    save("checkpoint-best")
-            log_stats.update({"val_mIoU": miou, "best_mIoU": best_miou})
-
-        if args.output_dir and args.save_ckpt and (
-                (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
-            save()
-        write_log_line(args.output_dir, log_stats)
-        summary["epochs"].append(log_stats)
-
-    print(f"Training time {datetime.timedelta(seconds=int(time.time() - start_time))}")
-    if loader is not None:
-        loader.close()
-        eval_loader.close()
-    if created:
-        dist_lib.barrier()
-        torch.distributed.destroy_process_group()
-    return summary
+    return finetune(
+        args, dtype=torch.bfloat16 if args.fp16 else torch.float32,
+        build=lambda dtype: build_model_from_args(args, dtype)[:2] + ("semseg",),
+        datasets=lambda: semseg_datasets(args, all_domains),
+        prepare=lambda b, device: prepare_batch(b, in_domains, device),
+        loss_parts_fn=seg_cross_entropy_parts,
+        evaluation=lambda: ConfusionEval(args.num_classes), best=("mIoU", "max"),
+        synthetic=lambda b: synthetic_batch(b, args, in_domains), report=report)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock
 from multimae_tpu_torch.models.multimae import MultiMAE, MultiViT
 from multimae_tpu_torch.models.output_adapters import (
     ConvNeXtAdapter,
+    DPTOutputAdapter,
     LinearOutputAdapter,
     SegmenterMaskTransformerAdapter,
     SpatialOutputAdapter,
@@ -17,7 +18,7 @@ from multimae_tpu_torch.models.output_adapters import (
 from multimae_tpu_torch.models.registry import create_model, list_models
 
 __all__ = [
-    "ConvNeXtAdapter", "ConvNeXtBlock", "LinearOutputAdapter", "MaskedCrossEntropyLoss",
+    "ConvNeXtAdapter", "ConvNeXtBlock", "DPTOutputAdapter", "LinearOutputAdapter", "MaskedCrossEntropyLoss",
     "MaskedL1Loss", "MaskedMSELoss", "MultiMAE", "MultiViT", "PatchedInputAdapter",
     "SegmenterMaskTransformerAdapter", "SemSegInputAdapter", "SpatialOutputAdapter",
     "create_model", "list_models",

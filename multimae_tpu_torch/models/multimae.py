@@ -10,12 +10,13 @@ fp32 encoder tokens (reference :367-377).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from multimae_tpu_torch.models.output_adapters import DPTOutputAdapter
 from multimae_tpu_torch.models.registry import register_model
 from multimae_tpu_torch.models.vit import Block, trunc_normal_
 from multimae_tpu_torch.ops import masking
@@ -110,12 +111,18 @@ class MultiMAE(nn.Module):
         return tokens, info
 
     def run_encoder(self, tokens: torch.Tensor,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    all_layers: bool = False) -> Union[torch.Tensor, List[torch.Tensor]]:
         """The encoder blocks in order; in training each block draws its
-        drop_path numbers from `generator`."""
+        drop_path numbers from `generator`. The last block's tokens, or with
+        `all_layers` every block's, in order (the DPT head's hooks; JAX
+        :155-168)."""
+        outs = []
         for blk in self.encoder:
             tokens = blk(tokens, generator)
-        return tokens
+            if all_layers:
+                outs.append(tokens)
+        return outs if all_layers else tokens
 
     def forward(self, x: Union[Dict[str, torch.Tensor], torch.Tensor], *,
                 mask_inputs: bool = True,
@@ -123,13 +130,17 @@ class MultiMAE(nn.Module):
                 num_encoded_tokens: int = 128,
                 alphas: Union[float, Sequence[float]] = 1.0,
                 sample_tasks_uniformly: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                encode_only: bool = False):
         """Masked forward (reference multimae/multimae.py:271-379).
 
         Returns (preds, task_masks): NHWC predictions per output adapter
         and (B, N_task) int64 masks (1 = masked). Without `task_masks` the
         masks are drawn from `generator`, which must lie on the inputs'
-        device; in training the encoder's drop_path draws from it next."""
+        device; in training the encoder's drop_path draws from it next.
+        `encode_only` skips the output adapters and returns (encoder
+        tokens, task_masks, ids_keep, ids_restore, input_info), as the JAX
+        model does (JAX :180-230), for feature extraction and probing."""
         if not isinstance(x, dict):
             x = {"rgb": x}
         tokens, info = self.tokenize(x)
@@ -152,6 +163,8 @@ class MultiMAE(nn.Module):
         global_tokens = self.global_tokens.to(input_tokens.dtype).expand(b, -1, -1)
         h = self.run_encoder(torch.cat([input_tokens, global_tokens], dim=1), generator)
 
+        if encode_only:
+            return h, task_masks, ids_keep, ids_restore, info
         if self.output_adapters is None:
             return h, task_masks
         preds = {}
@@ -163,8 +176,7 @@ class MultiMAE(nn.Module):
 
 class MultiViT(MultiMAE):
     """Dense (unmasked) forward for fine-tuning and inference (JAX
-    :250-300; reference multimae/multimae.py:419-539). The DPT head's
-    all-layers branch is not ported."""
+    :250-300; reference multimae/multimae.py:419-539)."""
 
     def process_input(self, x: Union[Dict[str, torch.Tensor], torch.Tensor]):
         """Every input token, then the global tokens: (B, N + G, D) and the
@@ -178,18 +190,31 @@ class MultiViT(MultiMAE):
         return torch.cat([input_tokens, global_tokens], dim=1), info
 
     def forward(self, x: Union[Dict[str, torch.Tensor], torch.Tensor], *,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_all_layers: bool = False):
         """{task: NHWC pred} of every output adapter, or the encoder tokens
-        without adapters. In training (`model.train()`) drop_path draws
-        from `generator`, which lies on the inputs' device: the encoder's
-        blocks first, then a head's own (the Segmenter's)."""
+        without adapters. The encoder returns every layer's tokens where a
+        DPT head is present or `return_all_layers` is asked (JAX :267-300):
+        a DPT head takes the list, every other head the last layer's, and
+        without adapters the list comes back. In training
+        (`model.train()`) drop_path and dropout draw from `generator`,
+        which lies on the inputs' device: the encoder's blocks first, then
+        a head's own (the Segmenter's blocks, the DPT semseg head's
+        dropout)."""
         input_tokens, info = self.process_input(x)
-        h = self.run_encoder(input_tokens, generator)
+        all_layers = return_all_layers or any(isinstance(a, DPTOutputAdapter)
+                                              for a in (self.output_adapters or {}).values())
+        out = self.run_encoder(input_tokens, generator, all_layers=all_layers)
         if self.output_adapters is None:
-            return h
-        return {domain: adapter(h.float() if domain in self.fp32_output_adapters else h, info,
-                                generator=generator)
-                for domain, adapter in self.output_adapters.items()}
+            return out
+        preds = {}
+        for domain, adapter in self.output_adapters.items():
+            h = out if isinstance(adapter, DPTOutputAdapter) else (
+                out[-1] if all_layers else out)
+            if domain in self.fp32_output_adapters:
+                h = [t.float() for t in h] if isinstance(h, list) else h.float()
+            preds[domain] = adapter(h, info, generator=generator)
+        return preds
 
 
 def _mae(dim, depth, heads, cls=MultiMAE):

@@ -3,7 +3,9 @@
 multimae/output_adapters.py:33-282), the classification head
 LinearOutputAdapter (JAX :347-376), and the semantic segmentation heads,
 SegmenterMaskTransformerAdapter (JAX :390-479; reference :359-478) and
-ConvNeXtAdapter (JAX :482-531; reference :481-573).
+ConvNeXtAdapter (JAX :482-531; reference :481-573), and the DPT head for
+dense regression and segmentation, DPTOutputAdapter (JAX :534-686;
+reference :576-759).
 
 Queries are the task's own token positions (the visible encoder token
 where the position was kept, else the mask token) plus the task and
@@ -29,9 +31,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimae_tpu_torch.models.conv_utils import ConvNeXtBlock, conv2d_nhwc, lecun_normal_, make_conv
+from multimae_tpu_torch.models.conv_utils import (
+    BatchNorm,
+    ConvNeXtBlock,
+    FeatureFusionBlock,
+    conv2d_nhwc,
+    conv_transpose2d_nhwc,
+    lecun_normal_,
+    make_conv,
+    make_deconv,
+)
 from multimae_tpu_torch.models.input_adapters import pair, pos_tokens, sincos_pos_emb
-from multimae_tpu_torch.models.vit import Block, CrossAttention, Dense, LayerNorm, Mlp, trunc_normal_
+from multimae_tpu_torch.models.vit import (
+    Block,
+    CrossAttention,
+    Dense,
+    LayerNorm,
+    Mlp,
+    dropout,
+    trunc_normal_,
+)
 from multimae_tpu_torch.ops import fused_decoder
 from multimae_tpu_torch.ops.gather import gather_tokens
 from multimae_tpu_torch.ops.resize import interpolate_2d
@@ -340,3 +359,139 @@ class ConvNeXtAdapter(nn.Module):
             x = blk(x)
         x = conv2d_nhwc(x, self.final_layer, self.dtype)
         return interpolate_2d(x, (h, w), mode=self.interpolate_mode, align_corners=False)
+
+
+DPT_HOOKS = (2, 5, 8, 11)
+
+
+def dpt_hooks(depth: int) -> Tuple[int, ...]:
+    """The DPT head's hooked encoder layers: the reference's (2, 5, 8, 11),
+    or for an encoder of fewer than 12 blocks (the tiny test model, which
+    the JAX CLIs cannot run: their DPT head indexes past its layers) the
+    last block of each quarter of its depth."""
+    if depth >= 12:
+        return DPT_HOOKS
+    return tuple(max(0, depth * (i + 1) // 4 - 1) for i in range(4))
+
+
+def set_dpt_hooks(model: nn.Module) -> nn.Module:
+    """`model` with each DPT head hooking `dpt_hooks` of its encoder's depth."""
+    for adapter in (model.output_adapters or {}).values():
+        if isinstance(adapter, DPTOutputAdapter):
+            adapter.hooks = dpt_hooks(len(model.encoder))
+    return model
+
+
+class DPTOutputAdapter(nn.Module):
+    """The DPT head over four hooked encoder layers (JAX :534-686;
+    reference :576-759). Each hooked layer's main-task tokens become a
+    (H/16, W/16) map; 1x1 convs and a stride-4 and a stride-2 transposed
+    conv, nothing, and a stride-2 3x3 conv make a pyramid at 1/4, 1/8,
+    1/16 and 1/32; 3x3 convs (`scratch.layer*_rn`) project each to
+    feature_dim; the RefineNet fusion blocks merge it from the coarsest
+    up, to 1/2. The `regression` head: a 3x3 conv to feature_dim / 2, a 2x
+    bilinear upsample (align_corners=True), a 3x3 conv to 32, ReLU and a
+    1x1 conv to num_classes; the `semseg` head: a bias-free 3x3 conv,
+    BatchNorm with use_bn, ReLU, dropout 0.1 drawn from the caller's
+    generator in training, a 1x1 conv and the 2x upsample. Modules carry
+    the reference's names (`act_*_postprocess.<i>`, `scratch.*`,
+    `head.<i>`), so its state_dicts load as they are. Takes the list of
+    every encoder layer's tokens (MultiViT's all-layers forward); NHWC
+    out."""
+
+    def __init__(self, num_classes: int = 3, stride_level: int = 1,
+                 patch_size: Union[int, Tuple[int, int]] = 16,
+                 main_tasks: Sequence[str] = ("rgb",), hooks: Sequence[int] = DPT_HOOKS,
+                 layer_dims: Sequence[int] = (96, 192, 384, 768), feature_dim: int = 256,
+                 use_bn: bool = False, dim_tokens_enc: int = 768,
+                 head_type: str = "regression", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if head_type not in ("regression", "semseg"):
+            raise ValueError('DPT head_type must be "regression" or "semseg".')
+        self.stride_level = stride_level
+        p = pair(patch_size)
+        self.patch_hw = (max(1, p[0] // stride_level), max(1, p[1] // stride_level))
+        self.main_tasks = tuple(main_tasks)
+        self.hooks = tuple(hooks)
+        self.head_type = head_type
+        self.dtype = dtype
+        d = dim_tokens_enc * len(self.main_tasks)
+        l0, l1, l2, l3 = layer_dims
+        self.act_1_postprocess = nn.Sequential(make_conv(d, l0, 1), make_deconv(l0, 4))
+        self.act_2_postprocess = nn.Sequential(make_conv(d, l1, 1), make_deconv(l1, 2))
+        self.act_3_postprocess = nn.Sequential(make_conv(d, l2, 1))
+        self.act_4_postprocess = nn.Sequential(make_conv(d, l3, 1),
+                                               make_conv(l3, l3, 3, stride=2))
+        self.scratch = nn.Module()
+        for i, dim in enumerate(layer_dims):
+            setattr(self.scratch, f"layer{i + 1}_rn", make_conv(dim, feature_dim, 3, bias=False))
+        for i in range(1, 5):
+            setattr(self.scratch, f"refinenet{i}",
+                    FeatureFusionBlock(feature_dim, use_bn, dtype, with_residual=i < 4))
+        # the reference's nn.Sequential indices: (conv, interpolate, conv,
+        # ReLU, conv) and (conv, BatchNorm or identity, ReLU, dropout, conv,
+        # interpolate)
+        if head_type == "regression":
+            self.head = nn.Sequential(make_conv(feature_dim, feature_dim // 2, 3), nn.Identity(),
+                                      make_conv(feature_dim // 2, 32, 3), nn.Identity(),
+                                      make_conv(32, num_classes, 1))
+        else:
+            self.head = nn.Sequential(
+                make_conv(feature_dim, feature_dim, 3, bias=False),
+                BatchNorm(feature_dim, dtype) if use_bn else nn.Identity(), nn.Identity(),
+                nn.Identity(), make_conv(feature_dim, num_classes, 1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The convs outside the fusion blocks, which fill their own."""
+        rn = [getattr(self.scratch, f"layer{i}_rn") for i in range(1, 5)]
+        for m in [*self.act_1_postprocess, *self.act_2_postprocess, *self.act_3_postprocess,
+                  *self.act_4_postprocess, *rn, *self.head]:
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                lecun_normal_(m, generator)
+
+    def forward(self, encoder_tokens: Sequence[torch.Tensor], input_info: Dict,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not isinstance(encoder_tokens, (list, tuple)):
+            raise TypeError("DPTOutputAdapter needs every encoder layer's tokens "
+                            "(MultiViT's all-layers forward)")
+        if max(self.hooks) >= len(encoder_tokens):
+            raise ValueError(f"DPT hooks {self.hooks} need {max(self.hooks) + 1} encoder "
+                             f"layers; the encoder has {len(encoder_tokens)}")
+        h, w = input_info["image_size"]
+        ph, pw = self.patch_hw
+        nh, nw = h // (self.stride_level * ph), w // (self.stride_level * pw)
+        dt = self.dtype
+        layers = []
+        for hook in self.hooks:
+            x = adapt_tokens(encoder_tokens[hook], input_info, self.main_tasks).to(dt)
+            layers.append(x.reshape(x.shape[0], nh, nw, x.shape[-1]))
+
+        a1, a2, a3, a4 = (self.act_1_postprocess, self.act_2_postprocess,
+                          self.act_3_postprocess, self.act_4_postprocess)
+        pyramid = [conv_transpose2d_nhwc(conv2d_nhwc(layers[0], a1[0], dt), a1[1], dt),
+                   conv_transpose2d_nhwc(conv2d_nhwc(layers[1], a2[0], dt), a2[1], dt),
+                   conv2d_nhwc(layers[2], a3[0], dt),
+                   conv2d_nhwc(conv2d_nhwc(layers[3], a4[0], dt), a4[1], dt, padding=1,
+                               stride=2)]
+        sc = self.scratch
+        pyramid = [conv2d_nhwc(x, getattr(sc, f"layer{i + 1}_rn"), dt, padding=1)
+                   for i, x in enumerate(pyramid)]
+        path = sc.refinenet4(pyramid[3])
+        path = sc.refinenet3(path, pyramid[2])
+        path = sc.refinenet2(path, pyramid[1])
+        path = sc.refinenet1(path, pyramid[0])
+
+        head = self.head
+        if self.head_type == "regression":
+            x = conv2d_nhwc(path, head[0], dt, padding=1)
+            x = interpolate_2d(x, (2 * x.shape[1], 2 * x.shape[2]), mode="bilinear",
+                               align_corners=True)
+            x = F.relu(conv2d_nhwc(x, head[2], dt, padding=1))
+            return conv2d_nhwc(x, head[4], dt)
+        x = conv2d_nhwc(path, head[0], dt, padding=1)
+        if isinstance(head[1], BatchNorm):
+            x = head[1](x)
+        x = dropout(F.relu(x), 0.1, self.training, generator)
+        x = conv2d_nhwc(x, head[4], dt)
+        return interpolate_2d(x, (2 * x.shape[1], 2 * x.shape[2]), mode="bilinear",
+                              align_corners=True)

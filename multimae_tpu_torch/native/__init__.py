@@ -53,6 +53,7 @@ _SIGNATURES = {
     "mm_crop_resize_u8": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I],
     "mm_crop_resize_u16": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I],
     "mm_pil_nearest": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I],
+    "mm_pil_nearest_i16": [_P, _I, _I, _P, _I, _I],
     "mm_png_decode": [_P, _L, _I, _I, _I, _I, _P, _I, _I, _P],
     "mm_cv_resize_linear_u8": [_P, _I, _I, _I, _P, _I, _I],
     "mm_cv_resize_linear_f32": [_P, _I, _I, _I, _P, _I, _I],
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "mm_rgb_to_gray": [_P, _L, _P],
     "mm_rgb_to_hsv": [_P, _L, _P],
     "mm_hsv_to_rgb": [_P, _L, _I, _P],
+    "mm_gaussian_blur_3x3": [_P, _I, _I, _P],
     "mm_decode_jpeg": [_P, _L, _P, _L, _P, _P, _P, _L],
     "mm_pil_resize": [_P, _I, _I, _I, _P, _I, _I, _I],
     "mm_pil_affine": [_P, _I, _I, _I, _P, _P, _I, _P],
@@ -214,6 +216,21 @@ def pil_nearest(src: np.ndarray, crop: Tuple[int, int, int, int], size_hw: Tuple
     return dst
 
 
+def pil_nearest_i16(src: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """PIL's NEAREST resize of an (H, W) uint16 image as Pillow opens a
+    16-bit gray PNG ("I;16"), to size_hw: its generic transform's pixel
+    centres, which differ from `pil_nearest`'s summed ones by a pixel at
+    some sizes."""
+    if src.dtype != np.uint16 or src.ndim != 2 or 0 in src.shape:
+        raise ValueError(f"pil_nearest_i16 takes (H, W) uint16, not {src.dtype} {src.shape}")
+    src = np.ascontiguousarray(src)
+    dh, dw = _size_args(size_hw)
+    dst = np.empty((dh, dw), np.uint16)
+    _check(lib().mm_pil_nearest_i16(_ptr(src), src.shape[0], src.shape[1], _ptr(dst), dh, dw),
+           "pil_nearest_i16")
+    return dst
+
+
 # --- PNG -------------------------------------------------------------------------
 
 PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour types -> samples per pixel
@@ -341,6 +358,19 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     width = src.shape[-2]
     rows = src.size // (3 * width) if width else 0
     lib().mm_hsv_to_rgb(_ptr(src), rows, width, _ptr(dst))
+    return dst
+
+
+def gaussian_blur_3x3(img: np.ndarray) -> np.ndarray:
+    """cv2.GaussianBlur(img, (3, 3), sigmaX=1.0) of an (H, W) float32 image,
+    BORDER_REFLECT_101."""
+    if img.dtype != np.float32 or img.ndim != 2 or 0 in img.shape:
+        raise ValueError(f"gaussian_blur_3x3 takes (H, W) float32, not {img.dtype} "
+                         f"{img.shape}")
+    src = np.ascontiguousarray(img)
+    dst = np.empty_like(src)
+    _check(lib().mm_gaussian_blur_3x3(_ptr(src), src.shape[0], src.shape[1], _ptr(dst)),
+           "gaussian_blur_3x3")
     return dst
 
 

@@ -11,11 +11,14 @@
 //   * PNG row unfiltering (all five filters of PNG spec 9.2) and sample
 //     expansion; the inflate stays in Python's zlib;
 //   * cv2.resize INTER_LINEAR (uint8 fixed point and float32) and
-//     INTER_NEAREST, COLOR_RGB2GRAY, COLOR_RGB2HSV and COLOR_HSV2RGB.
+//     INTER_NEAREST, COLOR_RGB2GRAY, COLOR_RGB2HSV and COLOR_HSV2RGB;
+//   * cv2.GaussianBlur(x, (3, 3), sigmaX=1) on float32 (Taskonomy's
+//     edge_occlusion maps).
 //
 // Each function is bit-equal to its numpy twin in data/ (the functions
 // named *_twin). Built with -ffp-contract=off: a multiply-add is fused only
-// where it is written as std::fma, as cv2 fuses the two in HSV2RGB.
+// where it is written as std::fma, as cv2 fuses the two in HSV2RGB and in
+// its separable filters.
 // Return codes: 0 on success, negative on bad arguments.
 
 #include <algorithm>
@@ -391,6 +394,27 @@ int mm_crop_resize_u16(const uint16_t* src, int sh, int sw, int crop_y, int crop
   return 0;
 }
 
+// PIL's NEAREST resize of a 16-bit gray ("I;16") image, whose special type
+// sends it down Geometry.c's ImagingGenericTransform (ImagingScaleAffine
+// takes the 8-bit and 32-bit modes): source index = int(step * (i + 0.5)),
+// the affine map of each output pixel's centre in double.
+int mm_pil_nearest_i16(const uint16_t* src, int sh, int sw, uint16_t* dst, int dh, int dw) {
+  if (sh <= 0 || sw <= 0 || dh <= 0 || dw <= 0) return -1;
+  auto index = [](int in_size, int out_size) {
+    std::vector<int> idx(out_size);
+    const double step = static_cast<double>(in_size) / out_size;
+    for (int i = 0; i < out_size; ++i) idx[i] = static_cast<int>(step * (i + 0.5));
+    return idx;
+  };
+  const std::vector<int> ys = index(sh, dh), xs = index(sw, dw);
+  for (int yy = 0; yy < dh; ++yy) {
+    const uint16_t* srow = src + static_cast<size_t>(ys[yy]) * sw;
+    uint16_t* drow = dst + static_cast<size_t>(yy) * dw;
+    for (int xx = 0; xx < dw; ++xx) drow[xx] = srow[xs[xx]];
+  }
+  return 0;
+}
+
 // PIL's NEAREST resize (Geometry.c ImagingScaleAffine) of the crop of a
 // (sh, sw) image of `pixel_bytes`-byte pixels to (dh, dw), flipped if
 // `hflip`: source index = int of the pixel centre, the centre starting at
@@ -689,6 +713,40 @@ int mm_hsv_to_rgb(const uint8_t* hsv, long rows, int width, uint8_t* rgb) {
                                                          : static_cast<int>(std::nearbyint(o)));
       }
     }
+  }
+  return 0;
+}
+
+// cv2.GaussianBlur(src, (3, 3), sigmaX=1.0) of an (h, w) float32 image
+// with BORDER_REFLECT_101, as OpenCV's separable filter engine runs it on
+// x86 (SymmRowSmallVec_32f, SymmColumnSmallVec_32f): the taps of
+// getGaussianKernel(3, 1, CV_32F); each row pixel fma(c, k0, (l + r) * k1),
+// but for the last pixel of an odd-width row, which the compiled scalar
+// tail gives as fma(l + r, k1, c * k0); each output fma(up + down, k1,
+// centre * k0). Checked bit for bit against cv2 5.0's x86 wheel.
+int mm_gaussian_blur_3x3(const float* src, int h, int w, float* dst) {
+  if (h <= 0 || w <= 0) return -1;
+  const float k0 = 0x1.ceb51cp-2f, k1 = 0x1.18a572p-2f;  // centre, sides
+  auto reflect = [](int p, int len) {
+    if (len == 1) return 0;
+    return p < 0 ? -p : (p >= len ? 2 * len - 2 - p : p);
+  };
+  std::vector<float> rows(static_cast<size_t>(h) * w);
+  for (int y = 0; y < h; ++y) {
+    const float* s = src + static_cast<size_t>(y) * w;
+    float* r = rows.data() + static_cast<size_t>(y) * w;
+    for (int x = 0; x < w; ++x) {
+      const float c = s[x], sides = s[reflect(x - 1, w)] + s[reflect(x + 1, w)];
+      r[x] = (x == w - 1 && (w & 1)) ? std::fma(sides, k1, c * k0)
+                                      : std::fma(c, k0, sides * k1);
+    }
+  }
+  for (int y = 0; y < h; ++y) {
+    const float* up = rows.data() + static_cast<size_t>(reflect(y - 1, h)) * w;
+    const float* mid = rows.data() + static_cast<size_t>(y) * w;
+    const float* down = rows.data() + static_cast<size_t>(reflect(y + 1, h)) * w;
+    float* d = dst + static_cast<size_t>(y) * w;
+    for (int x = 0; x < w; ++x) d[x] = std::fma(up[x] + down[x], k1, mid[x] * k0);
   }
   return 0;
 }

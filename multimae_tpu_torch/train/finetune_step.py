@@ -8,7 +8,11 @@ update through TrainState (the optimizer with the schedules, and for the
 classification step the EMA and the --update_freq accumulation).
 
 The step updates the TrainState in place. Deciding the skip reads the
-gradient norm on the host, one synchronisation per step.
+gradient norm on the host, one synchronisation per step. A parameter the
+loss does not reach (the encoder blocks past a DPT head's last hook) gets
+a zero gradient, as jax.grad gives it, so that the optimizer still
+decays it and counts its step as the JAX optimizer does; torch's would
+skip a parameter whose .grad is None.
 
 Under torch.distributed each rank steps on its slice of the global batch
 and the loss is the global batch's, as the JAX step's over a sharded
@@ -37,7 +41,10 @@ def _finish_step(state: TrainState, loss: torch.Tensor, params, world: int,
     """Backward from the global loss, the gradient mean over the ranks, the
     norm, the clip, the skip and the update; the step's metrics."""
     loss.backward()
-    grads = [p.grad for p in params if p.grad is not None]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
     if world > 1:
         average_gradients(grads, world)
     grad_norm = global_norm(grads)
@@ -91,9 +98,11 @@ def make_dense_train_step(model, task: str, loss_parts_fn: Callable,
                           clip_grad: Optional[float] = None):
     """Build train_step(state, batch, *, generator=None) -> metrics
     {"loss", "grad_norm", "skipped"}. The batch holds the input
-    modalities and "target"; `generator` (on the batch's device) feeds
-    drop_path. loss_parts_fn(pred, target) gives the loss as (sum, count):
-    the loss is sum / max(count, 1) over the global batch."""
+    modalities and "target" (and "mask_valid"); `generator` (on the
+    batch's device) feeds drop_path and dropout. loss_parts_fn(pred,
+    target) gives the loss as (sum, count), loss_parts_fn(pred, target,
+    mask_valid=...) where the batch has a mask_valid (JAX :100-103): the
+    loss is sum / max(count, 1) over the global batch."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    generator: Optional[torch.Generator] = None):
@@ -103,7 +112,8 @@ def make_dense_train_step(model, task: str, loss_parts_fn: Callable,
         model.train()
         inputs = {d: batch[d] for d in in_domains if d in batch}
         pred = model(inputs, generator=generator)[task]
-        parts = torch.stack(loss_parts_fn(pred.float(), batch["target"]))
+        kwargs = {"mask_valid": batch["mask_valid"]} if "mask_valid" in batch else {}
+        parts = torch.stack(loss_parts_fn(pred.float(), batch["target"], **kwargs))
         world = world_size()
         if world > 1:
             parts = differentiable_all_reduce(parts)

@@ -1,13 +1,13 @@
-"""Evaluation metrics (counterpart of multimae_tpu/utils/metrics.py:19-60,
-:90): top-k accuracy (reference utils/metrics.py:31-38), and for
-segmentation (reference utils/semseg_metrics.py) a confusion matrix
-counted on the device, summed over processes by
-parallel/dist.sum_across_processes, with mIoU, pixel accuracy and mean
-class accuracy from it."""
+"""Evaluation metrics (counterpart of multimae_tpu/utils/metrics.py:19-90):
+top-k accuracy (reference utils/metrics.py:31-38); for segmentation
+(reference utils/semseg_metrics.py) a confusion matrix counted on the
+device, summed over processes by parallel/dist.sum_across_processes, with
+mIoU, pixel accuracy and mean class accuracy from it; and the depth
+metrics on metric depths (reference run_finetuning_depth.py:86-117)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,3 +50,28 @@ def miou_from_confusion(cm) -> Dict[str, object]:
     return {"aAcc": float(inter.sum() / max(cm.sum(), 1)),
             "mIoU": float(np.nanmean(iou)), "mAcc": float(np.nanmean(acc)),
             "IoU": iou, "Acc": acc}
+
+
+def depth_metrics(pred: torch.Tensor, target: torch.Tensor,
+                  mask_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """rmse, rel, srel, log10 (the mean |log10 difference|), delta_1-3 over
+    the valid pixels of depths in metres (JAX :65-86); invalid pixels are
+    set to 1 before the divisions and logs, so they stay finite."""
+    if mask_valid is None:
+        mask_valid = torch.ones_like(pred, dtype=torch.bool)
+    mask_valid = mask_valid.bool()
+    n = mask_valid.sum().clamp_min(1).to(pred.dtype)
+    pred = torch.where(mask_valid, pred, 1.0)
+    target = torch.where(mask_valid, target, 1.0)
+
+    def mean(v):
+        return torch.where(mask_valid, v, 0.0).sum() / n
+
+    diff = pred - target
+    ratio = torch.maximum(pred / target, target / pred)
+    return {"rmse": mean(diff ** 2).sqrt(), "rel": mean(diff.abs() / target),
+            "srel": mean(diff ** 2 / target),
+            "log10": mean((pred.log10() - target.log10()).abs()),
+            "delta_1": mean((ratio < 1.25).to(pred.dtype)),
+            "delta_2": mean((ratio < 1.25 ** 2).to(pred.dtype)),
+            "delta_3": mean((ratio < 1.25 ** 3).to(pred.dtype))}

@@ -5,7 +5,9 @@ takes one pretraining step on this rank's half of the batch, saves the
 result to OUT/rank{r}.pt, then resumes from a coordinated auto-load;
 MODE=semseg runs the semseg CLI's --eval with the JSON argv in ARGV and
 one fine-tune step on this rank's half of a batch, and saves both to
-OUT/semseg{r}.pt."""
+OUT/semseg{r}.pt; MODE=depth takes one depth fine-tune step (the DPT head,
+berhu against mask_valid) on this rank's half of a batch and saves it to
+OUT/depth{r}.pt."""
 
 import os
 import sys
@@ -116,7 +118,22 @@ def cls():
     dist_lib.barrier()
 
 
+def depth():
+    from test_torch_dist import depth_batch, depth_trainer
+
+    assert dist_lib.initialize_distributed("cpu")
+    rank = dist_lib.process_index()
+    state, step_fn = depth_trainer()
+    sl = dist_lib.local_batch_slice(4)
+    metrics = step_fn(state, {k: v[sl] for k, v in depth_batch().items()})
+    torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {n: p.grad for n, p in state.model.named_parameters()}},
+               os.path.join(os.environ["OUT"], f"depth{rank}.pt"))
+    dist_lib.barrier()
+
+
 if __name__ == "__main__":
-    {"launcher": launcher, "step": step, "semseg": semseg, "cls": cls}[os.environ["MODE"]]()
+    {"launcher": launcher, "step": step, "semseg": semseg, "cls": cls,
+     "depth": depth}[os.environ["MODE"]]()
     dist.destroy_process_group()
     print(f"DIST_OK {os.environ.get('EXPECT_RANK', '')}", flush=True)

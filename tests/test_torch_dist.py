@@ -32,6 +32,9 @@ package's (worker body: tests/_torch_dist_worker.py).
 * The same for the cls fine-tune CLI's --eval over 7 JPEG records (the
   top-1/5 summed over the ranks equal the one process's over the first 6)
   and its step (mixed soft targets) over 2 x 2 samples.
+* The depth fine-tune step (the DPT head, berhu against mask_valid) over 2
+  x 2 samples equals the 1-process step over the 4, with the largest error
+  in rank 0's half: berhu's threshold is all-reduced as a max.
 """
 
 import json
@@ -294,3 +297,42 @@ def test_two_process_cls_eval_and_step(tmp_path):
         for k, p in state.model.named_parameters():
             g = got["grads"][k].double() - p.grad.double()
             assert float(g.abs().max()) <= 1e-6 * float(p.grad.abs().max()), (r, k)
+
+
+def depth_trainer():
+    """The tiny MultiViT's depth fine-tune state and step (the DPT head,
+    berhu against mask_valid, fp32)."""
+    return factory.build_depth_trainer(batch_size=4, model="multivit_tiny", input_size=32,
+                                       device="cpu")
+
+
+def depth_batch():
+    """A batch whose largest error lies in rank 0's half: berhu's threshold
+    is 0.2 of the global batch's largest |diff|, which rank 1 does not see
+    without the all-reduce."""
+    b = factory.make_synthetic_regression_batch(4, input_size=32, seed=5, device="cpu")
+    b["target"][0, 3:6, 3:6] += 40.0
+    return b
+
+
+def test_two_process_depth_step_equals_the_global_batch_step(tmp_path):
+    """Each rank's loss and grad norm within 1e-5 of the single-process
+    step's; every gradient within 2e-6 of its largest element (read: 1.04e-6,
+    a 3x3 conv of the coarsest fusion block, whose 1 x 1 maps leave its
+    weight gradient a sum over the batch taken in another order)."""
+    port = _free_port()
+    env = dict(_clean_env(), MODE="depth", OUT=str(tmp_path), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2",
+               PYTHONPATH=os.path.dirname(WORKER) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    _run_pair([dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(2)])
+    state, step = depth_trainer()
+    metrics = {k: float(v) for k, v in step(state, depth_batch()).items()}
+    target = depth_batch()["target"].abs()
+    assert float(target[:2].max()) > 10 * float(target[2:].max())  # c comes from rank 0
+    for r in range(2):
+        got = torch.load(tmp_path / f"depth{r}.pt", weights_only=True)
+        for k in ("loss", "grad_norm"):
+            assert abs(got["metrics"][k] - metrics[k]) <= 1e-5 * abs(metrics[k]), (r, k)
+        for k, p in state.model.named_parameters():
+            g = got["grads"][k].double() - p.grad.double()
+            assert float(g.abs().max()) <= 2e-6 * float(p.grad.abs().max()), (r, k)

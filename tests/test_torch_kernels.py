@@ -1,6 +1,7 @@
 """The CUDA kernels (K4, K1 forward and backward, K2 forward and backward,
-K3a and K3b forward and backward) against their plain twins, and the
-wrappers' dispatch. Imports neither jax nor multimae_tpu,
+K3a and K3b forward and backward) against their plain twins, the CLIs'
+first steps on the card (pretraining, semseg, cls, Taskonomy against the
+plain twins; depth against the CPU), and the wrappers' dispatch. Imports neither jax nor multimae_tpu,
 so on a machine with a card and without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -10,6 +11,7 @@ tests run. Kernel vs twin tolerance: ops/functional.TWIN_TOLERANCE, and
 GRAD_TOLERANCE for the backward's gradients.
 """
 
+import contextlib
 import inspect
 from pathlib import Path
 
@@ -200,6 +202,12 @@ ENTRY_POINTS = {
         batch_size=2, model="multivit_tiny", input_size=32, nb_classes=10, device=dev),
     "make_synthetic_cls_batch": lambda dev: factory.make_synthetic_cls_batch(
         2, input_size=32, nb_classes=10, device=dev),
+    "build_depth_trainer": lambda dev: factory.build_depth_trainer(
+        batch_size=2, model="multivit_tiny", input_size=32, device=dev),
+    "build_taskonomy_trainer": lambda dev: factory.build_taskonomy_trainer(
+        batch_size=2, model="multivit_tiny", input_size=32, device=dev),
+    "make_synthetic_regression_batch": lambda dev: factory.make_synthetic_regression_batch(
+        2, input_size=32, device=dev),
 }
 
 
@@ -1033,3 +1041,244 @@ def test_cls_cli_first_step_on_the_card_matches_the_plain_twins(cuda, tmp_path):
     assert loss_rel <= CLS_CLI_STEP_TOLERANCE and norm_rel <= CLS_CLI_STEP_TOLERANCE
     assert rels[worst] <= CLS_CLI_STEP_TOLERANCE, (worst, rels[worst])
     assert logits_rel <= chip_smoke.SLICE_TOLERANCE
+
+
+@pytest.mark.cuda
+def test_short_attention_kernels_at_the_taskonomy_shape(cuda):
+    """K2 forward and backward at the Taskonomy recipe's (8, 577, 12, 64),
+    bf16 (384 px: 24 x 24 + 1 tokens): within TWIN_TOLERANCE and
+    GRAD_TOLERANCE of the twins, each bit-equal over two runs."""
+    b, n, h, dh = 8, 577, 12, 64
+    scale = dh ** -0.5
+    q, k, v = (t.contiguous() for t in qkv_views(4, b, n, h, dh, cuda))
+    g = randn(5, b, n, h, dh).to(cuda, torch.bfloat16)
+    o, lse = short_attention.short_attention_fwd(q, k, v, scale)
+    o2, lse2 = short_attention.short_attention_fwd(q, k, v, scale)
+    grads = short_attention.short_attention_bwd(q, k, v, o, lse, g, scale)
+    again = short_attention.short_attention_bwd(q, k, v, o, lse, g, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    ro, rlse = short_attention.short_attention_ref(q, k, v, scale)
+    assert_matches_twin(o, ro, "K2 fwd o at (8, 577)")
+    assert_matches_twin(lse, rlse, "K2 fwd lse at (8, 577)")
+    ref = short_attention.short_attention_bwd_ref(q, k, v, g, lse,
+                                                  short_attention.attention_delta(o, g), scale)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert_matches_twin(a, r, f"K2 bwd {name} at (8, 577)", grad_of=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_block_kernel_matches_twin_at_the_taskonomy_eval_shape(cuda):
+    """K4 at the Taskonomy eval's (8, 577, 768), 12 heads, its attention on
+    the K2 forward: within TWIN_TOLERANCE, bit-equal over two runs."""
+    w = block_weights(768, 3072, device=cuda)
+    x = randn(6, 8, 577, 768).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        out = fused_block.fused_block_infer(x, w, 12)
+        again = fused_block.fused_block_infer(x, w, 12)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert_matches_twin(out, fused_block.block_infer_ref(x, w, 12), "K4 (8,577,768)")
+
+
+def first_dense_step(cli, argv, *, plain=False):
+    """(first step's metrics, its gradients, the step's launches, the rest
+    of the run's launches, the first eval batch's pred) of a dense CLI run,
+    with every kernel on its plain twin if `plain`."""
+    import chip_smoke
+    from multimae_tpu_torch.train import finetune_step
+
+    make_train, make_eval, seen = (finetune_step.make_dense_train_step,
+                                   finetune_step.make_dense_eval_step, {})
+
+    def keep_train(model, *a, **kw):
+        step = make_train(model, *a, **kw)
+
+        def run_step(state, batch, **k):
+            metrics = step(state, batch, **k)
+            if "grads" not in seen:
+                seen["grads"] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+                seen["launches"] = chip_smoke.launch_counts()
+            return metrics
+        return run_step
+
+    def keep_eval(model, *a, **kw):
+        fn = make_eval(model, *a, **kw)
+
+        def run_eval(batch):
+            pred = fn(batch)
+            seen.setdefault("pred", pred.float().clone())
+            return pred
+        return run_eval
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(finetune_step, "make_dense_train_step", keep_train)
+        mp.setattr(finetune_step, "make_dense_eval_step", keep_eval)
+        with chip_smoke.plain_twins() if plain else contextlib.nullcontext():
+            chip_smoke.reset_launch_counts()
+            summary = cli.main(cli.get_args(argv))
+            total = chip_smoke.launch_counts()
+    rest = {k: n - seen["launches"][k] for k, n in total.items()}
+    return summary["steps"][0]["metrics"], seen["grads"], seen["launches"], rest, seen.get("pred")
+
+
+# The Taskonomy CLI's first step against the plain twins: K2 runs the
+# training attention of all 12 blocks (577 keys), so its bf16 roundings of
+# P reach the loss and every gradient, as in the semseg CLI's test. The
+# loss and grad norm bounds are chip_smoke.TK_CLI_LOSS_TOLERANCE and
+# TK_CLI_NORM_TOLERANCE; the gradient bound is phase 11's. Readings on an
+# H100 at 700 W: loss 2.49e-4, grad norm 7.4e-5 to 9.0e-5, the worst
+# gradient (the rgb pos-emb's) 6.2e-3 relative RMS, eval preds 2.48e-3.
+TK_CLI_GRAD_TOLERANCE = 2.5e-2
+
+
+# Faulty twins of K2 as controls: the keys past 512 dropped (a kernel that
+# skips the ragged last tile), which the bounds must catch (read: loss
+# 2.71e-2, grad norm 1.60e-2), and the scores rounded to bf16 before the
+# softmax (a kernel that keeps S in bf16), which a first step cannot tell
+# from K2's own bf16 roundings (read: loss 4.38e-4, grad norm 8.8e-5; H100,
+# 700 W): K2 must only sit closer to the twins' loss than it.
+def _bf16_scores(q, k, scale):
+    return torch.matmul(q.transpose(1, 2), k.transpose(1, 2).transpose(-1, -2)).float() * scale
+
+
+def _bf16_scores_fwd(q, k, v, scale):
+    s = _bf16_scores(q, k, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(dim=-1, keepdim=True)
+    o = torch.matmul((e / den).to(q.dtype).float(), v.float().transpose(1, 2))
+    return o.transpose(1, 2).to(q.dtype), m + torch.log(den)
+
+
+def _bf16_scores_bwd(q, k, v, do, lse, delta, scale):
+    dtype = q.dtype
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    p = torch.exp(_bf16_scores(q, k, scale) - lse)
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale).to(dtype).float()
+    return tuple(t.transpose(1, 2).to(dtype)
+                 for t in (torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf), dv))
+
+
+_TWIN_FWD, _TWIN_BWD = short_attention.short_attention_ref, short_attention.short_attention_bwd_ref
+
+
+def _tail_dropped_fwd(q, k, v, scale):
+    return _TWIN_FWD(q, k[:, :512], v[:, :512], scale)
+
+
+def _tail_dropped_bwd(q, k, v, do, lse, delta, scale):
+    dq, dk, dv = _TWIN_BWD(q, k[:, :512], v[:, :512], do, lse, delta, scale)
+    pad = torch.zeros_like(k[:, 512:])
+    return dq, torch.cat([dk, pad], dim=1), torch.cat([dv, pad], dim=1)
+
+
+TK_CONTROLS = {"bf16_scores": (_bf16_scores_fwd, _bf16_scores_bwd),
+               "tail_dropped": (_tail_dropped_fwd, _tail_dropped_bwd)}
+
+
+@pytest.mark.cuda
+def test_taskonomy_cli_first_step_on_the_card_matches_the_plain_twins(cuda, tmp_path):
+    """The rgb2depth_zbuffer recipe's first step at batch 8 and 384 px from
+    a --finetune start (a 224-px pretraining .pth of the port's ViT-B, seed
+    0) over a written Taskonomy tree: K2 forward and backward 12 times in
+    the step, K4 12 times in the eval batch; the loss within
+    chip_smoke.TK_CLI_LOSS_TOLERANCE relative of the same step on the plain
+    twins (same data, same drop_path draws), the grad norm within
+    chip_smoke.TK_CLI_NORM_TOLERANCE, every gradient within TK_CLI_GRAD_TOLERANCE
+    relative RMS, the eval preds within chip_smoke.SLICE_TOLERANCE; the
+    same step with the ragged tail dropped outside both bounds, and with
+    bf16 scores farther from the twins' loss than the kernels' step."""
+    import chip_smoke
+    from multimae_tpu_torch.cli import run_finetuning_taskonomy as tcli
+    from multimae_tpu_torch.data.taskonomy import write_taskonomy_tree
+
+    write_taskonomy_tree(str(tmp_path), ["rgb", "depth_zbuffer", "mask_valid"],
+                         {"train": chip_smoke.TK_BATCH, "val": chip_smoke.TK_BATCH},
+                         hw=chip_smoke.TK_HW)
+    torch.save({"model": factory.build_pretrain_model(seed=0, device="cpu").state_dict(),
+                "epoch": 0}, tmp_path / "pretrain.pth")
+    cfg = Path(__file__).resolve().parents[1] / chip_smoke.TK_YAML
+    argv = ["-c", str(cfg), "--finetune", str(tmp_path / "pretrain.pth"), "--data_path",
+            str(tmp_path), "--epochs", "1", "--warmup_epochs", "0", "--eval_freq", "1",
+            "--num_workers", "0", "--no_auto_resume", "--no_save_ckpt"]
+    kern, grads, in_step, rest, pred = first_dense_step(tcli, argv)
+    assert in_step == dict(dict.fromkeys(in_step, 0), short_attention_fwd=12,
+                           short_attention_bwd=12)
+    assert rest == dict(dict.fromkeys(rest, 0), fused_block_infer=12)
+    plain, plain_grads, _, _, plain_pred = first_dense_step(tcli, argv, plain=True)
+    rels = {n: chip_smoke.rel_rms(g, plain_grads[n]) for n, g in grads.items()
+            if float(plain_grads[n].abs().max()) > 0}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    norm_rel = abs(kern["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
+    pred_rel = chip_smoke.rel_rms(pred, plain_pred)
+    print(f"taskonomy: loss {kern['loss']} / {plain['loss']} (rel {loss_rel:.3e}), grad norm "
+          f"{kern['grad_norm']} / {plain['grad_norm']} (rel {norm_rel:.3e}), worst gradient "
+          f"{worst} rel RMS {rels[worst]:.3e}, eval preds rel RMS {pred_rel:.3e}")
+    controls = {}
+    for name, (fwd, bwd) in TK_CONTROLS.items():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(short_attention, "short_attention_ref", fwd)
+            mp.setattr(short_attention, "short_attention_bwd_ref", bwd)
+            bad = first_dense_step(tcli, argv, plain=True)[0]
+        controls[name] = tuple(abs(bad[m] - plain[m]) / abs(plain[m])
+                               for m in ("loss", "grad_norm"))
+        print(f"taskonomy control {name}: loss rel {controls[name][0]:.3e}, grad norm rel "
+              f"{controls[name][1]:.3e}")
+    assert controls["tail_dropped"][0] > chip_smoke.TK_CLI_LOSS_TOLERANCE
+    assert controls["tail_dropped"][1] > chip_smoke.TK_CLI_NORM_TOLERANCE
+    assert controls["bf16_scores"][0] > loss_rel
+    assert loss_rel <= chip_smoke.TK_CLI_LOSS_TOLERANCE
+    assert norm_rel <= chip_smoke.TK_CLI_NORM_TOLERANCE
+    assert rels[worst] <= TK_CLI_GRAD_TOLERANCE, (worst, rels[worst])
+    assert pred_rel <= chip_smoke.SLICE_TOLERANCE
+
+
+# The depth CLI's first step on the card against the same step on the CPU:
+# the recipe runs fp32 with TF32 off on the card (run_finetuning_depth.py),
+# no kernel on its path, so the two differ by fp32 summation orders alone.
+# Readings (H100, 700 W, against the card machine's CPU): loss 1.81e-7,
+# grad norm 9.49e-7, the worst gradient (scratch.layer1_rn's) 3.42e-5
+# relative RMS; the bounds are about five times those.
+DEPTH_CARD_CPU_TOLERANCE = 5e-6
+DEPTH_CARD_CPU_GRAD_TOLERANCE = 2e-4
+
+
+@pytest.mark.cuda
+def test_depth_cli_first_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The NYUv2 depth recipe's first step at batch 64 and 256 px (fp32,
+    berhu against mask_valid) from a --finetune start over a written
+    NYUv2-shaped tree: no kernel launches; the loss and grad norm within
+    DEPTH_CARD_CPU_TOLERANCE relative of the same step on the CPU, every
+    gradient within DEPTH_CARD_CPU_GRAD_TOLERANCE relative RMS."""
+    import chip_smoke
+    from multimae_tpu_torch.cli import run_finetuning_depth as dcli
+    from multimae_tpu_torch.data.dataset_folder import write_random_tree
+
+    nyu = dict(semseg_classes=40, mask_valid=True, smooth=True)
+    write_random_tree(str(tmp_path / "written"), 16, (480, 640), **nyu)
+    chip_smoke.link_records(str(tmp_path / "written"), str(tmp_path / "train"),
+                            chip_smoke.DEPTH_BATCH // 16)
+    torch.save({"model": factory.build_pretrain_model(seed=0, device="cpu").state_dict(),
+                "epoch": 0}, tmp_path / "pretrain.pth")
+    cfg = Path(__file__).resolve().parents[1] / chip_smoke.DEPTH_YAML
+    argv = ["-c", str(cfg), "--finetune", str(tmp_path / "pretrain.pth"),
+            "--data_path", str(tmp_path / "train"), "--eval_data_path", str(tmp_path / "written"),
+            "--epochs", "1", "--warmup_epochs", "0", "--eval_freq", "100", "--num_workers", "0",
+            "--no_auto_resume", "--no_save_ckpt"]
+    kern, grads, in_step, rest, _ = first_dense_step(dcli, argv)
+    assert in_step == dict.fromkeys(in_step, 0) and rest == dict.fromkeys(rest, 0)
+    cpu, cpu_grads, _, _, _ = first_dense_step(dcli, argv + ["--device", "cpu"])
+    rels = {n: chip_smoke.rel_rms(g.cpu(), cpu_grads[n]) for n, g in grads.items()
+            if float(cpu_grads[n].abs().max()) > 0}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(kern["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_rel = abs(kern["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"])
+    print(f"depth: loss {kern['loss']} / {cpu['loss']} on the CPU (rel {loss_rel:.3e}), grad "
+          f"norm {kern['grad_norm']} / {cpu['grad_norm']} (rel {norm_rel:.3e}), worst gradient "
+          f"{worst} rel RMS {rels[worst]:.3e}")
+    assert loss_rel <= DEPTH_CARD_CPU_TOLERANCE and norm_rel <= DEPTH_CARD_CPU_TOLERANCE
+    assert rels[worst] <= DEPTH_CARD_CPU_GRAD_TOLERANCE, (worst, rels[worst])

@@ -25,7 +25,8 @@ CPU at tiny sizes.
   fresh.
 * get_args against the JAX CLI's on all ten semseg YAMLs; the unported
   flags exit naming their ROADMAP.md items; the card is asked for by
-  default.
+  default; a tiny one-epoch run with --output_adapter dpt (the DPT semseg
+  head) trains and evaluates.
 * A tiny 2-epoch CLI run from a written NYU-shaped tree on the CPU:
   finite losses, checkpoint-best.pth and two saves, an mIoU over all six
   validation images (the partial batch of two included), every
@@ -335,7 +336,6 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "dpt": (["--output_adapter", "dpt"], "item 16"),
     "model_parallel": (["--model_parallel", "2"], "item 18"),
     "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
     "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
@@ -347,6 +347,35 @@ def test_unported_flags_exit_naming_their_item(flag):
     argv, words = UNPORTED[flag]
     with pytest.raises(SystemExit, match=words):
         tcli.main(tcli.get_args(["--synthetic_data", "--device", "cpu"] + argv))
+
+
+def test_tiny_dpt_run_trains_and_evaluates(tmp_path, pretrain_pth):
+    """--output_adapter dpt: the DPT semseg head over the tiny encoder's
+    every layer, one epoch from a pretraining .pth and its evaluation, on
+    one intra-op thread (the head's many small CPU convolutions make
+    torch's thread pool spin when several test processes share the cores)."""
+    nyu = dict(semseg_classes=40, ignore_patches=True, mask_valid=True)
+    write_random_tree(str(tmp_path / "train"), 4, (48, 64), **nyu)
+    write_random_tree(str(tmp_path / "val"), 2, (48, 64), seed=1, **nyu)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        summary = tcli.main(tcli.get_args([
+            "-c", NYU, "--device", "cpu", "--model", "multivit_tiny", "--input_size", "32",
+            "--output_adapter", "dpt", "--no_fp16", "--num_workers", "0", "--batch_size", "2",
+            "--epochs", "1", "--finetune", pretrain_pth, "--data_path", str(tmp_path / "train"),
+            "--eval_data_path", str(tmp_path / "val"), "--output_dir", str(tmp_path / "out")]))
+    finally:
+        torch.set_num_threads(threads)
+    losses = [r["metrics"]["loss"] for r in summary["steps"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert [e["images"] for e in summary["evals"]] == [2]
+    assert 0.0 <= summary["evals"][0]["mIoU"] <= 1.0
+    missing = summary["finetune"]["missing"]
+    assert missing and all(k.startswith("output_adapters.semseg.") for k in missing)
+    assert any(".scratch.refinenet1." in k for k in missing)
+    assert not any(".refinenet4.resConfUnit1." in k for k in missing)
+    assert (tmp_path / "out" / "checkpoint-0.pth").exists()
 
 
 def test_the_card_is_asked_for_by_default():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving forward, pretraining step,
-semantic segmentation fine-tune, and the pretraining, semseg,
-classification, depth and Taskonomy CLIs on one NVIDIA card.
+semantic segmentation fine-tune, the pretraining, semseg, classification,
+depth and Taskonomy CLIs, the demo and the tools on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -115,11 +115,10 @@ non-zero:
      decay 0.75, 1-epoch warmup, 4 workers), started with --finetune from
      phase 12's checkpoint (pos-embs 14x14 -> 32x32): run A trains 2
      epochs with a save and an mIoU eval over all FT_VAL images (a partial
-     batch of 2 included) per epoch; run B (--epochs 3) auto-resumes from
-     checkpoint-1.pth at epoch 2 with bit-equal parameters; run C starts
-     from a copy of checkpoint-0.pth alone and its first loss equals run
-     A's first loss of epoch 1. Every loss and mIoU is finite, 0 <= mIoU
-     <= 1, checkpoint-best.pth exists. An --eval run from checkpoint-1.pth
+     batch of 2 included) per epoch (phases 15 and 16 run the resume runs
+     B and C through the same cli/finetune_loop.py). Every loss and mIoU
+     is finite, 0 <= mIoU <= 1, checkpoint-best.pth exists. An
+     --eval run from checkpoint-1.pth
      counts the launches per eval batch, and run A's totals less its two
      evals' give those per training step: each training step launches K2
      fwd and bwd 12 and K3b fwd and bwd 4 times and each eval batch K4 12
@@ -130,12 +129,11 @@ non-zero:
      batch. Then run E: the DPT semseg head (--output_adapter dpt) under
      the NYU recipe for one epoch, and its --eval run: K2 fwd and bwd 12
      times per step, K4 12 per eval batch, nothing else. Printed: the
-     launches, the fine-tune start's missing and
-     unexpected keys, and for the native library and the twins the
-     loader's samples/s over the NYU tree (one process and 4 workers), ms
-     per sample decoding and augmenting (the two paths' arrays must be
-     equal), the loader-fed step's host ms and data-wait share; eval ms
-     per batch, checkpoint save and load seconds.
+     launches, the fine-tune start's missing and unexpected keys, the
+     native loader's samples/s over the NYU tree (one process and 4
+     workers), ms per sample decoding and augmenting (native and twin
+     arrays must be equal), the loader-fed step's host ms and data-wait
+     share; eval ms per batch, checkpoint save seconds.
  14. the classification fine-tune CLI
      (multimae_tpu_torch.cli.run_finetuning_cls, get_args + main): K4
      against its twin at the cls eval shape (CLS_BATCH, 197, 768), bit-equal
@@ -175,11 +173,14 @@ non-zero:
      path takes the modules, as in the JAX package) and evaluates to run
      A's epoch-1 delta_1; run B (--epochs 3 at LR 0) auto-resumes at epoch
      2 with bit-equal parameters, evaluates to the same delta_1 and keeps
-     the best delta_1 and checkpoint-best.pth; since run A launched no
+     the best delta_1 and checkpoint-best.pth; run C from a copy of
+     checkpoint-0.pth alone, at run A's LR and without loader workers,
+     resumes at epoch 1 and its first loss equals run A's first of epoch
+     1; since run A launched no
      kernel, its first loss is the plain path's, and no rerun on the plain
      twins is made. Printed: the launches, the
      fine-tune start's keys, the losses and delta_1, the loader's samples/s
-     (one process and 4 workers, native and twin, over the written
+     (one process and 4 workers, native, over the written
      samples), the loader-fed step's host ms and data-wait share, eval ms
      per batch, save and load seconds, with the card line.
  16. the Taskonomy fine-tune CLI
@@ -195,6 +196,27 @@ non-zero:
      12 times and each eval batch K4 12 times; run A's first epoch again
      on the plain twins: the first loss and grad norm within
      TK_CLI_LOSS_TOLERANCE and TK_CLI_NORM_TOLERANCE of those.
+ 17. the demo and the tools (multimae_tpu_torch/cli/demo.py and tools/):
+     K4 at ViT-L's width (D 1024, 16 heads, hidden 4096) at (256, 197) and
+     (16, 2049), K2 forward and backward at 16 heads (4, 2049, 16, 64) and
+     K3b forward at bench_infer's 524,288 rows against their twins,
+     bit-equal over two runs, timed with their twins, bounds (and SDPA for
+     K2); then, each with the counts set to 0 before it and read after:
+     the demo on phase 12's .pth (fp32: K1 fwd 3 launches) with a
+     committed photo, a 16-bit depth PNG and a palette semseg PNG it
+     writes, once with --visible_rgb and once masking at random, each
+     against the same call on the plain twins (fp32 TWIN_TOLERANCE), its
+     6 PNGs read back at their sizes; bench_infer's four shapes at the
+     default batches (ViT-B and ViT-L; TOOL_STEPS chained forwards:
+     K4 12 or 24 per forward, K3b fwd 4 per semseg forward);
+     bench_finetune's semseg on both engines (where a leg ran out of
+     memory at the default batch, the other again at its batch, and the
+     kernel speedup at that one batch), Taskonomy, ViT-L semseg
+     (TOOL_STEPS after TOOL_WARMUP: K2 12 or 24 + the same, K3b 4 + 4 per
+     step; the module engine K3b only), cls and depth one step each (no
+     launch), with the batch and peak memory of each leg; profile_step
+     --mode pretrain --large (K1 4 + 4 per step) and --mode
+     taskonomy384 (K2 12 + 12), with their tables by kind and by module.
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -1421,11 +1443,13 @@ def jpeg_cli_slice(card):
 
 
 def k4_at(torch, fused_block, w4, n, gen, dev, b=SEMSEG_BATCH):
-    """K4 against its twin at (b, n, 768), bit-equal over two runs: max abs
-    error, rel RMS, kernel and twin ms, bound."""
+    """K4 against its twin at (b, n, D) with w4's width D (heads of 64),
+    bit-equal over two runs: max abs error, rel RMS, kernel and twin ms,
+    bound."""
     from multimae_tpu_torch.ops.functional import assert_matches_twin
 
-    d, heads, hidden = 768, 12, 3072
+    d, hidden = w4.n1_g.shape[0], w4.w1.shape[0]
+    heads = d // 64
     x = torch.randn((b, n, d), generator=gen).to(dev, torch.bfloat16)
     with torch.inference_mode():
         out = fused_block.fused_block_infer(x, w4, heads)
@@ -1571,74 +1595,37 @@ def ft_cli_slice(torch, dev, pretrain):
                 f"checkpoint-0, -1, -best.pth saved in "
                 + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
 
-        resumed = main(get_args(base + ["--output_dir", out, "--epochs", "3"]))
-        if (resumed["start_epoch"], resumed["resumed_from"], resumed.get("resume_bit_equal"),
-                [e["epoch"] for e in resumed["epochs"]]) != (2, saves[1], True, [2]):
-            raise AssertionError(f"run B: start epoch {resumed['start_epoch']}, from "
-                                 f"{resumed['resumed_from']}, bit-equal "
-                                 f"{resumed.get('resume_bit_equal')}, epochs "
-                                 f"{[e['epoch'] for e in resumed['epochs']]}")
-        check_run("run B", resumed, steps_per_epoch, 1, FT_VAL)
-        log(13, f"run B (--epochs 3): auto-resumed from checkpoint-1.pth at epoch 2, "
-                f"parameters bit-equal to the save, loaded in {resumed['load_s']:.2f} s; "
-                f"losses " + ", ".join(f"{r['metrics']['loss']:.4f}" for r in resumed["steps"])
-                + f", mIoU {resumed['evals'][0]['mIoU']:.4f}")
-
-        out_c = os.path.join(root, "out_c")
-        os.makedirs(out_c)
-        shutil.copy(saves[0], out_c)
-        again = main(get_args(base + ["--output_dir", out_c, "--epochs", "2"]))
-        check_run("run C", again, steps_per_epoch, 1, FT_VAL)
-        a_loss = first["steps"][steps_per_epoch]["metrics"]["loss"]
-        c_loss = again["steps"][0]["metrics"]["loss"]
-        if (again["start_epoch"], again.get("resume_bit_equal"), c_loss) != (1, True, a_loss):
-            raise AssertionError(f"run C: start epoch {again['start_epoch']}, bit-equal "
-                                 f"{again.get('resume_bit_equal')}, first loss {c_loss}, run "
-                                 f"A's at that step {a_loss}")
-        log(13, f"run C (from checkpoint-0.pth alone): resumed at epoch 1, first loss "
-                f"{c_loss:.6f} equal to run A's at that step")
-        shutil.rmtree(out_c)
-
-        fed = first["steps"] + resumed["steps"] + again["steps"]
+        # No resume runs here: the semseg, depth and Taskonomy CLIs share
+        # cli/finetune_loop.py, and phases 15 and 16 resume through it (from
+        # the newest save, and from checkpoint-0.pth alone).
+        fed = first["steps"]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
         wait = sum(r["wait_s"] for r in fed)
-        share, steady = steady_share([first, resumed, again])
-        evals = first["evals"] + resumed["evals"] + again["evals"]
+        share, steady = steady_share([first])
+        evals = first["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
-        rates = {path: tuple(loader_rate(*semseg_data(train, path == "twin"), workers,
-                                         batch=SEMSEG_BATCH, epochs=epochs)
-                             for workers, epochs in ((0, 1 if path == "twin" else 3),
-                                                     (CLI_WORKERS, 3)))
-                 for path in ("native", "twin")}
-        split = ft_sample_split(train)
-        for path in ("native", "twin"):
-            (one, many), (dec, aug) = rates[path], split[path]
-            log(13, f"loader over the NYU tree ({path}; 640x480 PNG -> 512 crops, batches of "
-                    f"{SEMSEG_BATCH}): {one:.1f} samples/s in one process, {many:.1f} "
-                    f"samples/s with {CLI_WORKERS} workers; the ~70 ms step of the recipe's "
-                    f"batch of 4 needs ~57; one process spends {dec:.2f} ms per sample "
-                    f"decoding its 4 PNGs and {aug:.2f} ms augmenting")
-        log(13, f"the native and twin transforms gave the same arrays on all {FT_TRAIN} "
-                f"samples")
+        one, many = (loader_rate(*semseg_data(train), workers, batch=SEMSEG_BATCH, epochs=3)
+                     for workers in (0, CLI_WORKERS))
+        dec, aug = ft_sample_split(train)["native"]
+        log(13, f"loader over the NYU tree (native; 640x480 PNG -> 512 crops, batches of "
+                f"{SEMSEG_BATCH}): {one:.1f} samples/s in one process, {many:.1f} samples/s "
+                f"with {CLI_WORKERS} workers; the ~70 ms step of the recipe's batch of 4 needs "
+                f"~57; one process spends {dec:.2f} ms per sample decoding its 4 PNGs and "
+                f"{aug:.2f} ms augmenting; the native and twin transforms gave the same arrays "
+                f"on all {FT_TRAIN} samples")
         log(13, f"CLI step at batch {SEMSEG_BATCH} fed by the loader: {step_ms:.3f} ms host "
                 f"(median of {len(fed)}); data wait {wait * 1e3:.1f} ms in all, {share:.4f} of "
-                f"the steps' time, {steady:.4f} without each run's first step; eval "
+                f"the steps' time, {steady:.4f} without the run's first step; eval "
                 f"{eval_ms:.3f} ms per batch on the card ({eval_data_ms:.3f} with the data)")
         numbers = {"ft_step_ms": step_ms, "ft_data_wait_share": share,
                    "ft_data_wait_share_steady": steady,
                    "ft_eval_ms_per_batch": eval_ms,
                    "ft_eval_ms_per_batch_with_data": eval_data_ms,
-                   "ft_loader_samples_per_s": rates["native"][0],
-                   "ft_loader_samples_per_s_workers": rates["native"][1],
-                   "ft_twin_loader_samples_per_s": rates["twin"][0],
-                   "ft_twin_loader_samples_per_s_workers": rates["twin"][1],
-                   "ft_decode_ms_per_sample": split["native"][0],
-                   "ft_augment_ms_per_sample": split["native"][1],
-                   "ft_twin_decode_ms_per_sample": split["twin"][0],
-                   "ft_twin_augment_ms_per_sample": split["twin"][1],
+                   "ft_loader_samples_per_s": one, "ft_loader_samples_per_s_workers": many,
+                   "ft_decode_ms_per_sample": dec, "ft_augment_ms_per_sample": aug,
                    "ft_tree_rows_per_filter": [int(c) for c in counts],
-                   "ft_ckpt_save_s": first["save_s"], "ft_ckpt_load_s": resumed["load_s"],
+                   "ft_ckpt_save_s": first["save_s"],
                    "ft_missing": len(missing), "ft_unexpected": len(unexpected),
                    "ft_losses": losses, "ft_mIoU": mious}
         shutil.rmtree(out)
@@ -1979,10 +1966,14 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
     -1 and -best.pth), an --eval run of checkpoint-1.pth that counts the
     launches per eval batch, run B (--epochs 3 at LR 0: it resumes at epoch
     2, evaluates to run A's epoch-1 metric and keeps the best one and
-    checkpoint-best.pth), where the recipe launches a kernel run A's first
+    checkpoint-best.pth), run C (from a copy of checkpoint-0.pth alone, at
+    run A's LR, in one process: its first loss is run A's first of epoch 1,
+    bit for bit: the shared cli/finetune_loop.py resumes the data order and
+    the state training goes on from, and the loader's batches do not depend
+    on its workers), where the recipe launches a kernel run A's first
     epoch again on the plain twins (the first step's loss and grad norm
     within `twin_tolerance` = (loss, norm) relative), and the loader's
-    samples/s, native and twin (`data(twin)` -> dataset, transform).
+    samples/s of the native path (`data()` -> dataset, transform).
     Returns (launches per step, per eval batch, numbers)."""
     import functools
 
@@ -2039,6 +2030,24 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
                f"{resumed['evals'][0][key]:.4f} as run A's epoch 1; the best {key} {best:.4f} "
                f"kept and checkpoint-best.pth not rewritten")
 
+    import shutil
+
+    out_c = out + "_c"  # checkpoint-0.pth alone, at run A's LR: training goes on as in run A
+    os.makedirs(out_c)
+    shutil.copy(saves[0], out_c)
+    again = cli.main(cli.get_args(base + ["--output_dir", out_c, "--epochs", "2",
+                                          "--no_save_ckpt", "--eval_freq", "100",
+                                          "--num_workers", "0"]))
+    a_loss = first["steps"][steps_per_epoch]["metrics"]["loss"]
+    c_loss = again["steps"][0]["metrics"]["loss"]
+    if (again["start_epoch"], again.get("resume_bit_equal"), c_loss) != (1, True, a_loss):
+        raise AssertionError(f"[{phase}] run C: start epoch {again['start_epoch']}, bit-equal "
+                             f"{again.get('resume_bit_equal')}, first loss {c_loss}, run A's "
+                             f"at that step {a_loss}")
+    log(phase, f"run C (from checkpoint-0.pth alone, at run A's LR): resumed at epoch 1, first "
+               f"loss {c_loss:.6f} equal to run A's at that step")
+    shutil.rmtree(out_c)
+
     gaps = None
     if any(per_step.values()):
         with plain_twins():  # one epoch, no eval, no save: the same first batch as run A's
@@ -2065,13 +2074,11 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
     evals = first["evals"] + resumed["evals"]
     eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
     eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
-    rates = {path: tuple(loader_rate(*data(path == "twin"), workers, batch=8, epochs=2)
-                         for workers in (0, CLI_WORKERS))
-             for path in ("native", "twin")}
-    for path in ("native", "twin"):
-        log(phase, f"loader ({path}; the training transform over 16 samples in batches of 8; "
-                   f"card {card}): {rates[path][0]:.1f} samples/s in one process, "
-                   f"{rates[path][1]:.1f} with {CLI_WORKERS} workers")
+    one, many = (loader_rate(*data(), workers, batch=8, epochs=2)
+                 for workers in (0, CLI_WORKERS))
+    log(phase, f"loader (native; the training transform over 16 samples in batches of 8; "
+               f"card {card}): {one:.1f} samples/s in one process, {many:.1f} with "
+               f"{CLI_WORKERS} workers")
     log(phase, f"CLI step at batch {batch} fed by the loader: {step_ms:.3f} ms host (median of "
                f"{len(fed)}; card {card}), {batch / step_ms * 1e3:.1f} samples/s; data wait "
                f"{share:.4f} of the steps' time, {steady:.4f} without each run's first step; "
@@ -2080,10 +2087,7 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
                "data_wait_share": share, "data_wait_share_steady": steady,
                "eval_ms_per_batch": eval_ms, "eval_ms_per_batch_with_data": eval_data_ms,
                "first_step_plain_gaps": gaps,
-               "loader_samples_per_s": rates["native"][0],
-               "loader_samples_per_s_workers": rates["native"][1],
-               "twin_loader_samples_per_s": rates["twin"][0],
-               "twin_loader_samples_per_s_workers": rates["twin"][1],
+               "loader_samples_per_s": one, "loader_samples_per_s_workers": many,
                "ckpt_save_s": first["save_s"], "ckpt_load_s": resumed["load_s"],
                "missing": len(report["missing"]), "unexpected": len(report["unexpected"])}
     return per_step, per_eval, numbers
@@ -2114,9 +2118,9 @@ def depth_cli_slice(torch, dev, pretrain, card):
             "--num_workers", str(CLI_WORKERS), "--data_path", train, "--eval_data_path", val]
     domains = ["depth", "rgb", "mask_valid"]
 
-    def data(twin):  # the written samples, with the training transform
+    def data():  # the written samples, with the training transform
         dataset, transform, _, _ = cli.nyu_datasets(
-            cli.get_args(base + ["--data_path", written]), domains, twin=twin)
+            cli.get_args(base + ["--data_path", written]), domains)
         return dataset, transform
 
     try:
@@ -2132,22 +2136,20 @@ def depth_cli_slice(torch, dev, pretrain, card):
         free_card(torch)
 
 
-def taskonomy_attention_and_block(torch, fused_block, w4, gen, dev, card):
-    """K2 forward and backward at (TK_BATCH, 577, 12, 64) and K4 at
-    (TK_BATCH, 577, 768), bf16, against their twins, bit-equal over two
-    runs, timed with their twins, SDPA and bounds: the Taskonomy recipe's
-    shapes. Returns (K2 fwd numbers, K2 bwd numbers, K4 numbers)."""
+def k2_at(torch, dev, b, n, h, dh, phase, card, seed):
+    """K2 forward and backward at (b, n, h, dh), bf16, against their twins,
+    each bit-equal over two runs, timed with their twins, SDPA and bounds.
+    Returns the forward's and the backward's numbers."""
     import torch.nn.functional as F
 
     from multimae_tpu_torch.ops import short_attention as sa
     from multimae_tpu_torch.ops.functional import assert_matches_twin
 
-    b, n, h, dh = TK_BATCH, 577, 12, 64
     scale = dh ** -0.5
-    g16 = torch.Generator().manual_seed(16)
-    qkv = torch.randn((b, n, 3, h, dh), generator=g16).to(dev, torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, n, 3, h, dh), generator=gen).to(dev, torch.bfloat16)
     q, k, v = (t.contiguous() for t in qkv.unbind(2))
-    g = torch.randn((b, n, h, dh), generator=g16).to(dev, torch.bfloat16)
+    g = torch.randn((b, n, h, dh), generator=gen).to(dev, torch.bfloat16)
     o, lse = sa.short_attention_fwd(q, k, v, scale)
     o2, lse2 = sa.short_attention_fwd(q, k, v, scale)
     grads = sa.short_attention_bwd(q, k, v, o, lse, g, scale)
@@ -2157,10 +2159,10 @@ def taskonomy_attention_and_block(torch, fused_block, w4, gen, dev, card):
             and all(torch.equal(x, y) for x, y in zip(grads, again))):
         raise AssertionError(f"K2 at ({b},{n},{h},{dh}): two runs on the same inputs differ")
     ro, rlse = sa.short_attention_ref(q, k, v, scale)
-    fwd_err = max(assert_matches_twin(o, ro, "K2 fwd o at the Taskonomy shape")[0],
-                  assert_matches_twin(lse, rlse, "K2 fwd lse at the Taskonomy shape")[0])
+    fwd_err = max(assert_matches_twin(o, ro, f"K2 fwd o at ({b},{n},{h},{dh})")[0],
+                  assert_matches_twin(lse, rlse, f"K2 fwd lse at ({b},{n},{h},{dh})")[0])
     refs = sa.short_attention_bwd_ref(q, k, v, g, lse, sa.attention_delta(o, g), scale)
-    bwd_err = max(assert_matches_twin(a, r, f"K2 bwd {nm} at the Taskonomy shape",
+    bwd_err = max(assert_matches_twin(a, r, f"K2 bwd {nm} at ({b},{n},{h},{dh})",
                                       grad_of=torch.bfloat16)[0]
                   for nm, a, r in zip(("dq", "dk", "dv"), grads, refs))
     del ro, rlse, refs, o2, lse2, again
@@ -2184,25 +2186,37 @@ def taskonomy_attention_and_block(torch, fused_block, w4, gen, dev, card):
     fl = 4 * b * h * n * n * dh
     fwd_bound = bound(fl, 2 * 4 * b * n * h * dh + 4 * b * h * n)
     bwd_bound = bound(2.5 * fl, 2 * 8 * b * n * h * dh + 4 * b * h * n)
-    log(16, f"K2 ({b},{n},{h},{dh}) bf16 within TWIN/GRAD_TOLERANCE, fwd and bwd bit-equal over "
-            f"two runs (max abs fwd {fwd_err:.3e}, bwd {bwd_err:.3e}); fwd kernel {fwd[0]:.4f} "
-            f"ms, twin {fwd[1]:.4f} ms, SDPA {sdpa:.4f} ms, bound {fwd_bound[0]:.4f} ms "
-            f"({fwd_bound[1]}); bwd kernel {bwd[0]:.4f} ms, twin {bwd[1]:.4f} ms, bound "
-            f"{bwd_bound[0]:.4f} ms; fwd+bwd {fwd[0] + bwd[0]:.4f} ms, SDPA {sdpa_fb:.4f} ms "
-            f"(card {card})")
+    log(phase, f"K2 ({b},{n},{h},{dh}) bf16 within TWIN/GRAD_TOLERANCE, fwd and bwd bit-equal "
+               f"over two runs (max abs fwd {fwd_err:.3e}, bwd {bwd_err:.3e}); fwd kernel "
+               f"{fwd[0]:.4f} ms, twin {fwd[1]:.4f} ms, SDPA {sdpa:.4f} ms, bound "
+               f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); bwd kernel {bwd[0]:.4f} ms, twin "
+               f"{bwd[1]:.4f} ms, bound {bwd_bound[0]:.4f} ms; fwd+bwd {fwd[0] + bwd[0]:.4f} ms, "
+               f"SDPA {sdpa_fb:.4f} ms (card {card})")
     del q, k, v, g, o, lse, grads, leaves, qkv
     free_card(torch)
+    return ({"max_abs_err": fwd_err, "ms": fwd[0], "plain_ms": fwd[1], "bound_ms": fwd_bound[0],
+             "bound_by": fwd_bound[1], "library_ms": sdpa},
+            {"max_abs_err": bwd_err, "ms": bwd[0], "plain_ms": bwd[1], "bound_ms": bwd_bound[0],
+             "bound_by": bwd_bound[1], "library_ms": sdpa_fb})
+
+
+def prefixed(tag, numbers):
+    return {f"{tag}_{k}": v for k, v in numbers.items()}
+
+
+def taskonomy_attention_and_block(torch, fused_block, w4, gen, dev, card):
+    """K2 forward and backward at (TK_BATCH, 577, 12, 64) and K4 at
+    (TK_BATCH, 577, 768), bf16, against their twins, bit-equal over two
+    runs, timed with their twins, SDPA and bounds: the Taskonomy recipe's
+    shapes. Returns (K2 fwd numbers, K2 bwd numbers, K4 numbers)."""
+    b, n = TK_BATCH, 577
+    k2f, k2b = k2_at(torch, dev, b, n, 12, 64, 16, card, seed=16)
     err, rel, ms, plain_ms, k4_bound = k4_at(torch, fused_block, w4, n, gen, dev, b=b)
     log(16, f"K4 bf16 ({b},{n},768) max abs {err:.3e}, rel RMS {rel:.3e}, bit-equal over two "
             f"runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
             f"({k4_bound[1]}; card {card})")
     free_card(torch)
-    return ({"taskonomy_max_abs_err": fwd_err, "taskonomy_ms": fwd[0],
-             "taskonomy_plain_ms": fwd[1], "taskonomy_bound_ms": fwd_bound[0],
-             "taskonomy_bound_by": fwd_bound[1], "taskonomy_library_ms": sdpa},
-            {"taskonomy_max_abs_err": bwd_err, "taskonomy_ms": bwd[0],
-             "taskonomy_plain_ms": bwd[1], "taskonomy_bound_ms": bwd_bound[0],
-             "taskonomy_bound_by": bwd_bound[1], "taskonomy_library_ms": sdpa_fb},
+    return (prefixed("taskonomy", k2f), prefixed("taskonomy", k2b),
             {"taskonomy_max_abs_err": err, "taskonomy_ms": ms, "taskonomy_plain_ms": plain_ms,
              "taskonomy_bound_ms": k4_bound[0], "taskonomy_bound_by": k4_bound[1]})
 
@@ -2228,8 +2242,8 @@ def taskonomy_cli_slice(torch, dev, pretrain, card):
             "--warmup_epochs", "0", "--eval_freq", "1", "--save_ckpt_freq", "1",
             "--num_workers", str(CLI_WORKERS)]
 
-    def data(twin):
-        return TaskonomyDataset(root, domains, split="train", image_size=384, twin=twin), None
+    def data():
+        return TaskonomyDataset(root, domains, split="train", image_size=384), None
 
     try:
         return regression_cli_runs(
@@ -2241,6 +2255,242 @@ def taskonomy_cli_slice(torch, dev, pretrain, card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
         free_card(torch)
+
+
+# Phase 17: the demo, the benches and the profiler of multimae_tpu_torch/tools
+# at the JAX tools' default batches (--large: ViT-L), with the steps cut to
+# TOOL_STEPS after TOOL_WARMUP; the demo's RGB input is a committed photo.
+TOOL_STEPS, TOOL_WARMUP = 2, 1
+DEMO_RGB = os.path.join(JPEG_FIXTURES, "photo_420_q90.jpg")
+DEMO_VISIBLE = "0,0 1,0 2,0 5,5 6,6 7,7 8,8 13,13"
+
+
+def expect_launches(what, got, **expected):
+    want = dict(dict.fromkeys(got, 0), **expected)
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def demo_part(torch, pretrain, root, card):
+    """Phase 17's demo runs on phase 12's .pth: --visible_rgb and random
+    masking, each against the same call on the plain twins; returns
+    {run: launches}."""
+    from multimae_tpu_torch.cli import demo
+    from multimae_tpu_torch.data.image_io import load_image, write_png
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    y, x = np.mgrid[0:375, 0:500]
+    depth = (20000 + 15000 * np.sin(x / 40.0) * np.cos(y / 30.0)
+             + rng.normal(0, 300, (375, 500))).astype(np.uint16)
+    classes = ((x // 60 + y // 45) % 40).astype(np.uint8)
+    palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    os.makedirs(root, exist_ok=True)
+    write_png(os.path.join(root, "depth.png"), depth)
+    write_png(os.path.join(root, "semseg.png"), classes, palette=palette)
+    base = ["--checkpoint", pretrain, "--rgb", DEMO_RGB, "--depth",
+            os.path.join(root, "depth.png"), "--semseg", os.path.join(root, "semseg.png")]
+    launches = {}
+    for run, extra in (("visible", ["--visible_rgb", DEMO_VISIBLE]), ("random", ["--seed", "5"])):
+        argv = base + extra + ["--out_dir", os.path.join(root, run)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = demo.main(argv)
+        seconds = time.perf_counter() - t0
+        launches[run] = launch_counts()
+        expect_launches(f"demo ({run})", launches[run], fused_decoder_fwd=3)
+        with plain_twins():
+            plain = demo.main(argv[:-1] + [os.path.join(root, run + "_plain")])
+        errs = {t: assert_matches_twin(p, plain["preds"][t], f"demo pred {t} ({run})")
+                for t, p in out["preds"].items()}
+        shapes = {"pred_rgb": (224, 224, 3), "pred_depth": (224, 224),
+                  "pred_semseg": (56, 56), "mask_rgb": (224, 224), "mask_depth": (224, 224),
+                  "mask_semseg": (224, 224)}
+        got = {os.path.basename(p)[:-4]: load_image(p, convert_rgb=False).shape
+               for p in out["paths"]}
+        if got != shapes:
+            raise AssertionError(f"demo ({run}) wrote {got}, expected {shapes}")
+        visible = sum(int((m == 0).sum()) for m in out["masks"].values())
+        log(17, f"demo ({run}; fp32 MultiMAE-B from {os.path.basename(pretrain)}): "
+                f"{visible} visible tokens, K1 fwd {launches[run]['fused_decoder_fwd']} "
+                f"launches, preds vs the plain twins (fp32 TWIN_TOLERANCE) max abs / rel RMS "
+                + ", ".join(f"{t} {e[0]:.2e} / {e[1]:.2e}" for t, e in errs.items())
+                + f"; {len(got)} PNGs read back at their sizes; {seconds:.2f} s host for the "
+                f"run (model build, .pth load, forward, PNGs; card {card})")
+        del out, plain
+        free_card(torch)
+    return launches
+
+
+def tools_slice(torch, dev, pretrain, gen, card):
+    """Phase 17: K4 at ViT-L's width, K2 at 16 heads and K3b at bench_infer's
+    rows against their twins; then the demo, bench_infer, bench_finetune and
+    profile_step, each run with the counts set to 0 before it and read after.
+    Returns ({kernel: extra entries}, {run: launches}, numbers)."""
+    import json as _json
+
+    from multimae_tpu_torch.ops import fused_block, fused_mlp
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+    from multimae_tpu_torch.tools import bench_finetune, bench_infer, profile_step
+
+    extra = {}
+    wl = rand_block_weights(torch, fused_block, 1024, 4096, gen, dev)
+    for b, n, tag in ((256, 197, "vitl_cls"), (16, 2049, "vitl_semseg")):
+        err, rel, ms, plain_ms, k4_bound = k4_at(torch, fused_block, wl, n, gen, dev, b=b)
+        log(17, f"K4 bf16 ({b},{n},1024), 16 heads, hidden 4096: max abs {err:.3e}, rel RMS "
+                f"{rel:.3e}, bit-equal over two runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}; card {card})")
+        extra.setdefault("fused_block_infer", {}).update(prefixed(tag, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1]}))
+        free_card(torch)
+    del wl
+    k2f, k2b = k2_at(torch, dev, 4, 2049, 16, 64, 17, card, seed=17)
+    extra["short_attention_fwd"] = prefixed("vitl", k2f)
+    extra["short_attention_bwd"] = prefixed("vitl", k2b)
+
+    m, k, hid = 32 * 1024 * 16, 384, 1536
+    w = fused_mlp.MlpWeights(
+        *(t.to(dev) for t in (1 + 0.1 * torch.randn(k, generator=gen), 0.1 * torch.randn(
+            k, generator=gen), 0.02 * torch.randn(hid, k, generator=gen), 0.02 * torch.randn(
+            hid, generator=gen), 0.02 * torch.randn(k, hid, generator=gen), 0.02 * torch.randn(
+            k, generator=gen))))
+    x, res = (torch.randn((m, k), generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    with torch.inference_mode():
+        out = fused_mlp.fused_ln_mlp_res(x, res, w)
+        again = fused_mlp.fused_ln_mlp_res(x, res, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"K3b fwd at {m} rows: two runs on the same inputs differ")
+        err, rel = assert_matches_twin(out, fused_mlp.fused_ln_mlp_res_ref(x, res, w),
+                                       f"K3b fwd at {m} rows")
+        del out, again
+        fwd = ab_ms(torch, lambda: fused_mlp.fused_ln_mlp_res(x, res, w),
+                    lambda: fused_mlp.fused_ln_mlp_res_ref(x, res, w), iters=5, repeats=3)
+    k3_bound = bound(4 * m * k * hid, 2 * 3 * m * k + 2 * 2 * k * hid)
+    log(17, f"K3b fwd bf16 ({m},{k}) hidden {hid} (bench_infer's ConvNeXt head at batch 32): "
+            f"max abs {err:.3e}, rel RMS {rel:.3e}, bit-equal over two runs; kernel "
+            f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, bound {k3_bound[0]:.4f} ms "
+            f"({k3_bound[1]}; card {card})")
+    extra["fused_ln_mlp_res_fwd"] = prefixed("infer_rows", {
+        "max_abs_err": err, "ms": fwd[0], "plain_ms": fwd[1], "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1]})
+    del x, res, w
+    free_card(torch)
+
+    root = os.path.join(HERE, "build", "chip_smoke_tools")
+    launches, numbers = {}, {}
+    try:
+        launches.update(demo_part(torch, pretrain, os.path.join(root, "demo"), card))
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+
+    runs = TOOL_STEPS + TOOL_WARMUP
+    fwd = 2 * TOOL_STEPS  # bench_infer: a warm-up run and a timed run of TOOL_STEPS each
+    for name, call, expected in (
+            ("infer_cls224_vitb", lambda: bench_infer.bench_cls(256, TOOL_STEPS, device=dev),
+             dict(fused_block_infer=12 * fwd)),
+            ("infer_semseg512_rgbd", lambda: bench_infer.bench_semseg(32, TOOL_STEPS, device=dev),
+             dict(fused_block_infer=12 * fwd, fused_ln_mlp_res_fwd=4 * fwd)),
+            ("infer_cls224_vitl", lambda: bench_infer.bench_cls(
+                256, TOOL_STEPS, "multivit_large", dev), dict(fused_block_infer=24 * fwd)),
+            ("infer_semseg512_rgbd_vitl", lambda: bench_infer.bench_semseg(
+                16, TOOL_STEPS, "multivit_large", dev),
+             dict(fused_block_infer=24 * fwd, fused_ln_mlp_res_fwd=4 * fwd))):
+        reset_launch_counts()
+        rate = call()
+        launches[name] = launch_counts()
+        expect_launches(name, launches[name], **expected)
+        numbers[name] = rate
+        log(17, f"bench_infer {name}: {rate:.1f} images/s over {TOOL_STEPS} chained forwards "
+                f"(steps cut from 20 / 10; card {card}); launches {launches[name]}")
+        print(bench_infer.metric_line(name, rate), flush=True)
+        free_card(torch)
+
+    def finetune(name, argv, expected, engine=None):
+        args = bench_finetune.get_args(argv + ["--steps", str(TOOL_STEPS)])
+        reset_launch_counts()
+        with (bench_finetune.module_engine() if engine == "module"
+              else contextlib.nullcontext()):
+            line = bench_finetune.measure(args, engine or "kernels", dev, TOOL_WARMUP)
+        launches[name] = launch_counts()
+        if line["retried"]:  # steps cut short by the out-of-memory retries launched too
+            if any(launches[name][k] < v * runs for k, v in expected.items()):
+                raise AssertionError(f"{name}: launches {launches[name]}")
+        else:
+            expect_launches(name, launches[name], **{k: v * runs for k, v in expected.items()})
+        numbers[name] = line
+        log(17, f"bench_finetune {name}: {line['value']} samples/s at batch {line['batch']} "
+                f"(of {args.batch}), peak {line['peak_gib']:.2f} GiB of the card's 80, "
+                f"{TOOL_STEPS} steps after {TOOL_WARMUP}; launches {launches[name]} (card {card})")
+        free_card(torch)
+
+    k2 = dict(short_attention_fwd=12, short_attention_bwd=12)
+    k3 = dict(fused_ln_mlp_res_fwd=4, fused_ln_mlp_res_bwd=4)
+    finetune("finetune_semseg_512px_throughput_kernels", ["--task", "semseg"], dict(k2, **k3))
+    finetune("finetune_semseg_512px_throughput_module", ["--task", "semseg"], k3, "module")
+    kernels, module = (numbers[f"finetune_semseg_512px_throughput_{e}"]
+                       for e in ("kernels", "module"))
+    if kernels["batch"] != module["batch"]:  # as bench_finetune.main: compare at one batch
+        small = min(kernels["batch"], module["batch"])
+        engine = "kernels" if kernels["batch"] > small else "module"
+        name = f"finetune_semseg_512px_throughput_{engine}_batch{small}"
+        finetune(name, ["--task", "semseg", "--batch", str(small)],
+                 dict(k2, **k3) if engine == "kernels" else k3, engine)
+        kernels, module = (numbers[name] if e == engine else line
+                           for e, line in (("kernels", kernels), ("module", module)))
+    ratio = bench_finetune.speedup_line(bench_finetune.get_args(["--task", "semseg"]),
+                                        kernels, module)
+    if ratio is None:
+        raise AssertionError(f"bench_finetune semseg: the legs ran at batches "
+                             f"{kernels['batch']} and {module['batch']}")
+    numbers["finetune_semseg_512px_kernel_speedup"] = ratio
+    log(17, f"bench_finetune semseg kernel_speedup {ratio['value']} at batch "
+            f"{ratio['batch_kernels']} on both engines (card {card})")
+    finetune("finetune_taskonomy_384px_throughput_kernels", ["--task", "taskonomy"], k2)
+    finetune("finetune_semseg_512px_large_throughput_kernels", ["--task", "semseg", "--large"],
+             dict(short_attention_fwd=24, short_attention_bwd=24, **k3))
+    for task in ("cls", "depth"):  # 197 and 257 keys: below the gate, no launch
+        args = bench_finetune.get_args(["--task", task, "--steps", "1"])
+        reset_launch_counts()
+        line = bench_finetune.measure(args, "module" if task == "cls" else "kernels", dev, 0)
+        launches[f"finetune_{task}"] = launch_counts()
+        expect_launches(f"bench_finetune {task}", launches[f"finetune_{task}"])
+        numbers[line["metric"]] = line
+        log(17, f"bench_finetune {task}: one step at batch {line['batch']}, no launch "
+                f"(card {card})")
+        free_card(torch)
+
+    for name, argv, expected in (
+            ("profile_pretrain_large", ["--mode", "pretrain", "--large"],
+             dict(fused_decoder_fwd=4, fused_decoder_bwd=4)),
+            ("profile_taskonomy384", ["--mode", "taskonomy384"], k2)):
+        args = profile_step.get_args(argv + ["--steps", str(TOOL_STEPS), "--warmup",
+                                             str(TOOL_WARMUP), "--top", "12"])
+        step, state, batch = profile_step.build(args, dev)
+        reset_launch_counts()
+        prof, host_ms = profile_step.profile_steps(step, state, batch, args.steps, args.warmup,
+                                                   dev)
+        launches[name] = launch_counts()
+        expect_launches(name, launches[name], **{k: v * runs for k, v in expected.items()})
+        tables = profile_step.report(prof, args.steps, host_ms, args.batch, dev, args.top)
+        device_ms = sum(tables["by_kernel"].values())
+        numbers[name] = {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+                         "by_module": tables["by_module"]}
+        log(17, f"profile_step {' '.join(argv)} at batch {args.batch}: {host_ms:.3f} ms host per "
+                f"step under the profiler, device {device_ms:.3f} ms; by module: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in list(tables["by_module"].items())[:8])
+                + f"; launches {launches[name]} (card {card})")
+        del step, state, batch, prof
+        free_card(torch)
+    log(17, "numbers: " + _json.dumps(numbers))
+    return extra, launches, numbers
+
+
 
 
 def main():
@@ -2609,6 +2859,10 @@ def main():
             next(k for k in kernels if k["name"] == name).update(extra)
         tk_step, tk_eval, tk_numbers = taskonomy_cli_slice(torch, dev, pretrain, card)
         log(16, "numbers: " + json.dumps(tk_numbers))
+
+        # 17. the demo and the tools: K4 at ViT-L's width, K2 at 16 heads and
+        # K3b at bench_infer's rows first, then the runs
+        tool_extra, tool_launches, _ = tools_slice(torch, dev, pretrain, gen, card)
     finally:
         import shutil
 
@@ -2625,6 +2879,14 @@ def main():
         k["depth_cli_eval_launches"] = depth_eval[name]
         k["taskonomy_cli_launches"] = tk_step[name]
         k["taskonomy_cli_eval_launches"] = tk_eval[name]
+        k.update(tool_extra.get(k["name"], {}))
+        k["tools_launches"] = {run: n[name] for run, n in tool_launches.items() if n[name]}
+    tools_path = ("fused_block_infer", "fused_decoder_fwd", "fused_decoder_bwd",
+                  "short_attention_fwd", "short_attention_bwd", "fused_ln_mlp_res_fwd",
+                  "fused_ln_mlp_res_bwd")
+    idle = [n for n in tools_path if not any(r[n] for r in tool_launches.values())]
+    if idle:
+        raise AssertionError(f"phase 17 launched no {idle}")
 
     log_phase_times()
     print(card, flush=True)

@@ -180,7 +180,8 @@ def make_synthetic_batch(batch: int, input_size: int = 224,
     return {d: t.to(device) for d, t in out.items()}
 
 
-def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda"):
+def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda",
+                           model_name: str = "pretrain_multimae_base"):
     """(TrainState, train_step) of the flagship pretraining recipe
     (cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml, as the JAX
     package's bench.py:96-137 runs it): MultiMAE ViT-B in bf16 with the
@@ -188,10 +189,12 @@ def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda"):
     uncertainty balancer, AdamW (0.9, 0.95), wd 0.05, with the reference's
     dict-model groups (filter_bias_and_bn=False), and the cosine LR from
     blr 1e-4 * batch_size / 256 (reference :372-373) to 0 over 1600 epochs
-    of 100 steps, without warmup (with warmup the first step's LR is 0)."""
+    of 100 steps, without warmup (with warmup the first step's LR is 0).
+    `model_name` picks the encoder (pretrain_multimae_large for ViT-L)."""
     device = entry_device(device)
     domains = ("rgb", "depth", "semseg")
-    model = build_pretrain_model(dtype=torch.bfloat16, fp32_output_adapters=("semseg",),
+    model = build_pretrain_model(model_name=model_name, dtype=torch.bfloat16,
+                                 fp32_output_adapters=("semseg",),
                                  decoder_return_patches=True, pos_emb_grads=True,
                                  seed=seed, device=device)
     balancer = build_balancer("uncertainty", domains + ("norm_rgb",)).to(device)

@@ -87,6 +87,33 @@ def category(name: str) -> str:
     return "elementwise, copies, casts, other (torch)"
 
 
+def device_kernels(prof, iters: int) -> dict:
+    """{kernel name: device ms per call} of a torch.profiler run over `iters` calls."""
+    per_kernel = {}
+    for e in prof.events():
+        # user annotations (e.g. Optimizer.step) span kernels counted already
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / iters / 1e3)
+    return per_kernel
+
+
+def print_kernels(per_kernel: dict, wall_ms: float, what: str, top: int = TOP) -> None:
+    """The wall and device time per call, the idle share, the time by kind
+    (CATEGORIES) and the `top` largest kernels."""
+    device_ms = sum(per_kernel.values())
+    print(f"wall {wall_ms:.3f} ms/{what}, device kernels {device_ms:.3f} ms/{what}, "
+          f"idle share {1 - device_ms / wall_ms:.3f}")
+    kinds = {}
+    for name, ms in per_kernel.items():
+        kinds[category(name)] = kinds.get(category(name), 0.0) + ms
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:8.3f} ms  {kind}")
+    print("largest kernels:")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:8.3f} ms  {name[:100]}")
+
+
 def profile_calls(run, iters: int, what: str, top: int = TOP) -> dict:
     """Profile `iters` calls of run() after two warm-up calls; print the
     wall and device time per call, the idle share, the time by kind and
@@ -100,23 +127,8 @@ def profile_calls(run, iters: int, what: str, top: int = TOP) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / iters * 1e3
-    per_kernel = {}
-    for e in prof.events():
-        # user annotations (e.g. Optimizer.step) span kernels counted already
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us() / iters / 1e3)
-    device_ms = sum(per_kernel.values())
-    print(f"wall {wall_ms:.3f} ms/{what}, device kernels {device_ms:.3f} ms/{what}, "
-          f"idle share {1 - device_ms / wall_ms:.3f}")
-    kinds = {}
-    for name, ms in per_kernel.items():
-        kinds[category(name)] = kinds.get(category(name), 0.0) + ms
-    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:8.3f} ms  {kind}")
-    print("largest kernels:")
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"  {ms:8.3f} ms  {name[:100]}")
+    per_kernel = device_kernels(prof, iters)
+    print_kernels(per_kernel, wall_ms, what, top)
     return per_kernel
 
 

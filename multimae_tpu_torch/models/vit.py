@@ -251,7 +251,7 @@ class Block(nn.Module):
             and self.qkv_bias
             and x.is_cuda
             and fused_block.supported(x.shape[1], x.shape[-1], self.num_heads,
-                                      self.mlp.fc1.weight.shape[0], self.dtype)
+                                      self.mlp.fc1.weight.shape[0], self.dtype, x.shape[0])
         ):
             return fused_block.fused_block_infer(
                 x.to(self.dtype), self.block_weights(), self.num_heads)

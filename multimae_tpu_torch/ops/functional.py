@@ -18,6 +18,28 @@ import torch.nn.functional as F
 
 LAYERNORM_EPS = 1e-6
 
+# The launch grids' limits of the CUDA kernels (csrc/): a GEMM puts one
+# block per 128 rows on its grid's y axis (csrc/decoder_tc.cuh launch_tc,
+# launch_gemm), an attention kernel its heads on y and its samples on z;
+# each axis holds at most 65535 blocks. The kernels' offsets into their
+# tensors are size_t, so no element count caps a shape.
+GRID_LIMIT = 65535
+MAX_GEMM_ROWS = GRID_LIMIT * 128
+
+
+def check_grid(what: str, rows: int = 0, batch: int = 1, heads: int = 1) -> None:
+    """Raise ValueError where a launch would leave its grid: `rows` rows
+    through a GEMM, `batch` samples of `heads` heads on an attention grid.
+    The gates call it for a shape they otherwise take, so such a shape
+    fails with the reason instead of leaving the kernel for the module
+    path."""
+    if rows > MAX_GEMM_ROWS:
+        raise ValueError(f"{what}: {rows} rows exceed the {MAX_GEMM_ROWS} a GEMM's grid "
+                         f"holds ({GRID_LIMIT} blocks of 128 rows)")
+    if batch > GRID_LIMIT or heads > GRID_LIMIT:
+        raise ValueError(f"{what}: {batch} samples of {heads} heads exceed the attention "
+                         f"grid's {GRID_LIMIT} blocks on an axis")
+
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch
 from multimae_tpu_torch.ops import _build
 from multimae_tpu_torch.ops.functional import (
     attention,
+    check_grid,
     dense,
     gelu,
     layer_norm,
@@ -126,15 +127,20 @@ def check_kernel_shapes(d: int, heads: int, hidden: int, nk: int,
         raise ValueError(problem)
 
 
-def supported(n: int, d: int, heads: int, hidden: int, dtype) -> bool:
-    """Whether K4 takes a block of n tokens: bf16, D and the hidden width
-    in whole 64-element k-steps of the wgmma tiles (csrc/decoder_tc.cuh),
-    and the chains' limits (`shape_problem`: head width 32, 64, 96 or 128,
-    D at most 1024). The counterpart of the JAX `fused_block_pallas.
-    supported`, which the JAX block consults (multimae_tpu/models/vit.py:
-    334); every shape it refuses takes the module path."""
-    return (dtype == torch.bfloat16 and d % 64 == 0 and hidden % 64 == 0
-            and shape_problem(d, heads, hidden, n, dtype) is None)
+def supported(n: int, d: int, heads: int, hidden: int, dtype, batch: int = 1) -> bool:
+    """Whether K4 takes a block of `batch` x n tokens: bf16, D and the
+    hidden width in whole 64-element k-steps of the wgmma tiles
+    (csrc/decoder_tc.cuh), and the chains' limits (`shape_problem`: head
+    width 32, 64, 96 or 128, D at most 1024). The counterpart of the JAX
+    `fused_block_pallas.supported`, which the JAX block consults
+    (multimae_tpu/models/vit.py:334); every shape it refuses takes the
+    module path. A shape it takes whose launch would leave the grids
+    raises ValueError with the reason (functional.check_grid)."""
+    if not (dtype == torch.bfloat16 and d % 64 == 0 and hidden % 64 == 0
+            and shape_problem(d, heads, hidden, n, dtype) is None):
+        return False
+    check_grid("fused_block_infer", batch * n, batch, heads)
+    return True
 
 
 def _launch(x: torch.Tensor, w: BlockWeights, heads: int) -> torch.Tensor:
@@ -147,7 +153,7 @@ def _launch(x: torch.Tensor, w: BlockWeights, heads: int) -> torch.Tensor:
         raise ValueError("fused_block_infer: x must be a contiguous (B, N, D)")
     b, n, d = x.shape
     hidden = w.w1.shape[0]
-    if not supported(n, d, heads, hidden, x.dtype):
+    if not supported(n, d, heads, hidden, x.dtype, b):
         raise ValueError(f"fused_block_infer: no kernel for {n} tokens of dim {d}, "
                          f"{heads} heads, hidden {hidden}")
     wc = _cast(w, x.dtype)

@@ -43,6 +43,7 @@ import torch
 
 from multimae_tpu_torch.ops import _build
 from multimae_tpu_torch.ops.functional import (
+    check_grid,
     dense,
     dense_bwd,
     gelu,
@@ -83,9 +84,13 @@ def supported(m: int, k: int, h: int, dtype) -> bool:
     with at least MIN_ROWS rows, and widths the kernels take: K and H in
     whole 64-element k-steps of the wgmma tiles (csrc/decoder_tc.cuh), K
     at most 1024 (a LayerNorm row per warp). Every shape it refuses takes
-    the block's module path."""
-    return (dtype == torch.bfloat16 and m >= MIN_ROWS and k % 64 == 0
-            and k <= 1024 and h % 64 == 0)
+    the block's module path; one it takes whose M rows would leave the
+    GEMMs' grid raises ValueError with the reason (functional.check_grid)."""
+    if not (dtype == torch.bfloat16 and m >= MIN_ROWS and k % 64 == 0
+            and k <= 1024 and h % 64 == 0):
+        return False
+    check_grid("fused_ln_mlp_res", m)
+    return True
 
 
 def fused_mlp_supported(m: int, k: int, h: int, dtype) -> bool:
@@ -97,7 +102,10 @@ def fused_mlp_supported(m: int, k: int, h: int, dtype) -> bool:
         return False
     tile = 2048 * (2 * k + h) * 2 * 2
     weights = 2 * 2 * k * h + 4 * (k * h * 2 + k + h)
-    return m >= JAX_MIN_ROWS and tile + weights <= 80 * 1024 * 1024
+    if m < JAX_MIN_ROWS or tile + weights > 80 * 1024 * 1024:
+        return False
+    check_grid("fused_mlp", m)
+    return True
 
 
 class MlpCoreWeights(NamedTuple):

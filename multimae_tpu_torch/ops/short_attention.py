@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from multimae_tpu_torch.ops import _build
+from multimae_tpu_torch.ops.functional import check_grid
 
 LAUNCHES = 0      # forward kernel launches made by short_attention
 LAUNCHES_BWD = 0  # backward kernel launches made by its gradient
@@ -52,9 +53,14 @@ def supported(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Shapes the kernels take: (B, N, H, dh) with a head width of 32, 64
     or 128, and q and k of one batch, head count and width. Any length:
     the kernels stream 64-row tiles, so no (Nq, Nk) row has to fit on
-    chip, unlike the TPU kernel's VMEM bound (:363-382)."""
-    return (q.dim() == 4 and k.dim() == 4 and q.shape[0] == k.shape[0]
-            and q.shape[2:] == k.shape[2:] and q.shape[3] in HEAD_WIDTHS)
+    chip, unlike the TPU kernel's VMEM bound (:363-382). A shape it takes
+    whose B or H would leave the grids raises ValueError with the reason
+    (functional.check_grid)."""
+    if not (q.dim() == 4 and k.dim() == 4 and q.shape[0] == k.shape[0]
+            and q.shape[2:] == k.shape[2:] and q.shape[3] in HEAD_WIDTHS):
+        return False
+    check_grid("short_attention", batch=q.shape[0], heads=q.shape[2])
+    return True
 
 
 # ------------------------------------------------------------- the twins --

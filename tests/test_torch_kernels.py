@@ -22,6 +22,7 @@ import torch
 from multimae_tpu_torch.cli import factory
 from multimae_tpu_torch.ops import (
     attention,
+    functional,
     fused_block,
     fused_decoder,
     fused_mlp,
@@ -607,6 +608,132 @@ def test_block_kernel_matches_twin_at_2049_tokens(cuda, heads):
         assert fused_block.LAUNCHES == before + 1
         assert_matches_twin(out, fused_block.block_infer_ref(x, w, heads),
                             f"K4 at 2049 tokens, {heads} heads")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(256, 197), (16, 2049)])
+def test_block_kernel_matches_twin_at_vit_l_width(cuda, b, n):
+    """K4 at ViT-L's width (D 1024, 16 heads, hidden 4096: a LayerNorm row
+    at the chain's limit, 16 and 64 wgmma k-steps) at bench_infer's cls
+    and semseg shapes: within TWIN_TOLERANCE, bit-equal over two runs."""
+    w = block_weights(1024, 4096, device=cuda)
+    x = randn(4, b, n, 1024).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        out = fused_block.fused_block_infer(x, w, 16)
+        again = fused_block.fused_block_infer(x, w, 16)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert_matches_twin(out, fused_block.block_infer_ref(x, w, 16), f"K4 ({b},{n},1024)")
+
+
+@pytest.mark.cuda
+def test_short_attention_matches_twins_at_16_heads(cuda):
+    """K2 at ViT-L's 16 heads and bench_finetune --large's 512-px shape
+    (4, 2049, 16, 64): forward and backward within their tolerances, each
+    bit-equal over two runs."""
+    b, n, h, dh = 4, 2049, 16, 64
+    q, k, v = qkv_views(5, b, n, h, dh, cuda)
+    outs = [short_attention.short_attention_fwd(q, k, v, dh ** -0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+    (o, lse), (ro, rlse) = outs[0], short_attention.short_attention_ref(q, k, v, dh ** -0.5)
+    assert_matches_twin(o, ro, "K2 fwd o, 16 heads")
+    assert_matches_twin(lse, rlse, "K2 fwd lse, 16 heads")
+    g = randn(6, b, n, h, dh).to(cuda, torch.bfloat16)
+    grads = [short_attention.short_attention_bwd(q, k, v, o, lse, g, dh ** -0.5)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+    ref = short_attention.short_attention_bwd_ref(q, k, v, g, lse,
+                                                  short_attention.attention_delta(o, g),
+                                                  dh ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv"), grads[0], ref):
+        assert_matches_twin(a, r, f"K2 bwd {name}, 16 heads", grad_of=torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,batch,heads,ok", [
+    (256 * 197, 256, 16, True),           # bench_infer --large cls
+    (32 * 1024 * 16, 1, 1, True),         # K3b at bench_infer's semseg batch
+    (2700 * 197, 2700, 16, True),         # 2.18e9 hidden elements: size_t offsets
+    (65535 * 128 + 1, 1, 1, False),       # a GEMM grid's rows
+    (65536 * 2, 65536, 1, False)])        # an attention grid's samples
+def test_index_gate(rows, batch, heads, ok):
+    """functional.check_grid: the kernels' launch grids bound a shape."""
+    if ok:
+        functional.check_grid("k", rows, batch, heads)
+    else:
+        with pytest.raises(ValueError, match="k: .* exceed"):
+            functional.check_grid("k", rows, batch, heads)
+
+
+def test_gates_refuse_shapes_past_the_index_ranges():
+    """A shape a gate takes but whose launch would leave the grids raises
+    with the reason rather than taking the module path; one the gate does
+    not take is refused quietly whatever its size."""
+    assert fused_block.supported(197, 1024, 16, 4096, torch.bfloat16, 2700)
+    with pytest.raises(ValueError, match="fused_block_infer: .* rows exceed"):
+        fused_block.supported(197, 1024, 16, 4096, torch.bfloat16, 50000)
+    assert not fused_block.supported(197, 1024, 16, 4096, torch.float32, 50000)
+    assert fused_mlp.supported(2 ** 21, 384, 1536, torch.bfloat16)
+    with pytest.raises(ValueError, match="fused_ln_mlp_res: .* rows exceed"):
+        fused_mlp.supported(2 ** 23 + 2 ** 20, 384, 1536, torch.bfloat16)
+    q = torch.empty((70000, 8, 2, 64), device="meta")
+    assert short_attention.supported(q[:4], q[:4])
+    with pytest.raises(ValueError, match="short_attention: 70000 samples"):
+        short_attention.supported(q, q)
+    assert not short_attention.supported(q[..., :48], q[..., :48])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K3b", "K2"])
+def test_kernels_past_2_31_elements(cuda, kernel):
+    """Each kernel at a shape the gates take whose largest buffer holds more
+    than 2**31 elements: K4 at (2700, 197, 1024) with hidden 4096, K3b at
+    2**21 rows of 384 with hidden 1536, K2 forward and backward at (1024,
+    2049, 16, 64) over a fused qkv. The first and the last samples (or
+    rows), whose offsets pass 2**31, against the twin run on those alone."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+
+    ends = (slice(0, 2), slice(-2, None))
+    if kernel == "K4":
+        w = block_weights(1024, 4096, device=cuda)
+        x = rnd(2700, 197, 1024)
+        assert fused_block.supported(197, 1024, 16, 4096, torch.bfloat16, 2700)
+        with torch.inference_mode():
+            out = fused_block.fused_block_infer(x, w, 16)
+            for e in ends:
+                assert_matches_twin(out[e], fused_block.block_infer_ref(x[e], w, 16),
+                                    f"K4 (2700,197,1024), samples {e}")
+    elif kernel == "K3b":
+        m, ends = 2 ** 21, (slice(0, 65536), slice(-65536, None))
+        w = mlp_weights(384, 1536, device=cuda)
+        x, res = rnd(m, 384), rnd(m, 384)
+        assert fused_mlp.supported(m, 384, 1536, torch.bfloat16)
+        with torch.inference_mode():
+            out = fused_mlp.fused_ln_mlp_res(x, res, w)
+            for e in ends:
+                assert_matches_twin(out[e], fused_mlp.fused_ln_mlp_res_ref(x[e], res[e], w),
+                                    f"K3b ({m},384), rows {e}")
+    else:
+        b, n, h, dh = 1024, 2049, 16, 64
+        q, k, v = rnd(b, n, 3, h, dh).unbind(2)
+        assert short_attention.supported(q, k)
+        o, lse = short_attention.short_attention_fwd(q, k, v, dh ** -0.5)
+        g = rnd(b, n, h, dh)
+        grads = short_attention.short_attention_bwd(q, k, v, o, lse, g, dh ** -0.5)
+        for e in ends:
+            ro, rlse = short_attention.short_attention_ref(q[e], k[e], v[e], dh ** -0.5)
+            assert_matches_twin(o[e], ro, f"K2 fwd o, samples {e}")
+            assert_matches_twin(lse[e], rlse, f"K2 fwd lse, samples {e}")
+            ref = short_attention.short_attention_bwd_ref(
+                q[e], k[e], v[e], g[e], lse[e], short_attention.attention_delta(o[e], g[e]),
+                dh ** -0.5)
+            for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+                assert_matches_twin(a[e], r, f"K2 bwd {name}, samples {e}",
+                                    grad_of=torch.bfloat16)
 
 
 # ------------------------------------------------ the gates on the card --

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving forward, pretraining step,
 semantic segmentation fine-tune, the pretraining, semseg, classification,
-depth and Taskonomy CLIs, the demo and the tools on one NVIDIA card.
+depth and Taskonomy CLIs, the demo and the tools, and the parallel
+layouts (TP, PP, FSDP) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -80,13 +81,12 @@ non-zero:
      times per step and nothing else launches; then checkpoint-1.pth is
      truncated and the CLI relaunched with --epochs 3: it falls back to
      checkpoint-0.pth, resumes at epoch 1 with the parameters bit-equal to
-     the save, and finishes. Printed for the native library and its numpy
-     twins (the data path before it): the loader's
-     samples/s (one process, and 4 workers, at batch 8), ms per sample
-     decoding, augmenting and in the rgb resample alone (the two paths'
-     arrays must be equal), the loader in one process over a second tree
-     of uniform noise written with filter 0 (the kind earlier runs
-     timed); the CLI's step ms fed by the loader (and on
+     the save, and finishes. Printed: the native loader's samples/s (one
+     process, and 4 workers, at batch 8), for the native library and its
+     numpy twins (the data path before it; the twins over TWIN_SAMPLES
+     samples) ms per sample decoding, augmenting and in the rgb resample
+     alone (the two paths' arrays must be equal); the CLI's step ms fed by
+     the loader (and on
      synthetic batches of 32), the share of each step spent waiting for
      data; and the checkpoint save and load seconds. Every loader's close
      raises if a worker did not exit cleanly. The tree and the checkpoints
@@ -154,9 +154,10 @@ non-zero:
      checkpoint-1.pth with bit-equal parameters, evaluates to run A's
      epoch-1 top-1, and keeps the best top-1 and checkpoint-best.pth
      untouched. Printed: the loader-fed step's host ms and data-wait share,
-     eval ms per batch with top-1/5, save and load seconds, and for the
-     native library and the numpy twins the loader's samples/s (one
-     process and 4 workers) and ms per sample decoding and augmenting, with
+     eval ms per batch with top-1/5, save and load seconds, the native
+     loader's samples/s (one process and 4 workers), and for the native
+     library and the numpy twins (over
+     TWIN_SAMPLES) ms per sample decoding and augmenting, with
      RandAugment's part (the two paths' arrays must be equal).
  15. the depth fine-tune CLI (multimae_tpu_torch.cli.run_finetuning_depth,
      get_args + main) under the NYUv2 depth recipe as it stands (MultiViT-B
@@ -217,6 +218,23 @@ non-zero:
      launch), with the batch and peak memory of each leg; profile_step
      --mode pretrain --large (K1 4 + 4 per step) and --mode
      taskonomy384 (K2 12 + 12), with their tables by kind and by module.
+ 18. the parallel paths (parallel/): K2 forward and backward at tensor
+     parallelism's local head counts, (4, 2049, 8, 64) (ViT-L under TP 2)
+     and (4, 2049, 6, 64) (ViT-B), bf16, against their twins, bit-equal
+     over two runs, timed with their twins, SDPA and bounds; then four
+     spawned processes on the card, two gloo groups of two with CUDA
+     tensors (NCCL refuses two ranks of one communicator on one card):
+     TP 2, ViT-L semseg at 512 px, batch 4 (the reference's one-process
+     first step on rank 0 first), PARALLEL_STEPS steps launching K2 24 +
+     24 and K3b 4 + 4 per rank step and an eval batch launching K2 24, K3b
+     fwd 4 and no K4; and PP 2 x PP_MICRO, the ViT-B pretraining step at
+     TRAIN_BATCH (K1 4 + 4 per rank step; the hops through the host);
+     meanwhile in this process FSDP2 at world 1 over NCCL, the same
+     pretraining step (K1 4 + 4), its peak memory, and a save under FSDP
+     that loads into the plain state bit-equal. Each path's first step
+     against the one-process step (TP_LOSS_TOLERANCE / TP_NORM_TOLERANCE,
+     PP_TOLERANCE), the loss falling over the steps, the ranks' metrics
+     equal, each path's launches with the counts set to 0 before it.
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -232,6 +250,7 @@ it, the script exits non-zero and prints no result.
 
 import contextlib
 import copy
+import faulthandler
 import json
 import math
 import os
@@ -290,6 +309,9 @@ SEMSEG_CLASSES = 40
 # The pretraining CLI (phase 12): a written tree of CLI_SAMPLES samples at
 # CLI_HW, the flagship YAML at CLI_BATCH per step.
 CLI_SAMPLES = 64
+# The numpy twins' per-sample splits in phases 12-14 (each against the
+# native library's arrays) run over this many samples of each tree.
+TWIN_SAMPLES = 8
 CLI_HW = (256, 320)
 CLI_BATCH = 32
 CLI_WORKERS = 4
@@ -1113,15 +1135,17 @@ def steady_share(runs):
             steady_wait / (steady_wait + sum(r["step_s"] for r in steady)))
 
 
-def sample_split(dataset, transform, rgb_fn=None):
+def sample_split(dataset, transform, rgb_fn=None, count=None):
     """Where one loader process spends a sample: ms reading and decoding its
     PNGs, ms augmenting them, and (with `rgb_fn`, called on the decoded rgb
-    image) ms in rgb_fn; means over `dataset`. Also the augmented samples."""
+    image) ms in rgb_fn; means over `dataset`, or its first `count`
+    samples. Also the augmented samples."""
     import random
 
     decode = augment = rgb = 0.0
     outs = []
-    for i in range(len(dataset)):
+    count = len(dataset) if count is None else min(count, len(dataset))
+    for i in range(count):
         t0 = time.perf_counter()
         sample, _ = dataset.load_raw(i)
         t1 = time.perf_counter()
@@ -1131,7 +1155,7 @@ def sample_split(dataset, transform, rgb_fn=None):
             rgb_fn(sample["rgb"], random.Random(i))
         decode, augment, rgb = (decode + t1 - t0, augment + t2 - t1,
                                 rgb + time.perf_counter() - t2)
-    n = len(dataset) / 1e3
+    n = count / 1e3
     return decode / n, augment / n, rgb / n, outs
 
 
@@ -1162,8 +1186,9 @@ def pretrain_loader_rate(root, workers, twin=False, epochs=4):
 
 
 def pretrain_split(root):
-    """Phase 12's per-sample split, native and twin: {path: (decode ms,
-    augment ms, rgb resample ms)}; the two paths' outputs must agree."""
+    """Phase 12's per-sample split, native (every sample) and twin (the
+    first TWIN_SAMPLES): {path: (decode ms, augment ms, rgb resample ms)};
+    the two paths' outputs must agree."""
     from multimae_tpu_torch import native
     from multimae_tpu_torch.data import pretrain_transforms as T
 
@@ -1180,7 +1205,8 @@ def pretrain_split(root):
 
     splits, outs = {}, {}
     for twin, path in ((False, "native"), (True, "twin")):
-        *splits[path], outs[path] = sample_split(*pretrain_data(root, twin), rgb_resample(twin))
+        *splits[path], outs[path] = sample_split(*pretrain_data(root, twin), rgb_resample(twin),
+                                                 count=TWIN_SAMPLES if twin else None)
     check_twin_split(12, "the pretraining transform", outs["native"], outs["twin"])
     return splits
 
@@ -1253,28 +1279,22 @@ def cli_slice(torch, dev, keep):
         synth_ms = statistics.median(r["step_s"] for r in synthetic["steps"][1:]) * 1e3
         wait = sum(r["wait_s"] for r in fed)
         share, steady = steady_share([first, relaunch])
-        rates = {path: (pretrain_loader_rate(tree, 0, twin=path == "twin",
-                                             epochs=1 if path == "twin" else 4),
-                        pretrain_loader_rate(tree, CLI_WORKERS, twin=path == "twin"))
-                 for path in ("native", "twin")}
+        # The native loader's rates only: the per-sample split below holds
+        # the numpy twins' arrays equal to the native ones and times them.
+        rates = (pretrain_loader_rate(tree, 0, epochs=4),
+                 pretrain_loader_rate(tree, CLI_WORKERS))
         split = pretrain_split(tree)
-        noise = os.path.join(root, "noise")
-        write_random_tree(noise, CLI_SAMPLES // 2, CLI_HW)
-        noise_rates = {path: pretrain_loader_rate(noise, 0, twin=path == "twin", epochs=2)
-                       for path in ("native", "twin")}
+        (one, many) = rates
         for path in ("native", "twin"):
-            (one, many), (dec, aug, rgb) = rates[path], split[path]
-            log(12, f"loader over the tree ({path}; 256x320 PNG -> 224, batches of 8): "
-                    f"{one:.1f} samples/s in one process, {many:.1f} samples/s with "
-                    f"{CLI_WORKERS} workers ({many / CLI_WORKERS:.1f} per worker); one process "
-                    f"spends {dec:.2f} ms per sample decoding its 3 PNGs and {aug:.2f} ms "
-                    f"augmenting; the rgb resample alone {rgb:.3f} ms")
-        log(12, f"the native and twin transforms gave the same arrays on all {CLI_SAMPLES} "
-                f"samples; rgb resample {split['twin'][2] / split['native'][2]:.1f}x faster "
-                f"native")
-        log(12, f"loader over {CLI_SAMPLES // 2} samples of uniform noise written with filter "
-                f"0 (the trees of earlier runs), one process: {noise_rates['native']:.1f} "
-                f"samples/s native, {noise_rates['twin']:.1f} on the numpy twins")
+            dec, aug, rgb = split[path]
+            log(12, f"per sample ({path}; 256x320 PNG -> 224): {dec:.2f} ms decoding its 3 "
+                    f"PNGs and {aug:.2f} ms augmenting; the rgb resample alone {rgb:.3f} ms")
+        log(12, f"loader over the tree (native, batches of 8): {one:.1f} samples/s in one "
+                f"process, {many:.1f} samples/s with {CLI_WORKERS} workers "
+                f"({many / CLI_WORKERS:.1f} per worker)")
+        log(12, f"the native and twin transforms gave the same arrays on the first "
+                f"{TWIN_SAMPLES} samples; rgb resample {split['twin'][2] / split['native'][2]:.1f}x "
+                f"faster native")
         log(12, f"CLI step at batch {CLI_BATCH}: {step_ms:.3f} ms fed by the loader (median "
                 f"of {len(fed)}), {synth_ms:.3f} ms on synthetic batches (median of "
                 f"{len(synthetic['steps']) - 1}); data wait {wait * 1e3:.1f} ms in all, "
@@ -1284,10 +1304,7 @@ def cli_slice(torch, dev, keep):
         os.replace(os.path.join(out, "checkpoint-2.pth"), keep)
         return launches, {"cli_step_ms": step_ms, "cli_synthetic_step_ms": synth_ms,
                           "cli_data_wait_share": share, "cli_data_wait_share_steady": steady,
-                          "loader_samples_per_s": rates["native"][0],
-                          "loader_samples_per_s_workers": rates["native"][1],
-                          "twin_loader_samples_per_s": rates["twin"][0],
-                          "twin_loader_samples_per_s_workers": rates["twin"][1],
+                          "loader_samples_per_s": one, "loader_samples_per_s_workers": many,
                           "decode_ms_per_sample": split["native"][0],
                           "augment_ms_per_sample": split["native"][1],
                           "rgb_resample_ms": split["native"][2],
@@ -1295,8 +1312,6 @@ def cli_slice(torch, dev, keep):
                           "twin_augment_ms_per_sample": split["twin"][1],
                           "twin_rgb_resample_ms": split["twin"][2],
                           "tree_rows_per_filter": [int(c) for c in counts],
-                          "noise_loader_samples_per_s": noise_rates["native"],
-                          "twin_noise_loader_samples_per_s": noise_rates["twin"],
                           "ckpt_save_s": first["save_s"], "ckpt_load_s": relaunch["load_s"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1481,10 +1496,12 @@ def ft_sample_split(root):
     """Where one loader process spends a sample of the NYU tree, native and
     twin: {path: (ms reading and decoding its four PNGs, ms augmenting them
     with the fine-tune's training transform at 512 px)}, means over the
-    tree; the two paths' outputs must agree."""
+    tree (the twins': its first TWIN_SAMPLES); the two paths' outputs must
+    agree."""
     splits, outs = {}, {}
     for twin, path in ((False, "native"), (True, "twin")):
-        dec, aug, _, outs[path] = sample_split(*semseg_data(root, twin))
+        dec, aug, _, outs[path] = sample_split(*semseg_data(root, twin),
+                                               count=TWIN_SAMPLES if twin else None)
         splits[path] = (dec, aug)
     check_twin_split(13, "the semseg training transform", outs["native"], outs["twin"])
     return splits
@@ -1613,7 +1630,7 @@ def ft_cli_slice(torch, dev, pretrain):
                 f"with {CLI_WORKERS} workers; the ~70 ms step of the recipe's batch of 4 needs "
                 f"~57; one process spends {dec:.2f} ms per sample decoding its 4 PNGs and "
                 f"{aug:.2f} ms augmenting; the native and twin transforms gave the same arrays "
-                f"on all {FT_TRAIN} samples")
+                f"on the first {TWIN_SAMPLES} samples")
         log(13, f"CLI step at batch {SEMSEG_BATCH} fed by the loader: {step_ms:.3f} ms host "
                 f"(median of {len(fed)}); data wait {wait * 1e3:.1f} ms in all, {share:.4f} of "
                 f"the steps' time, {steady:.4f} without the run's first step; eval "
@@ -1718,7 +1735,8 @@ def cls_sample_split(root):
     """Where one loader process spends a sample of the cls tree, native and
     twin: {path: (ms reading and decoding its JPEG, ms augmenting it with
     the recipe's training transform, of which ms in RandAugment)}, means
-    over the folder; the two paths' outputs must agree."""
+    over the folder (the twins': its first TWIN_SAMPLES); the two paths'
+    outputs must agree."""
     import random
 
     splits, outs = {}, {}
@@ -1728,7 +1746,8 @@ def cls_sample_split(root):
         bare.aa = None
         decode = augment = without = 0.0
         outs[path] = []
-        for i in range(len(dataset)):
+        count = min(TWIN_SAMPLES, len(dataset)) if twin else len(dataset)
+        for i in range(count):
             t0 = time.perf_counter()
             img, _ = dataset.load_raw(i)
             t1 = time.perf_counter()
@@ -1737,7 +1756,7 @@ def cls_sample_split(root):
             bare(img, random.Random(i))
             decode, augment, without = (decode + t1 - t0, augment + t2 - t1,
                                         without + time.perf_counter() - t2)
-        n = len(dataset) / 1e3
+        n = count / 1e3
         splits[path] = (decode / n, augment / n, (augment - without) / n)
     check_twin_split(14, "the cls training transform", outs["native"], outs["twin"])
     return splits
@@ -1894,19 +1913,20 @@ def cls_cli_slice(torch, dev, pretrain, card):
         evals = first["evals"] + resumed["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
-        rates = {path: tuple(loader_rate(*cls_data(val, path == "twin"), workers, batch=8,
-                                         epochs=epochs)
-                             for workers, epochs in ((0, 1), (CLI_WORKERS, 2)))
-                 for path in ("native", "twin")}
+        # The native loader's rates only: the per-sample split holds the
+        # numpy twins' arrays equal to the native ones and times them.
+        one, many = (loader_rate(*cls_data(val), workers, batch=8, epochs=epochs)
+                     for workers, epochs in ((0, 1), (CLI_WORKERS, 2)))
         split = cls_sample_split(val)
+        log(14, f"loader over the cls tree (native; 500x375 JPEG -> 224, batches of 8; card "
+                f"{card}): {one:.1f} samples/s in one process, {many:.1f} samples/s with "
+                f"{CLI_WORKERS} workers")
         for path in ("native", "twin"):
-            (one, many), (dec, aug, ra) = rates[path], split[path]
-            log(14, f"loader over the cls tree ({path}; 500x375 JPEG -> 224, batches of 8; "
-                    f"card {card}): {one:.1f} samples/s in one process, {many:.1f} samples/s "
-                    f"with {CLI_WORKERS} workers; one process spends {dec:.3f} ms per sample "
-                    f"decoding its JPEG and {aug:.3f} ms augmenting, {ra:.3f} of it "
-                    f"({ra / aug:.2f}) in RandAugment")
-        log(14, f"the native and twin transforms gave the same arrays on all {CLS_VAL} samples")
+            dec, aug, ra = split[path]
+            log(14, f"per sample ({path}): {dec:.3f} ms decoding its JPEG and {aug:.3f} ms "
+                    f"augmenting, {ra:.3f} of it ({ra / aug:.2f}) in RandAugment")
+        log(14, f"the native and twin transforms gave the same arrays on the first "
+                f"{TWIN_SAMPLES} samples")
         log(14, f"CLI step at batch {CLS_BATCH} fed by the loader: {step_ms:.3f} ms host "
                 f"(median of {len(fed)}; card {card}); data wait {share:.4f} of the steps' "
                 f"time, {steady:.4f} without each run's first step; eval {eval_ms:.3f} ms per "
@@ -1915,10 +1935,7 @@ def cls_cli_slice(torch, dev, pretrain, card):
                    "cls_data_wait_share": share, "cls_data_wait_share_steady": steady,
                    "cls_eval_ms_per_batch": eval_ms,
                    "cls_eval_ms_per_batch_with_data": eval_data_ms,
-                   "cls_loader_samples_per_s": rates["native"][0],
-                   "cls_loader_samples_per_s_workers": rates["native"][1],
-                   "cls_twin_loader_samples_per_s": rates["twin"][0],
-                   "cls_twin_loader_samples_per_s_workers": rates["twin"][1],
+                   "cls_loader_samples_per_s": one, "cls_loader_samples_per_s_workers": many,
                    "cls_decode_ms_per_sample": split["native"][0],
                    "cls_augment_ms_per_sample": split["native"][1],
                    "cls_randaugment_ms_per_sample": split["native"][2],
@@ -2493,6 +2510,338 @@ def tools_slice(torch, dev, pretrain, gen, card):
 
 
 
+# 18. the parallel paths on the one card. TP 2 runs ViT-L at 512 px (the
+# shape bench_finetune --large ran) and PP 2 x 4 microbatches ViT-B
+# pretraining, each pair of ranks in a gloo group of its own with CUDA
+# tensors (NCCL does not put two ranks of one communicator on one card);
+# FSDP2 runs in this process over a one-rank NCCL group.
+TP_MODEL = "multivit_large"
+PARALLEL_STEPS = 3
+PP_MICRO = 4
+# The first TP step against the one-process step, both on the kernels:
+# the same draws; TP sums proj and fc2 over 2 partial products in fp32 and
+# rounds them to bf16 once more. Limits about four times the readings on
+# an H100: loss 1.0e-4, grad norm 5.4e-4 relative.
+TP_LOSS_TOLERANCE = 4e-4
+TP_NORM_TOLERANCE = 2e-3
+# PP and FSDP at world 1 compute what the one process does, per sample;
+# the microbatches' GEMMs and FSDP's copies change only summation order
+# (readings: losses equal, grad norms 3.2e-5 and 2.1e-7 apart).
+PP_TOLERANCE = 1e-4
+PARALLEL_TIMEOUT = 400  # s for the TP and PP processes, start-up included
+# The two ranks of a group compute the replicated parts (the head, the
+# decoders, the losses) each on its own; the convolutions' cuDNN
+# algorithms, picked per process, may round differently.
+RANK_TOLERANCE = 1e-5
+
+
+def tp_child(torch, dist, dev, rank):
+    """TP 2 over the world of two: the ViT-L semseg fine-tune's first step
+    in one process (rank 0), then PARALLEL_STEPS steps and an eval batch
+    under TP, with each rank's launches per step and per eval batch."""
+    from multimae_tpu_torch.cli.factory import build_semseg_trainer, make_synthetic_semseg_batch
+    from multimae_tpu_torch.parallel import dist as dist_lib, mesh as mesh_lib
+    from multimae_tpu_torch.train.finetune_step import make_dense_eval_step
+
+    out = {}
+    t = torch.full((8,), rank + 1.0, device=dev)
+    dist.all_reduce(t)
+    b = torch.full((8,), float(rank), device=dev)
+    dist.broadcast(b, src=1)
+    torch.cuda.synchronize(dev)
+    if not (bool((t == 3).all()) and bool((b == 1).all())):
+        raise AssertionError(f"gloo on CUDA tensors: all_reduce {t.tolist()}, broadcast "
+                             f"{b.tolist()}")
+    out["gloo_cuda"] = "all_reduce and broadcast of CUDA tensors ran"
+    log(18, f"TP rank {rank}: gloo ran all_reduce and broadcast on CUDA tensors")
+    batch = make_synthetic_semseg_batch(SEMSEG_BATCH, num_classes=SEMSEG_CLASSES, seed=0,
+                                        device=dev)
+    kw = dict(batch_size=SEMSEG_BATCH, seed=0, device=dev, model=TP_MODEL)
+    if rank == 0:
+        # the one-process step: no batch-wide sums
+        state, step = build_semseg_trainer(**kw, parallel=dist_lib.single_process)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        out["one_process"] = {k: float(v) for k, v in step(state, batch, generator=gen).items()}
+        del state, step
+        free_card(torch)
+        log(18, f"TP rank 0: the one-process step, loss {out['one_process']['loss']:.4f}")
+    dist.barrier()
+    mesh = mesh_lib.create_mesh(model=2, device="cuda")
+    log(18, f"TP rank {rank}: {mesh}")
+    state, step = build_semseg_trainer(**kw, parallel=lambda m: mesh_lib.layout_model(m, mesh))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    expect = dict.fromkeys(launch_counts(), 0)
+    expect.update(short_attention_fwd=24, short_attention_bwd=24, fused_ln_mlp_res_fwd=4,
+                  fused_ln_mlp_res_bwd=4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    history = []
+    for i in range(PARALLEL_STEPS):
+        before = launch_counts()
+        metrics = {k: float(v) for k, v in step(state, batch, generator=gen).items()}
+        per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        if per_step != expect:
+            raise AssertionError(f"TP step {i} launched {per_step}; expected {expect}")
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+            raise AssertionError(f"TP step {i}: metrics {metrics}")
+        history.append(metrics)
+        log(18, f"TP rank {rank} step {i}: loss {metrics['loss']:.4f}")
+    torch.cuda.synchronize(dev)
+    out.update(history=history, launches=launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    eval_step = make_dense_eval_step(state.model, "semseg", ("rgb", "depth"))
+    reset_launch_counts()
+    pred = eval_step(batch)
+    torch.cuda.synchronize(dev)
+    out["eval_launches"] = launch_counts()
+    expect_eval = dict.fromkeys(expect, 0)
+    expect_eval.update(short_attention_fwd=24, fused_ln_mlp_res_fwd=4)
+    if out["eval_launches"] != expect_eval:
+        raise AssertionError(f"TP eval launched {out['eval_launches']}; expected {expect_eval}")
+    shape = (SEMSEG_BATCH, 512, 512, SEMSEG_CLASSES)
+    if tuple(pred.shape) != shape or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"TP eval pred {tuple(pred.shape)} not finite or not {shape}")
+    return out
+
+
+def pretrain_inputs(torch, dev):
+    """Phase 7's batch of TRAIN_BATCH and masks drawn from a seeded
+    generator on the card."""
+    from multimae_tpu_torch.cli.factory import make_synthetic_batch
+    from multimae_tpu_torch.ops import masking
+
+    batch = make_synthetic_batch(TRAIN_BATCH, seed=0, device=dev)
+    mask_gen = torch.Generator(device=dev).manual_seed(1)
+    mask_list, _, _ = masking.generate_random_masks(mask_gen, TRAIN_BATCH, [196] * 3, 98)
+    return batch, dict(zip(("rgb", "depth", "semseg"), mask_list))
+
+
+def laid_out_steps(torch, dev, tag, layout):
+    """The ViT-B pretraining step (phase 7's recipe at TRAIN_BATCH) laid out
+    by `layout(model)`: PARALLEL_STEPS steps, K1 fwd 4 and bwd 4 launches
+    each and nothing else. Returns (state, per-step metrics, launches,
+    peak GiB)."""
+    from multimae_tpu_torch.cli.factory import build_pretrain_trainer
+
+    batch, masks = pretrain_inputs(torch, dev)
+    state, step = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=0, device=dev,
+                                         parallel=layout)
+    expect = dict.fromkeys(launch_counts(), 0)
+    expect.update(fused_decoder_fwd=4, fused_decoder_bwd=4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    history = []
+    for i in range(PARALLEL_STEPS):
+        before = launch_counts()
+        metrics = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
+        per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        if per_step != expect:
+            raise AssertionError(f"{tag} step {i} launched {per_step}; expected {expect}")
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+            raise AssertionError(f"{tag} step {i}: metrics {metrics}")
+        history.append(metrics)
+        log(18, f"{tag} step {i}: loss {metrics['loss']:.4f}")
+    torch.cuda.synchronize(dev)
+    return state, history, launch_counts(), torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def one_process_pretrain_step(torch, dev):
+    """The first step of phase 7's recipe in one process, on the kernels
+    (in a process of a group, with no batch-wide sums)."""
+    from multimae_tpu_torch.cli.factory import build_pretrain_trainer
+    from multimae_tpu_torch.parallel import dist as dist_lib
+
+    batch, masks = pretrain_inputs(torch, dev)
+    state, step = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=0, device=dev,
+                                         parallel=dist_lib.single_process)
+    out = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
+    del state, step
+    free_card(torch)
+    return out
+
+
+def pp_child(torch, dist, dev, rank):
+    """PP 2 x PP_MICRO over the world of two: the one-process first step
+    (rank 0), then PARALLEL_STEPS pipelined steps on each stage rank."""
+    from multimae_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {"one_process": one_process_pretrain_step(torch, dev)} if rank == 0 else {}
+    dist.barrier()
+    mesh = mesh_lib.create_pp_mesh(stage=2, device="cuda")
+    log(18, f"PP stage {rank}: {mesh}")
+    _, history, launches, peak = laid_out_steps(
+        torch, dev, f"PP stage {rank}", lambda m: mesh_lib.layout_model(m, mesh, n_micro=PP_MICRO))
+    out.update(history=history, launches=launches, peak_gib=peak)
+    return out
+
+
+def parallel_child(index, ports, out_dir):
+    """One process of phase 18's pairs: 0 and 1 run TP, 2 and 3 PP, each
+    pair in a gloo group of two on the one card; writes its numbers to
+    out_dir/<pair><rank>.json."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from multimae_tpu_torch.ops import _build
+
+    pair, rank = divmod(index, 2)
+    # Where a rank waits long, every thread's stack goes to stderr.
+    faulthandler.dump_traceback_later(150, repeat=True)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ports[pair]}",
+                            world_size=2, rank=rank)
+    result = (tp_child if pair == 0 else pp_child)(torch, dist, dev, rank)
+    with open(os.path.join(out_dir, f"{pair}{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def fsdp_part(torch, dev):
+    """FSDP2 at world 1 over NCCL in this process: PARALLEL_STEPS ViT-B
+    pretraining steps against the one-process first step; a save under
+    FSDP loads into the plain state bit-equal. Returns its numbers."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from multimae_tpu_torch.cli.factory import build_pretrain_trainer
+    from multimae_tpu_torch.parallel import dist as dist_lib, mesh as mesh_lib
+    from multimae_tpu_torch.parallel.fsdp import is_sharded
+    from multimae_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    one = one_process_pretrain_step(torch, dev)
+    dist_lib.init_single_process_group("cuda")
+    try:
+        mesh = mesh_lib.create_mesh(device="cuda")
+        state, history, launches, peak = laid_out_steps(
+            torch, dev, "FSDP", lambda m: mesh_lib.layout_model(m, mesh, fsdp=True))
+        sharded = sum(is_sharded(p) for p in state.model.parameters())
+        with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+            path = save_checkpoint(tmp, 0, state)
+            full = state.state_dict()["model"]
+            plain, _ = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=1, device=dev)
+            load_checkpoint(path, plain)
+            equal = all(torch.equal(v, full[k].to(v.device))
+                        for k, v in plain.model.state_dict().items())
+        del state, plain, full
+    finally:
+        dist.destroy_process_group()
+    free_card(torch)
+    if not equal:
+        raise AssertionError("a save under FSDP does not load into the plain state bit-equal")
+    return {"one_process": one, "history": history, "launches": launches, "peak_gib": peak,
+            "dtensor_parameters": sharded}
+
+
+def rank_gap(a, b):
+    """The largest relative gap between two ranks' metrics over the steps."""
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for x, y in zip(a, b) for k in y)
+
+
+def step_gap(phase, tag, got, one, limits):
+    """Log the first step's loss and grad norm against the one-process
+    step's; raise past `limits` (loss, grad norm), relative."""
+    rel = {k: abs(got[k] - one[k]) / abs(one[k]) for k in ("loss", "grad_norm")}
+    log(phase, f"{tag} step 0 vs one process: loss {got['loss']:.6f} / {one['loss']:.6f} "
+               f"(rel {rel['loss']:.2e}, limit {limits[0]}), grad norm "
+               f"{got['grad_norm']:.6f} / {one['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}, "
+               f"limit {limits[1]})")
+    if not (rel["loss"] <= limits[0] and rel["grad_norm"] <= limits[1]):
+        raise AssertionError(f"{tag}: the first step differs from the one-process step {rel}")
+    return rel
+
+
+def parallel_slice(torch, dev, card):
+    """Phase 18: K2 at TP's local head counts, then the TP, PP and FSDP
+    paths. Returns the kernel numbers to add and the launches of each
+    path."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    k2 = {}
+    for h, tag in ((8, "tp8"), (6, "tp6")):
+        fwd, bwd = k2_at(torch, dev, SEMSEG_BATCH, 2049, h, 64, 18, card, seed=18 + h)
+        k2[tag] = (fwd, bwd)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    out_dir = os.path.join(HERE, "build", "chip_smoke_parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    children = mp.start_processes(parallel_child, args=(ports, out_dir), nprocs=4, join=False,
+                                  start_method="spawn")
+    log(18, f"TP 2 ({TP_MODEL} semseg, 512 px, batch {SEMSEG_BATCH}) and PP 2 x {PP_MICRO} "
+            f"(ViT-B pretraining, batch {TRAIN_BATCH}) started: 4 processes on the card")
+    fsdp = fsdp_part(torch, dev)
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT
+    while not children.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for p in children.processes:
+                p.kill()
+            raise AssertionError(f"the TP and PP processes did not end in {PARALLEL_TIMEOUT} s")
+    res = {}
+    for name in ("00", "01", "10", "11"):
+        with open(os.path.join(out_dir, f"{name}.json")) as f:
+            res[name] = json.load(f)
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    tp0, tp1 = res["00"], res["01"]
+    log(18, f"gloo on one card: {tp0['gloo_cuda']}")
+    for r, tp in enumerate((tp0, tp1)):
+        log(18, f"TP rank {r}: losses " + ", ".join(f"{m['loss']:.4f}" for m in tp["history"])
+                + f"; grad norms " + ", ".join(f"{m['grad_norm']:.4f}" for m in tp["history"])
+                + f"; launches over {PARALLEL_STEPS} steps {tp['launches']}; eval batch "
+                  f"{tp['eval_launches']}; peak {tp['peak_gib']:.2f} GiB")
+    tp_ranks = rank_gap(tp0["history"], tp1["history"])
+    tp_rel = step_gap(18, "TP 2", tp0["history"][0], tp0["one_process"],
+                      (TP_LOSS_TOLERANCE, TP_NORM_TOLERANCE))
+    for r in ("10", "11"):
+        pp = res[r]
+        log(18, f"PP stage {r[1]}: losses " + ", ".join(f"{m['loss']:.4f}" for m in pp["history"])
+                + f"; launches over {PARALLEL_STEPS} steps {pp['launches']}; peak "
+                  f"{pp['peak_gib']:.2f} GiB")
+    pp_ranks = rank_gap(res["10"]["history"], res["11"]["history"])
+    log(18, f"the ranks' metrics over {PARALLEL_STEPS} steps, largest relative gap: TP "
+            f"{tp_ranks:.2e}, PP {pp_ranks:.2e} (limit {RANK_TOLERANCE})")
+    if not (tp_ranks <= RANK_TOLERANCE and pp_ranks <= RANK_TOLERANCE):
+        raise AssertionError("the ranks of one group report different metrics")
+    pp_rel = step_gap(18, f"PP 2 x {PP_MICRO}", res["10"]["history"][0],
+                      res["10"]["one_process"], (PP_TOLERANCE, PP_TOLERANCE))
+    log(18, f"FSDP (world 1, NCCL, {fsdp['dtensor_parameters']} DTensor parameters): losses "
+            + ", ".join(f"{m['loss']:.4f}" for m in fsdp["history"])
+            + f"; launches over {PARALLEL_STEPS} steps {fsdp['launches']}; peak "
+              f"{fsdp['peak_gib']:.2f} GiB; a save under FSDP loads into the plain state "
+              f"bit-equal")
+    fsdp_rel = step_gap(18, "FSDP", fsdp["history"][0], fsdp["one_process"],
+                        (PP_TOLERANCE, PP_TOLERANCE))
+    for path, runs in (("TP", [tp0, tp1]), ("PP", [res["10"], res["11"]]), ("FSDP", [fsdp])):
+        if not runs[0]["history"][-1]["loss"] < runs[0]["history"][0]["loss"]:
+            raise AssertionError(f"{path}: the loss did not fall")
+    extra = {"short_attention_fwd": {}, "short_attention_bwd": {}}
+    for tag, (fwd, bwd) in k2.items():
+        extra["short_attention_fwd"].update(prefixed(tag, fwd))
+        extra["short_attention_bwd"].update(prefixed(tag, bwd))
+    numbers = {"tp_first_step_rel": tp_rel, "pp_first_step_rel": pp_rel,
+               "tp_rank_gap": tp_ranks, "pp_rank_gap": pp_ranks,
+               "fsdp_first_step_rel": fsdp_rel, "tp_peak_gib": tp0["peak_gib"],
+               "pp_peak_gib": res["10"]["peak_gib"], "fsdp_peak_gib": fsdp["peak_gib"]}
+    launches = {"tp_step": {k: v // PARALLEL_STEPS for k, v in tp0["launches"].items()},
+                "tp_eval": tp0["eval_launches"],
+                "pp_step": {k: v // PARALLEL_STEPS for k, v in res["10"]["launches"].items()},
+                "fsdp_step": {k: v // PARALLEL_STEPS for k, v in fsdp["launches"].items()}}
+    return extra, launches, numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "multimae_tpu_torch")):
         raise SystemExit("chip_smoke.py: the multimae_tpu_torch package is not "
@@ -2887,6 +3236,16 @@ def main():
     idle = [n for n in tools_path if not any(r[n] for r in tool_launches.values())]
     if idle:
         raise AssertionError(f"phase 17 launched no {idle}")
+
+    # 18. the parallel paths: K2 at TP's local heads, TP 2, PP 2 x 4, FSDP
+    free_card(torch)
+    par_extra, par_launches, par_numbers = parallel_slice(torch, dev, card)
+    log(18, "numbers: " + json.dumps(par_numbers))
+    for k in kernels:
+        name = k.get("served_by", k["name"])
+        k.update(par_extra.get(k["name"], {}))
+        for path, counts in par_launches.items():
+            k[f"{path}_launches"] = counts[name]
 
     log_phase_times()
     print(card, flush=True)

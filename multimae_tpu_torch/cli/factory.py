@@ -10,7 +10,7 @@ fp32, and the Taskonomy rgb -> depth_zbuffer recipe, bf16 at 384 px)."""
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -98,12 +98,16 @@ def build_pretrain_model(
     pos_emb_grads: bool = False,
     seed: int = 0,
     device="cuda",
+    depth: Optional[int] = None,
 ):
     """Reference get_model (run_pretraining_multimae.py:243-293), with
     weights drawn from a CPU torch.Generator seeded with `seed`, then
     moved to `device`. decoder_return_patches=True is the training fast
     path (JAX cli/factory.py:75-105): decoders emit (B, N, C*p*p) token
     patches and the masked losses take them directly.
+
+    `depth` replaces the registry entry's encoder depth (the pipeline
+    tests and bench_pp_bubble take deeper tiny models).
 
     pos_emb_grads=True gives the fixed sin-cos pos-embs gradients (they
     stay out of every optimizer group, so they are never updated). The
@@ -137,7 +141,8 @@ def build_pretrain_model(
         model_name, input_adapters=input_adapters,
         output_adapters=output_adapters, num_global_tokens=num_global_tokens,
         drop_path_rate=drop_path, dtype=dtype,
-        fp32_output_adapters=tuple(fp32_output_adapters))
+        fp32_output_adapters=tuple(fp32_output_adapters),
+        **({} if depth is None else {"depth": depth}))
     model.init_weights(torch.Generator().manual_seed(seed))
     if pos_emb_grads:
         for name, p in model.named_parameters():
@@ -181,7 +186,7 @@ def make_synthetic_batch(batch: int, input_size: int = 224,
 
 
 def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda",
-                           model_name: str = "pretrain_multimae_base"):
+                           model_name: str = "pretrain_multimae_base", parallel=None):
     """(TrainState, train_step) of the flagship pretraining recipe
     (cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml, as the JAX
     package's bench.py:96-137 runs it): MultiMAE ViT-B in bf16 with the
@@ -190,13 +195,17 @@ def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda",
     dict-model groups (filter_bias_and_bn=False), and the cosine LR from
     blr 1e-4 * batch_size / 256 (reference :372-373) to 0 over 1600 epochs
     of 100 steps, without warmup (with warmup the first step's LR is 0).
-    `model_name` picks the encoder (pretrain_multimae_large for ViT-L)."""
+    `model_name` picks the encoder (pretrain_multimae_large for ViT-L);
+    `parallel(model)`, where given, lays the model out (parallel/mesh.py
+    layout_model) before the optimizer is built."""
     device = entry_device(device)
     domains = ("rgb", "depth", "semseg")
     model = build_pretrain_model(model_name=model_name, dtype=torch.bfloat16,
                                  fp32_output_adapters=("semseg",),
                                  decoder_return_patches=True, pos_emb_grads=True,
                                  seed=seed, device=device)
+    if parallel is not None:
+        parallel(model)
     balancer = build_balancer("uncertainty", domains + ("norm_rgb",)).to(device)
     optimizer = create_optimizer(model, balancer, weight_decay=0.05, opt_betas=(0.9, 0.95),
                                  filter_bias_and_bn=False)
@@ -218,7 +227,8 @@ SEMSEG_RECIPE = dict(
 )
 
 
-def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cuda", **overrides):
+def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cuda", parallel=None,
+                         **overrides):
     """(TrainState, train_step) of the NYUv2 RGB + depth recipe: MultiViT-B
     at 512 px (2 x 1024 + 1 tokens) with the ConvNeXt head, 40 classes, in
     bf16 (the CLI's --fp16 default), drop_path 0.1 rising over the blocks,
@@ -227,7 +237,9 @@ def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cuda", **ove
     200 epochs of NYUv2's 795 training images at `batch_size`, without
     the recipe's 1-epoch warmup (with warmup the first step's LR is ~0).
     Weights are random, drawn from a CPU generator seeded with `seed`.
-    `overrides` replace recipe entries (the CPU tests' tiny model).
+    `overrides` replace recipe entries (the CPU tests' tiny model);
+    `parallel(model)`, where given, lays the model out (parallel/mesh.py
+    layout_model) before the optimizer is built.
 
     The frozen sin-cos pos-embs get gradients that the optimizer never
     applies: the JAX step's gradient norm counts them."""
@@ -246,6 +258,8 @@ def build_semseg_trainer(*, batch_size: int, seed: int = 0, device="cuda", **ove
         if name.endswith("pos_emb"):
             p.requires_grad_(True)
     model.to(device)
+    if parallel is not None:
+        parallel(model)
     depth = len(model.encoder)
     assigner = LayerDecayValueAssigner(
         [r["layer_decay"] ** (depth + 1 - i) for i in range(depth + 2)])

@@ -14,7 +14,9 @@ loadable save in --output_dir with the data order and the best metric so
 far (the JAX CLIs restart from the worst value, so their first
 evaluation after a resume overwrites checkpoint-best). Several processes
 (torchrun, OpenMPI, SLURM; parallel/dist.py) train data-parallel on the
-global batch, --batch_size per process.
+global batch, --batch_size per data rank; with --model_parallel k each k
+adjacent ranks split the encoder blocks Megatron-style (parallel/tp.py)
+and see the same samples.
 
 A run that computes in fp32 on the card turns off TF32 in torch's
 matmuls and cuDNN's convolutions (cuDNN's is on by default) for its
@@ -47,9 +49,6 @@ def refuse_unported(args) -> None:
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
          "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (args.model_parallel > 1,
-         "--model_parallel > 1 is not ported yet: ROADMAP.md queue 1 item 18 (FSDP, TP, "
-         "PP, the hybrid mesh)"),
         (bool(args.finetune) and not args.finetune.endswith(".pth"),
          f"--finetune {args.finetune}: not a .pth file; the port starts from "
          "reference-layout .pth files (the JAX package's msgpack and orbax checkpoints "
@@ -92,12 +91,12 @@ class WeightedMeans:
         self.sums = part if self.sums is None else self.sums + part
         self.images += pred.shape[0]
 
-    def finish(self) -> Tuple[Dict[str, Any], Dict[str, float]]:
+    def finish(self, layout=None) -> Tuple[Dict[str, Any], Dict[str, float]]:
         from multimae_tpu_torch.parallel import dist as dist_lib
 
         total = dist_lib.sum_across_processes(torch.cat([
             self.sums, torch.tensor([float(self.images)], dtype=torch.float64,
-                                    device=self.sums.device)]))
+                                    device=self.sums.device)]), layout)
         count = max(float(total[-1]), 1.0)
         means = {k: float(v) / count for k, v in zip(self.names, total[:-1].tolist())}
         return {**means, "images": int(total[-1])}, means
@@ -114,7 +113,8 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
     has it, "mask_valid", on the device; loss_parts_fn(pred, target[,
     mask_valid=]) -> (sum, count); evaluation() -> a fresh accumulator for
     one evaluation, with add(pred, prepared batch) for each batch and
-    finish() -> (stats, logged), summed over the processes, `logged` being
+    finish(batch layout) -> (stats, logged), summed over the batch's
+    shards (parallel/dist.BatchLayout), `logged` being
     what log.txt gets as val_<name>; best = (a name in `logged`, "max" or
     "min"): checkpoint-best follows it, and the checkpoints keep it as
     best_<name>; synthetic(batch size) -> a loader batch; report(stats)
@@ -131,13 +131,13 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
 
     device = entry_device(args.device)
     created = not (torch.distributed.is_available() and torch.distributed.is_initialized())
-    created &= dist_lib.initialize_distributed(args.device)
+    dist_lib.initialize_distributed(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     with exact_fp32(device, dtype):
         summary = _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn,
                             evaluation, best, synthetic, report)
-    if created:
+    if created and torch.distributed.is_initialized():
         dist_lib.barrier()
         torch.distributed.destroy_process_group()
     return summary
@@ -158,9 +158,14 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
     from multimae_tpu_torch.utils.logger import MetricLogger, write_log_line
     from multimae_tpu_torch.utils.torch_compat import load_pretrained
 
-    rank, world = dist_lib.process_index(), dist_lib.world_size()
+    from multimae_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.mesh_for_flags(model_parallel=args.model_parallel, device=device)
+    layout = mesh_lib.batch_layout(mesh)
+    rank, world = layout.rank, layout.size
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
-          f"{world} process(es), compute {dtype}")
+          f"{dist_lib.world_size()} process(es), compute {dtype}"
+          + (f", mesh {mesh}" if mesh is not None else ""))
 
     def sync():
         if device.type == "cuda":
@@ -179,9 +184,9 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
     for name, p in model.named_parameters():
         if name.endswith("pos_emb"):
             p.requires_grad_(True)
-    model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"params: {n_params / 1e6:.2f}M")
+    mesh_lib.layout_model(model.to(device), mesh)
 
     global_batch = args.batch_size * world
     loader = eval_loader = None
@@ -232,9 +237,9 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
     if summary["resumed_from"]:
         summary["load_s"] = time.perf_counter() - t0
     if payload:
-        saved = payload["model"]
-        summary["resume_bit_equal"] = set(saved) == set(model.state_dict()) and all(
-            torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
+        saved, live = payload["model"], state.state_dict()["model"]
+        summary["resume_bit_equal"] = set(saved) == set(live) and all(
+            torch.equal(v.cpu(), saved[k]) for k, v in live.items())
         if loader is not None and payload.get("data_iter_state"):
             try:
                 loader.set_state(payload["data_iter_state"])
@@ -262,7 +267,7 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
             compute_s += time.perf_counter() - t1
             batches += 1
             images += int(prep["target"].shape[0])
-        stats, logged = acc.finish()
+        stats, logged = acc.finish(layout)
         total_s = time.perf_counter() - t_eval
         return {"batches": batches, "images": images, **stats,
                 "ms_per_batch": compute_s / max(batches, 1) * 1e3,

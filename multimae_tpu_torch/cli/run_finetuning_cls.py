@@ -171,7 +171,8 @@ def get_args(argv=None):
     parser.add_argument("--synthetic_steps_per_epoch", default=8, type=int)
 
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="Tensor-parallel group size: not ported")
+                        help="Tensor-parallel group size (Megatron over the encoder blocks, "
+                             "parallel/tp.py); data parallelism on the remaining ranks")
 
     args_config, remaining = config_parser.parse_known_args(argv)
     if args_config.config:
@@ -189,9 +190,6 @@ def refuse_unported(args) -> None:
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
          "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (args.model_parallel > 1,
-         "--model_parallel > 1 is not ported yet: ROADMAP.md queue 1 item 18 (FSDP, TP, "
-         "PP, the hybrid mesh)"),
         (bool(args.finetune) and not args.finetune.endswith(".pth"),
          f"--finetune {args.finetune}: not a .pth file; the port starts from "
          "reference-layout .pth files (the JAX package's msgpack and orbax checkpoints "
@@ -231,13 +229,22 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.utils.torch_compat import load_pretrained
 
     device = entry_device(args.device)
+    from multimae_tpu_torch.parallel import mesh as mesh_lib, tp
+
     created = not (torch.distributed.is_available() and torch.distributed.is_initialized())
-    created &= dist_lib.initialize_distributed(args.device)
-    rank, world = dist_lib.process_index(), dist_lib.world_size()
+    dist_lib.initialize_distributed(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_lib.mesh_for_flags(model_parallel=args.model_parallel, device=device)
+    layout = mesh_lib.batch_layout(mesh)
+    rank, world = layout.rank, layout.size
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
-          f"{world} process(es)")
+          f"{dist_lib.world_size()} process(es)" + (f", mesh {mesh}" if mesh is not None else ""))
+
+    def finish():
+        if created and torch.distributed.is_initialized():
+            dist_lib.barrier()
+            torch.distributed.destroy_process_group()
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = build_cls_model(model=args.model, patch_size=args.patch_size,
@@ -256,8 +263,8 @@ def main(args) -> Dict[str, Any]:
     for name, p in model.named_parameters():
         if name.endswith("pos_emb"):
             p.requires_grad_(True)
-    model.to(device)
     print(f"params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    mesh_lib.layout_model(model.to(device), mesh)
 
     global_batch = args.batch_size * world
     loader = eval_loader = synthetic = None
@@ -354,10 +361,12 @@ def main(args) -> Dict[str, Any]:
         summary["load_s"] = time.perf_counter() - t0
     if payload:
         saved = payload["model"]
-        summary["resume_bit_equal"] = set(saved) == set(model.state_dict()) and all(
-            torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
+        live = state.state_dict()["model"]
+        summary["resume_bit_equal"] = set(saved) == set(live) and all(
+            torch.equal(v.cpu(), saved[k]) for k, v in live.items())
         if host_ema is not None and payload.get("ema_params") is not None:
-            host_ema.load(payload["ema_params"])
+            host_ema.load({k: tp.local_tensor(model, k, v)
+                           for k, v in payload["ema_params"].items()})
         if loader is not None and payload.get("data_iter_state"):
             try:
                 loader.set_state(payload["data_iter_state"])
@@ -390,7 +399,7 @@ def main(args) -> Dict[str, Any]:
             sums += torch.tensor([float(acc1) * n, float(acc5) * n, n], dtype=torch.float64)
             compute_s += time.perf_counter() - t1
             batches += 1
-        sums = dist_lib.sum_across_processes(sums)
+        sums = dist_lib.sum_across_processes(sums, layout)
         count = max(float(sums[2]), 1.0)
         total_s = time.perf_counter() - t_eval
         return {"acc1": float(sums[0]) / count, "acc5": float(sums[1]) / count,
@@ -406,9 +415,7 @@ def main(args) -> Dict[str, Any]:
         if loader is not None:
             loader.close()
             eval_loader.close()
-        if created:
-            dist_lib.barrier()
-            torch.distributed.destroy_process_group()
+        finish()
         return summary
 
     fetch_s = [0.0]  # the wait for the last batch: the loader and the copy to the device
@@ -454,7 +461,8 @@ def main(args) -> Dict[str, Any]:
         def save(tag=None):
             extra = {"best_acc1": best_acc1}
             if host_ema is not None:
-                extra["ema_params"] = host_ema.params
+                extra["ema_params"] = {k: tp.full_tensor(model, k, v)
+                                       for k, v in host_ema.params.items()}
             t1 = time.perf_counter()
             path = save_checkpoint(args.output_dir, epoch, state, args=vars(args), tag=tag,
                                    data_iter_state=None if loader is None
@@ -488,9 +496,7 @@ def main(args) -> Dict[str, Any]:
     if loader is not None:
         loader.close()
         eval_loader.close()
-    if created:
-        dist_lib.barrier()
-        torch.distributed.destroy_process_group()
+    finish()
     return summary
 
 

@@ -167,7 +167,8 @@ def get_args(argv=None):
     parser.add_argument("--synthetic_steps_per_epoch", default=4, type=int)
 
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="Tensor-parallel group size: not ported")
+                        help="Tensor-parallel group size (Megatron over the encoder blocks, "
+                             "parallel/tp.py); data parallelism on the remaining ranks")
 
     args_config, remaining = config_parser.parse_known_args(argv)
     if args_config.config:

@@ -175,7 +175,8 @@ def get_args(argv=None):
     parser.add_argument("--synthetic_steps_per_epoch", default=4, type=int)
 
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="Tensor-parallel group size: not ported")
+                        help="Tensor-parallel group size (Megatron over the encoder blocks, "
+                             "parallel/tp.py); data parallelism on the remaining ranks")
 
     args_config, remaining = config_parser.parse_known_args(argv)
     if args_config.config:
@@ -318,11 +319,11 @@ class ConfusionEval:
                               ignore_index=SEG_IGNORE_INDEX)
         self.cm = cm if self.cm is None else self.cm + cm
 
-    def finish(self) -> Tuple[Dict[str, Any], Dict[str, float]]:
+    def finish(self, layout=None) -> Tuple[Dict[str, Any], Dict[str, float]]:
         from multimae_tpu_torch.parallel import dist as dist_lib
         from multimae_tpu_torch.utils.metrics import miou_from_confusion
 
-        cm = dist_lib.sum_across_processes(self.cm)
+        cm = dist_lib.sum_across_processes(self.cm, layout)
         stats = miou_from_confusion(cm)
         return ({"mIoU": stats["mIoU"], "aAcc": stats["aAcc"], "mAcc": stats["mAcc"],
                  "pixels": int(cm.sum())}, {"mIoU": stats["mIoU"] * 100})

@@ -15,7 +15,13 @@ batch / 256), saves checkpoint-{epoch}.pth every --save_ckpt_freq epochs
 and at the end, and auto-resumes from the newest loadable save in
 --output_dir together with the data order. Several processes (torchrun,
 OpenMPI, SLURM; parallel/dist.py) train data-parallel on the global
-batch, --batch_size per process.
+batch, --batch_size per data rank: the global batch is --batch_size x
+world / (--model_parallel x --pipeline_parallel). --fsdp shards the
+parameters and moments over the data axis, --model_parallel k splits the
+encoder blocks over k adjacent ranks, --pipeline_parallel S runs them as
+S GPipe stages of --pipeline_microbatches, --dcn_data_parallel N groups
+the ranks by host (parallel/mesh.py); whatever the layout, a checkpoint
+holds the canonical tensors and resumes under any other.
 
 It runs on the card unless --device cpu is given, and raises where the
 card is asked for and torch sees none. Flags whose function is not
@@ -149,12 +155,25 @@ def get_args(argv=None):
     parser.add_argument("--approx_gelu", action="store_true",
                         help="tanh-approximate GELU: not ported (the kernels compute erf)")
 
-    # JAX-package scaling flags: not ported
-    parser.add_argument("--fsdp", action="store_true")
-    parser.add_argument("--model_parallel", default=1, type=int)
-    parser.add_argument("--pipeline_parallel", default=1, type=int)
-    parser.add_argument("--pipeline_microbatches", default=0, type=int)
-    parser.add_argument("--dcn_data_parallel", default=0, type=int)
+    # Scaling (parallel/mesh.py, tp.py, fsdp.py, pp.py)
+    parser.add_argument("--fsdp", action="store_true",
+                        help="Shard parameters and AdamW moments over the data axis "
+                             "(FSDP2, ZeRO-3)")
+    parser.add_argument("--model_parallel", default=1, type=int,
+                        help="Tensor-parallel group size over the 'model' axis (Megatron: "
+                             "encoder blocks split, two all_reduces per block); data "
+                             "parallelism on the remaining ranks; composes with --fsdp")
+    parser.add_argument("--pipeline_parallel", default=1, type=int,
+                        help="GPipe stages over the 'stage' axis (the encoder depth must "
+                             "divide); composes with --fsdp; exclusive with "
+                             "--model_parallel and --dcn_data_parallel")
+    parser.add_argument("--pipeline_microbatches", default=0, type=int,
+                        help="Microbatches per pipeline step (default 2 x stages; "
+                             "bubble = (S-1)/(M+S-1))")
+    parser.add_argument("--dcn_data_parallel", default=0, type=int,
+                        help="Number of hosts: a ('dcn', 'data', 'model') mesh grouped by "
+                             "host, where only the gradient mean crosses hosts and FSDP and "
+                             "TP stay inside one; -1 = one group per discovered host")
 
     # Synthetic-data mode for smoke tests without a dataset
     parser.add_argument("--synthetic_data", action="store_true",
@@ -174,15 +193,10 @@ def get_args(argv=None):
 
 def refuse_unported(args) -> None:
     """SystemExit for every flag whose function the port does not have."""
-    parallel = "ROADMAP.md queue 1 item 18 (FSDP, TP, PP, the hybrid mesh)"
     refused = [
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
          "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (args.fsdp, f"--fsdp is not ported yet: {parallel}"),
-        (args.model_parallel > 1, f"--model_parallel > 1 is not ported yet: {parallel}"),
-        (args.pipeline_parallel > 1, f"--pipeline_parallel > 1 is not ported yet: {parallel}"),
-        (bool(args.dcn_data_parallel), f"--dcn_data_parallel is not ported yet: {parallel}"),
         (args.approx_gelu,
          "--approx_gelu is not ported (the kernels compute the exact erf GELU; "
          "ROADMAP.md queue 1 item 12)"),
@@ -193,6 +207,21 @@ def refuse_unported(args) -> None:
     for bad, msg in refused:
         if bad:
             raise SystemExit(msg)
+
+
+def build_mesh(args, device):
+    """The mesh the scaling flags ask for (JAX :221-240); None for plain
+    data parallelism."""
+    from multimae_tpu_torch.parallel import mesh as mesh_lib
+
+    if args.pipeline_parallel > 1 and (args.model_parallel > 1 or args.dcn_data_parallel):
+        raise SystemExit("--pipeline_parallel is exclusive with "
+                         "--model_parallel/--dcn_data_parallel")
+    dcn = args.dcn_data_parallel
+    return mesh_lib.mesh_for_flags(
+        fsdp=args.fsdp, model_parallel=args.model_parallel,
+        pipeline_parallel=args.pipeline_parallel,
+        dcn_data_parallel=-1 if dcn < 0 else dcn, device=device)
 
 
 def mask_seed(seed: int, step: int, rank: int) -> int:
@@ -221,14 +250,21 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.train.train_state import TrainState
     from multimae_tpu_torch.utils.logger import MetricLogger, WandbLogger, write_log_line
 
+    from multimae_tpu_torch.parallel.mesh import batch_layout, layout_model
+
     device = entry_device(args.device)
     created = not (torch.distributed.is_available() and torch.distributed.is_initialized())
-    created &= dist_lib.initialize_distributed(args.device)
-    rank, world = dist_lib.process_index(), dist_lib.world_size()
+    dist_lib.initialize_distributed(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
+    mesh = build_mesh(args, device)
+    # The batch's shards: the loader's, the synthetic batch's and the
+    # masks' seeds follow the data rank, so that the ranks of one model or
+    # stage group see the same samples and masks.
+    layout = batch_layout(mesh)
+    rank, world = layout.rank, layout.size
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
-          f"{world} process(es)")
+          f"{dist_lib.world_size()} process(es)" + (f", mesh {mesh}" if mesh is not None else ""))
 
     in_domains = args.in_domains.split("-")
     out_domains = args.out_domains.split("-")
@@ -247,6 +283,10 @@ def main(args) -> Dict[str, Any]:
         num_global_tokens=args.num_global_tokens, drop_path=args.drop_path,
         fp32_output_adapters=fp32_adapters, dtype=dtype, decoder_return_patches=True,
         pos_emb_grads=True, seed=args.seed, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    layout_model(model, mesh, fsdp=args.fsdp, n_micro=(
+        args.pipeline_microbatches or 2 * args.pipeline_parallel)
+        if args.pipeline_parallel > 1 else 0)
     tasks_loss_fn = build_pretrain_losses(out_domains, patch_size=args.patch_size,
                                           extra_norm_pix_loss=args.extra_norm_pix_loss)
     out_tasks = list(out_domains) + (["norm_rgb"] if args.extra_norm_pix_loss else [])
@@ -285,7 +325,7 @@ def main(args) -> Dict[str, Any]:
         filter_bias_and_bn=False,  # reference dict-model quirk (:138-150)
         balancer_lr_scale=args.balancer_lr_scale)
     state = TrainState(model, balancer, optimizer, lr_values, wd_values)
-    n_params = sum(p.numel() for p in state.parameters())
+    n_params += sum(p.numel() for p in balancer.parameters())
     print(f"params: {n_params / 1e6:.2f}M")
 
     summary: Dict[str, Any] = {"start_epoch": args.start_epoch, "resumed_from": None,
@@ -304,7 +344,7 @@ def main(args) -> Dict[str, Any]:
                                                    f"checkpoint-{start_epoch - 1}.pth")
     if payload:
         summary["load_s"] = time.perf_counter() - t0
-        live = {**{f"model.{k}": v for k, v in model.state_dict().items()},
+        live = {**{f"model.{k}": v for k, v in state.state_dict()["model"].items()},
                 **{f"loss_balancer.{k}": v for k, v in balancer.state_dict().items()}}
         saved = {**{f"model.{k}": v for k, v in payload["model"].items()},
                  **{f"loss_balancer.{k}": v for k, v in (payload["loss_balancer"] or {}).items()}}
@@ -390,7 +430,7 @@ def main(args) -> Dict[str, Any]:
                 elif step_in_epoch == 14 and profiler is not None:
                     profiler.stop()
                     os.makedirs(args.profile_dir, exist_ok=True)
-                    trace = os.path.join(args.profile_dir, f"trace_rank{rank}.json")
+                    trace = os.path.join(args.profile_dir, f"trace_rank{dist_lib.process_index()}.json")
                     profiler.export_chrome_trace(trace)
                     profiler = None
                     print(f"[profiler] trace written to {trace}")
@@ -431,7 +471,7 @@ def main(args) -> Dict[str, Any]:
     print(f"Training time {datetime.timedelta(seconds=int(total_time))}")
     if loader is not None:
         loader.close()
-    if created:
+    if created and torch.distributed.is_initialized():
         dist_lib.barrier()
         torch.distributed.destroy_process_group()
     return summary

@@ -116,7 +116,14 @@ class MultiMAE(nn.Module):
         """The encoder blocks in order; in training each block draws its
         drop_path numbers from `generator`. The last block's tokens, or with
         `all_layers` every block's, in order (the DPT head's hooks; JAX
-        :155-168)."""
+        :155-168). A model that parallel/pp.attach made a pipeline stage
+        runs the blocks over the GPipe schedule instead (JAX :158-162),
+        except in all-layers mode."""
+        pipe = getattr(self, "pipeline", None)
+        if pipe is not None and not all_layers:
+            from multimae_tpu_torch.parallel.pp import pipelined_encoder
+
+            return pipelined_encoder(self.encoder, tokens, pipe, generator)
         outs = []
         for blk in self.encoder:
             tokens = blk(tokens, generator)
@@ -218,10 +225,12 @@ class MultiViT(MultiMAE):
 
 
 def _mae(dim, depth, heads, cls=MultiMAE):
+    """A registry entry's builder; `depth` may be overridden (a model of
+    another depth at the entry's width, as bench_pp_bubble takes)."""
     def build(input_adapters, output_adapters, **kwargs):
+        kwargs = {"depth": depth, **kwargs}
         return cls(input_adapters=input_adapters, output_adapters=output_adapters,
-                   dim_tokens=dim, depth=depth, num_heads=heads, mlp_ratio=4.0,
-                   qkv_bias=True, **kwargs)
+                   dim_tokens=dim, num_heads=heads, mlp_ratio=4.0, qkv_bias=True, **kwargs)
     return build
 
 

@@ -25,6 +25,7 @@ from torch import nn
 from multimae_tpu_torch.ops import fused_block
 from multimae_tpu_torch.ops.attention import fused_attention_bnhd
 from multimae_tpu_torch.ops.functional import dense, gelu, layer_norm
+from multimae_tpu_torch.parallel import tp
 
 
 # ------------------------------------------------------------ initialisers --
@@ -145,7 +146,12 @@ class Dense(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2 -> dropout at `drop` in training."""
+    """fc1 -> exact-erf GELU -> fc2 -> dropout at `drop` in training.
+
+    Under tensor parallelism (parallel/tp.py sets `tp_group`) fc1 holds this
+    rank's rows (column-parallel) and fc2 its columns (row-parallel): the
+    input passes `copy_to_tp`, fc2's partial sums `reduce_from_tp`, and
+    fc2's bias is added once after the sum."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32,
                  drop: float = 0.0):
@@ -153,39 +159,57 @@ class Mlp(nn.Module):
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, dim, dtype=dtype)
         self.drop = drop
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(self.fc2(gelu(self.fc1(x))), self.drop, self.training, generator)
+        if self.tp_group is None:
+            return dropout(self.fc2(gelu(self.fc1(x))), self.drop, self.training, generator)
+        h = gelu(self.fc1(tp.copy_to_tp(x, self.tp_group)))
+        return dropout(tp.row_parallel(h, self.fc2, self.tp_group), self.drop,
+                       self.training, generator)
 
 
 class Attention(nn.Module):
     """Self-attention with a fused qkv projection; scale head_dim**-0.5. In
     training, `attn_drop` > 0 takes the dense path with dropout on the
-    probabilities, and `proj_drop` drops the projection's output."""
+    probabilities, and `proj_drop` drops the projection's output.
+
+    Under tensor parallelism (parallel/tp.py sets `tp_group` and
+    `num_heads` to this rank's head count) qkv holds the q, k and v rows of
+    this rank's heads and proj the matching columns: the input passes
+    `copy_to_tp`, attention runs on the local heads (K2 where its gate
+    admits them), and proj's partial sums `reduce_from_tp`. `head_dim`
+    stays dim / the model's head count."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32, attn_drop: float = 0.0,
                  proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, num_fused=3)
         self.proj = Dense(dim, dim, dtype=dtype)
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, n, c = x.shape
-        h = self.num_heads
-        scale = (c // h) ** -0.5
-        q, k, v = self.qkv(x).reshape(b, n, 3, h, c // h).unbind(2)
+        b, n, _ = x.shape
+        h, dh = self.num_heads, self.head_dim
+        scale = dh ** -0.5
+        if self.tp_group is not None:
+            x = tp.copy_to_tp(x, self.tp_group)
+        q, k, v = self.qkv(x).reshape(b, n, 3, h, dh).unbind(2)
         if self.attn_drop > 0.0 and self.training:
             out = attention_dropped(q, k, v, scale, self.attn_drop, generator)
         else:
             out = fused_attention_bnhd(q, k, v, scale)
-        return dropout(self.proj(out.reshape(b, n, c)), self.proj_drop, self.training,
-                       generator)
+        out = out.reshape(b, n, h * dh)
+        y = self.proj(out) if self.tp_group is None else tp.row_parallel(
+            out, self.proj, self.tp_group)
+        return dropout(y, self.proj_drop, self.training, generator)
 
 
 class CrossAttention(nn.Module):
@@ -212,10 +236,12 @@ class Block(nn.Module):
     """Pre-LN ViT block (reference multimae_utils.py:217-232).
 
     Inference on the card (eval, no grad, bf16, qkv bias, CUDA tensor,
-    a shape fused_block.supported admits) runs the whole block as the
-    fused_block_infer kernel, the gate of the JAX package's
-    models/vit.py:311-336; other shapes (the tiny models' head width of
-    16) take the module path. In training each residual
+    a shape fused_block.supported admits, no tensor parallelism) runs the
+    whole block as the fused_block_infer kernel, the gate of the JAX
+    package's models/vit.py:311-336 (whose `constraint_model_size() == 1`
+    is the last condition: the kernel spans both of Megatron's sums);
+    other shapes (the tiny models' head width of 16) take the module path.
+    In training each residual
     branch goes through drop_path at `drop_path_rate`, drawing from the
     `generator` the caller hands to forward: the attention branch first,
     then the MLP's; dropout at `drop` and `attn_drop` draws from it too,
@@ -250,6 +276,7 @@ class Block(nn.Module):
             and self.dtype == torch.bfloat16
             and self.qkv_bias
             and x.is_cuda
+            and self.attn.tp_group is None
             and fused_block.supported(x.shape[1], x.shape[-1], self.num_heads,
                                       self.mlp.fc1.weight.shape[0], self.dtype, x.shape[0])
         ):

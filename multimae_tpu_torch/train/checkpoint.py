@@ -10,7 +10,9 @@ and where they are kept the parameter EMA (`ema_params`, the device EMA
 of TrainState or a HostEMA's), the --update_freq accumulation and what a
 CLI adds (the best accuracy or mIoU so far, so a resume keeps
 `checkpoint-best`).
-Rank 0 alone writes it, to `.tmp` first and then `os.replace`, with an
+Whatever the layout (FSDP, tensor or pipeline parallelism), the file holds
+the canonical tensors: every rank gathers them (TrainState.state_dict),
+then rank 0 alone writes it, to `.tmp` first and then `os.replace`, with an
 `args.json` beside it; a `tag` names the file instead (`checkpoint-best`,
 which auto-resume does not consider). Every load is
 `torch.load(weights_only=True)`, with argparse.Namespace allow-listed for
@@ -55,10 +57,11 @@ def save_checkpoint(output_dir: str, epoch: int, state: TrainState, *,
     """Write checkpoint-{epoch}.pth (or {tag}.pth) on rank 0, with the
     plain values of `extra` as further keys; returns its path (None on the
     other ranks)."""
+    tensors = state.state_dict()  # every rank: FSDP and TP gather here
     if not is_main_process():
         return None
     os.makedirs(output_dir, exist_ok=True)
-    payload = dict(state.state_dict(), epoch=int(epoch), args=dict(args or {}),
+    payload = dict(tensors, epoch=int(epoch), args=dict(args or {}),
                    data_iter_state=data_iter_state, **(extra or {}))
     path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.pth")
     tmp = path + ".tmp"
@@ -85,14 +88,16 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
     return cands[0] if cands else None
 
 
-def _check_tensors(saved: Dict[str, Any], live: Dict[str, torch.Tensor], what: str) -> None:
+def _check_tensors(saved: Dict[str, Any], live: Dict[str, Tuple[int, ...]], what: str) -> None:
+    """Every key of the live shapes saved, and no other, each a tensor of
+    that shape."""
     if set(saved) != set(live):
         missing, extra = sorted(set(live) - set(saved)), sorted(set(saved) - set(live))
         raise ValueError(f"{what}: keys differ (missing {missing[:5]}, unexpected {extra[:5]})")
-    for k, v in live.items():
-        if not torch.is_tensor(saved[k]) or saved[k].shape != v.shape:
+    for k, shape in live.items():
+        if not torch.is_tensor(saved[k]) or tuple(saved[k].shape) != tuple(shape):
             raise ValueError(f"{what}.{k}: saved {getattr(saved[k], 'shape', saved[k])}, "
-                             f"live {tuple(v.shape)}")
+                             f"live {tuple(shape)}")
 
 
 def validate_payload(payload: Any, state: TrainState) -> None:
@@ -105,22 +110,27 @@ def validate_payload(payload: Any, state: TrainState) -> None:
                "updates"} - set(payload)
     if missing:
         raise ValueError(f"checkpoint lacks {sorted(missing)}")
-    _check_tensors(payload["model"], state.model.state_dict(), "model")
+    shapes = state.canonical_shapes()
+    _check_tensors(payload["model"], shapes, "model")
     if state.balancer is not None:
-        _check_tensors(payload["loss_balancer"], state.balancer.state_dict(), "loss_balancer")
+        _check_tensors(payload["loss_balancer"],
+                       {k: v.shape for k, v in state.balancer.state_dict().items()},
+                       "loss_balancer")
     if state.ema is not None and payload.get("ema_params") is not None:
-        _check_tensors(payload["ema_params"], state.ema, "ema_params")
+        _check_tensors(payload["ema_params"], {k: shapes[k] for k in state.ema}, "ema_params")
     saved_opt, groups = payload["optimizer"], state.optimizer.param_groups
     if len(saved_opt["param_groups"]) != len(groups) or any(
             len(s["params"]) != len(g["params"])
             for s, g in zip(saved_opt["param_groups"], groups)):
         raise ValueError("optimizer: parameter groups differ")
     params = [p for g in groups for p in g["params"]]
+    names = state._optimized_names()
     for i, per_param in saved_opt["state"].items():
+        want = shapes.get(names[i], tuple(params[i].shape))
         for k, v in per_param.items():
-            if torch.is_tensor(v) and v.dim() > 0 and v.shape != params[i].shape:
+            if torch.is_tensor(v) and v.dim() > 0 and tuple(v.shape) != want:
                 raise ValueError(f"optimizer state {i}.{k}: saved {tuple(v.shape)}, "
-                                 f"live {tuple(params[i].shape)}")
+                                 f"live {want}")
     int(payload["epoch"]), int(payload["step"]), int(payload["updates"])
 
 

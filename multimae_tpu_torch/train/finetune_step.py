@@ -17,9 +17,11 @@ skip a parameter whose .grad is None.
 Under torch.distributed each rank steps on its slice of the global batch
 and the loss is the global batch's, as the JAX step's over a sharded
 batch: one differentiable all_reduce sums each rank's loss (the cls
-step's mean, over the world size) or its (numerator, denominator) (the
+step's mean, over the data size) or its (numerator, denominator) (the
 dense step's), and the gradients are then averaged over the ranks (the
-mechanism of train/pretrain_step.py).
+mechanism of train/pretrain_step.py). Under tensor parallelism
+(--model_parallel) those sums run over the data group, and the norm
+counts each split tensor once (pretrain_step.parallel_global_norm).
 """
 
 from __future__ import annotations
@@ -28,26 +30,35 @@ import math
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
-
+import torch.distributed as dist
 from torch.distributed.nn.functional import all_reduce as differentiable_all_reduce
 
-from multimae_tpu_torch.parallel.dist import world_size
-from multimae_tpu_torch.train.pretrain_step import average_gradients, global_norm
+from multimae_tpu_torch.parallel import tp
+from multimae_tpu_torch.parallel.dist import all_reduce_flat, batch_layout
+from multimae_tpu_torch.train.pretrain_step import parallel_global_norm
 from multimae_tpu_torch.train.train_state import TrainState
 
 
-def _finish_step(state: TrainState, loss: torch.Tensor, params, world: int,
+def _global_sum(model, t: torch.Tensor) -> torch.Tensor:
+    """The differentiable sum of `t` over the model's batch shards."""
+    group = batch_layout(model).group
+    return differentiable_all_reduce(t, group=dist.group.WORLD if group is None else group)
+
+
+def _finish_step(state: TrainState, loss: torch.Tensor, world: int,
                  clip_grad: Optional[float]) -> Dict[str, torch.Tensor]:
     """Backward from the global loss, the gradient mean over the ranks, the
     norm, the clip, the skip and the update; the step's metrics."""
     loss.backward()
-    for p in params:
+    named = state.named_parameters()
+    for _, p in named:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
+    tp.sync_replicated_gradients(state.model, named)
+    grads = [p.grad for _, p in named]
     if world > 1:
-        average_gradients(grads, world)
-    grad_norm = global_norm(grads)
+        all_reduce_flat(grads, batch_layout(state.model).group, divide=world)
+    grad_norm = parallel_global_norm(state.model, [(n, p.grad) for n, p in named])
     if clip_grad is not None:
         scale = torch.clamp(clip_grad / (grad_norm + 1e-6), max=1.0)
         for g in grads:
@@ -67,16 +78,15 @@ def make_cls_train_step(model, loss_fn: Callable, *, clip_grad: Optional[float] 
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    generator: Optional[torch.Generator] = None):
-        params = state.parameters()
-        for p in params:
+        for p in state.parameters():
             p.grad = None
         model.train()
         logits = model({"rgb": batch["rgb"]}, generator=generator)["cls"]
         loss = loss_fn(logits, batch["target"])
-        world = world_size()
+        world = batch_layout(model).size
         if world > 1:
-            loss = differentiable_all_reduce(loss) / world
-        return _finish_step(state, loss, params, world, clip_grad)
+            loss = _global_sum(model, loss) / world
+        return _finish_step(state, loss, world, clip_grad)
 
     return train_step
 
@@ -106,19 +116,17 @@ def make_dense_train_step(model, task: str, loss_parts_fn: Callable,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    generator: Optional[torch.Generator] = None):
-        params = state.parameters()
-        for p in params:
+        for p in state.parameters():
             p.grad = None
         model.train()
         inputs = {d: batch[d] for d in in_domains if d in batch}
         pred = model(inputs, generator=generator)[task]
         kwargs = {"mask_valid": batch["mask_valid"]} if "mask_valid" in batch else {}
         parts = torch.stack(loss_parts_fn(pred.float(), batch["target"], **kwargs))
-        world = world_size()
+        world = batch_layout(model).size
         if world > 1:
-            parts = differentiable_all_reduce(parts)
-        return _finish_step(state, parts[0] / parts[1].clamp_min(1), params, world,
-                            clip_grad)
+            parts = _global_sum(model, parts)
+        return _finish_step(state, parts[0] / parts[1].clamp_min(1), world, clip_grad)
 
     return train_step
 

@@ -21,6 +21,18 @@ and the step computes the JAX step's result, the loss of the global batch:
      one all_reduce per dtype over the flattened gradients, divided by
      world_size, gives the global batch's gradients on every rank;
   4. the grad norm, the clip and the skip follow, the same on every rank.
+
+Under a mesh (parallel/mesh.py) the sums and the mean run over the data
+group, the ranks that hold different samples, and not the world:
+  * pipeline parallelism first sums over the stage group the gradients
+    that only the stage that ran them has (parallel/pp.py);
+  * tensor parallelism averages over the model group the gradients of
+    what every rank holds whole (parallel/tp.py);
+  * FSDP's reduce-scatter has already averaged the gradients it manages
+    over the data group (parallel/fsdp.py); the mean covers the rest;
+  * the grad norm counts every element once (`parallel_global_norm`):
+    FSDP's shards and tensor parallelism's pieces are summed over their
+    ranks, the frozen pos-embs' gradients included, as the JAX step's.
 """
 
 from __future__ import annotations
@@ -33,7 +45,10 @@ import torch.distributed as dist
 from torch.distributed.nn.functional import all_reduce as differentiable_all_reduce
 
 from multimae_tpu_torch.models.criterion import ratio
-from multimae_tpu_torch.parallel.dist import world_size
+from multimae_tpu_torch.parallel import tp
+from multimae_tpu_torch.parallel.dist import all_reduce_flat, batch_layout
+from multimae_tpu_torch.parallel.fsdp import is_sharded, shard_count
+from multimae_tpu_torch.parallel.pp import reduce_stage_gradients
 
 from multimae_tpu_torch.train.train_state import TrainState
 
@@ -57,20 +72,29 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
 
 
-def average_gradients(grads: Sequence[torch.Tensor], world: int) -> None:
-    """Replace each gradient by its mean over the ranks: one all_reduce per
-    dtype over the gradients flattened into one buffer."""
-    by_dtype: Dict[torch.dtype, list] = {}
-    for g in grads:
-        by_dtype.setdefault(g.dtype, []).append(g)
-    for group in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in group])
-        dist.all_reduce(flat)
-        flat /= world
-        offset = 0
-        for g in group:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's elements of a gradient (an FSDP DTensor's local shard)."""
+    return t.to_local() if is_sharded(t) else t
+
+
+def parallel_global_norm(model, named_grads) -> torch.Tensor:
+    """The global norm of (name, gradient) pairs whose tensors may be FSDP
+    shards or tensor-parallel pieces: each rank's sum of squares, weighted
+    by 1 / the number of ranks that hold the same elements, summed over
+    the world in fp64. Without either it is `global_norm` of the local
+    gradients, which are then whole and equal on every rank."""
+    named_grads = list(named_grads)
+    if not any(is_sharded(g) or tp.split_kind(model, n) for n, g in named_grads):
+        return global_norm([g for _, g in named_grads])
+    world = dist.get_world_size()
+    tp_size = tp.model_tp(model)[2] if tp.model_tp(model) else 1
+    total = torch.zeros((), dtype=torch.float64, device=local(named_grads[0][1]).device)
+    for n, g in named_grads:
+        holders = world // (shard_count(g) if is_sharded(g) else 1)
+        holders //= tp_size if tp.split_kind(model, n) else 1
+        total += torch.sum(local(g).float() ** 2).double() / holders
+    dist.all_reduce(total)
+    return torch.sqrt(total).float()
 
 
 def make_pretrain_train_step(
@@ -102,8 +126,7 @@ def make_pretrain_train_step(
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                    generator: Optional[torch.Generator] = None,
                    task_masks: Optional[Dict[str, torch.Tensor]] = None):
-        params = state.parameters()
-        for p in params:
+        for p in state.parameters():
             p.grad = None
         model.train()
 
@@ -120,18 +143,24 @@ def make_pretrain_train_step(
         parts = {t: tasks_loss_fn[t].parts(
                      pred.float(), tasks[t], mask=None if loss_on_unmasked else masks.get(t))
                  for t, pred in preds.items()}
-        world = world_size()
+        group, _, world = batch_layout(model)
         if world > 1:
-            summed = differentiable_all_reduce(torch.stack([x for p in parts.values() for x in p]))
+            summed = differentiable_all_reduce(
+                torch.stack([x for p in parts.values() for x in p]),
+                group=dist.group.WORLD if group is None else group)
             parts = {t: (summed[2 * i], summed[2 * i + 1]) for i, t in enumerate(parts)}
         task_losses = {t: ratio(*p) for t, p in parts.items()}
         weighted = balancer(task_losses)
         sum(weighted.values()).backward()
 
-        grads = [p.grad for p in params if p.grad is not None]
+        named = state.named_parameters()
+        reduce_stage_gradients(model, model.named_parameters())
+        tp.sync_replicated_gradients(model, named)
+        named_grads = [(n, p.grad) for n, p in named if p.grad is not None]
+        grads = [local(g) for _, g in named_grads]
         if world > 1:
-            average_gradients(grads, world)
-        grad_norm = global_norm(grads)
+            all_reduce_flat([g for _, g in named_grads if not is_sharded(g)], group, divide=world)
+        grad_norm = parallel_global_norm(model, named_grads)
         if clip_grad is not None:
             scale = torch.clamp(clip_grad / (grad_norm + 1e-6), max=1.0)
             for g in grads:

@@ -22,16 +22,25 @@ counts, which a skip does not advance), clamped at their last entry.
   :67-97), for a caller to update after each step.
 
 `state_dict` / `load_state_dict` carry all of it for a checkpoint
-(train/checkpoint.py); the EMA as `ema_params`.
+(train/checkpoint.py); the EMA as `ema_params`. Whatever the layout, they
+speak canonical tensors: FSDP's shards (parallel/fsdp.py) are gathered to
+full tensors and tensor parallelism's pieces (parallel/tp.py) joined, the
+parameters, the moments, the EMA and the accumulation alike, and a load
+cuts each full tensor back to this rank's piece and shard; so a save
+under one layout resumes under any other, and in one process. With FSDP
+or TP every rank calls them, in one order (they gather).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from multimae_tpu_torch.parallel import tp
+from multimae_tpu_torch.parallel.fsdp import is_sharded
 
 
 def _ema_blend(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float) -> None:
@@ -94,8 +103,44 @@ class TrainState:
 
     def parameters(self) -> List[torch.Tensor]:
         """Every model and balancer parameter, in a fixed order."""
-        extra = [] if self.balancer is None else list(self.balancer.parameters())
-        return list(self.model.parameters()) + extra
+        return [p for _, p in self.named_parameters()]
+
+    def named_parameters(self) -> List[Tuple[str, torch.Tensor]]:
+        """(name, parameter) of every model parameter, then the balancer's
+        as `balancer.<name>`, in a fixed order."""
+        extra = [] if self.balancer is None else [
+            ("balancer." + n, p) for n, p in self.balancer.named_parameters()]
+        return list(self.model.named_parameters()) + extra
+
+    # -- canonical tensors ----------------------------------------------
+    def _full(self, name: str, t):
+        """The canonical tensor of this rank's `t` of model tensor `name`."""
+        if not torch.is_tensor(t) or t.dim() == 0:
+            return t
+        if is_sharded(t):
+            t = t.full_tensor()
+        return tp.full_tensor(self.model, name, t)
+
+    def _local(self, name: str, full, live):
+        """This rank's part of canonical `full`, laid out as `live`."""
+        if not torch.is_tensor(full) or not torch.is_tensor(live):
+            return full
+        piece = tp.local_tensor(self.model, name, torch.as_tensor(full))
+        if is_sharded(live):
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(piece.to(live.device_mesh.device_type), live.device_mesh,
+                                     live.placements)
+        return piece
+
+    def canonical_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The canonical shape of every model state_dict entry."""
+        return {k: tp.canonical_shape(self.model, k, v.shape)
+                for k, v in self.model.state_dict().items()}
+
+    def _optimized_names(self) -> List[str]:
+        return [n for g in self.optimizer.param_groups
+                for n in g.get("names", [""] * len(g["params"]))]
 
     def _optimized(self) -> List[torch.Tensor]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
@@ -144,29 +189,43 @@ class TrainState:
         """The model's, the balancer's and the optimizer's state_dicts and the
         step counters, in the reference checkpoint's key names; the EMA
         (`ema_params`) and the accumulation where they are kept."""
-        out = {"model": self.model.state_dict(),
-               "optimizer": self.optimizer.state_dict(),
+        names = self._optimized_names()
+        opt = self.optimizer.state_dict()
+        opt["state"] = {i: {k: self._full(names[i], v) for k, v in per.items()}
+                        for i, per in opt["state"].items()}
+        out = {"model": {k: self._full(k, v) for k, v in self.model.state_dict().items()},
+               "optimizer": opt,
                "loss_balancer": None if self.balancer is None else self.balancer.state_dict(),
                "step": self.step, "updates": self.updates}
         if self.ema is not None:
-            out["ema_params"] = self.ema
+            out["ema_params"] = {k: self._full(k, v) for k, v in self.ema.items()}
         if self.update_freq > 1:
             out["mini_step"] = self.mini_step
-            out["grad_accum"] = self.grad_accum
+            out["grad_accum"] = None if self.grad_accum is None else [
+                self._full(n, a) for n, a in zip(names, self.grad_accum)]
         return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore what state_dict() saved (strict: every key and shape). A
         save without an EMA starts the EMA from the restored parameters."""
-        self.model.load_state_dict(state["model"], strict=True)
+        live = self.model.state_dict()
+        self.model.load_state_dict(
+            {k: self._local(k, v, live.get(k)) for k, v in state["model"].items()}, strict=True)
         if self.balancer is not None:
             self.balancer.load_state_dict(state["loss_balancer"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        names, params = self._optimized_names(), self._optimized()
+        opt = dict(state["optimizer"])
+        opt["state"] = {i: {k: self._local(names[int(i)], v, params[int(i)])
+                            if torch.is_tensor(v) and v.dim() > 0 else v
+                            for k, v in per.items()}
+                        for i, per in opt["state"].items()}
+        self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
         self.updates = int(state["updates"])
         if self.ema is not None:
             if state.get("ema_params") is not None:
-                _load_ema(self.ema, state["ema_params"])
+                _load_ema(self.ema, {k: self._local(k, v, self.ema.get(k))
+                                     for k, v in state["ema_params"].items()})
             else:
                 for n, p in self.model.named_parameters():
                     self.ema[n].copy_(p.detach())
@@ -174,4 +233,5 @@ class TrainState:
             self.mini_step = int(state.get("mini_step", 0))
             saved = state.get("grad_accum")
             self.grad_accum = None if saved is None else [
-                torch.as_tensor(a).to(p.device) for a, p in zip(saved, self._optimized())]
+                torch.as_tensor(self._local(n, a, p)).to(p.device)
+                for n, a, p in zip(names, saved, params)]

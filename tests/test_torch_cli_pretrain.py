@@ -72,8 +72,6 @@ def test_flat_yaml_refuses_what_it_does_not_read(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fsdp"], "item 18"), (["--model_parallel", "2"], "item 18"),
-    (["--pipeline_parallel", "2"], "item 18"), (["--dcn_data_parallel", "2"], "item 18"),
     (["--approx_gelu"], "item 12"), (["--ckpt_backend", "orbax"], "item 10"),
 ])
 def test_unported_flags_raise(flags, item):

@@ -44,7 +44,6 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "model_parallel": (["--model_parallel", "2"], "item 18"),
     "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
     "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
 }

@@ -32,7 +32,7 @@ import pytest
 import torch
 from PIL import Image
 
-from multimae_tpu import native as jnative
+from _torch_jnative import bind_private_jax_fastimage
 from multimae_tpu.data import dataset_folder as jdf
 from multimae_tpu.data.pretrain_transforms import (
     DataAugmentationForMultiMAE as JAug,
@@ -53,6 +53,17 @@ TASKS = ["depth", "rgb", "semseg"]
 def smooth(i, scale=1.0):
     yy, xx = np.mgrid[0:H, 0:W]
     return np.sin(xx / (7.0 * scale) + i) * np.cos(yy / (5.0 * scale))
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native module bound to a library built for this
+    process alone (tests/_torch_jnative.py), or the build's error."""
+    with pytest.MonkeyPatch.context() as mp:
+        try:
+            yield bind_private_jax_fastimage(mp, tmp_path_factory.mktemp("jax_fastimage"))
+        except RuntimeError as e:
+            yield e
 
 
 @pytest.fixture(scope="module")
@@ -217,9 +228,10 @@ def test_png_writer_reads_back_through_pil(tmp_path, kind):
         assert np.array_equal(image_io.load_image(path), np.asarray(img.convert("RGB")))
 
 
-def test_jpeg_matches_jax_native(tree):
-    if not jnative.available():
-        pytest.skip("the JAX package's native decoder did not build here")
+def test_jpeg_matches_jax_native(tree, jax_native):
+    if isinstance(jax_native, RuntimeError):
+        pytest.skip(f"the JAX package's native decoder does not build here: {jax_native}")
+    jnative = jax_native
     for name in sorted(os.listdir(f"{tree}/rgb_jpg/c0"))[:3]:
         path = f"{tree}/rgb_jpg/c0/{name}"
         with open(path, "rb") as f:
@@ -258,9 +270,10 @@ def test_crop_params_match_jax(hw):
 
 
 @pytest.mark.parametrize("size", [64, 224])
-def test_transform_matches_jax(tree, size):
+def test_transform_matches_jax(tree, jax_native, size):
     """rgb within 1e-5 (normalised units), depth and semseg bit-equal."""
-    assert jnative.available(), "the JAX transform's rgb path here is the native one"
+    assert not isinstance(jax_native, RuntimeError), (
+        f"the JAX transform's rgb path here is the native one: {jax_native}")
     j, t = jdf.MultiTaskImageFolder(tree, TASKS), tdf.MultiTaskImageFolder(tree, TASKS)
     ja, ta = JAug(input_size=size), TAug(input_size=size)
     worst = 0.0

@@ -142,7 +142,6 @@ def test_the_card_is_asked_for_by_default(kind):
 
 
 UNPORTED = {
-    "model_parallel": (["--model_parallel", "2"], "item 18"),
     "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
     "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
 }

@@ -651,6 +651,40 @@ def test_short_attention_matches_twins_at_16_heads(cuda):
         assert_matches_twin(a, r, f"K2 bwd {name}, 16 heads", grad_of=torch.bfloat16)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [8, 6], ids=["vit_l_tp2", "vit_b_tp2"])
+def test_short_attention_at_tensor_parallel_local_heads(cuda, h):
+    """K2 at the head counts one rank of a TP 2 group runs at 512 px
+    (parallel/tp.py: ViT-L's 16 / 2 and ViT-B's 12 / 2 heads), on the q, k
+    and v views of the rank's fused qkv output, forward and backward through
+    the autograd Function: one launch each, within their tolerances against
+    the twins, each bit-equal over two runs."""
+    b, n, dh = 4, 2049, 64
+    q, k, v = qkv_views(7, b, n, h, dh, cuda)
+    assert q.stride(1) == 3 * h * dh  # the local reshape's strided views
+    outs = [short_attention.short_attention_fwd(q, k, v, dh ** -0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+    (o, lse), (ro, rlse) = outs[0], short_attention.short_attention_ref(q, k, v, dh ** -0.5)
+    assert_matches_twin(o, ro, f"K2 fwd o, {h} heads")
+    assert_matches_twin(lse, rlse, f"K2 fwd lse, {h} heads")
+    g = randn(8, b, n, h, dh).to(cuda, torch.bfloat16)
+    grads = [short_attention.short_attention_bwd(q, k, v, o, lse, g, dh ** -0.5)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+    ref = short_attention.short_attention_bwd_ref(q, k, v, g, lse,
+                                                  short_attention.attention_delta(o, g),
+                                                  dh ** -0.5)
+    for name, a, r in zip(("dq", "dk", "dv"), grads[0], ref):
+        assert_matches_twin(a, r, f"K2 bwd {name}, {h} heads", grad_of=torch.bfloat16)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = short_attention.LAUNCHES, short_attention.LAUNCHES_BWD
+    attention.fused_attention_bnhd(*leaves, dh ** -0.5).backward(g)
+    torch.cuda.synchronize()
+    assert (short_attention.LAUNCHES - fwd, short_attention.LAUNCHES_BWD - bwd) == (1, 1)
+
+
 @pytest.mark.parametrize("rows,batch,heads,ok", [
     (256 * 197, 256, 16, True),           # bench_infer --large cls
     (32 * 1024 * 16, 1, 1, True),         # K3b at bench_infer's semseg batch

@@ -322,22 +322,24 @@ def test_smooth_tree_uses_every_filter(tmp_path):
 @pytest.fixture(scope="module")
 def jax_fastimage(tmp_path_factory):
     """The JAX package's fastimage.cpp built with the port's flags, bound
-    with the JAX package's signatures."""
-    jnative = pytest.importorskip("multimae_tpu.native")
-    if not jnative.available():
-        pytest.skip("the JAX package's native library does not build here")
-    src = REPO / "multimae_tpu" / "native" / "fastimage.cpp"
-    try:
-        path = native.build(src, tmp_path_factory.mktemp("jax_fastimage"),
-                            libs=["-ljpeg", "-lpng16"], name="libfastimage.so")
-    except RuntimeError as e:
-        pytest.skip(f"the JAX package's source does not build here: {e}")
-    lib = jnative._load()
-    jax_lib = __import__("ctypes").CDLL(str(path))
-    for name in ("mm_crop_resize_normalize", "mm_crop_resize_u8"):
-        fn = getattr(jax_lib, name)
-        fn.argtypes, fn.restype = getattr(lib, name).argtypes, getattr(lib, name).restype
-    return jnative, jax_lib
+    with the JAX package's signatures; the JAX module itself bound to its
+    source built with its own flags for this process alone
+    (tests/_torch_jnative.py)."""
+    from _torch_jnative import JAX_LIBS, JAX_SOURCE, bind_private_jax_fastimage
+
+    with pytest.MonkeyPatch.context() as mp:
+        try:
+            jnative = bind_private_jax_fastimage(mp, tmp_path_factory.mktemp("jax_own_flags"))
+            path = native.build(JAX_SOURCE, tmp_path_factory.mktemp("jax_fastimage"),
+                                libs=JAX_LIBS, name="libfastimage.so")
+        except RuntimeError as e:
+            pytest.skip(f"the JAX package's source does not build here: {e}")
+        lib = jnative._load()
+        jax_lib = __import__("ctypes").CDLL(str(path))
+        for name in ("mm_crop_resize_normalize", "mm_crop_resize_u8"):
+            fn = getattr(jax_lib, name)
+            fn.argtypes, fn.restype = getattr(lib, name).argtypes, getattr(lib, name).restype
+        yield jnative, jax_lib
 
 
 def test_crop_resize_matches_jax_fastimage(jax_fastimage, monkeypatch):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving forward, pretraining step,
 semantic segmentation fine-tune, the pretraining, semseg, classification,
-depth and Taskonomy CLIs, the demo and the tools, and the parallel
-layouts (TP, PP, FSDP) on one NVIDIA card.
+depth and Taskonomy CLIs, the demo and the tools, the parallel layouts
+(TP, PP, FSDP), and NYUv2's preparation, the decoder variants,
+--approx_gelu, AutoAugment and AugMix on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -235,6 +236,25 @@ non-zero:
      against the one-process step (TP_LOSS_TOLERANCE / TP_NORM_TOLERANCE,
      PP_TOLERANCE), the loss falling over the steps, the ranks' metrics
      equal, each path's launches with the counts set to 0 before it.
+ 19. the last modules of the JAX package: the committed NYUv2 fixture
+     (tests/fixtures/nyuv2: MATLAB v7.3's HDF5 layout at 640 x 480) read by
+     the port's HDF5 reader, each dataset's SHA-256 against h5py's in
+     expected.json; tools/prepare_nyuv2.py over it with and without the
+     class map, each PNG's pixel digest against the JAX tool's tree, ms
+     per frame; the semseg CLI over the class-mapped tree (NYU rgb-depth
+     recipe, MultiViT-B at 512 px, batch NYU_BATCH, --finetune ''): one
+     epoch with an eval and an --eval run, K2 fwd and bwd 12 and K3b 4 per
+     step, K4 12 and K3b fwd 4 per eval batch, finite losses and mIoU; the
+     pretraining step at VARIANT_BATCH (phase 7's recipe, VARIANT_STEPS
+     steps) with decoders without task queries and under --approx_gelu (K1
+     fwd and bwd 4 per step; the first step against the plain twins at
+     phase 7's bounds), and the pretraining CLI with `decoder_use_xattn:
+     false` in a YAML (no launch; its first step again on the twins); each
+     AutoAugment policy and AugMix (AA_POLICIES) and the nearest and
+     Lanczos resizes over the photo fixtures, native against twin,
+     bit-equal, ms per sample; the cls CLI's first step and eval batch
+     under --aa AA_CLI --train_interpolation AA_INTERP (nothing in the
+     step, K4 12 in the eval batch).
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -327,7 +347,7 @@ JPEG_TIMED_FILES = 40
 # 16-bit depth, 40 classes with patches of 255, mask_valid) of FT_TRAIN +
 # FT_VAL samples under the NYU rgb-depth recipe, started from phase 12's
 # pretraining checkpoint; then the Segmenter head under the ADE recipe.
-FT_TRAIN, FT_VAL = 16, 6
+FT_TRAIN, FT_VAL = 8, 6
 FT_HW = (480, 640)
 FT_YAML = "cfgs/finetune/semseg/nyu/ft_nyu_200e_multimae-b_rgb-depth.yaml"
 ADE_YAML = "cfgs/finetune/semseg/ade/ft_ade_64e_multimae-b_rgb.yaml"
@@ -351,7 +371,7 @@ DEPTH_WRITTEN, DEPTH_TRAIN, DEPTH_VAL, DEPTH_BATCH = 16, 128, 16, 64
 # px: 577 tokens) at its batch of TK_BATCH over a Taskonomy-layout tree of
 # TK_TRAIN + TK_VAL rows at TK_HW with its CSV splits.
 TK_YAML = "cfgs/finetune/taskonomy/rgb2depth-1k/ft_rgb2depth_multimae-b.yaml"
-TK_TRAIN, TK_VAL, TK_BATCH, TK_HW = 16, 8, 8, (512, 512)
+TK_TRAIN, TK_VAL, TK_BATCH, TK_HW = 8, 8, 8, (512, 512)
 # The Taskonomy CLI's first loader-fed step against the same step on the
 # plain twins (same data and drop_path draws): relative gaps of the loss
 # and of the gradient norm. K2 runs the training attention of all 12
@@ -363,6 +383,25 @@ TK_TRAIN, TK_VAL, TK_BATCH, TK_HW = 16, 8, 8, (512, 512)
 # limit sits between the two, at about 4-7 times the sound readings.
 TK_CLI_LOSS_TOLERANCE = 1e-3
 TK_CLI_NORM_TOLERANCE = 2e-3
+
+# Phase 19, the last modules of the JAX package: the committed NYUv2
+# fixture (MATLAB v7.3's layout, 4 frames at 640 x 480, 2 + 2 in its
+# splits) through the HDF5 reader and prepare_nyuv2, its class-mapped tree
+# through the semseg CLI at NYU_BATCH; VARIANT_STEPS pretraining steps at
+# VARIANT_BATCH for the decoders without task queries, without
+# cross-attention and under --approx_gelu; AA_POLICIES and the nearest and
+# Lanczos resizes over the photo fixtures, then the cls CLI's first step and
+# an eval batch under --aa AA_CLI --train_interpolation AA_INTERP.
+# The variants run at phase 7's batch because phase 7's bounds were set
+# there: the twins' rounding flips in the decoders average over the batch.
+# At batch 32 the first step's grad norm read 5.59e-5 relative without task
+# queries and 2.17e-5 under --approx_gelu, past STEP_TOLERANCE; at 128
+# 1.74e-6 and 1.19e-5 (the default decoders 1.25e-5; H100, 700 W).
+NYU_FIXTURE = os.path.join(HERE, "tests", "fixtures", "nyuv2")
+NYU_BATCH = 2
+VARIANT_BATCH, VARIANT_STEPS = TRAIN_BATCH, 3
+AA_POLICIES = ("original", "originalr", "v0", "v0r", "augmix-m3-w3-mstd0.5")
+AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 
 # The least time an H100 SXM could take (NVIDIA's data sheet, dense).
 BF16_PEAK = 989e12  # FLOP/s, tensor cores
@@ -544,30 +583,100 @@ def rel_rms(a, b):
     return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt().clamp_min(1e-30))
 
 
+def decoder_grads(m):
+    """{decoder: {parameter: fp32 copy of its gradient}}."""
+    return {t: {n: p.grad.float().clone() for n, p in a.named_parameters()
+                if p.grad is not None}
+            for t, a in m.output_adapters.items()}
+
+
+def steps_against_twins(torch, dev, phase, state, step, plain_state, plain_step, batch, masks,
+                        steps, expect):
+    """`steps` pretraining steps on one batch with fixed masks, each
+    launching `expect` ({kernel: count}), with finite metrics and a falling
+    loss; then the first step again on the plain twins from `plain_state`
+    (a copy of the state before it): every loss and the grad norm within
+    STEP_TOLERANCE, each decoder parameter's gradient within
+    STEP_GRAD_TOLERANCE. Returns (the metrics of each step, the peak
+    memory of the steps, of the plain step)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    history = []
+    for i in range(steps):
+        before = launch_counts()
+        metrics = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
+        per_step = {k: v - before[k] for k, v in launch_counts().items()}
+        if per_step != expect:
+            raise AssertionError(f"[{phase}] step {i} launched {per_step}; expected {expect}")
+        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
+            raise AssertionError(f"[{phase}] step {i}: metrics {metrics}")
+        if i == 0:
+            check_on_card(state, batch, masks)
+            first_grads = decoder_grads(state.model)
+        history.append(metrics)
+        log(phase, f"step {i}: loss {metrics['loss']:.4f}, grad norm "
+                   f"{metrics['grad_norm']:.4f}; "
+                   + ", ".join(f"{t} {metrics[t + '_loss']:.4f}" for t in TASKS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"[{phase}] the loss did not fall: {history[0]['loss']} -> "
+                             f"{history[-1]['loss']}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_twins():
+        plain = {k: float(v) for k, v in plain_step(plain_state, batch, task_masks=masks).items()}
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    rels = {k: abs(history[0][k] - plain[k]) / abs(plain[k])
+            for k in ["loss", "grad_norm"] + [f"{t}_loss" for t in TASKS]
+            + [f"{t}_loss_weighted" for t in TASKS]}
+    log(phase, "step 0 vs plain twins, rel: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    for k, rel in rels.items():
+        if not rel <= STEP_TOLERANCE:
+            raise AssertionError(f"[{phase}] step 0 {k}: {history[0][k]} vs {plain[k]} on the "
+                                 f"plain twins (rel {rel:.3e}, limit {STEP_TOLERANCE})")
+    log(phase, f"step 0 vs plain twins: loss {history[0]['loss']:.6f} / {plain['loss']:.6f}, "
+               f"grad norm {history[0]['grad_norm']:.6f} / {plain['grad_norm']:.6f} "
+               f"(limit rel {STEP_TOLERANCE})")
+    for t, grads in decoder_grads(plain_state.model).items():
+        limit = STEP_GRAD_TOLERANCE[str(state.model.output_adapters[t].dtype)]
+        if set(grads) != set(first_grads[t]):
+            raise AssertionError(f"[{phase}] decoder {t}: gradients of "
+                                 f"{sorted(first_grads[t])} vs {sorted(grads)} on the plain twins")
+        rels = {n: rel_rms(first_grads[t][n], g) for n, g in grads.items()}
+        worst = max(rels, key=rels.get)
+        log(phase, f"step 0 decoder {t}: {len(rels)} parameter gradients vs plain twins, worst "
+                   f"rel RMS {rels[worst]:.3e} ({worst}; limit {limit})")
+        bad = {n: r for n, r in rels.items() if not r <= limit}
+        if bad:
+            raise AssertionError(f"[{phase}] decoder {t} gradients differ from the plain "
+                                 f"twins: {bad}")
+    return history, peak, plain_peak
+
+
+def fixed_mask_batch(torch, dev, batch_size):
+    """A synthetic pretraining batch and masks drawn once from a seeded
+    generator on the card (98 of 3 x 196 tokens visible)."""
+    from multimae_tpu_torch.cli.factory import make_synthetic_batch
+    from multimae_tpu_torch.ops import masking
+
+    batch = make_synthetic_batch(batch_size, seed=0, device=dev)
+    mask_gen = torch.Generator(device=dev).manual_seed(1)
+    mask_list, _, _ = masking.generate_random_masks(mask_gen, batch_size, [196] * 3, 98)
+    return batch, dict(zip(("rgb", "depth", "semseg"), mask_list))
+
+
 def train_slice(torch, dev):
     """Phase 7; returns each kernel's launches over the STEPS steps."""
-    from multimae_tpu_torch.cli.factory import (
-        build_pretrain_losses, build_pretrain_trainer, make_synthetic_batch)
-    from multimae_tpu_torch.ops import masking
+    from multimae_tpu_torch.cli.factory import build_pretrain_losses, build_pretrain_trainer
     from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
 
     t0 = time.perf_counter()
     state, step = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=0, device=dev)
-    batch = make_synthetic_batch(TRAIN_BATCH, seed=0, device=dev)
-    mask_gen = torch.Generator(device=dev).manual_seed(1)
-    mask_list, _, _ = masking.generate_random_masks(mask_gen, TRAIN_BATCH, [196] * 3, 98)
-    masks = dict(zip(("rgb", "depth", "semseg"), mask_list))
+    batch, masks = fixed_mask_batch(torch, dev, TRAIN_BATCH)
     plain_state = copy.deepcopy(state)
     plain_step = make_pretrain_train_step(plain_state.model, plain_state.balancer,
                                           build_pretrain_losses(("rgb", "depth", "semseg")))
     model = state.model
-
-    def decoder_grads(m):
-        """{decoder: {parameter: fp32 copy of its gradient}}."""
-        return {t: {n: p.grad.float().clone() for n, p in a.named_parameters()
-                    if p.grad is not None}
-                for t, a in m.output_adapters.items()}
-
     check_on_card(state, batch, masks)
     n_params = sum(p.numel() for p in model.parameters())
     log(7, f"MultiMAE ViT-B pretraining state ({n_params} parameters, bf16, fp32 semseg "
@@ -577,59 +686,11 @@ def train_slice(torch, dev):
     expect = dict.fromkeys(launch_counts(), 0)
     expect.update(fused_decoder_fwd=4, fused_decoder_bwd=4)
     reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    history = []
-    for i in range(STEPS):
-        before = launch_counts()
-        metrics = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
-        per_step = {k: v - before[k] for k, v in launch_counts().items()}
-        if per_step != expect:
-            raise AssertionError(f"step {i} launched {per_step}; expected {expect}")
-        if not all(math.isfinite(v) for v in metrics.values()) or metrics["skipped"]:
-            raise AssertionError(f"step {i}: metrics {metrics}")
-        if i == 0:
-            check_on_card(state, batch, masks)
-            first_grads = decoder_grads(model)
-        history.append(metrics)
-        log(7, f"step {i}: loss {metrics['loss']:.4f}, grad norm {metrics['grad_norm']:.4f}; "
-               + ", ".join(f"{t} {metrics[t + '_loss']:.4f}" for t in TASKS))
-    torch.cuda.synchronize()
+    _, peak, plain_peak = steps_against_twins(torch, dev, 7, state, step, plain_state,
+                                              plain_step, batch, masks, STEPS, expect)
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
     if launches != {k: v * STEPS for k, v in expect.items()}:
         raise AssertionError(f"launch counts over {STEPS} steps: {launches}")
-    if not history[-1]["loss"] < history[0]["loss"]:
-        raise AssertionError(f"the loss did not fall: {history[0]['loss']} -> "
-                             f"{history[-1]['loss']}")
-
-    # The first step again, on the plain twins, from the same state and masks.
-    torch.cuda.reset_peak_memory_stats(dev)
-    with plain_twins():
-        plain = {k: float(v) for k, v in plain_step(plain_state, batch, task_masks=masks).items()}
-    plain_peak = torch.cuda.max_memory_allocated(dev)
-    rels = {k: abs(history[0][k] - plain[k]) / abs(plain[k])
-            for k in ["loss", "grad_norm"] + [f"{t}_loss" for t in TASKS]
-            + [f"{t}_loss_weighted" for t in TASKS]}
-    log(7, "step 0 vs plain twins, rel: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
-    for k, rel in rels.items():
-        if not rel <= STEP_TOLERANCE:
-            raise AssertionError(f"step 0 {k}: {history[0][k]} vs {plain[k]} on the plain "
-                                 f"twins (rel {rel:.3e}, limit {STEP_TOLERANCE})")
-    log(7, f"step 0 vs plain twins: loss {history[0]['loss']:.6f} / {plain['loss']:.6f}, "
-           f"grad norm {history[0]['grad_norm']:.6f} / {plain['grad_norm']:.6f} "
-           f"(limit rel {STEP_TOLERANCE})")
-    for t, grads in decoder_grads(plain_state.model).items():
-        limit = STEP_GRAD_TOLERANCE[str(model.output_adapters[t].dtype)]
-        if set(grads) != set(first_grads[t]):
-            raise AssertionError(f"decoder {t}: gradients of {sorted(first_grads[t])} "
-                                 f"vs {sorted(grads)} on the plain twins")
-        rels = {n: rel_rms(first_grads[t][n], g) for n, g in grads.items()}
-        worst = max(rels, key=rels.get)
-        log(7, f"step 0 decoder {t}: {len(rels)} parameter gradients vs plain twins, worst "
-               f"rel RMS {rels[worst]:.3e} ({worst}; limit {limit})")
-        bad = {n: r for n, r in rels.items() if not r <= limit}
-        if bad:
-            raise AssertionError(f"decoder {t} gradients differ from the plain twins: {bad}")
 
     def plain_train_step():
         with plain_twins():
@@ -1622,7 +1683,7 @@ def ft_cli_slice(torch, dev, pretrain):
         evals = first["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
-        one, many = (loader_rate(*semseg_data(train), workers, batch=SEMSEG_BATCH, epochs=3)
+        one, many = (loader_rate(*semseg_data(train), workers, batch=SEMSEG_BATCH, epochs=2)
                      for workers in (0, CLI_WORKERS))
         dec, aug = ft_sample_split(train)["native"]
         log(13, f"loader over the NYU tree (native; 640x480 PNG -> 512 crops, batches of "
@@ -2093,7 +2154,8 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
     eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
     one, many = (loader_rate(*data(), workers, batch=8, epochs=2)
                  for workers in (0, CLI_WORKERS))
-    log(phase, f"loader (native; the training transform over 16 samples in batches of 8; "
+    log(phase, f"loader (native; the training transform over {len(data()[0])} samples in "
+               f"batches of 8; "
                f"card {card}): {one:.1f} samples/s in one process, {many:.1f} with "
                f"{CLI_WORKERS} workers")
     log(phase, f"CLI step at batch {batch} fed by the loader: {step_ms:.3f} ms host (median of "
@@ -2604,18 +2666,6 @@ def tp_child(torch, dist, dev, rank):
     return out
 
 
-def pretrain_inputs(torch, dev):
-    """Phase 7's batch of TRAIN_BATCH and masks drawn from a seeded
-    generator on the card."""
-    from multimae_tpu_torch.cli.factory import make_synthetic_batch
-    from multimae_tpu_torch.ops import masking
-
-    batch = make_synthetic_batch(TRAIN_BATCH, seed=0, device=dev)
-    mask_gen = torch.Generator(device=dev).manual_seed(1)
-    mask_list, _, _ = masking.generate_random_masks(mask_gen, TRAIN_BATCH, [196] * 3, 98)
-    return batch, dict(zip(("rgb", "depth", "semseg"), mask_list))
-
-
 def laid_out_steps(torch, dev, tag, layout):
     """The ViT-B pretraining step (phase 7's recipe at TRAIN_BATCH) laid out
     by `layout(model)`: PARALLEL_STEPS steps, K1 fwd 4 and bwd 4 launches
@@ -2623,7 +2673,7 @@ def laid_out_steps(torch, dev, tag, layout):
     peak GiB)."""
     from multimae_tpu_torch.cli.factory import build_pretrain_trainer
 
-    batch, masks = pretrain_inputs(torch, dev)
+    batch, masks = fixed_mask_batch(torch, dev, TRAIN_BATCH)
     state, step = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=0, device=dev,
                                          parallel=layout)
     expect = dict.fromkeys(launch_counts(), 0)
@@ -2651,7 +2701,7 @@ def one_process_pretrain_step(torch, dev):
     from multimae_tpu_torch.cli.factory import build_pretrain_trainer
     from multimae_tpu_torch.parallel import dist as dist_lib
 
-    batch, masks = pretrain_inputs(torch, dev)
+    batch, masks = fixed_mask_batch(torch, dev, TRAIN_BATCH)
     state, step = build_pretrain_trainer(batch_size=TRAIN_BATCH, seed=0, device=dev,
                                          parallel=dist_lib.single_process)
     out = {k: float(v) for k, v in step(state, batch, task_masks=masks).items()}
@@ -2840,6 +2890,264 @@ def parallel_slice(torch, dev, card):
                 "pp_step": {k: v // PARALLEL_STEPS for k, v in res["10"]["launches"].items()},
                 "fsdp_step": {k: v // PARALLEL_STEPS for k, v in fsdp["launches"].items()}}
     return extra, launches, numbers
+
+
+def nyu_fixture_part(root):
+    """Phase 19, part 1: the committed NYUv2 fixture through the port's
+    HDF5 reader (each dataset's SHA-256 against h5py's, expected.json) and
+    tools/prepare_nyuv2.py with and without the class map (each PNG's digest
+    against the JAX tool's tree). Returns (the class-mapped tree, numbers)."""
+    import hashlib
+
+    from multimae_tpu_torch.tools import prepare_nyuv2
+    from multimae_tpu_torch.utils.hdf5 import File
+
+    with open(os.path.join(NYU_FIXTURE, "expected.json")) as f:
+        expected = json.load(f)
+    mat = os.path.join(NYU_FIXTURE, "nyu_depth_v2_labeled.mat")
+    t0 = time.perf_counter()
+    with File(mat) as f:
+        for name, want in expected["datasets"].items():
+            arr = f[name].read()
+            got = [list(arr.shape), arr.dtype.str, hashlib.sha256(arr.tobytes()).hexdigest()]
+            if got != [want["shape"], want["dtype"], want["sha256"]]:
+                raise AssertionError(f"[19] {name}: {got}; expected.json holds {want}")
+    read_ms = (time.perf_counter() - t0) * 1e3
+    log(19, f"the port's HDF5 reader: the fixture's {len(expected['datasets'])} datasets "
+            f"({', '.join(expected['datasets'])}) have h5py's SHA-256 (expected.json); read "
+            f"whole in {read_ms:.1f} ms")
+    numbers = {"nyu_read_ms": read_ms}
+    for tree, mapped in (("class40", True), ("raw", False)):
+        out = os.path.join(root, tree)
+        summary = prepare_nyuv2.prepare(
+            mat, os.path.join(NYU_FIXTURE, "splits.mat"), out, verbose=False,
+            class_mapping_path=os.path.join(NYU_FIXTURE, "classMapping40.mat") if mapped else None)
+        digests, want = prepare_nyuv2.tree_digests(out), expected["trees"][tree]
+        bad = sorted(k for k in set(digests) | set(want) if digests.get(k) != want.get(k))
+        if bad or summary["frames"] != expected["splits"]:
+            raise AssertionError(f"[19] prepare_nyuv2 ({tree}): frames {summary['frames']}, "
+                                 f"{len(bad)} PNGs differ from the JAX tool's: {bad[:6]}")
+        numbers[f"nyu_prepare_{tree}_ms_per_frame"] = summary["ms_per_frame"]
+        log(19, f"prepare_nyuv2 over the fixture ({'with' if mapped else 'without'} the class "
+                f"map; {sum(summary['frames'].values())} frames at 640x480, "
+                f"{summary['frames']}): {summary['ms_per_frame']:.1f} ms per frame; its "
+                f"{len(digests)} PNGs have the JAX tool's pixel digests (expected.json)")
+    return os.path.join(root, "class40"), numbers
+
+
+def nyu_semseg_part(tree):
+    """Phase 19, part 2: the semseg CLI over the class-mapped tree under the
+    NYU rgb-depth recipe at NYU_BATCH, one epoch with an eval, then an
+    --eval run; returns the launches per step and per eval batch and the
+    numbers."""
+    from multimae_tpu_torch.cli.run_finetuning_semseg import get_args, main
+
+    out = os.path.join(os.path.dirname(tree), "out")
+    n_train = len(os.listdir(os.path.join(tree, "train", "rgb", "all")))
+    n_val = len(os.listdir(os.path.join(tree, "test", "rgb", "all")))
+    base = ["-c", os.path.join(HERE, FT_YAML), "--finetune", "", "--batch_size",
+            str(NYU_BATCH), "--warmup_epochs", "0", "--num_workers", "0",
+            "--data_path", os.path.join(tree, "train"),
+            "--eval_data_path", os.path.join(tree, "test"), "--output_dir", out]
+    reset_launch_counts()
+    run = main(get_args(base + ["--epochs", "1"]))
+    launches = launch_counts()
+    losses, mious = check_run("[19] the NYU fixture's run", run, n_train // NYU_BATCH, 1, n_val)
+    reset_launch_counts()
+    evaluated = main(get_args(base + ["--eval", "--resume",
+                                      os.path.join(out, "checkpoint-0.pth")]))
+    eval_batches = math.ceil(n_val / NYU_BATCH)
+    per_step, per_eval = split_launches("[19] the NYU fixture's run", launches, len(losses), 1,
+                                        evaluated, eval_batches, n_val)
+    expect_step = dict(dict.fromkeys(launches, 0), short_attention_fwd=12,
+                       short_attention_bwd=12, fused_ln_mlp_res_fwd=4, fused_ln_mlp_res_bwd=4)
+    expect_eval = dict(dict.fromkeys(launches, 0), fused_block_infer=12, fused_ln_mlp_res_fwd=4)
+    if (per_step, per_eval) != (expect_step, expect_eval):
+        raise AssertionError(f"[19] NYU fixture: launches {per_step} per step and {per_eval} "
+                             f"per eval batch; expected {expect_step} and {expect_eval}")
+    log(19, f"semseg CLI over the prepared tree (NYU rgb-depth recipe, MultiViT-B at 512 px, "
+            f"--finetune '', batch {NYU_BATCH}, {n_train} + {n_val} frames): losses "
+            + ", ".join(f"{v:.4f}" for v in losses) + f", mIoU {mious[0]:.4f}; per step K2 "
+            f"fwd {per_step['short_attention_fwd']}, bwd {per_step['short_attention_bwd']}, "
+            f"K3b fwd {per_step['fused_ln_mlp_res_fwd']}, bwd "
+            f"{per_step['fused_ln_mlp_res_bwd']}; per eval batch K4 "
+            f"{per_eval['fused_block_infer']}, K3b fwd {per_eval['fused_ln_mlp_res_fwd']} "
+            f"(totals {launches}, an --eval run over {eval_batches} batch)")
+    return per_step, per_eval, {"nyu_losses": losses, "nyu_mIoU": mious[0]}
+
+
+def variant_steps(torch, dev, phase, tag, **options):
+    """VARIANT_STEPS steps of phase 7's recipe at VARIANT_BATCH with the
+    decoder or GELU `options` of build_pretrain_trainer, each launching K1
+    fwd and bwd 4 times (the decoders keep their cross-attention), the first
+    against the plain twins at phase 7's bounds. Returns the launches per
+    step and the first step's metrics."""
+    from multimae_tpu_torch.cli.factory import build_pretrain_losses, build_pretrain_trainer
+    from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
+
+    state, step = build_pretrain_trainer(batch_size=VARIANT_BATCH, seed=0, device=dev,
+                                         **options)
+    batch, masks = fixed_mask_batch(torch, dev, VARIANT_BATCH)
+    plain_state = copy.deepcopy(state)
+    plain_step = make_pretrain_train_step(plain_state.model, plain_state.balancer,
+                                          build_pretrain_losses(("rgb", "depth", "semseg")))
+    expect = dict(dict.fromkeys(launch_counts(), 0), fused_decoder_fwd=4, fused_decoder_bwd=4)
+    log(phase, f"{tag}: MultiMAE ViT-B pretraining ({options}), batch {VARIANT_BATCH}")
+    history, _, _ = steps_against_twins(torch, dev, phase, state, step, plain_state, plain_step,
+                                        batch, masks, VARIANT_STEPS, expect)
+    del state, plain_state
+    free_card(torch)
+    return expect, history[0]
+
+
+def no_xattn_cli_part(torch, root):
+    """Phase 19: the pretraining CLI (get_args + main) with
+    `decoder_use_xattn: false` in a YAML, VARIANT_STEPS synthetic steps at
+    VARIANT_BATCH: no kernel launches; the first step again on the plain
+    twins."""
+    from multimae_tpu_torch.cli.run_pretraining_multimae import get_args, main
+
+    cfg = os.path.join(root, "no_xattn.yaml")
+    with open(os.path.join(HERE, CLI_YAML)) as src, open(cfg, "w") as dst:
+        dst.write(src.read() + "\ndecoder_use_xattn: false\n")
+    args = ["-c", cfg, "--synthetic_data", "--synthetic_steps_per_epoch", str(VARIANT_STEPS),
+            "--batch_size", str(VARIANT_BATCH), "--epochs", "1", "--warmup_epochs", "0",
+            "--output_dir", ""]
+    parsed = get_args(args)
+    if parsed.decoder_use_xattn is not False:
+        raise AssertionError(f"[19] decoder_use_xattn: {parsed.decoder_use_xattn} from {cfg}")
+    reset_launch_counts()
+    run = main(parsed)
+    launches = launch_counts()
+    metrics = [r["metrics"] for r in run["steps"]]
+    if any(launches.values()) or len(metrics) != VARIANT_STEPS or not all(
+            math.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"[19] decoder_use_xattn false: launches {launches}, "
+                             f"losses {[m['loss'] for m in metrics]}")
+    with plain_twins():
+        plain = main(get_args(args + ["--synthetic_steps_per_epoch", "1"]))["steps"][0]["metrics"]
+    rels = {k: abs(metrics[0][k] - v) / abs(v) for k, v in plain.items()
+            if k == "grad_norm" or k.endswith("_loss")}
+    if not all(r <= STEP_TOLERANCE for r in rels.values()):
+        raise AssertionError(f"[19] decoder_use_xattn false: step 0 vs plain twins {rels}")
+    log(19, f"pretraining CLI with decoder_use_xattn: false (YAML), batch {VARIANT_BATCH}: "
+            "losses " + ", ".join(f"{m['loss']:.4f}" for m in metrics) + "; no kernel "
+            f"launched (K1 needs the cross-attention form); step 0 vs plain twins worst rel "
+            f"{max(rels.values()):.2e} (limit {STEP_TOLERANCE})")
+    free_card(torch)
+    return launches, [m["loss"] for m in metrics]
+
+
+def cls_host_part(card):
+    """Phase 19: over the 500 x 375 photo fixtures resized to 224 x 224, each
+    AutoAugment policy and AugMix (AA_POLICIES), and PIL's nearest and
+    Lanczos resizes of the photos, native against the numpy twins, bit-equal;
+    ms per sample of each."""
+    import random
+
+    import numpy as np
+
+    from multimae_tpu_torch.data import auto_augment, pil_ops
+    from multimae_tpu_torch.data.image_io import load_image
+    from multimae_tpu_torch.utils.data_constants import IMAGENET_DEFAULT_MEAN
+
+    photos = [load_image(os.path.join(JPEG_FIXTURES, n))
+              for n in sorted(os.listdir(JPEG_FIXTURES)) if n.startswith("photo_")]
+    crops = [pil_ops.NATIVE_OPS.resize(p, (224, 224), "bicubic") for p in photos]
+    fill = tuple(min(255, round(255 * m)) for m in IMAGENET_DEFAULT_MEAN)
+    numbers, runs = {}, 4
+    for config in AA_POLICIES:
+        ms = {}
+        outs = {}
+        for twin in (False, True):
+            aa = auto_augment.create_aa_transform(config, {"img_mean": fill}, twin=twin)
+            t0 = time.perf_counter()
+            outs[twin] = [aa(img, random.Random(i * runs + r)) for i, img in enumerate(crops)
+                          for r in range(runs)]
+            ms[twin] = (time.perf_counter() - t0) * 1e3 / len(outs[twin])
+        if not all(np.array_equal(a, b) for a, b in zip(outs[False], outs[True])):
+            raise AssertionError(f"[19] --aa {config}: native and twin arrays differ")
+        numbers[f"aa_{config}_ms"] = ms[False]
+        numbers[f"aa_{config}_twin_ms"] = ms[True]
+    for resample in ("nearest", "lanczos"):
+        ms = {}
+        outs = {}
+        for twin, ops in ((False, pil_ops.NATIVE_OPS), (True, pil_ops.TWIN_OPS)):
+            t0 = time.perf_counter()
+            outs[twin] = [ops.resize(p, size, resample) for p in photos
+                          for size in ((224, 224), (256, 341))]
+            ms[twin] = (time.perf_counter() - t0) * 1e3 / len(outs[twin])
+        if not all(np.array_equal(a, b) for a, b in zip(outs[False], outs[True])):
+            raise AssertionError(f"[19] {resample} resize: native and twin arrays differ")
+        numbers[f"resize_{resample}_ms"], numbers[f"resize_{resample}_twin_ms"] = ms[False], ms[True]
+    log(19, f"cls host transforms over the {len(photos)} photo fixtures, native and twin "
+            f"bit-equal (card {card}; ms per sample, native / twin): " + ", ".join(
+                f"{c} {numbers[f'aa_{c}_ms']:.2f} / {numbers[f'aa_{c}_twin_ms']:.2f}"
+                for c in AA_POLICIES) + "; " + ", ".join(
+                f"{r} resize {numbers[f'resize_{r}_ms']:.2f} / {numbers[f'resize_{r}_twin_ms']:.2f}"
+                for r in ("nearest", "lanczos")))
+    return numbers
+
+
+def cls_policy_cli_part(root):
+    """Phase 19: the cls CLI's first step and an eval batch at CLS_BATCH
+    with --aa AA_CLI --train_interpolation AA_INTERP over links to the photo
+    fixtures: the step launches nothing, the eval batch K4 12 times."""
+    from multimae_tpu_torch.cli.run_finetuning_cls import get_args, main
+    from multimae_tpu_torch.data.dataset_folder import write_imagenet_tree
+
+    photos = sorted(os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
+                    if n.startswith("photo_"))
+    train, val = write_imagenet_tree(os.path.join(root, "cls"), photos, CLS_BATCH, CLS_BATCH,
+                                     CLS_CLASSES)
+    args = ["-c", os.path.join(HERE, CLS_YAML), "--finetune", "", "--data_set", "image_folder",
+            "--nb_classes", str(CLS_CLASSES), "--data_path", train, "--eval_data_path", val,
+            "--batch_size", str(CLS_BATCH), "--warmup_epochs", "0", "--epochs", "1",
+            "--num_workers", str(CLI_WORKERS), "--aa", AA_CLI, "--train_interpolation",
+            AA_INTERP, "--output_dir", ""]
+    reset_launch_counts()
+    run = main(get_args(args))
+    launches = launch_counts()
+    losses, accs = check_cls_run("[19] cls CLI", run, 1, 1, CLS_BATCH)
+    expect = dict(dict.fromkeys(launches, 0), fused_block_infer=12)
+    if launches != expect:
+        raise AssertionError(f"[19] cls CLI: launches {launches} over a step and an eval "
+                             f"batch; expected {expect}")
+    step_ms = run["steps"][0]["step_s"] * 1e3
+    log(19, f"cls CLI (--aa {AA_CLI} --train_interpolation {AA_INTERP}, batch {CLS_BATCH}): "
+            f"first loss {losses[0]:.4f}, top-1/5 {accs[0][0]:.2f}/{accs[0][1]:.2f}; K4 "
+            f"{launches['fused_block_infer']} in the eval batch, nothing in the step; step "
+            f"{step_ms:.1f} ms host, eval {run['evals'][0]['ms_per_batch']:.3f} ms per batch")
+    return launches, {"cls_policy_loss": losses[0], "cls_policy_step_ms": step_ms}
+
+
+def last_modules_slice(torch, dev, card):
+    """Phase 19; returns ({path: {kernel: launches}}, numbers)."""
+    import shutil
+
+    root = os.path.join(HERE, "build", "chip_smoke_last")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        tree, numbers = nyu_fixture_part(root)
+        per_step, per_eval, nyu = nyu_semseg_part(tree)
+        numbers.update(nyu)
+        free_card(torch)
+        launches = {"nyu_semseg_step": per_step, "nyu_semseg_eval": per_eval}
+        launches["no_task_queries_step"], first = variant_steps(
+            torch, dev, 19, "decoders without task queries", decoder_use_task_queries=False)
+        numbers["no_task_queries_loss"] = first["loss"]
+        launches["no_xattn_cli"], numbers["no_xattn_losses"] = no_xattn_cli_part(torch, root)
+        launches["approx_gelu_step"], first = variant_steps(
+            torch, dev, 19, "--approx_gelu", approx_gelu=True)
+        numbers["approx_gelu_loss"] = first["loss"]
+        numbers.update(cls_host_part(card))
+        launches["cls_policy_cli"], cls = cls_policy_cli_part(root)
+        numbers.update(cls)
+        return launches, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
 
 
 def main():
@@ -3245,6 +3553,17 @@ def main():
         name = k.get("served_by", k["name"])
         k.update(par_extra.get(k["name"], {}))
         for path, counts in par_launches.items():
+            k[f"{path}_launches"] = counts[name]
+
+    # 19. the last modules: the NYUv2 fixture, prepare_nyuv2 and the semseg
+    # CLI over its tree; the decoder variants and --approx_gelu; the
+    # AutoAugment policies, AugMix and the nearest and Lanczos resizes
+    free_card(torch)
+    last_launches, last_numbers = last_modules_slice(torch, dev, card)
+    log(19, "numbers: " + json.dumps(last_numbers))
+    for k in kernels:
+        name = k.get("served_by", k["name"])
+        for path, counts in last_launches.items():
             k[f"{path}_launches"] = counts[name]
 
     log_phase_times()

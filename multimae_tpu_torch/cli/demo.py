@@ -89,7 +89,7 @@ def png_mode(path: str) -> Tuple[str, bytes]:
 
 def read_rgb(path: str, size: int) -> np.ndarray:
     """(size, size, 3) float32, normalised by the ImageNet mean and std."""
-    rgb = native.pil_resize(load_image(path, convert_rgb=True), (size, size), bicubic=True)
+    rgb = native.pil_resize(load_image(path, convert_rgb=True), (size, size))
     return (np.asarray(rgb, np.float32) / 255.0 - MEAN) / STD
 
 

@@ -30,6 +30,7 @@ from multimae_tpu_torch.cli.run_finetuning_semseg import (
     seg_cross_entropy_parts,
 )
 from multimae_tpu_torch.models.registry import create_model
+from multimae_tpu_torch.models.vit import set_approx_gelu
 from multimae_tpu_torch.train.cross_entropy import soft_target_cross_entropy
 from multimae_tpu_torch.train.finetune_step import make_cls_train_step, make_dense_train_step
 from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, create_optimizer
@@ -89,6 +90,8 @@ def build_pretrain_model(
     decoder_dim: int = 256,
     decoder_depth: int = 2,
     decoder_num_heads: int = 8,
+    decoder_use_task_queries: bool = True,
+    decoder_use_xattn: bool = True,
     extra_norm_pix_loss: bool = True,
     num_global_tokens: int = 1,
     drop_path: float = 0.0,
@@ -96,6 +99,7 @@ def build_pretrain_model(
     dtype: torch.dtype = torch.float32,
     decoder_return_patches: bool = False,
     pos_emb_grads: bool = False,
+    approx_gelu: bool = False,
     seed: int = 0,
     device="cuda",
     depth: Optional[int] = None,
@@ -108,6 +112,11 @@ def build_pretrain_model(
 
     `depth` replaces the registry entry's encoder depth (the pipeline
     tests and bench_pp_bubble take deeper tiny models).
+
+    decoder_use_task_queries and decoder_use_xattn are the decoders'
+    (models/output_adapters.py SpatialOutputAdapter). approx_gelu=True gives
+    this model's module-path GELUs the tanh form (models/vit.py
+    `set_approx_gelu`); the kernels keep erf.
 
     pos_emb_grads=True gives the fixed sin-cos pos-embs gradients (they
     stay out of every optimizer group, so they are never updated). The
@@ -131,6 +140,7 @@ def build_pretrain_model(
             dim_tokens=decoder_dim, depth=decoder_depth,
             num_heads=decoder_num_heads, task=task,
             context_tasks=tuple(in_domains),
+            use_task_queries=decoder_use_task_queries, use_xattn=decoder_use_xattn,
             return_patches=decoder_return_patches)
 
     output_adapters = {d: out_spec(d, d) for d in out_domains}
@@ -144,6 +154,7 @@ def build_pretrain_model(
         fp32_output_adapters=tuple(fp32_output_adapters),
         **({} if depth is None else {"depth": depth}))
     model.init_weights(torch.Generator().manual_seed(seed))
+    set_approx_gelu(model, approx_gelu)
     if pos_emb_grads:
         for name, p in model.named_parameters():
             if name.endswith("pos_emb"):
@@ -186,7 +197,9 @@ def make_synthetic_batch(batch: int, input_size: int = 224,
 
 
 def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda",
-                           model_name: str = "pretrain_multimae_base", parallel=None):
+                           model_name: str = "pretrain_multimae_base", parallel=None,
+                           decoder_use_task_queries: bool = True,
+                           decoder_use_xattn: bool = True, approx_gelu: bool = False):
     """(TrainState, train_step) of the flagship pretraining recipe
     (cfgs/pretrain/multimae-b_98_rgb+-depth-semseg_1600e.yaml, as the JAX
     package's bench.py:96-137 runs it): MultiMAE ViT-B in bf16 with the
@@ -197,13 +210,16 @@ def build_pretrain_trainer(*, batch_size: int, seed: int = 0, device="cuda",
     of 100 steps, without warmup (with warmup the first step's LR is 0).
     `model_name` picks the encoder (pretrain_multimae_large for ViT-L);
     `parallel(model)`, where given, lays the model out (parallel/mesh.py
-    layout_model) before the optimizer is built."""
+    layout_model) before the optimizer is built. The decoder and GELU
+    options are build_pretrain_model's."""
     device = entry_device(device)
     domains = ("rgb", "depth", "semseg")
     model = build_pretrain_model(model_name=model_name, dtype=torch.bfloat16,
                                  fp32_output_adapters=("semseg",),
                                  decoder_return_patches=True, pos_emb_grads=True,
-                                 seed=seed, device=device)
+                                 decoder_use_task_queries=decoder_use_task_queries,
+                                 decoder_use_xattn=decoder_use_xattn,
+                                 approx_gelu=approx_gelu, seed=seed, device=device)
     if parallel is not None:
         parallel(model)
     balancer = build_balancer("uncertainty", domains + ("norm_rgb",)).to(device)

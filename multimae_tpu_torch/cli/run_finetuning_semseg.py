@@ -265,12 +265,16 @@ def build_model_from_args(args, dtype: torch.dtype):
 def seg_cross_entropy_parts(logits: torch.Tensor, target: torch.Tensor,
                             ignore_index: int = SEG_IGNORE_INDEX):
     """(summed NLL, count) over the pixels whose target is not
-    ignore_index, NHWC logits in fp32 (reference :483)."""
+    ignore_index, NHWC logits in fp32 (reference :483). A target at or past
+    the classes (NYUv2's label 40 under the 40-class recipe: the prepared
+    tree keeps 0 as void and 1..40) counts with an NLL of 0, as the JAX
+    function's empty one-hot row gives it (JAX :228-242)."""
     logits = logits.float()
     valid = target != ignore_index
+    known = valid & (target < logits.shape[-1])
     logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, torch.where(valid, target, 0).long().unsqueeze(-1)).squeeze(-1)
-    return torch.where(valid, nll, 0.0).sum(), valid.sum().to(logits.dtype)
+    nll = -logp.gather(-1, torch.where(known, target, 0).long().unsqueeze(-1)).squeeze(-1)
+    return torch.where(known, nll, 0.0).sum(), valid.sum().to(logits.dtype)
 
 
 def prepare_batch(b: Dict[str, torch.Tensor], in_domains: Sequence[str],

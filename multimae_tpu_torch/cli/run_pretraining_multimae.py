@@ -23,6 +23,13 @@ S GPipe stages of --pipeline_microbatches, --dcn_data_parallel N groups
 the ranks by host (parallel/mesh.py); whatever the layout, a checkpoint
 holds the canonical tensors and resumes under any other.
 
+--decoder_use_task_queries and --decoder_use_xattn are store_true flags
+that default to True, as in the JAX CLI: only a YAML key
+(`decoder_use_xattn: false`) or build_pretrain_model turns them off. A
+decoder without cross-attention takes the module path (K1 needs the
+cross-attention form); --approx_gelu gives the model's module-path GELUs
+the tanh form.
+
 It runs on the card unless --device cpu is given, and raises where the
 card is asked for and torch sees none. Flags whose function is not
 ported raise SystemExit naming the ROADMAP.md item that brings it.
@@ -153,7 +160,8 @@ def get_args(argv=None):
                         help="Write a torch.profiler trace of steps 10-13 of the first "
                              "epoch into this directory")
     parser.add_argument("--approx_gelu", action="store_true",
-                        help="tanh-approximate GELU: not ported (the kernels compute erf)")
+                        help="tanh-approximate GELU on the module path (the kernels K1 "
+                             "and K4 keep the exact erf, as the JAX kernels keep theirs)")
 
     # Scaling (parallel/mesh.py, tp.py, fsdp.py, pp.py)
     parser.add_argument("--fsdp", action="store_true",
@@ -197,12 +205,6 @@ def refuse_unported(args) -> None:
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
          "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (args.approx_gelu,
-         "--approx_gelu is not ported (the kernels compute the exact erf GELU; "
-         "ROADMAP.md queue 1 item 12)"),
-        (not (args.decoder_use_task_queries and args.decoder_use_xattn),
-         "decoders without task queries or cross-attention are not ported yet "
-         "(ROADMAP.md queue 1, the open parts of item 4)"),
     ]
     for bad, msg in refused:
         if bad:
@@ -279,10 +281,12 @@ def main(args) -> Dict[str, Any]:
         patch_size=args.patch_size, input_size=args.input_size,
         decoder_dim=args.decoder_dim, decoder_depth=args.decoder_depth,
         decoder_num_heads=args.decoder_num_heads,
+        decoder_use_task_queries=args.decoder_use_task_queries,
+        decoder_use_xattn=args.decoder_use_xattn,
         extra_norm_pix_loss=args.extra_norm_pix_loss,
         num_global_tokens=args.num_global_tokens, drop_path=args.drop_path,
         fp32_output_adapters=fp32_adapters, dtype=dtype, decoder_return_patches=True,
-        pos_emb_grads=True, seed=args.seed, device=device)
+        pos_emb_grads=True, approx_gelu=args.approx_gelu, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in model.parameters())
     layout_model(model, mesh, fsdp=args.fsdp, n_micro=(
         args.pipeline_microbatches or 2 * args.pipeline_parallel)

@@ -4,11 +4,13 @@ utils/transforms_factory.py:51-134 and utils/datasets.py:190-205).
 
   * `ClsTrainTransform`: RandomResizedCrop (scale 0.08-1, the JAX
     `random_resized_crop_params`), Pillow's 8-bit resize of the crop
-    (bicubic; bilinear or bicubic at random with "random"), a horizontal
-    flip, RandAugment (or ColorJitter when --aa is off), the normalisation
-    and RandomErasing;
+    (bicubic, bilinear, lanczos or nearest; bilinear or bicubic at random
+    with "random"), a horizontal flip, RandAugment, an AutoAugment policy
+    or AugMix (or ColorJitter when --aa is off), the normalisation and
+    RandomErasing;
   * `ClsEvalTransform`: the shorter side resized to int(input / crop_pct)
-    (bicubic), then the centre crop and the normalisation.
+    (bicubic, bilinear, lanczos or nearest), then the centre crop and the
+    normalisation.
 
 Both return (H, W, 3) float32. Every draw comes from the random.Random
 the caller passes (the loader gives each record its own): the JAX
@@ -36,17 +38,18 @@ from multimae_tpu_torch.utils.data_constants import IMAGENET_DEFAULT_MEAN, IMAGE
 
 
 def _check_interpolation(name: str, allowed: Sequence[str]) -> str:
+    """The JAX package's _PIL_INTERP names (:29-34), and "random" where
+    the caller allows it; another name raises KeyError as there."""
     if name not in allowed:
-        raise NotImplementedError(f"interpolation {name!r} is not ported (ROADMAP.md queue 1 "
-                                  f"item 14); use one of {', '.join(allowed)}")
+        raise KeyError(f"interpolation {name!r}: one of {', '.join(allowed)}")
     return name
 
 
-def _bicubic_of(name: str, rng: random.Random) -> bool:
-    """True for bicubic; "random" draws bilinear or bicubic (JAX :37-40)."""
+def _resample_of(name: str, rng: random.Random) -> str:
+    """The resize filter; "random" draws bilinear or bicubic (JAX :37-40)."""
     if name == "random":
-        return bool(rng.choice((False, True)))
-    return name == "bicubic"
+        return "bicubic" if rng.choice((False, True)) else "bilinear"
+    return name
 
 
 class RandomErasing:
@@ -122,7 +125,7 @@ class ClsTrainTransform:
         self.input_size = input_size
         self.hflip = hflip
         self.interpolation = _check_interpolation(interpolation,
-                                                  ("bicubic", "bilinear", "random"))
+                                                  pil_ops.RESAMPLE + ("random",))
         self.scale = scale
         self.ratio = ratio
         self.mean = np.asarray(mean, np.float32)
@@ -143,7 +146,7 @@ class ClsTrainTransform:
                                                 ratio=self.ratio, rng=rng)
         s = self.input_size
         out = self.ops.resize(img[i:i + h, j:j + w], (s, s),
-                              _bicubic_of(self.interpolation, rng))
+                              _resample_of(self.interpolation, rng))
         if rng.random() < self.hflip:
             out = np.ascontiguousarray(out[:, ::-1])
         if self.aa is not None:
@@ -166,7 +169,7 @@ class ClsEvalTransform:
             crop_pct = 224 / 256 if input_size < 384 else 1.0
         self.input_size = input_size
         self.resize_size = int(input_size / crop_pct)
-        self.bicubic = _check_interpolation(interpolation, ("bicubic", "bilinear")) == "bicubic"
+        self.resample = _check_interpolation(interpolation, pil_ops.RESAMPLE)
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.ops = TWIN_OPS if twin else NATIVE_OPS
@@ -176,7 +179,7 @@ class ClsEvalTransform:
         h, w = img.shape[:2]
         scale = self.resize_size / min(w, h)
         nw, nh = round(w * scale), round(h * scale)
-        out = self.ops.resize(img, (nh, nw), self.bicubic)
+        out = self.ops.resize(img, (nh, nw), self.resample)
         s = self.input_size
         left, top = (nw - s) // 2, (nh - s) // 2
         return out[top:top + s, left:left + s]

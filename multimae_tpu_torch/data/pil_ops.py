@@ -2,11 +2,14 @@
 the numpy twins of native/pil_ops.cpp, bit-equal to Pillow's C code
 (libImaging) and to the native functions.
 
-  * `resize_twin`: `Image.resize` with BICUBIC (a = -0.5) or BILINEAR
-    (Resample.c, 8 bits per channel): the weights of each output pixel
-    computed in double, normalised to fixed point with 22 fraction bits;
-    the horizontal pass first, stored as uint8, then the vertical pass; a
-    pass whose axis keeps its size is skipped.
+  * `resize_twin`: `Image.resize` with BICUBIC (a = -0.5), BILINEAR or
+    LANCZOS (support 3) (Resample.c, 8 bits per channel): the weights of
+    each output pixel computed in double, normalised to fixed point with 22
+    fraction bits; the horizontal pass first, stored as uint8, then the
+    vertical pass; a pass whose axis keeps its size is skipped. NEAREST is
+    Pillow's own path (Geometry.c ImagingScaleAffine): each output pixel
+    copies the source pixel under its centre, the centres summed step by
+    step.
   * `affine_twin`: `Image.transform(AFFINE)` with BILINEAR or BICUBIC and a
     fill colour (Geometry.c `ImagingGenericTransform`): the output pixel
     centre (x + 0.5, y + 0.5) mapped through the matrix in double; a source
@@ -36,7 +39,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 
 from multimae_tpu_torch import native
-from multimae_tpu_torch.data.pretrain_transforms import resample_weights
+from multimae_tpu_torch.data.pretrain_transforms import _nearest_index, resample_weights
 
 PRECISION_BITS = 22
 
@@ -55,9 +58,9 @@ def _clip8(acc: np.ndarray) -> np.ndarray:
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def _resample_pass(src: np.ndarray, out_size: int, axis: int, bicubic: bool) -> np.ndarray:
+def _resample_pass(src: np.ndarray, out_size: int, axis: int, resample: str) -> np.ndarray:
     idx, w = resample_weights(src.shape[axis], 0.0, float(src.shape[axis]), out_size,
-                              pil_scale=True, bicubic=bicubic)
+                              pil_scale=True, resample=resample)
     k = _fixed_point(w)
     shape = [1] * src.ndim
     shape[axis] = -1
@@ -67,15 +70,27 @@ def _resample_pass(src: np.ndarray, out_size: int, axis: int, bicubic: bool) -> 
     return _clip8(acc)
 
 
-def resize_twin(img: np.ndarray, size_hw: Sequence[int], bicubic: bool = True) -> np.ndarray:
-    """`Image.fromarray(img).resize((w, h), BICUBIC or BILINEAR)` for
-    (H, W) or (H, W, C) uint8."""
+RESAMPLE = ("nearest", "bilinear", "bicubic", "lanczos")
+
+
+def check_resample(resample: str) -> str:
+    if resample not in RESAMPLE:
+        raise ValueError(f"resample {resample!r}: one of {', '.join(RESAMPLE)}")
+    return resample
+
+
+def resize_twin(img: np.ndarray, size_hw: Sequence[int], resample: str = "bicubic"
+                ) -> np.ndarray:
+    """`Image.fromarray(img).resize((w, h), resample)` for (H, W) or
+    (H, W, C) uint8, `resample` one of RESAMPLE."""
     dh, dw = (int(v) for v in size_hw)
     out = np.ascontiguousarray(img, np.uint8)
+    if check_resample(resample) == "nearest":
+        return out[_nearest_index(out.shape[0], dh)][:, _nearest_index(out.shape[1], dw)]
     if dw != out.shape[1]:
-        out = _resample_pass(out, dw, 1, bicubic)
+        out = _resample_pass(out, dw, 1, resample)
     if dh != out.shape[0]:
-        out = _resample_pass(out, dh, 0, bicubic)
+        out = _resample_pass(out, dh, 0, resample)
     return out.copy() if out is img else out
 
 

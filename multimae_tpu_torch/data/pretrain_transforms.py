@@ -94,18 +94,37 @@ def _bilinear(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, 1.0 - x, 0.0)
 
 
+def _sinc(x: np.ndarray) -> np.ndarray:
+    """Resample.c sinc_filter: sin(pi x) / (pi x) with libm's sin."""
+    px = x * math.pi
+    sin = np.vectorize(math.sin, otypes=[np.float64])(px)
+    return np.where(x == 0.0, 1.0, sin / np.where(x == 0.0, 1.0, px))
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Resample.c lanczos_filter: the sinc truncated to [-3, 3) by a sinc
+    of a third of its argument."""
+    return np.where((-3.0 <= x) & (x < 3.0), _sinc(x) * _sinc(x / 3), 0.0)
+
+
+# Pillow's antialiased filters and their supports (Resample.c).
+FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+
+
 def resample_weights(in_size: int, in0: float, in1: float, out_size: int, *,
-                     pil_scale: bool, bicubic: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-    """PIL's antialiased bicubic (or bilinear) weights (Resample.c
-    precompute_coeffs) for the window [in0, in1) of an axis of `in_size`
-    pixels resized to `out_size`: source indices and normalised float64
-    weights, both (out_size, taps), padded with weight 0 on index 0. The
-    filter's argument is (x - center + 0.5) * (1 / filterscale) with
-    `pil_scale` (Resample.c), else (x - center + 0.5) / filterscale (the
-    JAX package's fastimage.cpp)."""
+                     pil_scale: bool, resample: str = "bicubic"
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's antialiased weights (Resample.c precompute_coeffs) of the
+    `resample` filter (bicubic, bilinear or lanczos) for the window
+    [in0, in1) of an axis of `in_size` pixels resized to `out_size`: source
+    indices and normalised float64 weights, both (out_size, taps), padded
+    with weight 0 on index 0. The filter's argument is (x - center + 0.5) *
+    (1 / filterscale) with `pil_scale` (Resample.c), else (x - center +
+    0.5) / filterscale (the JAX package's fastimage.cpp)."""
+    filter_fn, filter_support = FILTERS[resample]
     scale = (in1 - in0) / out_size
     filterscale = max(scale, 1.0)
-    support = (2.0 if bicubic else 1.0) * filterscale
+    support = filter_support * filterscale
     taps = int(math.ceil(support)) * 2 + 1
     center = in0 + (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.floor(center - support + 0.5), 0).astype(np.int64)
@@ -114,7 +133,7 @@ def resample_weights(in_size: int, in0: float, in1: float, out_size: int, *,
     inside = x < xmax[:, None]
     arg = ((x - center[:, None] + 0.5) * (1.0 / filterscale) if pil_scale
            else (x - center[:, None] + 0.5) / filterscale)
-    w = np.where(inside, (_bicubic if bicubic else _bilinear)(arg), 0.0)
+    w = np.where(inside, filter_fn(arg), 0.0)
     total = np.zeros((out_size, 1))
     for t in range(taps):  # summed in PIL's order
         total = total + w[:, t:t + 1]
@@ -159,8 +178,9 @@ def crop_resize_normalize_twin(img: np.ndarray, crop: Tuple[int, int, int, int],
     mm_crop_resize_normalize)."""
     i, j, h, w = crop
     sh, sw = img.shape[:2]
-    xi, xw = resample_weights(sw, j, j + w, size, pil_scale=False, bicubic=bicubic)
-    yi, yw = resample_weights(sh, i, i + h, size, pil_scale=False, bicubic=bicubic)
+    resample = "bicubic" if bicubic else "bilinear"
+    xi, xw = resample_weights(sw, j, j + w, size, pil_scale=False, resample=resample)
+    yi, yw = resample_weights(sh, i, i + h, size, pil_scale=False, resample=resample)
     lo, hi = int(yi[yw != 0].min(initial=sh)), int((yi + 1)[yw != 0].max(initial=0))
     rows = img[lo:hi].astype(np.float64)
     tmp = _resample_rows(rows, xi, xw, axis=1).astype(np.float32)

@@ -5,7 +5,7 @@ utils/taskonomy/).
 * `task_parameters`: channels, clamps and file kinds per task (reference
   task_configs.py:5-99), the JAX package's table.
 * `task_transform`: the shorter side resized to `image_size` (PIL's 8-bit
-  BILINEAR for rgb, `native.pil_resize(..., bicubic=False)`; PIL's NEAREST
+  BILINEAR for rgb, `native.pil_resize(..., "bilinear")`; PIL's NEAREST
   for every other task: `native.pil_nearest` for 8-bit images and
   `native.pil_nearest_i16` for 16-bit planes, which Pillow opens as
   "I;16" and resizes through another code path, with other pixel
@@ -126,7 +126,7 @@ def _resize(img: np.ndarray, size_hw, bilinear: bool, twin: bool) -> np.ndarray:
     if (h, w) == tuple(size_hw):
         return img
     if bilinear:
-        return (pil_resize_twin if twin else native.pil_resize)(img, size_hw, bicubic=False)
+        return (pil_resize_twin if twin else native.pil_resize)(img, size_hw, "bilinear")
     if img.dtype == np.uint16:
         if not twin:
             return native.pil_nearest_i16(img, size_hw)

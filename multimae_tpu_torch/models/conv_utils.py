@@ -81,13 +81,16 @@ class ConvNeXtBlock(nn.Module):
 
     With no layer scale, the LN -> fc1 -> GELU -> fc2 + residual tail runs
     as the K3b kernel on bf16 CUDA tensors of at least fused_mlp.MIN_ROWS
-    rows (the JAX gate, :51-62); otherwise through the modules."""
+    rows (the JAX gate, :51-62); otherwise through the modules, whose GELU
+    is the tanh form with `approx_gelu` (K3b keeps erf, as the JAX kernel
+    keeps its own)."""
 
     def __init__(self, dim: int, layer_scale_init_value: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
+        self.approx_gelu = False
         self.dwconv = make_conv(dim, dim, 7, groups=dim)
         self.norm = LayerNorm(dim, dtype)
         self.pwconv1 = Dense(dim, 4 * dim, dtype=dtype, init_std=0.02)
@@ -113,7 +116,7 @@ class ConvNeXtBlock(nn.Module):
                                            residual.reshape(rows, self.dim),
                                            self.mlp_weights())
             return y.reshape(x.shape)
-        x = self.pwconv2(gelu(self.pwconv1(self.norm(x))))
+        x = self.pwconv2(gelu(self.pwconv1(self.norm(x)), self.approx_gelu))
         if self.gamma is not None:
             x = self.gamma.to(self.dtype) * x
         return residual + x

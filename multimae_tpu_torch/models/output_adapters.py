@@ -15,8 +15,9 @@ attention, MLP, `depth` blocks) runs as the fused_decoder_core kernel
 where `fused_decoder.supported` admits the shape, on every device, as the
 JAX adapter consults its gate (JAX :295-303); the module path below it
 runs what the kernel does not take (depth 0, other dtypes, head widths
-other than 32 and 64, key sets past the backward's shared memory) and is
-the reference the core is tested against. Outputs
+other than 32 and 64, key sets past the backward's shared memory, a
+decoder without cross-attention) and is the reference the core is tested
+against. Outputs
 are NHWC images with the reference's (c, ph, pw) patch order, or, with
 `return_patches` (the training fast path, JAX :67-70, :336-338), the
 (B, N, C*ph*pw) token patches that the masked losses take directly.
@@ -57,7 +58,13 @@ from multimae_tpu_torch.ops.resize import interpolate_2d
 
 
 class SpatialOutputAdapter(nn.Module):
-    """Cross-attention decoder for spatial outputs."""
+    """Cross-attention decoder for spatial outputs. `use_task_queries=False`
+    makes every decoder's queries the mask token plus the bilinearly resized
+    pos-emb and the task's own embedding (JAX :245-254), whether or not the
+    task was an input; `use_xattn=False` drops the cross-attention and its
+    MLP and norms (no `decoder`, `context_norm`, `query_norm`, `out_norm` or
+    `mlp`): the queries go through `decoder_transformer` alone, on the
+    module path (JAX :322-332)."""
 
     def __init__(self, num_channels: int, stride_level: int,
                  patch_size_full: Union[int, Tuple[int, int]],
@@ -66,10 +73,12 @@ class SpatialOutputAdapter(nn.Module):
                  mlp_ratio: float = 4.0, num_heads: int = 8,
                  qkv_bias: bool = True, task: Optional[str] = None,
                  context_tasks: Optional[Sequence[str]] = None,
-                 return_patches: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 return_patches: bool = False, use_task_queries: bool = True,
+                 use_xattn: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.return_patches = return_patches
+        self.use_task_queries = use_task_queries
+        self.use_xattn = use_xattn
         self.num_channels = num_channels
         self.stride_level = stride_level
         self.dim_tokens = dim_tokens
@@ -90,11 +99,12 @@ class SpatialOutputAdapter(nn.Module):
         self.pos_emb = sincos_pos_emb(img[0] // (stride_level * ph),
                                       img[1] // (stride_level * pw), dim_tokens)
         self.proj_context = Dense(dim_tokens_enc, dim_tokens, dtype=dtype)
-        self.query_norm = LayerNorm(dim_tokens, dtype)
-        self.context_norm = LayerNorm(dim_tokens, dtype)
-        self.decoder = CrossAttention(dim_tokens, num_heads, qkv_bias, dtype)
-        self.out_norm = LayerNorm(dim_tokens, dtype)
-        self.mlp = Mlp(dim_tokens, int(dim_tokens * mlp_ratio), dtype)
+        if use_xattn:
+            self.query_norm = LayerNorm(dim_tokens, dtype)
+            self.context_norm = LayerNorm(dim_tokens, dtype)
+            self.decoder = CrossAttention(dim_tokens, num_heads, qkv_bias, dtype)
+            self.out_norm = LayerNorm(dim_tokens, dtype)
+            self.mlp = Mlp(dim_tokens, int(dim_tokens * mlp_ratio), dtype)
         self.decoder_transformer = nn.ModuleList([
             Block(dim_tokens, num_heads, mlp_ratio, qkv_bias, dtype)
             for _ in range(depth)
@@ -126,9 +136,12 @@ class SpatialOutputAdapter(nn.Module):
 
     def decode_modules(self, queries: torch.Tensor,
                        context: torch.Tensor) -> torch.Tensor:
-        """The decoder body through the submodules."""
-        x = self.decoder(self.query_norm(queries), self.context_norm(context))
-        x = x + self.mlp(self.out_norm(x))
+        """The decoder body through the submodules; without cross-attention
+        the queries go through the transformer blocks alone."""
+        x = queries
+        if self.use_xattn:
+            x = self.decoder(self.query_norm(queries), self.context_norm(context))
+            x = x + self.mlp(self.out_norm(x))
         for blk in self.decoder_transformer:
             x = blk(x)
         return x
@@ -169,7 +182,7 @@ class SpatialOutputAdapter(nn.Module):
                                           context_tokens.device)
         mask_token = self.mask_token.to(self.dtype)
 
-        if self.task in input_info["tasks"]:
+        if self.use_task_queries and self.task in input_info["tasks"]:
             info = input_info["tasks"][self.task]
             rank = ids_restore[:, info["start_idx"]:info["end_idx"]]
             visible = rank < k
@@ -177,7 +190,7 @@ class SpatialOutputAdapter(nn.Module):
                                      torch.where(visible, rank, torch.zeros_like(rank)))
             queries = torch.where(visible.unsqueeze(-1), q_tokens, mask_token)
             queries = queries + ctx_emb[:, info["start_idx"]:info["end_idx"]]
-        else:  # a task with no input: mask tokens + its embeddings
+        else:  # no task queries, or no input of the task: mask tokens + embeddings
             queries = mask_token.expand(b, nh * nw, -1) + pos_tokens(
                 self.pos_emb, (nh, nw), "bilinear", self.dtype)
             if self.task in self.task_embeddings:
@@ -197,9 +210,10 @@ class SpatialOutputAdapter(nn.Module):
         context_tokens = self.proj_context(encoder_tokens.to(self.dtype))
         queries, context = self.get_queries_and_context(
             context_tokens, input_info, ids_keep, ids_restore)
-        if fused_decoder.supported(queries.shape[1], context.shape[1], self.dim_tokens,
-                                   self.num_heads, self.depth, self.dtype,
-                                   self.mlp.fc1.weight.shape[0]):
+        # K1's gate requires the cross-attention form (JAX :156-170).
+        if self.use_xattn and fused_decoder.supported(
+                queries.shape[1], context.shape[1], self.dim_tokens, self.num_heads,
+                self.depth, self.dtype, self.mlp.fc1.weight.shape[0]):
             x = fused_decoder.fused_decoder_core(
                 queries.contiguous(), context.contiguous(), self.core_weights(),
                 self.num_heads, self.depth)

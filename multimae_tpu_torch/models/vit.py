@@ -146,7 +146,8 @@ class Dense(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2 -> dropout at `drop` in training.
+    """fc1 -> exact-erf GELU (tanh with `approx_gelu`, which
+    `set_approx_gelu` sets) -> fc2 -> dropout at `drop` in training.
 
     Under tensor parallelism (parallel/tp.py sets `tp_group`) fc1 holds this
     rank's rows (column-parallel) and fc2 its columns (row-parallel): the
@@ -160,14 +161,28 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden, dim, dtype=dtype)
         self.drop = drop
         self.tp_group = None
+        self.approx_gelu = False
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.tp_group is None:
-            return dropout(self.fc2(gelu(self.fc1(x))), self.drop, self.training, generator)
-        h = gelu(self.fc1(tp.copy_to_tp(x, self.tp_group)))
+            return dropout(self.fc2(gelu(self.fc1(x), self.approx_gelu)), self.drop,
+                           self.training, generator)
+        h = gelu(self.fc1(tp.copy_to_tp(x, self.tp_group)), self.approx_gelu)
         return dropout(tp.row_parallel(h, self.fc2, self.tp_group), self.drop,
                        self.training, generator)
+
+
+def set_approx_gelu(model: nn.Module, enabled: bool) -> nn.Module:
+    """Give every module-path GELU of `model` (its Mlps and ConvNeXt
+    blocks) the tanh form, or the exact erf (JAX models/vit.py:74-89, a
+    process-global there, a setting of this model's modules here). The
+    kernels K1, K3b and K4 keep erf, as the JAX package's Pallas kernels
+    keep their own GELU."""
+    for m in model.modules():
+        if hasattr(m, "approx_gelu"):
+            m.approx_gelu = bool(enabled)
+    return model
 
 
 class Attention(nn.Module):

@@ -383,14 +383,26 @@ def _hwc_u8(img: np.ndarray, what: str) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def pil_resize(img: np.ndarray, size_hw: Tuple[int, int], bicubic: bool = True) -> np.ndarray:
-    """Image.resize((w, h), BICUBIC or BILINEAR) of (H, W) or (H, W, C) uint8."""
+# mm_pil_resize's filter codes.
+PIL_FILTERS = {"bilinear": 0, "bicubic": 1, "lanczos": 2}
+
+
+def pil_resize(img: np.ndarray, size_hw: Tuple[int, int], resample: str = "bicubic"
+               ) -> np.ndarray:
+    """Image.resize((w, h), resample) of (H, W) or (H, W, C) uint8, with
+    `resample` "bicubic", "bilinear", "lanczos" or "nearest" (Pillow's
+    NEAREST path, `pil_nearest` over the whole image)."""
     src = _hwc_u8(img, "pil_resize")
+    if resample == "nearest":
+        return pil_nearest(src, (0, 0, src.shape[0], src.shape[1]), size_hw)
+    if resample not in PIL_FILTERS:
+        raise ValueError(f"pil_resize: resample {resample!r}, not one of nearest, "
+                         f"{', '.join(PIL_FILTERS)}")
     dh, dw = _size_args(size_hw)
     c = src.shape[2] if src.ndim == 3 else 1
     dst = np.empty((dh, dw) + src.shape[2:], np.uint8)
     _check(lib().mm_pil_resize(_ptr(src), src.shape[0], src.shape[1], c, _ptr(dst), dh, dw,
-                               int(bicubic)), "pil_resize")
+                               PIL_FILTERS[resample]), "pil_resize")
     return dst
 
 

@@ -3,10 +3,12 @@
 // data/auto_augment.py). Each function is bit-equal to Pillow's C code
 // (libImaging) and to its numpy twin in data/pil_ops.py:
 //
-//   * mm_pil_resize: Image.resize with BICUBIC (a = -0.5) or BILINEAR, the
-//     8-bit path of Resample.c: weights in double, normalised to fixed
-//     point with 22 fraction bits, the horizontal pass stored as uint8
-//     before the vertical one, a pass whose axis keeps its size skipped;
+//   * mm_pil_resize: Image.resize with BILINEAR, BICUBIC (a = -0.5) or
+//     LANCZOS (support 3), the 8-bit path of Resample.c: weights in
+//     double, normalised to fixed point with 22 fraction bits, the
+//     horizontal pass stored as uint8 before the vertical one, a pass whose
+//     axis keeps its size skipped (NEAREST is fastimage.cpp's
+//     mm_pil_nearest, Pillow's own path);
 //   * mm_pil_affine: Image.transform(AFFINE) with BILINEAR or BICUBIC and
 //     a fill colour (Geometry.c ImagingGenericTransform);
 //   * mm_pil_gray, mm_pil_smooth, mm_pil_blend: convert("L"),
@@ -39,15 +41,35 @@ double bicubic_filter(double x) {
   return 0.0;
 }
 
+double sinc_filter(double x) {
+  if (x == 0.0) return 1.0;
+  x = x * 3.14159265358979323846;
+  return std::sin(x) / x;
+}
+
+double lanczos_filter(double x) {
+  // truncated sinc
+  if (-3.0 <= x && x < 3.0) return sinc_filter(x) * sinc_filter(x / 3);
+  return 0.0;
+}
+
+// The filters of mm_pil_resize's codes 0, 1 and 2, and their supports.
+struct Filter {
+  double (*fn)(double);
+  double support;
+};
+constexpr Filter kFilters[3] = {
+    {bilinear_filter, 1.0}, {bicubic_filter, 2.0}, {lanczos_filter, 3.0}};
+
 // Resample.c precompute_coeffs over the whole axis, then
 // normalize_coeffs_8bpc: (first, count) per output pixel and `ksize` fixed
 // point weights each.
-int coeffs_8bpc(int in_size, int out_size, bool bicubic, std::vector<int>& bounds,
+int coeffs_8bpc(int in_size, int out_size, const Filter& f, std::vector<int>& bounds,
                 std::vector<int32_t>& kk) {
-  double (*filter)(double) = bicubic ? bicubic_filter : bilinear_filter;
+  double (*filter)(double) = f.fn;
   const double scale = static_cast<double>(in_size) / out_size;
   const double filterscale = scale < 1.0 ? 1.0 : scale;
-  const double support = (bicubic ? 2.0 : 1.0) * filterscale;
+  const double support = f.support * filterscale;
   const int ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   bounds.assign(static_cast<size_t>(out_size) * 2, 0);
   kk.assign(static_cast<size_t>(out_size) * ksize, 0);
@@ -87,10 +109,10 @@ inline uint8_t clip8(int32_t in) {
 // One pass along x (horizontal) or y (vertical): src (h, w, c) -> dst with
 // the resized axis of `out` pixels.
 void resample_pass(const uint8_t* src, int h, int w, int c, uint8_t* dst, int out,
-                   bool horizontal, bool bicubic) {
+                   bool horizontal, const Filter& filter) {
   std::vector<int> bounds;
   std::vector<int32_t> kk;
-  const int ksize = coeffs_8bpc(horizontal ? w : h, out, bicubic, bounds, kk);
+  const int ksize = coeffs_8bpc(horizontal ? w : h, out, filter, bounds, kk);
   const int ow = horizontal ? out : w;
   const int oh = horizontal ? h : out;
   for (int yy = 0; yy < oh; ++yy) {
@@ -131,10 +153,13 @@ inline double cubic(double v1, double v2, double v3, double v4, double d) {
 
 extern "C" {
 
-// Image.resize((dw, dh), BICUBIC or BILINEAR) of (sh, sw, c) uint8.
+// Image.resize((dw, dh), BILINEAR (filter 0), BICUBIC (1) or LANCZOS (2))
+// of (sh, sw, c) uint8.
 int mm_pil_resize(const uint8_t* src, int sh, int sw, int c, uint8_t* dst, int dh, int dw,
-                  int bicubic) {
-  if (sh <= 0 || sw <= 0 || c <= 0 || dh <= 0 || dw <= 0) return -1;
+                  int filter) {
+  if (sh <= 0 || sw <= 0 || c <= 0 || dh <= 0 || dw <= 0 || filter < 0 || filter > 2)
+    return -1;
+  const Filter& f = kFilters[filter];
   const bool need_h = dw != sw, need_v = dh != sh;
   if (!need_h && !need_v) {
     std::memcpy(dst, src, static_cast<size_t>(sh) * sw * c);
@@ -142,12 +167,12 @@ int mm_pil_resize(const uint8_t* src, int sh, int sw, int c, uint8_t* dst, int d
   }
   if (need_h && need_v) {
     std::vector<uint8_t> tmp(static_cast<size_t>(sh) * dw * c);
-    resample_pass(src, sh, sw, c, tmp.data(), dw, true, bicubic != 0);
-    resample_pass(tmp.data(), sh, dw, c, dst, dh, false, bicubic != 0);
+    resample_pass(src, sh, sw, c, tmp.data(), dw, true, f);
+    resample_pass(tmp.data(), sh, dw, c, dst, dh, false, f);
   } else if (need_h) {
-    resample_pass(src, sh, sw, c, dst, dw, true, bicubic != 0);
+    resample_pass(src, sh, sw, c, dst, dw, true, f);
   } else {
-    resample_pass(src, sh, sw, c, dst, dh, false, bicubic != 0);
+    resample_pass(src, sh, sw, c, dst, dh, false, f);
   }
   return 0;
 }

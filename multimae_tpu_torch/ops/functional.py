@@ -55,9 +55,11 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y if bias is None else y + bias.to(dtype)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU evaluated in fp32, rounded to x's dtype."""
-    return F.gelu(x.float()).to(x.dtype)
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """Exact-erf GELU (or, with `approximate`, the tanh form that the JAX
+    package's --approx_gelu selects) evaluated in fp32, rounded to x's
+    dtype."""
+    return F.gelu(x.float(), approximate="tanh" if approximate else "none").to(x.dtype)
 
 
 def gelu_grad(x: torch.Tensor) -> torch.Tensor:

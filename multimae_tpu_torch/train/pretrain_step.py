@@ -155,6 +155,12 @@ def make_pretrain_train_step(
 
         named = state.named_parameters()
         reduce_stage_gradients(model, model.named_parameters())
+        for _, p in named:
+            # A parameter the loss does not reach (the encoder under decoders
+            # without task queries or cross-attention) gets jax.grad's zero,
+            # so that AdamW still decays it as optax does.
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         tp.sync_replicated_gradients(model, named)
         named_grads = [(n, p.grad) for n, p in named if p.grad is not None]
         grads = [local(g) for _, g in named_grads]

@@ -72,7 +72,7 @@ def test_flat_yaml_refuses_what_it_does_not_read(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--approx_gelu"], "item 12"), (["--ckpt_backend", "orbax"], "item 10"),
+    (["--ckpt_backend", "msgpack"], "item 10"), (["--ckpt_backend", "orbax"], "item 10"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 {item}"):

@@ -7,7 +7,8 @@ its numpy twin:
 
 * `Image.resize` BICUBIC and BILINEAR, from crops smaller, larger and
   equal to the output in one axis (PIL then skips that axis's pass), and
-  the eval transform's shorter-side resize with its centre crop;
+  the eval transform's shorter-side resize with its centre crop; NEAREST
+  and LANCZOS up and down at odd sizes;
 * `Image.transform(AFFINE)` and `Image.rotate` with both resamples and the
   dataset-mean fill, shear and translate at RandAugment's levels;
 * ImageEnhance Color, Contrast, Brightness and Sharpness, and the LUT ops
@@ -19,8 +20,13 @@ its numpy twin:
 The whole `ClsTrainTransform` equals the JAX one with the JAX global
 `random` seeded as the port's record generator, bit-equal after the
 normalisation (and so before it); `RandomErasing` equals the JAX one for
-the same generator; the AutoAugment and AugMix policies raise naming
-their ROADMAP item.
+the same generator. The AutoAugment policies (original, originalr, v0,
+v0r) and AugMix equal the JAX ones, native and twin, with the JAX global
+`random` seeded as the record generator and, for AugMix, the global
+`np.random` seeded with that generator's next 32 bits at the call (the
+port seeds its numpy draws so); so do the train transform under them and
+the train and eval transforms with nearest and lanczos. An unknown policy
+raises ValueError as in the JAX module.
 """
 
 import random
@@ -41,6 +47,8 @@ from multimae_tpu_torch.data.image_io import load_image
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "jpeg" / "photo_420_q90.jpg"
 FILL = (124, 116, 104)  # round(255 * IMAGENET_DEFAULT_MEAN)
 OPS = {"native": pil_ops.NATIVE_OPS, "twin": pil_ops.TWIN_OPS}
+RESAMPLE = {Image.NEAREST: "nearest", Image.BILINEAR: "bilinear", Image.BICUBIC: "bicubic",
+            Image.LANCZOS: "lanczos"}
 
 
 def noise(h, w, seed=0):
@@ -78,11 +86,24 @@ def test_resize_matches_pil(impl, bicubic, photo):
              photo, photo[:224, :224]]  # larger; both equal (a copy)
     for crop in crops + [IMAGES["noise"], IMAGES["tiny"]]:
         ref = np.asarray(pil(crop).resize((224, 224), rs))
-        np.testing.assert_array_equal(OPS[impl].resize(crop, (224, 224), bicubic), ref)
+        np.testing.assert_array_equal(OPS[impl].resize(crop, (224, 224), RESAMPLE[rs]), ref)
     odd = IMAGES["smooth"]
     for size in [(37, 91), (13, 7), (60, 7), (1, 50)]:
         ref = np.asarray(pil(odd).resize(size[::-1], rs))
-        np.testing.assert_array_equal(OPS[impl].resize(odd, size, bicubic), ref)
+        np.testing.assert_array_equal(OPS[impl].resize(odd, size, RESAMPLE[rs]), ref)
+
+
+@pytest.mark.parametrize("impl", sorted(OPS))
+@pytest.mark.parametrize("rs", [Image.NEAREST, Image.LANCZOS], ids=["nearest", "lanczos"])
+def test_nearest_and_lanczos_resize_match_pil(impl, rs, photo):
+    """Up and down, odd sizes, one axis kept, from a photo, noise and a
+    2 x 5 image."""
+    for img in (photo[3:120, 5:187], IMAGES["noise"], IMAGES["smooth"], IMAGES["tiny"]):
+        for size in [(224, 224), (37, 91), (13, 7), (img.shape[0], 33), (61, img.shape[1]),
+                     (1, 50), (img.shape[0] * 3 + 1, img.shape[1] * 2 - 1)]:
+            ref = np.asarray(pil(img).resize(size[::-1], rs))
+            got = OPS[impl].resize(img, size, RESAMPLE[rs])
+            np.testing.assert_array_equal(got, ref, err_msg=f"{img.shape} -> {size}")
 
 
 @pytest.mark.parametrize("impl", sorted(OPS))
@@ -244,10 +265,79 @@ def test_random_erasing_equals_jax(mode, count):
         np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("config", ["original", "v0", "augmix-m5-w4-d2"])
+@pytest.mark.parametrize("config", ["originalx", "v1-mstd0.5", "auto"])
 def test_unported_policies_raise(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
-        taa.create_aa_transform(config)
+    """A policy neither package has raises ValueError naming it."""
+    name = config.split("-")[0]
+    for module in (taa, jaa):
+        with pytest.raises(ValueError, match=f"Unknown AutoAugment policy {name}"):
+            module.create_aa_transform(config)
+
+
+class _SeededNumpy:
+    """The JAX AugMix with the global np.random seeded from the global
+    `random`'s next 32 bits, as the port seeds its numpy draws from the
+    record generator's."""
+
+    def __init__(self, aa):
+        self.aa = aa
+
+    def __call__(self, img):
+        np.random.seed(random.getrandbits(32))
+        return self.aa(img)
+
+
+def jax_policy(config):
+    aa = jaa.create_aa_transform(config, {"img_mean": FILL})
+    return _SeededNumpy(aa) if config.startswith("augmix") else aa
+
+
+POLICIES = ["original", "originalr", "v0", "v0r-mstd0.5", "augmix-m3-w3-mstd0.5",
+            "augmix-m5-w4-d2", "augmix-m9-w2-d1-a0.5-mstd1"]
+
+
+@pytest.mark.parametrize("impl", sorted(OPS))
+@pytest.mark.parametrize("config", POLICIES)
+def test_policies_match_jax(impl, config):
+    img = smooth(40, 48, seed=6)
+    jt = jax_policy(config)
+    pt = taa.create_aa_transform(config, {"img_mean": FILL}, twin=impl == "twin")
+    for seed in range(12):
+        random.seed(seed)
+        ref = np.asarray(jt(pil(img)))
+        got = pt(img, random.Random(seed))
+        assert got.dtype == np.uint8 and got.shape == img.shape
+        np.testing.assert_array_equal(got, ref, err_msg=f"{config} seed {seed}")
+
+
+POLICY_TRAIN_CASES = [("lanczos", "original"), ("nearest", "v0"), ("lanczos", "augmix-m3-w3-mstd0.5"),
+                      ("nearest", "augmix-m5-w4-d2"), ("random", "v0r"), ("lanczos", None)]
+
+
+@pytest.mark.parametrize("interp,aa", POLICY_TRAIN_CASES)
+def test_train_transform_with_policies_and_filters_matches_jax(interp, aa):
+    img = smooth(96, 128, seed=7)
+    jt = jtf.ClsTrainTransform(input_size=64, auto_augment=aa, interpolation=interp,
+                               re_prob=0.25)
+    if aa and aa.startswith("augmix"):
+        jt.aa = _SeededNumpy(jt.aa)
+    for twin in (False, True):
+        pt = ttf.ClsTrainTransform(input_size=64, auto_augment=aa, interpolation=interp,
+                                   re_prob=0.25, twin=twin)
+        for seed in range(4):
+            random.seed(seed)
+            ref = jt(pil(img), rng=random)
+            np.testing.assert_array_equal(pt(img, random.Random(seed)), ref,
+                                          err_msg=f"seed {seed} twin {twin}")
+
+
+@pytest.mark.parametrize("impl", sorted(OPS))
+@pytest.mark.parametrize("interp", ["nearest", "lanczos"])
+def test_eval_transform_with_filters_matches_jax(impl, interp, photo):
+    for img in (photo, photo[:300, 50:250], IMAGES["noise"]):
+        ref = jtf.ClsEvalTransform(input_size=64, interpolation=interp)(pil(img))
+        got = ttf.ClsEvalTransform(input_size=64, interpolation=interp, twin=impl == "twin")(img)
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_native_ops_refuse_bad_arrays():

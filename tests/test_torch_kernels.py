@@ -954,6 +954,24 @@ def test_cli_first_step_on_the_card_matches_the_plain_twins(cuda, tmp_path):
             assert abs(kern[k] - v) <= chip_smoke.STEP_TOLERANCE * abs(v), (k, kern[k], v)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [{"decoder_use_task_queries": False},
+                                     {"approx_gelu": True}],
+                         ids=["no_task_queries", "approx_gelu"])
+def test_decoder_variant_steps_on_the_card_match_the_plain_twins(cuda, options):
+    """chip_smoke.py phase 19's ViT-B pretraining steps at batch 128: K1 fwd
+    and bwd launch 4 times a step under queries without task queries (the
+    mask token, the pos-emb and the task's embedding, the same in every
+    sample) and under --approx_gelu (the encoder's tanh GELU around K1's
+    erf); the first step's losses, grad norm and decoder gradients within
+    phase 7's limits of the plain twins."""
+    import chip_smoke
+
+    expect, first = chip_smoke.variant_steps(torch, cuda, "card", str(options), **options)
+    assert (expect["fused_decoder_fwd"], expect["fused_decoder_bwd"]) == (4, 4)
+    assert np.isfinite(first["loss"])
+
+
 # The semseg CLI's first loss against the plain twins reads, relative, on
 # an H100 at 700 W (this test, pytest -s): with the kernels 2.42e-5,
 # 4.23e-6, 2.17e-7 on the trees of seeds 0, 1, 2 and 6.29e-6 on the

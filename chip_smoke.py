@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving forward, pretraining step,
 semantic segmentation fine-tune, the pretraining, semseg, classification,
 depth and Taskonomy CLIs, the demo and the tools, the parallel layouts
-(TP, PP, FSDP), and NYUv2's preparation, the decoder variants,
---approx_gelu, AutoAugment and AugMix on one NVIDIA card.
+(TP, PP, FSDP), NYUv2's preparation, the decoder variants,
+--approx_gelu, AutoAugment and AugMix, and the starts from a JAX .msgpack
+and the new image formats on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -114,14 +115,13 @@ non-zero:
      classes with patches of 255, mask_valid) under the NYU rgb-depth
      recipe (MultiViT-B at 512 px, ConvNeXt head, bf16, batch 4, layer
      decay 0.75, 1-epoch warmup, 4 workers), started with --finetune from
-     phase 12's checkpoint (pos-embs 14x14 -> 32x32): run A trains 2
-     epochs with a save and an mIoU eval over all FT_VAL images (a partial
-     batch of 2 included) per epoch (phases 15 and 16 run the resume runs
-     B and C through the same cli/finetune_loop.py). Every loss and mIoU
-     is finite, 0 <= mIoU <= 1, checkpoint-best.pth exists. An
-     --eval run from checkpoint-1.pth
-     counts the launches per eval batch, and run A's totals less its two
-     evals' give those per training step: each training step launches K2
+     phase 12's checkpoint (pos-embs 14x14 -> 32x32): run A trains one
+     epoch with a save and an mIoU eval over all FT_VAL images (a partial
+     batch of 2 included) (phases 15 and 16 run the resume runs B and C
+     through the same cli/finetune_loop.py). Every loss and mIoU is
+     finite, 0 <= mIoU <= 1, checkpoint-best.pth exists. An --eval run
+     from checkpoint-0.pth counts the launches per eval batch, and run A's
+     totals less its eval's give those per training step: each training step launches K2
      fwd and bwd 12 and K3b fwd and bwd 4 times and each eval batch K4 12
      and K3b fwd 4 times. Then run D: the Segmenter head (dim 768,
      depth 2) under the ADE recipe (rgb, 150 classes, reduce_zero_label)
@@ -131,10 +131,9 @@ non-zero:
      the NYU recipe for one epoch, and its --eval run: K2 fwd and bwd 12
      times per step, K4 12 per eval batch, nothing else. Printed: the
      launches, the fine-tune start's missing and unexpected keys, the
-     native loader's samples/s over the NYU tree (one process and 4
-     workers), ms per sample decoding and augmenting (native and twin
-     arrays must be equal), the loader-fed step's host ms and data-wait
-     share; eval ms per batch, checkpoint save seconds.
+     loader-fed step's host ms and data-wait share; ms per sample decoding
+     and augmenting over TWIN_SAMPLES samples (native and twin arrays must
+     be equal); eval ms per batch, checkpoint save seconds.
  14. the classification fine-tune CLI
      (multimae_tpu_torch.cli.run_finetuning_cls, get_args + main): K4
      against its twin at the cls eval shape (CLS_BATCH, 197, 768), bit-equal
@@ -255,6 +254,17 @@ non-zero:
      bit-equal, ms per sample; the cls CLI's first step and eval batch
      under --aa AA_CLI --train_interpolation AA_INTERP (nothing in the
      step, K4 12 in the eval batch).
+ 20. the last loaders (utils/flax_msgpack.py, data/image_io.py): every
+     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm) against
+     PIL's digests; a MultiMAE-B params file in the JAX package's own
+     format (flax msgpack, from seeded weights through the port's inverse
+     converter and writer) starts the demo (preds bit-equal to the same
+     weights as a .pth; K1 fwd 3), the cls CLI (a step and an eval batch
+     at LOADER_CLS_BATCH: K4 12) and the semseg CLI (512 px, a step and an
+     eval batch at LOADER_SEG_BATCH: K2 12 + 12, K3b 4 + 4, K4 12, K3b fwd
+     4); one epoch of the pretraining CLI over LOADER_SAMPLES samples whose
+     rgb images are the new formats (K1 4 + 4 per step, no resampled
+     sample).
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -402,6 +412,18 @@ NYU_BATCH = 2
 VARIANT_BATCH, VARIANT_STEPS = TRAIN_BATCH, 3
 AA_POLICIES = ("original", "originalr", "v0", "v0r", "augmix-m3-w3-mstd0.5")
 AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
+
+# Phase 20, the last loaders: a MultiMAE-B params file in the JAX package's
+# own format (flax msgpack, written by the port's writer from seeded random
+# weights) starts the demo (against the same weights as a .pth), the cls
+# CLI (one step at LOADER_CLS_BATCH and an eval batch) and the semseg CLI
+# (512 px, LOADER_SEG_BATCH: one step and an eval batch); then one epoch
+# of the pretraining CLI at LOADER_PT_BATCH over LOADER_SAMPLES samples
+# whose rgb images are the new formats' tree fixtures (arithmetic-coded
+# and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; all 48 x 64).
+IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
+LOADER_CLS_BATCH, LOADER_SEG_BATCH, LOADER_PT_BATCH, LOADER_SAMPLES = 32, 2, 8, 16
+LOADER_HW = (48, 64)
 
 # The least time an H100 SXM could take (NVIDIA's data sheet, dense).
 BF16_PEAK = 989e12  # FLOP/s, tensor cores
@@ -1557,12 +1579,10 @@ def ft_sample_split(root):
     """Where one loader process spends a sample of the NYU tree, native and
     twin: {path: (ms reading and decoding its four PNGs, ms augmenting them
     with the fine-tune's training transform at 512 px)}, means over the
-    tree (the twins': its first TWIN_SAMPLES); the two paths' outputs must
-    agree."""
+    tree's first TWIN_SAMPLES; the two paths' outputs must agree."""
     splits, outs = {}, {}
     for twin, path in ((False, "native"), (True, "twin")):
-        dec, aug, _, outs[path] = sample_split(*semseg_data(root, twin),
-                                               count=TWIN_SAMPLES if twin else None)
+        dec, aug, _, outs[path] = sample_split(*semseg_data(root, twin), count=TWIN_SAMPLES)
         splits[path] = (dec, aug)
     check_twin_split(13, "the semseg training transform", outs["native"], outs["twin"])
     return splits
@@ -1631,13 +1651,13 @@ def ft_cli_slice(torch, dev, pretrain):
                 "--data_path", train, "--eval_data_path", val]
         steps_per_epoch, eval_batches = FT_TRAIN // SEMSEG_BATCH, math.ceil(FT_VAL / SEMSEG_BATCH)
         reset_launch_counts()
-        first = main(get_args(base + ["--output_dir", out, "--epochs", "2"]))
+        first = main(get_args(base + ["--output_dir", out, "--epochs", "1"]))
         launches = launch_counts()
-        losses, mious = check_run("run A", first, 2 * steps_per_epoch, 2, FT_VAL)
+        losses, mious = check_run("run A", first, steps_per_epoch, 1, FT_VAL)
         reset_launch_counts()
         evaluated = main(get_args(base + ["--output_dir", out, "--eval", "--resume",
-                                          os.path.join(out, "checkpoint-1.pth")]))
-        per_step, per_eval = split_launches("run A", launches, len(losses), 2, evaluated,
+                                          os.path.join(out, "checkpoint-0.pth")]))
+        per_step, per_eval = split_launches("run A", launches, len(losses), 1, evaluated,
                                             eval_batches, FT_VAL)
         expect_step = dict.fromkeys(launches, 0)
         expect_step.update(short_attention_fwd=12, short_attention_bwd=12,
@@ -1654,10 +1674,10 @@ def ft_cli_slice(torch, dev, pretrain):
                     ("input_adapters.rgb", "input_adapters.depth")) for k in unexpected)):
             raise AssertionError(f"fine-tune start: missing {missing}, unexpected "
                                  f"{unexpected[:20]}")
-        saves = [os.path.join(out, f"checkpoint-{e}.pth") for e in ("0", "1", "best")]
+        saves = [os.path.join(out, f"checkpoint-{e}.pth") for e in ("0", "best")]
         with open(os.path.join(out, "log.txt")) as f:
             lines = f.read().splitlines()
-        if len(lines) != 2 or not all(os.path.exists(p) for p in saves):
+        if len(lines) != 1 or not all(os.path.exists(p) for p in saves):
             raise AssertionError(f"run A: {len(lines)} log lines, {os.listdir(out)}")
         log(13, f"fine-tune start from {os.path.basename(pretrain)}: {len(missing)} missing "
                 f"(the head's), {len(unexpected)} unexpected (the pretraining decoders and "
@@ -1668,9 +1688,9 @@ def ft_cli_slice(torch, dev, pretrain):
                 f"{per_step['short_attention_bwd']}, K3b fwd {per_step['fused_ln_mlp_res_fwd']}"
                 f", bwd {per_step['fused_ln_mlp_res_bwd']}; per eval batch K4 "
                 f"{per_eval['fused_block_infer']}, K3b fwd {per_eval['fused_ln_mlp_res_fwd']} "
-                f"(measured: totals {launches} over {len(losses)} steps and 2 evals, an "
+                f"(measured: totals {launches} over {len(losses)} steps and an eval, an "
                 f"--eval run over {eval_batches} batches); "
-                f"checkpoint-0, -1, -best.pth saved in "
+                f"checkpoint-0, -best.pth saved in "
                 + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
 
         # No resume runs here: the semseg, depth and Taskonomy CLIs share
@@ -1683,15 +1703,11 @@ def ft_cli_slice(torch, dev, pretrain):
         evals = first["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
-        one, many = (loader_rate(*semseg_data(train), workers, batch=SEMSEG_BATCH, epochs=2)
-                     for workers in (0, CLI_WORKERS))
+        # No loader rates over this tree: phases 12 and 14-16 time theirs.
         dec, aug = ft_sample_split(train)["native"]
-        log(13, f"loader over the NYU tree (native; 640x480 PNG -> 512 crops, batches of "
-                f"{SEMSEG_BATCH}): {one:.1f} samples/s in one process, {many:.1f} samples/s "
-                f"with {CLI_WORKERS} workers; the ~70 ms step of the recipe's batch of 4 needs "
-                f"~57; one process spends {dec:.2f} ms per sample decoding its 4 PNGs and "
-                f"{aug:.2f} ms augmenting; the native and twin transforms gave the same arrays "
-                f"on the first {TWIN_SAMPLES} samples")
+        log(13, f"one loader process over the NYU tree's first {TWIN_SAMPLES} samples: "
+                f"{dec:.2f} ms per sample decoding its 4 PNGs, {aug:.2f} ms augmenting "
+                f"(640x480 -> 512 crops); the native and twin transforms gave the same arrays")
         log(13, f"CLI step at batch {SEMSEG_BATCH} fed by the loader: {step_ms:.3f} ms host "
                 f"(median of {len(fed)}); data wait {wait * 1e3:.1f} ms in all, {share:.4f} of "
                 f"the steps' time, {steady:.4f} without the run's first step; eval "
@@ -1700,7 +1716,6 @@ def ft_cli_slice(torch, dev, pretrain):
                    "ft_data_wait_share_steady": steady,
                    "ft_eval_ms_per_batch": eval_ms,
                    "ft_eval_ms_per_batch_with_data": eval_data_ms,
-                   "ft_loader_samples_per_s": one, "ft_loader_samples_per_s_workers": many,
                    "ft_decode_ms_per_sample": dec, "ft_augment_ms_per_sample": aug,
                    "ft_tree_rows_per_filter": [int(c) for c in counts],
                    "ft_ckpt_save_s": first["save_s"],
@@ -3150,6 +3165,231 @@ def last_modules_slice(torch, dev, card):
         free_card(torch)
 
 
+def image_fixture_check(card):
+    """Phase 20: every fixture of tests/fixtures/images (Adam7 PNG, BMP,
+    netpbm) through this machine's build of the native library: the
+    SHA-256 of its RGB and raw forms equal expected.json's (PIL's), a file
+    PIL refuses raises ValueError, a TIFF, WebP or JPEG 2000 file
+    UnsupportedImage."""
+    import hashlib
+
+    from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
+
+    with open(os.path.join(IMAGE_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    kinds = {"read": 0, "refused": 0, "unported": 0}
+    for name, want in sorted(expected.items()):
+        path = os.path.join(IMAGE_FIXTURES, name)
+        if want.get("unported") or "error" in want:
+            # An unported format's message names the file; a damaged one's, what expected.json says.
+            kind, error, text = (("unported", UnsupportedImage, name) if want.get("unported")
+                                 else ("refused", ValueError, want["error"]))
+            try:
+                load_image(path)
+            except error as e:
+                if text not in str(e):
+                    raise AssertionError(f"[20] {name}: {e}; expected {error.__name__} "
+                                         f"naming {text!r}") from e
+                kinds[kind] += 1
+                continue
+            raise AssertionError(f"[20] {name} decoded; expected {error.__name__} naming "
+                                 f"{text!r}")
+        for form, array in (("sha256", load_image(path)),
+                            ("raw_sha256", load_image(path, convert_rgb=False))):
+            if hashlib.sha256(array.tobytes()).hexdigest() != want[form]:
+                raise AssertionError(f"[20] {name}: {form} differs from expected.json's")
+        kinds["read"] += 1
+    log(20, f"image fixtures: {kinds['read']} PNG, BMP and netpbm files decode to PIL's "
+            f"SHA-256 in both forms, {kinds['refused']} damaged ones raise ValueError, "
+            f"{kinds['unported']} TIFF / WebP / JPEG 2000 files UnsupportedImage (card {card})")
+    return kinds
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def loaders_slice(torch, dev, card):
+    """Phase 20; returns ({path: {kernel: launches}}, numbers)."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+
+    from multimae_tpu_torch.cli import demo
+    from multimae_tpu_torch.cli import run_finetuning_cls as cls_cli
+    from multimae_tpu_torch.cli import run_finetuning_semseg as seg_cli
+    from multimae_tpu_torch.cli import run_pretraining_multimae as pt_cli
+    from multimae_tpu_torch.cli.factory import build_pretrain_model
+    from multimae_tpu_torch.data.dataset_folder import write_imagenet_tree, write_random_tree
+    from multimae_tpu_torch.utils.convert import state_dict_to_jax_params
+    from multimae_tpu_torch.utils.flax_msgpack import msgpack_serialize
+    from multimae_tpu_torch.utils.torch_compat import proj_shapes_of
+
+    root = os.path.join(HERE, "build", "chip_smoke_loaders")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches, numbers = {}, {}
+    try:
+        numbers["image_fixtures"] = image_fixture_check(card)
+
+        # The JAX package's params file of a MultiMAE-B, from the port's writer.
+        model = build_pretrain_model(device="cpu")
+        model.init_weights(torch.Generator().manual_seed(20))
+        sd = model.state_dict()
+        t0 = time.perf_counter()
+        params, _ = state_dict_to_jax_params(sd, proj_shapes_of(model))
+        data = msgpack_serialize({"params": {"model": params, "balancer": {
+            "log_vars": np.zeros(3, np.float32)}}, "step": 0, "epoch": 0})
+        msgpack = os.path.join(root, "checkpoint-0.msgpack")
+        with open(msgpack, "wb") as f:
+            f.write(data)
+        write_s = time.perf_counter() - t0
+        pth = os.path.join(root, "checkpoint-0.pth")
+        torch.save({"model": sd}, pth)
+        del model, sd, params, data
+        log(20, f"MultiMAE-B params as the JAX package saves them: {os.path.getsize(msgpack) / 2**20:.1f} "
+                f"MiB of flax msgpack, converted and written in {write_s:.2f} s; the same "
+                f"weights as a .pth")
+
+        # The demo from both files: the same preds, bit for bit.
+        demo_root = os.path.join(root, "demo")
+        os.makedirs(demo_root)
+        rng = np.random.default_rng(20)
+        from multimae_tpu_torch.data.image_io import write_png
+        write_png(os.path.join(demo_root, "depth.png"),
+                  rng.integers(1000, 60000, (375, 500)).astype(np.uint16))
+        write_png(os.path.join(demo_root, "semseg.png"),
+                  rng.integers(0, 40, (375, 500)).astype(np.uint8),
+                  palette=rng.integers(0, 256, (256, 3), dtype=np.uint8))
+        preds = {}
+        for kind, path in (("msgpack", msgpack), ("pth", pth)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = demo.main(["--checkpoint", path, "--rgb", DEMO_RGB, "--depth",
+                             os.path.join(demo_root, "depth.png"), "--semseg",
+                             os.path.join(demo_root, "semseg.png"), "--visible_rgb",
+                             DEMO_VISIBLE, "--out_dir", os.path.join(demo_root, kind)])
+            numbers[f"demo_{kind}_s"] = time.perf_counter() - t0
+            launches[f"demo_{kind}"] = launch_counts()
+            expect_launches(f"[20] demo ({kind})", launches[f"demo_{kind}"], fused_decoder_fwd=3)
+            preds[kind] = {t: p.cpu() for t, p in out["preds"].items()}
+            del out
+            free_card(torch)
+        if not all(torch.equal(preds["msgpack"][t], preds["pth"][t]) for t in preds["pth"]):
+            raise AssertionError("[20] the demo's preds from the .msgpack differ from the .pth's")
+        log(20, f"demo from the .msgpack and from the .pth: preds of "
+                f"{', '.join(preds['pth'])} bit-equal; K1 fwd "
+                f"{launches['demo_msgpack']['fused_decoder_fwd']} launches each (fp32); "
+                f"{numbers['demo_msgpack_s']:.2f} / {numbers['demo_pth_s']:.2f} s host")
+
+        # The cls CLI from the .msgpack: one step and one eval batch.
+        photos = sorted(os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
+                        if n.startswith("photo_"))
+        train, val = write_imagenet_tree(os.path.join(root, "cls"), photos, LOADER_CLS_BATCH,
+                                         LOADER_CLS_BATCH, CLS_CLASSES)
+        reset_launch_counts()
+        run = cls_cli.main(cls_cli.get_args([
+            "-c", os.path.join(HERE, CLS_YAML), "--finetune", msgpack, "--data_set",
+            "image_folder", "--nb_classes", str(CLS_CLASSES), "--data_path", train,
+            "--eval_data_path", val, "--batch_size", str(LOADER_CLS_BATCH),
+            "--warmup_epochs", "0", "--epochs", "1", "--num_workers", "0", "--output_dir", ""]))
+        launches["cls_cli_msgpack"] = launch_counts()
+        losses, accs = check_cls_run("[20] cls CLI", run, 1, 1, LOADER_CLS_BATCH)
+        expect_launches("[20] cls CLI from the .msgpack", launches["cls_cli_msgpack"],
+                        fused_block_infer=12)
+        report = run["finetune"]
+        if not 0 < report["loaded"] < report["total"]:
+            raise AssertionError(f"[20] cls start: loaded {report['loaded']}/{report['total']}")
+        log(20, f"cls CLI --finetune checkpoint-0.msgpack (batch {LOADER_CLS_BATCH}): loaded "
+                f"{report['loaded']}/{report['total']} tensors by the JAX CLI's rule (the "
+                f"head's at its initial values); first loss {losses[0]:.4f}; K4 "
+                f"{launches['cls_cli_msgpack']['fused_block_infer']} in the eval batch, "
+                f"nothing in the step")
+        numbers.update(cls_loaded=report["loaded"], cls_total=report["total"],
+                       cls_loss=losses[0])
+        free_card(torch)
+
+        # The semseg CLI from the .msgpack at 512 px: one step and one eval batch.
+        seg = os.path.join(root, "seg")
+        nyu = dict(semseg_classes=SEMSEG_CLASSES, ignore_patches=True, mask_valid=True,
+                   smooth=True)
+        write_random_tree(os.path.join(seg, "train"), LOADER_SEG_BATCH, FT_HW, **nyu)
+        write_random_tree(os.path.join(seg, "val"), LOADER_SEG_BATCH, FT_HW, seed=1, **nyu)
+        reset_launch_counts()
+        run = seg_cli.main(seg_cli.get_args([
+            "-c", os.path.join(HERE, FT_YAML), "--finetune", msgpack, "--batch_size",
+            str(LOADER_SEG_BATCH), "--warmup_epochs", "0", "--epochs", "1", "--num_workers",
+            "0", "--data_path", os.path.join(seg, "train"), "--eval_data_path",
+            os.path.join(seg, "val"), "--output_dir", ""]))
+        launches["semseg_cli_msgpack"] = launch_counts()
+        losses, mious = check_run("[20] semseg CLI", run, 1, 1, LOADER_SEG_BATCH)
+        expect_launches("[20] semseg CLI from the .msgpack (a step and an eval batch)",
+                        launches["semseg_cli_msgpack"], short_attention_fwd=12,
+                        short_attention_bwd=12, fused_ln_mlp_res_fwd=8, fused_ln_mlp_res_bwd=4,
+                        fused_block_infer=12)
+        report = run["finetune"]
+        if not 0 < report["loaded"] < report["total"] or any(
+                p[0].startswith("output_adapters") for p in report["paths"]):
+            raise AssertionError(f"[20] semseg start: loaded {report['loaded']}/"
+                                 f"{report['total']}")
+        log(20, f"semseg CLI --finetune checkpoint-0.msgpack (NYU recipe, 512 px, batch "
+                f"{LOADER_SEG_BATCH}): loaded {report['loaded']}/{report['total']} tensors "
+                f"by _load_flax_trunk's rule; loss {losses[0]:.4f}, mIoU {mious[0]:.4f}; K2 "
+                f"12 + 12 and K3b 4 + 4 in the step, K4 12 and K3b fwd 4 in the eval batch")
+        numbers.update(semseg_loaded=report["loaded"], semseg_total=report["total"],
+                       semseg_loss=losses[0])
+        free_card(torch)
+
+        # One pretraining epoch over a tree of the new formats.
+        tree_files = sorted(
+            [os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
+             if n.startswith("tree_")]
+            + [os.path.join(IMAGE_FIXTURES, n) for n in os.listdir(IMAGE_FIXTURES)
+               if n.startswith("tree_")])
+        tree = os.path.join(root, "pt")
+        write_random_tree(tree, LOADER_SAMPLES, LOADER_HW, smooth=True, rgb_files=tree_files)
+        tee = _Tee(sys.stdout)
+        reset_launch_counts()
+        with contextlib.redirect_stdout(tee):
+            run = pt_cli.main(pt_cli.get_args([
+                "-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(LOADER_PT_BATCH),
+                "--warmup_epochs", "0", "--num_workers", "0", "--data_path", tree,
+                "--output_dir", "", "--epochs", "1", "--no_auto_resume"]))
+        launches["pretrain_new_formats"] = launch_counts()
+        steps = len(run["steps"])
+        expect_launches("[20] pretraining CLI over the new formats",
+                        launches["pretrain_new_formats"], fused_decoder_fwd=4 * steps,
+                        fused_decoder_bwd=4 * steps)
+        resampled = "resampling" in "".join(tee.parts)
+        if steps != LOADER_SAMPLES // LOADER_PT_BATCH or resampled or not all(
+                math.isfinite(v) for r in run["steps"] for v in r["metrics"].values()):
+            raise AssertionError(f"[20] pretraining CLI: {steps} steps, resample lines "
+                                 f"{resampled}, metrics {[r['metrics'] for r in run['steps']]}")
+        log(20, f"pretraining CLI over {LOADER_SAMPLES} samples whose rgb images are "
+                + ", ".join(os.path.basename(p) for p in tree_files) + ": losses "
+                + ", ".join(f"{r['metrics']['loss']:.4f}" for r in run["steps"])
+                + f"; K1 fwd {launches['pretrain_new_formats']['fused_decoder_fwd']}, bwd "
+                f"{launches['pretrain_new_formats']['fused_decoder_bwd']} over {steps} steps; "
+                f"no sample resampled")
+        free_card(torch)
+
+        return launches, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "multimae_tpu_torch")):
         raise SystemExit("chip_smoke.py: the multimae_tpu_torch package is not "
@@ -3564,6 +3804,16 @@ def main():
     for k in kernels:
         name = k.get("served_by", k["name"])
         for path, counts in last_launches.items():
+            k[f"{path}_launches"] = counts[name]
+
+    # 20. the last loaders: a JAX .msgpack starts the demo, the cls and the
+    # semseg CLIs; a pretraining epoch over the new image formats
+    free_card(torch)
+    loader_launches, loader_numbers = loaders_slice(torch, dev, card)
+    log(20, "numbers: " + json.dumps(loader_numbers))
+    for k in kernels:
+        name = k.get("served_by", k["name"])
+        for path, counts in loader_launches.items():
             k[f"{path}_launches"] = counts[name]
 
     log_phase_times()

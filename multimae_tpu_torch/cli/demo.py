@@ -6,7 +6,10 @@ demo.py, the script version of the reference's MultiMAE_Demo.ipynb).
         --num_encoded_tokens 98 --out_dir demo_out [--visible_rgb '0,0 1,0 7,7']
 
 Loads a pretrained MultiMAE from a `.pth` (the reference's layout or the
-port's own `checkpoint-*.pth`, through utils/torch_compat.load_pretrained),
+port's own `checkpoint-*.pth`, through utils/torch_compat.load_pretrained)
+or from a JAX `.msgpack` (the JAX demo's `from_state_dict`: every leaf of
+the model's flax tree must be in `params/model`, utils/torch_compat.
+load_flax_start with rule "strict"),
 reads an RGB image (PNG or JPEG) and optionally a depth PNG and a semantic
 segmentation PNG, masks the tokens at random (seeded by --seed) or keeps
 only the RGB patches --visible_rgb names, and writes pred_<task>.png and
@@ -28,8 +31,8 @@ library's resizes of PIL's:
   * semseg: convert("P"), then a NEAREST resize to s/4 x s/4
     (`native.pil_nearest`), for palette ("P") and 8-bit gray ("L") PNGs.
 Any other mode raises ValueError naming it, where PIL would convert or
-quantise. The JAX demo's `.msgpack` branch reads flax's own format; a
-checkpoint that is not a `.pth` raises ValueError naming the JAX exporter.
+quantise. A checkpoint that is neither a `.pth` nor a `.msgpack` (an orbax
+directory) raises ValueError.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from __future__ import annotations
 import argparse
 import os
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +51,7 @@ from multimae_tpu_torch.data.image_io import PNG_SIGNATURE, decode_png, load_ima
 from multimae_tpu_torch.ops.masking import make_mask
 from multimae_tpu_torch.train.pretrain_step import standardize_depth
 from multimae_tpu_torch.utils.data_constants import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
-from multimae_tpu_torch.utils.torch_compat import load_pretrained
+from multimae_tpu_torch.utils.torch_compat import load_flax_start, load_pretrained
 
 MEAN = np.asarray(IMAGENET_DEFAULT_MEAN, np.float32)
 STD = np.asarray(IMAGENET_DEFAULT_STD, np.float32)
@@ -130,11 +133,12 @@ def load_inputs(args, device) -> Dict[str, torch.Tensor]:
     return inputs
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> Dict[str, List[str]]:
+def load_checkpoint(model: torch.nn.Module, path: str) -> Dict[str, Any]:
+    if path.endswith(".msgpack"):
+        return load_flax_start(model, path, "strict")
     if not path.endswith(".pth"):
-        raise ValueError(f"{path}: the port reads .pth checkpoints only; export a JAX "
-                         f"checkpoint with multimae_tpu.utils.torch_compat."
-                         f"params_to_state_dict and save it with torch.save as a .pth")
+        raise ValueError(f"{path}: neither a .pth nor a JAX .msgpack file; orbax checkpoint "
+                         f"directories are not read (ROADMAP.md queue 1 item 10b, its end)")
     return load_pretrained(model, path)
 
 

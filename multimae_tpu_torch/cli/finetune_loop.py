@@ -2,7 +2,8 @@
 (the main loops of multimae_tpu/cli/run_finetuning_{semseg,depth,taskonomy}.py).
 
 `finetune` sets up the device and the processes, builds the model and
-starts it from a reference-layout `.pth` (--finetune), reads the training
+starts it from a reference-layout `.pth` (--finetune; the semseg CLI also
+from a JAX `.msgpack`, by the JAX CLI's `_load_flax_trunk` rule), reads the training
 and validation sets through the port's loaders (or trains on one
 synthetic batch with --synthetic_data), trains with --opt, layer decay
 --layer_decay ** (depth + 1 - i), the cosine LR with warmup and the WD
@@ -31,7 +32,7 @@ import math
 import os
 import sys
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,16 +44,27 @@ def step_seed(seed: int, step: int, rank: int) -> int:
     return int(np.random.SeedSequence([seed, step, rank]).generate_state(1)[0])
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for every flag whose function the port does not have."""
+def refuse_unported(args, flax_start: Optional[str] = None) -> None:
+    """SystemExit for every flag whose function the port does not have.
+    `flax_start` names the JAX rule by which the CLI starts from a JAX
+    `.msgpack` (utils/torch_compat.load_flax_start), where its JAX CLI
+    does; None where its JAX CLI reads `.pth` files only."""
+    finetune = args.finetune or ""
     refused = [
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (bool(args.finetune) and not args.finetune.endswith(".pth"),
-         f"--finetune {args.finetune}: not a .pth file; the port starts from "
-         "reference-layout .pth files (the JAX package's msgpack and orbax checkpoints "
-         "are not read)"),
+         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10b, its end)"),
+        (bool(finetune) and flax_start is None and not finetune.endswith(".pth"),
+         f"--finetune {finetune}: not a .pth file; the JAX CLI of this task starts from "
+         ".pth files only, so a JAX .msgpack or orbax checkpoint is not read here "
+         "either (ROADMAP.md queue 1 item 10b, its end)"),
+        (bool(finetune) and flax_start is not None
+         and not finetune.endswith((".pth", ".msgpack")),
+         f"--finetune {finetune}: neither a .pth nor a JAX .msgpack file; orbax "
+         "checkpoint directories are not read (ROADMAP.md queue 1 item 10b, its end)"),
+        (bool(args.resume) and not args.resume.endswith(".pth"),
+         f"--resume {args.resume}: not a .pth file; resuming a JAX training state (its "
+         "optax opt_state) is not ported (ROADMAP.md queue 1 item 10b, its end)"),
     ]
     for bad, msg in refused:
         if bad:
@@ -104,7 +116,8 @@ class WeightedMeans:
 
 def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
              prepare: Callable, loss_parts_fn: Callable, evaluation: Callable,
-             best: Tuple[str, str], synthetic: Callable, report: Callable) -> Dict[str, Any]:
+             best: Tuple[str, str], synthetic: Callable, report: Callable,
+             flax_start: Optional[str] = None) -> Dict[str, Any]:
     """Fine-tune by the CLI's flags; returns a summary.
 
     build(dtype) -> (model, input domains, task); datasets() -> (train
@@ -118,14 +131,15 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
     what log.txt gets as val_<name>; best = (a name in `logged`, "max" or
     "min"): checkpoint-best follows it, and the checkpoints keep it as
     best_<name>; synthetic(batch size) -> a loader batch; report(stats)
-    prints an evaluation.
+    prints an evaluation; flax_start: the JAX rule that reads a JAX
+    `.msgpack` --finetune (refuse_unported), with the semseg head's names.
 
     The summary holds the fine-tune start's report, where it started and
     resumed from, the per-step metrics and host times (wait for the batch,
     the step), each evaluation (its stats, batches, images, ms per batch),
     the checkpoint save and load times, each epoch's log line and the best
     metric."""
-    refuse_unported(args)
+    refuse_unported(args, flax_start)
     from multimae_tpu_torch.cli.factory import entry_device
     from multimae_tpu_torch.parallel import dist as dist_lib
 
@@ -136,7 +150,7 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
         device = torch.device("cuda", torch.cuda.current_device())
     with exact_fp32(device, dtype):
         summary = _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn,
-                            evaluation, best, synthetic, report)
+                            evaluation, best, synthetic, report, flax_start)
     if created and torch.distributed.is_initialized():
         dist_lib.barrier()
         torch.distributed.destroy_process_group()
@@ -144,7 +158,7 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
 
 
 def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, evaluation,
-              best, synthetic, report) -> Dict[str, Any]:
+              best, synthetic, report, flax_start) -> Dict[str, Any]:
     from multimae_tpu_torch.data.loader import EvalLoader, Loader
     from multimae_tpu_torch.parallel import dist as dist_lib
     from multimae_tpu_torch.train.checkpoint import (
@@ -156,7 +170,7 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
     from multimae_tpu_torch.train.schedules import cosine_scheduler
     from multimae_tpu_torch.train.train_state import TrainState
     from multimae_tpu_torch.utils.logger import MetricLogger, write_log_line
-    from multimae_tpu_torch.utils.torch_compat import load_pretrained
+    from multimae_tpu_torch.utils.torch_compat import load_flax_start, load_pretrained
 
     from multimae_tpu_torch.parallel import mesh as mesh_lib
 
@@ -177,8 +191,11 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
     summary: Dict[str, Any] = {"finetune": None, "start_epoch": args.start_epoch,
                                "resumed_from": None, "load_s": None, "save_s": [],
                                "saved": [], "steps": [], "evals": [], "epochs": []}
-    if args.finetune:
-        summary["finetune"] = load_pretrained(model, args.finetune)
+    finetune = args.finetune or ""
+    if finetune.endswith(".msgpack"):
+        summary["finetune"] = load_flax_start(model, finetune, flax_start, head_type="semseg")
+    elif finetune:
+        summary["finetune"] = load_pretrained(model, finetune)
     # The frozen sin-cos pos-embs get gradients that the optimizer never
     # applies: the JAX step's gradient norm, and so its clip, counts them.
     for name, p in model.named_parameters():

@@ -11,7 +11,9 @@ The same flags and YAML precedence as the JAX CLI (-c sets the parser's
 defaults, flags override them), reading the shared cfgs/. It builds a
 MultiViT with the rgb input adapter and the LinearOutputAdapter head,
 starts it from a reference-layout `.pth` (--finetune: a 224-px
-pretraining save's 14 x 14 pos-embs fit as they are; utils/torch_compat.py),
+pretraining save's 14 x 14 pos-embs fit as they are; utils/torch_compat.py)
+or from a JAX `.msgpack` by the JAX CLI's rule (every leaf whose flax path
+and shape match, the head's too; `load_flax_start`),
 reads an ImageFolder tree (--data_set IMNET or image_folder) or the
 CIFAR-100 pickles (CIFAR) through the PIL-free RandAugment transforms
 (data/cls_transforms.py) and the port's loader (or trains on one
@@ -189,11 +191,13 @@ def refuse_unported(args) -> None:
     refused = [
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
-        (bool(args.finetune) and not args.finetune.endswith(".pth"),
-         f"--finetune {args.finetune}: not a .pth file; the port starts from "
-         "reference-layout .pth files (the JAX package's msgpack and orbax checkpoints "
-         "are not read)"),
+         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10b, its end)"),
+        (bool(args.finetune) and not args.finetune.endswith((".pth", ".msgpack")),
+         f"--finetune {args.finetune}: neither a .pth nor a JAX .msgpack file; orbax "
+         "checkpoint directories are not read (ROADMAP.md queue 1 item 10b, its end)"),
+        (bool(args.resume) and not args.resume.endswith(".pth"),
+         f"--resume {args.resume}: not a .pth file; resuming a JAX training state (its "
+         "optax opt_state) is not ported (ROADMAP.md queue 1 item 10b, its end)"),
     ]
     for bad, msg in refused:
         if bad:
@@ -226,7 +230,7 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.train.train_state import HostEMA, TrainState
     from multimae_tpu_torch.utils.logger import MetricLogger, write_log_line
     from multimae_tpu_torch.utils.metrics import accuracy
-    from multimae_tpu_torch.utils.torch_compat import load_pretrained
+    from multimae_tpu_torch.utils.torch_compat import load_flax_start, load_pretrained
 
     device = entry_device(args.device)
     from multimae_tpu_torch.parallel import mesh as mesh_lib, tp
@@ -256,8 +260,11 @@ def main(args) -> Dict[str, Any]:
     summary: Dict[str, Any] = {"finetune": None, "start_epoch": args.start_epoch,
                                "resumed_from": None, "load_s": None, "save_s": [],
                                "saved": [], "steps": [], "evals": [], "epochs": []}
-    if args.finetune:
-        summary["finetune"] = load_pretrained(model, args.finetune)
+    finetune = args.finetune or ""
+    if finetune.endswith(".msgpack"):
+        summary["finetune"] = load_flax_start(model, finetune, "merge")
+    elif finetune:
+        summary["finetune"] = load_pretrained(model, finetune)
     # The frozen sin-cos pos-embs get gradients that the optimizer never
     # applies: the JAX step's gradient norm, and so its clip, counts them.
     for name, p in model.named_parameters():

@@ -374,7 +374,8 @@ def main(args) -> Dict[str, Any]:
         prepare=lambda b, device: prepare_batch(b, in_domains, device),
         loss_parts_fn=seg_cross_entropy_parts,
         evaluation=lambda: ConfusionEval(args.num_classes), best=("mIoU", "max"),
-        synthetic=lambda b: synthetic_batch(b, args, in_domains), report=report)
+        synthetic=lambda b: synthetic_batch(b, args, in_domains), report=report,
+        flax_start="trunk")
 
 
 if __name__ == "__main__":

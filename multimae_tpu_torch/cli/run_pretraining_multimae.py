@@ -204,7 +204,10 @@ def refuse_unported(args) -> None:
     refused = [
         (args.ckpt_backend is not None,
          "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10)"),
+         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10b, its end)"),
+        (bool(args.resume) and not args.resume.endswith(".pth"),
+         f"--resume {args.resume}: not a .pth file; resuming a JAX training state (its "
+         "optax opt_state) is not ported (ROADMAP.md queue 1 item 10b, its end)"),
     ]
     for bad, msg in refused:
         if bad:

@@ -15,7 +15,9 @@ utils/dataset_folder.py).
 
 Images are numpy arrays from data/image_io.py, not PIL images. The
 corrupt-file retry catches what a damaged or missing file raises (OSError,
-ValueError), not the RuntimeError of a machine without a JPEG decoder.
+ValueError), not the RuntimeError of a machine without a JPEG decoder and
+not `UnsupportedImage`, which a file that PIL reads and the port cannot
+raises: the JAX package trains on such a file, so the run stops naming it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from multimae_tpu_torch.data.image_io import load_image
+from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
 
 IMG_EXTENSIONS = (
     ".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", ".webp",
@@ -236,8 +238,9 @@ class MultiTaskImageFolder:
             path, target = self.samples[t][index]
             img = load_image(path, convert_rgb=(t == "rgb"), twin=self.twin)
             if "semseg" in t and img.ndim != 2:
-                raise ValueError(f"{path}: a segmentation map must be a palette or "
-                                 f"gray image, not {img.shape[-1]} channels")
+                raise UnsupportedImage(f"{path}: a segmentation map of {img.shape[-1]} channels; "
+                                       "the port reads palette and gray maps (PIL's modes "
+                                       "'P' and 'L'), no ROADMAP item ports others")
             sample_dict[t] = img
         return sample_dict, target
 

@@ -8,8 +8,10 @@
   at most once per epoch across the ranks.
 * Per-record randomness comes from (seed, epoch, record index), as grain's
   per-record generator does for `_LoadAndAugment.random_map` (JAX
-  loader.py:49-61): the corrupt-file resample (at most 20 attempts) and
-  the transform's random.Random. Batches are therefore the same for any
+  loader.py:49-61): the corrupt-file resample (at most 20 attempts; a
+  damaged file's ValueError or OSError, never `UnsupportedImage`, which
+  stops the run naming the record's files) and the transform's
+  random.Random. Batches are therefore the same for any
   number of worker processes.
 * `get_state` / `set_state`: the seed, the epoch and the number of batches
   of it already handed out, saved with a checkpoint so a resumed run
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from multimae_tpu_torch import native
+from multimae_tpu_torch.data.image_io import UnsupportedImage
 
 MAX_ATTEMPTS = 20
 
@@ -84,6 +87,16 @@ class ShardBatches(torch.utils.data.Sampler):
             epoch, start = epoch + 1, 0
 
 
+def record_files(dataset, index: int) -> str:
+    """The files of a record, where the dataset lists them."""
+    samples = getattr(dataset, "samples", None)
+    if isinstance(samples, dict):
+        return ", ".join(samples[t][index][0] for t in samples)
+    if isinstance(samples, list):
+        return samples[index][0]
+    return "?"
+
+
 class LoadAndAugment(torch.utils.data.Dataset):
     """Loads and augments one record, drawing from (seed, epoch, index)."""
 
@@ -110,7 +123,12 @@ class LoadAndAugment(torch.utils.data.Dataset):
         rng = np.random.default_rng([self.seed, epoch, index])
         sample, target = self._load(index, rng)
         if self.transform is not None:
-            sample = self.transform(sample, rng=random.Random(int(rng.integers(0, 2**63 - 1))))
+            try:
+                sample = self.transform(sample,
+                                        rng=random.Random(int(rng.integers(0, 2**63 - 1))))
+            except UnsupportedImage as e:  # a mode check: name the record's files
+                raise UnsupportedImage(f"record {index} ({record_files(self.dataset, index)}): "
+                                       f"{e}") from e
         sample = dict(sample)
         sample["label"] = np.asarray(target, np.int64)
         return sample

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from multimae_tpu_torch import native
+from multimae_tpu_torch.data.image_io import UnsupportedImage
 from multimae_tpu_torch.utils.data_constants import (
     IMAGE_TASKS,
     IMAGENET_DEFAULT_MEAN,
@@ -262,7 +263,9 @@ class DataAugmentationForMultiMAE:
                 continue
             if task == "depth":
                 if img.dtype != np.uint16:
-                    raise ValueError(f"depth maps must be 16-bit, not {img.dtype}")
+                    raise UnsupportedImage(
+                        f"a depth map of {img.dtype} samples; the port reads 16-bit ones "
+                        "(PIL's 'I;16'), no ROADMAP item ports others")
                 if self.twin:
                     arr = resize_u16_twin(img[i:i + h, j:j + w], s)
                     arr = arr[:, ::-1] if flip else arr

@@ -1,6 +1,7 @@
 """ctypes bindings for the port's native image library (fastimage.cpp,
 jpeg_decode.cpp and pil_ops.cpp), the counterpart of the JAX package's
-multimae_tpu/native/__init__.py.
+multimae_tpu/native/__init__.py. fastimage.cpp also holds the BMP
+run-length decoder (`bmp_rle`).
 
 The library is built with g++ at first use:
 
@@ -68,6 +69,7 @@ _SIGNATURES = {
     "mm_pil_gray": [_P, _L, _P],
     "mm_pil_smooth": [_P, _I, _I, _I, _P],
     "mm_pil_blend": [_P, _P, _L, _F, _P],
+    "mm_bmp_rle": [_P, _L, _L, _L, _I, _I, _I, _P],
 }
 
 
@@ -267,6 +269,25 @@ def png_decode(raw: bytes, width: int, height: int, depth: int, color_type: int,
         row = rc - 1
         raise ValueError(f"PNG row {row} has unknown filter type {raw[row * (stride + 1)]}")
     _check(rc, "png_decode")
+    return out
+
+
+def bmp_rle(data: bytes, start: int, file_offset: int, rle4: bool, width: int,
+            height: int) -> np.ndarray:
+    """BI_RLE8 / BI_RLE4 pixel data of a BMP (from byte `start` of `data`,
+    which sits at `file_offset` in its file) -> (height, width) uint8 in
+    the file's row order, as PIL's BmpRleDecoder gives it
+    (fastimage.cpp `mm_bmp_rle`). Raises ValueError where PIL does: the
+    data ends before the bitmap does, or a delta is cut short."""
+    out = np.zeros((height, width), np.uint8)
+    fn = lib().mm_bmp_rle
+    fn.restype = ctypes.c_long
+    n = fn(data, len(data), start, file_offset, int(rle4), width, height, _ptr(out))
+    if n < 0:
+        raise ValueError("BMP RLE data ends inside a delta")
+    if n < width * height:
+        raise ValueError(f"BMP RLE data ends after {n} of {width * height} pixels "
+                         "(not enough image data)")
     return out
 
 

@@ -751,4 +751,68 @@ int mm_gaussian_blur_3x3(const float* src, int h, int w, float* dst) {
   return 0;
 }
 
+// PIL's BmpRleDecoder (BmpImagePlugin.py), byte for byte: BI_RLE8 (rle4 0)
+// or BI_RLE4 (rle4 1) pixels from data[start, len) into out (xsize *
+// ysize bytes, the rows in file order). An encoded run stops at the row's
+// end; an absolute run does not, and an odd RLE4 one drops its last pixel;
+// end of line pads with zeros to the next row; delta skips right + up *
+// xsize pixels (PIL reads two bytes more before the pair it uses); an
+// absolute run is followed by a pad byte where the file position, counted
+// from `file_offset` at data[0], is odd. Returns the pixels PIL would have
+// produced (at least xsize * ysize when the bitmap is whole; only the
+// first xsize * ysize are written), or -1 where PIL raises (a delta cut
+// short after its first two bytes).
+long mm_bmp_rle(const uint8_t* data, long len, long start, long file_offset, int rle4,
+                int xsize, int ysize, uint8_t* out) {
+  const long dest = long(xsize) * ysize;
+  long n = 0, pos = start, x = 0;
+  auto put = [&](uint8_t v) {
+    if (n < dest) out[n] = v;
+    ++n;
+  };
+  while (n < dest) {
+    if (pos + 2 > len) break;
+    const int num = data[pos], byte = data[pos + 1];
+    pos += 2;
+    if (num) {
+      long count = num;
+      if (x + count > xsize) count = std::max(0L, long(xsize) - x);
+      for (long i = 0; i < count; ++i)
+        put(rle4 ? uint8_t(i % 2 == 0 ? byte >> 4 : byte & 15) : uint8_t(byte));
+      x += count;
+    } else if (byte == 0) {  // end of line
+      while (n % xsize) put(0);
+      x = 0;
+    } else if (byte == 1) {  // end of bitmap
+      break;
+    } else if (byte == 2) {  // delta
+      if (pos + 2 > len) break;
+      pos += 2;
+      if (pos + 2 > len) return -1;
+      const long right = data[pos], up = data[pos + 1];
+      pos += 2;
+      const long skip = right + up * xsize;
+      for (long i = 0; i < skip; ++i) put(0);
+      x = n % xsize;
+    } else {  // absolute run
+      const long count = rle4 ? byte / 2 : byte;
+      const long got = std::min(count, std::max(0L, len - pos));
+      for (long i = 0; i < got; ++i) {
+        const uint8_t b = data[pos + i];
+        if (rle4) {
+          put(uint8_t(b >> 4));
+          put(uint8_t(b & 15));
+        } else {
+          put(b);
+        }
+      }
+      pos += got;
+      if (got < count) break;
+      x += byte;
+      if ((file_offset + pos) % 2) ++pos;
+    }
+  }
+  return n;
+}
+
 }  // extern "C"

@@ -31,7 +31,11 @@ weights trained with either package:
 
 The JAX TrainState's params tree {"model": ..., "balancer": {"log_vars"}}
 maps to the port's model and balancer state_dicts with
-`jax_train_params_to_state_dicts`.
+`jax_train_params_to_state_dicts`. `state_dict_to_jax_params` is the
+inverse: the port's state_dict -> the flax params (and batch_stats) tree
+the JAX model holds, as the JAX importer (multimae_tpu/utils/torch_compat.py
+`state_dict_to_params` :207) fills a template, but with no template: the
+flax names come from the same rules read backwards.
 """
 
 from __future__ import annotations
@@ -139,3 +143,85 @@ def jax_train_params_to_state_dicts(
     return {"model": jax_params_to_state_dict(params["model"], proj_shapes),
             "balancer": {k: np.ascontiguousarray(np.asarray(v))
                          for k, v in params.get("balancer", {}).items()}}
+
+
+_SCOPES = tuple(ours[:-1] for ours, _ in _PREFIXES)  # "input_adapters", "blocks", ...
+# LayerNorms that are plain flax LayerNorms (no `ln` wrapper scope): the
+# Segmenter's mask_norm (JAX output_adapters.py).
+_PLAIN_NORMS = ("mask_norm",)
+
+
+def _torch_parts_to_flax(parts, head_type: str):
+    """The module path of a torch key (leaf excluded) -> flax scopes."""
+    dpt = dict(_DPT_RENAMES)
+    if head_type == "semseg":  # its head has no head_conv3: head.4 is head_conv2
+        dpt = {k: v for k, v in dpt.items() if not k.startswith("head_")}
+        dpt.update(_DPT_SEMSEG_HEAD_RENAMES)
+    inverse = {theirs: ours for ours, theirs in dpt.items()}
+    out, i = [], 0
+    while i < len(parts):
+        two = ".".join(parts[i:i + 2])
+        if parts[i] in _SCOPES and i + 1 < len(parts):
+            out.append(f"{parts[i]}_{parts[i + 1]}")
+            i += 2
+        elif two in inverse and len(parts[i:i + 2]) == 2:
+            out.append(inverse[two])
+            i += 2
+        else:
+            out.append(inverse.get(parts[i], parts[i]))
+            i += 1
+    return out
+
+
+def state_dict_to_jax_params(
+    state_dict: Mapping[str, Any],
+    proj_shapes: Optional[Dict[str, Tuple[int, int, int]]] = None,
+    head_type: str = "regression",
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's {torch key: array} -> (params, batch_stats), nested dicts
+    of numpy arrays in the JAX model's flax layout: the inverse of
+    `jax_params_to_state_dict` (jax_params_to_state_dict(params,
+    proj_shapes, head_type, batch_stats) gives `state_dict` back). An input
+    adapter's 4-D patch-embedding weight becomes the flax Dense kernel
+    (ph*pw*C, D) whether or not `proj_shapes` is given; BatchNorm counters
+    (`num_batches_tracked`) have no flax leaf and are dropped."""
+    arrays = {k: np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+              for k, v in state_dict.items()}
+    modules = {k.rsplit(".", 1)[0] for k in arrays if k.endswith(".running_mean")}
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    for key, arr in arrays.items():
+        module, _, leaf = key.rpartition(".")
+        parts = module.split(".") if module else []
+        if leaf == "num_batches_tracked":
+            continue
+        scopes = _torch_parts_to_flax(parts, head_type)
+        tree = params
+        if parts and parts[-1] in _SCOPES:  # task_embeddings.<task>: a leaf
+            scopes, leaf = _torch_parts_to_flax(parts[:-1], head_type), f"{parts[-1]}_{leaf}"
+        elif leaf == "weight" and parts and parts[-1] == "class_emb":
+            scopes, leaf = _torch_parts_to_flax(parts[:-1], head_type), "class_emb"
+        elif leaf in ("running_mean", "running_var"):
+            tree, leaf = batch_stats, leaf[len("running_"):]
+        elif leaf == "pos_emb" and arr.ndim == 4:
+            arr = arr.transpose(0, 2, 3, 1)
+        elif leaf == "weight" and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # (O, I, kh, kw) -> (kh, kw, I, O); deconvs too
+            if scopes and scopes[0].startswith("input_adapters_") and scopes[-1] == "proj":
+                arr = arr.reshape(-1, arr.shape[-1])  # the patchify Dense (ph*pw*C, D)
+            leaf = "kernel"
+        elif leaf == "weight" and arr.ndim == 2:
+            arr, leaf = arr.T, "kernel"
+        elif leaf in ("weight", "bias") and module not in modules and (
+                leaf == "weight" and arr.ndim == 1
+                or f"{module}.weight" in arrays and arrays[f"{module}.weight"].ndim == 1):
+            if parts[-1] not in _PLAIN_NORMS:
+                scopes = scopes + ["ln"]
+            leaf = "scale" if leaf == "weight" else leaf
+        elif leaf == "weight" and arr.ndim == 1:  # BatchNorm
+            leaf = "scale"
+        node = tree
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return params, batch_stats

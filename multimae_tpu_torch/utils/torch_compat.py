@@ -17,6 +17,12 @@ The report lists what the JAX function lists: `missing` (model keys with
 no source), `unexpected` (source keys not loaded) and `ignored` (the
 reference DPT head's aliased and unused keys, left out of `unexpected`).
 
+A JAX `.msgpack` (flax's format, read by utils/flax_msgpack.py without
+flax) starts a model by the JAX CLIs' own rules (`load_flax_start`): the
+source params (under `params/model`, or `params`) are matched to the
+model's flax tree on flax paths and shapes, so that the counts printed
+are JAX's, and only then converted to the port's keys.
+
 Files load under torch's weights-only unpickler. A reference training
 checkpoint stores its `args` as an argparse.Namespace, which that
 unpickler rejects; such a file is read again with Namespace, and only
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import argparse
 import pickle
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,3 +96,87 @@ def load_pretrained(model: nn.Module, source: Any) -> Dict[str, List[str]]:
           f"{missing[:10]}; unexpected ({len(report['unexpected'])}): "
           f"{report['unexpected'][:10]}", flush=True)
     return report
+
+
+def proj_shapes_of(model: nn.Module) -> Dict[str, Tuple[int, int, int]]:
+    """{task: (C, ph, pw)} of the model's patch embeddings, which the
+    flax Dense kernel (ph*pw*C, D) needs to become a Conv2d weight."""
+    out = {}
+    for key, value in model.state_dict().items():
+        parts = key.split(".")
+        if (len(parts) == 4 and parts[0] == "input_adapters" and parts[2:] == ["proj", "weight"]
+                and value.dim() == 4):
+            out[parts[1]] = tuple(value.shape[1:])
+    return out
+
+
+def _unflat(flat: Mapping[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def _numpy(x) -> Any:
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return x
+
+
+FLAX_RULES = ("merge", "trunk", "strict")
+
+
+def load_flax_start(model: nn.Module, source: Any, rule: str,
+                    head_type: str = "regression") -> Dict[str, Any]:
+    """Start `model` from a JAX `.msgpack` (a path, or the tree
+    `flax_msgpack.msgpack_restore` read) by one of the JAX package's rules:
+      * "merge", the cls CLI's (multimae_tpu/cli/run_finetuning_cls.py
+        :339-361): each leaf of the model's flax tree whose path and shape
+        the source has is copied, the head's too; the rest keep their
+        initial values (no pos-emb resize, no class-embedding row);
+      * "trunk", the semseg CLI's `_load_flax_trunk` (run_finetuning_semseg.py
+        :535-555): the same with every `output_adapters*` path skipped;
+      * "strict", the demo's `flax.serialization.from_state_dict`
+        (demo.py:91-99): every leaf of the model must be in the source
+        (KeyError otherwise), at the model's shape (ValueError); source
+        leaves the model lacks are ignored, as flax ignores them.
+    The counts are JAX's: N of the M leaves of the model's flax params
+    (printed as `[finetune] loaded N/M tensors` for "merge" and "trunk").
+    Returns {"loaded": N, "total": M, "paths": loaded flax paths}."""
+    from multimae_tpu_torch.utils.convert import (_flatten, jax_params_to_state_dict,
+                                                  state_dict_to_jax_params)
+    from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+
+    if rule not in FLAX_RULES:
+        raise ValueError(f"rule {rule!r}: one of {FLAX_RULES}")
+    payload = read_msgpack(source) if isinstance(source, str) else source
+    params = payload["params"]
+    src = dict(_flatten(params.get("model", params)))
+    proj_shapes = proj_shapes_of(model)
+    template = dict(_flatten(state_dict_to_jax_params(model.state_dict(), proj_shapes,
+                                                      head_type)[0]))
+    chosen = {}
+    for path, leaf in template.items():
+        if rule == "trunk" and path[0].startswith("output_adapters"):
+            continue
+        theirs = src.get(path)
+        if theirs is None:
+            if rule == "strict":
+                raise KeyError(f"the checkpoint has no {'/'.join(path)}, which the model holds")
+            continue
+        if tuple(theirs.shape) != tuple(leaf.shape):
+            if rule == "strict":
+                raise ValueError(f"{'/'.join(path)}: checkpoint {tuple(theirs.shape)}, "
+                                 f"model {tuple(leaf.shape)}")
+            continue
+        chosen[path] = _numpy(theirs)
+    state = jax_params_to_state_dict(_unflat(chosen), proj_shapes, head_type)
+    live = model.state_dict()
+    model.load_state_dict({k: torch.from_numpy(v).to(live[k].dtype) for k, v in state.items()},
+                          strict=False)
+    if rule != "strict":
+        print(f"[finetune] loaded {len(chosen)}/{len(template)} tensors", flush=True)
+    return {"loaded": len(chosen), "total": len(template), "paths": sorted(chosen)}

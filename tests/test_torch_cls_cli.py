@@ -2,7 +2,10 @@
 (multimae_tpu_torch/cli/run_finetuning_cls.py) on the CPU at tiny sizes.
 
 * get_args against the JAX CLI's on both cls YAMLs; the unported flags
-  exit naming their ROADMAP.md items; the card is asked for by default.
+  (--ckpt_backend, an orbax --finetune, a JAX-state --resume) exit naming
+  their ROADMAP.md items; the card is asked for by default.
+* A JAX-layout .msgpack of a pretraining save starts a synthetic run by the
+  JAX CLI's rule: the encoder loads, the head does not.
 * A 1-epoch run over a tiny ImageNet-layout tree of the JPEG fixtures
   (multivit_tiny at 32 px, 4 classes, the recipe's RandAugment, mixup and
   cutmix, the EMA on), started from a pretraining .pth (the head's keys
@@ -29,6 +32,13 @@ from multimae_tpu.cli import run_finetuning_cls as jcli
 from multimae_tpu_torch.cli import factory
 from multimae_tpu_torch.cli import run_finetuning_cls as tcli
 from multimae_tpu_torch.data.dataset_folder import CIFAR100, write_cifar100, write_imagenet_tree
+from multimae_tpu_torch.utils.convert import state_dict_to_jax_params
+from multimae_tpu_torch.utils.flax_msgpack import msgpack_serialize
+
+
+def proj_shapes_of_sd(sd):
+    return {k.split(".")[1]: tuple(v.shape[1:]) for k, v in sd.items()
+            if k.startswith("input_adapters.") and k.endswith(".proj.weight") and v.dim() == 4}
 
 REPO = Path(__file__).resolve().parents[1]
 YAMLS = sorted(glob.glob(str(REPO / "cfgs" / "finetune" / "cls" / "*.yaml")))
@@ -44,8 +54,9 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
-    "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
+    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10b"),
+    "orbax_finetune": (["--finetune", "checkpoint-3.orbax"], "orbax"),
+    "jax_state_resume": (["--resume", "checkpoint-3.msgpack"], "opt_state"),
 }
 
 
@@ -92,6 +103,27 @@ def jpeg_run(tmp_path_factory, pretrain_pth):
     resumed = tcli.main(tcli.get_args(argv + ["--epochs", "2", "--blr", "0", "--min_lr", "0"]))
     evaluated = tcli.main(tcli.get_args(argv + ["--eval"]))
     return argv, out, first, best, resumed, evaluated
+
+
+def test_msgpack_start_loads_the_trunk(pretrain_pth, tmp_path, capsys):
+    """A JAX-layout .msgpack of the pretraining weights (the port's inverse
+    converter and writer) starts a synthetic run: the encoder loads, the
+    head keeps its initial weights."""
+    params, _ = state_dict_to_jax_params(pretrain_pth[1], proj_shapes_of_sd(pretrain_pth[1]))
+    path = tmp_path / "checkpoint-0.msgpack"
+    path.write_bytes(msgpack_serialize({"params": {"model": params}, "step": 0, "epoch": 0}))
+    out = tcli.main(tcli.get_args(TINY + [
+        "--synthetic_data", "--synthetic_steps_per_epoch", "1", "--epochs", "1",
+        "--nb_classes", "4", "--finetune", str(path), "--output_dir", str(tmp_path / "out"),
+        "--blr", "0", "--min_lr", "0", "--weight_decay", "0"]))
+    report = out["finetune"]
+    assert 0 < report["loaded"] < report["total"]
+    assert f"[finetune] loaded {report['loaded']}/{report['total']} tensors" in \
+        capsys.readouterr().out
+    assert not any(p[0] == "output_adapters_cls" for p in report["paths"])
+    saved = torch.load(tmp_path / "out" / "checkpoint-0.pth", weights_only=True)["model"]
+    for key in ("encoder.1.mlp.fc2.weight", "input_adapters.rgb.proj.weight"):
+        assert torch.equal(saved[key], pretrain_pth[1][key]), key
 
 
 def test_cli_trains_saves_and_evaluates(jpeg_run, pretrain_pth):

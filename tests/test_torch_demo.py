@@ -13,12 +13,17 @@ JAX package's demo.py.
   pred within 5e-4 of the JAX model's apply on the JAX demo's inputs, the
   depth standardised as JAX method="sort"; the same PNG files as the JAX
   demo writes, the masks bit-equal to its PIL NEAREST resize.
+* The same weights as a JAX `.msgpack` ({"params": {"model", "balancer"},
+  "step", "epoch"}, written by flax): the preds equal the .pth run's bit
+  for bit, so within 5e-4 of the JAX model's.
 * A random-masking run keeps --num_encoded_tokens visible; a checkpoint
-  that is not a .pth raises ValueError naming the JAX exporter.
+  that is neither a .pth nor a .msgpack (an orbax directory) raises
+  ValueError naming ROADMAP item 10b.
 """
 
 import os
 
+import flax.serialization
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,6 +177,10 @@ def jax_run(images, tmp_path_factory):
     pth = str(tmp_path_factory.mktemp("demo_ckpt") / "tiny.pth")
     torch.save({"model": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}},
                pth)
+    with open(pth[:-len(".pth")] + ".msgpack", "wb") as f:
+        f.write(flax.serialization.msgpack_serialize({
+            "params": {"model": params, "balancer": {"log_vars": np.zeros(3, np.float32)}},
+            "step": 7, "epoch": 0}))
     n = S // 16
     coords = [tuple(map(int, c.split(","))) for c in VISIBLE.split()]
     masks = jax_make_mask(n, n, {d: (coords if d == "rgb" else []) for d in domains})
@@ -225,9 +234,19 @@ def test_random_masking_keeps_the_encoded_tokens(images, jax_run, tiny, tmp_path
     assert all(torch.isfinite(p).all() for p in out["preds"].values())
 
 
+def test_msgpack_checkpoint_gives_the_pth_preds(images, jax_run, tiny, tmp_path):
+    pth, jpreds, _ = jax_run
+    ref = demo.main(demo_argv(images, pth, tmp_path / "pth", "--visible_rgb", VISIBLE))
+    out = demo.main(demo_argv(images, pth[:-len(".pth")] + ".msgpack", tmp_path / "msgpack",
+                              "--visible_rgb", VISIBLE))
+    for task, pred in out["preds"].items():
+        assert torch.equal(pred, ref["preds"][task]), task
+        np.testing.assert_allclose(pred.numpy(), jpreds[task], rtol=0, atol=5e-4, err_msg=task)
+
+
 def test_non_pth_checkpoint_raises_naming_the_exporter(images, tiny, tmp_path):
-    with pytest.raises(ValueError, match="params_to_state_dict"):
-        demo.main(demo_argv(images, str(tmp_path / "checkpoint-0.msgpack"), tmp_path))
+    with pytest.raises(ValueError, match="item 10b"):
+        demo.main(demo_argv(images, str(tmp_path / "checkpoint-0.orbax"), tmp_path))
 
 
 def test_demo_defaults_to_the_card(monkeypatch, images, tmp_path):

@@ -67,7 +67,8 @@ from multimae_tpu_torch.train.finetune_step import make_dense_eval_step, make_de
 from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, create_optimizer
 from multimae_tpu_torch.train.train_state import TrainState
 from multimae_tpu_torch.utils import metrics
-from multimae_tpu_torch.utils.convert import jax_params_to_state_dict
+from multimae_tpu_torch.utils.convert import jax_params_to_state_dict, state_dict_to_jax_params
+from multimae_tpu_torch.utils.flax_msgpack import msgpack_serialize
 from multimae_tpu_torch.utils.torch_compat import adapt_tensor, load_pretrained
 
 REPO = Path(__file__).resolve().parents[1]
@@ -336,8 +337,9 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
-    "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
+    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10b"),
+    "orbax_finetune": (["--finetune", "checkpoint-3.orbax"], "orbax"),
+    "jax_state_resume": (["--resume", "checkpoint-3.msgpack"], "opt_state"),
 }
 
 
@@ -346,6 +348,33 @@ def test_unported_flags_exit_naming_their_item(flag):
     argv, words = UNPORTED[flag]
     with pytest.raises(SystemExit, match=words):
         tcli.main(tcli.get_args(["--synthetic_data", "--device", "cpu"] + argv))
+
+
+def test_msgpack_start_loads_what_load_flax_trunk_loads(tmp_path, pretrain_pth, capsys):
+    """A JAX-layout .msgpack of the pretraining weights (the port's inverse
+    converter and writer) starts a synthetic step by `_load_flax_trunk`'s
+    rule, with its N/M: every output adapter skipped."""
+    sd = torch.load(pretrain_pth, weights_only=True)["model"]
+    params, _ = state_dict_to_jax_params(sd, {"rgb": (3, 16, 16), "depth": (1, 16, 16),
+                                              "semseg": (64, 4, 4)})
+    path = tmp_path / "checkpoint-9.msgpack"
+    path.write_bytes(msgpack_serialize({"params": {"model": params}, "step": 9, "epoch": 9}))
+    jmodel, _, _ = jcli.build_semseg_model(jcli.get_args(FINETUNE), jnp.float32)
+    inputs = {k: v for k, v in jax_batch(finetune_batch()).items() if k != "target"}
+    template = jax.eval_shape(lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, inputs)
+                              )["params"]
+    jcli._load_flax_trunk(str(path), jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype),
+                                                  template))
+    jline = capsys.readouterr().out.strip().splitlines()[-1]
+    out = tcli.main(tcli.get_args(FINETUNE + [
+        "--device", "cpu", "--synthetic_data", "--synthetic_steps_per_epoch", "1",
+        "--epochs", "1", "--batch_size", "1", "--finetune", str(path),
+        "--output_dir", str(tmp_path / "out")]))
+    assert jline in capsys.readouterr().out
+    report = out["finetune"]
+    assert jline == f"[finetune] loaded {report['loaded']}/{report['total']} tensors"
+    assert report["loaded"] > 0 and not any(p[0].startswith("output_adapters")
+                                            for p in report["paths"])
 
 
 def test_tiny_dpt_run_trains_and_evaluates(tmp_path, pretrain_pth):

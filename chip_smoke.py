@@ -243,7 +243,12 @@ non-zero:
      per frame; the semseg CLI over the class-mapped tree (NYU rgb-depth
      recipe, MultiViT-B at 512 px, batch NYU_BATCH, --finetune ''): one
      epoch with an eval and an --eval run, K2 fwd and bwd 12 and K3b 4 per
-     step, K4 12 and K3b fwd 4 per eval batch, finite losses and mIoU; the
+     step, K4 12 and K3b fwd 4 per eval batch, finite losses and mIoU; K1
+     forward and backward against the plain twins on the queries, context
+     and output gradient each of its launches took in one step at
+     K1_INPUTS_BATCH, for the default decoders and those without task
+     queries (TWIN_TOLERANCE, GRAD_TOLERANCE), the fp32 one's kernel and
+     twin also against float64 autograd; the
      pretraining step at VARIANT_BATCH (phase 7's recipe, VARIANT_STEPS
      steps) with decoders without task queries and under --approx_gelu (K1
      fwd and bwd 4 per step; the first step against the plain twins at
@@ -255,16 +260,19 @@ non-zero:
      under --aa AA_CLI --train_interpolation AA_INTERP (nothing in the
      step, K4 12 in the eval batch).
  20. the last loaders (utils/flax_msgpack.py, data/image_io.py): every
-     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm) against
-     PIL's digests; a MultiMAE-B params file in the JAX package's own
-     format (flax msgpack, from seeded weights through the port's inverse
+     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm, TIFF)
+     against PIL's digests, the refused ones raising UnsupportedImage
+     naming their ROADMAP item; a MultiMAE-B params file in the JAX
+     package's own format (flax msgpack, from seeded weights through the port's inverse
      converter and writer) starts the demo (preds bit-equal to the same
      weights as a .pth; K1 fwd 3), the cls CLI (a step and an eval batch
      at LOADER_CLS_BATCH: K4 12) and the semseg CLI (512 px, a step and an
      eval batch at LOADER_SEG_BATCH: K2 12 + 12, K3b 4 + 4, K4 12, K3b fwd
      4); one epoch of the pretraining CLI over LOADER_SAMPLES samples whose
-     rgb images are the new formats (K1 4 + 4 per step, no resampled
-     sample).
+     rgb images are the new formats, and one over a TIFF tree (the
+     tree_*.tif fixtures: LZW with predictor 2, Deflate, PackBits, tiled,
+     planar, associated alpha, 16-bit RGB; 16-bit depth in both byte
+     orders; palette semseg): K1 4 + 4 per step, no resampled sample.
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -407,9 +415,13 @@ TK_CLI_NORM_TOLERANCE = 2e-3
 # At batch 32 the first step's grad norm read 5.59e-5 relative without task
 # queries and 2.17e-5 under --approx_gelu, past STEP_TOLERANCE; at 128
 # 1.74e-6 and 1.19e-5 (the default decoders 1.25e-5; H100, 700 W).
+# K1 against its twin on the inputs its launches took: the queries, context
+# and output gradient of each decoder in one step of phase 7's recipe at
+# K1_INPUTS_BATCH, for the default decoders and those without task queries.
 NYU_FIXTURE = os.path.join(HERE, "tests", "fixtures", "nyuv2")
 NYU_BATCH = 2
 VARIANT_BATCH, VARIANT_STEPS = TRAIN_BATCH, 3
+K1_INPUTS_BATCH = 32
 AA_POLICIES = ("original", "originalr", "v0", "v0r", "augmix-m3-w3-mstd0.5")
 AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 
@@ -420,7 +432,8 @@ AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 # (512 px, LOADER_SEG_BATCH: one step and an eval batch); then one epoch
 # of the pretraining CLI at LOADER_PT_BATCH over LOADER_SAMPLES samples
 # whose rgb images are the new formats' tree fixtures (arithmetic-coded
-# and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; all 48 x 64).
+# and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; all 48 x 64), and one
+# over a tree of TIFF files only (the tree_*.tif fixtures as rgb).
 IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
 LOADER_CLS_BATCH, LOADER_SEG_BATCH, LOADER_PT_BATCH, LOADER_SAMPLES = 32, 2, 8, 16
 LOADER_HW = (48, 64)
@@ -1340,7 +1353,7 @@ def cli_slice(torch, dev, keep):
         size = os.path.getsize(saves[1])
         with open(saves[1], "r+b") as f:
             f.truncate(size // 2)
-        relaunch = main(get_args(run + ["--epochs", "3"]))
+        relaunch = main(get_args(run + ["--epochs", "3", "--num_workers", "0"]))
         if (relaunch["start_epoch"], relaunch["resumed_from"], relaunch["resume_bit_equal"],
                 [e["epoch"] for e in relaunch["epochs"]]) != (1, saves[0], True, [1, 2]):
             raise AssertionError(f"relaunch: start epoch {relaunch['start_epoch']}, from "
@@ -1357,11 +1370,13 @@ def cli_slice(torch, dev, keep):
 
         synthetic = main(get_args(base + ["--synthetic_data", "--synthetic_steps_per_epoch",
                                           "6", "--epochs", "1", "--no_auto_resume"]))
+        # A step's time holds no data wait; the wait is the first run's alone,
+        # since the relaunch loads in its process (no worker start-up).
         fed = first["steps"] + relaunch["steps"]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
         synth_ms = statistics.median(r["step_s"] for r in synthetic["steps"][1:]) * 1e3
-        wait = sum(r["wait_s"] for r in fed)
-        share, steady = steady_share([first, relaunch])
+        wait = sum(r["wait_s"] for r in first["steps"])
+        share, steady = steady_share([first])
         # The native loader's rates only: the per-sample split below holds
         # the numpy twins' arrays equal to the native ones and times them.
         rates = (pretrain_loader_rate(tree, 0, epochs=4),
@@ -1501,7 +1516,7 @@ def jpeg_cli_slice(card):
         reset_launch_counts()
         run = main(get_args([
             "-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(CLI_BATCH),
-            "--warmup_epochs", "0", "--num_workers", str(CLI_WORKERS), "--data_path", tree,
+            "--warmup_epochs", "0", "--num_workers", "0", "--data_path", tree,
             "--output_dir", "", "--epochs", "1", "--no_auto_resume"]))
         launches = launch_counts()
         steps = len(run["steps"])
@@ -1656,7 +1671,8 @@ def ft_cli_slice(torch, dev, pretrain):
         losses, mious = check_run("run A", first, steps_per_epoch, 1, FT_VAL)
         reset_launch_counts()
         evaluated = main(get_args(base + ["--output_dir", out, "--eval", "--resume",
-                                          os.path.join(out, "checkpoint-0.pth")]))
+                                          os.path.join(out, "checkpoint-0.pth"),
+                                          "--num_workers", "0"]))
         per_step, per_eval = split_launches("run A", launches, len(losses), 1, evaluated,
                                             eval_batches, FT_VAL)
         expect_step = dict.fromkeys(launches, 0)
@@ -1741,7 +1757,7 @@ def ft_cli_slice(torch, dev, pretrain):
         seg_launches = launch_counts()
         seg_losses, seg_miou = check_run("run D", seg, ADE_TRAIN // SEMSEG_BATCH, 1, FT_VAL)
         reset_launch_counts()
-        evaluated = main(get_args(seg_args + ["--eval"]))
+        evaluated = main(get_args(seg_args + ["--eval", "--num_workers", "0"]))
         seg_step, seg_eval = split_launches("run D", seg_launches, len(seg_losses), 1,
                                             evaluated, eval_batches, FT_VAL)
         expect_step = dict.fromkeys(seg_launches, 0)
@@ -1772,7 +1788,7 @@ def ft_cli_slice(torch, dev, pretrain):
         dpt_launches = launch_counts()
         dpt_losses, dpt_miou = check_run("run E", dpt, steps_per_epoch, 1, FT_VAL)
         reset_launch_counts()
-        evaluated = main(get_args(dpt_args + ["--eval"]))
+        evaluated = main(get_args(dpt_args + ["--eval", "--num_workers", "0"]))
         dpt_step, dpt_eval = split_launches("run E", dpt_launches, len(dpt_losses), 1,
                                             evaluated, eval_batches, FT_VAL)
         expect_step = dict(dict.fromkeys(dpt_launches, 0), short_attention_fwd=12,
@@ -1929,7 +1945,8 @@ def cls_cli_slice(torch, dev, pretrain, card):
         if not all(os.path.exists(p) for p in saves):
             raise AssertionError(f"run A: {os.listdir(out)}")
         reset_launch_counts()
-        evaluated = main(get_args(base + ["--eval", "--resume", saves[1]]))
+        evaluated = main(get_args(base + ["--eval", "--resume", saves[1], "--num_workers",
+                                          "0"]))
         per_step, per_eval = split_launches("run A", launches, len(losses), 2, evaluated,
                                             eval_batches, CLS_VAL, check=check_cls_run)
         expect_step = dict.fromkeys(launches, 0)
@@ -1962,7 +1979,8 @@ def cls_cli_slice(torch, dev, pretrain, card):
                 f"the EMA) saved in " + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
 
         best_stat = os.stat(saves[2])
-        resumed = main(get_args(base + ["--epochs", "3", "--blr", "0", "--min_lr", "0"]))
+        resumed = main(get_args(base + ["--epochs", "3", "--blr", "0", "--min_lr", "0",
+                                        "--num_workers", "0"]))
         check_cls_run("run B", resumed, steps_per_epoch, 1, CLS_VAL)
         if (resumed["start_epoch"], resumed["resumed_from"], resumed.get("resume_bit_equal"),
                 resumed["evals"][0]["acc1"]) != (2, saves[1], True, accs[1][0]):
@@ -1983,10 +2001,12 @@ def cls_cli_slice(torch, dev, pretrain, card):
                 + ("" if resumed['evals'][0]['acc1'] > 0 else
                    " (top-1 0: the JAX CLI would not have rewritten it either)"))
 
+        # A step's time holds no data wait; the waits are run A's alone, since
+        # run B and the --eval run load in their process.
         fed = first["steps"] + resumed["steps"]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
-        share, steady = steady_share([first, resumed])
-        evals = first["evals"] + resumed["evals"]
+        share, steady = steady_share([first])
+        evals = first["evals"]
         eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
         eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
         # The native loader's rates only: the per-sample split holds the
@@ -2081,7 +2101,7 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
         raise AssertionError(f"[{phase}] run A: {os.listdir(out)}")
     reset_launch_counts()
     evaluated = cli.main(cli.get_args(base + ["--output_dir", out, "--eval", "--resume",
-                                              saves[1]]))
+                                              saves[1], "--num_workers", "0"]))
     per_step, per_eval = split_launches(f"[{phase}] run A", launches, len(losses), 2, evaluated,
                                         eval_batches, val, check=check)
     want_step = dict(dict.fromkeys(launches, 0), **expect_step)
@@ -2106,7 +2126,7 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
 
     best_stat = os.stat(saves[2])
     resumed = cli.main(cli.get_args(base + ["--output_dir", out, "--epochs", "3", "--lr", "0",
-                                            "--min_lr", "0"]))
+                                            "--min_lr", "0", "--num_workers", "0"]))
     check("run B", resumed, steps_per_epoch, 1, val)
     after = os.stat(saves[2])
     if ((resumed["start_epoch"], resumed["resumed_from"], resumed.get("resume_bit_equal"),
@@ -2146,7 +2166,7 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
         with plain_twins():  # one epoch, no eval, no save: the same first batch as run A's
             plain = cli.main(cli.get_args(base + [
                 "--output_dir", out + "_plain", "--epochs", "1", "--no_save_ckpt",
-                "--eval_freq", "100"]))
+                "--eval_freq", "100", "--num_workers", "0"]))
         pairs = [(first["steps"][0]["metrics"][m], plain["steps"][0]["metrics"][m])
                  for m in ("loss", "grad_norm")]
         gaps = [abs(k - p) / abs(p) for k, p in pairs]
@@ -2161,10 +2181,12 @@ def regression_cli_runs(phase, cli, base, out, *, batch, train, val, key, better
         log(phase, "run A launched no kernel: its steps ran the plain path, so its first "
                    "loss is the plain twins' (no rerun)")
 
+    # A step's time holds no data wait; the waits are run A's alone, since the
+    # other runs load in their process (no worker start-up).
     fed = first["steps"] + resumed["steps"]
     step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
-    share, steady = steady_share([first, resumed])
-    evals = first["evals"] + resumed["evals"]
+    share, steady = steady_share([first])
+    evals = first["evals"]
     eval_ms = statistics.median(e["ms_per_batch"] for e in evals)
     eval_data_ms = statistics.median(e["ms_per_batch_with_data"] for e in evals)
     one, many = (loader_rate(*data(), workers, batch=8, epochs=2)
@@ -3015,6 +3037,87 @@ def variant_steps(torch, dev, phase, tag, **options):
     return expect, history[0]
 
 
+def k1_launch_inputs(torch, dev, **options):
+    """One step of phase 7's recipe at K1_INPUTS_BATCH with the decoder
+    `options`, keeping what each K1 launch took (a wrapper around
+    fused_decoder.fused_decoder_core): {task: {"q", "c", "w", "g" (the
+    output's gradient), "heads", "depth"}}, the weights as they were."""
+    from multimae_tpu_torch.cli.factory import build_pretrain_trainer
+    from multimae_tpu_torch.ops import fused_decoder
+
+    state, step = build_pretrain_trainer(batch_size=K1_INPUTS_BATCH, seed=0, device=dev,
+                                         **options)
+    batch, masks = fixed_mask_batch(torch, dev, K1_INPUTS_BATCH)
+    taken, core = [], fused_decoder.fused_decoder_core
+
+    def keep(q, c, w, heads, depth):
+        out = core(q, c, w, heads, depth)
+        entry = {"q": q.detach().clone(), "c": c.detach().clone(), "heads": heads,
+                 "depth": depth, "w": fused_decoder.DecoderCoreWeights(
+                     *[x.detach().clone() for x in w])}
+        out.register_hook(lambda g: entry.__setitem__("g", g.detach().to(q.dtype).contiguous()))
+        taken.append(entry)
+        return out
+
+    fused_decoder.fused_decoder_core = keep
+    try:
+        step(state, batch, task_masks=masks)
+    finally:
+        fused_decoder.fused_decoder_core = core
+    tasks = list(state.model.output_adapters)
+    if len(taken) != len(tasks) or not all("g" in e for e in taken):
+        raise AssertionError(f"[19] {len(taken)} K1 launches kept for decoders {tasks}")
+    return dict(zip(tasks, taken))
+
+
+def k1_on_its_inputs(torch, dev, tag, **options):
+    """Phase 19: K1's forward and backward on the inputs its launches took
+    (`k1_launch_inputs`) against the plain twins within TWIN_TOLERANCE and
+    GRAD_TOLERANCE, each printed first, and an fp32 decoder's kernel and
+    twin against float64 autograd (`fused_decoder.decoder_core_f64`).
+    Returns {task: (forward rel RMS, backward worst rel RMS)}."""
+    from multimae_tpu_torch.ops import fused_decoder
+    from multimae_tpu_torch.ops.functional import assert_matches_twin, twin_error
+
+    taken = k1_launch_inputs(torch, dev, **options)
+    free_card(torch)
+    names = ["dq", "dc"] + ["d" + f for f in fused_decoder.DecoderCoreWeights._fields]
+    readings, outputs = {}, {}
+    for task, e in taken.items():
+        q, c, w, g, dtype = e["q"], e["c"], e["w"], e["g"], e["q"].dtype
+        args = (e["heads"], e["depth"])
+        with torch.no_grad():
+            out = fused_decoder.fused_decoder_core(q, c, w, *args)
+            ref = fused_decoder.decoder_core_ref(q, c, w, *args)
+            dq, dc, dw = fused_decoder.fused_decoder_core_bwd(q, c, w, g, *args)
+            rq, rc, rw = fused_decoder.decoder_core_bwd_ref(q, c, w, g, *args)
+        grads, twin_grads = [dq, dc, *dw], [rq, rc, *rw]
+        outputs[task] = (out, ref, grads, twin_grads, dtype)
+        fwd = twin_error(out, ref)
+        bwd = {n: twin_error(o, r) for o, r, n in zip(grads, twin_grads, names)}
+        name = max(bwd, key=lambda n: bwd[n][1])
+        readings[task] = (fwd[1], bwd[name][1])
+        log(19, f"{tag}, K1 on the {task} decoder's own inputs ({tuple(q.shape)} queries, "
+                f"{tuple(c.shape)} context, {dtype}) against the twins: fwd max abs "
+                f"{fwd[0]:.3e}, rel RMS {fwd[1]:.3e}; bwd worst rel RMS {bwd[name][1]:.3e} "
+                f"({name}), max abs {max(v[0] for v in bwd.values()):.3e}")
+        if dtype == torch.float32:  # where two fp32 roundings part, which is nearer exact
+            exact = fused_decoder.decoder_core_f64(q, c, w, g, *args)
+            far = {n: (rel_rms(o, x), rel_rms(r, x))
+                   for o, r, x, n in zip([out] + grads, [ref] + twin_grads, exact,
+                                         ["out"] + names)}
+            log(19, f"{tag}, {task} (fp32) against float64 autograd, rel RMS kernel / twin: "
+                    + ", ".join(f"{n} {a:.2e} / {b:.2e}" for n, (a, b) in far.items()))
+    for task, (out, ref, grads, twin_grads, dtype) in outputs.items():
+        assert_matches_twin(out, ref, f"[19] {tag} K1 fwd on the {task} decoder's inputs")
+        for o, r, n in zip(grads, twin_grads, names):
+            assert_matches_twin(o, r, f"[19] {tag} K1 bwd {n} on the {task} decoder's inputs",
+                                grad_of=dtype)
+    del taken
+    free_card(torch)
+    return readings
+
+
 def no_xattn_cli_part(torch, root):
     """Phase 19: the pretraining CLI (get_args + main) with
     `decoder_use_xattn: false` in a YAML, VARIANT_STEPS synthetic steps at
@@ -3149,6 +3252,16 @@ def last_modules_slice(torch, dev, card):
         numbers.update(nyu)
         free_card(torch)
         launches = {"nyu_semseg_step": per_step, "nyu_semseg_eval": per_eval}
+        kinds = (("default", "default decoders", {}),
+                 ("no_task_queries", "decoders without task queries",
+                  {"decoder_use_task_queries": False}))
+        for key, tag, options in kinds:
+            numbers[f"k1_inputs_{key}"] = k1_on_its_inputs(torch, dev, tag, **options)
+        log(19, f"K1 against its twin on its own inputs at batch {K1_INPUTS_BATCH} (fwd / bwd "
+                "worst rel RMS by decoder): " + "; ".join(
+                    f"{tag}: " + ", ".join(f"{t} {f:.2e} / {b:.2e}" for t, (f, b) in
+                                           numbers[f"k1_inputs_{key}"].items())
+                    for key, tag, _ in kinds))
         launches["no_task_queries_step"], first = variant_steps(
             torch, dev, 19, "decoders without task queries", decoder_use_task_queries=False)
         numbers["no_task_queries_loss"] = first["loss"]
@@ -3167,41 +3280,46 @@ def last_modules_slice(torch, dev, card):
 
 def image_fixture_check(card):
     """Phase 20: every fixture of tests/fixtures/images (Adam7 PNG, BMP,
-    netpbm) through this machine's build of the native library: the
+    netpbm, TIFF) through this machine's build of the native library: the
     SHA-256 of its RGB and raw forms equal expected.json's (PIL's), a file
-    PIL refuses raises ValueError, a TIFF, WebP or JPEG 2000 file
-    UnsupportedImage."""
+    PIL refuses raises ValueError, a JPEG-compressed, CCITT or YCbCr TIFF, a
+    WebP or a JPEG 2000 file UnsupportedImage naming the file and its
+    ROADMAP item."""
     import hashlib
 
     from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
 
     with open(os.path.join(IMAGE_FIXTURES, "expected.json")) as f:
         expected = json.load(f)
-    kinds = {"read": 0, "refused": 0, "unported": 0}
+    kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0}
     for name, want in sorted(expected.items()):
         path = os.path.join(IMAGE_FIXTURES, name)
+        kinds["tiff"] += name.endswith(".tif")
         if want.get("unported") or "error" in want:
-            # An unported format's message names the file; a damaged one's, what expected.json says.
-            kind, error, text = (("unported", UnsupportedImage, name) if want.get("unported")
-                                 else ("refused", ValueError, want["error"]))
+            # An unported format's message names the file and its item; a
+            # damaged one's, what expected.json says.
+            kind, error, texts = (("unported", UnsupportedImage, (name, want["unported"]))
+                                  if want.get("unported") else
+                                  ("refused", ValueError, (name, want["error"])))
             try:
                 load_image(path)
             except error as e:
-                if text not in str(e):
+                if not all(text in str(e) for text in texts):
                     raise AssertionError(f"[20] {name}: {e}; expected {error.__name__} "
-                                         f"naming {text!r}") from e
+                                         f"naming {texts}") from e
                 kinds[kind] += 1
                 continue
             raise AssertionError(f"[20] {name} decoded; expected {error.__name__} naming "
-                                 f"{text!r}")
+                                 f"{texts}")
         for form, array in (("sha256", load_image(path)),
                             ("raw_sha256", load_image(path, convert_rgb=False))):
             if hashlib.sha256(array.tobytes()).hexdigest() != want[form]:
                 raise AssertionError(f"[20] {name}: {form} differs from expected.json's")
         kinds["read"] += 1
-    log(20, f"image fixtures: {kinds['read']} PNG, BMP and netpbm files decode to PIL's "
+    log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm and TIFF files decode to PIL's "
             f"SHA-256 in both forms, {kinds['refused']} damaged ones raise ValueError, "
-            f"{kinds['unported']} TIFF / WebP / JPEG 2000 files UnsupportedImage (card {card})")
+            f"{kinds['unported']} JPEG / CCITT / YCbCr TIFF, WebP and JPEG 2000 files "
+            f"UnsupportedImage naming their item; {kinds['tiff']} of them TIFF (card {card})")
     return kinds
 
 
@@ -3219,9 +3337,37 @@ class _Tee:
         self.out.flush()
 
 
+def pretrain_epoch(pt_cli, tree, what, rgb_files):
+    """Phase 20: one epoch of the pretraining CLI (CLI_YAML, ViT-B at full
+    width) at LOADER_PT_BATCH over `tree`: K1 fwd and bwd 4 per step, no
+    resample line, finite metrics. Returns (launches, losses)."""
+    tee = _Tee(sys.stdout)
+    reset_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        run = pt_cli.main(pt_cli.get_args([
+            "-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(LOADER_PT_BATCH),
+            "--warmup_epochs", "0", "--num_workers", "0", "--data_path", tree,
+            "--output_dir", "", "--epochs", "1", "--no_auto_resume"]))
+    launches = launch_counts()
+    steps = len(run["steps"])
+    expect_launches(f"[20] pretraining CLI over {what}", launches,
+                    fused_decoder_fwd=4 * steps, fused_decoder_bwd=4 * steps)
+    resampled = "resampling" in "".join(tee.parts)
+    if steps != LOADER_SAMPLES // LOADER_PT_BATCH or resampled or not all(
+            math.isfinite(v) for r in run["steps"] for v in r["metrics"].values()):
+        raise AssertionError(f"[20] pretraining CLI over {what}: {steps} steps, resample "
+                             f"lines {resampled}, metrics {[r['metrics'] for r in run['steps']]}")
+    losses = [r["metrics"]["loss"] for r in run["steps"]]
+    log(20, f"pretraining CLI over {LOADER_SAMPLES} samples of {what} (rgb images "
+            + ", ".join(os.path.basename(p) for p in rgb_files) + "): losses "
+            + ", ".join(f"{v:.4f}" for v in losses)
+            + f"; K1 fwd {launches['fused_decoder_fwd']}, bwd {launches['fused_decoder_bwd']} "
+            f"over {steps} steps; no sample resampled")
+    return launches, losses
+
+
 def loaders_slice(torch, dev, card):
     """Phase 20; returns ({path: {kernel: launches}}, numbers)."""
-    import contextlib
     import shutil
 
     import numpy as np
@@ -3351,38 +3497,23 @@ def loaders_slice(torch, dev, card):
                        semseg_loss=losses[0])
         free_card(torch)
 
-        # One pretraining epoch over a tree of the new formats.
-        tree_files = sorted(
-            [os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
-             if n.startswith("tree_")]
-            + [os.path.join(IMAGE_FIXTURES, n) for n in os.listdir(IMAGE_FIXTURES)
-               if n.startswith("tree_")])
-        tree = os.path.join(root, "pt")
-        write_random_tree(tree, LOADER_SAMPLES, LOADER_HW, smooth=True, rgb_files=tree_files)
-        tee = _Tee(sys.stdout)
-        reset_launch_counts()
-        with contextlib.redirect_stdout(tee):
-            run = pt_cli.main(pt_cli.get_args([
-                "-c", os.path.join(HERE, CLI_YAML), "--batch_size", str(LOADER_PT_BATCH),
-                "--warmup_epochs", "0", "--num_workers", "0", "--data_path", tree,
-                "--output_dir", "", "--epochs", "1", "--no_auto_resume"]))
-        launches["pretrain_new_formats"] = launch_counts()
-        steps = len(run["steps"])
-        expect_launches("[20] pretraining CLI over the new formats",
-                        launches["pretrain_new_formats"], fused_decoder_fwd=4 * steps,
-                        fused_decoder_bwd=4 * steps)
-        resampled = "resampling" in "".join(tee.parts)
-        if steps != LOADER_SAMPLES // LOADER_PT_BATCH or resampled or not all(
-                math.isfinite(v) for r in run["steps"] for v in r["metrics"].values()):
-            raise AssertionError(f"[20] pretraining CLI: {steps} steps, resample lines "
-                                 f"{resampled}, metrics {[r['metrics'] for r in run['steps']]}")
-        log(20, f"pretraining CLI over {LOADER_SAMPLES} samples whose rgb images are "
-                + ", ".join(os.path.basename(p) for p in tree_files) + ": losses "
-                + ", ".join(f"{r['metrics']['loss']:.4f}" for r in run["steps"])
-                + f"; K1 fwd {launches['pretrain_new_formats']['fused_decoder_fwd']}, bwd "
-                f"{launches['pretrain_new_formats']['fused_decoder_bwd']} over {steps} steps; "
-                f"no sample resampled")
-        free_card(torch)
+        # One pretraining epoch over a tree of the new formats, then one over
+        # a TIFF tree (depth in both byte orders, palette semseg).
+        fixtures = [os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
+                    if n.startswith("tree_")]
+        fixtures += [os.path.join(IMAGE_FIXTURES, n) for n in os.listdir(IMAGE_FIXTURES)
+                     if n.startswith("tree_")]
+        for key, what, fmt, rgb_files in (
+                ("pretrain_new_formats", "the new formats", "png",
+                 sorted(p for p in fixtures if not p.endswith(".tif"))),
+                ("pretrain_tiff", "TIFF", "tiff",
+                 sorted(p for p in fixtures if p.endswith(".tif")))):
+            tree = os.path.join(root, key)
+            write_random_tree(tree, LOADER_SAMPLES, LOADER_HW, smooth=True, rgb_files=rgb_files,
+                              fmt=fmt)
+            launches[key], numbers[f"{key}_losses"] = pretrain_epoch(pt_cli, tree, what,
+                                                                     rgb_files)
+            free_card(torch)
 
         return launches, numbers
     finally:

@@ -1416,6 +1416,31 @@ fa_fwd_kernel(const float* __restrict__ Q, int ldq, const float* __restrict__ Kp
   }
 }
 
+// The mean over the nk keys of each of the DH columns of one (sample,
+// head)'s V (at V, rows ldkv apart) into vm, by threads below DH: the same
+// sums in the same order in both backward passes. dP = dO . V^T less dO .
+// mean(V) differs from dP by a constant in each query row, which
+// dS = P (dP - delta) does not see; taking the mean out of V first keeps
+// dP's fp32 rounding on the part of V that varies over the keys (where
+// the context tokens share most of their value, dP - delta cancels).
+template <int DH>
+__device__ __forceinline__ void fa_key_mean(float* vm, const float* V, int ldkv, int nk) {
+  for (int c = threadIdx.x; c < DH; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < nk; ++r) s += V[(size_t)r * ldkv + c];
+    vm[c] = s / (float)nk;
+  }
+}
+
+// Vt[c * ld + r] -= vm[c] for the first `valid` keys r of k-major Vt.
+template <int DH>
+__device__ __forceinline__ void fa_center(float* Vt, int ld, const float* vm, int valid) {
+  for (int idx = threadIdx.x; idx < DH * valid; idx += blockDim.x) {
+    const int c = idx / valid, r = idx - c * valid;
+    Vt[c * ld + r] -= vm[c];
+  }
+}
+
 template <int DH, int RR>
 inline size_t fa_rows_smem(int nk) {
   const int nkp = pad64(nk);
@@ -1426,8 +1451,9 @@ inline size_t fa_rows_smem(int nk) {
 // fp32 backward, rows: dQ for RR query rows (128 with 256 threads where
 // the shared memory allows, else 64 with 128), and per row its max m,
 // 1 / l and delta into stats + {0, 1, 2} * n_stats. Shared: Kt and Vt
-// (DH x ldk), K (nkp x DH), Qt and dOt (DH x fa_ld(RR)), dSt (64 keys x
-// fa_ld(RR)).
+// (DH x ldk; Vt less the keys' mean, fa_key_mean), K (nkp x DH), Qt and
+// dOt (DH x fa_ld(RR)), dSt (64 keys x fa_ld(RR); its first DH floats
+// hold the mean before pass 2).
 template <int DH, int RR>
 __global__ void __launch_bounds__(2 * RR)
 fa_bwd_rows_kernel(const float* __restrict__ Q, int ldq, const float* __restrict__ Kp,
@@ -1451,6 +1477,9 @@ fa_bwd_rows_kernel(const float* __restrict__ Q, int ldq, const float* __restrict
   fa_load<DH>(sK, kb, ldkv, nkp, nk);
   fa_load_t<DH>(sQt, LDQ, Q + ((size_t)b * nq + q0) * ldq + h * DH, ldq, RR, nq - q0);
   fa_load_t<DH>(sDOt, LDQ, dO + ((size_t)b * nq + q0) * lddo + h * DH, lddo, RR, nq - q0);
+  fa_key_mean<DH>(sDSt, Vp + (size_t)b * nk * ldkv + h * DH, ldkv, nk);
+  __syncthreads();
+  fa_center<DH>(sVt, ldk, sDSt, nk);
   __syncthreads();
 
   // Pass 1: row max m, sum l and d = sum dP * exp(s - m), rescaled with l;
@@ -1516,9 +1545,11 @@ inline size_t fa_keys_smem() {
 
 // fp32 backward, keys: dK and dV for KR keys (128 with 256 threads), from
 // every query row of the head (64 at a time) and the rows' statistics.
-// Shared: Kt and Vt of the block's keys (DH x fa_ld(KR)), then per query
-// chunk Qt and dOt (DH x FA_LD), Q and dO (64 x DH), P and dS (64 queries
-// x fa_ld(KR): k-major in the query) and the chunk's statistics.
+// Shared: Kt and Vt of the block's keys (DH x fa_ld(KR); Vt less the mean
+// of all the head's keys, as the rows pass takes it), then per query chunk
+// Qt and dOt (DH x FA_LD), Q and dO (64 x DH), P and dS (64 queries x
+// fa_ld(KR): k-major in the query; P's first DH floats hold the mean
+// before the first chunk) and the chunk's statistics.
 template <int DH, int KR>
 __global__ void __launch_bounds__(2 * KR)
 fa_bwd_keys_kernel(const float* __restrict__ Q, int ldq, const float* __restrict__ Kp,
@@ -1544,6 +1575,9 @@ fa_bwd_keys_kernel(const float* __restrict__ Q, int ldq, const float* __restrict
   const size_t kv0 = ((size_t)b * nk + k0) * ldkv + h * DH;
   fa_load_t<DH>(sKt, LDK, Kp + kv0, ldkv, KR, nk - k0);
   fa_load_t<DH>(sVt, LDK, Vp + kv0, ldkv, KR, nk - k0);
+  fa_key_mean<DH>(sP, Vp + (size_t)b * nk * ldkv + h * DH, ldkv, nk);
+  __syncthreads();
+  fa_center<DH>(sVt, LDK, sP, min(KR, nk - k0));
   const size_t base = (size_t)(b * heads + h) * nq;
 
   float dk[8][NJ], dv[8][NJ];

@@ -17,7 +17,12 @@
 // the compute dtype, dW and db are fp32 sums, the LayerNorm backward is
 // fp32 and the residual gradient is rounded only after the fp32 sum
 // g + dx; attention recomputes fp32 probabilities, takes
-// delta = sum dP * P from them and rounds dS to the compute dtype.
+// delta = sum dP * P from them and rounds dS to the compute dtype. In fp32
+// dP = dO . V^T is taken from V less its mean over the keys (decoder_tc.cuh
+// fa_key_mean), which moves each row's dP by a constant that dS does not
+// see: where the context tokens share most of their value, as at the
+// pretraining step's semseg decoder, dP - delta otherwise cancels to ~1e-5
+// of fp32 (dq 1.1e-5 from float64 there; 1.2e-6 with the mean out).
 //
 // What bounds it on the H100: at the pretraining shape (B=128, 196 queries,
 // 99 context tokens, D=256, 8 heads of 32, hidden 1024, depth 2) the

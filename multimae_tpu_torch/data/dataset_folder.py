@@ -13,11 +13,14 @@ utils/dataset_folder.py).
   indices (what PIL's convert("P") gives for palette and gray files),
   other modalities in their raw form (16-bit depth as uint16).
 
-Images are numpy arrays from data/image_io.py, not PIL images. The
-corrupt-file retry catches what a damaged or missing file raises (OSError,
-ValueError), not the RuntimeError of a machine without a JPEG decoder and
-not `UnsupportedImage`, which a file that PIL reads and the port cannot
-raises: the JAX package trains on such a file, so the run stops naming it.
+Images are numpy arrays from data/image_io.py, not PIL images: PNG, JPEG,
+BMP, netpbm and TIFF (a 16-bit depth map in either byte order comes back
+as native uint16). The corrupt-file retry catches what a damaged or
+missing file raises (OSError, ValueError), not the RuntimeError of a
+machine without the native library and not `UnsupportedImage`, which a
+file that PIL reads and the port cannot raises (a JPEG-compressed or CCITT
+TIFF, WebP, JPEG 2000): the JAX package trains on such a file, so the run
+stops naming it.
 """
 
 from __future__ import annotations
@@ -293,7 +296,8 @@ def _smooth_sample(rng: np.random.Generator, h: int, w: int, semseg_classes: int
 def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: int = 0,
                       classes: int = 2, semseg_classes: int = 133,
                       ignore_patches: bool = False, mask_valid: bool = False,
-                      smooth: bool = False, rgb_files: Sequence[str] = ()) -> np.ndarray:
+                      smooth: bool = False, rgb_files: Sequence[str] = (),
+                      fmt: str = "png") -> np.ndarray:
     """Write an aligned MultiTaskImageFolder tree of random PNGs drawn from
     `seed`: root/<task>/c<k>/i<n>.png with 8-bit RGB, 16-bit depth and
     palette semseg with labels in [0, semseg_classes) (133 by default, the
@@ -306,10 +310,17 @@ def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: in
     (invalid: a border and a random rectangle) and 255. NYUv2-shaped: hw
     (480, 640), semseg_classes 40, both on. `rgb_files` (JPEG files, say)
     are copied in turn as the rgb images, each under the sample's name with
-    its own extension, in place of the RGB PNGs. Returns the count of rows
-    written per filter type (5,)."""
-    from multimae_tpu_torch.data.image_io import write_png
+    its own extension, in place of the RGB PNGs. `fmt` "tiff" writes every
+    modality as TIFF instead (i<n>.tif; `image_io.write_tiff`): RGB in turn
+    uncompressed, PackBits and Deflate with predictor 2 in 16 x 16 tiles,
+    16-bit depth Deflate with predictor 2, little-endian for even samples
+    and big-endian for odd ones, palette semseg and mask_valid Deflate.
+    Returns the count of PNG rows written per filter type (5,)."""
+    from multimae_tpu_torch.data.image_io import write_png, write_tiff
 
+    if fmt not in ("png", "tiff"):
+        raise ValueError(f"fmt must be 'png' or 'tiff', not {fmt!r}")
+    ext = ".png" if fmt == "png" else ".tif"
     rng = np.random.default_rng(seed)
     palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
     h, w = hw
@@ -321,14 +332,23 @@ def write_random_tree(root: str, num_samples: int, hw: Tuple[int, int], seed: in
         y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
         return slice(y, y + int(rng.integers(1, h // 4 + 2))), slice(x, x + int(rng.integers(1, w // 4 + 2)))
 
-    def write(task, name, pixels, **kw):
-        counts[:] += write_png(os.path.join(root, task, cls, name), pixels, filters=filters, **kw)
+    def write(task, name, pixels, palette=None):
+        path = os.path.join(root, task, cls, name)
+        if fmt == "png":
+            counts[:] += write_png(path, pixels, palette=palette, filters=filters)
+        elif task == "rgb":
+            kinds = ({}, {"compression": "packbits"},
+                     {"compression": "deflate", "predictor": 2, "tile": (16, 16)})
+            write_tiff(path, pixels, **kinds[i % 3])
+        else:
+            write_tiff(path, pixels, palette, "deflate", 1 + (task == "depth"),
+                       ">" if task == "depth" and i % 2 else "<")
 
     for i in range(num_samples):
         cls = f"c{i % classes}"
         for task in tasks:
             os.makedirs(os.path.join(root, task, cls), exist_ok=True)
-        name = f"i{i:04d}.png"
+        name = f"i{i:04d}{ext}"
         if smooth:
             rgb, depth, labels = _smooth_sample(rng, h, w, semseg_classes)
         else:

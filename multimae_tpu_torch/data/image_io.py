@@ -31,22 +31,37 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
 * Netpbm (Pillow's PpmImagePlugin): P1-P6, plain and raw; maxval other
   than 255 scaled as PIL scales it; gray past maxval 255 in PIL's mode "I"
   (int32).
+* TIFF (Pillow's TiffImagePlugin, `read_tiff`): the first image of a
+  classic or BigTIFF file, in strips or tiles, chunky or planar, mode and
+  raw mode from a copy of Pillow's OPEN_INFO: 1-bit (MinIsBlack,
+  MinIsWhite, FillOrder 2), 2-, 4- and 8-bit gray, 16-bit gray in either
+  byte order and signed, 32-bit int and float, palettes of 1-8 bits, gray
+  + alpha, 8- and 16-bit RGB with ExtraSamples 0, 1 (alpha divided out as
+  Pillow does) and 2, CMYK; its Orientation applied as PIL's load applies
+  it. Uncompressed files as Pillow's raw decoder reads them; LZW (and the
+  old bit-reversed LZW), Deflate and PackBits as libtiff 4.7 decodes them
+  for Pillow (native `tiff_lzw` and `tiff_packbits` in tiff_decode.cpp,
+  numpy twins `lzw_twin` and `packbits_twin`; Deflate through zlib), with
+  the horizontal and floating-point predictors. `write_tiff` writes
+  uncompressed, PackBits and Deflate files for tests and trees.
 
-Files PIL reads and the port cannot (TIFF, WebP, JPEG 2000) raise
-`UnsupportedImage`, which is neither a ValueError nor an OSError: the
-corrupt-file retries of the datasets and the loader let it through, so a
-tree that holds one stops the run naming the file instead of training on
-other samples than the JAX package would. A damaged file raises
-ValueError, which the retries catch, as the JAX package's catch PIL's
-errors.
+Files PIL reads and the port cannot (JPEG-compressed TIFF, item 11g;
+CCITT, LZMA, ZSTD, WebP-in-TIFF, SGILog, ThunderScan and compressed YCbCr
+or CIELab TIFF, item 11h; WebP; JPEG 2000) raise `UnsupportedImage`, which
+is neither a ValueError nor an OSError: the corrupt-file retries of the
+datasets and the loader let it through, so a tree that holds one stops the
+run naming the file instead of training on other samples than the JAX
+package would. A damaged file raises ValueError, which the retries catch,
+as the JAX package's catch PIL's errors.
 
 `load_image(path, convert_rgb)` returns what PIL's loader gives the
 pipeline: (H, W, 3) uint8 for convert_rgb (palette and gray expanded,
 alpha dropped, 16-bit gray clipped to 255 as PIL's convert("RGB") clips
 it), else the raw representation in the mode PIL opens the file in:
-palette indices (H, W) uint8 ("P"), gray (H, W) uint8 ("L", and "1" as 0
-or 255), uint16 ("I;16") or int32 ("I"), RGB (H, W, 3) uint8, alpha
-dropped.
+palette indices (H, W) uint8 ("P", "PA"), gray (H, W) uint8 ("L", "LA",
+and "1" as 0 or 255), uint16 ("I;16", and "I;16B" in native byte order),
+int32 ("I"), float32 ("F"), RGB (H, W, 3) uint8, alpha dropped, or CMYK
+(H, W, 4) uint8.
 """
 
 from __future__ import annotations
@@ -71,8 +86,6 @@ class UnsupportedImage(Exception):
 
 # Formats PIL reads that the port does not: (signature test, name, ROADMAP item).
 UNPORTED_FORMATS = (
-    (lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), "a TIFF file",
-     "11d"),
     (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "a WebP file", "11e"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51",
      "a JPEG 2000 file", "11f"),
@@ -365,29 +378,48 @@ def png_raw(img: PngImage) -> np.ndarray:
 
 
 class Decoded:
-    """A decoded BMP or netpbm image in the mode PIL opens it in: "P"
-    (indices, with `palette` (n, 3) uint8), "1" and "L" (uint8; "1" as 0
-    or 255), "I" (int32), "RGB" or "RGBA" ((H, W, 3 or 4) uint8)."""
+    """A decoded BMP, netpbm or TIFF image in the mode PIL opens it in: "P"
+    (indices, with `palette` (n, 3) uint8) and "PA" (indices, alpha), "1"
+    and "L" (uint8; "1" as 0 or 255), "LA", "I;16" (uint16, "I;16B" in
+    native order), "I" (int32), "F" (float32), "RGB", "RGBA" or "CMYK"
+    ((H, W, 3 or 4) uint8)."""
 
     def __init__(self, mode: str, pixels: np.ndarray, palette: Optional[np.ndarray] = None):
         self.mode, self.pixels, self.palette = mode, pixels, palette
 
     def rgb(self) -> np.ndarray:
         """PIL's convert("RGB"): a palette's missing entries are black, "I"
-        clips to 0-255, alpha is dropped."""
+        and "I;16" clip to 0-255, "F" clips and truncates, CMYK goes through
+        Pillow's cmyk2rgb, alpha is dropped."""
         px = self.pixels
-        if self.mode == "P":
+        if self.mode in ("P", "PA"):
             palette = np.zeros((256, 3), np.uint8)
             palette[:len(self.palette)] = self.palette[:256]
-            return palette[px]
-        if self.mode == "I":
+            return palette[px if px.ndim == 2 else px[:, :, 0]]
+        if self.mode in ("I", "I;16"):
             px = np.clip(px, 0, 255).astype(np.uint8)
+        elif self.mode == "F":
+            with np.errstate(invalid="ignore"):
+                px = np.where(px >= 255, 255, np.where(px > 0, px, 0)).astype(np.uint8)
+        elif self.mode == "LA":
+            px = px[:, :, 0]
+        elif self.mode == "CMYK":  # cmyk2rgb: nk - MULDIV255(c, nk), per channel
+            nk = 255 - px[:, :, 3:].astype(np.int32)
+            t = px[:, :, :3].astype(np.int32) * nk + 128
+            return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
         if px.ndim == 2:
             return np.repeat(px[:, :, None], 3, axis=2)
         return np.ascontiguousarray(px[:, :, :3])
 
     def raw(self) -> np.ndarray:
-        return np.ascontiguousarray(self.pixels[:, :, :3]) if self.pixels.ndim == 3 else self.pixels
+        """The samples with alpha dropped ("LA" and "PA" their first band,
+        RGBA its RGB); CMYK keeps its four."""
+        px = self.pixels
+        if self.mode in ("LA", "PA"):
+            return np.ascontiguousarray(px[:, :, 0])
+        if px.ndim == 3 and self.mode != "CMYK":
+            return np.ascontiguousarray(px[:, :, :3])
+        return px
 
 
 # --- BMP (Pillow's BmpImagePlugin) ------------------------------------------------
@@ -695,10 +727,741 @@ def read_netpbm(data: bytes) -> Decoded:
     return Decoded(mode, px.reshape((height, width) + ((3,) if bands == 3 else ())))
 
 
+# --- TIFF (Pillow's TiffImagePlugin: its raw decoder for uncompressed files,
+# libtiff 4.7 for the compressed ones) -----------------------------------------------
+
+# Headers PIL accepts (TiffImagePlugin.PREFIXES): classic, BigTIFF, and two with
+# the version word in the other byte order.
+TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
+                 b"II\x2b\x00")
+# Pillow's COMPRESSION_INFO: the codes PIL knows.
+TIFF_COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_lzw",
+                     6: "tiff_jpeg", 7: "jpeg", 8: "tiff_adobe_deflate", 32771: "tiff_raw_16",
+                     32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
+                     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
+                     50001: "webp"}
+# The ones PIL reads through libtiff and the port does not: the ROADMAP item of each.
+TIFF_REFUSED = {6: "11g", 7: "11g", 2: "11h", 3: "11h", 4: "11h", 32771: "11h", 32809: "11h",
+                34676: "11h", 34677: "11h", 34925: "11h", 50000: "11h", 50001: "11h"}
+
+
+def _tiff_open_info():
+    """The rows of Pillow 12.1's OPEN_INFO (TiffImagePlugin.py:151) the port
+    decodes: (byte order, photometric, sample format, fill order, bits per
+    sample, extra samples) -> (mode, raw mode). CIELab is left out: the
+    port refuses it, and compressed YCbCr, which Pillow converts through
+    libtiff's RGBA reader."""
+    both = [  # the same row for b"II" and b"MM"
+        (0, 1, (1,), (), "1", "1;I"), (0, 2, (1,), (), "1", "1;IR"),
+        (1, 1, (1,), (), "1", "1"), (1, 2, (1,), (), "1", "1;R"),
+        (0, 1, (2,), (), "L", "L;2I"), (0, 2, (2,), (), "L", "L;2IR"),
+        (1, 1, (2,), (), "L", "L;2"), (1, 2, (2,), (), "L", "L;2R"),
+        (0, 1, (4,), (), "L", "L;4I"), (0, 2, (4,), (), "L", "L;4IR"),
+        (1, 1, (4,), (), "L", "L;4"), (1, 2, (4,), (), "L", "L;4R"),
+        (0, 1, (8,), (), "L", "L;I"), (0, 2, (8,), (), "L", "L;IR"),
+        (1, 1, (8,), (), "L", "L"), (1, 2, (8,), (), "L", "L;R"),
+        (1, 1, (8, 8), (2,), "LA", "LA"),
+        (2, 1, (8, 8, 8), (), "RGB", "RGB"), (2, 2, (8, 8, 8), (), "RGB", "RGB;R"),
+        (2, 1, (8, 8, 8, 8), (), "RGBA", "RGBA"), (2, 1, (8, 8, 8, 8), (0,), "RGB", "RGBX"),
+        (2, 1, (8,) * 5, (0, 0), "RGB", "RGBXX"), (2, 1, (8,) * 6, (0, 0, 0), "RGB", "RGBXXX"),
+        (2, 1, (8, 8, 8, 8), (1,), "RGBA", "RGBa"), (2, 1, (8,) * 5, (1, 0), "RGBA", "RGBaX"),
+        (2, 1, (8,) * 6, (1, 0, 0), "RGBA", "RGBaXX"), (2, 1, (8, 8, 8, 8), (2,), "RGBA", "RGBA"),
+        (2, 1, (8,) * 5, (2, 0), "RGBA", "RGBAX"), (2, 1, (8,) * 6, (2, 0, 0), "RGBA", "RGBAXX"),
+        (2, 1, (8, 8, 8, 8), (999,), "RGBA", "RGBA"),
+        (3, 1, (1,), (), "P", "P;1"), (3, 2, (1,), (), "P", "P;1R"),
+        (3, 1, (2,), (), "P", "P;2"), (3, 2, (2,), (), "P", "P;2R"),
+        (3, 1, (4,), (), "P", "P;4"), (3, 2, (4,), (), "P", "P;4R"),
+        (3, 1, (8,), (), "P", "P"), (3, 1, (8, 8), (0,), "P", "PX"),
+        (3, 1, (8, 8), (2,), "PA", "PA"), (3, 2, (8,), (), "P", "P;R"),
+        (5, 1, (8, 8, 8, 8), (), "CMYK", "CMYK"), (5, 1, (8,) * 5, (0,), "CMYK", "CMYKX"),
+        (5, 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX"),
+    ]
+    table = {}
+    for photo, fill, bits, extra, mode, raw in both:
+        for order in (b"II", b"MM"):
+            table[(order, photo, (1,), fill, bits, extra)] = (mode, raw)
+    for order in (b"II", b"MM"):
+        table[(order, 1, (2,), 1, (8,), ())] = ("L", "L")
+        # YCbCr: uncompressed, PIL's raw decoder reads it as these raw modes
+        table[(order, 6, (1,), 1, (8,), ())] = ("L", "L")
+        table[(order, 6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGBX")
+    big_little = [  # rows whose raw mode follows the byte order: (II raw mode, MM raw mode)
+        (1, (2,), (16,), (), "I", ("I;16S", "I;16BS")),
+        (0, (3,), (32,), (), "F", ("F;32F", "F;32BF")),
+        (1, (2,), (32,), (), "I", ("I;32S", "I;32BS")),
+        (1, (3,), (32,), (), "F", ("F;32F", "F;32BF")),
+        (2, (1,), (16, 16, 16), (), "RGB", ("RGB;16L", "RGB;16B")),
+        (2, (1,), (16,) * 4, (), "RGBA", ("RGBA;16L", "RGBA;16B")),
+        (2, (1,), (16,) * 4, (0,), "RGB", ("RGBX;16L", "RGBX;16B")),
+        (2, (1,), (16,) * 4, (1,), "RGBA", ("RGBa;16L", "RGBa;16B")),
+        (2, (1,), (16,) * 4, (2,), "RGBA", ("RGBA;16L", "RGBA;16B")),
+        (5, (1,), (16,) * 4, (), "CMYK", ("CMYK;16L", "CMYK;16B")),
+    ]
+    for photo, fmt, bits, extra, mode, raws in big_little:
+        for order, raw in zip((b"II", b"MM"), raws):
+            table[(order, photo, fmt, 1, bits, extra)] = (mode, raw)
+    table[(b"II", 1, (1,), 1, (12,), ())] = ("I;16", "I;12")
+    table[(b"II", 0, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    table[(b"II", 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    table[(b"MM", 1, (1,), 1, (16,), ())] = ("I;16B", "I;16B")
+    table[(b"II", 1, (1,), 2, (16,), ())] = ("I;16", "I;16R")
+    table[(b"II", 1, (1,), 1, (32,), ())] = ("I", "I;32N")
+    return table
+
+
+TIFF_OPEN_INFO = _tiff_open_info()
+_TIFF_MAX_SAMPLES = max(len(k[4]) for k in TIFF_OPEN_INFO)
+# Raw modes of TIFF_OPEN_INFO that Pillow has no unpacker for: PIL refuses such
+# an uncompressed file (a compressed one reads under the fill order 1 row).
+_PIL_LACKS = ("L;IR", "P;1R", "P;2R", "P;4R")
+_REVERSE_BITS = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
+# Tag types PIL loads as numbers: type -> (struct code, size).
+_TIFF_TYPES = {3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2), 9: ("i", 4),
+               13: ("I", 4), 16: ("Q", 8)}
+# Types PIL loads as something else: BYTE as a bytes object, which no tag here
+# takes; the rest unused.
+_TIFF_SKIPPED_TYPES = {1: 1, 2: 1, 5: 8, 7: 1, 10: 8, 11: 4, 12: 8}
+# The tags the reader takes from a directory, which libtiff checks too.
+_LIBTIFF_TAGS = (256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320, 322, 323,
+                 324, 325, 338, 339)
+# PIL's Image.transpose after exif_transpose's table, by Orientation.
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+           5: lambda a: a.swapaxes(0, 1), 6: lambda a: np.rot90(a, -1),
+           7: lambda a: a[::-1, ::-1].swapaxes(0, 1), 8: lambda a: np.rot90(a, 1)}
+# Pillow's "mode" of an image -> the samples' numpy dtype and its bands.
+_MODE_STORAGE = {"1": (np.uint8, 1), "L": (np.uint8, 1), "P": (np.uint8, 1), "LA": (np.uint8, 2),
+                 "PA": (np.uint8, 2), "I;16": (np.uint16, 1), "I;16B": (np.uint16, 1),
+                 "I": (np.int32, 1), "F": (np.float32, 1), "RGB": (np.uint8, 3),
+                 "RGBA": (np.uint8, 4), "CMYK": (np.uint8, 4)}
+# Each band of a mode, by the letter PIL's one-band raw modes use.
+_BAND = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "L": "L", "P": "P", "1": "1", "I": "I",
+         "F": "F"}
+
+
+def _raw_bits(rawmode: str) -> int:
+    """Bits per pixel of a raw mode, as its Pillow unpacker reads them."""
+    if rawmode.startswith(("1", "P;1")):
+        return 1
+    if rawmode.startswith(("L;2", "P;2")):
+        return 2
+    if rawmode.startswith(("L;4", "P;4")):
+        return 4
+    if rawmode == "I;12":
+        return 12
+    base, _, suffix = rawmode.partition(";")
+    if suffix.startswith("16"):
+        return 16 * (len(base) if base != "I" else 1)
+    if suffix.startswith("32") or base in ("I", "F"):
+        return 32
+    return 8 * len(base)
+
+
+def _tiff_unpack(rows: np.ndarray, width: int, rawmode: str) -> np.ndarray:
+    """(h, bytes) rows -> (h, width[, bands]) samples in the image mode's
+    storage, as Pillow's unpacker for `rawmode` gives them (Unpack.c)."""
+    h = rows.shape[0]
+    if rawmode in ("I", "F"):  # one plane of a planar file: native 32-bit samples
+        return rows[:, :4 * width].copy().view("=i4" if rawmode == "I" else "=f4")
+    if rawmode in ("L", "P", "PX", "LA", "PA") or rawmode in tuple("RGBACMYK"):
+        step = {"PX": 2, "LA": 2, "PA": 2}.get(rawmode, 1)
+        px = rows[:, :step * width].reshape(h, width, step)
+        return px if rawmode in ("LA", "PA") else px[:, :, 0]
+    base, _, suffix = rawmode.partition(";")
+    if base in ("1", "L", "P") and "16" not in suffix:
+        if "R" in suffix:
+            rows = _REVERSE_BITS[rows]
+        bits = _raw_bits(rawmode)
+        if bits == 8:
+            px = rows[:, :width]
+        else:
+            shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+            px = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)[:, :width]
+            if base != "P":
+                px = px * np.uint8(255 // ((1 << bits) - 1))
+        return ~px if "I" in suffix and base != "P" else np.ascontiguousarray(px)
+    if rawmode == "I;12":
+        need = (3 * width + 1) // 2
+        b = np.zeros((h, need + 1), np.uint16)
+        b[:, :need] = rows[:, :need]
+        pairs = b[:, :3 * ((width + 1) // 2)].reshape(h, -1, 3)
+        out = np.stack([(pairs[..., 0] << 4) | (pairs[..., 1] >> 4),
+                        ((pairs[..., 1] & 15) << 8) | pairs[..., 2]], -1)
+        return np.ascontiguousarray(out.reshape(h, -1)[:, :width])
+    if base == "I" and suffix in ("16", "16N", "16B", "16R", "16S", "16BS"):
+        if suffix == "16R":
+            rows = _REVERSE_BITS[rows]
+        order = ">" if "B" in suffix else "<" if suffix != "16N" else "="
+        kind = "i2" if "S" in suffix else "u2"
+        px = rows[:, :2 * width].copy().view(order + kind)
+        return px.astype(np.int32 if "S" in suffix else np.uint16)
+    if base in ("I", "F") and suffix.startswith("32"):
+        order = ">" if "B" in suffix else "=" if suffix == "32N" else "<"
+        kind = "f4" if base == "F" else "u4" if suffix == "32N" else "i4"
+        px = rows[:, :4 * width].copy().view(order + kind)
+        return px.astype(np.float32 if base == "F" else np.int32, casting="unsafe")
+    # RGB, RGBA, CMYK and their extra and 16-bit forms: bands in file order.
+    if "R" in suffix and "16" not in suffix:
+        rows = _REVERSE_BITS[rows]
+    size = 2 if suffix.startswith("16") else 1
+    high = 0 if suffix.endswith("B") else 1 if size == 2 else 0
+    px = rows[:, :size * len(base) * width].reshape(h, width, len(base), size)[..., high]
+    keep = [i for i, c in enumerate(base) if c != "X"]
+    px = px[:, :, keep] if len(base) > 1 else px[:, :, 0]
+    if "a" in base:  # premultiplied alpha: Pillow divides it out in integers
+        a = px[:, :, 3:4].astype(np.int32)
+        rgb = np.minimum(px[:, :, :3].astype(np.int32) * 255 // np.maximum(a, 1), 255)
+        rgb = np.where(a == 255, px[:, :, :3], np.where(a == 0, 0, rgb))
+        px = np.concatenate([rgb, np.where(a == 0, 0, a)], -1).astype(np.uint8)
+    return np.ascontiguousarray(px)
+
+
+class _TiffFile:
+    """The header and first image file directory of a TIFF, read as PIL
+    reads them: the tags PIL keeps (numbers as tuples), the mode and raw
+    mode its OPEN_INFO gives, and the strips or tiles."""
+
+    def __init__(self, data: bytes):
+        if data[:4] not in TIFF_PREFIXES:
+            raise ValueError("not a TIFF file")
+        self.data = data
+        self.prefix = data[:2]
+        self.order = "<" if self.prefix == b"II" else ">"
+        big = data[2] == 43  # PIL's test: a big-endian BigTIFF reads as classic
+        if len(data) < (16 if big else 8):
+            raise ValueError("TIFF file truncated in its header")
+        start = self._unpack("Q" if big else "I", 8 if big else 4)[0]
+        self.tags = {}
+        # PIL stops at an entry cut short or a value past the end and keeps the
+        # tags before it; libtiff refuses such a directory (`short`), and a
+        # tag of its own in a type that holds no integers (`odd`).
+        self.short, self.odd = True, set()
+        entry, slot = (20, 8) if big else (12, 4)
+        if start + (8 if big else 2) > len(data):
+            return
+        count = self._unpack("Q" if big else "H", start)[0]
+        at = start + (8 if big else 2)
+        for _ in range(count):
+            if at + entry > len(data):
+                return
+            tag, typ = self._unpack("HH", at)
+            n = self._unpack("Q" if big else "I", at + 4)[0]
+            value_at = at + (12 if big else 8)
+            at += entry
+            if typ in _TIFF_TYPES:
+                code, size = _TIFF_TYPES[typ]
+            elif typ in _TIFF_SKIPPED_TYPES:
+                code, size = None, _TIFF_SKIPPED_TYPES[typ]
+                self.odd.add(tag)
+            else:
+                self.odd.add(tag)
+                continue  # PIL skips a type it does not know
+            if n * size > slot:
+                value_at = self._unpack("Q" if big else "I", value_at)[0]
+                if value_at + n * size > len(data):
+                    return
+            if n:
+                self.tags[tag] = (self._unpack(code * n, value_at) if code
+                                  else data[value_at:value_at + n * size])
+            else:
+                self.odd.add(tag)  # PIL drops an empty tag, libtiff refuses it
+        self.short = False
+
+    def _unpack(self, fmt: str, at: int):
+        return struct.unpack_from(self.order + fmt, self.data, at)
+
+    def values(self, tag: int, default=None) -> tuple:
+        """The numbers of `tag` (ValueError where PIL's value is no number)."""
+        value = self.tags.get(tag, default)
+        if value is None:
+            raise ValueError(f"TIFF tag {tag} is missing")
+        if not isinstance(value, tuple):
+            raise ValueError(f"TIFF tag {tag} holds no numbers, as PIL reads it")
+        return value
+
+    def scalar(self, tag: int, default=None):
+        value = self.values(tag, None if default is None else (default,))
+        if len(value) != 1:
+            raise ValueError(f"TIFF tag {tag} holds {len(value)} values")
+        return value[0]
+
+    def setup(self):
+        """TiffImageFile._setup: sets compression, photometric, fill order,
+        planar, size, bits, extra samples, mode and raw mode. Raises
+        ValueError where PIL raises and UnsupportedImage for a file PIL
+        reads through libtiff that the port does not."""
+        self.compression = self.scalar(259, 1)
+        if self.compression not in TIFF_COMPRESSIONS:
+            raise ValueError(f"unknown TIFF compression {self.compression}, as PIL refuses it")
+        self.planar = self.scalar(284, 1)
+        photo = self.scalar(262, 0)
+        if self.compression == 6:
+            photo = 6
+        self.photometric = photo
+        self.fill = self.scalar(266, 1)
+        if 256 not in self.tags or 257 not in self.tags:
+            raise ValueError("TIFF file without its dimensions")
+        self.width, self.height = self.scalar(256), self.scalar(257)
+        fmt = self.values(339, (1,))
+        if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+            fmt = (1,)
+        bits = self.values(258, (1,))
+        self.extra = self.values(338, ())
+        self.bands = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(self.extra)
+        spp = self.scalar(277, 3 if self.compression == 6 and photo in (2, 6) else 1)
+        if spp > _TIFF_MAX_SAMPLES:
+            raise ValueError(f"TIFF of {spp} samples per pixel, as PIL refuses it")
+        if spp < len(bits):
+            bits = bits[:spp]
+        elif spp > len(bits) == 1:
+            bits = bits * spp
+        if len(bits) != spp:
+            raise ValueError("unknown TIFF data organization")
+        self.bits, self.spp = bits, spp
+        if photo == 8 or photo == 6 and self.compression != 1:
+            what = "YCbCr" if photo == 6 else "CIELab"
+            item = "11g" if photo == 6 and self.compression in (6, 7) else "11h"
+            raise UnsupportedImage(f"a {what} TIFF ({TIFF_COMPRESSIONS[self.compression]} "
+                                   f"compression), which PIL reads and the port does not yet "
+                                   f"(ROADMAP.md queue 1 item {item})")
+        key = (self.prefix, photo, fmt, self.fill, bits, self.extra)
+        if key not in TIFF_OPEN_INFO:
+            raise ValueError(f"unknown TIFF pixel mode {key[1:]}, as PIL refuses it")
+        if self.compression in TIFF_REFUSED:
+            raise UnsupportedImage(
+                f"a TIFF with {TIFF_COMPRESSIONS[self.compression]} compression "
+                f"({self.compression}), which PIL reads and the port does not yet "
+                f"(ROADMAP.md queue 1 item {TIFF_REFUSED[self.compression]})")
+        self.mode, self.rawmode = TIFF_OPEN_INFO[key]
+        if self.compression != 1:  # libtiff's own fill order and native byte order
+            if self.fill == 2:
+                self.mode, self.rawmode = TIFF_OPEN_INFO[key[:3] + (1,) + key[4:]]
+            if self.rawmode == "I;16":
+                self.rawmode = "I;16N"
+            elif self.rawmode.endswith((";16B", ";16L")):
+                self.rawmode = self.rawmode[:-1] + "N"
+        if self.mode in ("P", "PA"):
+            if 320 not in self.tags:
+                raise ValueError("palette TIFF without a ColorMap")
+            cmap = np.asarray(self.values(320), np.int64) // 256
+            n = len(cmap) // 3
+            self.palette = cmap[:3 * n].reshape(3, n).T.astype(np.uint8)
+        else:
+            self.palette = None
+        if 273 in self.tags:
+            self.offsets = self.values(273)
+            self.counts = self.values(279) if 279 in self.tags else None
+            self.tiled = False
+            self.chunk_w, self.chunk_h = self.width, self.scalar(278, self.height)
+        elif 324 in self.tags:
+            self.offsets = self.values(324)
+            self.counts = self.values(325) if 325 in self.tags else None
+            self.tiled = True
+            if 322 not in self.tags or 323 not in self.tags:
+                raise ValueError("TIFF tiles without their dimensions")
+            self.chunk_w, self.chunk_h = self.scalar(322), self.scalar(323)
+        else:
+            raise ValueError("TIFF without strips or tiles")
+        if self.width <= 0 or self.height <= 0 or self.width * self.height > 1 << 28:
+            raise ValueError(f"a TIFF of {self.width} x {self.height} pixels")
+        if self.chunk_w <= 0 or self.chunk_h <= 0:
+            raise ValueError(f"TIFF strips or tiles of {self.chunk_w} x {self.chunk_h} pixels")
+
+    def decode_raw(self) -> np.ndarray:
+        """Pillow's raw decoder over each strip or tile (ImageFile.load with
+        TiffImageFile._setup's tile list): rows from the offsets alone, one
+        band per plane of a planar file under the raw mode's letter."""
+        dtype, nb = _MODE_STORAGE[self.mode]
+        W, H = self.width, self.height
+        out = np.zeros((H, W) + ((nb,) if nb > 1 else ()), dtype)
+        w, h = self.chunk_w, self.chunk_h
+        offsets = self.offsets
+        if self.rawmode in _PIL_LACKS and self.planar != 2:
+            raise ValueError(f"an uncompressed TIFF in raw mode {self.rawmode}, which PIL "
+                             "refuses")
+        if w == W and h == H and self.planar != 2:
+            offsets = offsets[-1:]  # one strip or tile covers the image: PIL reads the last
+        x = y = layer = 0
+        for offset in offsets:
+            stride = w * sum(self.bits) / 8 if x + w > W else 0
+            rawmode, band = self.rawmode, None
+            if self.planar == 2:
+                if layer >= len(self.rawmode):
+                    raise ValueError("a planar TIFF with more planes than its mode has bands")
+                rawmode = self.rawmode[layer]
+                stride /= self.bands
+                if rawmode not in _BAND.get(self.mode, ""):
+                    raise ValueError(f"no raw mode {rawmode} for a planar {self.mode} TIFF, "
+                                     "as PIL refuses it")
+                band = _BAND[self.mode].index(rawmode) if nb > 1 else None
+            x1, y1 = min(x + w, W), min(y + h, H)
+            ew, eh = x1 - x, y1 - y
+            row = (ew * _raw_bits(rawmode) + 7) // 8
+            pitch = int(stride) or row
+            if pitch < row:
+                raise ValueError("TIFF tile rows shorter than their pixels")
+            if offset + pitch * (eh - 1) + row > len(self.data):
+                raise ValueError("TIFF file truncated in its pixels")
+            view = np.frombuffer(self.data, np.uint8, count=len(self.data) - offset, offset=offset)
+            rows = np.lib.stride_tricks.as_strided(view, (eh, row), (pitch, 1))
+            px = _tiff_unpack(rows, ew, rawmode)
+            if band is None:
+                out[y:y1, x:x1] = px
+            else:
+                out[y:y1, x:x1, band] = px
+            x += w
+            if x >= W:
+                x, y = 0, y + h
+                if y >= H:
+                    y, layer = 0, layer + 1
+        return out
+
+    def decode_libtiff(self, twin: bool) -> np.ndarray:
+        """What libtiff hands Pillow's TiffDecode.c for a compressed file:
+        each strip or tile decompressed (its bytes' bits reversed first
+        under FillOrder 2), the predictor undone, samples in native order;
+        Pillow unpacks the rows it needs, one plane after another."""
+        if self.short:
+            raise ValueError("TIFF directory cut short, which libtiff refuses")
+        if self.odd & set(_LIBTIFF_TAGS):
+            raise ValueError(f"TIFF tags {sorted(self.odd & set(_LIBTIFF_TAGS))} empty or in a "
+                             "type that libtiff refuses")
+        if self.palette is not None and len(self.tags[320]) != 3 << self.bits[0]:
+            raise ValueError(f"a TIFF ColorMap of {len(self.tags[320])} entries for "
+                             f"{self.bits[0]}-bit samples, which libtiff refuses")
+        for tag, allowed in ((266, (1, 2)), (284, (1, 2)), (338, (0, 1, 2)), (339, (1, 2, 3))):
+            if not set(self.tags.get(tag, allowed[:1])) <= set(allowed):
+                raise ValueError(f"TIFF tag {tag} holds {self.tags[tag]}, which libtiff refuses")
+        dtype, nb = _MODE_STORAGE[self.mode]
+        W, H = self.width, self.height
+        out = np.zeros((H, W) + ((nb,) if nb > 1 else ()), dtype)
+        bps, spp = self.bits[0], self.spp
+        w, h = self.chunk_w, self.chunk_h
+        if self.tiled:
+            across, down = -(-W // w), -(-H // h)
+        else:
+            if h != 0xFFFFFFFF and h * ((W * bps * spp + 7) // 8) > 0x7FFFFFFF:
+                raise ValueError(f"TIFF strips of {h} rows, past Pillow's libtiff decoder's "
+                                 "buffer")
+            h = min(h, H)
+            across, down = 1, -(-H // h)
+        # A planar file: Pillow reads one plane per band of the mode, plane i
+        # through its one-band unpacker R, G, B or A (a 16-bit sample's high
+        # byte) into byte i of its 4-byte pixels, where LA and PA keep their
+        # alpha in byte 3: it stays 0.
+        bands = nb if self.planar == 2 else 1
+        if self.planar == 2 and spp > bands:
+            if bands == 1:
+                raise UnsupportedImage(f"a planar {self.mode} TIFF of {spp} samples, whose rows "
+                                       "Pillow's unpacker reads past (ROADMAP.md queue 1 item "
+                                       "11h)")
+            if not self.tiled:
+                raise ValueError(f"a planar {self.mode} TIFF in strips with {spp - bands} extra "
+                                 "samples, which Pillow's libtiff decoder refuses")
+        per_pixel = 1 if self.planar == 2 else spp
+        scanline = (w * bps * per_pixel + 7) // 8
+        total = across * down * (spp if self.planar == 2 else 1)
+        if self.counts is None or min(len(self.offsets), len(self.counts)) < total:
+            raise ValueError("TIFF strip or tile offsets or byte counts missing")
+        predictor = self.scalar(317, 1) if self.compression in (5, 8, 32946) else 1
+        if predictor == 2 and bps not in (8, 16, 32, 64):
+            raise ValueError(f"TIFF horizontal predictor on {bps}-bit samples, which libtiff "
+                             "refuses")
+        if predictor == 3 and self.tags.get(339, (1,))[0] != 3:
+            raise ValueError("TIFF floating-point predictor on integer samples, which libtiff "
+                             "refuses")
+        if predictor not in (1, 2, 3):
+            raise ValueError(f"TIFF predictor {predictor}, which libtiff refuses")
+        rawmodes = ([c + (";16N" if bps == 16 else "") for c in "RGBA"[:bands]] if bands > 1
+                    else [self.rawmode])
+        for plane, rawmode in enumerate(rawmodes):
+            band = None if bands == 1 else plane
+            for ty in range(down):
+                for tx in range(across):
+                    index = (plane * down + ty) * across + tx
+                    rows = h if self.tiled else min(h, H - ty * h)
+                    chunk = self._chunk(index, rows * scanline, twin)
+                    chunk = _tiff_predict(chunk.reshape(rows, scanline), predictor, bps,
+                                          per_pixel, self.order)
+                    y0, x0 = ty * h, tx * w
+                    y1, x1 = min(y0 + rows, H), min(x0 + w, W)
+                    px = _tiff_unpack(chunk[:y1 - y0], x1 - x0, rawmode)
+                    if band is None:
+                        out[y0:y1, x0:x1] = px
+                    elif not (nb == 2 and band == 1):
+                        out[y0:y1, x0:x1, band] = px
+        if bands == 4 and self.mode == "RGBA" and self.extra[:1] != (2,):
+            out = _tiff_unpack(out.reshape(H, -1), W, "RGBa")  # Pillow divides alpha out
+        return out
+
+    def _chunk(self, index: int, size: int, twin: bool) -> np.ndarray:
+        """Strip or tile `index` decompressed to `size` bytes."""
+        offset, count = self.offsets[index], self.counts[index]
+        if count <= 0 or offset + count > len(self.data):
+            raise ValueError(f"TIFF strip or tile {index} of {count} bytes at {offset} lies "
+                             "outside the file")
+        raw = self.data[offset:offset + count]
+        if self.fill == 2:
+            raw = _REVERSE_BITS[np.frombuffer(raw, np.uint8)].tobytes()
+        if self.compression == 5:
+            out = lzw_twin(raw, size) if twin else native.tiff_lzw(raw, size)
+        elif self.compression == 32773:
+            out = packbits_twin(raw, size) if twin else native.tiff_packbits(raw, size)
+        else:  # 8, 32946: Deflate
+            d = zlib.decompressobj()
+            try:
+                out = d.decompress(raw, size)
+            except zlib.error as e:
+                raise ValueError(f"TIFF Deflate data: {e}") from e
+            if len(out) < size:
+                raise ValueError(f"TIFF Deflate data ends after {len(out)} of {size} bytes")
+            out = np.frombuffer(out, np.uint8)
+        return out
+
+
+def _tiff_predict(rows: np.ndarray, predictor: int, bps: int, per_pixel: int,
+                  order: str) -> np.ndarray:
+    """(rows, scanline) decoded bytes -> the same bytes with libtiff's
+    predictor undone and 16- or 32-bit samples in native order."""
+    if predictor == 3:  # fpAcc: bytes summed a pixel apart, then the byte planes joined
+        size = bps // 8
+        b = np.cumsum(rows.reshape(len(rows), -1, per_pixel), axis=1, dtype=np.uint8)
+        b = np.ascontiguousarray(b.reshape(len(rows), size, -1).transpose(0, 2, 1))
+        return b.view(f">u{size}").astype(f"=u{size}").view(np.uint8).reshape(len(rows), -1)
+    if bps in (16, 32):
+        samples = rows.view(f"{order}u{bps // 8}").astype(f"=u{bps // 8}")
+    elif bps == 8:
+        samples = rows
+    else:
+        return rows
+    if predictor == 2:  # horAcc: each sample plus the one a pixel before, wrapping
+        s = samples.reshape(len(rows), -1, per_pixel)
+        samples = np.cumsum(s, axis=1, dtype=s.dtype).reshape(len(rows), -1)
+    return samples.view(np.uint8)
+
+
+def packbits_twin(data: bytes, size: int) -> np.ndarray:
+    """`native.tiff_packbits` in Python: libtiff's PackBitsDecode. Raises
+    ValueError where the data ends before `size` bytes."""
+    out = bytearray()
+    pos, n = 0, len(data)
+    while pos < n and len(out) < size:
+        c = data[pos]
+        pos += 1
+        if c >= 128:
+            if c == 128:
+                continue
+            count = min(257 - c, size - len(out))
+            if pos >= n:
+                break
+            out += bytes([data[pos]]) * count
+            pos += 1
+        else:
+            count = min(c + 1, size - len(out))
+            if n - pos < count:
+                break
+            out += data[pos:pos + count]
+            pos += count
+    if len(out) < size:
+        raise ValueError(f"TIFF PackBits data ends after {len(out)} of {size} bytes")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def lzw_twin(data: bytes, size: int) -> np.ndarray:
+    """`native.tiff_lzw` in Python: libtiff 4.7's LZWDecode (codes of 9-12
+    bits, MSB-first, widened one code early) or, for a stream that starts
+    with the old bit-reversed codes, its LZWDecodeCompat (LSB-first,
+    widened on time). Stops once `size` bytes are out; raises ValueError
+    where libtiff fails: a code not yet in the table, or data that ends
+    first (out of bits reads as an EOI code)."""
+    compat = len(data) >= 2 and data[0] == 0 and data[1] & 1
+    total = 8 * len(data)
+    bits = int.from_bytes(data, "little" if compat else "big")
+    at, nbits, maxcode = 0, 9, 0
+    # libtiff's free entry starts before its table: only a Clear code is valid
+    free, old = -1, 0
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    out = bytearray()
+
+    def next_code():
+        nonlocal at
+        if total - at < nbits:
+            return 257
+        shift = at if compat else total - at - nbits
+        at += nbits
+        return (bits >> shift) & ((1 << nbits) - 1)
+
+    while len(out) < size:
+        code = next_code()
+        if code == 257:
+            break
+        if code == 256:
+            while code == 256:
+                free, nbits = 258, 9
+                maxcode = 511 if compat else 510
+                del table[258:]
+                code = next_code()
+            if code == 257:
+                break
+            if code > 256:
+                raise ValueError("TIFF LZW: a code past the table after a Clear code")
+            out.append(code)
+            old = code
+            continue
+        if compat:
+            if not 0 <= free < 4096:
+                raise ValueError("TIFF LZW: corrupted table")
+        elif code > free or (code >= 258 and code == free and free < 0):
+            raise ValueError("TIFF LZW: a code not yet in the table")
+        prev = table[old]
+        table.append(prev + (table[code][:1] if code < free else prev[:1]))
+        if code > free:  # the old coding: an entry of length 0
+            raise ValueError("TIFF LZW: a code not yet in the table")
+        free += 1
+        if free > maxcode:
+            nbits = min(nbits + 1, 12)
+            maxcode = (1 << nbits) - (1 if compat else 2)
+            if not compat and free >= 4096:
+                free = -1  # only a Clear code or an EOI code may follow
+        old = code
+        out += table[code]
+    if len(out) < size:
+        raise ValueError(f"TIFF LZW data ends after {len(out)} of {size} bytes")
+    return np.frombuffer(bytes(out[:size]), np.uint8)
+
+
+def read_tiff(data: bytes, twin: bool = False) -> "Decoded":
+    """The first image of a TIFF as PIL opens and loads it (TiffImagePlugin
+    with libtiff for compressed files), its Orientation applied as PIL's
+    load applies it; `twin` decompresses LZW and PackBits with `lzw_twin`
+    and `packbits_twin`. Raises ValueError where PIL raises and
+    UnsupportedImage for a compression or photometric PIL reads and the
+    port does not."""
+    f = _TiffFile(data)
+    f.setup()
+    px = f.decode_raw() if f.compression == 1 else f.decode_libtiff(twin)
+    orientation = f.tags.get(274, ())
+    if isinstance(orientation, tuple) and len(orientation) == 1 and orientation[0] in _ORIENT:
+        px = np.ascontiguousarray(_ORIENT[orientation[0]](px))
+    mode = {"I;16B": "I;16"}.get(f.mode, f.mode)
+    return Decoded(mode, px, f.palette)
+
+
+TIFF_WRITE_COMPRESSIONS = {"none": 1, "packbits": 32773, "deflate": 8}
+
+
+def _packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3-128 equal bytes as (257 - n, byte), the bytes
+    between as literal runs of up to 128."""
+    a = np.frombuffer(data, np.uint8)
+    starts = np.flatnonzero(np.diff(a, prepend=a[:1].astype(np.int16) + 1) != 0)
+    lengths = np.diff(np.append(starts, len(a)))
+    out, literal = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(literal), 128):
+            piece = literal[i:i + 128]
+            out.append(len(piece) - 1)
+            out.extend(piece)
+        literal.clear()
+
+    for start, n in zip(starts.tolist(), lengths.tolist()):
+        if n < 3:
+            literal.extend(data[start:start + n])
+            continue
+        flush()
+        while n >= 3:
+            run = min(n, 128)
+            out.extend((257 - run, data[start]))
+            n -= run
+        literal.extend(data[start:start + n])
+    flush()
+    return bytes(out)
+
+
+def write_tiff(path, pixels: np.ndarray, palette: Optional[np.ndarray] = None,
+               compression: str = "none", predictor: int = 1, byteorder: str = "<",
+               tile: Optional[tuple] = None) -> None:
+    """Write (H, W) uint8 or uint16 gray, (H, W, 3) uint8 RGB, or (H, W)
+    uint8 palette indices with `palette` ((n <= 256, 3) uint8), as a TIFF:
+    `compression` "none", "packbits" or "deflate" (with `predictor` 2,
+    horizontal differencing, or 1), `byteorder` "<" or ">", in one strip or
+    in (th, tw) tiles (multiples of 16; the edge tiles padded with
+    zeros)."""
+    if compression not in TIFF_WRITE_COMPRESSIONS:
+        raise ValueError(f"compression must be one of {tuple(TIFF_WRITE_COMPRESSIONS)}")
+    if predictor not in (1, 2) or (predictor == 2 and compression != "deflate"):
+        raise ValueError("predictor 2 goes with Deflate (libtiff ignores it otherwise)")
+    if byteorder not in ("<", ">"):
+        raise ValueError(f"byteorder must be '<' or '>', not {byteorder!r}")
+    px = np.asarray(pixels)
+    px = px[:, :, None] if px.ndim == 2 else px
+    h, w, c = px.shape
+    if not (px.dtype == np.uint8 and c in (1, 3) or px.dtype == np.uint16 and c == 1) or (
+            palette is not None and (c != 1 or px.dtype != np.uint8)):
+        raise ValueError(f"cannot write {px.dtype} pixels with {c} channels as a TIFF")
+    if tile is not None and (tile[0] % 16 or tile[1] % 16 or min(tile) <= 0):
+        raise ValueError(f"tiles of {tile}: TIFF wants multiples of 16")
+    th, tw = tile or (h, w)
+    if tile:
+        padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, c), px.dtype)
+        padded[:h, :w] = px
+        parts = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        parts = [px[y:y + th] for y in range(0, h, th)]
+    chunks = []
+    for part in parts:
+        if predictor == 2:
+            part = part.copy()
+            part[:, 1:] -= part[:, :-1].copy()
+        raw = part.astype(byteorder + part.dtype.str[1:]).tobytes()
+        if compression == "packbits":
+            raw = _packbits(raw)
+        elif compression == "deflate":
+            raw = zlib.compress(raw, 6)
+        chunks.append(raw)
+    photometric = 3 if palette is not None else 1 if c == 1 else 2
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [px.dtype.itemsize * 8] * c),
+               (259, 3, [TIFF_WRITE_COMPRESSIONS[compression]]), (262, 3, [photometric]),
+               (277, 3, [c]), (284, 3, [1])]
+    if predictor == 2:
+        entries.append((317, 3, [2]))
+    if palette is not None:
+        cmap = np.zeros((256, 3), np.int64)
+        cmap[:len(palette)] = np.asarray(palette, np.int64)[:256] * 257
+        entries.append((320, 3, cmap.T.reshape(-1).tolist()))
+    offsets, at = [], 8
+    for chunk in chunks:
+        offsets.append(at)
+        at += len(chunk) + len(chunk) % 2
+    counts = [len(x) for x in chunks]
+    entries += ([(322, 3, [tw]), (323, 3, [th]), (324, 4, offsets), (325, 4, counts)] if tile
+                else [(273, 4, offsets), (278, 4, [th]), (279, 4, counts)])
+    entries.sort(key=lambda e: e[0])
+    ifd_at = at
+    spill_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, spill = bytearray(struct.pack(byteorder + "H", len(entries))), bytearray()
+    for tag, typ, values in entries:
+        value = struct.pack(byteorder + ("H" if typ == 3 else "I") * len(values), *values)
+        ifd += struct.pack(byteorder + "HHI", tag, typ, len(values))
+        if len(value) <= 4:
+            ifd += value + bytes(4 - len(value))
+        else:
+            ifd += struct.pack(byteorder + "I", spill_at + len(spill))
+            spill += value
+    ifd += bytes(4)
+    head = (b"II" if byteorder == "<" else b"MM") + struct.pack(byteorder + "HI", 42, ifd_at)
+    body = b"".join(chunk + bytes(len(chunk) % 2) for chunk in chunks)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(head + body + bytes(ifd) + bytes(spill))
+    os.replace(tmp, path)
+
+
 def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.ndarray:
     """Decode one image file (see the module docstring for what comes back);
-    `twin` reads a PNG with `read_png_twin` and a run-length BMP with
-    `bmp_rle_twin`. Raises UnsupportedImage, naming the file, for a file
+    `twin` reads a PNG with `read_png_twin`, a run-length BMP with
+    `bmp_rle_twin` and LZW and PackBits TIFF strips with `lzw_twin` and
+    `packbits_twin`. Raises UnsupportedImage, naming the file, for a file
     PIL reads that the port cannot, and ValueError for a damaged one."""
     with open(path, "rb") as f:
         data = f.read()
@@ -716,10 +1479,12 @@ def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.nd
             return native.decode_jpeg(data)
         if data[:2] == b"BM":
             img = read_bmp(data, twin)
+        elif data[:4] in TIFF_PREFIXES:
+            img = read_tiff(data, twin)
         elif len(data) > 1 and data[:1] == b"P" and data[1:2] in b"0123456fy":
             img = read_netpbm(data)
         else:
-            raise ValueError("not a PNG, JPEG, BMP or netpbm file")
+            raise ValueError("not a PNG, JPEG, BMP, TIFF or netpbm file")
         return img.rgb() if convert_rgb else img.raw()
     except UnsupportedImage as e:
         raise UnsupportedImage(f"{path}: {e}") from e

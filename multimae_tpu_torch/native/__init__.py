@@ -1,12 +1,13 @@
 """ctypes bindings for the port's native image library (fastimage.cpp,
-jpeg_decode.cpp and pil_ops.cpp), the counterpart of the JAX package's
-multimae_tpu/native/__init__.py. fastimage.cpp also holds the BMP
-run-length decoder (`bmp_rle`).
+jpeg_decode.cpp, pil_ops.cpp and tiff_decode.cpp), the counterpart of the
+JAX package's multimae_tpu/native/__init__.py. fastimage.cpp also holds the
+BMP run-length decoder (`bmp_rle`); tiff_decode.cpp the TIFF LZW and
+PackBits decoders (`tiff_lzw`, `tiff_packbits`).
 
 The library is built with g++ at first use:
 
     g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp \
-        pil_ops.cpp -o <lib>
+        pil_ops.cpp tiff_decode.cpp -o <lib>
 
 into build/native/<hash of the sources and the command>/ in the repository
 (listed in .gitignore). The compiler writes a per-process temporary that
@@ -36,7 +37,8 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parent / "fastimage.cpp"
 JPEG_SOURCE = SOURCE.with_name("jpeg_decode.cpp")
 PIL_SOURCE = SOURCE.with_name("pil_ops.cpp")
-SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE)
+TIFF_SOURCE = SOURCE.with_name("tiff_decode.cpp")
+SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
@@ -70,7 +72,11 @@ _SIGNATURES = {
     "mm_pil_smooth": [_P, _I, _I, _I, _P],
     "mm_pil_blend": [_P, _P, _L, _F, _P],
     "mm_bmp_rle": [_P, _L, _L, _L, _I, _I, _I, _P],
+    "mm_tiff_lzw": [_P, _L, _P, _L],
+    "mm_tiff_packbits": [_P, _L, _P, _L],
 }
+# The functions that return a count of bytes or pixels, not a status.
+_LONG_RESULTS = ("mm_bmp_rle", "mm_tiff_lzw", "mm_tiff_packbits")
 
 
 def build(sources: Union[Path, Sequence[Path]] = SOURCES, build_root: Path = BUILD_ROOT, *,
@@ -120,7 +126,7 @@ def lib() -> ctypes.CDLL:
     for fn_name, argtypes in _SIGNATURES.items():
         fn = getattr(handle, fn_name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_long if fn_name in _LONG_RESULTS else ctypes.c_int
     _LIB = handle
     return handle
 
@@ -280,14 +286,43 @@ def bmp_rle(data: bytes, start: int, file_offset: int, rle4: bool, width: int,
     (fastimage.cpp `mm_bmp_rle`). Raises ValueError where PIL does: the
     data ends before the bitmap does, or a delta is cut short."""
     out = np.zeros((height, width), np.uint8)
-    fn = lib().mm_bmp_rle
-    fn.restype = ctypes.c_long
-    n = fn(data, len(data), start, file_offset, int(rle4), width, height, _ptr(out))
+    n = lib().mm_bmp_rle(data, len(data), start, file_offset, int(rle4), width, height, _ptr(out))
     if n < 0:
         raise ValueError("BMP RLE data ends inside a delta")
     if n < width * height:
         raise ValueError(f"BMP RLE data ends after {n} of {width * height} pixels "
                          "(not enough image data)")
+    return out
+
+
+# --- TIFF (tiff_decode.cpp) --------------------------------------------------------
+
+_LZW_ERRORS = {-1: "a code not yet in the table", -2: "a code past the table after a Clear code",
+               -3: "corrupted table"}
+
+
+def tiff_lzw(data: bytes, size: int) -> np.ndarray:
+    """A TIFF strip or tile of LZW data -> its first `size` bytes, as
+    libtiff 4.7 decodes it (tiff_decode.cpp `mm_tiff_lzw`). Raises
+    ValueError where libtiff fails: a code not yet in the table, or data
+    that ends first."""
+    out = np.empty(size, np.uint8)
+    n = lib().mm_tiff_lzw(data, len(data), _ptr(out), size)
+    if n < 0:
+        raise ValueError(f"TIFF LZW: {_LZW_ERRORS[n]}")
+    if n < size:
+        raise ValueError(f"TIFF LZW data ends after {n} of {size} bytes")
+    return out
+
+
+def tiff_packbits(data: bytes, size: int) -> np.ndarray:
+    """A TIFF strip or tile of PackBits data -> its first `size` bytes, as
+    libtiff's PackBitsDecode gives them (`mm_tiff_packbits`). Raises
+    ValueError where the data ends first."""
+    out = np.empty(size, np.uint8)
+    n = lib().mm_tiff_packbits(data, len(data), _ptr(out), size)
+    if n < size:
+        raise ValueError(f"TIFF PackBits data ends after {n} of {size} bytes")
     return out
 
 

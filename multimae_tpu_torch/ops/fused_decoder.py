@@ -27,9 +27,11 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from multimae_tpu_torch.ops import _build
 from multimae_tpu_torch.ops.functional import (
+    LAYERNORM_EPS,
     attention,
     dense,
     dense_bwd,
@@ -164,16 +166,24 @@ def decoder_core_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights,
 # Written out as the JAX recompute-VJP (`_core_bwd`) is, so that it rounds
 # where the kernel rounds: dense dx to the dtype, dW and db in fp32, the
 # LayerNorm backward in fp32, the residual g = T(g + dx) after the fp32 sum,
-# attention dS = T(P * (dP - rowsum(dP * P)) * scale).
+# attention dS = T(P * (dP - rowsum(dP * P)) * scale). In fp32, dP is taken
+# from V less its mean over the keys, as the kernel takes it.
 
 
 def _attend_bwd(q, k, v, do, scale):
     """(dq, dk, dv) of ops/functional.attention on (B, H, N, dh), with the
-    fp32 probabilities recomputed (JAX `_attend_bwd_2d` :477)."""
+    fp32 probabilities recomputed (JAX `_attend_bwd_2d` :477). In fp32 the
+    keys' mean is taken out of V before dP = dO . V^T: that moves each
+    query row's dP by a constant, which dS does not see, and where the
+    context tokens share most of their value it keeps dP - rowsum(dP * P)
+    from cancelling to a tenth of fp32's precision (the semseg decoder's
+    dq, 1.1e-5 from float64 at the pretraining step's inputs)."""
     dtype = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
     dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof).to(dtype)
+    if dtype == torch.float32:
+        vf = vf - vf.mean(dim=-2, keepdim=True)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype).float()
     return (torch.matmul(ds, kf).to(dtype),
@@ -228,6 +238,42 @@ def decoder_core_bwd_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights
     dc, dw["cn_g"], dw["cn_b"] = layer_norm_bwd(dcn, c, wc.cn_g)
     return dq.to(dtype), dc.to(dtype), DecoderCoreWeights(**dw)
 
+
+def decoder_core_f64(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights, g: torch.Tensor,
+                     heads: int, depth: int) -> list:
+    """The decoder body in float64 through torch's autograd, rounded to no
+    compute dtype: [output, dq, dc, *dW in DecoderCoreWeights order] for
+    the output's gradient g. The exact reference an fp32 kernel and its
+    twin are both held to where the two part."""
+    d = q.shape[-1]
+    scale = (d // heads) ** -0.5
+    leaves = [t.detach().double().requires_grad_() for t in (q, c, *w)]
+    q64, c64, *ws = leaves
+    p = DecoderCoreWeights(*ws)
+
+    def ln(x, gamma, beta):
+        return F.layer_norm(x, (d,), gamma, beta, LAYERNORM_EPS)
+
+    def lin(x, weight, bias):
+        return x @ weight.t() + bias
+
+    def attend(xq, xk, xv):
+        def heads_of(t):
+            return t.reshape(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
+        a = torch.softmax(heads_of(xq) @ heads_of(xk).transpose(-1, -2) * scale, -1)
+        return (a @ heads_of(xv)).transpose(1, 2).reshape(xq.shape)
+
+    def mlp(x, gamma, beta, w1, b1, w2, b2):
+        return lin(F.gelu(lin(ln(x, gamma, beta), w1, b1)), w2, b2)
+
+    k, v = lin(ln(c64, p.cn_g, p.cn_b), p.wkv, p.bkv).split(d, -1)
+    x = lin(attend(lin(ln(q64, p.qn_g, p.qn_b), p.wq, p.bq), k, v), p.wxp, p.bxp)
+    x = x + mlp(x, p.on_g, p.on_b, p.w1, p.b1, p.w2, p.b2)
+    for i in range(depth):
+        qkv = lin(ln(x, p.n1_g[i], p.n1_b[i]), p.wqkv[i], p.bqkv[i]).split(d, -1)
+        x = x + lin(attend(*qkv), p.wp[i], p.bp[i])
+        x = x + mlp(x, p.n2_g[i], p.n2_b[i], p.wf1[i], p.bf1[i], p.wf2[i], p.bf2[i])
+    return [x.detach()] + list(torch.autograd.grad(x, leaves, g.double()))
 
 # ---------------------------------------------------------------- kernels --
 

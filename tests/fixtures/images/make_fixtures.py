@@ -189,14 +189,214 @@ def netpbm(magic: str, px: np.ndarray, maxval: int = 255, comment: bool = False)
     return head.encode() + "\n".join(lines).encode() + b"\n"
 
 
-def photo(hw, seed):
+# --- TIFF: a hand writer for the files PIL does not write (tiles, planar 2,
+# FillOrder 2, BigTIFF, big-endian compressed files, predictor 3, old-style
+# LZW), with its own LZW and PackBits encoders --------------------------------------
+
+REVERSE_BITS = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
+
+
+def lzw_encode(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW as libtiff writes it: a Clear code, codes of 9-12 bits
+    MSB-first, widened one code early, a Clear code where the table fills
+    and an EOI code. `compat` writes the old LSB-first codes, widened on
+    time, that libtiff still reads."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, nbits):
+        nonlocal acc, nacc
+        if compat:
+            acc |= code << nacc
+        else:
+            acc = (acc << nbits) | code
+        nacc += nbits
+        while nacc >= 8:
+            if compat:
+                out.append(acc & 0xFF)
+                acc >>= 8
+            else:
+                out.append((acc >> (nacc - 8)) & 0xFF)
+                acc &= (1 << (nacc - 8)) - 1
+            nacc -= 8
+
+    def grow(next_code, nbits):  # the width after an entry is added
+        if next_code == 4094:
+            put(256, nbits)
+            return 9, True
+        limit = (1 << nbits) if compat else (1 << nbits) - 1
+        return (nbits + 1 if next_code > limit else nbits), False
+
+    table, nbits, next_code, prefix = {}, 9, 258, None
+    put(256, nbits)
+    for c in data:
+        if prefix is None:
+            prefix = c
+            continue
+        code = table.get((prefix, c))
+        if code is not None:
+            prefix = code
+            continue
+        put(prefix, nbits)
+        table[(prefix, c)] = next_code
+        next_code += 1
+        prefix = c
+        nbits, cleared = grow(next_code, nbits)
+        if cleared:
+            table, next_code = {}, 258
+    if prefix is not None:
+        put(prefix, nbits)
+        nbits, _ = grow(next_code + 1, nbits)
+    put(257, nbits)
+    if nacc:
+        out.append((acc if compat else acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3-128 equal bytes as (257 - n, byte), the rest as
+    literal runs of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_rows(px: np.ndarray, bits: int, order: str, predictor: int) -> np.ndarray:
+    """(h, w, c) samples -> (h, row bytes) as a TIFF stores them, after the
+    predictor (2: each sample less the one a pixel before; 3: libtiff's
+    byte planes of each row, most significant first, then bytes less the
+    one a pixel before)."""
+    h, w, c = px.shape
+    if predictor == 2:
+        u = px.view(px.dtype.str.replace("i", "u")) if px.dtype.kind == "i" else px
+        d = u.copy()
+        d[:, 1:] = u[:, 1:] - u[:, :-1]
+        px = d.view(px.dtype)
+    if bits < 8:
+        return _pack(px, bits)
+    if bits == 12:  # two samples in three bytes, most significant first
+        flat = px.reshape(h, -1).astype(np.uint32)
+        flat = np.concatenate([flat, np.zeros((h, flat.shape[1] % 2), np.uint32)], 1)
+        pairs = (flat[:, 0::2] << 12) | flat[:, 1::2]
+        out = np.stack([pairs >> 16, pairs >> 8, pairs], -1).astype(np.uint8).reshape(h, -1)
+        return out[:, :(w * c * 12 + 7) // 8]
+    if predictor == 3:
+        size = px.dtype.itemsize
+        planes = px.astype(">" + px.dtype.str[1:]).reshape(h, w * c).view(np.uint8)
+        planes = planes.reshape(h, w * c, size).transpose(0, 2, 1).reshape(h, -1)
+        out = planes.copy()
+        out[:, c:] = planes[:, c:] - planes[:, :-c]
+        return out
+    return px.astype(order + px.dtype.str[1:]).reshape(h, -1).view(np.uint8)
+
+
+def tiff(px: np.ndarray, photometric: int, *, bits: int = 0, order: str = "<",
+         bigtiff: bool = False, compression: int = 1, predictor: int = 1, planar: int = 1,
+         fillorder: int = 1, tile=None, rows_per_strip: int = 0, extra=(), sample_format=None,
+         colormap=None, orientation: int = 0, lzw_compat: bool = False, tags=()) -> bytes:
+    """A TIFF of samples `px` ((H, W) or (H, W, C); uint8/16/32, int16/32 or
+    float32; `bits` 1, 2 or 4 for packed uint8 samples, 12 for uint16): byte `order` "<"
+    or ">", classic or BigTIFF, in strips of `rows_per_strip` rows (all by
+    default) or (th, tw) tiles (the edge tiles padded), chunky or planar,
+    compression 1 (none), 5 (LZW), 8 or 32946 (Deflate) or 32773
+    (PackBits), predictor 1, 2 or 3, FillOrder 2 reversing every stored
+    byte's bits; `tags` extra (tag, type, values) entries."""
+    px = np.asarray(px)
+    px = px[..., None] if px.ndim == 2 else px
+    h, w, c = px.shape
+    bits = bits or px.dtype.itemsize * 8
+    planes = [px[..., i:i + 1] for i in range(c)] if planar == 2 else [px]
+    th, tw = tile or (rows_per_strip or h, w)
+    chunks = []
+    for plane in planes:
+        if tile:
+            padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, plane.shape[2]), plane.dtype)
+            padded[:h, :w] = plane
+            parts = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+        else:
+            parts = [plane[y:y + th] for y in range(0, h, th)]
+        for part in parts:
+            raw = _tiff_rows(np.ascontiguousarray(part), bits, order, predictor).tobytes()
+            if compression == 5:
+                raw = lzw_encode(raw, lzw_compat)
+            elif compression in (8, 32946):
+                raw = zlib.compress(raw, 6)
+            elif compression == 32773:
+                raw = packbits_encode(raw)
+            if fillorder == 2:
+                raw = REVERSE_BITS[np.frombuffer(raw, np.uint8)].tobytes()
+            chunks.append(raw)
+    head = 16 if bigtiff else 8
+    offsets, at = [], head
+    for chunk in chunks:
+        offsets.append(at)
+        at += len(chunk) + len(chunk) % 2
+    kind = 16 if bigtiff else 4
+    fmt = {1: 1, "u": 1, "i": 2, "f": 3}
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * c), (259, 3, [compression]),
+               (262, 3, [photometric]), (277, 3, [c]), (284, 3, [planar])]
+    if sample_format is not None or px.dtype.kind != "u":
+        entries.append((339, 3, list(sample_format or [fmt[px.dtype.kind]] * c)))
+    if fillorder != 1:
+        entries.append((266, 3, [fillorder]))
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if orientation:
+        entries.append((274, 3, [orientation]))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if colormap is not None:
+        entries.append((320, 3, [int(v) for v in np.asarray(colormap).T.reshape(-1)]))
+    if tile:
+        entries += [(322, 3, [tw]), (323, 3, [th]), (324, kind, offsets),
+                    (325, kind, [len(x) for x in chunks])]
+    else:
+        entries += [(273, kind, offsets), (278, 4, [th]), (279, kind, [len(x) for x in chunks])]
+    entries = sorted(entries + list(tags), key=lambda e: e[0])
+    codes = {3: "H", 4: "I", 16: "Q"}
+    slot, count_fmt = (8, "Q") if bigtiff else (4, "I")
+    ifd_at = at
+    size = (8 if bigtiff else 2) + len(entries) * (20 if bigtiff else 12) + slot
+    values_at = ifd_at + size
+    body, spill = bytearray(), bytearray()
+    body += struct.pack(order + ("Q" if bigtiff else "H"), len(entries))
+    for tag, typ, values in entries:
+        data = struct.pack(order + codes[typ] * len(values), *values)
+        body += struct.pack(order + "HH" + count_fmt, tag, typ, len(values))
+        if len(data) <= slot:
+            body += data + bytes(slot - len(data))
+        else:
+            body += struct.pack(order + count_fmt, values_at + len(spill))
+            spill += data + bytes(len(data) % 2)
+    body += bytes(slot)
+    magic = b"II" if order == "<" else b"MM"
+    header = (magic + struct.pack(order + "HHHQ", 43, 8, 0, ifd_at) if bigtiff
+              else magic + struct.pack(order + "HI", 42, ifd_at))
+    data = bytearray(header)
+    for chunk in chunks:
+        data += chunk + bytes(len(chunk) % 2)
+    return bytes(data + body + spill)
+
+
+def photo(hw, seed, noise=8.0):
     """A smooth photo-like RGB image with a little noise."""
     rng = np.random.default_rng(seed)
     h, w = hw
     yy, xx = np.mgrid[0:h, 0:w]
     a = np.stack([128 + 100 * np.sin(xx / (5 + 3 * c) + yy / (7 + 2 * c) + c) for c in range(3)],
                  -1)
-    return np.clip(a + rng.normal(0, 8, a.shape), 0, 255).astype(np.uint8)
+    return np.clip(a + rng.normal(0, noise, a.shape), 0, 255).astype(np.uint8)
 
 
 def files(tree_hw=(48, 64)):
@@ -319,19 +519,190 @@ def files(tree_hw=(48, 64)):
     return out
 
 
+def tree_photo(hw, seed):
+    """`photo` in steps of 16 levels: the TIFF tree's rgb images, which
+    compress to a few KB each."""
+    return photo(hw, seed, noise=1) // 16 * 16
+
+
+def tiff_files(tree_hw=(48, 64)):
+    """{name: bytes} of the TIFF fixtures PIL does not write, from `tiff`:
+    BigTIFF, tiles, planar 2, FillOrder 2, big-endian compressed files,
+    predictor 3, old-style LZW, MinIsWhite, 2- and 4-bit gray and 1-, 2-
+    and 4-bit palettes, associated alpha, 16-bit RGB, an Orientation; and
+    the `tree_*.tif` rgb images of chip_smoke.py's TIFF tree."""
+    rng = np.random.default_rng(11)
+    out = {}
+    hw = (9, 14)
+    c = photo(hw, 12, noise=3)
+    g = rng.integers(0, 256, hw, dtype=np.uint8)
+    out["tiff_bigtiff_lzw.tif"] = tiff(c, 2, bigtiff=True, compression=5, predictor=2,
+                                       rows_per_strip=4)
+    out["tiff_bigtiff_raw.tif"] = tiff(c, 2, bigtiff=True, rows_per_strip=4)
+    out["tiff_tiles_raw.tif"] = tiff(photo((17, 20), 13, noise=3), 2, tile=(16, 16))
+    out["tiff_planar_raw.tif"] = tiff(c, 2, planar=2, rows_per_strip=4)
+    out["tiff_planar_rgba_lzw.tif"] = tiff(rng.integers(0, 256, hw + (4,), dtype=np.uint8), 2,
+                                           planar=2, compression=5, extra=(1,))
+    bits = rng.integers(0, 2, hw, dtype=np.uint8)
+    out["tiff_1bit_black_raw.tif"] = tiff(bits, 1, bits=1)
+    out["tiff_1bit_white_lzw.tif"] = tiff(bits, 0, bits=1, compression=5)
+    out["tiff_1bit_fill2_raw.tif"] = tiff(bits, 1, bits=1, fillorder=2)
+    out["tiff_1bit_fill2_packbits.tif"] = tiff(bits, 0, bits=1, fillorder=2, compression=32773)
+    out["tiff_rgb_fill2_lzw.tif"] = tiff(c, 2, fillorder=2, compression=5, predictor=2)
+    for b in (2, 4):
+        v = rng.integers(0, 1 << b, hw, dtype=np.uint8)
+        out[f"tiff_gray{b}_raw.tif"] = tiff(v, 1, bits=b)
+        out[f"tiff_gray{b}_white_deflate.tif"] = tiff(v, 0, bits=b, compression=8)
+    out["tiff_gray8_white_packbits.tif"] = tiff(g, 0, compression=32773)
+    for b in (1, 2, 4):
+        v = rng.integers(0, 1 << b, hw, dtype=np.uint8)
+        cmap = rng.integers(0, 65536, (1 << b, 3))
+        out[f"tiff_pal{b}_raw.tif"] = tiff(v, 3, bits=b, colormap=cmap)
+        out[f"tiff_pal{b}_lzw.tif"] = tiff(v, 3, bits=b, colormap=cmap, compression=5)
+    g16 = (np.add.outer(np.arange(9), np.arange(14)) * 3001 % 65536).astype(np.uint16)
+    out["tiff_gray16_be_lzw_pred.tif"] = tiff(g16, 1, order=">", compression=5, predictor=2)
+    out["tiff_gray16_be_raw.tif"] = tiff(g16, 1, order=">")
+    out["tiff_gray16_fill2_raw.tif"] = tiff(g16, 1, fillorder=2)
+    s16 = (g16.astype(np.int32) - 30000).astype(np.int16)
+    out["tiff_gray16_signed_deflate.tif"] = tiff(s16, 1, compression=8, predictor=2)
+    out["tiff_gray16_signed_be_raw.tif"] = tiff(s16, 1, order=">")
+    i32 = (g16.astype(np.int32) - 30000) * 70001
+    out["tiff_int32_be_raw.tif"] = tiff(i32, 1, order=">")
+    out["tiff_int32_be_lzw.tif"] = tiff(i32, 1, order=">", compression=5)
+    f32 = (g16.astype(np.float32) / 100 - 50).astype(np.float32)
+    out["tiff_float32_lzw_pred3.tif"] = tiff(f32, 1, compression=5, predictor=3)
+    out["tiff_float32_be_deflate_pred3.tif"] = tiff(f32, 1, order=">", compression=32946,
+                                                    predictor=3)
+    out["tiff_float32_be_raw.tif"] = tiff(f32, 1, order=">")
+    out["tiff_rgb16_be_deflate.tif"] = tiff(c.astype(np.uint16) * 257 + 3, 2, order=">",
+                                            compression=8, predictor=2)
+    out["tiff_rgbx_lzw_compat.tif"] = tiff(np.concatenate([c, g[..., None]], -1), 2,
+                                           extra=(0,), compression=5, lzw_compat=True)
+    out["tiff_orientation6_lzw.tif"] = tiff(c, 2, compression=5, orientation=6)
+    out["tiff_orientation8_raw.tif"] = tiff(c, 2, orientation=8)
+
+    # The TIFF tree's rgb images: one per layout chip_smoke.py feeds the CLI.
+    tree = [tree_photo(tree_hw, 20 + i) for i in range(4)]
+    alpha = np.clip(160 + 90 * np.sin(np.arange(tree_hw[1]) / 7), 0, 255).astype(np.uint8)
+    alpha = np.broadcast_to(alpha, tree_hw)[..., None]
+    premultiplied = (tree[2].astype(np.int32) * alpha // 255).astype(np.uint8)
+    out["tree_tiff_tiled.tif"] = tiff(tree[0], 2, tile=(16, 16), compression=5, predictor=2)
+    out["tree_tiff_planar.tif"] = tiff(tree[1], 2, planar=2, compression=8, rows_per_strip=16)
+    out["tree_tiff_assoc_alpha.tif"] = tiff(np.concatenate([premultiplied, alpha], -1), 2,
+                                            extra=(1,), compression=5, predictor=2)
+    out["tree_tiff_rgb16.tif"] = tiff(tree[3].astype(np.uint16) * 257, 2, compression=8,
+                                      predictor=2, rows_per_strip=16)
+    return out
+
+
+def pil_tiff_files(tree_hw=(48, 64)):
+    """{name: bytes} of the TIFF fixtures PIL writes (its own writer for
+    uncompressed files, libtiff 4.7 for the rest), the tree's LZW,
+    Deflate and PackBits rgb images, and the files the port refuses: a
+    JPEG-compressed RGB file, a CCITT Group 4 1-bit one and a Deflate YCbCr
+    one. Needs PIL."""
+    from PIL import Image, TiffImagePlugin
+
+    rng = np.random.default_rng(12)
+
+    def save(img, **kw):
+        buf = io.BytesIO()
+        if "predictor" in kw:
+            info = TiffImagePlugin.ImageFileDirectory_v2()
+            info[317] = kw.pop("predictor")
+            kw["tiffinfo"] = info
+        img.save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    hw = (9, 14)
+    rgba = np.concatenate([photo(hw, 14, noise=3), rng.integers(0, 256, hw + (1,))], -1)
+    rgba = Image.fromarray(rgba.astype(np.uint8), "RGBA")
+    out = {"tiff_pil_rgb_raw.tif": save(rgba.convert("RGB")),
+           "tiff_pil_rgb_lzw.tif": save(rgba.convert("RGB"), compression="tiff_lzw"),
+           "tiff_pil_rgba_deflate_pred.tif": save(rgba, compression="tiff_adobe_deflate",
+                                                  predictor=2),
+           "tiff_pil_rgbx_packbits.tif": save(rgba.convert("RGBX"), compression="packbits"),
+           "tiff_pil_cmyk_lzw.tif": save(rgba.convert("CMYK"), compression="tiff_lzw"),
+           "tiff_pil_la_raw.tif": save(rgba.convert("LA")),
+           "tiff_pil_l_deflate_pred.tif": save(rgba.convert("L"), compression="tiff_deflate",
+                                               predictor=2),
+           "tiff_pil_1bit_packbits.tif": save(rgba.convert("1"), compression="packbits"),
+           "tiff_pil_p_lzw.tif": save(rgba.convert("RGB").quantize(40), compression="tiff_lzw"),
+           "tiff_pil_pa_raw.tif": save(rgba.convert("RGB").quantize(40).convert("PA"))}
+    g16 = (np.add.outer(np.arange(9), np.arange(14)) * 4099 % 65536).astype(np.uint16)
+    out["tiff_pil_i16_raw.tif"] = save(Image.fromarray(g16))
+    out["tiff_pil_i16_lzw_pred.tif"] = save(Image.fromarray(g16), compression="tiff_lzw",
+                                            predictor=2)
+    out["tiff_pil_i16b_raw.tif"] = save(Image.frombytes("I;16B", hw[::-1],
+                                                        g16.astype(">u2").tobytes()))
+    out["tiff_pil_i32_deflate.tif"] = save(Image.fromarray(g16.astype(np.int32) * 3 - 100000),
+                                           compression="tiff_deflate")
+    out["tiff_pil_f32_raw.tif"] = save(Image.fromarray(g16.astype(np.float32) / 200 - 20))
+    info = TiffImagePlugin.ImageFileDirectory_v2()
+    info[274] = 3
+    out["tiff_pil_orientation3_lzw.tif"] = save(rgba.convert("RGB"), compression="tiff_lzw",
+                                                tiffinfo=info)
+    tree = [Image.fromarray(tree_photo(tree_hw, 30 + i)) for i in range(3)]
+    out["tree_tiff_lzw_pred.tif"] = save(tree[0], compression="tiff_lzw", predictor=2)
+    out["tree_tiff_deflate.tif"] = save(tree[1], compression="tiff_adobe_deflate")
+    out["tree_tiff_packbits.tif"] = save(tree[2], compression="packbits")
+    small = Image.fromarray(photo((16, 24), 6))
+    out["unported.tif"] = save(small, compression="jpeg")
+    out["unported_ccitt.tif"] = save(small.convert("1"), compression="group4")
+    out["unported_ycbcr.tif"] = save(small.convert("YCbCr"), compression="tiff_adobe_deflate")
+    return out
+
+
 # The words of the port's ValueError for each refused file.
 REFUSED = {"refused_bmp_gray4_wide.bmp": "hold no", "refused_bmp_truncated.bmp": "truncated",
            "refused_bmp_rle8_short.bmp": "not enough image data",
            "refused_bmp_rle8_early_end.bmp": "not enough image data",
            "refused_pgm_plain_past_maxval.pgm": "outside",
-           "refused_pgm_raw_truncated.pgm": "truncated"}
+           "refused_pgm_raw_truncated.pgm": "truncated",
+           "refused_tiff_lzw_no_clear.tif": "not yet in the table",
+           "refused_tiff_strip_past_end.tif": "outside the file",
+           "refused_tiff_deflate_short.tif": "Deflate data ends"}
+# The ROADMAP item of each file the port refuses with UnsupportedImage.
+UNPORTED = {"unported.tif": "11g", "unported_ccitt.tif": "11h", "unported_ycbcr.tif": "11h",
+            "unported.webp": "11e", "unported.jpx": "11f"}
+
+
+def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
+    """A little-endian classic TIFF with the one inline value of `tag`
+    replaced."""
+    at = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, at)[0]):
+        entry = at + 2 + 12 * i
+        if struct.unpack_from("<H", data, entry)[0] == tag:
+            typ = struct.unpack_from("<H", data, entry + 2)[0]
+            return (data[:entry + 8] + struct.pack("<H2x" if typ == 3 else "<I", value)
+                    + data[entry + 12:])
+    raise KeyError(tag)
+
+
+def refused_tiff_files():
+    """Damaged TIFFs that PIL refuses too: an LZW strip whose first code is
+    no Clear code, a strip whose byte count runs past the end of the file,
+    a Deflate strip whose stream ends rows early."""
+    c = photo((9, 14), 15, noise=3)
+    lzw = bytearray(tiff(c, 2, compression=5))
+    lzw[8] ^= 0x40  # the first code: 256 -> 384, past the table
+    past = tiff(c, 2, compression=32773)
+    full = tiff(c, 2, compression=8)
+    count = struct.unpack_from("<I", set_tiff_tag(full, 279, 0), 4)[0] - 8
+    short = zlib.compress(c[:5].tobytes(), 6)
+    return {"refused_tiff_lzw_no_clear.tif": bytes(lzw),
+            "refused_tiff_strip_past_end.tif": set_tiff_tag(past, 279, len(past)),
+            "refused_tiff_deflate_short.tif": full[:8] + short + bytes(count - len(short))
+            + full[8 + count:]}
 
 
 def timing_files(hw=(480, 640)):
     """{name: bytes} of 640 x 480 photo-like files in each new format, for
     decode times (time_decode.py): Adam7 PNG, 24-bit and 8-bit palette
-    BMP, BI_RLE8 BMP (the palette indices in runs of 8), raw PPM and 16-bit
-    PGM."""
+    BMP, BI_RLE8 BMP (the palette indices in runs of 8), raw PPM, 16-bit
+    PGM, and RGB TIFF in strips of 16 rows uncompressed, LZW and Deflate
+    with predictor 2, and PackBits (pixels in runs of 4)."""
     rng = np.random.default_rng(7)
     h, w = hw
     rgb = photo(hw, 8)
@@ -347,6 +718,12 @@ def timing_files(hw=(480, 640)):
         "bmp_rle8_640.bmp": bmp(rle8(flip(runs), w), w, h, 8, compression=1, palette=pal),
         "ppm_raw_640.ppm": netpbm("P6", rgb),
         "pgm_raw_16bit_640.pgm": netpbm("P5", rgb[..., 0].astype(np.int64) * 257, 65535),
+        "tiff_raw_640.tif": tiff(rgb, 2, rows_per_strip=16),
+        "tiff_lzw_pred_640.tif": tiff(rgb, 2, compression=5, predictor=2, rows_per_strip=16),
+        "tiff_deflate_pred_640.tif": tiff(rgb, 2, compression=8, predictor=2,
+                                          rows_per_strip=16),
+        "tiff_packbits_640.tif": tiff(np.repeat(rgb[:, ::4], 4, axis=1), 2, compression=32773,
+                                      rows_per_strip=16),
     }
 
 
@@ -358,10 +735,11 @@ def pil_digests(data: bytes) -> dict:
     raw = np.asarray(img)
     if raw.dtype == bool:
         raw = raw.astype(np.uint8) * 255
-    if img.mode == "LA":
+    if img.mode in ("LA", "PA"):
         raw = np.ascontiguousarray(raw[..., 0])
-    elif raw.ndim == 3:
+    elif raw.ndim == 3 and img.mode != "CMYK":
         raw = np.ascontiguousarray(raw[..., :3])
+    raw = raw.astype(raw.dtype.newbyteorder("="))  # "I;16B" in native order, as the port's
     return {"mode": img.mode, "shape": list(rgb.shape),
             "sha256": hashlib.sha256(rgb.tobytes()).hexdigest(),
             "raw_shape": list(raw.shape), "raw_dtype": str(raw.dtype),
@@ -371,15 +749,15 @@ def pil_digests(data: bytes) -> dict:
 def main():
     from PIL import Image
 
-    written = files()
-    unported = {}
+    written = {**files(), **tiff_files(), **refused_tiff_files()}
+    pil_tiffs = pil_tiff_files()
+    written.update({k: v for k, v in pil_tiffs.items() if k not in UNPORTED})
+    unported = {k: v for k, v in pil_tiffs.items() if k in UNPORTED}
     a = photo((16, 24), 6)
-    for name, fmt in (("unported.tif", "TIFF"), ("unported.webp", "WEBP"),
-                      ("unported.jpx", "JPEG2000")):
+    for name, fmt in (("unported.webp", "WEBP"), ("unported.jpx", "JPEG2000")):
         buf = io.BytesIO()
         Image.fromarray(a).save(buf, fmt)
         unported[name] = buf.getvalue()
-        Image.open(io.BytesIO(unported[name])).convert("RGB")  # PIL reads it back
     expected = {}
     for name, data in sorted({**written, **unported}.items()):
         with open(os.path.join(HERE, name), "wb") as f:
@@ -391,7 +769,11 @@ def main():
                 expected[name] = {"error": REFUSED[name]}
                 continue
             raise SystemExit(f"{name}: PIL reads it, so the port must too")
-        expected[name] = {"unported": True} if name in unported else pil_digests(data)
+        if name in unported:
+            Image.open(io.BytesIO(data)).convert("RGB")  # PIL reads it back
+            expected[name] = {"unported": UNPORTED[name]}
+        else:
+            expected[name] = pil_digests(data)
     with open(os.path.join(HERE, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -313,6 +313,30 @@ def test_decoder_backward_kernel_matches_twin(cuda, dtype, b, nq, nc, d, heads):
 
 
 @pytest.mark.cuda
+def test_fp32_decoder_backward_where_context_tokens_share_their_value(cuda):
+    """The inputs of the pretraining step's fp32 (semseg) decoder at batch
+    32, made: a context whose tokens share a vector 10x their spread, so
+    the attention is near uniform and dP - rowsum(dP * P) cancels. K1's
+    fp32 backward takes the keys' mean out of V before dP, as its twin
+    does: each output within GRAD_TOLERANCE of the twin, and dq within
+    1e-5 of float64 autograd (4.7e-5 without the centring)."""
+    rng = np.random.default_rng(7)
+    b, nq, nc, d = 32, 196, 99, 256
+    base = rng.standard_normal((1, 1, d))
+    q, c, g = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.standard_normal((b, nq, d)), 10 * base + rng.standard_normal((b, nc, d)),
+        rng.standard_normal((b, nq, d))))
+    w = decoder_weights(d, 2, device=cuda)
+    dq, dc, dw = fused_decoder.fused_decoder_core_bwd(q, c, w, g, 8, 2)
+    rq, rc, rw = fused_decoder.decoder_core_bwd_ref(q, c, w, g, 8, 2)
+    names = ["dq", "dc"] + [f"d{n}" for n in fused_decoder.DecoderCoreWeights._fields]
+    for name, a, r in zip(names, [dq, dc, *dw], [rq, rc, *rw]):
+        assert_matches_twin(a, r, f"K1 bwd fp32 {name}", grad_of=torch.float32)
+    exact = fused_decoder.decoder_core_f64(q, c, w, g, 8, 2)[1]
+    err = float(((dq.double() - exact) ** 2).mean().sqrt() / (exact ** 2).mean().sqrt())
+    assert err <= 1e-5, err
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decoder_backward_kernel_is_bit_deterministic(cuda, dtype):
     w = decoder_weights(256, 2, device=cuda)

@@ -271,8 +271,10 @@ non-zero:
      4); one epoch of the pretraining CLI over LOADER_SAMPLES samples whose
      rgb images are the new formats, and one over a TIFF tree (the
      tree_*.tif fixtures: LZW with predictor 2, Deflate, PackBits, tiled,
-     planar, associated alpha, 16-bit RGB; 16-bit depth in both byte
-     orders; palette semseg): K1 4 + 4 per step, no resampled sample.
+     planar, associated alpha, 16-bit RGB, JPEG-compressed at 4:2:0 in
+     strips and in tiles, old-style JPEG at 4:2:0, LZW YCbCr at 2 x 2;
+     16-bit depth in both byte orders; palette semseg): K1 4 + 4 per step,
+     no resampled sample.
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -433,7 +435,8 @@ AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 # of the pretraining CLI at LOADER_PT_BATCH over LOADER_SAMPLES samples
 # whose rgb images are the new formats' tree fixtures (arithmetic-coded
 # and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; all 48 x 64), and one
-# over a tree of TIFF files only (the tree_*.tif fixtures as rgb).
+# over a tree of TIFF files only (the tree_*.tif fixtures as rgb, the
+# JPEG-compressed and YCbCr ones among them).
 IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
 LOADER_CLS_BATCH, LOADER_SEG_BATCH, LOADER_PT_BATCH, LOADER_SAMPLES = 32, 2, 8, 16
 LOADER_HW = (48, 64)
@@ -3281,20 +3284,23 @@ def last_modules_slice(torch, dev, card):
 def image_fixture_check(card):
     """Phase 20: every fixture of tests/fixtures/images (Adam7 PNG, BMP,
     netpbm, TIFF) through this machine's build of the native library: the
-    SHA-256 of its RGB and raw forms equal expected.json's (PIL's), a file
-    PIL refuses raises ValueError, a JPEG-compressed, CCITT or YCbCr TIFF, a
-    WebP or a JPEG 2000 file UnsupportedImage naming the file and its
-    ROADMAP item."""
+    SHA-256 of its RGB and raw forms equal expected.json's (PIL's; the
+    JPEG-compressed and YCbCr TIFF files of item 11g among them), a file
+    PIL refuses raises ValueError, a CCITT, LZMA or ZSTD TIFF, a WebP or a
+    JPEG 2000 file UnsupportedImage naming the file and its ROADMAP
+    item."""
     import hashlib
 
     from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
 
     with open(os.path.join(IMAGE_FIXTURES, "expected.json")) as f:
         expected = json.load(f)
-    kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0}
+    kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0, "jpeg_ycbcr_tiff": 0}
     for name, want in sorted(expected.items()):
         path = os.path.join(IMAGE_FIXTURES, name)
         kinds["tiff"] += name.endswith(".tif")
+        kinds["jpeg_ycbcr_tiff"] += (name.endswith(".tif") and "sha256" in want
+                                     and ("jpeg" in name or "ycbcr" in name))
         if want.get("unported") or "error" in want:
             # An unported format's message names the file and its item; a
             # damaged one's, what expected.json says.
@@ -3317,9 +3323,10 @@ def image_fixture_check(card):
                 raise AssertionError(f"[20] {name}: {form} differs from expected.json's")
         kinds["read"] += 1
     log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm and TIFF files decode to PIL's "
-            f"SHA-256 in both forms, {kinds['refused']} damaged ones raise ValueError, "
-            f"{kinds['unported']} JPEG / CCITT / YCbCr TIFF, WebP and JPEG 2000 files "
-            f"UnsupportedImage naming their item; {kinds['tiff']} of them TIFF (card {card})")
+            f"SHA-256 in both forms ({kinds['jpeg_ycbcr_tiff']} JPEG-compressed or YCbCr "
+            f"TIFF), {kinds['refused']} damaged ones raise ValueError, {kinds['unported']} "
+            f"CCITT / LZMA / ZSTD TIFF, WebP and JPEG 2000 files UnsupportedImage naming "
+            f"their item; {kinds['tiff']} of them TIFF (card {card})")
     return kinds
 
 

@@ -42,12 +42,22 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
   old bit-reversed LZW), Deflate and PackBits as libtiff 4.7 decodes them
   for Pillow (native `tiff_lzw` and `tiff_packbits` in tiff_decode.cpp,
   numpy twins `lzw_twin` and `packbits_twin`; Deflate through zlib), with
-  the horizontal and floating-point predictors. `write_tiff` writes
-  uncompressed, PackBits and Deflate files for tests and trees.
+  the horizontal and floating-point predictors. JPEG-compressed TIFF
+  (item 11g) as libtiff and libjpeg give it to Pillow: new-style JPEG
+  (compression 7) strip by strip or tile by tile through the native
+  decoder's JPEG-in-TIFF entry (`native.decode_jpeg_tiff`: JPEGTables
+  first, YCbCr to RGB forced or no colour transform, libtiff's checks);
+  old-style JPEG (compression 6) as one stream rebuilt as libtiff's codec
+  rebuilds it, its planes unupsampled; compressed YCbCr through libtiff's
+  RGBA reader in numpy (data units, chroma repeated, TIFFYCbCrtoRGB with
+  YCbCrCoefficients and ReferenceBlackWhite, its 4 x 4 quirks).
+  `write_tiff` writes uncompressed, PackBits and Deflate files for tests
+  and trees.
 
-Files PIL reads and the port cannot (JPEG-compressed TIFF, item 11g;
-CCITT, LZMA, ZSTD, WebP-in-TIFF, SGILog, ThunderScan and compressed YCbCr
-or CIELab TIFF, item 11h; WebP; JPEG 2000) raise `UnsupportedImage`, which
+Files PIL reads and the port cannot (CCITT, LZMA, ZSTD, WebP-in-TIFF,
+SGILog, ThunderScan, CIELab and "tiff_raw_16" TIFF, and old-style JPEG in
+tiles or planes, items 11h and 11g; WebP; JPEG 2000) raise
+`UnsupportedImage`, which
 is neither a ValueError nor an OSError: the corrupt-file retries of the
 datasets and the loader let it through, so a tree that holds one stops the
 run naming the file instead of training on other samples than the JAX
@@ -741,16 +751,21 @@ TIFF_COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "ti
                      34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                      50001: "webp"}
 # The ones PIL reads through libtiff and the port does not: the ROADMAP item of each.
-TIFF_REFUSED = {6: "11g", 7: "11g", 2: "11h", 3: "11h", 4: "11h", 32771: "11h", 32809: "11h",
-                34676: "11h", 34677: "11h", 34925: "11h", 50000: "11h", 50001: "11h"}
+TIFF_REFUSED = {2: "11h", 3: "11h", 4: "11h", 32771: "11h", 32809: "11h", 34676: "11h",
+                34677: "11h", 34925: "11h", 50000: "11h", 50001: "11h"}
+# YCbCrSubsampling (tag 530) pairs libtiff's RGBA reader has a routine for
+# (tif_getimage.c PickContigCase); a 4 x 4 data unit's right-hand skew
+# advances 10 bytes a unit, not 18, as putcontig8bitYCbCr44tile does.
+_YCBCR_PUTS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 
 def _tiff_open_info():
     """The rows of Pillow 12.1's OPEN_INFO (TiffImagePlugin.py:151) the port
     decodes: (byte order, photometric, sample format, fill order, bits per
     sample, extra samples) -> (mode, raw mode). CIELab is left out: the
-    port refuses it, and compressed YCbCr, which Pillow converts through
-    libtiff's RGBA reader."""
+    port refuses it. YCbCr's "RGBX" row is the raw decoder's for an
+    uncompressed file; a compressed one comes out of libjpeg (compression
+    7) or libtiff's RGBA reader as RGB (`_TiffFile.setup`)."""
     both = [  # the same row for b"II" and b"MM"
         (0, 1, (1,), (), "1", "1;I"), (0, 2, (1,), (), "1", "1;IR"),
         (1, 1, (1,), (), "1", "1"), (1, 2, (1,), (), "1", "1;R"),
@@ -930,7 +945,7 @@ class _TiffFile:
         if len(data) < (16 if big else 8):
             raise ValueError("TIFF file truncated in its header")
         start = self._unpack("Q" if big else "I", 8 if big else 4)[0]
-        self.tags = {}
+        self.tags, self.types = {}, {}
         # PIL stops at an entry cut short or a value past the end and keeps the
         # tags before it; libtiff refuses such a directory (`short`), and a
         # tag of its own in a type that holds no integers (`odd`).
@@ -962,6 +977,7 @@ class _TiffFile:
             if n:
                 self.tags[tag] = (self._unpack(code * n, value_at) if code
                                   else data[value_at:value_at + n * size])
+                self.types[tag] = typ
             else:
                 self.odd.add(tag)  # PIL drops an empty tag, libtiff refuses it
         self.short = False
@@ -977,6 +993,27 @@ class _TiffFile:
         if not isinstance(value, tuple):
             raise ValueError(f"TIFF tag {tag} holds no numbers, as PIL reads it")
         return value
+
+    def floats(self, tag: int, default) -> np.ndarray:
+        """A tag's values as libtiff reads a float array (RATIONAL as
+        float(num) / float(den), 0 where den is 0), float32; `default`
+        where it is missing or its count is not len(default)."""
+        value, typ = self.tags.get(tag), self.types.get(tag)
+        if isinstance(value, tuple):
+            out = np.asarray(value, np.float64).astype(np.float32)
+        elif typ in (5, 10):
+            pairs = np.frombuffer(value, self.order + ("u4" if typ == 5 else "i4")).reshape(-1, 2)
+            num, den = pairs[:, 0].astype(np.float32), pairs[:, 1].astype(np.float32)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                out = np.where(den == 0, np.float32(0), num / np.where(den == 0, 1, den))
+        elif typ in (11, 12):
+            out = np.frombuffer(value, self.order + ("f4" if typ == 11 else "f8")).astype(
+                np.float32)
+        else:
+            out = None
+        if out is None or len(out) != len(default):
+            return np.asarray(default, np.float32)
+        return out.astype(np.float32)
 
     def scalar(self, tag: int, default=None):
         value = self.values(tag, None if default is None else (default,))
@@ -1017,12 +1054,14 @@ class _TiffFile:
         if len(bits) != spp:
             raise ValueError("unknown TIFF data organization")
         self.bits, self.spp = bits, spp
-        if photo == 8 or photo == 6 and self.compression != 1:
-            what = "YCbCr" if photo == 6 else "CIELab"
-            item = "11g" if photo == 6 and self.compression in (6, 7) else "11h"
-            raise UnsupportedImage(f"a {what} TIFF ({TIFF_COMPRESSIONS[self.compression]} "
-                                   f"compression), which PIL reads and the port does not yet "
-                                   f"(ROADMAP.md queue 1 item {item})")
+        if photo == 8:
+            raise UnsupportedImage(f"a CIELab TIFF ({TIFF_COMPRESSIONS[self.compression]} "
+                                   "compression), which PIL reads and the port does not yet "
+                                   "(ROADMAP.md queue 1 item 11h)")
+        # Pillow's _decodeAsRGBA: compressed YCbCr goes through libtiff's RGBA
+        # reader, but for new-style JPEG in one plane, where libjpeg converts.
+        self.rgba = photo == 6 and self.compression not in (1, 7) or (
+            photo == 6 and self.compression == 7 and self.planar != 1)
         key = (self.prefix, photo, fmt, self.fill, bits, self.extra)
         if key not in TIFF_OPEN_INFO:
             raise ValueError(f"unknown TIFF pixel mode {key[1:]}, as PIL refuses it")
@@ -1035,7 +1074,9 @@ class _TiffFile:
         if self.compression != 1:  # libtiff's own fill order and native byte order
             if self.fill == 2:
                 self.mode, self.rawmode = TIFF_OPEN_INFO[key[:3] + (1,) + key[4:]]
-            if self.rawmode == "I;16":
+            if photo == 6 and self.compression == 7 and self.planar == 1:
+                self.rawmode = "RGB"  # libjpeg's YCbCr to RGB (JPEGCOLORMODE_RGB)
+            elif self.rawmode == "I;16":
                 self.rawmode = "I;16N"
             elif self.rawmode.endswith((";16B", ";16L")):
                 self.rawmode = self.rawmode[:-1] + "N"
@@ -1131,19 +1172,18 @@ class _TiffFile:
         for tag, allowed in ((266, (1, 2)), (284, (1, 2)), (338, (0, 1, 2)), (339, (1, 2, 3))):
             if not set(self.tags.get(tag, allowed[:1])) <= set(allowed):
                 raise ValueError(f"TIFF tag {tag} holds {self.tags[tag]}, which libtiff refuses")
+        if self.compression == 7:
+            self._jpeg_setup()
+            self._jpeg_buffer = None
+        if self.rgba:
+            return self.decode_rgba(twin)
         dtype, nb = _MODE_STORAGE[self.mode]
         W, H = self.width, self.height
         out = np.zeros((H, W) + ((nb,) if nb > 1 else ()), dtype)
         bps, spp = self.bits[0], self.spp
-        w, h = self.chunk_w, self.chunk_h
-        if self.tiled:
-            across, down = -(-W // w), -(-H // h)
-        else:
-            if h != 0xFFFFFFFF and h * ((W * bps * spp + 7) // 8) > 0x7FFFFFFF:
-                raise ValueError(f"TIFF strips of {h} rows, past Pillow's libtiff decoder's "
-                                 "buffer")
-            h = min(h, H)
-            across, down = 1, -(-H // h)
+        h = self.chunk_h
+        if not self.tiled and h != 0xFFFFFFFF and h * ((W * bps * spp + 7) // 8) > 0x7FFFFFFF:
+            raise ValueError(f"TIFF strips of {h} rows, past Pillow's libtiff decoder's buffer")
         # A planar file: Pillow reads one plane per band of the mode, plane i
         # through its one-band unpacker R, G, B or A (a 16-bit sample's high
         # byte) into byte i of its 4-byte pixels, where LA and PA keep their
@@ -1157,49 +1197,57 @@ class _TiffFile:
             if not self.tiled:
                 raise ValueError(f"a planar {self.mode} TIFF in strips with {spp - bands} extra "
                                  "samples, which Pillow's libtiff decoder refuses")
-        per_pixel = 1 if self.planar == 2 else spp
-        scanline = (w * bps * per_pixel + 7) // 8
-        total = across * down * (spp if self.planar == 2 else 1)
-        if self.counts is None or min(len(self.offsets), len(self.counts)) < total:
-            raise ValueError("TIFF strip or tile offsets or byte counts missing")
-        predictor = self.scalar(317, 1) if self.compression in (5, 8, 32946) else 1
-        if predictor == 2 and bps not in (8, 16, 32, 64):
-            raise ValueError(f"TIFF horizontal predictor on {bps}-bit samples, which libtiff "
-                             "refuses")
-        if predictor == 3 and self.tags.get(339, (1,))[0] != 3:
-            raise ValueError("TIFF floating-point predictor on integer samples, which libtiff "
-                             "refuses")
-        if predictor not in (1, 2, 3):
-            raise ValueError(f"TIFF predictor {predictor}, which libtiff refuses")
         rawmodes = ([c + (";16N" if bps == 16 else "") for c in "RGBA"[:bands]] if bands > 1
                     else [self.rawmode])
-        for plane, rawmode in enumerate(rawmodes):
-            band = None if bands == 1 else plane
-            for ty in range(down):
-                for tx in range(across):
-                    index = (plane * down + ty) * across + tx
-                    rows = h if self.tiled else min(h, H - ty * h)
-                    chunk = self._chunk(index, rows * scanline, twin)
-                    chunk = _tiff_predict(chunk.reshape(rows, scanline), predictor, bps,
-                                          per_pixel, self.order)
-                    y0, x0 = ty * h, tx * w
-                    y1, x1 = min(y0 + rows, H), min(x0 + w, W)
-                    px = _tiff_unpack(chunk[:y1 - y0], x1 - x0, rawmode)
-                    if band is None:
-                        out[y0:y1, x0:x1] = px
-                    elif not (nb == 2 and band == 1):
-                        out[y0:y1, x0:x1, band] = px
+        for plane, y0, x0, chunk in self._segments(bands, twin):
+            y1, x1 = min(y0 + len(chunk), H), min(x0 + self.chunk_w, W)
+            px = _tiff_unpack(chunk[:y1 - y0], x1 - x0, rawmodes[plane])
+            if bands == 1:
+                out[y0:y1, x0:x1] = px
+            elif not (nb == 2 and plane == 1):
+                out[y0:y1, x0:x1, plane] = px
         if bands == 4 and self.mode == "RGBA" and self.extra[:1] != (2,):
             out = _tiff_unpack(out.reshape(H, -1), W, "RGBa")  # Pillow divides alpha out
         return out
 
-    def _chunk(self, index: int, size: int, twin: bool) -> np.ndarray:
-        """Strip or tile `index` decompressed to `size` bytes."""
+    def _segments(self, planes: int, twin: bool):
+        """Strip by strip or tile by tile, over the first `planes` planes:
+        (plane, y0, x0, rows), `rows` the segment's (rows, scanline) bytes
+        decompressed with the predictor undone, all of a tile's rows and a
+        strip's inside the image."""
+        W, H = self.width, self.height
+        w, h = self.chunk_w, self.chunk_h
+        if self.tiled:
+            across, down = -(-W // w), -(-H // h)
+        else:
+            h = min(h, H)
+            across, down = 1, -(-H // h)
+        bps = self.bits[0]
+        per_pixel = 1 if self.planar == 2 else self.spp
+        scanline = (w * bps * per_pixel + 7) // 8
+        total = across * down * (self.spp if self.planar == 2 else 1)
+        if self.counts is None or min(len(self.offsets), len(self.counts)) < total:
+            raise ValueError("TIFF strip or tile offsets or byte counts missing")
+        predictor = self._predictor()
+        for plane in range(planes):
+            for ty in range(down):
+                for tx in range(across):
+                    rows = h if self.tiled else min(h, H - ty * h)
+                    chunk = self._chunk((plane * down + ty) * across + tx, rows * scanline, twin,
+                                        (rows, w, per_pixel))
+                    yield plane, ty * h, tx * w, _tiff_predict(
+                        chunk.reshape(rows, scanline), predictor, bps, per_pixel, self.order)
+
+    def _chunk(self, index: int, size: int, twin: bool, segment=None) -> np.ndarray:
+        """Strip or tile `index` decompressed to `size` bytes; a JPEG one
+        decoded as the (rows, width, samples) `segment` it stands for."""
         offset, count = self.offsets[index], self.counts[index]
         if count <= 0 or offset + count > len(self.data):
             raise ValueError(f"TIFF strip or tile {index} of {count} bytes at {offset} lies "
                              "outside the file")
         raw = self.data[offset:offset + count]
+        if self.compression == 7:  # libtiff's JPEG codec reverses no bits
+            return self._jpeg_chunk(index, raw, segment)
         if self.fill == 2:
             raw = _REVERSE_BITS[np.frombuffer(raw, np.uint8)].tobytes()
         if self.compression == 5:
@@ -1216,6 +1264,543 @@ class _TiffFile:
                 raise ValueError(f"TIFF Deflate data ends after {len(out)} of {size} bytes")
             out = np.frombuffer(out, np.uint8)
         return out
+
+
+    # --- JPEG (compression 7), libtiff's tif_jpeg.c ---------------------------------
+
+    def _jpeg_setup(self):
+        """JPEGSetupDecode and JPEGFixupTags: the JPEGTables, the colour
+        handling and the sampling factors each stream must have. Without a
+        YCbCrSubsampling tag, libtiff takes a YCbCr file's from the first
+        stream's frame header where TIFF has an equivalent."""
+        tables = self.tags.get(347)
+        self.jpeg_tables = tables if isinstance(tables, bytes) and tables else None
+        ycbcr = self.photometric == 6 and self.planar == 1
+        self.jpeg_color = "rgb" if ycbcr else "none"
+        self.subsampling = tuple(self.values(530, (2, 2))[:2]) if self.photometric == 6 else (1, 1)
+        if ycbcr and self.spp == 3 and 530 not in self.tags:
+            self.subsampling = self._jpeg_fixup_subsampling() or self.subsampling
+        if self.photometric == 6 and any(v not in (1, 2, 4) for v in self.subsampling):
+            raise ValueError(f"TIFF YCbCrSubsampling {self.subsampling}, which libtiff refuses")
+
+    def _jpeg_fixup_subsampling(self):
+        """tif_jpeg.c JPEGFixupTagsSubsamplingSec over the first strip or
+        tile: its first frame header's sampling factors, or None where
+        libtiff keeps the default (2, 2)."""
+        if not self.offsets or not self.counts or self.offsets[0] >= len(self.data):
+            return None
+        d = self.data[self.offsets[0]:self.offsets[0] + self.counts[0]]
+        pos = 0
+        while True:
+            while pos < len(d) and d[pos] != 0xFF:
+                pos += 1
+            while pos < len(d) and d[pos] == 0xFF:
+                pos += 1
+            if pos >= len(d):
+                return None
+            m = d[pos]
+            pos += 1
+            if m == 0xD8:
+                continue
+            if m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF:
+                if pos + 2 > len(d) or struct.unpack_from(">H", d, pos)[0] < 2:
+                    return None
+                pos += struct.unpack_from(">H", d, pos)[0]
+                continue
+            if m not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+                return None
+            if pos + 2 > len(d) or struct.unpack_from(">H", d, pos)[0] != 8 + 3 * self.spp:
+                return None
+            comps = d[pos + 8:pos + 8 + 3 * self.spp]
+            if len(comps) < 3 * self.spp:
+                return None
+            if any(comps[3 * i + 1] != 0x11 for i in range(1, self.spp)):
+                return None
+            hv = (comps[1] >> 4, comps[1] & 15)
+            return hv if all(v in (1, 2, 4) for v in hv) else None
+
+    def _jpeg_chunk(self, index: int, raw: bytes, segment) -> np.ndarray:
+        """JPEGPreDecode's checks and JPEGDecode's rows: one stream decoded
+        (after the JPEGTables) and cut to its segment's rows, as bytes."""
+        rows, w, per_pixel = segment
+        color = self.jpeg_color
+        stream = native.decode_jpeg_tiff(raw, self.jpeg_tables, color)
+        # `rows`: a strip's rows in the image, a tile's all. A last strip's
+        # stream may run past the image's end (libtiff warns).
+        strips = -(-self.height // min(self.chunk_h, self.height))
+        last = not self.tiled and index % strips + 1 == strips
+        if stream.width > w or stream.height > rows and (not last or stream.width != w):
+            raise ValueError(f"TIFF JPEG stream {index} of {stream.width} x {stream.height} "
+                             f"exceeds its {w} x {rows} segment, which libtiff refuses")
+        if len(stream.sampling) != per_pixel:
+            raise ValueError(f"TIFF JPEG stream {index} of {len(stream.sampling)} components for "
+                             f"{per_pixel} samples (improper JPEG component count)")
+        want = [self.subsampling if color == "rgb" else (1, 1)] + [(1, 1)] * (per_pixel - 1)
+        if stream.sampling != want:
+            raise ValueError(f"TIFF JPEG stream {index} sampled {stream.sampling}, libtiff "
+                             f"wants {want} (improper JPEG sampling factors)")
+        # JPEGDecode writes the stream's rows and columns into Pillow's strip
+        # buffer, which keeps the rest from the strip or tile before.
+        prev = self._jpeg_buffer
+        hh, ww = min(stream.height, rows), stream.width * stream.pixels.shape[2]
+        if (hh < rows or stream.width < w) and (prev is None or self.planar == 2):
+            raise ValueError(f"TIFF JPEG stream {index} of {stream.width} x {stream.height} for a "
+                             f"{w} x {rows} segment: libtiff leaves the rest of Pillow's buffer "
+                             "as it was")
+        buf = prev.copy() if prev is not None else np.zeros(
+            (self.chunk_h if self.tiled else min(self.chunk_h, self.height), w * per_pixel
+             if color == "none" else w * 3), np.uint8)
+        buf[:hh, :ww] = stream.pixels[:hh].reshape(hh, ww)
+        self._jpeg_buffer = buf
+        return buf[:rows].reshape(-1)
+
+    # --- libtiff's RGBA reader (tif_getimage.c) on YCbCr ---------------------------
+
+    def decode_rgba(self, twin: bool) -> np.ndarray:
+        """Compressed YCbCr as Pillow's _decodeAsRGBA has libtiff's RGBA
+        reader give it, strip by strip or tile by tile: the data units of
+        YCbCrSubsampling (h x v luma samples, then Cb and Cr) unpacked by
+        the put routine of their size (chroma repeated over the unit, edge
+        units cut), then TIFFYCbCrtoRGB with YCbCrCoefficients and
+        ReferenceBlackWhite. Old-style JPEG decodes the whole image as one
+        stream first (`_ojpeg`)."""
+        if self.compression == 6:
+            return self._ojpeg()
+        if self.spp != 3 or self.bits != (8, 8, 8):
+            raise ValueError(f"a YCbCr TIFF of {self.spp} samples of {self.bits} bits, which "
+                             "libtiff's RGBA reader cannot handle")
+        tables = self._ycbcr_tables()
+        W, H = self.width, self.height
+        hs, vs = tuple(self.values(530, (2, 2))[:2])
+        if self.planar == 2:
+            if (hs, vs) != (1, 1):
+                raise ValueError(f"a planar YCbCr TIFF subsampled {hs} x {vs}, which libtiff's "
+                                 "RGBA reader cannot handle")
+            planes = np.zeros((3, H, W), np.uint8)  # gtStripSeparate, gtTileSeparate
+            for plane, y0, x0, chunk in self._segments(3, twin):
+                part = chunk[:H - y0, :W - x0]
+                planes[plane, y0:y0 + part.shape[0], x0:x0 + part.shape[1]] = part
+            return ycbcr_to_rgb(planes[0], planes[1], planes[2], tables)
+        if (hs, vs) not in _YCBCR_PUTS:
+            raise ValueError(f"YCbCr subsampled {hs} x {vs}, which libtiff's RGBA reader "
+                             "cannot handle")
+        unit = hs * vs + 2
+        w, h = self.chunk_w, self.chunk_h
+        ys, cbs, crs = (np.zeros((H, W), np.uint8) for _ in range(3))
+        if self.tiled:
+            across, down = -(-W // w), -(-H // h)
+            size = -(-w // hs) * unit * -(-h // vs)  # TIFFTileSize
+            if self.counts is None or min(len(self.offsets), len(self.counts)) < across * down:
+                raise ValueError("TIFF strip or tile offsets or byte counts missing")
+            for ty in range(down):
+                for tx in range(across):
+                    buf = self._ycbcr_predict(self._chunk(ty * across + tx, size, twin), 3 * w, 3)
+                    y0, x0 = ty * h, tx * w
+                    ew, eh = min(w, W - x0), min(h, H - y0)
+                    parts = _ycbcr_units(buf, eh, ew, hs, vs, w - ew)
+                    for a, p in zip((ys, cbs, crs), parts):
+                        a[y0:y0 + eh, x0:x0 + ew] = p
+        else:
+            h = min(h, H)
+            down = -(-H // h)
+            if self.counts is None or min(len(self.offsets), len(self.counts)) < down:
+                raise ValueError("TIFF strip or tile offsets or byte counts missing")
+            row_units = -(-W // hs) * unit
+            scanline = row_units // vs  # TIFFScanlineSize, rounded down
+            for ty in range(down):
+                rows = min(h, H - ty * h)
+                # gtStripContig reads whole units of rows, scanline bytes a row:
+                # a 4 x 4 unit row loses its last bytes to the rounding.
+                n = min(-(-rows // vs) * row_units, -(-rows // vs) * vs * scanline)
+                buf = np.zeros(-(-h // vs) * row_units, np.uint8)
+                buf[:n] = self._ycbcr_predict(self._chunk(ty, n, twin), scanline, 3)
+                parts = _ycbcr_units(buf, rows, W, hs, vs, 0)
+                for a, p in zip((ys, cbs, crs), parts):
+                    a[ty * h:ty * h + rows] = p
+        return ycbcr_to_rgb(ys, cbs, crs, tables)
+
+    def _ycbcr_tables(self):
+        return ycbcr_tables(self.floats(529, (0.299, 0.587, 0.114)),
+                            self.floats(532, (0, 255, 128, 255, 128, 255)))
+
+    def _predictor(self) -> int:
+        """The Predictor tag where libtiff's codec takes one (LZW, Deflate),
+        checked as PredictorSetup checks it."""
+        predictor = self.scalar(317, 1) if self.compression in (5, 8, 32946) else 1
+        bps = self.bits[0]
+        if predictor == 2 and bps not in (8, 16, 32, 64):
+            raise ValueError(f"TIFF horizontal predictor on {bps}-bit samples, which libtiff "
+                             "refuses")
+        if predictor == 3 and self.tags.get(339, (1,))[0] != 3:
+            raise ValueError("TIFF floating-point predictor on integer samples, which libtiff "
+                             "refuses")
+        if predictor not in (1, 2, 3):
+            raise ValueError(f"TIFF predictor {predictor}, which libtiff refuses")
+        return predictor
+
+    def _ycbcr_predict(self, buf: np.ndarray, rowsize: int, stride: int) -> np.ndarray:
+        """PredictorDecodeTile over a strip or tile of YCbCr data: horAcc8
+        over each `rowsize` bytes, `stride` bytes a pixel; libtiff stops at
+        the first row whose size is no whole pixels (or where the data is
+        no whole rows), leaving the rest as coded, which the RGBA reader
+        then shows."""
+        if self._predictor() != 2 or len(buf) % rowsize:
+            return buf
+        if rowsize % stride:
+            return buf
+        return _tiff_predict(buf.reshape(-1, rowsize), 2, 8, stride, self.order).reshape(-1)
+
+    # --- old-style JPEG (compression 6), libtiff's tif_ojpeg.c ----------------------
+
+    def _ojpeg(self) -> np.ndarray:
+        """The stream libtiff's old-style JPEG codec feeds libjpeg
+        (`_ojpeg_stream`), decoded whole. Three samples go through the RGBA
+        reader: each component's plane as the IDCT gives it (raw_data_out,
+        no upsampling), chroma repeated over its data unit, TIFFYCbCrtoRGB;
+        where the stream's sampling has no TIFF equivalent, libjpeg
+        upsamples inside the decompression and the units are 1 x 1. One
+        sample is the gray plane itself. Whatever the file's photometric
+        tag says, libtiff and Pillow read it so. Strip or tile k is the k-th
+        band of the stream's rows, as tall as a strip or tile, put in its
+        place."""
+        if self.planar != 1:
+            raise UnsupportedImage("an old-style JPEG TIFF in separate planes, which the port "
+                                   "does not read (ROADMAP.md queue 1 item 11g)")
+        if self.spp not in (1, 3) or set(self.bits) != {8}:
+            raise ValueError(f"an old-style JPEG TIFF of {self.spp} samples of {self.bits} bits, "
+                             "which libtiff refuses")
+        # libtiff's OJPEG hacks (tif_dirread.c): no photometric tag, or RGB,
+        # reads as YCbCr. Pillow then decodes three samples through the
+        # RGBA reader and one sample of MinIsBlack or MinIsWhite as they are.
+        photo = self.tags.get(262, (6,))[0] if isinstance(self.tags.get(262), tuple) else 6
+        photo = 6 if photo == 2 else photo
+        if photo != (6 if self.spp == 3 else 0) and not (self.spp == 1 and photo == 1):
+            raise ValueError(f"an old-style JPEG TIFF of {self.spp} samples and photometric "
+                             f"{photo}, which Pillow's libtiff decoder refuses")
+        stream, (hs, vs), inside = _ojpeg_stream(self)
+        gray = self.spp == 1
+        decoded = native.decode_jpeg_tiff(stream, None, "none" if inside or gray else "planes")
+        if gray:
+            px = decoded.pixels[..., 0]
+        elif inside:
+            px = decoded.pixels
+            px = ycbcr_to_rgb(px[..., 0], px[..., 1], px[..., 2], self._ycbcr_tables())
+        else:
+            y, cb, cr = decoded.pixels
+            rep = lambda c: np.repeat(np.repeat(c, vs, 0), hs, 1)[:y.shape[0], :y.shape[1]]  # noqa
+            px = ycbcr_to_rgb(y, rep(cb), rep(cr), self._ycbcr_tables())
+        W, H = self.width, self.height
+        w, h = (self.chunk_w, self.chunk_h) if self.tiled else (W, min(self.chunk_h, H))
+        across = -(-W // w)
+        out = np.empty((H, W) + px.shape[2:], np.uint8)
+        for k in range(across * -(-H // h)):
+            (ty, tx), top = divmod(k, across), k * h
+            eh, ew = min(h, H - ty * h), min(w, W - tx * w)
+            if top + eh > px.shape[0] or ew > px.shape[1]:
+                raise ValueError(f"old-style JPEG strip or tile {k} lies past the stream's "
+                                 f"{px.shape[1]} x {px.shape[0]}")
+            out[ty * h:ty * h + eh, tx * w:tx * w + ew] = px[top:top + eh, :ew]
+        return out
+
+
+_OJPEG_SKIPPED = (0xFE,) + tuple(range(0xE0, 0xF0))
+
+
+def _ojpeg_stream(f: "_TiffFile"):
+    """(stream, (h, v) sampling, upsampled inside) as tif_ojpeg.c builds it:
+    the header read from JPEGInterchangeFormat (tags 513/514) and on into
+    the strips (OJPEGReadHeaderInfoSec), or made from the JPEGQTables,
+    JPEGDCTables and JPEGACTables (519-521) at YCbCrSubsampling where no
+    frame header came; then SOI, the tables, DRI, SOF and SOS written anew,
+    the compressed data after the header, an RST marker after each strip
+    but the last, and EOI. Raises ValueError where libtiff does."""
+    data, spp = f.data, f.spp
+    offsets = f.offsets
+    counts = f.counts or (0,) * len(offsets)
+    sources = []
+    jif = f.tags.get(513, (0,))[0] if isinstance(f.tags.get(513), tuple) else 0
+    if jif and jif < len(data):
+        length = f.tags.get(514, (0,))[0] if isinstance(f.tags.get(514), tuple) else 0
+        if not length or jif + length > len(data):
+            length = len(data) - jif
+        sources.append(data[jif:jif + length])
+    strips, missing = [], []
+    # The strips, or the tiles (one column of them), each a restart interval
+    # of one image as wide as a strip and as tall as all of them.
+    width, length = f.chunk_w, min(f.chunk_h, f.height)
+    total = -(-f.height // length) * length if f.tiled else f.height
+    count = -(-f.height // length) * (-(-f.width // width) if f.tiled else 1)
+    for i in range(count):  # a strip or tile at 0 or past the end is none
+        at = offsets[i] if i < len(offsets) else 0
+        n = counts[i] if i < len(counts) else 0
+        if at == 0 or at >= len(data):
+            missing.append(f"strip {i} at {at}")
+        strips.append(b"" if missing and missing[-1].startswith(f"strip {i} ") else
+                      data[at:at + n] if n and at + n <= len(data) else data[at:])
+    sources += strips
+    first_strip = len(sources) - len(strips)
+    hs, vs = tuple(f.values(530, (2, 2))[:2]) if spp == 3 else (1, 1)
+    # OJPEGSubsamplingCorrect and OJPEGReadHeaderInfoSec over the same bytes.
+    reader = _SourceReader(sources)
+    q, dc, ac, sof, sos, dri = {}, {}, {}, None, None, None
+    inside = False
+    while reader.peek() == 0xFF:
+        reader.take(1)
+        m = reader.byte()
+        while m == 0xFF:
+            m = reader.byte()
+        if m == 0xD8:
+            continue
+        if m in _OJPEG_SKIPPED:
+            n = reader.word()
+            if n < 2:
+                raise ValueError("old-style JPEG: corrupt JPEG data")
+            reader.take(n - 2)
+        elif m == 0xDD:
+            if reader.word() != 4:
+                raise ValueError("old-style JPEG: corrupt DRI marker")
+            dri = reader.word()
+        elif m == 0xDB:
+            n = reader.word() - 2
+            if n <= 0 or n % 65:
+                raise ValueError("old-style JPEG: corrupt DQT marker")
+            for _ in range(n // 65):
+                body = reader.take(65)
+                if body[0] > 3:
+                    raise ValueError("old-style JPEG: corrupt DQT marker")
+                q[body[0]] = b"\xff\xdb\x00\x43" + body
+        elif m == 0xC4:
+            n = reader.word() - 2
+            if n <= 0:
+                raise ValueError("old-style JPEG: corrupt DHT marker")
+            body = reader.take(n)
+            at = 0
+            while at < n:
+                if at + 17 > n:
+                    raise ValueError("old-style JPEG: corrupt DHT marker")
+                cls, index = body[at] >> 4, body[at] & 15
+                size = 17 + sum(body[at + 1:at + 17])
+                if cls > 1 or index > 3 or at + size > n:
+                    raise ValueError("old-style JPEG: corrupt DHT marker")
+                part = body[at:at + size]
+                (ac if cls else dc)[index] = (b"\xff\xc4" + struct.pack(">H", size + 2) + part)
+                at += size
+        elif m in (0xC0, 0xC1, 0xC3):
+            if sof is not None:
+                raise ValueError("old-style JPEG: corrupt JPEG data (two SOF markers)")
+            n = reader.word()
+            if n < 11 or (n - 8) % 3 or (n - 8) // 3 != spp:
+                raise ValueError("old-style JPEG: SOF marker of an unexpected size")
+            body = reader.take(n - 2)
+            if body[0] != 8:
+                raise ValueError("old-style JPEG: JPEG data of other than 8-bit samples")
+            sof_y, sof_x = struct.unpack_from(">HH", body, 1)
+            if (sof_y < min(f.height, total) or sof_x < min(f.width, width)
+                    or sof_x > width):
+                raise ValueError(f"old-style JPEG: a frame of {sof_x} x {sof_y} for a "
+                                 f"{f.width} x {f.height} image in strips or tiles {width} "
+                                 "wide")
+            comps = [body[6 + 3 * i:9 + 3 * i] for i in range(spp)]
+            hv0 = (comps[0][1] >> 4, comps[0][1] & 15)
+            if spp == 1 and comps[0][1] != 0x11:
+                raise ValueError("old-style JPEG: unexpected subsampling values")
+            inside = spp == 3 and (any(v not in (1, 2, 4) for v in hv0)
+                                   or any(c[1] != 0x11 for c in comps[1:]))
+            if spp == 3:
+                hs, vs = (1, 1) if inside else hv0
+            sof = (m, sof_y, sof_x, comps)
+        elif m == 0xDA:
+            if sof is None:
+                raise ValueError("old-style JPEG: corrupt SOS marker in JPEG data")
+            if reader.word() != 6 + 2 * spp or reader.byte() != spp:
+                raise ValueError("old-style JPEG: SOS marker of an unexpected size")
+            sos = reader.take(2 * spp)
+            reader.take(3)
+            break
+        else:
+            raise ValueError(f"old-style JPEG: unknown marker type {m} in JPEG data")
+    restart = f.tags.get(515, (0,))[0]
+    if length < f.height:  # OJPEGReadHeaderInfo: a strip is a restart interval
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+            raise ValueError(f"old-style JPEG subsampled {hs} x {vs}, which libtiff refuses")
+        if length % (8 * vs):
+            raise ValueError("old-style JPEG strips of rows that are no whole MCU rows "
+                             "(incompatible vertical subsampling and strip length)")
+        restart = -(-width // (8 * hs)) * (length // (8 * vs))
+    restart = restart if dri is None else dri
+    if missing:
+        raise ValueError(f"old-style JPEG {missing[0]}, outside the file")
+    if sof is None:
+        if f.tiled and f.width > width:
+            raise UnsupportedImage(
+                "an old-style JPEG TIFF of tiles side by side with its tables in tags: libtiff "
+                "makes the frame one column of tiles tall and PIL repeats tiles past it, which "
+                "the port does not follow (ROADMAP.md queue 1 item 11g)")
+        header = _ojpeg_tables(f, hs, vs, (width, total))
+    else:
+        if sos is None:
+            raise ValueError("old-style JPEG: a frame header without its scan header")
+        m, sof_y, sof_x, comps = sof
+        header = (b"".join(q[k] for k in sorted(q)) + b"".join(dc[k] for k in sorted(dc))
+                  + b"".join(ac[k] for k in sorted(ac)))
+        header += (bytes([0xFF, m]) + struct.pack(">HBHHB", 8 + 3 * spp, 8, sof_y, sof_x, spp)
+                   + b"".join(comps))
+        header += (b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp) + sos
+                   + bytes([0, 63, 0]))
+    if restart:
+        header = _with_dri(header, restart)
+    out = [b"\xff\xd8", header]
+    rst = 0
+    k, at = reader.source, reader.at
+    for i in range(k, len(sources)):
+        out.append(sources[i][at if i == k else 0:])
+        if i >= first_strip and i + 1 < len(sources):
+            out.append(bytes([0xFF, 0xD0 + rst]))
+            rst = (rst + 1) % 8
+    out.append(b"\xff\xd9")
+    return b"".join(out), (hs, vs), inside
+
+
+def _with_dri(header: bytes, restart: int) -> bytes:
+    """The tables, a DRI segment, then the frame and scan headers."""
+    sof = max(header.rfind(b"\xff" + bytes([m])) for m in (0xC0, 0xC1, 0xC3))
+    return header[:sof] + b"\xff\xdd\x00\x04" + struct.pack(">H", restart) + header[sof:]
+
+
+def _ojpeg_tables(f: "_TiffFile", hs: int, vs: int, size) -> bytes:
+    """OJPEGReadHeaderInfoSecTables*: DQT and DHT segments from the table
+    tags (component i takes tables i), the frame (SOF0 of `size`: the
+    strips' width, the image's height or the tiles' in all) and scan
+    headers."""
+    spp, data = f.spp, f.data
+    out = []
+    for tag, what in ((519, "JPEGQTables"), (520, "JPEGDCTables"), (521, "JPEGACTables")):
+        value = f.tags.get(tag)
+        if not isinstance(value, tuple) or len(value) != spp:
+            raise ValueError(f"old-style JPEG without its {what} (tag {tag})")
+        for i, at in enumerate(value):
+            if tag == 519:
+                body = data[at:at + 64]
+                if len(body) != 64:
+                    raise ValueError(f"old-style JPEG: {what} {i} lies outside the file")
+                out.append(b"\xff\xdb\x00\x43" + bytes([i]) + body)
+                continue
+            counts = data[at:at + 16]
+            n = sum(counts)
+            if len(counts) != 16 or n > (16 if tag == 520 else 256) or at + 16 + n > len(data):
+                raise ValueError(f"old-style JPEG: {what} {i} is corrupt or outside the file")
+            out.append(b"\xff\xc4" + struct.pack(">HB", 19 + n, i | (16 if tag == 521 else 0))
+                       + data[at:at + 16 + n])
+    # libtiff writes every DQT, then every DC table, then every AC table
+    out = out[0::3] + out[1::3] + out[2::3]
+    comps = b"".join(bytes([i, (hs << 4 | vs) if i == 0 else 0x11, i]) for i in range(spp))
+    out.append(b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * spp, 8, size[1], size[0], spp)
+               + comps)
+    out.append(b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp)
+               + b"".join(bytes([i, i << 4 | i]) for i in range(spp)) + bytes([0, 63, 0]))
+    return b"".join(out)
+
+
+class _SourceReader:
+    """Bytes read across a list of sources, one after another (OJPEG's
+    in_buffer over JPEGInterchangeFormat and the strips)."""
+
+    def __init__(self, sources):
+        self.sources, self.source, self.at = sources, 0, 0
+
+    def _settle(self):
+        while self.source < len(self.sources) and self.at >= len(self.sources[self.source]):
+            self.source, self.at = self.source + 1, 0
+
+    def peek(self):
+        self._settle()
+        return self.sources[self.source][self.at] if self.source < len(self.sources) else None
+
+    def take(self, n: int) -> bytes:
+        out = bytearray()
+        while len(out) < n:
+            self._settle()
+            if self.source >= len(self.sources):
+                raise ValueError("old-style JPEG: the data ends in its header")
+            src = self.sources[self.source]
+            part = src[self.at:self.at + n - len(out)]
+            out += part
+            self.at += len(part)
+        return bytes(out)
+
+    def byte(self) -> int:
+        return self.take(1)[0]
+
+    def word(self) -> int:
+        return struct.unpack(">H", self.take(2))[0]
+
+
+def ycbcr_tables(luma, refbw):
+    """tif_color.c TIFFYCbCrToRGBInit in float32 as libtiff computes it:
+    (Y, Cr->R, Cb->B) int16 tables over 0-255 and the (Cb, Cr) -> G
+    offset, (Cb_g_tab[cb] + Cr_g_tab[cr]) >> 16, as a (256, 256) int16
+    table. Raises ValueError where initYCbCrConversion does."""
+    f32 = np.float32
+    luma = np.asarray(luma, f32)
+    refbw = np.asarray(refbw, f32)
+    if np.isnan(luma).any() or abs(float(luma[1])) < 1e-10:
+        raise ValueError("invalid values for the YCbCrCoefficients tag, which libtiff refuses")
+    if not ((refbw > f32(-0x7FFFFFFF + 128)) & (refbw < f32(0x7FFFFFFF))).all():
+        raise ValueError("invalid values for the ReferenceBlackWhite tag, which libtiff refuses")
+
+    def fix(x):  # FIX(): float times 65536, plus 0.5 in double, truncated
+        x = min(max(x, f32(0)), f32(2))
+        return int(float(f32(x * f32(65536))) + 0.5)
+
+    lr, lg, lb = luma
+    f1 = f32(f32(2) - f32(f32(2) * lr))
+    f3 = f32(f32(2) - f32(f32(2) * lb))
+    d1, d2 = fix(f1), -fix(f32(f32(lr * f1) / lg))
+    d3, d4 = fix(f3), -fix(f32(f32(lb * f3) / lg))
+    x = np.arange(-128, 128)
+
+    def code2v(c, rb, rw, cr):  # Code2V, then CLAMPw to +-4096, cast to int32
+        den = f32(rw - rb)
+        den = den if den != 0 else f32(1)
+        v = (np.asarray(c - np.trunc(rb), np.int64).astype(f32) * f32(cr)) / den
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+
+    cr = code2v(x, refbw[4] - f32(128), refbw[5] - f32(128), 127)
+    cb = code2v(x, refbw[2] - f32(128), refbw[3] - f32(128), 127)
+    y = code2v(x + 128, refbw[0], refbw[1], 255)
+    g = ((d4 * cb + 32768)[:, None] + (d2 * cr)[None, :]) >> 16
+    return tuple(t.astype(np.int16) for t in (y, (d1 * cr + 32768) >> 16,
+                                              (d3 * cb + 32768) >> 16, g))
+
+
+def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, tables) -> np.ndarray:
+    """TIFFYCbCrtoRGB over (H, W) uint8 planes -> (H, W, 3) uint8 (every
+    sum fits int16)."""
+    yt, cr_r, cb_b, g = tables
+    luma = yt[y]
+    out = np.empty(y.shape + (3,), np.uint8)
+    out[..., 0] = np.clip(luma + cr_r[cr], 0, 255)
+    out[..., 1] = np.clip(luma + g[cb, cr], 0, 255)
+    out[..., 2] = np.clip(luma + cb_b[cb], 0, 255)
+    return out
+
+
+def _ycbcr_units(buf: np.ndarray, h: int, w: int, hs: int, vs: int, fromskew: int):
+    """putcontig8bitYCbCr{hs}{vs}tile over one strip or tile: (Y, Cb, Cr)
+    of its h x w pixels, each unit's chroma repeated over it; a unit row
+    holds ceil(w / hs) units, then `fromskew` pixels' worth skipped."""
+    unit = hs * vs + 2
+    skew_unit = 10 if (hs, vs) == (4, 4) else unit
+    uw, uh = -(-w // hs), -(-h // vs)
+    row = uw * unit + fromskew // hs * skew_unit
+    index = (np.arange(uh)[:, None, None] * row + np.arange(uw)[None, :, None] * unit
+             + np.arange(unit)[None, None, :])
+    if index.size and index[-1, -1, -1] >= len(buf):
+        raise ValueError("TIFF YCbCr data units past the end of their strip or tile")
+    u = np.asarray(buf)[index]
+    y = u[..., :hs * vs].reshape(uh, uw, vs, hs).transpose(0, 2, 1, 3).reshape(uh * vs, uw * hs)
+    rep = lambda c: np.repeat(np.repeat(c, vs, 0), hs, 1)[:h, :w]  # noqa: E731
+    return y[:h, :w], rep(u[..., -2]), rep(u[..., -1])
 
 
 def _tiff_predict(rows: np.ndarray, predictor: int, bps: int, per_pixel: int,
@@ -1461,7 +2046,8 @@ def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.nd
     """Decode one image file (see the module docstring for what comes back);
     `twin` reads a PNG with `read_png_twin`, a run-length BMP with
     `bmp_rle_twin` and LZW and PackBits TIFF strips with `lzw_twin` and
-    `packbits_twin`. Raises UnsupportedImage, naming the file, for a file
+    `packbits_twin` (JPEG data has no twin: it takes the native decoder
+    either way). Raises UnsupportedImage, naming the file, for a file
     PIL reads that the port cannot, and ValueError for a damaged one."""
     with open(path, "rb") as f:
         data = f.read()

@@ -2,7 +2,9 @@
 jpeg_decode.cpp, pil_ops.cpp and tiff_decode.cpp), the counterpart of the
 JAX package's multimae_tpu/native/__init__.py. fastimage.cpp also holds the
 BMP run-length decoder (`bmp_rle`); tiff_decode.cpp the TIFF LZW and
-PackBits decoders (`tiff_lzw`, `tiff_packbits`).
+PackBits decoders (`tiff_lzw`, `tiff_packbits`); jpeg_decode.cpp the JPEG
+decoder of JPEG files (`decode_jpeg`) and of JPEG-compressed TIFF strips
+and tiles (`decode_jpeg_tiff`).
 
 The library is built with g++ at first use:
 
@@ -66,6 +68,7 @@ _SIGNATURES = {
     "mm_hsv_to_rgb": [_P, _L, _I, _P],
     "mm_gaussian_blur_3x3": [_P, _I, _I, _P],
     "mm_decode_jpeg": [_P, _L, _P, _L, _P, _P, _P, _L],
+    "mm_decode_jpeg_tiff": [_P, _L, _P, _L, _I, _P, _L, _P, _P, _L],
     "mm_pil_resize": [_P, _I, _I, _I, _P, _I, _I, _I],
     "mm_pil_affine": [_P, _I, _I, _I, _P, _P, _I, _P],
     "mm_pil_gray": [_P, _L, _P],
@@ -344,6 +347,57 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"JPEG: {msg.value.decode(errors='replace')}")
     return out
+
+
+# How a JPEG-in-TIFF stream's samples come out (jpeg_decode.cpp produce_tiff).
+JPEG_TIFF_COLORS = {"none": 0, "rgb": 1, "planes": 2}
+
+
+class JpegTiffStream:
+    """A decoded JPEG-in-TIFF stream: `height`, `width`, `sampling` ((h, v)
+    per component), `plane_shapes` (each component's (dh, dw), jdinput.c's
+    downsampled sizes) and `pixels`: (H, W, C) uint8 for "none" and "rgb",
+    a list of each component's (dh, dw) plane for "planes"."""
+
+    def __init__(self, info):
+        self.height, self.width, nc = (int(v) for v in info[:3])
+        comps = info[3:3 + 4 * nc].reshape(nc, 4).tolist()
+        self.sampling = [(h, v) for h, v, _, _ in comps]
+        self.plane_shapes = [(dh, dw) for _, _, dh, dw in comps]
+        self.pixels = None
+
+
+def decode_jpeg_tiff(data: bytes, tables: Optional[bytes], color: str) -> JpegTiffStream:
+    """One strip or tile of a JPEG-compressed TIFF, after its JPEGTables
+    `tables` (tag 347) if any, as libtiff 4.7 has libjpeg decode it
+    (jpeg_decode.cpp `mm_decode_jpeg_tiff`): `color` "none" (the samples
+    as they are), "rgb" (YCbCr to RGB) or "planes" (each component at its
+    own sampling). Raises ValueError naming what it met for damaged or
+    unsupported data."""
+    fn = lib().mm_decode_jpeg_tiff
+    info = np.zeros(3 + 4 * 10, np.intc)  # height, width, components, (h, v, dh, dw) for up to 10
+    msg = ctypes.create_string_buffer(256)
+    tables = tables or b""
+    code = JPEG_TIFF_COLORS[color]
+    rc = fn(tables, len(tables), data, len(data), code, None, 0, _ptr(info), msg, len(msg))
+    if rc == -3:
+        stream = JpegTiffStream(info)
+        channels = 3 if code == 1 else len(stream.sampling)
+        need = (sum(h * w for h, w in stream.plane_shapes) if code == 2
+                else stream.height * stream.width * channels)
+        out = np.empty(need, np.uint8)
+        rc = fn(tables, len(tables), data, len(data), code, _ptr(out), out.size, _ptr(info), msg,
+                len(msg))
+    if rc != 0:
+        raise ValueError(f"JPEG: {msg.value.decode(errors='replace')}")
+    if code == 2:
+        stream.pixels, at = [], 0
+        for h, w in stream.plane_shapes:
+            stream.pixels.append(out[at:at + h * w].reshape(h, w))
+            at += h * w
+    else:
+        stream.pixels = out.reshape(stream.height, stream.width, channels)
+    return stream
 
 
 # --- cv2 -------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 // only). multimae_tpu_torch/native/__init__.py compiles it into one
 // library with fastimage.cpp:
 //   g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp
-// and multimae_tpu_torch/data/image_io.py binds `mm_decode_jpeg` with ctypes.
+// and multimae_tpu_torch/native/__init__.py binds `mm_decode_jpeg` and
+// `mm_decode_jpeg_tiff` with ctypes.
 //
 // What it returns is what the JAX package's loader returns for a JPEG file:
 // PIL's Image.open(f).convert("RGB"), i.e. libjpeg-turbo with its default
@@ -27,14 +28,22 @@
 //     smoothing_ok's quantiser and coef_bits_latch checks);
 //   * coefficients in natural order, latched quantisation tables, a
 //     whole-image coefficient buffer for every file;
-//   * the islow IDCT (jidctint.c) with the post-IDCT range-limit table of
-//     jdmaster.c (a 10-bit wrap, then a clamp);
+//   * the islow IDCT (jidctint.c) as libjpeg-turbo's x86-64 SIMD version
+//     computes it (16-bit dequantisation and sums, saturated passes), which
+//     is the C code to the bit until a coefficient leaves 16 bits;
 //   * fancy upsampling (jdsample.c h2v1, h2v2, h1v2), plain replication
 //     for downsampled widths <= 2 and other integral factors, with the
 //     context rows of jdmainct.c (row 0 above the top, the last real row
 //     below the bottom);
 //   * colour (jdcolor.c): YCbCr->RGB tables, RGB copy, gray, YCCK->CMYK;
 //     then PIL's "CMYK;I" unpacking and cmyk2rgb for 4-component files.
+//   * JPEG-in-TIFF (`mm_decode_jpeg_tiff`, libtiff's tif_jpeg.c and
+//     tif_ojpeg.c): a tables-only stream read first as
+//     jpeg_read_header(require_image=FALSE) reads it, the tables kept for
+//     the abbreviated stream after it (its SOI resets what get_soi resets),
+//     an EOI supplied where either runs out; the colour handling forced by
+//     the caller: YCbCr to RGB, the samples as they are, or each
+//     component's plane without upsampling (raw_data_out).
 //
 // Supported: SOF0, SOF1, SOF2 and SOF3 (Huffman), SOF9 and SOF10
 // (arithmetic), 8-bit samples, 1, 3 or 4 components, sampling factors 1-4
@@ -56,6 +65,8 @@
 #include <vector>
 
 namespace {
+
+constexpr int kMaxComponents = 10;  // jmorecfg.h MAX_COMPONENTS
 
 struct Failure {
   std::string msg;
@@ -445,11 +456,24 @@ struct Decoder {
   // DAC conditioning (jdmarker.c get_soi's defaults: L 0, U 1, K 5).
   uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
   int eobrun = 0;
+  // A JPEG-in-TIFF stream. libtiff's source supplies an EOI marker where
+  // the data runs out (std_fill_input_buffer), so a stream that ends where
+  // a marker is due ends as if it held one; and libjpeg takes any count of
+  // components up to kMaxComponents, as libtiff passes one per sample.
+  bool in_tiff = false;
 
-  Decoder(const uint8_t* data, size_t len) : d(data), n(len) {
+  Decoder(const uint8_t* data, size_t len) : d(data), n(len) { reset_for_soi(); }
+
+  // jdmarker.c get_soi: what an SOI marker resets. The quantisation and
+  // Huffman tables stay, as an abbreviated stream after a tables-only one
+  // needs them to.
+  void reset_for_soi() {
     std::memset(arith_dc_L, 0, sizeof arith_dc_L);
     std::memset(arith_dc_U, 1, sizeof arith_dc_U);
     std::memset(arith_ac_K, 5, sizeof arith_ac_K);
+    restart_interval = 0;
+    jfif = adobe = false;
+    adobe_transform = 0;
   }
 
   int u16(size_t p) const { return (d[p] << 8) | d[p + 1]; }
@@ -459,7 +483,10 @@ struct Decoder {
     for (;;) {
       while (pos < n && d[pos] != 0xFF) ++pos;
       while (pos < n && d[pos] == 0xFF) ++pos;
-      if (pos >= n) fail("truncated file: no EOI marker");
+      if (pos >= n) {
+        if (in_tiff) return 0xD9;
+        fail("truncated file: no EOI marker");
+      }
       const int c = d[pos++];
       if (c != 0) return c;
     }
@@ -489,7 +516,8 @@ struct Decoder {
     if (end - p != size_t(nc) * 3) fail("bad SOF length");
     if (height == 0) fail("a height given by a DNL marker (libjpeg-turbo refuses it too)");
     if (width == 0) fail("width 0");
-    if (nc != 1 && nc != 3 && nc != 4) fail("%d components are not supported", nc);
+    if (in_tiff ? nc < 1 || nc > kMaxComponents : nc != 1 && nc != 3 && nc != 4)
+      fail("%d components are not supported", nc);
     progressive = marker == 0xC2 || marker == 0xCA;
     arithmetic = marker >= 0xC9;
     lossless = marker == 0xC3;
@@ -1099,6 +1127,37 @@ struct Decoder {
     }
   }
 
+  // jpeg_read_header(require_image=FALSE) over a tables-only stream (a
+  // TIFF's JPEGTables): SOI, then tables and other segments up to EOI. A
+  // frame or a scan there is what libtiff calls a bogus JPEGTables field.
+  void run_tables() {
+    if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) fail("JPEGTables: not a JPEG stream");
+    pos = 2;
+    for (;;) {
+      const int m = next_marker();
+      switch (m) {
+        case 0xD9: return;
+        case 0xC4: read_dht(); break;
+        case 0xDB: read_dqt(); break;
+        case 0xDD: read_dri(); break;
+        case 0xCC: read_dac(); break;
+        case 0xD8: fail("JPEGTables: a second SOI marker");
+        case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4: case 0xD5: case 0xD6:
+        case 0xD7: case 0x01:
+          break;
+        default:
+          if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) {
+            size_t end;
+            segment(&end);
+            break;
+          }
+          if (m == 0xDA) fail("JPEGTables holds a scan (a bogus JPEGTables field)");
+          if (m >= 0xC0 && m <= 0xCF) fail("JPEGTables holds a frame (SOF%d)", m - 0xC0);
+          fail("JPEGTables: unknown marker 0x%02X", m);
+      }
+    }
+  }
+
   void check_complete() {
     if (!frame) fail("no SOF marker");
     for (size_t i = 0; i < comps.size(); ++i)
@@ -1125,120 +1184,202 @@ struct Decoder {
 
 // --- samples ----------------------------------------------------------------
 
-// jdmaster.c prepare_range_limit_table, as IDCT_range_limit sees it:
-// index (x & 1023) of a descaled output x.
-struct RangeLimit {
-  uint8_t idct[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i)
-      idct[i] = uint8_t(i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896);
-  }
-};
-const RangeLimit kRange;
-
-// jidctint.c jpeg_idct_islow: CONST_BITS 13, PASS1_BITS 2.
+// jidctint.c jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) as
+// libjpeg-turbo's SIMD version computes it on x86-64 (jidctint-sse2 and
+// -avx2, which PIL's libjpeg-turbo runs there): each dequantised
+// coefficient is the low 16 bits of its product, the sums in0 + in4,
+// in0 - in4, in7 + in3 and in5 + in1 are 16-bit, the products and the rest
+// 32-bit (the distributed form of the C code's, equal to it in exact
+// arithmetic), each pass's outputs saturate to 16 bits, and the samples
+// saturate to -128..127 before the level shift. A block whose rows 1-7
+// are all zero takes the first pass's shortcut, its DC times 4 in 16
+// bits. On coefficients that stay in range this is the C code to the bit.
+// Every sum fits 32 bits: the largest, t11 + o2, is at most
+// 2^15 * (8192 + 15137 + 25172 + 16069) < 2^31. With SSE2 the code is
+// jidctint-sse2's own instructions; without, the same arithmetic in scalar
+// form.
 constexpr int kConstBits = 13, kPass1Bits = 2;
-constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373,
+constexpr int kShift1 = kConstBits - kPass1Bits, kShift2 = kConstBits + kPass1Bits + 3;
+constexpr int32_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373,
                   F1_175 = 9633, F1_501 = 12299, F1_847 = 15137, F1_961 = 16069,
                   F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
 
-inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+#if defined(__SSE2__)
 
-void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* col = in + c;
-    const int16_t* qc = q + c;
-    int* w = ws + c;
-    if (!col[8] && !col[16] && !col[24] && !col[32] && !col[40] && !col[48] && !col[56]) {
-      const int dc = int(unsigned(col[0] * qc[0]) << kPass1Bits);
-      for (int r = 0; r < 8; ++r) w[8 * r] = dc;
-      continue;
-    }
-    int64_t z2 = col[16] * qc[16], z3 = col[48] * qc[48];
-    int64_t z1 = (z2 + z3) * F0_541;
-    int64_t tmp2 = z1 + z3 * -F1_847, tmp3 = z1 + z2 * F0_765;
-    z2 = col[0] * qc[0];
-    z3 = col[32] * qc[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits), tmp1 = (z2 - z3) * (1 << kConstBits);
-    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
-    tmp0 = col[56] * qc[56];
-    tmp1 = col[40] * qc[40];
-    tmp2 = col[24] * qc[24];
-    tmp3 = col[8] * qc[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 = z3 * -F1_961 + z5;
-    z4 = z4 * -F0_390 + z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConstBits - kPass1Bits;
-    w[0] = int(descale(t10 + tmp3, s));
-    w[56] = int(descale(t10 - tmp3, s));
-    w[8] = int(descale(t11 + tmp2, s));
-    w[48] = int(descale(t11 - tmp2, s));
-    w[16] = int(descale(t12 + tmp1, s));
-    w[40] = int(descale(t12 - tmp1, s));
-    w[24] = int(descale(t13 + tmp0, s));
-    w[32] = int(descale(t13 - tmp0, s));
+// GCC's vector types and the SSE2 builtins that emmintrin.h wraps.
+typedef short v8hi __attribute__((vector_size(16)));
+typedef unsigned short v8hu __attribute__((vector_size(16)));
+typedef int v4si __attribute__((vector_size(16)));
+typedef long long v2di __attribute__((vector_size(16)));
+typedef char v16qi __attribute__((vector_size(16)));
+
+// punpcklwd / punpckhwd: the low or high four lanes of a and b, interleaved.
+inline v8hi lo16(v8hi a, v8hi b) {
+  return __builtin_shuffle(a, b, v8hi{0, 8, 1, 9, 2, 10, 3, 11});
+}
+inline v8hi hi16(v8hi a, v8hi b) {
+  return __builtin_shuffle(a, b, v8hi{4, 12, 5, 13, 6, 14, 7, 15});
+}
+// (a, b) in every pair of lanes: pmaddwd of lo16 / hi16 (x, y) gives x * a + y * b.
+inline v8hi pair16(int32_t a, int32_t b) {
+  const short x = short(a), y = short(b);
+  return v8hi{x, y, x, y, x, y, x, y};
+}
+
+// One 8-point pass down eight columns at once: in[k] holds the k-th input
+// of each, out[k] receives its k-th output descaled by kShift and
+// saturated to 16 bits (pmaddwd products, paddd sums, packssdw).
+template <int kShift>
+inline void idct_pass(const v8hi* in, v8hi* out) {
+  const v4si round = v4si{} + (1 << (kShift - 1));
+  auto madd = [](v8hi x, v8hi y, v8hi k, v4si* lo, v4si* hi) {
+    *lo = __builtin_ia32_pmaddwd128(lo16(x, y), k);
+    *hi = __builtin_ia32_pmaddwd128(hi16(x, y), k);
+  };
+  v4si tmp3l, tmp3h, tmp2l, tmp2h;
+  madd(in[2], in[6], pair16(F0_541 + F0_765, F0_541), &tmp3l, &tmp3h);
+  madd(in[2], in[6], pair16(F0_541, F0_541 - F1_847), &tmp2l, &tmp2h);
+  // in0 +- in4 in 16 bits, then times 2^13: the sum in a lane's high half,
+  // shifted down by 3.
+  const v8hi s = v8hi(v8hu(in[0]) + v8hu(in[4])), d = v8hi(v8hu(in[0]) - v8hu(in[4]));
+  constexpr int kUp = 16 - kConstBits;
+  const v4si tmp0l = v4si(lo16(v8hi{}, s)) >> kUp, tmp0h = v4si(hi16(v8hi{}, s)) >> kUp;
+  const v4si tmp1l = v4si(lo16(v8hi{}, d)) >> kUp, tmp1h = v4si(hi16(v8hi{}, d)) >> kUp;
+  const v4si t10l = tmp0l + tmp3l, t10h = tmp0h + tmp3h, t13l = tmp0l - tmp3l, t13h = tmp0h - tmp3h;
+  const v4si t11l = tmp1l + tmp2l, t11h = tmp1h + tmp2h, t12l = tmp1l - tmp2l, t12h = tmp1h - tmp2h;
+  const v8hi s3 = v8hi(v8hu(in[7]) + v8hu(in[3])), s4 = v8hi(v8hu(in[5]) + v8hu(in[1]));
+  v4si z3l, z3h, z4l, z4h, o0l, o0h, o1l, o1h, o2l, o2h, o3l, o3h;
+  madd(s3, s4, pair16(F1_175 - F1_961, F1_175), &z3l, &z3h);
+  madd(s3, s4, pair16(F1_175, F1_175 - F0_390), &z4l, &z4h);
+  madd(in[7], in[1], pair16(F0_298 - F0_899, -F0_899), &o0l, &o0h);
+  madd(in[7], in[1], pair16(-F0_899, F1_501 - F0_899), &o3l, &o3h);
+  madd(in[5], in[3], pair16(F2_053 - F2_562, -F2_562), &o1l, &o1h);
+  madd(in[5], in[3], pair16(-F2_562, F3_072 - F2_562), &o2l, &o2h);
+  o0l += z3l, o0h += z3h, o3l += z4l, o3h += z4h, o1l += z4l, o1h += z4h, o2l += z3l, o2h += z3h;
+  auto put = [&](v4si l, v4si h) {
+    return __builtin_ia32_packssdw128((l + round) >> kShift, (h + round) >> kShift);
+  };
+  out[0] = put(t10l + o3l, t10h + o3h);
+  out[7] = put(t10l - o3l, t10h - o3h);
+  out[1] = put(t11l + o2l, t11h + o2h);
+  out[6] = put(t11l - o2l, t11h - o2h);
+  out[2] = put(t12l + o1l, t12h + o1h);
+  out[5] = put(t12l - o1l, t12h - o1h);
+  out[3] = put(t13l + o0l, t13h + o0h);
+  out[4] = put(t13l - o0l, t13h - o0h);
+}
+
+// An 8 x 8 block of 16-bit lanes transposed in place.
+inline void transpose8x16(v8hi* a) {
+  v4si t[8];
+  for (int i = 0; i < 4; ++i) {
+    t[2 * i] = v4si(lo16(a[2 * i], a[2 * i + 1]));
+    t[2 * i + 1] = v4si(hi16(a[2 * i], a[2 * i + 1]));
   }
-  for (int r = 0; r < 8; ++r) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + size_t(r) * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      const uint8_t v = kRange.idct[int(descale(w[0], kPass1Bits + 3)) & 1023];
-      for (int c = 0; c < 8; ++c) o[c] = v;
-      continue;
+  const v4si lo{0, 4, 1, 5}, hi{2, 6, 3, 7};
+  v2di u[8];
+  for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < 2; ++j) {
+      u[4 * i + 2 * j] = v2di(__builtin_shuffle(t[4 * i + j], t[4 * i + j + 2], lo));
+      u[4 * i + 2 * j + 1] = v2di(__builtin_shuffle(t[4 * i + j], t[4 * i + j + 2], hi));
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F0_541;
-    int64_t tmp2 = z1 + z3 * -F1_847, tmp3 = z1 + z2 * F0_765;
-    int64_t tmp0 = (int64_t(w[0]) + w[4]) * (1 << kConstBits);
-    int64_t tmp1 = (int64_t(w[0]) - w[4]) * (1 << kConstBits);
-    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 = z3 * -F1_961 + z5;
-    z4 = z4 * -F0_390 + z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConstBits + kPass1Bits + 3;
-    o[0] = kRange.idct[int(descale(t10 + tmp3, s)) & 1023];
-    o[7] = kRange.idct[int(descale(t10 - tmp3, s)) & 1023];
-    o[1] = kRange.idct[int(descale(t11 + tmp2, s)) & 1023];
-    o[6] = kRange.idct[int(descale(t11 - tmp2, s)) & 1023];
-    o[2] = kRange.idct[int(descale(t12 + tmp1, s)) & 1023];
-    o[5] = kRange.idct[int(descale(t12 - tmp1, s)) & 1023];
-    o[3] = kRange.idct[int(descale(t13 + tmp0, s)) & 1023];
-    o[4] = kRange.idct[int(descale(t13 - tmp0, s)) & 1023];
+  }
+  for (int i = 0; i < 4; ++i) {
+    a[2 * i] = v8hi(__builtin_shuffle(u[i], u[i + 4], v2di{0, 2}));
+    a[2 * i + 1] = v8hi(__builtin_shuffle(u[i], u[i + 4], v2di{1, 3}));
   }
 }
+
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  v8hi v[8], w[8];
+  uint64_t ac = 0;
+  for (int k = 8; k < 64; k += 4) {
+    uint64_t x;
+    std::memcpy(&x, in + k, 8);
+    ac |= x;
+  }
+  if (!ac) {
+    v8hi c, k;
+    std::memcpy(&c, in, 16);
+    std::memcpy(&k, q, 16);
+    const v8hi dc = v8hi((v8hu(c) * v8hu(k)) << kPass1Bits);
+    for (int r = 0; r < 8; ++r) w[r] = dc;
+  } else {
+    for (int r = 0; r < 8; ++r) {
+      v8hi c, k;
+      std::memcpy(&c, in + 8 * r, 16);
+      std::memcpy(&k, q + 8 * r, 16);
+      v[r] = v8hi(v8hu(c) * v8hu(k));
+    }
+    idct_pass<kShift1>(v, w);
+  }
+  transpose8x16(w);
+  idct_pass<kShift2>(w, v);
+  transpose8x16(v);
+  for (int r = 0; r < 8; r += 2) {
+    const v16qi b = __builtin_ia32_packsswb128(v[r], v[r + 1]) ^ char(0x80);
+    std::memcpy(out + size_t(r) * stride, &b, 8);
+    std::memcpy(out + size_t(r + 1) * stride, reinterpret_cast<const char*>(&b) + 8, 8);
+  }
+}
+
+#else
+
+inline int32_t descale(int32_t x, int n) { return (x + (int32_t(1) << (n - 1))) >> n; }
+inline int16_t wrap16(int32_t x) { return int16_t(uint16_t(x & 0xFFFF)); }
+inline int16_t sat16(int32_t x) { return int16_t(x < -32768 ? -32768 : x > 32767 ? 32767 : x); }
+
+// One 8-point pass over in[0..7] (16-bit), outputs descaled by kShift and
+// saturated to 16 bits.
+template <int kShift>
+inline void idct_pass(const int16_t* in, int16_t* out) {
+  const int32_t z2 = in[2], z3 = in[6];
+  const int32_t tmp2 = z2 * F0_541 + z3 * (F0_541 - F1_847);
+  const int32_t tmp3 = z2 * (F0_541 + F0_765) + z3 * F0_541;
+  const int32_t tmp0 = int32_t(wrap16(int32_t(in[0]) + in[4])) * (1 << kConstBits);
+  const int32_t tmp1 = int32_t(wrap16(int32_t(in[0]) - in[4])) * (1 << kConstBits);
+  const int32_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  const int32_t i7 = in[7], i5 = in[5], i3 = in[3], i1 = in[1];
+  const int32_t s3 = wrap16(i7 + i3), s4 = wrap16(i5 + i1);
+  const int32_t z3o = s3 * (F1_175 - F1_961) + s4 * F1_175;
+  const int32_t z4o = s3 * F1_175 + s4 * (F1_175 - F0_390);
+  const int32_t o0 = i7 * (F0_298 - F0_899) + i1 * -F0_899 + z3o;
+  const int32_t o3 = i7 * -F0_899 + i1 * (F1_501 - F0_899) + z4o;
+  const int32_t o1 = i5 * (F2_053 - F2_562) + i3 * -F2_562 + z4o;
+  const int32_t o2 = i5 * -F2_562 + i3 * (F3_072 - F2_562) + z3o;
+  out[0] = sat16(descale(t10 + o3, kShift));
+  out[7] = sat16(descale(t10 - o3, kShift));
+  out[1] = sat16(descale(t11 + o2, kShift));
+  out[6] = sat16(descale(t11 - o2, kShift));
+  out[2] = sat16(descale(t12 + o1, kShift));
+  out[5] = sat16(descale(t12 - o1, kShift));
+  out[3] = sat16(descale(t13 + o0, kShift));
+  out[4] = sat16(descale(t13 - o0, kShift));
+}
+
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int16_t ws[64], col[8], res[8];
+  bool ac_zero = true;
+  for (int k = 8; k < 64 && ac_zero; ++k) ac_zero = in[k] == 0;
+  for (int c = 0; c < 8; ++c) {
+    if (ac_zero) {
+      const int16_t dc = wrap16(wrap16(int32_t(in[c]) * q[c]) * 4);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
+      continue;
+    }
+    for (int r = 0; r < 8; ++r) col[r] = wrap16(int32_t(in[8 * r + c]) * q[8 * r + c]);
+    idct_pass<kShift1>(col, res);
+    for (int r = 0; r < 8; ++r) ws[8 * r + c] = res[r];
+  }
+  for (int r = 0; r < 8; ++r) {
+    idct_pass<kShift2>(ws + 8 * r, res);
+    uint8_t* o = out + size_t(r) * stride;
+    for (int c = 0; c < 8; ++c)
+      o[c] = uint8_t((res[c] < -128 ? -128 : res[c] > 127 ? 127 : res[c]) + 128);
+  }
+}
+
+#endif
 
 // jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1): each block's
 // first nine AC coefficients, where still zero and not known to full
@@ -1370,6 +1511,17 @@ const YccTables kYcc;
 
 inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
 
+// jdcolor.c ycc_rgb_convert over one row of w samples.
+void ycc_rgb_row(const uint8_t* const* rows, int w, uint8_t* o) {
+  const uint8_t *y = rows[0], *cbs = rows[1], *crs = rows[2];
+  for (int x = 0; x < w; ++x) {
+    const int yv = y[x], cb = cbs[x], cr = crs[x];
+    o[3 * x] = clamp255(yv + kYcc.cr_r[cr]);
+    o[3 * x + 1] = clamp255(yv + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+    o[3 * x + 2] = clamp255(yv + kYcc.cb_b[cb]);
+  }
+}
+
 // One output row of a component, upsampled to the frame's full width
 // (jdsample.c), from its IDCT plane. Rows outside [0, dh) read the
 // nearest real row (jdmainct.c context rows).
@@ -1431,8 +1583,10 @@ const uint8_t* upsample_row(const Component& c, int max_h, int max_v, int y, int
   return tmp;
 }
 
-void produce_rgb(Decoder& dec, uint8_t* out) {
-  const int w = dec.width, nc = int(dec.comps.size());
+// Each component's samples at its own sampling, into c.plane (stride
+// c.stride): the IDCT of every block (block smoothing first where
+// smoothing_ok), or the lossless frame's samples as they are.
+void make_planes(Decoder& dec) {
   const bool smooth = dec.smoothing_ok();
   for (Component& c : dec.comps) {
     if (dec.lossless) continue;  // the planes are the samples already
@@ -1448,6 +1602,11 @@ void produce_rgb(Decoder& dec, uint8_t* out) {
     }
     c.coef = std::vector<int16_t>();
   }
+}
+
+void produce_rgb(Decoder& dec, uint8_t* out) {
+  const int w = dec.width, nc = int(dec.comps.size());
+  make_planes(dec);
   // jdapimin.c default_decompress_parms
   enum { GRAY, YCC, RGB, CMYK, YCCK } space;
   if (nc == 1) {
@@ -1473,12 +1632,7 @@ void produce_rgb(Decoder& dec, uint8_t* out) {
       for (int x = 0; x < w; ++x)
         for (int k = 0; k < 3; ++k) o[3 * x + k] = rows[k][x];
     } else if (space == YCC) {
-      for (int x = 0; x < w; ++x) {
-        const int yv = rows[0][x], cb = rows[1][x], cr = rows[2][x];
-        o[3 * x] = clamp255(yv + kYcc.cr_r[cr]);
-        o[3 * x + 1] = clamp255(yv + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-        o[3 * x + 2] = clamp255(yv + kYcc.cb_b[cb]);
-      }
+      ycc_rgb_row(rows, w, o);
     } else {
       for (int x = 0; x < w; ++x) {
         int cmyk[4];
@@ -1500,6 +1654,37 @@ void produce_rgb(Decoder& dec, uint8_t* out) {
           o[3 * x + k] = clamp255(nk - (((t >> 8) + t) >> 8));
         }
       }
+    }
+  }
+}
+
+// The output of a JPEG-in-TIFF stream as libtiff asks libjpeg for it:
+// `color` 0 (JCS_UNKNOWN both ways) the components upsampled and
+// interleaved as they are; 1 (JPEGCOLORMODE_RGB on YCbCr) YCbCr to RGB;
+// 2 (raw_data_out, the old-style JPEG codec) each component's plane of
+// dh x dw samples, one after another, without upsampling.
+void produce_tiff(Decoder& dec, int color, uint8_t* out) {
+  const int w = dec.width, nc = int(dec.comps.size());
+  make_planes(dec);
+  if (color == 2) {
+    for (const Component& c : dec.comps) {
+      for (int y = 0; y < c.dh; ++y, out += c.dw)
+        std::memcpy(out, c.plane.data() + size_t(y) * c.stride, size_t(c.dw));
+    }
+    return;
+  }
+  std::vector<std::vector<uint8_t>> tmp(nc);
+  for (int i = 0; i < nc; ++i) tmp[i].resize(size_t(w) + 2 * dec.comps[i].dw + 16);
+  const uint8_t* rows[kMaxComponents];
+  for (int y = 0; y < dec.height; ++y) {
+    for (int i = 0; i < nc; ++i)
+      rows[i] = upsample_row(dec.comps[i], dec.max_h, dec.max_v, y, w, tmp[i].data());
+    if (color == 1) {
+      ycc_rgb_row(rows, w, out + size_t(y) * w * 3);
+    } else {
+      uint8_t* o = out + size_t(y) * w * nc;
+      for (int x = 0; x < w; ++x)
+        for (int k = 0; k < nc; ++k) o[nc * x + k] = rows[k][x];
     }
   }
 }
@@ -1529,6 +1714,62 @@ int mm_decode_jpeg(const uint8_t* data, long len, uint8_t* out, long cap_bytes, 
     *out_w = dec.width;
     if ((long long)dec.height * dec.width * 3 > cap_bytes) return -3;
     produce_rgb(dec, out);
+    return 0;
+  } catch (const Failure& f) {
+    if (msg && msg_cap > 0) snprintf(msg, size_t(msg_cap), "%s", f.msg.c_str());
+  } catch (const std::bad_alloc&) {
+    if (msg && msg_cap > 0) snprintf(msg, size_t(msg_cap), "out of memory");
+  }
+  return -1;
+}
+
+// Decode one strip or tile of a JPEG-compressed TIFF as libtiff 4.7 hands
+// it to Pillow. `tables` (tag 347, JPEGTables; null or tables_len 0 for
+// none) is read first as a tables-only stream, then `data`, with the
+// tables it defined; where either runs out, an EOI marker ends it, as
+// libtiff's source supplies one; any count of components up to 10. `color`
+// as produce_tiff takes it. info (3 + 4 * 10 ints) receives the height,
+// width and component count, then each component's horizontal and
+// vertical sampling factors and its plane's height and width (jdinput.c's
+// downsampled sizes). Returns 0; -3 with info set when `out` is null (a
+// call that reads only the headers) or holds less than cap_bytes needs;
+// -1 with a message in msg.
+int mm_decode_jpeg_tiff(const uint8_t* tables, long tables_len, const uint8_t* data, long len,
+                        int color, uint8_t* out, long cap_bytes, int* info, char* msg,
+                        long msg_cap) {
+  try {
+    if (len < 0 || tables_len < 0) fail("negative length");
+    if (color < 0 || color > 2) fail("unknown colour handling %d", color);
+    Decoder dec(tables, size_t(tables_len));
+    dec.in_tiff = true;
+    if (tables && tables_len > 0) dec.run_tables();
+    dec.d = data;
+    dec.n = size_t(len);
+    dec.pos = 0;
+    dec.reset_for_soi();
+    if (!out) {
+      if (dec.run(true)) fail("no SOF marker");
+    } else {
+      dec.run(false);
+      dec.check_complete();
+    }
+    const int nc = int(dec.comps.size());
+    if (color == 1 && nc != 3) fail("YCbCr to RGB of a stream of %d components", nc);
+    info[0] = dec.height;
+    info[1] = dec.width;
+    info[2] = nc;
+    long long need = 0;
+    for (int i = 0; i < nc; ++i) {
+      int* c = info + 3 + 4 * i;
+      c[0] = dec.comps[i].h;
+      c[1] = dec.comps[i].v;
+      c[2] = dec.comps[i].dh;
+      c[3] = dec.comps[i].dw;
+      need += (long long)dec.comps[i].dw * dec.comps[i].dh;
+    }
+    if (color != 2) need = (long long)dec.height * dec.width * (color == 1 ? 3 : nc);
+    if (!out || need > cap_bytes) return -3;
+    produce_tiff(dec, color, out);
     return 0;
   } catch (const Failure& f) {
     if (msg && msg_cap > 0) snprintf(msg, size_t(msg_cap), "%s", f.msg.c_str());

@@ -14,10 +14,12 @@ and OS/2 2.x headers, palettes PIL reads as "P", "1" and "L", 16-, 24- and
 32-bit pixels with the bitfields layouts PIL knows, BI_RLE8 and BI_RLE4
 with every escape, bottom-up and top-down rows) and the netpbm files from
 `netpbm` (P1-P6, plain and raw, maxval 1, 15, 100, 255, 1000 and 65535,
-comments in the header and the data). The writers need only numpy; PIL is
-imported in `main` alone, for the digests. The TIFF, WebP and JPEG 2000
-files that the port refuses come from PIL. Re-running rewrites every file;
-the pixels come from fixed seeds.
+comments in the header and the data). The TIFF writers (`tiff`,
+`jpeg_tiff`, `ojpeg_tiff`, `ycbcr_tiff`) write what PIL does not, the JPEG
+ones with streams from PIL's JPEG encoder (`jpeg_stream`, which imports
+PIL); PIL writes the rest of the TIFF files and the WebP and JPEG 2000
+ones, and gives the digests in `main`. Re-running rewrites every file; the
+pixels come from fixed seeds.
 """
 
 from __future__ import annotations
@@ -304,22 +306,26 @@ def _tiff_rows(px: np.ndarray, bits: int, order: str, predictor: int) -> np.ndar
 def tiff(px: np.ndarray, photometric: int, *, bits: int = 0, order: str = "<",
          bigtiff: bool = False, compression: int = 1, predictor: int = 1, planar: int = 1,
          fillorder: int = 1, tile=None, rows_per_strip: int = 0, extra=(), sample_format=None,
-         colormap=None, orientation: int = 0, lzw_compat: bool = False, tags=()) -> bytes:
+         colormap=None, orientation: int = 0, lzw_compat: bool = False, tags=(),
+         chunks=None) -> bytes:
     """A TIFF of samples `px` ((H, W) or (H, W, C); uint8/16/32, int16/32 or
     float32; `bits` 1, 2 or 4 for packed uint8 samples, 12 for uint16): byte `order` "<"
     or ">", classic or BigTIFF, in strips of `rows_per_strip` rows (all by
     default) or (th, tw) tiles (the edge tiles padded), chunky or planar,
     compression 1 (none), 5 (LZW), 8 or 32946 (Deflate) or 32773
     (PackBits), predictor 1, 2 or 3, FillOrder 2 reversing every stored
-    byte's bits; `tags` extra (tag, type, values) entries."""
+    byte's bits; `tags` extra (tag, type, values) entries (type 5, RATIONAL,
+    takes numerators and denominators in turn; type 7, UNDEFINED, bytes).
+    `chunks` gives the strips or tiles' stored bytes instead (`px` then
+    only sizes the image)."""
     px = np.asarray(px)
     px = px[..., None] if px.ndim == 2 else px
     h, w, c = px.shape
     bits = bits or px.dtype.itemsize * 8
     planes = [px[..., i:i + 1] for i in range(c)] if planar == 2 else [px]
     th, tw = tile or (rows_per_strip or h, w)
-    chunks = []
-    for plane in planes:
+    given, chunks = chunks, []
+    for plane in planes if given is None else ():
         if tile:
             padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, plane.shape[2]), plane.dtype)
             padded[:h, :w] = plane
@@ -337,6 +343,7 @@ def tiff(px: np.ndarray, photometric: int, *, bits: int = 0, order: str = "<",
             if fillorder == 2:
                 raw = REVERSE_BITS[np.frombuffer(raw, np.uint8)].tobytes()
             chunks.append(raw)
+    chunks = chunks if given is None else list(given)
     head = 16 if bigtiff else 8
     offsets, at = [], head
     for chunk in chunks:
@@ -364,7 +371,7 @@ def tiff(px: np.ndarray, photometric: int, *, bits: int = 0, order: str = "<",
     else:
         entries += [(273, kind, offsets), (278, 4, [th]), (279, kind, [len(x) for x in chunks])]
     entries = sorted(entries + list(tags), key=lambda e: e[0])
-    codes = {3: "H", 4: "I", 16: "Q"}
+    codes = {3: "H", 4: "I", 5: "I", 16: "Q"}
     slot, count_fmt = (8, "Q") if bigtiff else (4, "I")
     ifd_at = at
     size = (8 if bigtiff else 2) + len(entries) * (20 if bigtiff else 12) + slot
@@ -372,8 +379,10 @@ def tiff(px: np.ndarray, photometric: int, *, bits: int = 0, order: str = "<",
     body, spill = bytearray(), bytearray()
     body += struct.pack(order + ("Q" if bigtiff else "H"), len(entries))
     for tag, typ, values in entries:
-        data = struct.pack(order + codes[typ] * len(values), *values)
-        body += struct.pack(order + "HH" + count_fmt, tag, typ, len(values))
+        data = (bytes(values) if typ == 7
+                else struct.pack(order + codes[typ] * len(values), *values))
+        count = len(values) // 2 if typ == 5 else len(values)
+        body += struct.pack(order + "HH" + count_fmt, tag, typ, count)
         if len(data) <= slot:
             body += data + bytes(slot - len(data))
         else:
@@ -387,6 +396,269 @@ def tiff(px: np.ndarray, photometric: int, *, bits: int = 0, order: str = "<",
     for chunk in chunks:
         data += chunk + bytes(len(chunk) % 2)
     return bytes(data + body + spill)
+
+
+def jpeg_stream(px: np.ndarray, subsampling: int = 2, quality: int = 85, keep_rgb: bool = False,
+                restart_rows: int = 0) -> bytes:
+    """PIL's JPEG encoder (imported here alone) on (H, W) gray, (H, W, 3)
+    RGB (YCbCr components, or with `keep_rgb` the samples as they are,
+    Adobe transform 0) or (H, W, 4) CMYK uint8: `subsampling` 0 (4:4:4),
+    1 (4:2:2) or 2 (4:2:0), a restart marker every `restart_rows` MCU
+    rows."""
+    from PIL import Image
+
+    px = np.ascontiguousarray(px, np.uint8)
+    mode = "L" if px.ndim == 2 else {3: "RGB", 4: "CMYK"}[px.shape[2]]
+    kw = {"quality": quality, "subsampling": subsampling}
+    if keep_rgb:
+        kw["keep_rgb"] = True
+    if restart_rows:
+        kw["restart_marker_rows"] = restart_rows
+    buf = io.BytesIO()
+    Image.fromarray(px, mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def jpeg_segments(stream: bytes):
+    """The marker segments of a JPEG stream up to its first SOS, as
+    (marker, whole segment) pairs, and the rest from that SOS on."""
+    out, pos = [], 2
+    while stream[pos + 1] != 0xDA:
+        length = struct.unpack_from(">H", stream, pos + 2)[0]
+        out.append((stream[pos + 1], stream[pos:pos + 2 + length]))
+        pos += 2 + length
+    return out, stream[pos:]
+
+
+def split_jpeg(stream: bytes, keep_app: bool = False):
+    """(tables-only stream, abbreviated stream) of a JPEG: its DQT and DHT
+    segments between SOI and EOI, and the rest (APPn segments dropped,
+    as libtiff writes none, unless `keep_app`)."""
+    segments, rest = jpeg_segments(stream)
+    tables = b"".join(seg for m, seg in segments if m in (0xDB, 0xC4))
+    image = b"".join(seg for m, seg in segments
+                     if m not in (0xDB, 0xC4) and (keep_app or not 0xE0 <= m <= 0xEF))
+    return b"\xff\xd8" + tables + b"\xff\xd9", b"\xff\xd8" + image + rest
+
+
+SUBSAMPLING = {0: (1, 1), 1: (2, 1), 2: (2, 2)}  # PIL's subsampling -> YCbCrSubsampling
+
+
+def jpeg_tiff(px: np.ndarray, photometric: int = 6, *, subsampling: int = 2, quality: int = 85,
+              rows_per_strip: int = 0, tile=None, tables: bool = True, keep_app: bool = False,
+              planar: int = 1, sampling_tag: bool = True, order: str = "<", tags=()) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) of uint8 `px`, each strip
+    (the last one as tall as its rows) or (th, tw) tile (edge tiles padded
+    by repeating the edge) its own stream from PIL's encoder: photometric
+    6 (YCbCr components, YCbCrSubsampling from `subsampling` unless not
+    `sampling_tag`), 2 (RGB samples as they are, 4:4:4), 1 (gray) or 5
+    (CMYK); planar 2 codes each sample plane as a gray stream. With
+    `tables` the DQT and DHT segments go to JPEGTables (tag 347), one copy
+    for the file, and the streams are abbreviated."""
+    px = np.asarray(px, np.uint8)
+    px3 = px[..., None] if px.ndim == 2 else px
+    h, w, c = px3.shape
+    th, tw = tile or (rows_per_strip or h, w)
+    planes = [px3[..., i:i + 1] for i in range(c)] if planar == 2 else [px3]
+    streams = []
+    for plane in planes:
+        if tile:
+            padded = np.pad(plane, ((0, -h % th), (0, -w % tw), (0, 0)), mode="edge")
+            parts = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+        else:
+            parts = [plane[y:y + th] for y in range(0, h, th)]
+        for part in parts:
+            part = part[..., 0] if part.shape[2] == 1 else part
+            streams.append(jpeg_stream(part, subsampling if photometric == 6 else 0, quality,
+                                       keep_rgb=photometric == 2))
+    tg = list(tags)
+    if tables:
+        pairs = [split_jpeg(s, keep_app) for s in streams]
+        table_streams = {t for t, _ in pairs}
+        assert len(table_streams) == 1, "the streams differ in their tables"
+        tg.append((347, 7, table_streams.pop()))
+        streams = [image for _, image in pairs]
+    if photometric == 6 and sampling_tag:
+        tg.append((530, 3, list(SUBSAMPLING[subsampling])))
+    return tiff(px3, photometric, order=order, compression=7, planar=planar, tile=tile,
+                rows_per_strip=rows_per_strip, tags=tg, chunks=streams)
+
+
+def patch_tiff_tag(data: bytes, tag: int, values) -> bytes:
+    """A little-endian classic TIFF with the LONG values of `tag` (as
+    many as it holds) replaced, where they sit inline or elsewhere."""
+    data = bytearray(data)
+    at = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, at)[0]):
+        entry = at + 2 + 12 * i
+        if struct.unpack_from("<H", data, entry)[0] == tag:
+            count = struct.unpack_from("<I", data, entry + 4)[0]
+            where = entry + 8 if count == 1 else struct.unpack_from("<I", data, entry + 8)[0]
+            struct.pack_into(f"<{count}I", data, where, *values)
+            return bytes(data)
+    raise KeyError(tag)
+
+
+def _scan_pieces(rest: bytes):
+    """The SOS segment of a JPEG's scan and its entropy-coded data cut at
+    each RST marker (the markers dropped), up to EOI."""
+    sos = rest[:2 + struct.unpack_from(">H", rest, 2)[0]]
+    scan, pieces, start, i = rest[len(sos):], [], 0, 0
+    while i < len(scan) - 1:
+        if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD9:
+            pieces.append(scan[start:i])
+            if scan[i + 1] == 0xD9:
+                break
+            start = i = i + 2
+        else:
+            i += 1
+    return sos, pieces
+
+
+def ojpeg_tiff(px: np.ndarray, *, subsampling: int = 2, rows_per_strip: int = 16,
+               form: str = "tables", sampling_tag: bool = True, quality: int = 85,
+               photometric: int = 6, tile=None) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of (H, W, 3) RGB or (H, W)
+    gray uint8: one stream from PIL's encoder for the whole image with a
+    restart marker after each strip's MCU rows; each strip holds the
+    entropy-coded data of its restart interval. `form` "tables" gives the
+    tables in JPEGQTables, JPEGDCTables and JPEGACTables (519-521, one per
+    component) with JPEGProc and JPEGRestartInterval; "jif" points
+    JPEGInterchangeFormat (513/514) at the whole stream; "jif_header" at
+    its header alone (SOI to SOS). With `tile` (th, tw) the stream is the
+    tiles one above the other in their order, as wide as one, the image
+    padded to them by repeating its edge, each a restart interval (the
+    tables form, whose frame libtiff makes as tall as one column of
+    tiles, only for one column)."""
+    px = np.asarray(px, np.uint8)
+    gray = px.ndim == 2
+    h, w = px.shape[:2]
+    hs, vs = (1, 1) if gray else SUBSAMPLING[subsampling]
+    rows_per_strip = tile[0] if tile else rows_per_strip
+    coded = px
+    if tile:
+        th, tw = tile
+        pad = ((0, -h % th), (0, -w % tw)) + (() if gray else ((0, 0),))
+        padded = np.pad(px, pad, mode="edge")
+        coded = np.concatenate([padded[y:y + th, x:x + tw] for y in range(0, h, th)
+                                for x in range(0, w, tw)], 0)
+    full = jpeg_stream(coded, 0 if gray else subsampling, quality,
+                       restart_rows=rows_per_strip // (8 * vs))
+    segments, rest = jpeg_segments(full)
+    sos, pieces = _scan_pieces(rest)
+    spp = 1 if gray else 3
+    tags = [(530, 3, [hs, vs])] if sampling_tag and not gray else []
+    if form == "tables":
+        tags += [(512, 3, [1]), (515, 3, [-(-coded.shape[1] // (8 * hs))
+                                          * (rows_per_strip // (8 * vs))]),
+                 (519, 4, [0] * spp), (520, 4, [0] * spp), (521, 4, [0] * spp)]
+    else:
+        tags += [(513, 4, [0]), (514, 4, [0])]
+    data = tiff(px, photometric if not gray else 1, compression=6, tile=tile,
+                rows_per_strip=0 if tile else rows_per_strip, tags=tags, chunks=pieces)
+    base = len(data)
+    if form == "tables":
+        q, dc, ac = {}, {}, {}
+        for marker, seg in segments:
+            body, at = seg[4:], 0
+            while marker in (0xDB, 0xC4) and at < len(body):
+                if marker == 0xDB:
+                    q[body[at] & 15] = body[at + 1:at + 65]
+                    at += 65
+                else:
+                    n = 17 + sum(body[at + 1:at + 17])
+                    (ac if body[at] >> 4 else dc)[body[at] & 15] = body[at + 1:at + n]
+                    at += n
+        sof = next(seg for marker, seg in segments if marker == 0xC0)
+        blobs, offsets = b"", {519: [], 520: [], 521: []}
+        for k in range(spp):
+            table = 0 if k == 0 else 1  # PIL codes chroma with tables 1
+            for tag, blob in ((519, q[sof[12 + 3 * k]]), (520, dc[table]), (521, ac[table])):
+                offsets[tag].append(base + len(blobs))
+                blobs += blob
+        data += blobs
+        for tag, values in offsets.items():
+            data = patch_tiff_tag(data, tag, values)
+        return data
+    jif = full if form == "jif" else b"\xff\xd8" + b"".join(s for _, s in segments) + sos
+    return patch_tiff_tag(patch_tiff_tag(data + jif, 513, [base]), 514, [len(jif)])
+
+
+def rgb_to_ycbcr(rgb: np.ndarray, hs: int, vs: int):
+    """(Y, Cb, Cr) uint8 of RGB by the JPEG (CCIR 601) formulas, chroma
+    averaged over each hs x vs unit (edge units over the pixels they
+    hold)."""
+    x = rgb.astype(np.float64)
+    y = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    cb = 128 + (x[..., 2] - y) / 1.772
+    cr = 128 + (x[..., 0] - y) / 1.402
+    h, w = y.shape
+    uh, uw = -(-h // vs), -(-w // hs)
+
+    def down(c):
+        sums = np.zeros((uh, uw))
+        counts = np.zeros((uh, uw))
+        np.add.at(sums, (np.arange(h)[:, None] // vs, np.arange(w)[None, :] // hs), c)
+        np.add.at(counts, (np.arange(h)[:, None] // vs, np.arange(w)[None, :] // hs), 1)
+        return sums / counts
+
+    to8 = lambda a: np.clip(np.round(a), 0, 255).astype(np.uint8)  # noqa: E731
+    return to8(y), to8(down(cb)), to8(down(cr))
+
+
+def ycbcr_units(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> bytes:
+    """TIFF's packed YCbCr data units of an image or tile: per unit hs x vs
+    luma samples row by row, then Cb and Cr; partial units padded by
+    repeating the edge."""
+    h, w = y.shape
+    uh, uw = -(-h // vs), -(-w // hs)
+    yp = np.pad(y, ((0, uh * vs - h), (0, uw * hs - w)), mode="edge")
+    blocks = yp.reshape(uh, vs, uw, hs).transpose(0, 2, 1, 3).reshape(uh, uw, hs * vs)
+    return np.concatenate([blocks, cb[:uh, :uw, None], cr[:uh, :uw, None]], -1).tobytes()
+
+
+def ycbcr_tiff(rgb: np.ndarray, hs: int, vs: int, *, compression: int = 5,
+               rows_per_strip: int = 0, tile=None, predictor: int = 1, tags=(),
+               step: int = 1) -> bytes:
+    """A YCbCr TIFF (photometric 6, YCbCrSubsampling hs x vs) of (H, W, 3)
+    RGB uint8 in data units (`ycbcr_units`; samples rounded down to
+    multiples of `step`, which compress), compressed with LZW (5),
+    Deflate (8) or PackBits (32773), horizontal differencing over each
+    scanline's bytes three apart with `predictor` 2 (where libtiff undoes
+    it: scanlines of whole pixels that tile the data). A 530 entry in `tags`
+    stands in for the YCbCrSubsampling tag the units were made for."""
+    y, cb, cr = (c // step * step for c in rgb_to_ycbcr(np.asarray(rgb, np.uint8), hs, vs))
+    h, w = y.shape
+    parts = []
+    if tile:
+        th, tw = tile
+        hp, wp = -(-h // th) * th, -(-w // tw) * tw
+        y = np.pad(y, ((0, hp - h), (0, wp - w)), mode="edge")
+        cb, cr = (np.pad(c, ((0, hp // vs - len(c)), (0, wp // hs - c.shape[1])), mode="edge")
+                  for c in (cb, cr))
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                tile_c = [c[ty // vs:(ty + th) // vs, tx // hs:(tx + tw) // hs] for c in (cb, cr)]
+                parts.append((ycbcr_units(y[ty:ty + th, tx:tx + tw], *tile_c, hs, vs), 3 * tw))
+    else:
+        rps = rows_per_strip or h
+        uw = -(-w // hs)
+        for ty in range(0, h, rps):
+            parts.append((ycbcr_units(y[ty:ty + rps], cb[ty // vs:], cr[ty // vs:], hs, vs),
+                          uw * (hs * vs + 2) // vs))
+    chunks = []
+    for raw, rowsize in parts:
+        if predictor == 2 and len(raw) % rowsize == 0 and rowsize % 3 == 0:
+            rows = np.frombuffer(raw, np.uint8).reshape(-1, rowsize).astype(np.int16)
+            rows[:, 3:] = rows[:, 3:] - rows[:, :-3].copy()
+            raw = rows.astype(np.uint8).tobytes()
+        chunks.append(lzw_encode(raw) if compression == 5 else zlib.compress(raw, 6)
+                      if compression == 8 else packbits_encode(raw))
+    extra = ([] if any(t[0] == 530 for t in tags) else [(530, 3, [hs, vs])])
+    extra += [(317, 3, [2])] if predictor == 2 else []
+    return tiff(np.zeros((h, w, 3), np.uint8), 6, compression=compression, tile=tile,
+                rows_per_strip=0 if tile else rows_per_strip, tags=extra + list(tags),
+                chunks=chunks)
 
 
 def photo(hw, seed, noise=8.0):
@@ -595,12 +867,139 @@ def tiff_files(tree_hw=(48, 64)):
     return out
 
 
+def jpeg_tiff_files(tree_hw=(48, 64)):
+    """{name: bytes} of the JPEG-compressed and YCbCr TIFF fixtures, from
+    `jpeg_tiff` (new-style JPEG, compression 7: YCbCr at 4:2:0, 4:2:2 and
+    4:4:4 in strips and tiles, abbreviated streams after JPEGTables or
+    whole ones, no YCbCrSubsampling tag, a last stream taller than its
+    strip, one shorter, progressive streams, RGB, gray, MinIsWhite and
+    CMYK samples, planar files), `ojpeg_tiff` (old-style JPEG,
+    compression 6, in its three forms, gray, a file that says RGB) and
+    `ycbcr_tiff` (LZW, Deflate and PackBits YCbCr at every subsampling
+    libtiff's RGBA reader handles, tiles, a predictor, YCbCrCoefficients
+    and ReferenceBlackWhite); and the `tree_tiff_*jpeg*` / `ycbcr` rgb
+    images of chip_smoke.py's TIFF tree. Needs PIL (its JPEG encoder)."""
+    out = {}
+    px = photo((29, 37), 40, noise=2)
+    gray = photo((29, 37), 41, noise=2)[..., 1]
+    steps = photo((21, 37), 43, noise=1)
+    out["tiff_jpeg_ycbcr420_strips.tif"] = jpeg_tiff(px, 6, subsampling=2, rows_per_strip=16)
+    out["tiff_jpeg_ycbcr422_tiles.tif"] = jpeg_tiff(px, 6, subsampling=1, tile=(32, 32))
+    out["tiff_jpeg_ycbcr444_full_streams.tif"] = jpeg_tiff(px, 6, subsampling=0,
+                                                           rows_per_strip=16, tables=False)
+    out["tiff_jpeg_ycbcr420_no_sampling_tag.tif"] = jpeg_tiff(px, 6, subsampling=2,
+                                                              rows_per_strip=32,
+                                                              sampling_tag=False)
+    out["tiff_jpeg_ycbcr422_jfif_markers.tif"] = jpeg_tiff(px, 6, subsampling=1,
+                                                           rows_per_strip=16, keep_app=True)
+    out["tiff_jpeg_ycbcr420_orientation6.tif"] = jpeg_tiff(px, 6, rows_per_strip=16,
+                                                           tags=[(274, 3, [6])])
+    out["tiff_jpeg_ycbcr_planar.tif"] = jpeg_tiff(px, 6, subsampling=0, rows_per_strip=16,
+                                                  planar=2)
+    out["tiff_jpeg_rgb.tif"] = jpeg_tiff(px, 2, rows_per_strip=16, keep_app=True)
+    out["tiff_jpeg_rgb_planar_tiles.tif"] = jpeg_tiff(px, 2, tile=(16, 32), planar=2)
+    out["tiff_jpeg_gray.tif"] = jpeg_tiff(gray, 1, rows_per_strip=24)
+    out["tiff_jpeg_gray_white.tif"] = jpeg_tiff(gray, 0, rows_per_strip=24, order=">")
+    out["tiff_jpeg_cmyk.tif"] = jpeg_tiff(np.concatenate([px, gray[..., None]], -1), 5,
+                                          rows_per_strip=16)
+    # A last strip's stream as tall as the others (libtiff cuts it), and a
+    # stream of 8 rows for a strip of 16 (Pillow keeps the strip before's
+    # rows below it).
+    streams = [jpeg_stream(px[:16], 2),
+               jpeg_stream(np.pad(px[16:], ((0, 3), (0, 0), (0, 0)), mode="edge"), 2)]
+    out["tiff_jpeg_ycbcr420_tall_last_strip.tif"] = tiff(
+        px, 6, compression=7, rows_per_strip=16, tags=[(530, 3, [2, 2])], chunks=streams)
+    streams[1] = jpeg_stream(px[16:24], 2)
+    out["tiff_jpeg_ycbcr420_short_strip.tif"] = tiff(
+        px, 6, compression=7, rows_per_strip=16, tags=[(530, 3, [2, 2])], chunks=streams)
+    from PIL import Image
+
+    prog = []
+    for y in (0, 16):
+        buf = io.BytesIO()
+        Image.fromarray(px[y:y + 16]).save(buf, "JPEG", quality=80, progressive=True)
+        prog.append(buf.getvalue())
+    out["tiff_jpeg_ycbcr420_progressive.tif"] = tiff(
+        px, 6, compression=7, rows_per_strip=16, tags=[(530, 3, [2, 2])], chunks=prog)
+    out["tiff_ojpeg_420_tables.tif"] = ojpeg_tiff(px, subsampling=2, rows_per_strip=16)
+    out["tiff_ojpeg_422_jif.tif"] = ojpeg_tiff(px, subsampling=1, rows_per_strip=8, form="jif")
+    out["tiff_ojpeg_444_jif_header.tif"] = ojpeg_tiff(px, subsampling=0, rows_per_strip=16,
+                                                      form="jif_header")
+    out["tiff_ojpeg_420_says_rgb.tif"] = ojpeg_tiff(px, subsampling=2, rows_per_strip=48,
+                                                    form="jif", photometric=2)
+    out["tiff_ojpeg_gray.tif"] = ojpeg_tiff(gray, rows_per_strip=16)
+    out["tiff_ojpeg_420_tiles.tif"] = ojpeg_tiff(px, form="jif_header", tile=(16, 16))
+    out["tiff_ojpeg_422_tile_column.tif"] = ojpeg_tiff(px, subsampling=1, tile=(16, 48))
+    # The tables form with tiles side by side: libtiff's frame is one column
+    # of tiles tall, and PIL repeats tiles past it; the port refuses it.
+    out["unported_ojpeg_tiles_tables.tif"] = ojpeg_tiff(px, tile=(16, 16))
+    for (hs, vs), kw in [((1, 1), {"compression": 5, "rows_per_strip": 8}),
+                         ((1, 2), {"compression": 8, "tile": (16, 32)}),
+                         ((2, 1), {"compression": 32773, "rows_per_strip": 7}),
+                         ((2, 2), {"compression": 5, "tile": (32, 16)}),
+                         ((4, 1), {"compression": 8, "rows_per_strip": 16, "predictor": 2}),
+                         ((4, 2), {"compression": 5, "rows_per_strip": 10}),
+                         ((4, 4), {"compression": 8, "tile": (16, 48)})]:
+        name = {5: "lzw", 8: "deflate", 32773: "packbits"}[kw["compression"]]
+        out[f"tiff_ycbcr{hs}{vs}_{name}.tif"] = ycbcr_tiff(steps, hs, vs, step=8, **kw)
+    out["tiff_ycbcr22_lzw_pred.tif"] = ycbcr_tiff(steps, 2, 2, rows_per_strip=16, predictor=2,
+                                                  step=8)
+    rec709 = (529, 5, [2126, 10000, 7152, 10000, 722, 10000])  # YCbCrCoefficients
+    video = (532, 5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])  # ReferenceBlackWhite
+    out["tiff_ycbcr22_coefficients.tif"] = ycbcr_tiff(steps, 2, 2, rows_per_strip=16, step=8,
+                                                      tags=[rec709, video])
+    tree = [tree_photo(tree_hw, 40 + i) for i in range(4)]
+    out["tree_tiff_jpeg420_strips.tif"] = jpeg_tiff(tree[0], 6, subsampling=2, rows_per_strip=16)
+    out["tree_tiff_jpeg420_tiles.tif"] = jpeg_tiff(tree[1], 6, subsampling=2, tile=(32, 32))
+    out["tree_tiff_ojpeg420.tif"] = ojpeg_tiff(tree[2], subsampling=2, rows_per_strip=16)
+    out["tree_tiff_ycbcr22_lzw.tif"] = ycbcr_tiff(tree[3], 2, 2, rows_per_strip=16, step=16)
+    return out
+
+
+def refused_jpeg_tiff_files():
+    """Damaged JPEG-compressed and YCbCr TIFFs that PIL refuses too:
+    YCbCrSubsampling 2 x 1 over 4:2:0 streams, a stream wider than its
+    strip, gray streams in an RGB file, a scan in JPEGTables, abbreviated
+    streams without JPEGTables, an old-style file without its JPEGQTables,
+    old-style strips of rows that are no whole MCU rows, YCbCr subsampled
+    2 x 4."""
+    px = photo((32, 20), 42, noise=4)
+    streams = [split_jpeg(jpeg_stream(px[y:y + 16], 2))[1] for y in (0, 16)]
+    tables = split_jpeg(jpeg_stream(px[:16], 2))[0]
+    ycbcr = lambda **kw: {"compression": 7, "rows_per_strip": 16, **kw}  # noqa: E731
+    wide = np.pad(px[:16], ((0, 0), (0, 8), (0, 0)), mode="edge")
+    no_q = ojpeg_tiff(px, rows_per_strip=16)
+    return {
+        "refused_tiff_jpeg_sampling.tif": jpeg_tiff(px, 6, rows_per_strip=16, sampling_tag=False,
+                                                    tags=[(530, 3, [2, 1])]),
+        "refused_tiff_jpeg_wide_stream.tif": tiff(
+            px, 6, tags=[(530, 3, [2, 2])], chunks=[jpeg_stream(wide, 2), jpeg_stream(px[16:], 2)],
+            **ycbcr()),
+        "refused_tiff_jpeg_components.tif": tiff(
+            px, 2, chunks=[jpeg_stream(px[y:y + 16, :, 0], 0) for y in (0, 16)], **ycbcr()),
+        "refused_tiff_jpeg_bogus_tables.tif": tiff(
+            px, 6, tags=[(530, 3, [2, 2]), (347, 7, jpeg_stream(px[:16], 2))], chunks=streams,
+            **ycbcr()),
+        "refused_tiff_jpeg_no_tables.tif": tiff(px, 6, tags=[(530, 3, [2, 2])], chunks=streams,
+                                                **ycbcr()),
+        "refused_tiff_jpeg_tables_not_jpeg.tif": tiff(
+            px, 6, tags=[(530, 3, [2, 2]), (347, 7, tables[2:])], chunks=streams, **ycbcr()),
+        "refused_tiff_ojpeg_no_qtables.tif": patch_tiff_tag(no_q, 519, [len(no_q)] * 3),
+        "refused_tiff_ojpeg_strip_rows.tif": set_tiff_tag(ojpeg_tiff(px, rows_per_strip=16),
+                                                          278, 12),
+        "refused_tiff_ycbcr_subsampling.tif": ycbcr_tiff(px, 2, 2, tags=[(530, 3, [2, 4])]),
+    }
+
+
 def pil_tiff_files(tree_hw=(48, 64)):
     """{name: bytes} of the TIFF fixtures PIL writes (its own writer for
     uncompressed files, libtiff 4.7 for the rest), the tree's LZW,
-    Deflate and PackBits rgb images, and the files the port refuses: a
-    JPEG-compressed RGB file, a CCITT Group 4 1-bit one and a Deflate YCbCr
-    one. Needs PIL."""
+    Deflate and PackBits rgb images, JPEG-compressed RGB, YCbCr (PIL writes
+    4:4:4 only), gray and CMYK files, Deflate and LZW YCbCr ones, and the
+    files the port refuses: a CCITT Group 4 1-bit one, an LZMA and a ZSTD
+    one. Needs PIL. PIL writes no subsampled JPEG-compressed TIFF: asked
+    for one (tag 530 under JPEG), its encoder fails and the process
+    aborts, so `jpeg_tiff` writes those."""
     from PIL import Image, TiffImagePlugin
 
     rng = np.random.default_rng(12)
@@ -647,9 +1046,16 @@ def pil_tiff_files(tree_hw=(48, 64)):
     out["tree_tiff_deflate.tif"] = save(tree[1], compression="tiff_adobe_deflate")
     out["tree_tiff_packbits.tif"] = save(tree[2], compression="packbits")
     small = Image.fromarray(photo((16, 24), 6))
-    out["unported.tif"] = save(small, compression="jpeg")
+    out["tiff_pil_jpeg_rgb.tif"] = save(small, compression="jpeg")
+    out["tiff_pil_ycbcr_deflate.tif"] = save(small.convert("YCbCr"),
+                                             compression="tiff_adobe_deflate")
+    out["tiff_pil_jpeg_ycbcr.tif"] = save(small.convert("YCbCr"), compression="jpeg", quality=60)
+    out["tiff_pil_jpeg_l.tif"] = save(small.convert("L"), compression="jpeg")
+    out["tiff_pil_jpeg_cmyk.tif"] = save(small.convert("CMYK"), compression="jpeg")
+    out["tiff_pil_ycbcr_lzw.tif"] = save(small.convert("YCbCr"), compression="tiff_lzw")
     out["unported_ccitt.tif"] = save(small.convert("1"), compression="group4")
-    out["unported_ycbcr.tif"] = save(small.convert("YCbCr"), compression="tiff_adobe_deflate")
+    out["unported_lzma.tif"] = save(small, compression="lzma")
+    out["unported_zstd.tif"] = save(small, compression="zstd")
     return out
 
 
@@ -661,10 +1067,20 @@ REFUSED = {"refused_bmp_gray4_wide.bmp": "hold no", "refused_bmp_truncated.bmp":
            "refused_pgm_raw_truncated.pgm": "truncated",
            "refused_tiff_lzw_no_clear.tif": "not yet in the table",
            "refused_tiff_strip_past_end.tif": "outside the file",
-           "refused_tiff_deflate_short.tif": "Deflate data ends"}
+           "refused_tiff_deflate_short.tif": "Deflate data ends",
+           "refused_tiff_jpeg_sampling.tif": "improper JPEG sampling factors",
+           "refused_tiff_jpeg_wide_stream.tif": "exceeds",
+           "refused_tiff_jpeg_components.tif": "improper JPEG component count",
+           "refused_tiff_jpeg_bogus_tables.tif": "JPEGTables holds a frame",
+           "refused_tiff_jpeg_no_tables.tif": "no quantisation table",
+           "refused_tiff_jpeg_tables_not_jpeg.tif": "JPEGTables: not a JPEG stream",
+           "refused_tiff_ojpeg_no_qtables.tif": "JPEGQTables",
+           "refused_tiff_ojpeg_strip_rows.tif": "no whole MCU rows",
+           "refused_tiff_ycbcr_subsampling.tif": "cannot handle"}
 # The ROADMAP item of each file the port refuses with UnsupportedImage.
-UNPORTED = {"unported.tif": "11g", "unported_ccitt.tif": "11h", "unported_ycbcr.tif": "11h",
-            "unported.webp": "11e", "unported.jpx": "11f"}
+UNPORTED = {"unported_ccitt.tif": "11h", "unported_lzma.tif": "11h", "unported_zstd.tif": "11h",
+            "unported_ojpeg_tiles_tables.tif": "11g", "unported.webp": "11e",
+            "unported.jpx": "11f"}
 
 
 def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
@@ -701,8 +1117,10 @@ def timing_files(hw=(480, 640)):
     """{name: bytes} of 640 x 480 photo-like files in each new format, for
     decode times (time_decode.py): Adam7 PNG, 24-bit and 8-bit palette
     BMP, BI_RLE8 BMP (the palette indices in runs of 8), raw PPM, 16-bit
-    PGM, and RGB TIFF in strips of 16 rows uncompressed, LZW and Deflate
-    with predictor 2, and PackBits (pixels in runs of 4)."""
+    PGM, RGB TIFF in strips of 16 rows uncompressed, LZW and Deflate with
+    predictor 2, and PackBits (pixels in runs of 4); JPEG-compressed TIFF
+    at 4:2:0 in strips of 8 and 64 rows and in 256 x 256 tiles, old-style
+    JPEG at 4:2:0 in strips of 16 rows, and LZW YCbCr at 2 x 2."""
     rng = np.random.default_rng(7)
     h, w = hw
     rgb = photo(hw, 8)
@@ -724,6 +1142,11 @@ def timing_files(hw=(480, 640)):
                                           rows_per_strip=16),
         "tiff_packbits_640.tif": tiff(np.repeat(rgb[:, ::4], 4, axis=1), 2, compression=32773,
                                       rows_per_strip=16),
+        "tiff_jpeg420_strips8_640.tif": jpeg_tiff(rgb, 6, subsampling=2, rows_per_strip=8),
+        "tiff_jpeg420_strips64_640.tif": jpeg_tiff(rgb, 6, subsampling=2, rows_per_strip=64),
+        "tiff_jpeg420_tiles256_640.tif": jpeg_tiff(rgb, 6, subsampling=2, tile=(256, 256)),
+        "tiff_ojpeg420_640.tif": ojpeg_tiff(rgb, subsampling=2, rows_per_strip=16),
+        "tiff_ycbcr22_lzw_640.tif": ycbcr_tiff(rgb, 2, 2, rows_per_strip=16),
     }
 
 
@@ -749,10 +1172,9 @@ def pil_digests(data: bytes) -> dict:
 def main():
     from PIL import Image
 
-    written = {**files(), **tiff_files(), **refused_tiff_files()}
-    pil_tiffs = pil_tiff_files()
-    written.update({k: v for k, v in pil_tiffs.items() if k not in UNPORTED})
-    unported = {k: v for k, v in pil_tiffs.items() if k in UNPORTED}
+    written = {**files(), **tiff_files(), **refused_tiff_files(), **jpeg_tiff_files(),
+               **refused_jpeg_tiff_files(), **pil_tiff_files()}
+    unported = {k: written.pop(k) for k in list(written) if k in UNPORTED}
     a = photo((16, 24), 6)
     for name, fmt in (("unported.webp", "WEBP"), ("unported.jpx", "JPEG2000")):
         buf = io.BytesIO()

@@ -3,8 +3,9 @@ photo-like files, in one thread, where PIL is installed:
 
     python tests/fixtures/images/time_decode.py [--repeats 20]
 
-The PNG, BMP and netpbm files come from make_fixtures.timing_files; the
-arithmetic-coded and smoothed JPEG files are tests/fixtures/jpeg/big_*.jpg.
+The PNG, BMP, netpbm and TIFF files (JPEG-compressed and YCbCr ones
+among them) come from make_fixtures.timing_files; the arithmetic-coded
+and smoothed JPEG files are tests/fixtures/jpeg/big_*.jpg.
 Prints ms per file (load_image from disk, convert_rgb, against PIL's
 Image.open(path).convert("RGB"); the median of 5 windows of `repeats`
 decodes) for each, and checks the two agree.

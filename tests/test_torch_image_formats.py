@@ -13,7 +13,7 @@ beside PNG and JPEG (multimae_tpu_torch/data/image_io.py) against PIL, and
 * The same kinds written here at random sizes: Adam7 PNG from numpy,
   BMP and netpbm by PIL; and seeded random RLE streams through the native
   decoder and its twin, which agree on pixels and on refusals.
-* A JPEG-compressed, CCITT or YCbCr .tif, a .webp or .jpx file, an RGB
+* A CCITT, LZMA or ZSTD .tif, a .webp or .jpx file, an RGB
   semseg map or an 8-bit depth map in a tree stops `ImageFolder`,
   `MultiTaskImageFolder` and the loader with UnsupportedImage naming the
   file and its ROADMAP item; a truncated file is still resampled.
@@ -42,8 +42,9 @@ EXPECTED = json.loads((FIXTURES / "expected.json").read_text())
 sys.path.insert(0, str(FIXTURES))
 import make_fixtures as mf  # noqa: E402
 
-# TIFF files are read and refused in tests/test_torch_tiff.py; the refused
-# formats (a JPEG-compressed or CCITT TIFF among them) here.
+# TIFF files are read and refused in tests/test_torch_tiff.py and
+# tests/test_torch_tiff_jpeg.py; the refused formats (CCITT, LZMA and ZSTD
+# TIFF among them) here.
 READ = sorted(n for n, e in EXPECTED.items() if "sha256" in e and not n.endswith(".tif"))
 REFUSED = sorted(n for n, e in EXPECTED.items() if "error" in e and not n.endswith(".tif"))
 UNPORTED = sorted(n for n, e in EXPECTED.items() if e.get("unported"))

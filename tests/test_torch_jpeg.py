@@ -22,8 +22,10 @@ multimae_tpu.data.dataset_folder.pil_loader, bit for bit.
 * Refused, as PIL refuses them: hierarchical and lossless arithmetic
   frames, 12-bit precision, a DNL-given height, a lossless frame with a
   sequential scan; each raises ValueError naming the feature.
+* The IDCT's scalar form (a build without SSE2) against its SSE2 form.
 """
 
+import ctypes
 import hashlib
 import io
 import json
@@ -386,3 +388,50 @@ def test_decoder_needs_no_libjpeg():
         headers = re.findall(r'#include\s*[<"]([^>"]+)[>"]', src.read_text())
         assert all("." not in h for h in headers), (src.name, headers)
     assert not any(f.startswith("-l") for f in native.CXX_FLAGS)
+
+
+def _random_tables(data, rng):
+    """`data` with every 8-bit quantisation table's entries replaced by
+    random ones in 1..255."""
+    out, i = bytearray(data), 2
+    while i + 4 <= len(out) and out[i] == 0xFF and out[i + 1] != 0xDA:
+        n = struct.unpack(">H", out[i + 2:i + 4])[0]
+        if out[i + 1] == 0xDB:
+            j = i + 4
+            while j < i + 2 + n:
+                size = 128 if out[j] >> 4 else 64
+                if size == 64:
+                    out[j + 1:j + 65] = rng.integers(1, 256, 64, dtype=np.uint8).tobytes()
+                j += 1 + size
+        i += 2 + n
+    return bytes(out)
+
+
+def test_scalar_idct_matches_the_sse2_build(tmp_path):
+    """jpeg_decode.cpp built without SSE2 (its scalar IDCT) decodes every
+    fixture, and baseline fixtures whose quantisation tables were replaced
+    by random ones (dequantised values that wrap, passes that saturate),
+    to the samples of the SSE2 build."""
+    path = native.build(native.JPEG_SOURCE, tmp_path, flags=[*native.CXX_FLAGS, "-U__SSE2__"],
+                        name="libjpeg_scalar.so")
+    fn = ctypes.CDLL(str(path)).mm_decode_jpeg
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long]
+    fn.restype = ctypes.c_int
+    h, w, msg = ctypes.c_int(), ctypes.c_int(), ctypes.create_string_buffer(256)
+
+    def scalar(data):
+        args = (ctypes.addressof(h), ctypes.addressof(w), msg, len(msg))
+        assert fn(data, len(data), None, 0, *args) == -3, msg.value
+        out = np.empty((h.value, w.value, 3), np.uint8)
+        assert fn(data, len(data), out.ctypes.data, out.nbytes, *args) == 0, msg.value
+        return out
+
+    rng = np.random.default_rng(12)
+    names = sorted(n for n, want in EXPECTED.items() if "error" not in want)
+    cases = [(n, (FIXTURES / n).read_bytes()) for n in names]
+    cases += [(f"{n} tables {k}", _random_tables((FIXTURES / n).read_bytes(), rng))
+              for n in ("photo_420_q90.jpg", "q100.jpg", "s422.jpg", "progressive.jpg")
+              for k in range(3)]
+    for what, data in cases:
+        assert np.array_equal(scalar(data), native.decode_jpeg(data)), what

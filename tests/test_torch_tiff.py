@@ -2,7 +2,8 @@
 native/tiff_decode.cpp) against PIL 12.1 with libtiff 4.7, and the JAX
 package's data pipeline over TIFF trees.
 
-* (a) Every TIFF fixture of tests/fixtures/images (make_fixtures.py: PIL's
+* (a) Every TIFF fixture of tests/fixtures/images but the JPEG-compressed
+  and YCbCr ones, which tests/test_torch_tiff_jpeg.py holds (make_fixtures.py: PIL's
   writer and libtiff for what PIL writes, a hand writer for BigTIFF, tiles,
   planar files, FillOrder 2, big-endian compressed files, predictor 3,
   old-style LZW, MinIsWhite, 2- and 4-bit gray and palettes, associated
@@ -26,8 +27,9 @@ package's data pipeline over TIFF trees.
   port takes the samples' values.
 * (e) The cls ImageFolder over TIFF files against the JAX package's.
 * (f) Each compression and photometric the port refuses raises
-  UnsupportedImage naming the file and ROADMAP item 11g or 11h, and no
-  retry resamples it.
+  UnsupportedImage naming the file and ROADMAP item 11h, and no retry
+  resamples it; the old-style and new-style JPEG and the LZW YCbCr files
+  that item 11g ported read as PIL reads them, in a tree too.
 * (g) `write_tiff` output read back by PIL.
 """
 
@@ -53,7 +55,8 @@ EXPECTED = json.loads((FIXTURES / "expected.json").read_text())
 sys.path.insert(0, str(FIXTURES))
 import make_fixtures as mf  # noqa: E402
 
-TIFFS = sorted(n for n in EXPECTED if n.endswith(".tif"))
+# The JPEG-compressed and YCbCr files (ROADMAP item 11g) are tests/test_torch_tiff_jpeg.py's.
+TIFFS = sorted(n for n in EXPECTED if n.endswith(".tif") and not re.search(r"jpeg|ycbcr", n))
 READ = [n for n in TIFFS if "sha256" in EXPECTED[n]]
 REFUSED = [n for n in TIFFS if "error" in EXPECTED[n]]
 UNPORTED = [n for n in TIFFS if "unported" in EXPECTED[n]]
@@ -431,18 +434,34 @@ def test_cls_image_folder_over_tiffs_matches_jax(tmp_path):
 # --- (f) refusals -------------------------------------------------------------------
 
 
-REFUSALS = sorted(image_io.TIFF_REFUSED) + ["ycbcr_lzw", "cielab"]
+# 6, 7 and "ycbcr_lzw" were refused (item 11g) and now read.
+PORTED = (6, 7, "ycbcr_lzw")
+REFUSALS = sorted(set(image_io.TIFF_REFUSED) | {6, 7}) + ["ycbcr_lzw", "cielab"]
 
 
 @pytest.mark.parametrize("what", REFUSALS, ids=str)
 def test_refused_tiff_names_file_and_item(what, tmp_path):
+    """A refused file stops the read naming itself and its item; a file of
+    what item 11g ported (old-style JPEG, new-style JPEG, LZW YCbCr) reads
+    as PIL reads it, in a tree too."""
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder, write_random_tree
 
     rng = np.random.default_rng(3)
-    if what == "ycbcr_lzw":
-        data, item = mf.tiff(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8), 6,
-                             compression=5), "11h"
-    elif what == "cielab":
+    px = mf.photo((16, 24), 3)
+    if what in PORTED:
+        data = (mf.ojpeg_tiff(px) if what == 6 else mf.jpeg_tiff(px) if what == 7
+                else mf.ycbcr_tiff(px, 2, 2, compression=5))
+        write_random_tree(str(tmp_path), 4, (16, 24), classes=1)
+        rgb = tmp_path / "rgb" / "c0"
+        (rgb / "i0002.png").unlink()
+        (rgb / "i0002.tif").write_bytes(data)
+        want = pil_forms(data)
+        assert np.array_equal(image_io.load_image(str(rgb / "i0002.tif")), want[0])
+        assert np.array_equal(image_io.load_image(str(rgb / "i0002.tif"), False), want[1])
+        sample = MultiTaskImageFolder(str(tmp_path), ["rgb"]).load_raw(2)[0]
+        assert np.array_equal(sample["rgb"], want[0])
+        return
+    if what == "cielab":
         data, item = mf.tiff(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8), 8), "11h"
     else:
         px, photometric = ((rng.integers(0, 2, (8, 8), dtype=np.uint8), 0) if what in (2, 3, 4)

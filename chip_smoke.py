@@ -260,16 +260,19 @@ non-zero:
      under --aa AA_CLI --train_interpolation AA_INTERP (nothing in the
      step, K4 12 in the eval batch).
  20. the last loaders (utils/flax_msgpack.py, data/image_io.py): every
-     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm, TIFF)
-     against PIL's digests, the refused ones raising UnsupportedImage
-     naming their ROADMAP item; a MultiMAE-B params file in the JAX
+     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm, TIFF) and
+     tests/fixtures/webp (VP8, VP8L, ALPH, animations) against PIL's
+     digests, the refused ones raising UnsupportedImage naming their
+     ROADMAP item; a MultiMAE-B params file in the JAX
      package's own format (flax msgpack, from seeded weights through the port's inverse
      converter and writer) starts the demo (preds bit-equal to the same
      weights as a .pth; K1 fwd 3), the cls CLI (a step and an eval batch
      at LOADER_CLS_BATCH: K4 12) and the semseg CLI (512 px, a step and an
      eval batch at LOADER_SEG_BATCH: K2 12 + 12, K3b 4 + 4, K4 12, K3b fwd
      4); one epoch of the pretraining CLI over LOADER_SAMPLES samples whose
-     rgb images are the new formats, and one over a TIFF tree (the
+     rgb images are the new formats (WebP lossy 4:2:0, with alpha,
+     lossless and an animation's first frame among them), and one over a
+     TIFF tree (the
      tree_*.tif fixtures: LZW with predictor 2, Deflate, PackBits, tiled,
      planar, associated alpha, 16-bit RGB, JPEG-compressed at 4:2:0 in
      strips and in tiles, old-style JPEG at 4:2:0, LZW YCbCr at 2 x 2;
@@ -434,10 +437,12 @@ AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 # (512 px, LOADER_SEG_BATCH: one step and an eval batch); then one epoch
 # of the pretraining CLI at LOADER_PT_BATCH over LOADER_SAMPLES samples
 # whose rgb images are the new formats' tree fixtures (arithmetic-coded
-# and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; all 48 x 64), and one
-# over a tree of TIFF files only (the tree_*.tif fixtures as rgb, the
+# and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; WebP lossy 4:2:0, lossy
+# with alpha, lossless and an animation's first frame; all 48 x 64), and
+# one over a tree of TIFF files only (the tree_*.tif fixtures as rgb, the
 # JPEG-compressed and YCbCr ones among them).
 IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
+WEBP_FIXTURES = os.path.join(HERE, "tests", "fixtures", "webp")
 LOADER_CLS_BATCH, LOADER_SEG_BATCH, LOADER_PT_BATCH, LOADER_SAMPLES = 32, 2, 8, 16
 LOADER_HW = (48, 64)
 
@@ -3283,22 +3288,26 @@ def last_modules_slice(torch, dev, card):
 
 def image_fixture_check(card):
     """Phase 20: every fixture of tests/fixtures/images (Adam7 PNG, BMP,
-    netpbm, TIFF) through this machine's build of the native library: the
-    SHA-256 of its RGB and raw forms equal expected.json's (PIL's; the
-    JPEG-compressed and YCbCr TIFF files of item 11g among them), a file
-    PIL refuses raises ValueError, a CCITT, LZMA or ZSTD TIFF, a WebP or a
-    JPEG 2000 file UnsupportedImage naming the file and its ROADMAP
-    item."""
+    netpbm, TIFF) and tests/fixtures/webp through this machine's build of
+    the native library: the SHA-256 of its RGB and raw forms equal
+    expected.json's (PIL's; the JPEG-compressed and YCbCr TIFF files of
+    item 11g among them), a file PIL refuses raises ValueError, a CCITT,
+    LZMA or ZSTD TIFF or a JPEG 2000 file UnsupportedImage naming the file
+    and its ROADMAP item."""
     import hashlib
 
     from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
 
-    with open(os.path.join(IMAGE_FIXTURES, "expected.json")) as f:
-        expected = json.load(f)
-    kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0, "jpeg_ycbcr_tiff": 0}
-    for name, want in sorted(expected.items()):
-        path = os.path.join(IMAGE_FIXTURES, name)
+    expected = {}
+    for folder in (IMAGE_FIXTURES, WEBP_FIXTURES):
+        with open(os.path.join(folder, "expected.json")) as f:
+            expected.update({os.path.join(folder, n): want for n, want in json.load(f).items()})
+    kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0, "jpeg_ycbcr_tiff": 0, "webp": 0,
+             "webp_refused": 0}
+    for path, want in sorted(expected.items()):
+        name = os.path.basename(path)
         kinds["tiff"] += name.endswith(".tif")
+        kinds["webp" if "sha256" in want else "webp_refused"] += name.endswith(".webp")
         kinds["jpeg_ycbcr_tiff"] += (name.endswith(".tif") and "sha256" in want
                                      and ("jpeg" in name or "ycbcr" in name))
         if want.get("unported") or "error" in want:
@@ -3322,11 +3331,12 @@ def image_fixture_check(card):
             if hashlib.sha256(array.tobytes()).hexdigest() != want[form]:
                 raise AssertionError(f"[20] {name}: {form} differs from expected.json's")
         kinds["read"] += 1
-    log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm and TIFF files decode to PIL's "
-            f"SHA-256 in both forms ({kinds['jpeg_ycbcr_tiff']} JPEG-compressed or YCbCr "
-            f"TIFF), {kinds['refused']} damaged ones raise ValueError, {kinds['unported']} "
-            f"CCITT / LZMA / ZSTD TIFF, WebP and JPEG 2000 files UnsupportedImage naming "
-            f"their item; {kinds['tiff']} of them TIFF (card {card})")
+    log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm, TIFF and WebP files decode to "
+            f"PIL's SHA-256 in both forms ({kinds['jpeg_ycbcr_tiff']} JPEG-compressed or YCbCr "
+            f"TIFF, {kinds['webp']} WebP), {kinds['refused']} damaged ones raise ValueError "
+            f"({kinds['webp_refused']} WebP), {kinds['unported']} CCITT / LZMA / ZSTD TIFF and "
+            f"JPEG 2000 files UnsupportedImage naming their item; {kinds['tiff']} of them TIFF "
+            f"(card {card})")
     return kinds
 
 
@@ -3508,8 +3518,8 @@ def loaders_slice(torch, dev, card):
         # a TIFF tree (depth in both byte orders, palette semseg).
         fixtures = [os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
                     if n.startswith("tree_")]
-        fixtures += [os.path.join(IMAGE_FIXTURES, n) for n in os.listdir(IMAGE_FIXTURES)
-                     if n.startswith("tree_")]
+        fixtures += [os.path.join(folder, n) for folder in (IMAGE_FIXTURES, WEBP_FIXTURES)
+                     for n in os.listdir(folder) if n.startswith("tree_")]
         for key, what, fmt, rgb_files in (
                 ("pretrain_new_formats", "the new formats", "png",
                  sorted(p for p in fixtures if not p.endswith(".tif"))),

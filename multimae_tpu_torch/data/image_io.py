@@ -53,10 +53,18 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
   YCbCrCoefficients and ReferenceBlackWhite, its 4 x 4 quirks).
   `write_tiff` writes uncompressed, PackBits and Deflate files for tests
   and trees.
+* WebP (Pillow's WebPImagePlugin over libwebp's WebPAnimDecoder,
+  `read_webp`): simple and extended files, VP8 lossy (4:2:0 with libwebp's
+  fancy upsampling and fixed-point YUV to RGB) and VP8L lossless frames,
+  ALPH alpha (raw or VP8L-coded, each filter), ICC, EXIF and XMP chunks
+  skipped, and an animation's first frame on its zeroed canvas, in PIL's
+  mode "RGB" or "RGBA", all in the native decoder (native/webp_decode.cpp);
+  `webp_colour_twin` and `alpha_unfilter_twin` are its colour and alpha
+  stages in numpy, which `read_webp(twin=True)` takes.
 
 Files PIL reads and the port cannot (CCITT, LZMA, ZSTD, WebP-in-TIFF,
 SGILog, ThunderScan, CIELab and "tiff_raw_16" TIFF, and old-style JPEG in
-tiles or planes, items 11h and 11g; WebP; JPEG 2000) raise
+tiles or planes, items 11h and 11g; JPEG 2000) raise
 `UnsupportedImage`, which
 is neither a ValueError nor an OSError: the corrupt-file retries of the
 datasets and the loader let it through, so a tree that holds one stops the
@@ -96,7 +104,6 @@ class UnsupportedImage(Exception):
 
 # Formats PIL reads that the port does not: (signature test, name, ROADMAP item).
 UNPORTED_FORMATS = (
-    (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "a WebP file", "11e"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51",
      "a JPEG 2000 file", "11f"),
 )
@@ -388,7 +395,7 @@ def png_raw(img: PngImage) -> np.ndarray:
 
 
 class Decoded:
-    """A decoded BMP, netpbm or TIFF image in the mode PIL opens it in: "P"
+    """A decoded BMP, netpbm, TIFF or WebP image in the mode PIL opens it in: "P"
     (indices, with `palette` (n, 3) uint8) and "PA" (indices, alpha), "1"
     and "L" (uint8; "1" as 0 or 255), "LA", "I;16" (uint16, "I;16B" in
     native order), "I" (int32), "F" (float32), "RGB", "RGBA" or "CMYK"
@@ -2042,13 +2049,124 @@ def write_tiff(path, pixels: np.ndarray, palette: Optional[np.ndarray] = None,
     os.replace(tmp, path)
 
 
+# --- WebP (Pillow's WebPImagePlugin, libwebp 1.6) ------------------------------------
+
+
+def _mult_hi(v: np.ndarray, coeff: int) -> np.ndarray:
+    return (v * coeff) >> 8
+
+
+def _yuv_clip8(v: np.ndarray) -> np.ndarray:
+    return np.where((v & ~16383) == 0, v >> 6, np.where(v < 0, 0, 255))
+
+
+def _upsample_rows(near: np.ndarray, far: np.ndarray, width: int) -> np.ndarray:
+    """libwebp's UpsampleRgbaLinePair for output rows between the chroma
+    rows `near` (weight 3) and `far` (weight 1), (n, uw) int64 each: a
+    sample pair's (9a + 3b + 3c + d + 8) / 16 rounded as the packed-pair
+    arithmetic rounds it, the first column (and an even width's last) from
+    its own column alone."""
+    n, uw = near.shape
+    out = np.empty((n, width), np.int64)
+    out[:, 0] = (3 * near[:, 0] + far[:, 0] + 2) >> 2
+    k = np.arange(1, (width - 1) // 2 + 1)
+    if k.size:
+        tl, t, l, c = near[:, k - 1], near[:, k], far[:, k - 1], far[:, k]
+        avg = tl + t + l + c + 8
+        out[:, 2 * k - 1] = (((avg + 2 * (t + l)) >> 3) + tl) >> 1
+        out[:, 2 * k] = (((avg + 2 * (tl + c)) >> 3) + t) >> 1
+    if width % 2 == 0:
+        out[:, width - 1] = (3 * near[:, uw - 1] + far[:, uw - 1] + 2) >> 2
+    return out
+
+
+def webp_colour_twin(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                     alpha: Optional[np.ndarray] = None) -> np.ndarray:
+    """libwebp's colour stage for a lossy frame (io_dec.c EmitFancyRGB):
+    the (h, w) luma and ((h + 1) // 2, (w + 1) // 2) chroma planes ->
+    (h, w, 4) uint8 RGBA, the chroma upsampled between the two nearest rows
+    (output row 0 from chroma row 0 alone, an even height's last row from
+    the last), then yuv.h's VP8YUVToR/G/B (14-bit products, 6 fractional
+    bits, clipped); alpha 255 where `alpha` ((h, w) uint8) is None. The
+    numpy twin of webp_decode.cpp's planes_to_rgb."""
+    h, w = y.shape
+    uh = u.shape[0]
+    r = np.arange(h)
+    near = np.where(r % 2 == 1, (r - 1) // 2, r // 2)
+    far = np.where(r == 0, 0, np.where(r % 2 == 1, np.minimum((r + 1) // 2, uh - 1), r // 2 - 1))
+    uu = _upsample_rows(u.astype(np.int64)[near], u.astype(np.int64)[far], w)
+    vv = _upsample_rows(v.astype(np.int64)[near], v.astype(np.int64)[far], w)
+    yy = _mult_hi(y.astype(np.int64), 19077)
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., 0] = _yuv_clip8(yy + _mult_hi(vv, 26149) - 14234)
+    out[..., 1] = _yuv_clip8(yy - _mult_hi(uu, 6419) - _mult_hi(vv, 13320) + 8708)
+    out[..., 2] = _yuv_clip8(yy + _mult_hi(uu, 33050) - 17685)
+    out[..., 3] = 255 if alpha is None else alpha
+    return out
+
+
+def alpha_unfilter_twin(samples: np.ndarray, alpha_filter: int) -> np.ndarray:
+    """libwebp's WebPUnfilters on an ALPH plane, (h, w) uint8 -> (h, w)
+    uint8: filter 0 none, 1 horizontal, 2 vertical, 3 gradient; the first
+    row is predicted from the left (0 before it) under every filter but 0,
+    the first column from the pixel above. The numpy twin of
+    webp_decode.cpp's unfilter_alpha (the gradient along anti-diagonals)."""
+    if alpha_filter == 0:
+        return np.array(samples, np.uint8)
+    a = samples.astype(np.int64)
+    h, w = a.shape
+    if alpha_filter == 1:  # column 0 down the rows, then each row from the left
+        rows = np.concatenate([np.zeros((h, 1), np.int64), np.cumsum(a[:, 1:], axis=1)], 1)
+        return ((np.cumsum(a[:, 0])[:, None] + rows) & 255).astype(np.uint8)
+    out = a.copy()
+    out[0] = np.cumsum(a[0])
+    if alpha_filter == 2:
+        out = np.cumsum(out, axis=0)
+    else:
+        out &= 255
+        for d in range(1, h + w - 1):
+            ys = np.arange(max(1, d - w + 1), min(h - 1, d) + 1)
+            if not ys.size:
+                continue
+            xs = d - ys
+            xm = np.maximum(xs - 1, 0)
+            grad = np.clip(out[ys, xm] + out[ys - 1, xs] - out[ys - 1, xm], 0, 255)
+            out[ys, xs] = (np.where(xs == 0, out[ys - 1, xs], grad) + a[ys, xs]) & 255
+    return (out & 255).astype(np.uint8)
+
+
+def read_webp(data: bytes, twin: bool = False) -> Decoded:
+    """A RIFF/WEBP file as PIL 12.1 (libwebp 1.6) opens it: the first
+    frame on its canvas, mode "RGBA" or "RGB" as PIL decides. The native
+    decoder does it all; with `twin` it stops before the colour stage and
+    `webp_colour_twin` and `alpha_unfilter_twin` finish a lossy frame (a
+    lossless one has no twin). Raises ValueError where PIL refuses the
+    file."""
+    if not twin:
+        mode, rgba = native.decode_webp(data)
+    else:
+        f = native.decode_webp_planes(data)
+        mode = f.mode
+        if f.rgba is not None:
+            frame = f.rgba
+        else:
+            alpha = None if f.alpha is None else alpha_unfilter_twin(f.alpha, f.alpha_filter)
+            frame = webp_colour_twin(f.y, f.u, f.v, alpha)
+        rgba = np.zeros(f.canvas_hw + (4,), np.uint8)
+        (top, left), (h, w) = f.offset, f.shape
+        rgba[top:top + h, left:left + w] = frame
+    return Decoded(mode, rgba if mode == "RGBA" else rgba[:, :, :3])
+
+
 def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.ndarray:
     """Decode one image file (see the module docstring for what comes back);
     `twin` reads a PNG with `read_png_twin`, a run-length BMP with
-    `bmp_rle_twin` and LZW and PackBits TIFF strips with `lzw_twin` and
-    `packbits_twin` (JPEG data has no twin: it takes the native decoder
-    either way). Raises UnsupportedImage, naming the file, for a file
-    PIL reads that the port cannot, and ValueError for a damaged one."""
+    `bmp_rle_twin`, LZW and PackBits TIFF strips with `lzw_twin` and
+    `packbits_twin` and a lossy WebP frame's colour and alpha stages with
+    `webp_colour_twin` and `alpha_unfilter_twin` (JPEG data and the WebP
+    entropy decoders have no twin: they take the native decoder either
+    way). Raises UnsupportedImage, naming the file, for a file PIL reads
+    that the port cannot, and ValueError for a damaged one."""
     with open(path, "rb") as f:
         data = f.read()
     for test, what, item in UNPORTED_FORMATS:
@@ -2069,8 +2187,10 @@ def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.nd
             img = read_tiff(data, twin)
         elif len(data) > 1 and data[:1] == b"P" and data[1:2] in b"0123456fy":
             img = read_netpbm(data)
+        elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            img = read_webp(data, twin)
         else:
-            raise ValueError("not a PNG, JPEG, BMP, TIFF or netpbm file")
+            raise ValueError("not a PNG, JPEG, BMP, TIFF, netpbm or WebP file")
         return img.rgb() if convert_rgb else img.raw()
     except UnsupportedImage as e:
         raise UnsupportedImage(f"{path}: {e}") from e

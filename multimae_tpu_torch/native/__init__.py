@@ -1,15 +1,17 @@
 """ctypes bindings for the port's native image library (fastimage.cpp,
-jpeg_decode.cpp, pil_ops.cpp and tiff_decode.cpp), the counterpart of the
-JAX package's multimae_tpu/native/__init__.py. fastimage.cpp also holds the
-BMP run-length decoder (`bmp_rle`); tiff_decode.cpp the TIFF LZW and
-PackBits decoders (`tiff_lzw`, `tiff_packbits`); jpeg_decode.cpp the JPEG
-decoder of JPEG files (`decode_jpeg`) and of JPEG-compressed TIFF strips
-and tiles (`decode_jpeg_tiff`).
+jpeg_decode.cpp, pil_ops.cpp, tiff_decode.cpp and webp_decode.cpp), the
+counterpart of the JAX package's multimae_tpu/native/__init__.py.
+fastimage.cpp also holds the BMP run-length decoder (`bmp_rle`);
+tiff_decode.cpp the TIFF LZW and PackBits decoders (`tiff_lzw`,
+`tiff_packbits`); jpeg_decode.cpp the JPEG decoder of JPEG files
+(`decode_jpeg`) and of JPEG-compressed TIFF strips and tiles
+(`decode_jpeg_tiff`); webp_decode.cpp the WebP decoder (`decode_webp`, and
+`decode_webp_planes` for the colour and alpha twins of data/image_io.py).
 
 The library is built with g++ at first use:
 
     g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp \
-        pil_ops.cpp tiff_decode.cpp -o <lib>
+        pil_ops.cpp tiff_decode.cpp webp_decode.cpp -o <lib>
 
 into build/native/<hash of the sources and the command>/ in the repository
 (listed in .gitignore). The compiler writes a per-process temporary that
@@ -40,7 +42,8 @@ SOURCE = Path(__file__).resolve().parent / "fastimage.cpp"
 JPEG_SOURCE = SOURCE.with_name("jpeg_decode.cpp")
 PIL_SOURCE = SOURCE.with_name("pil_ops.cpp")
 TIFF_SOURCE = SOURCE.with_name("tiff_decode.cpp")
-SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE)
+WEBP_SOURCE = SOURCE.with_name("webp_decode.cpp")
+SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE, WEBP_SOURCE)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
@@ -69,6 +72,9 @@ _SIGNATURES = {
     "mm_gaussian_blur_3x3": [_P, _I, _I, _P],
     "mm_decode_jpeg": [_P, _L, _P, _L, _P, _P, _P, _L],
     "mm_decode_jpeg_tiff": [_P, _L, _P, _L, _I, _P, _L, _P, _P, _L],
+    "mm_decode_webp": [_P, _L, _I, _P, _L, _P, _P, _L],
+    "mm_webp_colour": [_P, _P, _P, _I, _I, _P],
+    "mm_webp_unfilter": [_P, _I, _I, _I],
     "mm_pil_resize": [_P, _I, _I, _I, _P, _I, _I, _I],
     "mm_pil_affine": [_P, _I, _I, _I, _P, _P, _I, _P],
     "mm_pil_gray": [_P, _L, _P],
@@ -398,6 +404,88 @@ def decode_jpeg_tiff(data: bytes, tables: Optional[bytes], color: str) -> JpegTi
     else:
         stream.pixels = out.reshape(stream.height, stream.width, channels)
     return stream
+
+
+# --- WebP (webp_decode.cpp) ------------------------------------------------------
+
+
+def _webp_call(data: bytes, planes: int):
+    fn = lib().mm_decode_webp
+    info = np.zeros(10, np.intc)
+    msg = ctypes.create_string_buffer(256)
+    rc = fn(data, len(data), planes, None, 0, _ptr(info), msg, len(msg))
+    if rc == -3:
+        out = np.empty(int(info[9]), np.uint8)
+        rc = fn(data, len(data), planes, _ptr(out), out.size, _ptr(info), msg, len(msg))
+    if rc != 0:
+        raise ValueError(msg.value.decode(errors="replace"))
+    return info, out
+
+
+def decode_webp(data: bytes) -> Tuple[str, np.ndarray]:
+    """RIFF/WEBP bytes -> (PIL's mode, "RGB" or "RGBA"; the (H, W, 4) uint8
+    RGBA canvas of the first frame), as PIL 12.1 with libwebp 1.6 opens the
+    file (webp_decode.cpp). Raises ValueError naming what it met where PIL
+    refuses the file."""
+    info, out = _webp_call(data, 0)
+    return ("RGBA" if info[2] else "RGB"), out.reshape(int(info[1]), int(info[0]), 4)
+
+
+class WebpPlanes:
+    """The first frame of a WebP file before its colour stage: `canvas_hw`,
+    `mode` (PIL's), the frame's `offset` (y, x) and `shape` (h, w) on the
+    canvas, and either `rgba` ((h, w, 4) uint8, a lossless frame) or `y`
+    (h, w), `u` and `v` ((h + 1) // 2, (w + 1) // 2) uint8 planes and, with
+    an ALPH chunk, `alpha`: its (h, w) samples before the unfiltering under
+    `alpha_filter` (0-3)."""
+
+    def __init__(self, info, out):
+        cw, ch, rgba, x, y, w, h, lossless, filt = (int(v) for v in info[:9])
+        self.canvas_hw, self.mode = (ch, cw), "RGBA" if rgba else "RGB"
+        self.offset, self.shape, self.alpha_filter = (y, x), (h, w), filt
+        self.rgba = self.y = self.u = self.v = self.alpha = None
+        if lossless:
+            self.rgba = out.reshape(h, w, 4)
+            return
+        uh, uw = (h + 1) // 2, (w + 1) // 2
+        self.y = out[:h * w].reshape(h, w)
+        self.u = out[h * w:h * w + uh * uw].reshape(uh, uw)
+        self.v = out[h * w + uh * uw:h * w + 2 * uh * uw].reshape(uh, uw)
+        if filt >= 0:
+            self.alpha = out[h * w + 2 * uh * uw:].reshape(h, w)
+
+
+def decode_webp_planes(data: bytes) -> WebpPlanes:
+    """The first frame of RIFF/WEBP bytes up to the colour stage (see
+    WebpPlanes): the same container, VP8, VP8L and ALPH decoding as
+    `decode_webp`, and the same ValueErrors."""
+    return WebpPlanes(*_webp_call(data, 1))
+
+
+def webp_colour(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The colour stage of `decode_webp` alone: (h, w) luma and ((h + 1) //
+    2, (w + 1) // 2) chroma uint8 planes -> (h, w, 4) uint8 RGBA, alpha
+    255 (the native side of image_io.webp_colour_twin)."""
+    y = np.ascontiguousarray(y, np.uint8)
+    h, w = y.shape
+    uv_shape = ((h + 1) // 2, (w + 1) // 2)
+    u, v = np.ascontiguousarray(u, np.uint8), np.ascontiguousarray(v, np.uint8)
+    if u.shape != uv_shape or v.shape != uv_shape or 0 in y.shape:
+        raise ValueError(f"webp_colour: planes {y.shape}, {u.shape}, {v.shape}")
+    out = np.empty((h, w, 4), np.uint8)
+    _check(lib().mm_webp_colour(_ptr(y), _ptr(u), _ptr(v), w, h, _ptr(out)), "webp_colour")
+    return out
+
+
+def webp_unfilter(samples: np.ndarray, alpha_filter: int) -> np.ndarray:
+    """The ALPH unfiltering of `decode_webp` alone on (h, w) uint8 samples
+    (filter 0-3; the native side of image_io.alpha_unfilter_twin)."""
+    out = np.array(samples, np.uint8, order="C")
+    if out.ndim != 2 or 0 in out.shape:
+        raise ValueError(f"webp_unfilter takes (h, w) samples, not {out.shape}")
+    _check(lib().mm_webp_unfilter(_ptr(out), out.shape[1], out.shape[0], int(alpha_filter)),
+           "webp_unfilter")
+    return out
 
 
 # --- cv2 -------------------------------------------------------------------------

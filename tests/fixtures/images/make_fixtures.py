@@ -17,9 +17,9 @@ with every escape, bottom-up and top-down rows) and the netpbm files from
 comments in the header and the data). The TIFF writers (`tiff`,
 `jpeg_tiff`, `ojpeg_tiff`, `ycbcr_tiff`) write what PIL does not, the JPEG
 ones with streams from PIL's JPEG encoder (`jpeg_stream`, which imports
-PIL); PIL writes the rest of the TIFF files and the WebP and JPEG 2000
-ones, and gives the digests in `main`. Re-running rewrites every file; the
-pixels come from fixed seeds.
+PIL); PIL writes the rest of the TIFF files and the JPEG 2000 one, and
+gives the digests in `main` (tests/fixtures/webp/ holds the WebP files).
+Re-running rewrites every file; the pixels come from fixed seeds.
 """
 
 from __future__ import annotations
@@ -672,7 +672,7 @@ def photo(hw, seed, noise=8.0):
 
 
 def files(tree_hw=(48, 64)):
-    """{name: bytes} of every fixture (the TIFF, WebP and JPEG 2000 ones
+    """{name: bytes} of every fixture (the TIFF and JPEG 2000 ones
     aside). The `tree_*` files share the size `tree_hw`, so that
     chip_smoke.py builds a pretraining tree of them."""
     rng = np.random.default_rng(0)
@@ -1079,8 +1079,7 @@ REFUSED = {"refused_bmp_gray4_wide.bmp": "hold no", "refused_bmp_truncated.bmp":
            "refused_tiff_ycbcr_subsampling.tif": "cannot handle"}
 # The ROADMAP item of each file the port refuses with UnsupportedImage.
 UNPORTED = {"unported_ccitt.tif": "11h", "unported_lzma.tif": "11h", "unported_zstd.tif": "11h",
-            "unported_ojpeg_tiles_tables.tif": "11g", "unported.webp": "11e",
-            "unported.jpx": "11f"}
+            "unported_ojpeg_tiles_tables.tif": "11g", "unported.jpx": "11f"}
 
 
 def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
@@ -1176,10 +1175,9 @@ def main():
                **refused_jpeg_tiff_files(), **pil_tiff_files()}
     unported = {k: written.pop(k) for k in list(written) if k in UNPORTED}
     a = photo((16, 24), 6)
-    for name, fmt in (("unported.webp", "WEBP"), ("unported.jpx", "JPEG2000")):
-        buf = io.BytesIO()
-        Image.fromarray(a).save(buf, fmt)
-        unported[name] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "JPEG2000")
+    unported["unported.jpx"] = buf.getvalue()
     expected = {}
     for name, data in sorted({**written, **unported}.items()):
         with open(os.path.join(HERE, name), "wb") as f:

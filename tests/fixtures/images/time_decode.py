@@ -1,19 +1,22 @@
 """Time the port's readers of the new formats beside PIL's on 640 x 480
 photo-like files, in one thread, where PIL is installed:
 
-    python tests/fixtures/images/time_decode.py [--repeats 20]
+    python tests/fixtures/images/time_decode.py [--repeats 20] [--only webp]
 
 The PNG, BMP, netpbm and TIFF files (JPEG-compressed and YCbCr ones
-among them) come from make_fixtures.timing_files; the arithmetic-coded
-and smoothed JPEG files are tests/fixtures/jpeg/big_*.jpg.
-Prints ms per file (load_image from disk, convert_rgb, against PIL's
-Image.open(path).convert("RGB"); the median of 5 windows of `repeats`
-decodes) for each, and checks the two agree.
+among them) come from make_fixtures.timing_files, the WebP ones (lossy at
+quality 90, lossy with alpha, lossless) from tests/fixtures/webp's
+make_fixtures.timing_files; the arithmetic-coded and smoothed JPEG files
+are tests/fixtures/jpeg/big_*.jpg. `--only` keeps the files whose name
+holds the word. Prints ms per file (load_image from disk, convert_rgb,
+against PIL's Image.open(path).convert("RGB"); the median of 5 windows of
+`repeats` decodes) for each, and checks the two agree.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import statistics
 import sys
@@ -31,6 +34,16 @@ from make_fixtures import timing_files  # noqa: E402
 from multimae_tpu_torch.data.image_io import load_image  # noqa: E402
 
 
+def webp_timing_files():
+    """tests/fixtures/webp/make_fixtures.py's timing_files (a module of the
+    same name as this folder's, so loaded from its path)."""
+    path = os.path.join(os.path.dirname(HERE), "webp", "make_fixtures.py")
+    spec = importlib.util.spec_from_file_location("webp_make_fixtures", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.timing_files()
+
+
 def ms_per_call(fn, repeats):
     fn()
     windows = []
@@ -45,16 +58,17 @@ def ms_per_call(fn, repeats):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--repeats", type=int, default=20)
+    parser.add_argument("--only", default="", help="time only the files whose name holds it")
     args = parser.parse_args()
     jpeg = os.path.join(os.path.dirname(HERE), "jpeg")
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
-        for name, data in timing_files().items():
+        for name, data in {**timing_files(), **webp_timing_files()}.items():
             paths.append(os.path.join(tmp, name))
             with open(paths[-1], "wb") as f:
                 f.write(data)
         paths += sorted(os.path.join(jpeg, n) for n in os.listdir(jpeg) if n.startswith("big_"))
-        for path in paths:
+        for path in [p for p in paths if args.only in os.path.basename(p)]:
             def pil():
                 return np.asarray(Image.open(path).convert("RGB"))
 

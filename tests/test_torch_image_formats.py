@@ -13,7 +13,7 @@ beside PNG and JPEG (multimae_tpu_torch/data/image_io.py) against PIL, and
 * The same kinds written here at random sizes: Adam7 PNG from numpy,
   BMP and netpbm by PIL; and seeded random RLE streams through the native
   decoder and its twin, which agree on pixels and on refusals.
-* A CCITT, LZMA or ZSTD .tif, a .webp or .jpx file, an RGB
+* A CCITT, LZMA or ZSTD .tif, a .jpx file, an RGB
   semseg map or an 8-bit depth map in a tree stops `ImageFolder`,
   `MultiTaskImageFolder` and the loader with UnsupportedImage naming the
   file and its ROADMAP item; a truncated file is still resampled.

@@ -260,10 +260,12 @@ non-zero:
      under --aa AA_CLI --train_interpolation AA_INTERP (nothing in the
      step, K4 12 in the eval batch).
  20. the last loaders (utils/flax_msgpack.py, data/image_io.py): every
-     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm, TIFF) and
-     tests/fixtures/webp (VP8, VP8L, ALPH, animations) against PIL's
-     digests, the refused ones raising UnsupportedImage naming their
-     ROADMAP item; a MultiMAE-B params file in the JAX
+     fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm, TIFF),
+     tests/fixtures/webp (VP8, VP8L, ALPH, animations) and
+     tests/fixtures/jpeg2000 (JP2 and J2K: 5/3 and 9/7, every code-block
+     style, PPM, PPT, POC, ROI, sub-sampled components, pclr palettes)
+     against PIL's digests, the unported ones raising UnsupportedImage
+     naming their ROADMAP item; a MultiMAE-B params file in the JAX
      package's own format (flax msgpack, from seeded weights through the port's inverse
      converter and writer) starts the demo (preds bit-equal to the same
      weights as a .pth; K1 fwd 3), the cls CLI (a step and an eval batch
@@ -271,7 +273,8 @@ non-zero:
      eval batch at LOADER_SEG_BATCH: K2 12 + 12, K3b 4 + 4, K4 12, K3b fwd
      4); one epoch of the pretraining CLI over LOADER_SAMPLES samples whose
      rgb images are the new formats (WebP lossy 4:2:0, with alpha,
-     lossless and an animation's first frame among them), and one over a
+     lossless and an animation's first frame, and four .jpx JPEG 2000
+     files among them), and one over a
      TIFF tree (the
      tree_*.tif fixtures: LZW with predictor 2, Deflate, PackBits, tiled,
      planar, associated alpha, 16-bit RGB, JPEG-compressed at 4:2:0 in
@@ -438,11 +441,14 @@ AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 # of the pretraining CLI at LOADER_PT_BATCH over LOADER_SAMPLES samples
 # whose rgb images are the new formats' tree fixtures (arithmetic-coded
 # and smoothed JPEG, Adam7 PNG, BMP with RLE8, PPM; WebP lossy 4:2:0, lossy
-# with alpha, lossless and an animation's first frame; all 48 x 64), and
+# with alpha, lossless and an animation's first frame; JPEG 2000 5/3
+# lossless, 9/7 with layers, tiled RPCL and hand-written with every
+# code-block style, SOP/EPH and the RCT; all 48 x 64), and
 # one over a tree of TIFF files only (the tree_*.tif fixtures as rgb, the
 # JPEG-compressed and YCbCr ones among them).
 IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
 WEBP_FIXTURES = os.path.join(HERE, "tests", "fixtures", "webp")
+JPEG2000_FIXTURES = os.path.join(HERE, "tests", "fixtures", "jpeg2000")
 LOADER_CLS_BATCH, LOADER_SEG_BATCH, LOADER_PT_BATCH, LOADER_SAMPLES = 32, 2, 8, 16
 LOADER_HW = (48, 64)
 
@@ -3288,26 +3294,28 @@ def last_modules_slice(torch, dev, card):
 
 def image_fixture_check(card):
     """Phase 20: every fixture of tests/fixtures/images (Adam7 PNG, BMP,
-    netpbm, TIFF) and tests/fixtures/webp through this machine's build of
-    the native library: the SHA-256 of its RGB and raw forms equal
-    expected.json's (PIL's; the JPEG-compressed and YCbCr TIFF files of
-    item 11g among them), a file PIL refuses raises ValueError, a CCITT,
-    LZMA or ZSTD TIFF or a JPEG 2000 file UnsupportedImage naming the file
+    netpbm, TIFF), tests/fixtures/webp and tests/fixtures/jpeg2000 through
+    this machine's build of the native library: the SHA-256 of its RGB and
+    raw forms equal expected.json's (PIL's; the JPEG-compressed and YCbCr
+    TIFF files of item 11g among them), a file PIL refuses raises
+    ValueError, a CCITT, LZMA or ZSTD TIFF UnsupportedImage naming the file
     and its ROADMAP item."""
     import hashlib
 
     from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
 
     expected = {}
-    for folder in (IMAGE_FIXTURES, WEBP_FIXTURES):
+    for folder in (IMAGE_FIXTURES, WEBP_FIXTURES, JPEG2000_FIXTURES):
         with open(os.path.join(folder, "expected.json")) as f:
             expected.update({os.path.join(folder, n): want for n, want in json.load(f).items()})
     kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0, "jpeg_ycbcr_tiff": 0, "webp": 0,
-             "webp_refused": 0}
+             "webp_refused": 0, "jpeg2000": 0, "jpeg2000_refused": 0}
     for path, want in sorted(expected.items()):
         name = os.path.basename(path)
         kinds["tiff"] += name.endswith(".tif")
         kinds["webp" if "sha256" in want else "webp_refused"] += name.endswith(".webp")
+        kinds["jpeg2000" if "sha256" in want else "jpeg2000_refused"] += name.endswith(
+            (".jp2", ".j2k", ".jpx"))
         kinds["jpeg_ycbcr_tiff"] += (name.endswith(".tif") and "sha256" in want
                                      and ("jpeg" in name or "ycbcr" in name))
         if want.get("unported") or "error" in want:
@@ -3331,11 +3339,12 @@ def image_fixture_check(card):
             if hashlib.sha256(array.tobytes()).hexdigest() != want[form]:
                 raise AssertionError(f"[20] {name}: {form} differs from expected.json's")
         kinds["read"] += 1
-    log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm, TIFF and WebP files decode to "
-            f"PIL's SHA-256 in both forms ({kinds['jpeg_ycbcr_tiff']} JPEG-compressed or YCbCr "
-            f"TIFF, {kinds['webp']} WebP), {kinds['refused']} damaged ones raise ValueError "
-            f"({kinds['webp_refused']} WebP), {kinds['unported']} CCITT / LZMA / ZSTD TIFF and "
-            f"JPEG 2000 files UnsupportedImage naming their item; {kinds['tiff']} of them TIFF "
+    log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm, TIFF, WebP and JPEG 2000 files "
+            f"decode to PIL's SHA-256 in both forms ({kinds['jpeg_ycbcr_tiff']} JPEG-compressed "
+            f"or YCbCr TIFF, {kinds['webp']} WebP, {kinds['jpeg2000']} JPEG 2000), "
+            f"{kinds['refused']} damaged ones raise ValueError ({kinds['webp_refused']} WebP, "
+            f"{kinds['jpeg2000_refused']} JPEG 2000), {kinds['unported']} CCITT / LZMA / ZSTD "
+            f"TIFF files UnsupportedImage naming their item; {kinds['tiff']} of them TIFF "
             f"(card {card})")
     return kinds
 
@@ -3518,7 +3527,8 @@ def loaders_slice(torch, dev, card):
         # a TIFF tree (depth in both byte orders, palette semseg).
         fixtures = [os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
                     if n.startswith("tree_")]
-        fixtures += [os.path.join(folder, n) for folder in (IMAGE_FIXTURES, WEBP_FIXTURES)
+        fixtures += [os.path.join(folder, n)
+                     for folder in (IMAGE_FIXTURES, WEBP_FIXTURES, JPEG2000_FIXTURES)
                      for n in os.listdir(folder) if n.startswith("tree_")]
         for key, what, fmt, rgb_files in (
                 ("pretrain_new_formats", "the new formats", "png",

@@ -14,11 +14,12 @@ utils/dataset_folder.py).
   other modalities in their raw form (16-bit depth as uint16).
 
 Images are numpy arrays from data/image_io.py, not PIL images: PNG, JPEG,
-BMP, netpbm, TIFF and WebP (a 16-bit depth map in either byte order comes
-back as native uint16). The corrupt-file retry catches what a damaged or
-missing file raises (OSError, ValueError), not the RuntimeError of a
-machine without the native library and not `UnsupportedImage`, which a
-file that PIL reads and the port cannot raises (a CCITT TIFF, JPEG 2000):
+BMP, netpbm, TIFF, WebP and JPEG 2000 (a 16-bit depth map in either byte
+order, or a 16-bit .jpx, comes back as native uint16). The corrupt-file
+retry catches what a damaged or missing file raises (OSError, ValueError),
+not the RuntimeError of a machine without the native library and not
+`UnsupportedImage`, which a file that PIL reads and the port cannot raises
+(a CCITT TIFF, a JPEG 2000 file with high-throughput code-blocks):
 the JAX package trains on such a file, so the run stops naming it.
 """
 

@@ -61,10 +61,23 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
   mode "RGB" or "RGBA", all in the native decoder (native/webp_decode.cpp);
   `webp_colour_twin` and `alpha_unfilter_twin` are its colour and alpha
   stages in numpy, which `read_webp(twin=True)` takes.
+* JPEG 2000 (Pillow's Jpeg2KImagePlugin over OpenJPEG 2.5, `read_jpeg2000`):
+  a JP2 file (signature, ftyp, jp2h with ihdr, colr, pclr, cmap, cdef and
+  res, then jp2c) or a raw J2K codestream, in the mode Pillow's plugin
+  gives it ("L", "LA", "RGB", "RGBA", "I;16", "P" from a pclr palette,
+  "PA" or "CMYK"); the codestream in the native decoder
+  (native/jpeg2000_decode.cpp, no OpenJPEG): the markers of Part 1, all
+  five progression orders with POC, PPM and PPT, SOP and EPH, the six
+  code-block style switches, ROI maxshift, reversible 5/3 and irreversible
+  9/7 in OpenJPEG's single-precision lifting, RCT and ICT, the DC level
+  shift with OpenJPEG's rounding, and Pillow's unpackers (precision other
+  than 8 or 16 bits, signed and sub-sampled components, sYCC to RGB).
+  `jpeg2000_idwt_twin` and `jpeg2000_colour_twin` are its wavelet and
+  colour stages in numpy, which `read_jpeg2000(twin=True)` takes.
 
 Files PIL reads and the port cannot (CCITT, LZMA, ZSTD, WebP-in-TIFF,
 SGILog, ThunderScan, CIELab and "tiff_raw_16" TIFF, and old-style JPEG in
-tiles or planes, items 11h and 11g; JPEG 2000) raise
+tiles or planes, items 11h and 11g) raise
 `UnsupportedImage`, which
 is neither a ValueError nor an OSError: the corrupt-file retries of the
 datasets and the loader let it through, so a tree that holds one stops the
@@ -102,11 +115,11 @@ class UnsupportedImage(Exception):
     names the file, what was met and the ROADMAP item that ports it."""
 
 
-# Formats PIL reads that the port does not: (signature test, name, ROADMAP item).
-UNPORTED_FORMATS = (
-    (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51",
-     "a JPEG 2000 file", "11f"),
-)
+# Formats PIL reads that the port does not, told by their first bytes:
+# (signature test, name, ROADMAP item). None is left; the files the port
+# cannot read inside a format it reads raise UnsupportedImage from its reader.
+UNPORTED_FORMATS = ()
+
 
 # PNG colour types -> samples per pixel, and the bit depths the standard allows
 _CHANNELS = native.PNG_CHANNELS
@@ -2158,12 +2171,405 @@ def read_webp(data: bytes, twin: bool = False) -> Decoded:
     return Decoded(mode, rgba if mode == "RGBA" else rgba[:, :, :3])
 
 
+# --- JPEG 2000 (Pillow's Jpeg2KImagePlugin over OpenJPEG 2.5) ---------------------
+
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
+_JP2_SPACES = {16: "srgb", 17: "gray", 18: "sycc", 24: "eycc", 12: "cmyk"}
+_MAX_PIXELS = 2 * 89478485  # PIL refuses images past 2 * Image.MAX_IMAGE_PIXELS
+
+
+def _boxes(data: bytes, start: int, end: int):
+    """The boxes in data[start:end]: (type, payload start, payload end); the
+    jp2c box's length of 0 runs to `end` (any other box's is refused, as
+    Pillow's BoxReader refuses it)."""
+    pos = start
+    while pos < end:
+        if pos + 8 > end:
+            raise ValueError("truncated JP2 box header")
+        lbox, tbox = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if lbox == 1:
+            if pos + 16 > end:
+                raise ValueError("truncated JP2 box header")
+            lbox, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif lbox == 0 and tbox == b"jp2c":
+            lbox = end - pos
+        if lbox < head or pos + lbox > end:
+            raise ValueError(f"JP2 box {tbox!r} has a bad length")
+        yield tbox, pos + head, pos + lbox
+        pos += lbox
+
+
+def _jp2_palette(data: bytes, a: int, b: int):
+    """A pclr box as Pillow reads it: ImagePalette.getcolor over the entries
+    (a colour met before keeps its first index), or None where a column is
+    deeper than 8 bits. Returns (palette bytes, bytes per entry)."""
+    if b - a < 3:
+        raise ValueError("short pclr box")
+    ne, npc = struct.unpack_from(">HB", data, a)
+    if b - a < 3 + npc:
+        raise ValueError("short pclr box")
+    depths = data[a + 3:a + 3 + npc]
+    if max(depths, default=0) > 8:
+        return None
+    if b - a < 3 + npc + ne * npc:
+        raise ValueError("short pclr box")
+    width = 4 if npc == 4 else 3
+    colors, palette = {}, bytearray()
+    at = a + 3 + npc
+    for _ in range(ne):
+        color = tuple(data[at:at + npc])
+        at += npc
+        if width == 3 and len(color) == 4:
+            if color[3] != 255:
+                raise ValueError("pclr: cannot add non-opaque RGBA color to RGB palette")
+            color = color[:3]
+        elif width == 4 and len(color) == 3:
+            color += (255,)
+        if color in colors:
+            continue
+        index = len(palette) // width
+        if index >= 256:
+            raise ValueError("pclr: cannot allocate more than 256 colors")
+        colors[color] = index
+        if index * width < len(palette):
+            palette[index * width:index * width + width] = bytes(color)
+        else:
+            palette += bytes(color)
+    return bytes(palette), width
+
+
+def _jp2_header(data: bytes, a: int, b: int):
+    """The jp2h box: Pillow's size, mode and palette (Jpeg2KImagePlugin.
+    _parse_jp2_header) and the colour space OpenJPEG takes from the first
+    colr box, with OpenJPEG's checks of ihdr, colr, pclr, cmap and cdef."""
+    size = mode = nc = None
+    palette = None
+    # an ICC profile, an unknown method or enumeration, or no colr box leave
+    # the colour space unspecified, for Pillow to guess from the components
+    space, has_colr, has_pclr, has_cdef = "unspecified", False, False, False
+    for i, (t, pa, pb) in enumerate(_boxes(data, a, b)):
+        n = pb - pa
+        if i == 0 and t != b"ihdr":
+            raise ValueError("the jp2h box does not start with ihdr")
+        if t == b"ihdr":
+            if n != 14:
+                raise ValueError("bad ihdr box size")
+            height, width, nc, bpc = struct.unpack_from(">IIHB", data, pa)
+            if nc == 0 or nc > 16384:
+                raise ValueError("bad component count in ihdr")
+            size = (width, height)
+            mode = {1: "I;16" if (bpc & 0x7F) > 8 else "L", 2: "LA", 3: "RGB",
+                    4: "RGBA"}.get(nc, mode)
+        elif t == b"colr":
+            if n < 3:
+                raise ValueError("bad colr box size")
+            meth = data[pa]
+            if meth == 1 and n < 7:
+                raise ValueError("bad colr box size")
+            if nc == 4 and meth == 1 and struct.unpack_from(">I", data, pa + 3)[0] == 12:
+                mode = "CMYK"
+            if not has_colr:
+                has_colr = True
+                if meth == 1:
+                    enumcs = struct.unpack_from(">I", data, pa + 3)[0]
+                    space = _JP2_SPACES.get(enumcs, "unspecified")
+        elif t == b"pclr":
+            if has_pclr:
+                raise ValueError("two pclr boxes")
+            has_pclr = True
+            if n < 3 or not 0 < struct.unpack_from(">H", data, pa)[0] <= 1024 or data[pa + 2] == 0:
+                raise ValueError("bad pclr box")
+            ne, npc = struct.unpack_from(">HB", data, pa)
+            need = 3 + npc + sum(ne * (((d & 0x7F) + 8) // 8) for d in data[pa + 3:pa + 3 + npc])
+            if n < 3 + npc or n < need:
+                raise ValueError("bad pclr box")
+            if mode in ("L", "LA"):
+                palette = _jp2_palette(data, pa, pb)
+                if palette is not None:
+                    mode = "P" if mode == "L" else "PA"
+        elif t == b"cmap":
+            if not has_pclr:
+                raise ValueError("a cmap box before the pclr box")
+        elif t == b"cdef":
+            if has_cdef or n < 2:
+                raise ValueError("bad cdef box")
+            has_cdef = True
+            count = struct.unpack_from(">H", data, pa)[0]
+            if count == 0 or n < 2 + 6 * count:
+                raise ValueError("bad cdef box")
+    if size is None or mode is None:
+        raise ValueError("malformed JP2 header")
+    return size, mode, space, palette
+
+
+def _jpeg2000_container(data: bytes):
+    """(codestream, PIL's mode, PIL's (width, height), colour space, palette)
+    of a JP2 file or a raw J2K codestream, as Pillow's plugin and
+    OpenJPEG's JP2 reader take them; ValueError where either refuses."""
+    if data[:4] == J2K_SIGNATURE:
+        if len(data) < 6:
+            raise ValueError("truncated SIZ marker")
+        lsiz = struct.unpack_from(">H", data, 4)[0]
+        siz = data[4:4 + lsiz]
+        if len(siz) < 40:
+            raise ValueError("truncated SIZ marker")
+        xsiz, ysiz, xosiz, yosiz = struct.unpack_from(">IIII", siz, 4)
+        csiz = struct.unpack_from(">H", siz, 36)[0]
+        if csiz == 1:
+            if len(siz) < 39:
+                raise ValueError("truncated SIZ marker")
+            mode = "I;16" if (siz[38] & 0x7F) + 1 > 8 else "L"
+        elif 2 <= csiz <= 4:
+            mode = ("LA", "RGB", "RGBA")[csiz - 2]
+        else:
+            raise ValueError("unable to determine J2K image mode")
+        return data, mode, (xsiz - xosiz, ysiz - yosiz), "unspecified", None
+    header = codestream = None
+    for i, (t, a, b) in enumerate(_boxes(data, 0, len(data))):
+        if i == 0 and (t != b"jP  " or b - a != 4 or data[a:b] != b"\r\n\x87\n"):
+            raise ValueError("bad JP2 signature box")
+        if i == 1 and (t != b"ftyp" or b - a < 8 or (b - a - 8) % 4):
+            raise ValueError("the JP2 ftyp box is not second")
+        if t == b"jp2h":
+            if header is not None:
+                raise ValueError("two jp2h boxes")
+            header = _jp2_header(data, a, b)
+        elif t == b"jp2c":
+            if header is None:
+                raise ValueError("a jp2c box before the jp2h box")
+            codestream = data[a:b]
+            break
+    if header is None or codestream is None:
+        raise ValueError("no jp2h or jp2c box")
+    size, mode, space, palette = header
+    return codestream, mode, size, space, palette
+
+
+def read_jpeg2000(data: bytes, twin: bool = False) -> Decoded:
+    """A JP2 file or a raw J2K codestream as PIL 12.1 (OpenJPEG 2.5) opens
+    it, in PIL's mode ("L", "LA", "RGB", "RGBA", "I;16", "P" with its
+    palette, "PA" or "CMYK"). The native decoder does it all; with `twin`
+    it stops before the inverse wavelet transform, and
+    `jpeg2000_idwt_twin` and `jpeg2000_colour_twin` finish each tile.
+    Raises ValueError where PIL refuses the file, and UnsupportedImage
+    for high-throughput code-blocks and Part 2 multiple component
+    transforms (item 11f-b)."""
+    codestream, mode, (width, height), space, palette = _jpeg2000_container(data)
+    if width * height > _MAX_PIXELS or width <= 0 or height <= 0:
+        raise ValueError(f"image of {width} x {height} pixels, which PIL refuses")
+    try:
+        if not twin:
+            px = native.decode_jpeg2000(codestream, mode, space, (height, width))
+        else:
+            co = native.decode_jpeg2000_coefficients(codestream, mode, space)
+    except native.Jpeg2000Unsupported as e:
+        raise UnsupportedImage(f"a JPEG 2000 file with {e}, which PIL reads and the port does "
+                               f"not yet (ROADMAP.md queue 1 item 11f-b)") from e
+    if twin:
+        shape, dtype = native.jpeg2000_shape(mode, (height, width))
+        px = np.zeros(shape, dtype)
+        for tile in co.tiles:
+            planes = [jpeg2000_idwt_twin(c, r, q)
+                      for c, r, q in zip(tile.coef, tile.rects, tile.qmfbid)]
+            jpeg2000_colour_twin(px, planes, tile.qmfbid, co.comps, tile.mct, mode,
+                                 co.unpacker, co.origin, tile.rect)
+    pal = None
+    if palette is not None:
+        raw, width_ = palette
+        pal = np.frombuffer(raw[:len(raw) // width_ * width_], np.uint8).reshape(-1, width_)[:, :3]
+    return Decoded(mode, px, pal)
+
+
+_K97, _TWO_INVK = np.float32(1.230174105), np.float32(1.625732422)
+_LIFTS = (np.float32(-0.443506852), np.float32(-0.882911075), np.float32(0.052980118),
+          np.float32(1.586134342))
+
+
+def _idwt53_lines(x: np.ndarray, cas: int) -> np.ndarray:
+    """The reversible 5/3 synthesis along axis 1 of interleaved int32 lines
+    (column i low-pass where i + cas is even), whole-sample symmetric
+    extension; a line of one sample is kept, or halved toward 0 at an odd
+    origin."""
+    n = x.shape[1]
+    if n == 1:  # C's x / 2, toward 0
+        return x if cas == 0 else (x - (x >> 31)) >> 1
+    idx = np.arange(n)
+    left = np.abs(idx - 1)
+    right = np.where(idx + 1 >= n, 2 * (n - 1) - (idx + 1), idx + 1)
+    lo, hi = idx[cas::2], idx[1 - cas::2]
+    x = x.copy()
+    x[:, lo] = x[:, lo] - ((x[:, left[lo]] + x[:, right[lo]] + np.int32(2)) >> 2)
+    x[:, hi] = x[:, hi] + ((x[:, left[hi]] + x[:, right[hi]]) >> 1)
+    return x
+
+
+def _idwt97_lines(x: np.ndarray, cas: int) -> np.ndarray:
+    """OpenJPEG 2.5's 9/7 synthesis along axis 1 of interleaved float32
+    lines: low-pass times K, high-pass times 2/K, then the four lifting
+    steps x + (left + right) * c, a missing neighbour replaced by the one
+    on the other side; a line of one sample is kept as it is."""
+    n = x.shape[1]
+    if n == 1:
+        return x
+    idx = np.arange(n)
+    left = np.where(idx == 0, 1, idx - 1)
+    right = np.where(idx + 1 >= n, idx - 1, idx + 1)
+    lo, hi = idx[cas::2], idx[1 - cas::2]
+    x = x.copy()
+    x[:, lo] = x[:, lo] * _K97
+    x[:, hi] = x[:, hi] * _TWO_INVK
+    for k, c in enumerate(_LIFTS):
+        at = lo if k % 2 == 0 else hi
+        x[:, at] = x[:, at] + ((x[:, left[at]] + x[:, right[at]]) * c)
+    return x
+
+
+def jpeg2000_idwt_twin(coef: np.ndarray, rects: np.ndarray, qmfbid: int) -> np.ndarray:
+    """The inverse wavelet transform of one tile-component in numpy, the twin
+    of jpeg2000_decode.cpp's idwt2d: (h, w) coefficients in OpenJPEG's
+    layout and the (R, 4) resolution rectangles -> (h, w) int32 (5/3) or
+    float32 (9/7) samples; each resolution's rows, then its columns, the
+    parity of each line from the resolution's origin."""
+    a = np.array(coef, np.int32 if qmfbid == 1 else np.float32)
+    lines = _idwt53_lines if qmfbid == 1 else _idwt97_lines
+    for r in range(1, len(rects)):
+        x0, y0, x1, y1 = (int(v) for v in rects[r])
+        px0, py0, px1, py1 = (int(v) for v in rects[r - 1])
+        rw, rh, sw, sh = x1 - x0, y1 - y0, px1 - px0, py1 - py0
+        if rw > 0 and rh > 0:
+            part = a[:rh, :rw]
+            inter = np.empty_like(part)
+            inter[:, x0 % 2::2] = part[:, :sw]
+            inter[:, 1 - x0 % 2::2] = part[:, sw:]
+            a[:rh, :rw] = lines(inter, x0 % 2)
+            part = a[:rh, :rw].T
+            inter = np.empty_like(part)
+            inter[:, y0 % 2::2] = part[:, :sh]
+            inter[:, 1 - y0 % 2::2] = part[:, sh:]
+            a[:rh, :rw] = lines(inter, y0 % 2).T
+    return a
+
+
+# Pillow's unpackers (jpeg2000_decode.cpp's Unpacker) and YCbCr -> RGB tables
+# (ConvertYCbCr.c: (int)((i - 128) * k * 64 + 0.5)).
+_J2K_GRAY_L, _J2K_GRAY_I, _J2K_GRAYA_LA, _J2K_GRAY_RGB, _J2K_SRGB_RGB, _J2K_SYCC_RGB, \
+    _J2K_SRGBA, _J2K_SYCCA = range(8)
+_YCC = {k: np.trunc((np.arange(256) - 128) * v * 64 + 0.5).astype(np.int64)
+        for k, v in (("rcr", 1.402), ("gcb", -0.34414), ("gcr", -0.71414), ("bcb", 1.772))}
+
+
+def jpeg2000_colour_twin(canvas: np.ndarray, planes, qmfbid, comps: np.ndarray, mct: int,
+                         mode: str, unpacker: int, origin, rect) -> None:
+    """The colour stage of one tile in numpy, the twin of
+    jpeg2000_decode.cpp's colour and unpack_tile, writing into `canvas`
+    (PIL's image in `mode`, as native.decode_jpeg2000 returns it): the RCT
+    (int32) or ICT (float32, x + v * 1.402 and so on, each product rounded)
+    on the first three components under `mct`, the DC level shift with
+    lrintf's rounding half to even and clipping to each component's range;
+    then Pillow's unpacker over the tile buffer OpenJPEG hands it (each
+    component in (prec + 7) // 8 bytes, 3 taken as 4, one after the other,
+    read as if it held (w // dx) x (h // dy) samples), samples shifted to 8
+    (16 for I;16) bits with Pillow's offset and rounding and truncated to
+    the pixel's width, sYCC through Pillow's YCbCr tables."""
+    planes = [np.array(p) for p in planes]
+    nc = len(planes)
+    if mct and nc >= 3:
+        a, b, c = planes[:3]
+        if not (a.shape == b.shape == c.shape):
+            raise ValueError("components of different sizes under a multiple component transform")
+        if not qmfbid[0] == qmfbid[1] == qmfbid[2]:
+            raise ValueError("reversible and irreversible components under one transform")
+        if qmfbid[0] == 1:
+            g = a - ((b + c) >> 2)
+            planes[:3] = [c + g, g, b + g]
+        else:
+            planes[:3] = [a + (c * np.float32(1.402)),
+                          a - (b * np.float32(0.34413)) - (c * np.float32(0.71414)),
+                          a + (b * np.float32(1.772))]
+    samples = []
+    for p, q, (dx, dy, prec, sgnd) in zip(planes, qmfbid, comps.tolist()):
+        lo = -(1 << (prec - 1)) if sgnd else 0
+        hi = (1 << (prec - 1)) - 1 if sgnd else (1 << prec) - 1
+        shift = 0 if sgnd else 1 << (prec - 1)
+        if q == 1:
+            v = np.clip(p.astype(np.int64) + shift, lo, hi)
+        else:
+            with np.errstate(invalid="ignore"):
+                r = np.rint(p.astype(np.float32)).astype(np.int64)
+            v = np.clip(r + shift, lo, hi)
+            v = np.where(p > np.float32(2 ** 31), hi, np.where(p < np.float32(-2 ** 31), lo, v))
+        samples.append(v.astype(np.int64).ravel())
+    # the tile buffer
+    x0, y0, x1, y1 = (int(v) for v in rect)
+    w, h = x1 - x0, y1 - y0
+    ox, oy = x0 - int(origin[0]), y0 - int(origin[1])
+    if w <= 0 or h <= 0 or ox < 0 or oy < 0 or ox + w > canvas.shape[1] or oy + h > canvas.shape[0]:
+        raise ValueError("tile outside the image PIL allocated")
+    csiz = [(int(c[2]) + 7) >> 3 for c in comps]
+    csiz = [4 if z == 3 else z for z in csiz]
+    chunks = [(s & ((1 << (8 * z)) - 1)).astype("<u8").view(np.uint8).reshape(-1, 8)[:, :z].ravel()
+              for s, z in zip(samples, csiz)]
+    buf = np.concatenate(chunks) if chunks else np.zeros(0, np.uint8)
+    minimum = w * h * sum(csiz)
+    if buf.size < minimum:
+        buf = np.concatenate([buf, np.zeros(minimum - buf.size, np.uint8)])
+    used = {_J2K_GRAY_L: 1, _J2K_GRAY_I: 1, _J2K_GRAY_RGB: 1, _J2K_GRAYA_LA: 2,
+            _J2K_SRGB_RGB: 3, _J2K_SYCC_RGB: 3}.get(unpacker, 4)
+    one = unpacker in (_J2K_GRAY_L, _J2K_GRAY_I, _J2K_GRAY_RGB)
+    outbits = 16 if unpacker == _J2K_GRAY_I else 8
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    start, vals = 0, []
+    for n in range(used):
+        dx, dy, prec, sgnd = (int(v) for v in comps[n])
+        z = csiz[n]
+        sh = outbits - prec
+        off = (1 << (prec - 1)) if sgnd else 0
+        if sh < 0:
+            off += 1 << (-sh - 1)
+        if one:
+            idx = ys * w + xs
+        else:
+            idx = (ys // dy) * (w // dx) + xs // dx
+        pos = start + z * idx
+        word = np.zeros((h, w), np.uint64)
+        for k in range(z):
+            word |= buf[pos + k].astype(np.uint64) << np.uint64(8 * k)
+        word = (word + np.uint64(off)) & np.uint64(0xFFFFFFFF)
+        word = word >> np.uint64(-sh) if sh < 0 else (word << np.uint64(sh)) & np.uint64(0xFFFFFFFF)
+        vals.append(word)
+        start += z * (w // dx) * (h // dy)
+    region = canvas[oy:oy + h, ox:ox + w]
+    if unpacker == _J2K_GRAY_I:
+        region[...] = (vals[0] & np.uint64(0xFFFF)).astype(np.uint16)
+        return
+    v8 = [(v & np.uint64(0xFF)).astype(np.int64) for v in vals]
+    if unpacker in (_J2K_GRAY_L, _J2K_GRAY_RGB):
+        rgba = [v8[0], v8[0], v8[0], np.full((h, w), 255)]
+    elif unpacker == _J2K_GRAYA_LA:
+        rgba = [v8[0], v8[0], v8[0], v8[1]]
+    else:
+        rgba = v8[:3] + [v8[3] if used == 4 else np.full((h, w), 255)]
+    if unpacker in (_J2K_SYCC_RGB, _J2K_SYCCA):
+        y, cb, cr = rgba[:3]
+        rgba[:3] = [np.clip(y + (_YCC["rcr"][cr] >> 6), 0, 255),
+                    np.clip(y + ((_YCC["gcb"][cb] + _YCC["gcr"][cr]) >> 6), 0, 255),
+                    np.clip(y + (_YCC["bcb"][cb] >> 6), 0, 255)]
+    bands = {"L": [0], "P": [0], "LA": [0, 3], "PA": [0, 3], "RGB": [0, 1, 2]}.get(
+        mode, [0, 1, 2, 3])
+    out = np.stack([rgba[b] for b in bands], -1).astype(np.uint8)
+    region[...] = out[..., 0] if canvas.ndim == 2 else out
+
+
 def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.ndarray:
     """Decode one image file (see the module docstring for what comes back);
     `twin` reads a PNG with `read_png_twin`, a run-length BMP with
     `bmp_rle_twin`, LZW and PackBits TIFF strips with `lzw_twin` and
-    `packbits_twin` and a lossy WebP frame's colour and alpha stages with
-    `webp_colour_twin` and `alpha_unfilter_twin` (JPEG data and the WebP
+    `packbits_twin`, a lossy WebP frame's colour and alpha stages with
+    `webp_colour_twin` and `alpha_unfilter_twin`, and a JPEG 2000 tile's
+    inverse wavelet transform and colour stage with `jpeg2000_idwt_twin`
+    and `jpeg2000_colour_twin` (JPEG data and the WebP and JPEG 2000
     entropy decoders have no twin: they take the native decoder either
     way). Raises UnsupportedImage, naming the file, for a file PIL reads
     that the port cannot, and ValueError for a damaged one."""
@@ -2189,8 +2595,10 @@ def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.nd
             img = read_netpbm(data)
         elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
             img = read_webp(data, twin)
+        elif data[:4] == J2K_SIGNATURE or data[:12] == JP2_SIGNATURE:
+            img = read_jpeg2000(data, twin)
         else:
-            raise ValueError("not a PNG, JPEG, BMP, TIFF, netpbm or WebP file")
+            raise ValueError("not a PNG, JPEG, BMP, TIFF, netpbm, WebP or JPEG 2000 file")
         return img.rgb() if convert_rgb else img.raw()
     except UnsupportedImage as e:
         raise UnsupportedImage(f"{path}: {e}") from e

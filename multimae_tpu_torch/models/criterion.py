@@ -23,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from multimae_tpu_torch.ops.functional import fp32
+
 
 def _upsample_mask(mask: torch.Tensor, hw, scale: int) -> torch.Tensor:
     """(B, nh*nw) token mask -> (B, H, W) fp32 pixel mask (nearest)."""
@@ -122,8 +124,8 @@ class _PixelLoss:
               mask: Optional[torch.Tensor] = None):
         """input: (B, H, W, C) or (B, N, C*p*p) patches; target:
         (B, H, W, C); mask: (B, nh*nw), 1 = masked."""
-        input = input.float()
-        target = target.float()
+        input = fp32(input)
+        target = fp32(target)
         if input.dim() == 3:
             return self._patch_call(input, target, mask)
         if self.norm_pix:
@@ -185,8 +187,8 @@ class MaskedCrossEntropyLoss:
     def parts(self, input: torch.Tensor, target: torch.Tensor,
               mask: Optional[torch.Tensor] = None):
         if input.dim() == 3:
-            return self._patch_call(input.float(), target, mask)
-        nll = self._nll(F.log_softmax(input.float(), dim=-1), target, dim=-1)
+            return self._patch_call(fp32(input), target, mask)
+        nll = self._nll(F.log_softmax(fp32(input), dim=-1), target, dim=-1)
         if mask is None:
             return _all_parts(nll)
         mask_pix = _upsample_mask(mask, input.shape[1:3], self.scale)

@@ -53,6 +53,7 @@ from multimae_tpu_torch.models.vit import (
     trunc_normal_,
 )
 from multimae_tpu_torch.ops import fused_decoder
+from multimae_tpu_torch.ops.functional import fp32
 from multimae_tpu_torch.ops.gather import gather_tokens
 from multimae_tpu_torch.ops.resize import interpolate_2d
 
@@ -150,14 +151,14 @@ class SpatialOutputAdapter(nn.Module):
                            device) -> torch.Tensor:
         """(1, N, D) task + positional embeddings of every input token
         (reference :160-181), summed in fp32 and cast to the compute dtype."""
-        pe = pos_tokens(self.pos_emb, size, "bilinear", torch.float32)
+        pe = pos_tokens(self.pos_emb, size, "bilinear", fp32(self.pos_emb).dtype)
         embs = []
         for task, info in input_info["tasks"].items():
             if info["num_tokens"] != pe.shape[1]:
                 raise ValueError(f"task {task}: {info['num_tokens']} tokens, "
                                  f"pos-emb grid has {pe.shape[1]}")
             if task in self.task_embeddings:
-                emb = self.task_embeddings[task].float() + pe
+                emb = fp32(self.task_embeddings[task]) + pe
             else:
                 emb = pe
             embs.append(emb.to(self.dtype))

@@ -24,7 +24,7 @@ from torch import nn
 
 from multimae_tpu_torch.ops import fused_block
 from multimae_tpu_torch.ops.attention import fused_attention_bnhd
-from multimae_tpu_torch.ops.functional import dense, gelu, layer_norm
+from multimae_tpu_torch.ops.functional import dense, fp32, gelu, layer_norm
 from multimae_tpu_torch.parallel import tp
 
 
@@ -98,9 +98,9 @@ def attention_dropped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
     and out (JAX `_attention_core_dropped`): fp32 logits and softmax, the
     dropped probabilities rounded to q's dtype before P @ V, fp32 sums."""
     dtype = q.dtype
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    s = torch.einsum("bnhd,bmhd->bhnm", fp32(q), fp32(k)) * scale
     p = dropout(torch.softmax(s, dim=-1), rate, True, generator)
-    return torch.einsum("bhnm,bmhd->bnhd", p.to(dtype).float(), v.float()).to(dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", fp32(p.to(dtype)), fp32(v)).to(dtype)
 
 
 # ---------------------------------------------------------------- modules --

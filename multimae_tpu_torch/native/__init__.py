@@ -1,17 +1,21 @@
 """ctypes bindings for the port's native image library (fastimage.cpp,
-jpeg_decode.cpp, pil_ops.cpp, tiff_decode.cpp and webp_decode.cpp), the
+jpeg_decode.cpp, jpeg2000_decode.cpp, pil_ops.cpp, tiff_decode.cpp and
+webp_decode.cpp), the
 counterpart of the JAX package's multimae_tpu/native/__init__.py.
 fastimage.cpp also holds the BMP run-length decoder (`bmp_rle`);
 tiff_decode.cpp the TIFF LZW and PackBits decoders (`tiff_lzw`,
 `tiff_packbits`); jpeg_decode.cpp the JPEG decoder of JPEG files
 (`decode_jpeg`) and of JPEG-compressed TIFF strips and tiles
 (`decode_jpeg_tiff`); webp_decode.cpp the WebP decoder (`decode_webp`, and
-`decode_webp_planes` for the colour and alpha twins of data/image_io.py).
+`decode_webp_planes` for the colour and alpha twins of data/image_io.py);
+jpeg2000_decode.cpp the JPEG 2000 codestream decoder (`decode_jpeg2000`,
+and `decode_jpeg2000_coefficients`, `jpeg2000_idwt` and `jpeg2000_colour`
+for the wavelet and colour twins of data/image_io.py).
 
 The library is built with g++ at first use:
 
     g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp \
-        pil_ops.cpp tiff_decode.cpp webp_decode.cpp -o <lib>
+        pil_ops.cpp tiff_decode.cpp webp_decode.cpp jpeg2000_decode.cpp -o <lib>
 
 into build/native/<hash of the sources and the command>/ in the repository
 (listed in .gitignore). The compiler writes a per-process temporary that
@@ -43,7 +47,8 @@ JPEG_SOURCE = SOURCE.with_name("jpeg_decode.cpp")
 PIL_SOURCE = SOURCE.with_name("pil_ops.cpp")
 TIFF_SOURCE = SOURCE.with_name("tiff_decode.cpp")
 WEBP_SOURCE = SOURCE.with_name("webp_decode.cpp")
-SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE, WEBP_SOURCE)
+JPEG2000_SOURCE = SOURCE.with_name("jpeg2000_decode.cpp")
+SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE, WEBP_SOURCE, JPEG2000_SOURCE)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
@@ -75,6 +80,10 @@ _SIGNATURES = {
     "mm_decode_webp": [_P, _L, _I, _P, _L, _P, _P, _L],
     "mm_webp_colour": [_P, _P, _P, _I, _I, _P],
     "mm_webp_unfilter": [_P, _I, _I, _I],
+    "mm_decode_jpeg2000": [_P, _L, _I, _I, _I, _I, _P, _L, _P, _L],
+    "mm_jpeg2000_coefficients": [_P, _L, _I, _I, _P, _L, _P, _L, _P, _P, _L],
+    "mm_jpeg2000_idwt": [_P, _I, _I, _I, _I, _P],
+    "mm_jpeg2000_colour": [_P, _P, _P, _I, _I, _P, _L],
     "mm_pil_resize": [_P, _I, _I, _I, _P, _I, _I, _I],
     "mm_pil_affine": [_P, _I, _I, _I, _P, _P, _I, _P],
     "mm_pil_gray": [_P, _L, _P],
@@ -645,3 +654,159 @@ def pil_blend(a: np.ndarray, b: np.ndarray, alpha: float) -> np.ndarray:
     dst = np.empty_like(a)
     lib().mm_pil_blend(_ptr(a), _ptr(b), a.size, float(alpha), _ptr(dst))
     return dst
+
+
+# --- JPEG 2000 (jpeg2000_decode.cpp) ---------------------------------------------
+
+# PIL's modes of a JPEG 2000 image, the bands the decoder writes for each,
+# and the colour spaces a JP2 container names (OpenJPEG's OPJ_CLRSPC_*).
+JPEG2000_MODES = {"L": (0, 1), "LA": (1, 2), "RGB": (2, 3), "RGBA": (3, 4), "I;16": (4, 1),
+                  "P": (5, 1), "PA": (6, 2), "CMYK": (7, 4)}
+JPEG2000_SPACES = {"unspecified": 0, "srgb": 1, "gray": 2, "sycc": 3, "eycc": 4, "cmyk": 5}
+
+
+class Jpeg2000Unsupported(Exception):
+    """A codestream OpenJPEG 2.5 decodes and jpeg2000_decode.cpp does not
+    (high-throughput code-blocks, Part 2 multiple component transforms)."""
+
+
+def _j2k_check(rc: int, msg) -> None:
+    text = msg.value.decode(errors="replace")
+    if rc == -2:
+        raise Jpeg2000Unsupported(text)
+    if rc != 0:
+        raise ValueError(f"JPEG 2000: {text}")
+
+
+def _j2k_args(mode: str, space: str):
+    if mode not in JPEG2000_MODES or space not in JPEG2000_SPACES:
+        raise ValueError(f"JPEG 2000: mode {mode!r} or colour space {space!r} unknown")
+    return JPEG2000_MODES[mode][0], JPEG2000_SPACES[space]
+
+
+def jpeg2000_shape(mode: str, size_hw: Tuple[int, int]) -> Tuple[Tuple[int, ...], type]:
+    """The (H, W) or (H, W, bands) shape and dtype the decoder writes for
+    PIL's `mode`."""
+    bands = JPEG2000_MODES[mode][1]
+    shape = tuple(size_hw) + ((bands,) if bands > 1 else ())
+    return shape, (np.uint16 if mode == "I;16" else np.uint8)
+
+
+def decode_jpeg2000(codestream: bytes, mode: str, space: str,
+                    size_hw: Tuple[int, int]) -> np.ndarray:
+    """A JPEG 2000 codestream -> PIL 12.1's pixels (OpenJPEG 2.5 and
+    Pillow's unpackers) in `mode`, for the colour space the container named,
+on PIL's canvas of `size_hw`: (H, W) or (H, W, bands) uint8, uint16 for
+    "I;16". Raises ValueError naming what it met where PIL refuses the
+    file, Jpeg2000Unsupported where PIL reads it and the decoder cannot."""
+    code, sp = _j2k_args(mode, space)
+    shape, dtype = jpeg2000_shape(mode, size_hw)
+    out = np.empty(shape, dtype)
+    msg = ctypes.create_string_buffer(256)
+    _j2k_check(lib().mm_decode_jpeg2000(codestream, len(codestream), code, sp, int(size_hw[1]),
+                                        int(size_hw[0]), _ptr(out), out.nbytes, msg, len(msg)),
+               msg)
+    return out
+
+
+class Jpeg2000Tile:
+    """One decoded tile before the inverse wavelet transform: its
+    rectangle (x0, y0, x1, y1) on the reference grid, its `mct` flag, and
+    per component `qmfbid` (1: 5/3, int32 coefficients; 0: 9/7, float32),
+    the resolution rectangles `rects` ((R, 4) int32) and `coef` ((h, w), in
+    OpenJPEG's layout of bands)."""
+
+    def __init__(self, rect, mct):
+        self.rect, self.mct = rect, mct
+        self.qmfbid, self.rects, self.coef = [], [], []
+
+
+class Jpeg2000Coefficients:
+    """A codestream's tiles before the inverse wavelet transform (see
+    Jpeg2000Tile), with the image origin `origin` (x0, y0), the components'
+    `comps` ((C, 4): dx, dy, prec, sgnd) and the Pillow unpacker that
+    `mode` and the colour space select (`unpacker`, jpeg2000_decode.cpp's
+    Unpacker)."""
+
+
+def decode_jpeg2000_coefficients(codestream: bytes, mode: str, space: str) -> Jpeg2000Coefficients:
+    """The same header, Tier-2, Tier-1 and dequantisation as
+    `decode_jpeg2000`, stopped before the inverse wavelet transform, and
+    the same ValueErrors."""
+    code, sp = _j2k_args(mode, space)
+    fn = lib().mm_jpeg2000_coefficients
+    sizes = np.zeros(2, np.int64)
+    msg = ctypes.create_string_buffer(256)
+    rc = fn(codestream, len(codestream), code, sp, None, 0, None, 0, _ptr(sizes), msg, len(msg))
+    if rc == -3:
+        meta = np.empty(int(sizes[0]), np.int32)
+        coef = np.empty(int(sizes[1]), np.int32)
+        rc = fn(codestream, len(codestream), code, sp, _ptr(meta), meta.size, _ptr(coef),
+                coef.size, _ptr(sizes), msg, len(msg))
+    _j2k_check(rc, msg)
+    out = Jpeg2000Coefficients()
+    out.origin = (int(meta[0]), int(meta[1]))
+    nc = int(meta[2])
+    out.comps = meta[3:3 + 4 * nc].reshape(nc, 4).copy()
+    at = 3 + 4 * nc
+    out.unpacker, ntiles = int(meta[at]), int(meta[at + 1])
+    at += 2
+    cat = 0
+    out.tiles = []
+    for _ in range(ntiles):
+        tile = Jpeg2000Tile(tuple(int(v) for v in meta[at:at + 4]), int(meta[at + 4]))
+        at += 5
+        for _ in range(nc):
+            qmfbid, nres = int(meta[at]), int(meta[at + 1])
+            rects = meta[at + 2:at + 2 + 4 * nres].reshape(nres, 4).copy()
+            at += 2 + 4 * nres
+            h, w = int(rects[-1, 3] - rects[-1, 1]), int(rects[-1, 2] - rects[-1, 0])
+            block = coef[cat:cat + h * w].reshape(h, w)
+            cat += h * w
+            tile.qmfbid.append(qmfbid)
+            tile.rects.append(rects)
+            tile.coef.append(block.copy() if qmfbid == 1 else block.view(np.float32).copy())
+        out.tiles.append(tile)
+    return out
+
+
+def jpeg2000_idwt(coef: np.ndarray, rects: np.ndarray, qmfbid: int) -> np.ndarray:
+    """The inverse wavelet transform of `decode_jpeg2000` alone on one
+    tile-component's (h, w) coefficients (int32 for qmfbid 1, float32 for
+    0) with its (R, 4) resolution rectangles (the native side of
+    image_io.jpeg2000_idwt_twin)."""
+    out = np.array(coef, np.int32 if qmfbid == 1 else np.float32, order="C")
+    rects = np.ascontiguousarray(rects, np.int32)
+    if out.ndim != 2 or rects.ndim != 2 or rects.shape[1] != 4 or 0 in out.shape:
+        raise ValueError(f"jpeg2000_idwt: coefficients {out.shape}, rectangles {rects.shape}")
+    if lib().mm_jpeg2000_idwt(_ptr(out), out.shape[1], out.shape[0], int(qmfbid), len(rects),
+                              _ptr(rects)) != 0:
+        raise ValueError("jpeg2000_idwt: the rectangles do not end at the coefficients' size")
+    return out
+
+
+def jpeg2000_colour(planes: Sequence[np.ndarray], qmfbid: Sequence[int], comps: np.ndarray,
+                    mct: int, mode: str, unpacker: int, origin: Tuple[int, int],
+                    rect: Tuple[int, int, int, int], size_hw: Tuple[int, int]) -> np.ndarray:
+    """The colour stage of `decode_jpeg2000` alone on one tile: the
+    components' planes after the inverse transform (int32 or float32 by
+    `qmfbid`) through the RCT or ICT, the DC level shift and clipping and
+    Pillow's `unpacker` onto a zeroed canvas of `size_hw` in `mode` (the
+    native side of image_io.jpeg2000_colour_twin)."""
+    code = JPEG2000_MODES[mode][0]
+    meta = [len(planes), code, int(unpacker), int(mct), int(origin[0]), int(origin[1]),
+            *(int(v) for v in rect)]
+    flat = []
+    for p, q, c in zip(planes, qmfbid, comps):
+        p = np.ascontiguousarray(p, np.int32 if q == 1 else np.float32)
+        meta += [int(c[0]), int(c[1]), int(c[2]), int(c[3]), int(q), p.shape[1], p.shape[0]]
+        flat.append(p.view(np.int32).ravel())
+    meta = np.array(meta, np.int32)
+    data = np.concatenate(flat) if flat else np.zeros(0, np.int32)
+    shape, dtype = jpeg2000_shape(mode, size_hw)
+    out = np.empty(shape, dtype)
+    msg = ctypes.create_string_buffer(256)
+    if lib().mm_jpeg2000_colour(_ptr(data), _ptr(meta), _ptr(out), int(size_hw[1]),
+                                int(size_hw[0]), msg, len(msg)) != 0:
+        raise ValueError(f"jpeg2000_colour: {msg.value.decode(errors='replace')}")
+    return out

@@ -41,10 +41,17 @@ def check_grid(what: str, rows: int = 0, batch: int = 1, heads: int = 1) -> None
                          f"grid's {GRID_LIMIT} blocks on an axis")
 
 
+def fp32(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, the precision of a bf16 or fp32 model's statistics,
+    softmax and sums; a float64 tensor stays float64, so that a float64
+    model computes in float64 throughout."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """fp32 statistics (two-pass), eps 1e-6, output in `dtype`."""
-    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
+    return F.layer_norm(fp32(x), (x.shape[-1],), fp32(weight), fp32(bias),
                         LAYERNORM_EPS).to(dtype)
 
 
@@ -59,18 +66,18 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     """Exact-erf GELU (or, with `approximate`, the tanh form that the JAX
     package's --approx_gelu selects) evaluated in fp32, rounded to x's
     dtype."""
-    return F.gelu(x.float(), approximate="tanh" if approximate else "none").to(x.dtype)
+    return F.gelu(fp32(x), approximate="tanh" if approximate else "none").to(x.dtype)
 
 
 def gelu_grad(x: torch.Tensor) -> torch.Tensor:
     """Derivative of the exact-erf GELU in fp32: Phi(x) + x * phi(x)."""
-    xf = x.float()
+    xf = fp32(x)
     return (0.5 * (1.0 + torch.erf(xf * 0.7071067811865476))
             + xf * torch.exp(-0.5 * xf * xf) * 0.3989422804014327)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1, t.shape[-1]).float()
+    return fp32(t.reshape(-1, t.shape[-1]))
 
 
 def dense_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
@@ -84,12 +91,12 @@ def dense_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
 def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor):
     """(dx fp32, dgamma, dbeta) of `layer_norm` at input x (JAX
     fused_decoder_pallas._ln_bwd :285, with the two-pass statistics)."""
-    xf = x.float()
+    xf = fp32(x)
     mu = xf.mean(-1, keepdim=True)
     inv = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + LAYERNORM_EPS)
     xhat = (xf - mu) * inv
-    dyf = dy.float()
-    dxhat = dyf * gamma.float()
+    dyf = fp32(dy)
+    dxhat = dyf * fp32(gamma)
     dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
     return dx, (_rows(dyf) * _rows(xhat)).sum(0), _rows(dyf).sum(0)
@@ -113,9 +120,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 logits and softmax, probabilities rounded to the compute dtype
     before P @ V, fp32 accumulation (reference multimae_utils.py:170-182)."""
     dtype = q.dtype
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(fp32(q), fp32(k).transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(dtype).float(), v.float()).to(dtype)
+    return torch.matmul(fp32(p.to(dtype)), fp32(v)).to(dtype)
 
 
 # A kernel against its plain twin on the card, as (relative RMS error,

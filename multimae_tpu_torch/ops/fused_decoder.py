@@ -35,6 +35,7 @@ from multimae_tpu_torch.ops.functional import (
     attention,
     dense,
     dense_bwd,
+    fp32,
     gelu,
     gelu_grad,
     layer_norm,
@@ -179,19 +180,19 @@ def _attend_bwd(q, k, v, do, scale):
     from cancelling to a tenth of fp32's precision (the semseg decoder's
     dq, 1.1e-5 from float64 at the pretraining step's inputs)."""
     dtype = q.dtype
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    qf, kf, vf, dof = fp32(q), fp32(k), fp32(v), fp32(do)
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
-    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof).to(dtype)
+    dv = torch.matmul(fp32(p.to(dtype)).transpose(-1, -2), dof).to(dtype)
     if dtype == torch.float32:
         vf = vf - vf.mean(dim=-2, keepdim=True)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype).float()
+    ds = fp32((p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dtype))
     return (torch.matmul(ds, kf).to(dtype),
             torch.matmul(ds.transpose(-1, -2), qf).to(dtype), dv)
 
 
 def _residual(g, dx):
-    return (g.float() + dx).to(g.dtype)
+    return (fp32(g) + dx).to(g.dtype)
 
 
 def decoder_core_bwd_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights,
@@ -210,7 +211,7 @@ def decoder_core_bwd_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights
     for i in reversed(range(depth)):
         bw = _block(wc, i)
         dh, blk["wf2"][i], blk["bf2"][i] = dense_bwd(s[f"b{i}_h"], bw.w2, g)
-        dh_pre = (dh.float() * gelu_grad(s[f"b{i}_h_pre"])).to(dtype)
+        dh_pre = (fp32(dh) * gelu_grad(s[f"b{i}_h_pre"])).to(dtype)
         dn2, blk["wf1"][i], blk["bf1"][i] = dense_bwd(s[f"b{i}_n2"], bw.w1, dh_pre)
         dx, blk["n2_g"][i], blk["n2_b"][i] = layer_norm_bwd(dn2, s[f"b{i}_mid"], bw.n2_g)
         g = _residual(g, dx)
@@ -224,7 +225,7 @@ def decoder_core_bwd_ref(q: torch.Tensor, c: torch.Tensor, w: DecoderCoreWeights
     dw.update({f: torch.stack(v) for f, v in blk.items()})
 
     dh, dw["w2"], dw["b2"] = dense_bwd(s["xh"], wc.w2, g)
-    dh_pre = (dh.float() * gelu_grad(s["xh_pre"])).to(dtype)
+    dh_pre = (fp32(dh) * gelu_grad(s["xh_pre"])).to(dtype)
     don, dw["w1"], dw["b1"] = dense_bwd(s["on"], wc.w1, dh_pre)
     dx, dw["on_g"], dw["on_b"] = layer_norm_bwd(don, s["x_attn"], wc.on_g)
     g = _residual(g, dx)

@@ -46,6 +46,7 @@ from multimae_tpu_torch.ops.functional import (
     check_grid,
     dense,
     dense_bwd,
+    fp32,
     gelu,
     gelu_grad,
     layer_norm,
@@ -154,7 +155,7 @@ def fused_mlp_bwd_ref(x: torch.Tensor, dy: torch.Tensor, w: MlpCoreWeights):
     wc = _cast(w, dtype)
     pre = dense(x, wc.w1, wc.b1, dtype)
     dh, dw2, db2 = dense_bwd(gelu(pre), wc.w2, dy.to(dtype))
-    dpre = (dh.float() * gelu_grad(pre)).to(dtype)
+    dpre = (fp32(dh) * gelu_grad(pre)).to(dtype)
     dx, dw1, db1 = dense_bwd(x, wc.w1, dpre)
     return dx.to(dtype), MlpCoreWeights(dw1, db1, dw2, db2)
 
@@ -177,7 +178,7 @@ def fused_ln_mlp_res_bwd_ref(x: torch.Tensor, dy: torch.Tensor, w: MlpWeights):
     n1 = layer_norm(x, wc.ln_g, wc.ln_b, dtype)
     pre = dense(n1, wc.w1, wc.b1, dtype)
     dh, dw2, db2 = dense_bwd(gelu(pre), wc.w2, dy)
-    dpre = (dh.float() * gelu_grad(pre)).to(dtype)
+    dpre = (fp32(dh) * gelu_grad(pre)).to(dtype)
     dn1, dw1, db1 = dense_bwd(n1, wc.w1, dpre)
     dx, dg, db = layer_norm_bwd(dn1, x, wc.ln_g)
     return dx.to(dtype), MlpWeights(dg, db, dw1, db1, dw2, db2)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from multimae_tpu_torch.ops.functional import fp32
+
 
 def interpolate_2d(
     x: torch.Tensor,
@@ -25,7 +27,7 @@ def interpolate_2d(
         return x
     dtype = x.dtype
     y = F.interpolate(
-        x.permute(0, 3, 1, 2).float(), size=size, mode=mode,
+        fp32(x.permute(0, 3, 1, 2)), size=size, mode=mode,
         align_corners=align_corners,
     )
     return y.permute(0, 2, 3, 1).to(dtype)

@@ -33,7 +33,7 @@ import ctypes
 import torch
 
 from multimae_tpu_torch.ops import _build
-from multimae_tpu_torch.ops.functional import check_grid
+from multimae_tpu_torch.ops.functional import check_grid, fp32
 
 LAUNCHES = 0      # forward kernel launches made by short_attention
 LAUNCHES_BWD = 0  # backward kernel launches made by its gradient
@@ -67,7 +67,7 @@ def supported(q: torch.Tensor, k: torch.Tensor) -> bool:
 
 
 def _bhnd(t: torch.Tensor) -> torch.Tensor:
-    return t.float().permute(0, 2, 1, 3)
+    return fp32(t).permute(0, 2, 1, 3)
 
 
 def short_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,14 +80,14 @@ def short_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     e = torch.exp(s - m)
     den = e.sum(dim=-1, keepdim=True)
     p = e / den
-    o = torch.matmul(p.to(q.dtype).float(), _bhnd(v))
+    o = torch.matmul(fp32(p.to(q.dtype)), _bhnd(v))
     return o.permute(0, 2, 1, 3).to(q.dtype), m + torch.log(den)
 
 
 def attention_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(do * o) in fp32, (B, N, H, dh) -> (B, H, N, 1): the
     sum over keys of p * dp, taken over dh instead (JAX :352-355)."""
-    return (g.float() * o.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1)
+    return (fp32(g) * fp32(o)).sum(-1).permute(0, 2, 1).unsqueeze(-1)
 
 
 def short_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,10 +98,10 @@ def short_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     compute dtype, in the (B, N, H, dh) layout."""
     dtype = q.dtype
     qf, kf, vf, dof = _bhnd(q), _bhnd(k), _bhnd(v), _bhnd(do)
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.float())
-    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - fp32(lse))
+    dv = torch.matmul(fp32(p.to(dtype)).transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = (p * (dp - delta.float()) * scale).to(dtype).float()
+    ds = fp32((p * (dp - fp32(delta)) * scale).to(dtype))
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     return tuple(t.permute(0, 2, 1, 3).to(dtype) for t in (dq, dk, dv))

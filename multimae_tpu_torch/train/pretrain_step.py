@@ -45,6 +45,7 @@ import torch.distributed as dist
 from torch.distributed.nn.functional import all_reduce as differentiable_all_reduce
 
 from multimae_tpu_torch.models.criterion import ratio
+from multimae_tpu_torch.ops.functional import fp32
 from multimae_tpu_torch.parallel import tp
 from multimae_tpu_torch.parallel.dist import all_reduce_flat, batch_layout
 from multimae_tpu_torch.parallel.fsdp import is_sharded, shard_count
@@ -59,7 +60,7 @@ def standardize_depth(depth: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     unbiased variance (reference run_pretraining_multimae.py:488-492; the
     JAX package's method='sort')."""
     b = depth.shape[0]
-    flat = depth.reshape(b, -1).float()
+    flat = fp32(depth.reshape(b, -1))
     n = flat.shape[1]
     trunc = torch.sort(flat, dim=1).values[:, int(0.1 * n):int(0.9 * n)]
     mean = trunc.mean(dim=1).reshape(b, 1, 1, 1)
@@ -69,7 +70,7 @@ def standardize_depth(depth: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    return torch.sqrt(sum(torch.sum(fp32(t) ** 2) for t in tensors))
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -92,9 +93,9 @@ def parallel_global_norm(model, named_grads) -> torch.Tensor:
     for n, g in named_grads:
         holders = world // (shard_count(g) if is_sharded(g) else 1)
         holders //= tp_size if tp.split_kind(model, n) else 1
-        total += torch.sum(local(g).float() ** 2).double() / holders
+        total += torch.sum(fp32(local(g)) ** 2).double() / holders
     dist.all_reduce(total)
-    return torch.sqrt(total).float()
+    return fp32(torch.sqrt(total))
 
 
 def make_pretrain_train_step(
@@ -141,7 +142,7 @@ def make_pretrain_train_step(
         if extra_norm_pix_loss:
             tasks["norm_rgb"], masks["norm_rgb"] = tasks["rgb"], masks.get("rgb")
         parts = {t: tasks_loss_fn[t].parts(
-                     pred.float(), tasks[t], mask=None if loss_on_unmasked else masks.get(t))
+                     fp32(pred), tasks[t], mask=None if loss_on_unmasked else masks.get(t))
                  for t, pred in preds.items()}
         group, _, world = batch_layout(model)
         if world > 1:

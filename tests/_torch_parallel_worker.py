@@ -62,11 +62,16 @@ LAYOUTS = {
 
 def build_state(case, depth=None):
     """The port's model, balancer, TrainState and step from the case's
-    parameters, before any layout is applied: (model, balancer, step)."""
-    model = factory.build_pretrain_model(**TINY, pos_emb_grads=True, device="cpu", depth=depth)
+    parameters, before any layout is applied: (model, balancer, step). A
+    case with `float64` set holds its parameters and computes in float64."""
+    dtype = torch.float64 if case.get("float64") else torch.float32
+    model = factory.build_pretrain_model(**TINY, pos_emb_grads=True, device="cpu", depth=depth,
+                                         dtype=dtype)
     model.load_state_dict(case["model"], strict=True)
     balancer = build_balancer("uncertainty", TASKS)
     balancer.load_state_dict(case["balancer"], strict=True)
+    model.to(dtype)
+    balancer.to(dtype)
     step = make_pretrain_train_step(model, balancer, factory.build_pretrain_losses(
         ("rgb", "depth", "semseg")), num_encoded_tokens=case["k"], clip_grad=case["clip"])
     return model, balancer, step

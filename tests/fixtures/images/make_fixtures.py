@@ -1079,7 +1079,7 @@ REFUSED = {"refused_bmp_gray4_wide.bmp": "hold no", "refused_bmp_truncated.bmp":
            "refused_tiff_ycbcr_subsampling.tif": "cannot handle"}
 # The ROADMAP item of each file the port refuses with UnsupportedImage.
 UNPORTED = {"unported_ccitt.tif": "11h", "unported_lzma.tif": "11h", "unported_zstd.tif": "11h",
-            "unported_ojpeg_tiles_tables.tif": "11g", "unported.jpx": "11f"}
+            "unported_ojpeg_tiles_tables.tif": "11g"}
 
 
 def set_tiff_tag(data: bytes, tag: int, value: int) -> bytes:
@@ -1174,10 +1174,6 @@ def main():
     written = {**files(), **tiff_files(), **refused_tiff_files(), **jpeg_tiff_files(),
                **refused_jpeg_tiff_files(), **pil_tiff_files()}
     unported = {k: written.pop(k) for k in list(written) if k in UNPORTED}
-    a = photo((16, 24), 6)
-    buf = io.BytesIO()
-    Image.fromarray(a).save(buf, "JPEG2000")
-    unported["unported.jpx"] = buf.getvalue()
     expected = {}
     for name, data in sorted({**written, **unported}.items()):
         with open(os.path.join(HERE, name), "wb") as f:

@@ -1,12 +1,13 @@
 """Time the port's readers of the new formats beside PIL's on 640 x 480
 photo-like files, in one thread, where PIL is installed:
 
-    python tests/fixtures/images/time_decode.py [--repeats 20] [--only webp]
+    python tests/fixtures/images/time_decode.py [--repeats 20] [--only jpeg2000]
 
 The PNG, BMP, netpbm and TIFF files (JPEG-compressed and YCbCr ones
 among them) come from make_fixtures.timing_files, the WebP ones (lossy at
 quality 90, lossy with alpha, lossless) from tests/fixtures/webp's
-make_fixtures.timing_files; the arithmetic-coded and smoothed JPEG files
+make_fixtures.timing_files, the JPEG 2000 ones (5/3 lossless and 9/7
+lossy RGB) from tests/fixtures/jpeg2000's; the arithmetic-coded and smoothed JPEG files
 are tests/fixtures/jpeg/big_*.jpg. `--only` keeps the files whose name
 holds the word. Prints ms per file (load_image from disk, convert_rgb,
 against PIL's Image.open(path).convert("RGB"); the median of 5 windows of
@@ -34,11 +35,11 @@ from make_fixtures import timing_files  # noqa: E402
 from multimae_tpu_torch.data.image_io import load_image  # noqa: E402
 
 
-def webp_timing_files():
-    """tests/fixtures/webp/make_fixtures.py's timing_files (a module of the
-    same name as this folder's, so loaded from its path)."""
-    path = os.path.join(os.path.dirname(HERE), "webp", "make_fixtures.py")
-    spec = importlib.util.spec_from_file_location("webp_make_fixtures", path)
+def folder_timing_files(folder):
+    """tests/fixtures/<folder>/make_fixtures.py's timing_files (a module of
+    the same name as this folder's, so loaded from its path)."""
+    path = os.path.join(os.path.dirname(HERE), folder, "make_fixtures.py")
+    spec = importlib.util.spec_from_file_location(f"{folder}_make_fixtures", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.timing_files()
@@ -63,7 +64,8 @@ def main():
     jpeg = os.path.join(os.path.dirname(HERE), "jpeg")
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
-        for name, data in {**timing_files(), **webp_timing_files()}.items():
+        for name, data in {**timing_files(), **folder_timing_files("webp"),
+                           **folder_timing_files("jpeg2000")}.items():
             paths.append(os.path.join(tmp, name))
             with open(paths[-1], "wb") as f:
                 f.write(data)

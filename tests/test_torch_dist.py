@@ -11,9 +11,12 @@ package's (worker body: tests/_torch_dist_worker.py).
   with fixed masks that leave rank 0 one sample with an empty RGB mask
   and rank 1 one with an empty depth mask, so the ranks' counts of
   non-empty samples differ and a mean of per-rank losses would be wrong.
-  Losses, weighted losses and the grad norm within 1e-5 relative; every
-  gradient within 1e-6 of its tensor's largest (measured: 3e-7, the
-  order of the fp32 sums); the updated parameters within 1e-6 absolute
+  The model holds and computes in float64 (the tiny MultiMAE, parameters
+  and compute dtype): in fp32 the order of the batch's sums alone put the
+  norm_rgb decoder's q weight gradient 1.43e-6 of its largest apart,
+  5.1e-15 in float64. Losses, weighted losses and the grad norm within
+  1e-5 relative; every gradient within 1e-6 of its tensor's largest; the
+  updated parameters within 1e-6 absolute
   wherever |gradient| >= 1e-6. Where a gradient is within a hundred times
   of Adam's eps (1e-8), AdamW's first update lr * g / (|g| + eps) turns
   those last-bit differences into up to ~1e-5 (measured 2.3e-6 at a
@@ -60,14 +63,15 @@ TASKS = ("rgb", "depth", "semseg", "norm_rgb")
 K = 24
 
 
-def build(seed=0):
+def build(seed=0, dtype=torch.float64):
     """The tiny MultiMAE's training state and step (uncertainty balancer
-    with non-zero log-variances, AdamW, clip 1.0)."""
+    with non-zero log-variances, AdamW, clip 1.0), holding and computing
+    in `dtype`."""
     model = factory.build_pretrain_model(
         model_name="pretrain_multimae_tiny", input_size=64, decoder_dim=64,
         decoder_num_heads=4, decoder_depth=2, decoder_return_patches=True,
-        pos_emb_grads=True, seed=seed, device="cpu")
-    balancer = build_balancer("uncertainty", TASKS)
+        pos_emb_grads=True, seed=seed, device="cpu", dtype=dtype).to(dtype)
+    balancer = build_balancer("uncertainty", TASKS).to(dtype)
     with torch.no_grad():
         balancer.log_vars.copy_(torch.tensor([0.1, -0.2, 0.3, 0.05]))
     opt = create_optimizer(model, balancer, opt_betas=(0.9, 0.95), filter_bias_and_bn=False)

@@ -2,6 +2,10 @@
 processes on the CPU (worker: tests/_torch_parallel_worker.py), against the
 JAX package's jit_fsdp on dcn 2 x data 2 (HSDP) and
 against the port's one-process step (case, bars: tests/_torch_parallel.py).
+The port's side holds and computes in float64 here (the case's `float64`):
+in fp32 the order of the sums alone put the norm_rgb decoder's q weight
+gradient 1.43e-6 of its largest from the one process's, past the 1e-6
+bar; the JAX side stays fp32 at its own bars.
 
 * FSDP over 2 ranks: each rank holds about half the parameter and AdamW
   moment bytes (printed).
@@ -21,7 +25,7 @@ import _torch_parallel as P
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("fsdp")
     jc = P.JaxCase()
-    case = jc.case(out / "case.pt")
+    case = jc.case(out / "case.pt", float64=True)
     four = P.start(4, MODE="layouts", LAYOUTS="hsdp,fsdp_dcn2m2,pp_s2m2_fsdp", CASE=case,
                    OUT=out)
     two = P.start(2, MODE="layouts", LAYOUTS="fsdp2", CASE=case, OUT=out)

@@ -3,8 +3,8 @@
 semantic segmentation fine-tune, the pretraining, semseg, classification,
 depth and Taskonomy CLIs, the demo and the tools, the parallel layouts
 (TP, PP, FSDP), NYUv2's preparation, the decoder variants,
---approx_gelu, AutoAugment and AugMix, and the starts from a JAX .msgpack
-and the new image formats on one NVIDIA card.
+--approx_gelu, AutoAugment and AugMix, the starts from a JAX .msgpack,
+the new image formats and a JAX-layout resume on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -80,17 +80,16 @@ non-zero:
      YAML with batch 32, 2 epochs of 2 steps, no warmup, 4 loader workers
      and a save every epoch: the losses are finite, log.txt has 2 lines,
      checkpoint-0.pth and checkpoint-1.pth exist, K1 fwd and bwd launch 4
-     times per step and nothing else launches; then checkpoint-1.pth is
-     truncated and the CLI relaunched with --epochs 3: it falls back to
-     checkpoint-0.pth, resumes at epoch 1 with the parameters bit-equal to
-     the save, and finishes. Printed: the native loader's samples/s (one
+     times per step and nothing else launches (phase 21 resumes a run;
+     tests/test_torch_checkpoint.py holds the fallback past a damaged
+     save). Printed: the native loader's samples/s (one
      process, and 4 workers, at batch 8), for the native library and its
      numpy twins (the data path before it; the twins over TWIN_SAMPLES
      samples) ms per sample decoding, augmenting and in the rgb resample
      alone (the two paths' arrays must be equal); the CLI's step ms fed by
      the loader (and on
      synthetic batches of 32), the share of each step spent waiting for
-     data; and the checkpoint save and load seconds. Every loader's close
+     data; and the checkpoint save seconds. Every loader's close
      raises if a worker did not exit cleanly. The tree and the checkpoints
      are deleted, but for the newest checkpoint, which phase 13 starts
      from. Then JPEG: every committed fixture of tests/fixtures/jpeg/,
@@ -281,6 +280,20 @@ non-zero:
      strips and in tiles, old-style JPEG at 4:2:0, LZW YCbCr at 2 x 2;
      16-bit depth in both byte orders; palette semseg): K1 4 + 4 per step,
      no resampled sample.
+ 21. a JAX-layout resume at full width (train/checkpoint.py,
+     utils/jax_state.py): the pretraining CLI (MultiMAE-B, uncertainty
+     balancer, AdamW, TRAIN_BATCH, RESUME_STEPS synthetic steps an epoch)
+     and the semseg CLI over the NYUv2 fixture's class-mapped tree (NYU
+     rgb-depth recipe at 512 px, NYU_BATCH: a step and an eval batch an
+     epoch). Run P trains two epochs; run M saves epoch 0 with
+     --ckpt_backend msgpack and is stopped after that save, and its
+     relaunch auto-resumes epoch 1 from the file: the file's every path,
+     shape and dtype as tests/fixtures/jax_state/*.json holds the JAX
+     package's layout; the relaunch's metrics, evaluation and epoch-1
+     save (parameters, optimizer moments and counts) bit-equal to run
+     P's; K1 4 + 4 per pretraining step, K2 12 + 12 and K3b 4 + 4 per
+     semseg step, K4 12 and K3b fwd 4 per eval batch in the relaunch;
+     the file's MiB, write and load seconds.
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -420,9 +433,13 @@ TK_CLI_NORM_TOLERANCE = 2e-3
 # an eval batch under --aa AA_CLI --train_interpolation AA_INTERP.
 # The variants run at phase 7's batch because phase 7's bounds were set
 # there: the twins' rounding flips in the decoders average over the batch.
-# At batch 32 the first step's grad norm read 5.59e-5 relative without task
-# queries and 2.17e-5 under --approx_gelu, past STEP_TOLERANCE; at 128
-# 1.74e-6 and 1.19e-5 (the default decoders 1.25e-5; H100, 700 W).
+# At batch 32, after K1's fp32 dq repair, the first step's grad norm read
+# 2.95e-5 relative for the default decoders, 4.65e-5 without task queries
+# and 2.37e-5 under --approx_gelu, past STEP_TOLERANCE; at 128 1.74e-6 and
+# 1.19e-5 (the default decoders 1.25e-5; H100, 700 W). In all three the
+# first tensor of the step to part from the twins' is the rgb decoder's
+# K1 output (3.1e-3 to 3.4e-3 relative, bf16 rounding within
+# TWIN_TOLERANCE); every tensor before it is equal.
 # K1 against its twin on the inputs its launches took: the queries, context
 # and output gradient of each decoder in one step of phase 7's recipe at
 # K1_INPUTS_BATCH, for the default decoders and those without task queries.
@@ -1364,29 +1381,9 @@ def cli_slice(torch, dev, keep):
                 f"checkpoint-1.pth ({os.path.getsize(saves[1]) / 2**30:.2f} GiB); saved in "
                 + ", ".join(f"{t:.2f}" for t in first["save_s"]) + " s")
 
-        size = os.path.getsize(saves[1])
-        with open(saves[1], "r+b") as f:
-            f.truncate(size // 2)
-        relaunch = main(get_args(run + ["--epochs", "3", "--num_workers", "0"]))
-        if (relaunch["start_epoch"], relaunch["resumed_from"], relaunch["resume_bit_equal"],
-                [e["epoch"] for e in relaunch["epochs"]]) != (1, saves[0], True, [1, 2]):
-            raise AssertionError(f"relaunch: start epoch {relaunch['start_epoch']}, from "
-                                 f"{relaunch['resumed_from']}, bit-equal "
-                                 f"{relaunch.get('resume_bit_equal')}, epochs "
-                                 f"{[e['epoch'] for e in relaunch['epochs']]}")
-        if not all(math.isfinite(r["metrics"]["loss"]) for r in relaunch["steps"]):
-            raise AssertionError("relaunch: a loss is not finite")
-        log(12, f"relaunch after truncating checkpoint-1.pth to {size // 2} of {size} bytes: "
-                f"resumed from checkpoint-0.pth at epoch 1, parameters bit-equal to the "
-                f"save, loaded in {relaunch['load_s']:.2f} s, trained epochs 1 and 2 "
-                f"(losses " + ", ".join(f"{r['metrics']['loss']:.4f}"
-                                        for r in relaunch["steps"]) + ")")
-
         synthetic = main(get_args(base + ["--synthetic_data", "--synthetic_steps_per_epoch",
                                           "6", "--epochs", "1", "--no_auto_resume"]))
-        # A step's time holds no data wait; the wait is the first run's alone,
-        # since the relaunch loads in its process (no worker start-up).
-        fed = first["steps"] + relaunch["steps"]
+        fed = first["steps"]
         step_ms = statistics.median(r["step_s"] for r in fed) * 1e3
         synth_ms = statistics.median(r["step_s"] for r in synthetic["steps"][1:]) * 1e3
         wait = sum(r["wait_s"] for r in first["steps"])
@@ -1413,7 +1410,7 @@ def cli_slice(torch, dev, keep):
                 f"{share:.4f} of the loader-fed steps' time; {steady:.4f} without "
                 f"each run's first step (worker start-up)")
         os.makedirs(os.path.dirname(keep), exist_ok=True)
-        os.replace(os.path.join(out, "checkpoint-2.pth"), keep)
+        os.replace(saves[1], keep)
         return launches, {"cli_step_ms": step_ms, "cli_synthetic_step_ms": synth_ms,
                           "cli_data_wait_share": share, "cli_data_wait_share_steady": steady,
                           "loader_samples_per_s": one, "loader_samples_per_s_workers": many,
@@ -1424,7 +1421,7 @@ def cli_slice(torch, dev, keep):
                           "twin_augment_ms_per_sample": split["twin"][1],
                           "twin_rgb_resample_ms": split["twin"][2],
                           "tree_rows_per_filter": [int(c) for c in counts],
-                          "ckpt_save_s": first["save_s"], "ckpt_load_s": relaunch["load_s"]}
+                          "ckpt_save_s": first["save_s"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3548,6 +3545,195 @@ def loaders_slice(torch, dev, card):
         free_card(torch)
 
 
+# Phase 21, a JAX-layout resume at full width: the pretraining CLI
+# (CLI_YAML with the uncertainty balancer, synthetic batches of
+# TRAIN_BATCH, RESUME_STEPS steps an epoch) and the semseg CLI over the
+# NYUv2 fixture's class-mapped tree (FT_YAML at NYU_BATCH: one step an
+# epoch and an eval batch). Run P trains two epochs and saves a .pth; run M
+# saves epoch 0 as the JAX package's checkpoint-0.msgpack (--ckpt_backend
+# msgpack) and is stopped right after that save, as a preemption would
+# stop it, and its relaunch auto-resumes epoch 1 from the file. The file's
+# tree must be the JAX layout of tests/fixtures/jax_state/, and M's epoch
+# 1 (metrics, evaluation, final parameters and optimizer state) bit-equal
+# to P's: the fp32 trees copy exactly and the kernels are deterministic.
+RESUME_STEPS = 2
+JAX_STATE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "jax_state")
+
+
+class _Preempted(Exception):
+    """Stops run M after its epoch-0 save."""
+
+
+def state_leaves(tree, path=()):
+    """{"a/b": [shape, dtype]} of a tree flax_msgpack read ([None, "int"]
+    for an int), as tests/fixtures/jax_state/make_manifests.py writes them."""
+    from multimae_tpu_torch.utils.flax_msgpack import _NAMES
+
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(state_leaves(v, path + (k,)))
+        return out
+    if type(tree) is int:
+        return {"/".join(path): [None, "int"]}
+    return {"/".join(path): [list(tree.shape), _NAMES[tree.dtype]]}
+
+
+def same_saves(a, b):
+    """Raise unless two .pth saves hold the same tensors and counters, bit
+    for bit: the model, the balancer, every optimizer state tensor."""
+    import torch
+
+    x, y = (torch.load(p, map_location="cpu", weights_only=True) for p in (a, b))
+    pairs = [(f"model.{k}", v, y["model"][k]) for k, v in x["model"].items()]
+    pairs += [(f"loss_balancer.{k}", v, y["loss_balancer"][k])
+              for k, v in (x["loss_balancer"] or {}).items()]
+    pairs += [(f"optimizer.{i}.{k}", v, y["optimizer"]["state"][i][k])
+              for i, per in x["optimizer"]["state"].items() for k, v in per.items()]
+    differ = [n for n, u, v in pairs if not torch.equal(u, v)]
+    if differ or set(x["model"]) != set(y["model"]) or (x["step"], x["updates"]) != (
+            y["step"], y["updates"]):
+        raise AssertionError(f"{a} and {b} differ: {differ[:8]} of {len(pairs)} tensors, "
+                             f"step/updates {x['step'], x['updates']} / "
+                             f"{y['step'], y['updates']}")
+    return len(pairs)
+
+
+def run_launches(expect, steps, evals):
+    """{kernel: launches} of `steps` steps and `evals` eval batches."""
+    out = {k: v * steps for k, v in expect["step"].items()}
+    for k, v in expect["eval"].items():
+        out[k] = out.get(k, 0) + v * evals
+    return out
+
+
+def resume_pair(cli, what, base, root, manifest, expect):
+    """Phase 21's runs P and M of one CLI (`base`: its flags for two
+    epochs); returns the relaunch's launches and the numbers."""
+    from multimae_tpu_torch.train import checkpoint as ckpt_lib
+    from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+
+    p_dir, m_dir = os.path.join(root, "p"), os.path.join(root, "m")
+    reset_launch_counts()
+    first = cli.main(cli.get_args(base + ["--output_dir", p_dir]))
+    expect_launches(f"[21] {what} run P", launch_counts(),
+                    **run_launches(expect, len(first["steps"]), len(first.get("evals", []))))
+    free_card(sys.modules["torch"])
+
+    save, timed = ckpt_lib.save_checkpoint, {}
+
+    def save_then_stop(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(*args, **kwargs)
+        if kwargs.get("tag") is None:
+            timed["write_s"] = time.perf_counter() - t0
+            raise _Preempted(path)
+        return path
+
+    ckpt_lib.save_checkpoint = save_then_stop
+    try:
+        cli.main(cli.get_args(base + ["--output_dir", m_dir, "--ckpt_backend", "msgpack",
+                                      "--save_ckpt_freq", "1"]))
+        raise AssertionError(f"[21] {what} run M went past its epoch-0 save")
+    except _Preempted as stop:
+        msgpack = str(stop)
+    finally:
+        ckpt_lib.save_checkpoint = save
+    free_card(sys.modules["torch"])
+    with open(manifest) as f:
+        want = json.load(f)
+    got = state_leaves({k: v for k, v in read_msgpack(msgpack).items() if k != "extras"})
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise AssertionError(f"[21] {msgpack}: {len(bad)} leaves differ from "
+                             f"{os.path.basename(manifest)}: {bad[:6]}")
+
+    tee = _Tee(sys.stdout)
+    reset_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        again = cli.main(cli.get_args(base + ["--output_dir", m_dir]))
+    launches = launch_counts()
+    free_card(sys.modules["torch"])
+    printed = "".join(tee.parts)
+    p_steps = [r["metrics"] for r in first["steps"] if r["epoch"] == 1]
+    m_steps = [r["metrics"] for r in again["steps"]]
+    p_evals = [{k: e[k] for k in ("mIoU", "images")} for e in first.get("evals", [])
+               if e["epoch"] == 1]
+    m_evals = [{k: e[k] for k in ("mIoU", "images")} for e in again.get("evals", [])]
+    if (again["start_epoch"], again["resumed_from"], again.get("resume_bit_equal"),
+            expect["printed"] in printed) != (1, msgpack, True, True):
+        raise AssertionError(f"[21] {what} relaunch: start epoch {again['start_epoch']}, from "
+                             f"{again['resumed_from']}, bit-equal {again.get('resume_bit_equal')}"
+                             f", {expect['printed']!r} printed: {expect['printed'] in printed}")
+    if m_steps != p_steps or m_evals != p_evals or not p_steps:
+        raise AssertionError(f"[21] {what}: epoch 1 resumed {m_steps} {m_evals}; run P "
+                             f"{p_steps} {p_evals}")
+    expect_launches(f"[21] {what} relaunch", launches,
+                    **run_launches(expect, len(m_steps), len(m_evals)))
+    tensors = same_saves(os.path.join(p_dir, "checkpoint-1.pth"),
+                         os.path.join(m_dir, "checkpoint-1.pth"))
+    mib = os.path.getsize(msgpack) / 2**20
+    log(21, f"{what}: checkpoint-0.msgpack ({mib:.1f} MiB, {len(got)} leaves as "
+            f"{os.path.basename(manifest)} holds them) written in {timed['write_s']:.2f} s, "
+            f"read, mapped and loaded in {again['load_s']:.2f} s; epoch 1 resumed from it "
+            "bit-equal to run P's: losses " + ", ".join(f"{m['loss']:.6f}" for m in m_steps)
+            + ", grad norms " + ", ".join(f"{m['grad_norm']:.6f}" for m in m_steps)
+            + (f", mIoU {m_evals[0]['mIoU']:.6f}" if m_evals else "")
+            + f", and the {tensors} tensors of the epoch-1 saves (the parameters and the "
+            f"optimizer state); relaunch launches {launches}")
+    return launches, {"msgpack_mib": mib, "write_s": timed["write_s"],
+                      "load_s": again["load_s"], "losses": [m["loss"] for m in m_steps],
+                      "tensors_bit_equal": tensors}
+
+
+def jax_resume_slice(torch, dev, card):
+    """Phase 21; returns ({path: {kernel: launches}}, numbers)."""
+    import shutil
+
+    from multimae_tpu_torch.cli import run_finetuning_semseg as seg_cli
+    from multimae_tpu_torch.cli import run_pretraining_multimae as pt_cli
+    from multimae_tpu_torch.tools import prepare_nyuv2
+
+    root = os.path.join(HERE, "build", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches, numbers = {}, {}
+    try:
+        base = ["-c", os.path.join(HERE, CLI_YAML), "--task_balancer", "uncertainty",
+                "--synthetic_data", "--synthetic_steps_per_epoch", str(RESUME_STEPS),
+                "--batch_size", str(TRAIN_BATCH), "--warmup_epochs", "0", "--num_workers", "0",
+                "--epochs", "2", "--save_ckpt_freq", "2"]
+        launches["jax_resume_pretrain"], numbers["pretrain"] = resume_pair(
+            pt_cli, f"pretraining CLI (MultiMAE-B, batch {TRAIN_BATCH})", base,
+            os.path.join(root, "pretrain"),
+            os.path.join(JAX_STATE_FIXTURES, "pretrain_multimae_b.json"),
+            {"step": {"fused_decoder_fwd": 4, "fused_decoder_bwd": 4}, "eval": {},
+             "printed": "checkpoint-0.msgpack holds no data position the port reads"})
+
+        tree = os.path.join(root, "nyu")
+        prepare_nyuv2.prepare(os.path.join(NYU_FIXTURE, "nyu_depth_v2_labeled.mat"),
+                              os.path.join(NYU_FIXTURE, "splits.mat"), tree, verbose=False,
+                              class_mapping_path=os.path.join(NYU_FIXTURE, "classMapping40.mat"))
+        base = ["-c", os.path.join(HERE, FT_YAML), "--finetune", "", "--batch_size",
+                str(NYU_BATCH), "--warmup_epochs", "0", "--num_workers", "0",
+                "--data_path", os.path.join(tree, "train"),
+                "--eval_data_path", os.path.join(tree, "test"), "--epochs", "2",
+                "--save_ckpt_freq", "2"]
+        launches["jax_resume_semseg"], numbers["semseg"] = resume_pair(
+            seg_cli, f"semseg CLI (NYU fixture, MultiViT-B at 512 px, batch {NYU_BATCH})",
+            base, os.path.join(root, "semseg"),
+            os.path.join(JAX_STATE_FIXTURES, "semseg_nyu_multivit_b.json"),
+            {"step": {"short_attention_fwd": 12, "short_attention_bwd": 12,
+                      "fused_ln_mlp_res_fwd": 4, "fused_ln_mlp_res_bwd": 4},
+             "eval": {"fused_block_infer": 12, "fused_ln_mlp_res_fwd": 4},
+             "printed": "data iterator state restored"})
+        log(21, f"card {card}")
+        return launches, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_card(torch)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "multimae_tpu_torch")):
         raise SystemExit("chip_smoke.py: the multimae_tpu_torch package is not "
@@ -3857,7 +4043,7 @@ def main():
     free_card(torch)
 
     # 12. the pretraining CLI from a dataset folder
-    pretrain = os.path.join(HERE, "build", "chip_smoke_pretrain", "checkpoint-2.pth")
+    pretrain = os.path.join(HERE, "build", "chip_smoke_pretrain", "checkpoint-1.pth")
     try:
         cli_launches, cli_numbers = cli_slice(torch, dev, pretrain)
         for k in kernels:
@@ -3972,6 +4158,17 @@ def main():
     for k in kernels:
         name = k.get("served_by", k["name"])
         for path, counts in loader_launches.items():
+            k[f"{path}_launches"] = counts[name]
+
+    # 21. a JAX-layout resume at full width: the pretraining and semseg
+    # CLIs save epoch 0 as the JAX package's .msgpack and resume epoch 1
+    # from it, bit-equal to an uninterrupted run
+    free_card(torch)
+    resume_launches, resume_numbers = jax_resume_slice(torch, dev, card)
+    log(21, "numbers: " + json.dumps(resume_numbers))
+    for k in kernels:
+        name = k.get("served_by", k["name"])
+        for path, counts in resume_launches.items():
             k[f"{path}_launches"] = counts[name]
 
     log_phase_times()

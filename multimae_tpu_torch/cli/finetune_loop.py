@@ -9,11 +9,17 @@ synthetic batch with --synthetic_data), trains with --opt, layer decay
 --layer_decay ** (depth + 1 - i), the cosine LR with warmup and the WD
 schedule, evaluates every --eval_freq epochs over the whole validation
 set, saves checkpoint-best.pth whenever the tracked metric improves and
-checkpoint-{epoch}.pth every --save_ckpt_freq epochs and at the end,
+checkpoint-{epoch}.pth every --save_ckpt_freq epochs and at the end (with
+--ckpt_backend msgpack the JAX package's .msgpack files instead),
 writes a JSON line per epoch to log.txt, and auto-resumes from the newest
 loadable save in --output_dir with the data order and the best metric so
 far (the JAX CLIs restart from the worst value, so their first
-evaluation after a resume overwrites checkpoint-best). Several processes
+evaluation after a resume overwrites checkpoint-best). A JAX training
+state (.msgpack) resumes too, by --resume or auto-resume: its optimizer
+state and counters map onto the port's (utils/jax_state.py); it keeps no
+best metric, which starts at the worst value as in the JAX CLI, and no
+data position the port reads, so its next epoch starts at batch 0 of the
+port's own permutation. Several processes
 (torchrun, OpenMPI, SLURM; parallel/dist.py) train data-parallel on the
 global batch, --batch_size per data rank; with --model_parallel k each k
 adjacent ranks split the encoder blocks Megatron-style (parallel/tp.py)
@@ -29,7 +35,6 @@ from __future__ import annotations
 import contextlib
 import datetime
 import math
-import os
 import sys
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -44,31 +49,21 @@ def step_seed(seed: int, step: int, rank: int) -> int:
     return int(np.random.SeedSequence([seed, step, rank]).generate_state(1)[0])
 
 
-def refuse_unported(args, flax_start: Optional[str] = None) -> None:
-    """SystemExit for every flag whose function the port does not have.
-    `flax_start` names the JAX rule by which the CLI starts from a JAX
-    `.msgpack` (utils/torch_compat.load_flax_start), where its JAX CLI
-    does; None where its JAX CLI reads `.pth` files only."""
+def refuse_unported(args, flax_start: Optional[str] = None) -> str:
+    """SystemExit for every flag whose function the port does not have;
+    returns the save format. `flax_start` names the JAX rule by which the
+    CLI starts from a JAX `.msgpack` (utils/torch_compat.load_flax_start),
+    where its JAX CLI does; None where its JAX CLI reads `.pth` files only."""
+    from multimae_tpu_torch.train.checkpoint import refuse_unread, save_format
+
     finetune = args.finetune or ""
-    refused = [
-        (args.ckpt_backend is not None,
-         "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10b, its end)"),
-        (bool(finetune) and flax_start is None and not finetune.endswith(".pth"),
-         f"--finetune {finetune}: not a .pth file; the JAX CLI of this task starts from "
-         ".pth files only, so a JAX .msgpack or orbax checkpoint is not read here "
-         "either (ROADMAP.md queue 1 item 10b, its end)"),
-        (bool(finetune) and flax_start is not None
-         and not finetune.endswith((".pth", ".msgpack")),
-         f"--finetune {finetune}: neither a .pth nor a JAX .msgpack file; orbax "
-         "checkpoint directories are not read (ROADMAP.md queue 1 item 10b, its end)"),
-        (bool(args.resume) and not args.resume.endswith(".pth"),
-         f"--resume {args.resume}: not a .pth file; resuming a JAX training state (its "
-         "optax opt_state) is not ported (ROADMAP.md queue 1 item 10b, its end)"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise SystemExit(msg)
+    if finetune and flax_start is None and not finetune.endswith(".pth"):
+        raise SystemExit(f"--finetune {finetune}: not a .pth file; the JAX CLI of this task "
+                         "starts from .pth files only, so a JAX .msgpack or orbax checkpoint "
+                         "is not read here either")
+    refuse_unread("--finetune", finetune)
+    refuse_unread("--resume", args.resume)
+    return save_format(args.ckpt_backend)
 
 
 @contextlib.contextmanager
@@ -139,7 +134,7 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
     the step), each evaluation (its stats, batches, images, ms per batch),
     the checkpoint save and load times, each epoch's log line and the best
     metric."""
-    refuse_unported(args, flax_start)
+    ckpt_format = refuse_unported(args, flax_start)
     from multimae_tpu_torch.cli.factory import entry_device
     from multimae_tpu_torch.parallel import dist as dist_lib
 
@@ -150,7 +145,7 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
         device = torch.device("cuda", torch.cuda.current_device())
     with exact_fp32(device, dtype):
         summary = _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn,
-                            evaluation, best, synthetic, report, flax_start)
+                            evaluation, best, synthetic, report, flax_start, ckpt_format)
     if created and torch.distributed.is_initialized():
         dist_lib.barrier()
         torch.distributed.destroy_process_group()
@@ -158,11 +153,11 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
 
 
 def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, evaluation,
-              best, synthetic, report, flax_start) -> Dict[str, Any]:
+              best, synthetic, report, flax_start, ckpt_format) -> Dict[str, Any]:
     from multimae_tpu_torch.data.loader import EvalLoader, Loader
     from multimae_tpu_torch.parallel import dist as dist_lib
     from multimae_tpu_torch.train.checkpoint import (
-        auto_load_checkpoint, load_checkpoint, save_checkpoint)
+        auto_load_checkpoint, load_checkpoint, restore_data_order, save_checkpoint)
     from multimae_tpu_torch.train.finetune_step import (
         make_dense_eval_step, make_dense_train_step)
     from multimae_tpu_torch.train.optim_factory import (
@@ -248,22 +243,20 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
         print(f"[checkpoint] resumed from {args.resume} (epoch {last_epoch})")
     elif args.auto_resume and args.output_dir:
         start_epoch, payload = auto_load_checkpoint(args.output_dir, state)
-        if payload:
-            summary["resumed_from"] = os.path.join(args.output_dir,
-                                                   f"checkpoint-{start_epoch - 1}.pth")
+        summary["resumed_from"] = payload.get("path")
     if summary["resumed_from"]:
         summary["load_s"] = time.perf_counter() - t0
+    best_value = float(payload.get(f"best_{best_key}",
+                                   0.0 if direction == "max" else float("inf")))
     if payload:
         saved, live = payload["model"], state.state_dict()["model"]
         summary["resume_bit_equal"] = set(saved) == set(live) and all(
             torch.equal(v.cpu(), saved[k]) for k, v in live.items())
-        if loader is not None and payload.get("data_iter_state"):
-            try:
-                loader.set_state(payload["data_iter_state"])
-                print("[checkpoint] data iterator state restored")
-            except ValueError as e:
-                print(f"[checkpoint] data iterator restore failed ({e}); "
-                      "continuing with a fresh shuffle")
+        restore_data_order(loader, payload, summary["resumed_from"], start_epoch, args.seed)
+        if summary["resumed_from"].endswith(".msgpack"):
+            print(f"[checkpoint] a .msgpack keeps no best {best_key}: it starts at "
+                  f"{best_value}, as the JAX CLI's does, and the next evaluation writes "
+                  "checkpoint-best", flush=True)
     summary["start_epoch"] = start_epoch
 
     step_fn = make_dense_train_step(model, task, loss_parts_fn, in_domains=tuple(in_domains),
@@ -317,8 +310,6 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
                 fetch_s[0] = time.perf_counter() - t1
                 yield b
 
-    best_value = float(payload.get(f"best_{best_key}",
-                                   0.0 if direction == "max" else float("inf")))
     print(f"Start training for {args.epochs} epochs")
     start_time = time.time()
     for epoch in range(start_epoch, args.epochs):
@@ -348,7 +339,7 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
             path = save_checkpoint(args.output_dir, epoch, state, args=vars(args), tag=tag,
                                    data_iter_state=None if loader is None
                                    else loader.get_state(),
-                                   extra={f"best_{best_key}": best_value})
+                                   extra={f"best_{best_key}": best_value}, backend=ckpt_format)
             if path is not None:
                 summary["save_s"].append(time.perf_counter() - t1)
                 summary["saved"].append(path)

@@ -27,11 +27,16 @@ gradient accumulation and the parameter EMA (--model_ema: on the card,
 or in host memory with --model_ema_force_cpu), evaluates top-1/5 after
 every epoch over the whole validation set (the counts summed over
 processes), saves checkpoint-best.pth whenever top-1 improves and
-checkpoint-{epoch}.pth every --save_ckpt_freq epochs and at the end,
+checkpoint-{epoch}.pth every --save_ckpt_freq epochs and at the end (with
+--ckpt_backend msgpack the JAX package's .msgpack files instead),
 writes a JSON line per epoch to log.txt, and auto-resumes from the
 newest loadable save in --output_dir with the data order, the EMA and
 the best top-1 so far (the JAX CLI starts every run from a best of 0, so
-its first evaluation after a resume overwrites checkpoint-best). Several
+its first evaluation after a resume overwrites checkpoint-best). A JAX
+training state (.msgpack: AdamW's moments, optax.MultiSteps's
+accumulation under --update_freq, the device or host EMA, the counters)
+resumes too, with no best top-1 and no data position the port reads
+(utils/jax_state.py). Several
 processes (torchrun, OpenMPI, SLURM; parallel/dist.py) train
 data-parallel on the global batch, --batch_size per process; each mixes
 its own slice of it (the JAX CLI mixes the global batch, reversed as a
@@ -42,8 +47,8 @@ generator (data/loader.py): RandAugment and --train_interpolation random
 included, which the JAX transforms draw from the process-global `random`.
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. Flags whose function is not
-ported raise SystemExit naming the ROADMAP.md item that brings it;
+card is asked for and torch sees none. An orbax start, save or --resume
+raises SystemExit (orbax's storage format needs the JAX stack);
 --log_wandb, --dist_eval, --pin_mem, --model_key and --model_prefix are
 accepted and change nothing, as in the JAX CLI.
 """
@@ -72,8 +77,8 @@ def get_args(argv=None):
     parser.add_argument("--epochs", default=100, type=int)
     parser.add_argument("--update_freq", default=1, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="JAX-package checkpoint formats: not ported (the port "
-                             "writes checkpoint-{epoch}.pth); only the default is taken")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
+                             "instead of checkpoint-{epoch}.pth; orbax is not written")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     parser.add_argument("--model", default="multivit_base", type=str)
@@ -186,22 +191,14 @@ def get_args(argv=None):
     return parser.parse_args(remaining)
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for every flag whose function the port does not have."""
-    refused = [
-        (args.ckpt_backend is not None,
-         "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10b, its end)"),
-        (bool(args.finetune) and not args.finetune.endswith((".pth", ".msgpack")),
-         f"--finetune {args.finetune}: neither a .pth nor a JAX .msgpack file; orbax "
-         "checkpoint directories are not read (ROADMAP.md queue 1 item 10b, its end)"),
-        (bool(args.resume) and not args.resume.endswith(".pth"),
-         f"--resume {args.resume}: not a .pth file; resuming a JAX training state (its "
-         "optax opt_state) is not ported (ROADMAP.md queue 1 item 10b, its end)"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise SystemExit(msg)
+def refuse_unported(args) -> str:
+    """SystemExit for every flag whose function the port does not have (an
+    orbax start, save or --resume); returns the save format."""
+    from multimae_tpu_torch.train.checkpoint import refuse_unread, save_format
+
+    refuse_unread("--finetune", args.finetune or "")
+    refuse_unread("--resume", args.resume)
+    return save_format(args.ckpt_backend)
 
 
 def main(args) -> Dict[str, Any]:
@@ -210,7 +207,7 @@ def main(args) -> Dict[str, Any]:
     for the batch, the step), each evaluation (top-1, top-5, ms per
     batch, images), the checkpoint save and load times, and each epoch's
     log line."""
-    refuse_unported(args)
+    ckpt_format = refuse_unported(args)
     from multimae_tpu_torch.cli.factory import build_cls_model, entry_device
     from multimae_tpu_torch.cli.finetune_loop import step_seed
     from multimae_tpu_torch.data.cls_transforms import (
@@ -220,7 +217,7 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.data.mixup import Mixup
     from multimae_tpu_torch.parallel import dist as dist_lib
     from multimae_tpu_torch.train.checkpoint import (
-        auto_load_checkpoint, load_checkpoint, save_checkpoint)
+        auto_load_checkpoint, load_checkpoint, restore_data_order, save_checkpoint)
     from multimae_tpu_torch.train.cross_entropy import (
         cross_entropy, label_smoothing_cross_entropy, soft_target_cross_entropy)
     from multimae_tpu_torch.train.finetune_step import make_cls_eval_step, make_cls_train_step
@@ -361,9 +358,7 @@ def main(args) -> Dict[str, Any]:
         print(f"[checkpoint] resumed from {args.resume} (epoch {last_epoch})")
     elif args.auto_resume and args.output_dir:
         start_epoch, payload = auto_load_checkpoint(args.output_dir, state)
-        if payload:
-            summary["resumed_from"] = os.path.join(args.output_dir,
-                                                   f"checkpoint-{start_epoch - 1}.pth")
+        summary["resumed_from"] = payload.get("path")
     if summary["resumed_from"]:
         summary["load_s"] = time.perf_counter() - t0
     if payload:
@@ -374,13 +369,10 @@ def main(args) -> Dict[str, Any]:
         if host_ema is not None and payload.get("ema_params") is not None:
             host_ema.load({k: tp.local_tensor(model, k, v)
                            for k, v in payload["ema_params"].items()})
-        if loader is not None and payload.get("data_iter_state"):
-            try:
-                loader.set_state(payload["data_iter_state"])
-                print("[checkpoint] data iterator state restored")
-            except ValueError as e:
-                print(f"[checkpoint] data iterator restore failed ({e}); "
-                      "continuing with a fresh shuffle")
+        restore_data_order(loader, payload, summary["resumed_from"], start_epoch, args.seed)
+        if summary["resumed_from"].endswith(".msgpack"):
+            print("[checkpoint] a .msgpack keeps no best acc1: it starts at 0.0, as the JAX "
+                  "CLI's does, and the next evaluation writes checkpoint-best", flush=True)
     summary["start_epoch"] = start_epoch
 
     step_fn = make_cls_train_step(model, loss_fn, clip_grad=args.clip_grad)
@@ -473,7 +465,7 @@ def main(args) -> Dict[str, Any]:
             t1 = time.perf_counter()
             path = save_checkpoint(args.output_dir, epoch, state, args=vars(args), tag=tag,
                                    data_iter_state=None if loader is None
-                                   else loader.get_state(), extra=extra)
+                                   else loader.get_state(), extra=extra, backend=ckpt_format)
             if path is not None:
                 summary["save_s"].append(time.perf_counter() - t1)
                 summary["saved"].append(path)

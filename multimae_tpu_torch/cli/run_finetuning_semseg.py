@@ -27,8 +27,8 @@ survives a resume (the JAX CLI forgets it, so its first evaluation after
 a resume overwrites checkpoint-best).
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. Flags whose function is not
-ported raise SystemExit naming the ROADMAP.md item that brings it;
+card is asked for and torch sees none. An orbax start, save or --resume
+raises SystemExit (orbax's storage format needs the JAX stack);
 --log_wandb and --log_images_wandb are accepted and ignored, as the JAX
 CLI ignores them.
 """
@@ -65,8 +65,8 @@ def get_args(argv=None):
     parser.add_argument("--batch_size", default=4, type=int, help="Batch size per process")
     parser.add_argument("--epochs", default=64, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="JAX-package checkpoint formats: not ported (the port "
-                             "writes checkpoint-{epoch}.pth); only the default is taken")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
+                             "instead of checkpoint-{epoch}.pth; orbax is not written")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     parser.add_argument("--in_domains", default="rgb", type=str)

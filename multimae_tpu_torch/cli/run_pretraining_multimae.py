@@ -11,9 +11,13 @@ defaults, flags override them), reading the shared cfgs/. It builds the
 model, losses and balancer, reads a MultiTaskImageFolder tree (or makes
 synthetic batches with --synthetic_data) through the port's loader,
 trains with AdamW under the cosine LR/WD schedules (lr = blr x global
-batch / 256), saves checkpoint-{epoch}.pth every --save_ckpt_freq epochs
-and at the end, and auto-resumes from the newest loadable save in
---output_dir together with the data order. Several processes (torchrun,
+batch / 256), saves checkpoint-{epoch}.pth (with --ckpt_backend msgpack
+the JAX package's checkpoint-{epoch}.msgpack) every --save_ckpt_freq
+epochs and at the end, and auto-resumes from the newest loadable save in
+--output_dir together with the data order. A JAX training state (a
+.msgpack the JAX CLI wrote: params, AdamW's moments, the counters) resumes
+by --resume or auto-resume; the JAX save's data position is grain's, so
+its next epoch starts at batch 0 of the port's own permutation. Several processes (torchrun,
 OpenMPI, SLURM; parallel/dist.py) train data-parallel on the global
 batch, --batch_size per data rank: the global batch is --batch_size x
 world / (--model_parallel x --pipeline_parallel). --fsdp shards the
@@ -31,8 +35,8 @@ cross-attention form); --approx_gelu gives the model's module-path GELUs
 the tanh form.
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. Flags whose function is not
-ported raise SystemExit naming the ROADMAP.md item that brings it.
+card is asked for and torch sees none. An orbax save or --resume raises
+SystemExit: orbax's storage format needs the JAX stack.
 """
 
 from __future__ import annotations
@@ -58,8 +62,8 @@ def get_args(argv=None):
                         help="Batch size per process")
     parser.add_argument("--epochs", default=1600, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="JAX-package checkpoint formats: not ported (the port "
-                             "writes checkpoint-{epoch}.pth); only the default is taken")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
+                             "instead of checkpoint-{epoch}.pth; orbax is not written")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     # Task parameters
@@ -199,19 +203,13 @@ def get_args(argv=None):
     return parser.parse_args(remaining)
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for every flag whose function the port does not have."""
-    refused = [
-        (args.ckpt_backend is not None,
-         "--ckpt_backend: msgpack and orbax are JAX-package formats; the port writes "
-         "checkpoint-{epoch}.pth (ROADMAP.md queue 1 item 10b, its end)"),
-        (bool(args.resume) and not args.resume.endswith(".pth"),
-         f"--resume {args.resume}: not a .pth file; resuming a JAX training state (its "
-         "optax opt_state) is not ported (ROADMAP.md queue 1 item 10b, its end)"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise SystemExit(msg)
+def refuse_unported(args) -> str:
+    """SystemExit for every flag whose function the port does not have (an
+    orbax save or --resume); returns the save format."""
+    from multimae_tpu_torch.train.checkpoint import refuse_unread, save_format
+
+    refuse_unread("--resume", args.resume)
+    return save_format(args.ckpt_backend)
 
 
 def build_mesh(args, device):
@@ -239,7 +237,7 @@ def main(args) -> Dict[str, Any]:
     """Train; returns a summary: where it started and resumed from, the
     per-step metrics and host times (wait for the batch, the step), the
     checkpoint save and load times, and each epoch's log line."""
-    refuse_unported(args)
+    ckpt_format = refuse_unported(args)
     from multimae_tpu_torch.cli.factory import (
         build_pretrain_losses, build_pretrain_model, entry_device, make_synthetic_batch)
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder
@@ -247,7 +245,7 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.data.pretrain_transforms import DataAugmentationForMultiMAE
     from multimae_tpu_torch.parallel import dist as dist_lib
     from multimae_tpu_torch.train.checkpoint import (
-        auto_load_checkpoint, load_checkpoint, save_checkpoint)
+        auto_load_checkpoint, load_checkpoint, restore_data_order, save_checkpoint)
     from multimae_tpu_torch.train.optim_factory import create_optimizer
     from multimae_tpu_torch.train.pretrain_step import make_pretrain_train_step
     from multimae_tpu_torch.train.schedules import cosine_scheduler
@@ -346,9 +344,7 @@ def main(args) -> Dict[str, Any]:
         print(f"[checkpoint] resumed from {args.resume} (epoch {last_epoch})")
     elif args.auto_resume and args.output_dir:
         start_epoch, payload = auto_load_checkpoint(args.output_dir, state)
-        if payload:
-            summary["resumed_from"] = os.path.join(args.output_dir,
-                                                   f"checkpoint-{start_epoch - 1}.pth")
+        summary["resumed_from"] = payload.get("path")
     if payload:
         summary["load_s"] = time.perf_counter() - t0
         live = {**{f"model.{k}": v for k, v in state.state_dict()["model"].items()},
@@ -360,13 +356,7 @@ def main(args) -> Dict[str, Any]:
         print(f"[checkpoint] loaded in {summary['load_s']:.2f} s; parameters bit-equal to "
               f"the save: {summary['resume_bit_equal']}")
         # Exact data-order resume (beyond the reference, which restarts the epoch).
-        if loader is not None and payload.get("data_iter_state"):
-            try:
-                loader.set_state(payload["data_iter_state"])
-                print("[checkpoint] data iterator state restored")
-            except ValueError as e:
-                print(f"[checkpoint] data iterator restore failed ({e}); "
-                      "continuing with a fresh shuffle")
+        restore_data_order(loader, payload, summary["resumed_from"], start_epoch, args.seed)
     summary["start_epoch"] = start_epoch
 
     step_fn = make_pretrain_train_step(
@@ -465,7 +455,8 @@ def main(args) -> Dict[str, Any]:
                 (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
             t0 = time.perf_counter()
             path = save_checkpoint(args.output_dir, epoch, state, args=vars(args),
-                                   data_iter_state=None if loader is None else loader.get_state())
+                                   data_iter_state=None if loader is None else loader.get_state(),
+                                   backend=ckpt_format)
             if path is not None:
                 summary["save_s"].append(time.perf_counter() - t0)
                 print(f"[checkpoint] saved {path} in {summary['save_s'][-1]:.2f} s")

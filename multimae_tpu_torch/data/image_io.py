@@ -75,15 +75,15 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
   `jpeg2000_idwt_twin` and `jpeg2000_colour_twin` are its wavelet and
   colour stages in numpy, which `read_jpeg2000(twin=True)` takes.
 
-Files PIL reads and the port cannot (CCITT, LZMA, ZSTD, WebP-in-TIFF,
-SGILog, ThunderScan, CIELab and "tiff_raw_16" TIFF, and old-style JPEG in
-tiles or planes, items 11h and 11g) raise
-`UnsupportedImage`, which
+Files PIL reads and the port cannot (CCITT, LZMA, ZSTD, ThunderScan,
+CIELab and "tiff_raw_16" TIFF, and old-style JPEG in tiles or planes,
+items 11h and 11g) raise `UnsupportedImage`, which
 is neither a ValueError nor an OSError: the corrupt-file retries of the
 datasets and the loader let it through, so a tree that holds one stops the
 run naming the file instead of training on other samples than the JAX
-package would. A damaged file raises ValueError, which the retries catch,
-as the JAX package's catch PIL's errors.
+package would. A damaged file, and one PIL refuses (SGILog and
+WebP-in-TIFF among them), raises ValueError, which the retries catch, as
+the JAX package's catch PIL's errors.
 
 `load_image(path, convert_rgb)` returns what PIL's loader gives the
 pipeline: (H, W, 3) uint8 for convert_rgb (palette and gray expanded,
@@ -771,8 +771,15 @@ TIFF_COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "ti
                      34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                      50001: "webp"}
 # The ones PIL reads through libtiff and the port does not: the ROADMAP item of each.
-TIFF_REFUSED = {2: "11h", 3: "11h", 4: "11h", 32771: "11h", 32809: "11h", 34676: "11h",
-                34677: "11h", 34925: "11h", 50000: "11h", 50001: "11h"}
+TIFF_REFUSED = {2: "11h", 3: "11h", 4: "11h", 32771: "11h", 32809: "11h", 34925: "11h",
+                50000: "11h"}
+# The ones PIL 12.1 opens and fails to decode: SGILog and SGILog24 are read
+# only under the LogL and LogLuv photometrics, which its OPEN_INFO lacks
+# (libtiff's LogLuvSetupDecode refuses every other), and the wheel's libtiff
+# has no WebP codec.
+TIFF_PIL_REFUSED = {34676: "libtiff's SGILog codec decodes only LogL and LogLuv images",
+                    34677: "libtiff's SGILog codec decodes only LogL and LogLuv images",
+                    50001: "Pillow's libtiff has no WebP codec"}
 # YCbCrSubsampling (tag 530) pairs libtiff's RGBA reader has a routine for
 # (tif_getimage.c PickContigCase); a 4 x 4 data unit's right-hand skew
 # advances 10 bytes a unit, not 18, as putcontig8bitYCbCr44tile does.
@@ -1085,6 +1092,10 @@ class _TiffFile:
         key = (self.prefix, photo, fmt, self.fill, bits, self.extra)
         if key not in TIFF_OPEN_INFO:
             raise ValueError(f"unknown TIFF pixel mode {key[1:]}, as PIL refuses it")
+        if self.compression in TIFF_PIL_REFUSED:
+            raise ValueError(f"a TIFF with {TIFF_COMPRESSIONS[self.compression]} compression "
+                             f"({self.compression}), which PIL refuses: "
+                             f"{TIFF_PIL_REFUSED[self.compression]}")
         if self.compression in TIFF_REFUSED:
             raise UnsupportedImage(
                 f"a TIFF with {TIFF_COMPRESSIONS[self.compression]} compression "

@@ -84,6 +84,27 @@ class PatchedInputAdapter(nn.Module):
                                    self.dtype)
 
 
+class _Embedding(torch.autograd.Function):
+    """F.embedding(ids, table) whose table gradient is onehot(ids)^T @ g, a
+    matmul that adds in a fixed order: torch's CUDA embedding backward adds
+    with atomics, in an order that changes from run to run (the JAX
+    package's lookup is this one-hot product, forward and backward)."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1, 1)
+        onehot = torch.zeros(flat.shape[0], ctx.rows, dtype=g.dtype, device=g.device)
+        onehot.scatter_(1, flat, 1.0)
+        return None, onehot.t() @ g.reshape(-1, g.shape[-1])
+
+
 class SemSegInputAdapter(nn.Module):
     """Class-map tokenizer (reference input_adapters.py:122-241, JAX
     :130-245); input is an int class map (B, H/stride, W/stride).
@@ -136,7 +157,7 @@ class SemSegInputAdapter(nn.Module):
         if self.emb_padding_idx is not None:
             table = table.index_fill(
                 0, torch.tensor([self.emb_padding_idx], device=table.device), 0.0)
-        emb = F.embedding(x.long(), table).to(self.dtype)  # (B, h, w, 64)
+        emb = _Embedding.apply(x.long(), table).to(self.dtype)  # (B, h, w, 64)
         if self.interpolate_class_emb:
             emb = interpolate_2d(emb, (nh, nw), mode="bilinear")
         tokens = patch_project(emb.permute(0, 3, 1, 2), self.proj, self.dtype)

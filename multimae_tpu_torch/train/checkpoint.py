@@ -24,12 +24,25 @@ through the fine-tune start's surgeries (utils/torch_compat.py) and its
 epoch is kept, while the optimizer and the counters start fresh, as the
 JAX package does for a `.pth` (multimae_tpu/train/checkpoint.py:306-329).
 
-Auto-resume walks the saves newest epoch first. Each candidate is read
-in full and its every key and shape checked against the live state
-before it is chosen, so a truncated or gutted newest save costs one
-epoch and not the run; if every candidate is damaged the walk raises.
-With several processes, rank 0 walks and broadcasts the epoch it chose,
-and every rank loads that file.
+A JAX training state, `checkpoint-{epoch}.msgpack` (the JAX package's
+default save, multimae_tpu/train/checkpoint.py:116-172), loads through
+utils/jax_state.jax_state_to_port: its params, optax state, counters and
+EMA, mapped and checked against the live state before any tensor is
+written. `save_checkpoint(..., backend="msgpack")` (the CLIs'
+--ckpt_backend msgpack) writes that layout for the JAX package to resume
+(utils/jax_state.port_state_to_jax), with the port's loader position in
+its extras. Orbax directories are not read: their storage format needs
+the JAX stack, which the card's host does not have.
+
+Auto-resume walks the saves newest epoch first, a `.pth` before a
+`.msgpack` of the same epoch (it carries the port's data position and best
+metric). Each candidate is read in full and its every key and shape
+checked against the live state before it is chosen, so a truncated or
+gutted newest save costs one epoch and not the run; if every candidate is
+damaged the walk raises. An orbax save newer than the one chosen stops
+the run (SystemExit naming it): resuming an older save in silence would
+throw its epochs away. With several processes, rank 0 walks and
+broadcasts the save it chose, and every rank loads that file.
 """
 
 from __future__ import annotations
@@ -46,26 +59,83 @@ from multimae_tpu_torch.parallel.dist import is_main_process, world_size
 from multimae_tpu_torch.train.train_state import TrainState
 from multimae_tpu_torch.utils.torch_compat import load_pretrained, torch_load_checkpoint
 
-_NAME = re.compile(r"checkpoint-(\d+)\.pth$")
+_NAME = re.compile(r"checkpoint-(\d+)\.(pth|msgpack|orbax)$")
+_FORMATS = ("pth", "msgpack")  # the ones read, in this order at one epoch
+ORBAX_REFUSAL = ("orbax's storage format needs the JAX stack, which the port does without; "
+                 "resume it with the JAX package and save with --ckpt_backend msgpack")
+
+
+def save_format(ckpt_backend: Optional[str]) -> str:
+    """The save format of a CLI's --ckpt_backend: None (the port's .pth) or
+    msgpack; orbax raises SystemExit."""
+    if ckpt_backend == "orbax":
+        raise SystemExit(f"--ckpt_backend orbax: {ORBAX_REFUSAL}")
+    return ckpt_backend or "pth"
+
+
+def refuse_unread(flag: str, path: str) -> None:
+    """SystemExit for a --resume (or start) that is neither a .pth nor a
+    .msgpack file: an orbax directory."""
+    if path and not path.endswith((".pth", ".msgpack")):
+        raise SystemExit(f"{flag} {path}: neither a .pth nor a .msgpack file; {ORBAX_REFUSAL}")
+
+
+def restore_data_order(loader, payload: Dict[str, Any], path: str, start_epoch: int,
+                       seed: int) -> None:
+    """Put `loader` (None with synthetic data) where a resumed run's data
+    stands: at the position the save holds, or, for a .msgpack without one
+    (a JAX save keeps grain's iterator, which the port's loader cannot
+    replay), at batch 0 of epoch `start_epoch` of the port's own
+    permutation, and say so."""
+    position = payload.get("data_iter_state")
+    if position:
+        if loader is not None:
+            try:
+                loader.set_state(position)
+                print("[checkpoint] data iterator state restored")
+            except ValueError as e:
+                print(f"[checkpoint] data iterator restore failed ({e}); "
+                      "continuing with a fresh shuffle")
+    elif path.endswith(".msgpack"):
+        print(f"[checkpoint] {os.path.basename(path)} holds no data position the port reads "
+              f"(a JAX save keeps grain's iterator): epoch {start_epoch} starts at batch 0 of "
+              "the port's own permutation", flush=True)
+        if loader is not None:
+            loader.set_state({"seed": seed, "epoch": start_epoch, "batch": 0})
 
 
 def save_checkpoint(output_dir: str, epoch: int, state: TrainState, *,
                     args: Optional[Dict[str, Any]] = None,
                     data_iter_state: Optional[Dict[str, int]] = None,
                     tag: Optional[str] = None,
-                    extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
+                    extra: Optional[Dict[str, Any]] = None,
+                    backend: str = "pth") -> Optional[str]:
     """Write checkpoint-{epoch}.pth (or {tag}.pth) on rank 0, with the
     plain values of `extra` as further keys; returns its path (None on the
-    other ranks)."""
+    other ranks). backend "msgpack" writes the JAX package's
+    checkpoint-{epoch}.msgpack instead, which keeps of `extra` a host EMA
+    (`ema_params`) alone, as the JAX CLI does."""
+    if backend not in ("pth", "msgpack"):
+        raise ValueError(f"backend {backend!r}: 'pth' or 'msgpack'")
     tensors = state.state_dict()  # every rank: FSDP and TP gather here
     if not is_main_process():
         return None
     os.makedirs(output_dir, exist_ok=True)
-    payload = dict(tensors, epoch=int(epoch), args=dict(args or {}),
-                   data_iter_state=data_iter_state, **(extra or {}))
-    path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.pth")
+    path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.{backend}")
     tmp = path + ".tmp"
-    torch.save(payload, tmp)
+    if backend == "msgpack":
+        from multimae_tpu_torch.utils.flax_msgpack import msgpack_serialize
+        from multimae_tpu_torch.utils.jax_state import PORT_LOADER_KEY, port_state_to_jax
+
+        payload = port_state_to_jax(
+            state, epoch, None if data_iter_state is None else {PORT_LOADER_KEY: data_iter_state},
+            host_ema=(extra or {}).get("ema_params"), tensors=tensors)
+        with open(tmp, "wb") as f:
+            f.write(msgpack_serialize(payload))
+    else:
+        payload = dict(tensors, epoch=int(epoch), args=dict(args or {}),
+                       data_iter_state=data_iter_state, **(extra or {}))
+        torch.save(payload, tmp)
     os.replace(tmp, path)
     if args is not None:
         with open(os.path.join(output_dir, "args.json"), "w") as f:
@@ -73,14 +143,19 @@ def save_checkpoint(output_dir: str, epoch: int, state: TrainState, *,
     return path
 
 
-def checkpoint_candidates(output_dir: str) -> List[str]:
-    """Every checkpoint-{epoch}.pth in output_dir, newest epoch first."""
+def _saves(output_dir: str, formats) -> List[Tuple[int, int, str]]:
     found = []
-    for path in glob.glob(os.path.join(output_dir, "checkpoint-*.pth")):
+    for path in glob.glob(os.path.join(output_dir, "checkpoint-*")):
         m = _NAME.search(path)
-        if m:
-            found.append((int(m.group(1)), path))
-    return [p for _, p in sorted(found, reverse=True)]
+        if m and m.group(2) in formats:
+            found.append((int(m.group(1)), -formats.index(m.group(2)), path))
+    return sorted(found, reverse=True)
+
+
+def checkpoint_candidates(output_dir: str) -> List[str]:
+    """Every checkpoint-{epoch}.pth and .msgpack in output_dir, newest epoch
+    first, the .pth first at one epoch."""
+    return [p for _, _, p in _saves(output_dir, _FORMATS)]
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:
@@ -135,8 +210,15 @@ def validate_payload(payload: Any, state: TrainState) -> None:
 
 
 def read_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
-    """torch.load (weights only) and validate; raises on a damaged file."""
-    payload = torch_load_checkpoint(path)
+    """torch.load (weights only), or read and map a JAX .msgpack, and
+    validate; raises on a damaged file."""
+    if path.endswith(".msgpack"):
+        from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+        from multimae_tpu_torch.utils.jax_state import jax_state_to_port
+
+        payload = jax_state_to_port(read_msgpack(path), state)
+    else:
+        payload = torch_load_checkpoint(path)
     validate_payload(payload, state)
     return payload
 
@@ -151,6 +233,10 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[int, Dict[str, Any]]:
     """Restore `state` in place from `path`; returns (epoch, payload). A
     reference training checkpoint restores the weights and the epoch only,
     and returns an empty payload (nothing else of it applies)."""
+    if path.endswith(".msgpack"):
+        payload = read_checkpoint(path, state)
+        state.load_state_dict(payload)
+        return int(payload["epoch"]), payload
     payload = torch_load_checkpoint(path)
     if is_reference_training_payload(payload):
         load_pretrained(state.model, payload)
@@ -162,9 +248,9 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[int, Dict[str, Any]]:
     return int(payload["epoch"]), payload
 
 
-def _broadcast_epoch(epoch: int) -> int:
+def _broadcast(value: int) -> int:
     backend = torch.distributed.get_backend()
-    t = torch.tensor([epoch], dtype=torch.int64,
+    t = torch.tensor([value], dtype=torch.int64,
                      device="cuda" if backend == "nccl" else "cpu")
     torch.distributed.broadcast(t, src=0)
     return int(t.item())
@@ -172,7 +258,8 @@ def _broadcast_epoch(epoch: int) -> int:
 
 def auto_load_checkpoint(output_dir: str, state: TrainState) -> Tuple[int, Dict[str, Any]]:
     """Resume from the newest checkpoint that reads and validates; returns
-    (start epoch = saved epoch + 1, payload), or (0, {}) where there is none.
+    (start epoch = saved epoch + 1, payload with the file's `path`), or
+    (0, {}) where there is none.
     Raises if every checkpoint is damaged: training from scratch over a
     populated output_dir would destroy more than it saves."""
     cands = checkpoint_candidates(output_dir) if is_main_process() else []
@@ -185,24 +272,35 @@ def auto_load_checkpoint(output_dir: str, state: TrainState) -> Tuple[int, Dict[
             print(f"[checkpoint] {path} failed to load ({type(e).__name__}: {e}); "
                   "trying the previous checkpoint", flush=True)
             continue
-        chosen = int(_NAME.search(path).group(1))
+        chosen = i
         if i:
             print(f"[checkpoint] skipped {i} damaged newer save(s)", flush=True)
         break
     else:
         if cands:
             chosen = -2
+    orbax = _saves(output_dir, ("orbax",)) if is_main_process() else []
+    if orbax and orbax[0][0] > (int(_NAME.search(cands[chosen]).group(1)) if chosen >= 0
+                                else -1):
+        chosen = -3
     if world_size() > 1:
-        chosen = _broadcast_epoch(chosen)
+        chosen = _broadcast(chosen)  # the index in cands
         if chosen >= 0 and not is_main_process():
-            payload = read_checkpoint(
-                os.path.join(output_dir, f"checkpoint-{chosen}.pth"), state)
+            cands = checkpoint_candidates(output_dir)
+            payload = read_checkpoint(cands[chosen], state)
+    if chosen == -3:
+        raise SystemExit(
+            f"{orbax[0][2] if orbax else 'an orbax save'}: newer than every save the port reads "
+            f"in {output_dir}; orbax's storage format needs the JAX stack, which the port does "
+            "without. Resume it with the JAX package and save with --ckpt_backend msgpack, or "
+            "move it away")
     if chosen == -2:
         raise RuntimeError(f"every checkpoint in {output_dir} failed to load"
                            + (f"; last error: {last_err}" if last_err else "")) from last_err
     if chosen == -1:
         return 0, {}
     state.load_state_dict(payload)
-    print(f"[checkpoint] auto-resumed from {output_dir}/checkpoint-{chosen}.pth "
-          f"(epoch {chosen})", flush=True)
-    return chosen + 1, payload
+    payload["path"] = cands[chosen]
+    print(f"[checkpoint] auto-resumed from {payload['path']} (epoch {payload['epoch']})",
+          flush=True)
+    return int(payload["epoch"]) + 1, payload

@@ -173,55 +173,81 @@ def _torch_parts_to_flax(parts, head_type: str):
     return out
 
 
+# How a torch tensor becomes its flax leaf (`flax_layout`'s ops): "" as it is,
+# "T" the Dense transpose, "pos_emb" (1, D, h, w) -> (1, h, w, D), "conv"
+# (O, I, kh, kw) -> (kh, kw, I, O) (deconvs too), "patch" the conv then the
+# patchify Dense's (ph*pw*C, D).
+_NUMPY_OPS = {
+    "": lambda a: a,
+    "T": lambda a: a.T,
+    "pos_emb": lambda a: a.transpose(0, 2, 3, 1),
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "patch": lambda a: a.transpose(2, 3, 1, 0).reshape(-1, a.shape[0]),
+}
+
+
+def flax_layout(shapes: Mapping[str, Tuple[int, ...]], head_type: str = "regression"
+                ) -> Dict[str, Tuple[str, Tuple[str, ...], str]]:
+    """{torch key: (collection, flax path, op)} for a state_dict's keys and
+    shapes: the collection "params" or "batch_stats", the path of the flax
+    leaf, and the op of `_NUMPY_OPS` that turns the tensor into it. The
+    names and shapes alone decide it; BatchNorm counters
+    (`num_batches_tracked`) have no flax leaf and are left out."""
+    modules = {k.rsplit(".", 1)[0] for k in shapes if k.endswith(".running_mean")}
+    out: Dict[str, Tuple[str, Tuple[str, ...], str]] = {}
+    for key, shape in shapes.items():
+        module, _, leaf = key.rpartition(".")
+        parts = module.split(".") if module else []
+        if leaf == "num_batches_tracked":
+            continue
+        ndim = len(shape)
+        scopes = _torch_parts_to_flax(parts, head_type)
+        collection, op = "params", ""
+        if parts and parts[-1] in _SCOPES:  # task_embeddings.<task>: a leaf
+            scopes, leaf = _torch_parts_to_flax(parts[:-1], head_type), f"{parts[-1]}_{leaf}"
+        elif leaf == "weight" and parts and parts[-1] == "class_emb":
+            scopes, leaf = _torch_parts_to_flax(parts[:-1], head_type), "class_emb"
+        elif leaf in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "pos_emb" and ndim == 4:
+            op = "pos_emb"
+        elif leaf == "weight" and ndim == 4:
+            op = ("patch" if scopes and scopes[0].startswith("input_adapters_")
+                  and scopes[-1] == "proj" else "conv")
+            leaf = "kernel"
+        elif leaf == "weight" and ndim == 2:
+            op, leaf = "T", "kernel"
+        elif leaf in ("weight", "bias") and module not in modules and (
+                leaf == "weight" and ndim == 1
+                or len(shapes.get(f"{module}.weight", ())) == 1):
+            if parts[-1] not in _PLAIN_NORMS:
+                scopes = scopes + ["ln"]
+            leaf = "scale" if leaf == "weight" else leaf
+        elif leaf == "weight" and ndim == 1:  # BatchNorm
+            leaf = "scale"
+        out[key] = (collection, tuple(scopes) + (leaf,), op)
+    return out
+
+
 def state_dict_to_jax_params(
     state_dict: Mapping[str, Any],
     proj_shapes: Optional[Dict[str, Tuple[int, int, int]]] = None,
     head_type: str = "regression",
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The port's {torch key: array} -> (params, batch_stats), nested dicts
-    of numpy arrays in the JAX model's flax layout: the inverse of
-    `jax_params_to_state_dict` (jax_params_to_state_dict(params,
+    of numpy arrays in the JAX model's flax layout (`flax_layout`): the
+    inverse of `jax_params_to_state_dict` (jax_params_to_state_dict(params,
     proj_shapes, head_type, batch_stats) gives `state_dict` back). An input
     adapter's 4-D patch-embedding weight becomes the flax Dense kernel
     (ph*pw*C, D) whether or not `proj_shapes` is given; BatchNorm counters
     (`num_batches_tracked`) have no flax leaf and are dropped."""
     arrays = {k: np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
               for k, v in state_dict.items()}
-    modules = {k.rsplit(".", 1)[0] for k in arrays if k.endswith(".running_mean")}
-    params: Dict[str, Any] = {}
-    batch_stats: Dict[str, Any] = {}
-    for key, arr in arrays.items():
-        module, _, leaf = key.rpartition(".")
-        parts = module.split(".") if module else []
-        if leaf == "num_batches_tracked":
-            continue
-        scopes = _torch_parts_to_flax(parts, head_type)
-        tree = params
-        if parts and parts[-1] in _SCOPES:  # task_embeddings.<task>: a leaf
-            scopes, leaf = _torch_parts_to_flax(parts[:-1], head_type), f"{parts[-1]}_{leaf}"
-        elif leaf == "weight" and parts and parts[-1] == "class_emb":
-            scopes, leaf = _torch_parts_to_flax(parts[:-1], head_type), "class_emb"
-        elif leaf in ("running_mean", "running_var"):
-            tree, leaf = batch_stats, leaf[len("running_"):]
-        elif leaf == "pos_emb" and arr.ndim == 4:
-            arr = arr.transpose(0, 2, 3, 1)
-        elif leaf == "weight" and arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)  # (O, I, kh, kw) -> (kh, kw, I, O); deconvs too
-            if scopes and scopes[0].startswith("input_adapters_") and scopes[-1] == "proj":
-                arr = arr.reshape(-1, arr.shape[-1])  # the patchify Dense (ph*pw*C, D)
-            leaf = "kernel"
-        elif leaf == "weight" and arr.ndim == 2:
-            arr, leaf = arr.T, "kernel"
-        elif leaf in ("weight", "bias") and module not in modules and (
-                leaf == "weight" and arr.ndim == 1
-                or f"{module}.weight" in arrays and arrays[f"{module}.weight"].ndim == 1):
-            if parts[-1] not in _PLAIN_NORMS:
-                scopes = scopes + ["ln"]
-            leaf = "scale" if leaf == "weight" else leaf
-        elif leaf == "weight" and arr.ndim == 1:  # BatchNorm
-            leaf = "scale"
-        node = tree
-        for s in scopes:
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, (collection, path, op) in flax_layout(
+            {k: a.shape for k, a in arrays.items()}, head_type).items():
+        node = trees[collection]
+        for s in path[:-1]:
             node = node.setdefault(s, {})
-        node[leaf] = np.ascontiguousarray(arr)
-    return params, batch_stats
+        node[path[-1]] = np.ascontiguousarray(_NUMPY_OPS[op](arrays[key]))
+    return trees["params"], trees["batch_stats"]

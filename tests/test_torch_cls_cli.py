@@ -1,9 +1,9 @@
 """The port's classification fine-tune CLI
 (multimae_tpu_torch/cli/run_finetuning_cls.py) on the CPU at tiny sizes.
 
-* get_args against the JAX CLI's on both cls YAMLs; the unported flags
-  (--ckpt_backend, an orbax --finetune, a JAX-state --resume) exit naming
-  their ROADMAP.md items; the card is asked for by default.
+* get_args against the JAX CLI's on both cls YAMLs; the orbax flags
+  (--ckpt_backend orbax, an orbax --finetune or --resume) exit naming
+  orbax; the card is asked for by default.
 * A JAX-layout .msgpack of a pretraining save starts a synthetic run by the
   JAX CLI's rule: the encoder loads, the head does not.
 * A 1-epoch run over a tiny ImageNet-layout tree of the JPEG fixtures
@@ -54,9 +54,9 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10b"),
+    "ckpt_backend": (["--ckpt_backend", "orbax"], "orbax's storage format"),
     "orbax_finetune": (["--finetune", "checkpoint-3.orbax"], "orbax"),
-    "jax_state_resume": (["--resume", "checkpoint-3.msgpack"], "opt_state"),
+    "orbax_resume": (["--resume", "checkpoint-3.orbax"], "orbax's storage format"),
 }
 
 

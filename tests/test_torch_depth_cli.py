@@ -15,7 +15,7 @@ run_finetuning_taskonomy.py):
   and would rewrite it); an --eval run of checkpoint-1.pth gives run A's
   epoch-1 metrics;
 * without --device the CLIs ask for the card, and the unported flags exit
-  naming their ROADMAP.md items; --synthetic_data steps on the JAX CLIs'
+  naming what they ask for (orbax, a .msgpack start); --synthetic_data steps on the JAX CLIs'
   example batch; cli/factory.py's two recipes are their YAMLs;
 * the shared loop (cli/finetune_loop.py) turns TF32 off only for an fp32
   run on the card, and gives both flags back as they were.
@@ -142,7 +142,7 @@ def test_the_card_is_asked_for_by_default(kind):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10"),
+    "ckpt_backend": (["--ckpt_backend", "orbax"], "orbax's storage format"),
     "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
 }
 

@@ -1,7 +1,9 @@
 """The port's ops and losses against the JAX package's, on numpy inputs.
 
 posemb, masks_to_indices, make_mask and the gathers are exact; the
-resize matches within 1e-5 (both follow torch's F.interpolate); the
+resize matches within 1e-5 (both follow torch's F.interpolate), its
+bilinear gradient (the adjoint as two matmuls) torch's own backward and
+jax.vjp's, and the class embedding's gradient (a one-hot product) torch's; the
 random masking is checked by its invariants and the Dirichlet sampler by
 its statistics, since the JAX and torch random streams differ; the
 losses match within 1e-5 relative.
@@ -36,6 +38,48 @@ def test_resize_matches_jax(mode, size):
     ref = np.asarray(jresize.interpolate_2d(jnp.asarray(x), size, mode=mode))
     out = tresize.interpolate_2d(torch.from_numpy(x), size, mode=mode).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw,size,align_corners", [
+    ((8, 6), (32, 24), False), ((8, 6), (16, 12), True), ((7, 5), (3, 4), False),
+    ((5, 4), (5, 9), True), ((1, 3), (4, 6), False), ((4, 4), (1, 1), True)])
+def test_bilinear_gradient_is_its_adjoint_and_jax_s(hw, size, align_corners):
+    """The bilinear resize's gradient (two matmuls) against torch's own
+    F.interpolate backward (float64, to rounding) and jax.vjp of the JAX
+    resize (fp32, within 1e-5)."""
+    import jax
+
+    rng = np.random.default_rng(len(size))
+    x = rng.standard_normal((2, *hw, 3))
+    g = rng.standard_normal((2, *size, 3))
+    t = torch.from_numpy(x).requires_grad_()
+    (got,) = torch.autograd.grad(
+        tresize.interpolate_2d(t, size, align_corners=align_corners), t, torch.from_numpy(g))
+    ref = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    out = torch.nn.functional.interpolate(ref, size=size, mode="bilinear",
+                                          align_corners=align_corners)
+    (want,) = torch.autograd.grad(out, ref, torch.from_numpy(g).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).numpy(), rtol=0,
+                               atol=1e-12)
+    _, vjp = jax.vjp(lambda a: jresize.interpolate_2d(a, size, mode="bilinear",
+                                                      align_corners=align_corners),
+                     jnp.asarray(x, jnp.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(vjp(jnp.asarray(g, jnp.float32))[0]),
+                               rtol=0, atol=1e-5)
+
+
+def test_class_embedding_gradient_is_the_one_hot_product():
+    from multimae_tpu_torch.models.input_adapters import _Embedding
+
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, 7, (2, 5, 5)))
+    table = torch.from_numpy(rng.standard_normal((7, 4))).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((2, 5, 5, 4)))
+    out = _Embedding.apply(ids, table)
+    assert torch.equal(out, torch.nn.functional.embedding(ids, table))
+    (got,) = torch.autograd.grad(out, table, g)
+    (want,) = torch.autograd.grad(torch.nn.functional.embedding(ids, table), table, g)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
 
 
 def test_resize_identity_returns_input():

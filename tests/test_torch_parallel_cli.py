@@ -6,7 +6,9 @@ processes see.
   global batch 2 x 4 / 2) for 2 steps saves checkpoint-0.pth; one process
   without the flags resumes from it with parameters bit-equal to the save
   and trains on.
-* The semseg CLI with --model_parallel 2 trains a synthetic epoch.
+* The semseg CLI with --model_parallel 2 trains a synthetic epoch and
+  saves it with --ckpt_backend msgpack (the JAX package's layout, gathered
+  from the four ranks); one process resumes that file and trains on.
 * The meshes from 4 processes on 2 "hosts" (GROUP_RANK 1, 0, 1, 0 by
   rank): a hybrid mesh groups the ranks host by host, as the JAX package
   groups devices by slice; every rank's axis ranks, groups and data rank.
@@ -41,7 +43,7 @@ def four(tmp_path_factory):
     out = tmp_path_factory.mktemp("cli")
     argv = TINY + ["--epochs", "1", "--output_dir", str(out / "run"), "--fsdp",
                    "--model_parallel", "2"]
-    semseg = SEMSEG + ["--output_dir", str(out / "semseg")]
+    semseg = SEMSEG + ["--output_dir", str(out / "semseg"), "--ckpt_backend", "msgpack"]
     procs = P.start(4, per_rank=lambda r: {"GROUP_RANK": str(HOSTS[r])}, MODE="meshes,cli",
                     OUT=out, ARGV=json.dumps(argv), ARGV_SEMSEG=json.dumps(semseg))
     return out, P.finish(procs)
@@ -66,6 +68,22 @@ def test_semseg_cli_under_model_parallel(four):
     losses = torch.load(out / "cli.pt", weights_only=True)["semseg"]["losses"]
     assert len(losses) == 2 and all(torch.isfinite(torch.tensor(losses)))
     assert "mesh DeviceMesh" in logs[0]
+
+
+def test_msgpack_saved_under_model_parallel_resumes_in_one_process(four):
+    """The semseg run under --model_parallel 2 saved the JAX package's
+    checkpoint-0.msgpack (every rank gathers its pieces, rank 0 writes);
+    one process resumes it at epoch 1 and trains on."""
+    from multimae_tpu_torch.cli import run_finetuning_semseg as cli
+
+    out, _ = four
+    assert (out / "semseg" / "checkpoint-0.msgpack").exists()
+    one = SEMSEG[:SEMSEG.index("--model_parallel")]
+    summary = cli.main(cli.get_args(one + ["--epochs", "2", "--output_dir", str(out / "semseg")]))
+    assert summary["start_epoch"] == 1 and summary["resume_bit_equal"] is True
+    assert summary["resumed_from"] == str(out / "semseg" / "checkpoint-0.msgpack")
+    assert len(summary["steps"]) == 2
+    assert all(torch.isfinite(torch.tensor(r["metrics"]["loss"])) for r in summary["steps"])
 
 
 def _views(out):

@@ -23,8 +23,8 @@ CPU at tiny sizes.
 * A reference training .pth (argparse.Namespace args, no step) resumes
   to the weights and epoch the JAX package restores; the optimizer starts
   fresh.
-* get_args against the JAX CLI's on all ten semseg YAMLs; the unported
-  flags exit naming their ROADMAP.md items; the card is asked for by
+* get_args against the JAX CLI's on all ten semseg YAMLs; the orbax
+  flags exit naming orbax; the card is asked for by
   default; a tiny one-epoch run with --output_adapter dpt (the DPT semseg
   head) trains and evaluates.
 * A tiny 2-epoch CLI run from a written NYU-shaped tree on the CPU:
@@ -337,9 +337,9 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "item 10b"),
+    "ckpt_backend": (["--ckpt_backend", "orbax"], "orbax's storage format"),
     "orbax_finetune": (["--finetune", "checkpoint-3.orbax"], "orbax"),
-    "jax_state_resume": (["--resume", "checkpoint-3.msgpack"], "opt_state"),
+    "orbax_resume": (["--resume", "checkpoint-3.orbax"], "orbax's storage format"),
 }
 
 

@@ -29,7 +29,10 @@ package's data pipeline over TIFF trees.
 * (f) Each compression and photometric the port refuses raises
   UnsupportedImage naming the file and ROADMAP item 11h, and no retry
   resamples it; the old-style and new-style JPEG and the LZW YCbCr files
-  that item 11g ported read as PIL reads them, in a tree too.
+  that item 11g ported read as PIL reads them, in a tree too. SGILog and
+  WebP-in-TIFF, which PIL refuses, raise ValueError naming the file, and
+  the port's MultiTaskImageFolder resamples past them as the JAX
+  package's does.
 * (g) `write_tiff` output read back by PIL.
 """
 
@@ -479,6 +482,33 @@ def test_refused_tiff_names_file_and_item(what, tmp_path):
     multi = MultiTaskImageFolder(str(tmp_path), ["rgb"])
     with pytest.raises(UnsupportedImage, match=r"i0002\.tif"):
         multi[2]  # no corrupt-file retry resamples it
+
+
+@pytest.mark.parametrize("code", sorted(image_io.TIFF_PIL_REFUSED))
+def test_tiff_pil_refuses_is_resampled_by_both_loaders(code, tmp_path, capsys):
+    """SGILog, SGILog24 and WebP-in-TIFF: PIL 12.1 opens such a file and
+    fails to decode it, the port raises ValueError naming the file, and
+    both MultiTaskImageFolders resample past it, to the same sample."""
+    from multimae_tpu.data import dataset_folder as jdf
+    from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder, write_random_tree
+
+    px = np.random.default_rng(code).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    data = mf.set_tiff_tag(mf.tiff(px, 2), 259, code)
+    with pytest.raises(OSError):
+        pil_forms(data)
+    write_random_tree(str(tmp_path), 4, (16, 24), classes=1)
+    rgb = tmp_path / "rgb" / "c0"
+    (rgb / "i0002.png").unlink()
+    (rgb / "i0002.tif").write_bytes(data)
+    with pytest.raises(ValueError, match=rf"i0002\.tif: .*\({code}\), which PIL refuses"):
+        image_io.load_image(str(rgb / "i0002.tif"))
+    random.seed(code)
+    ref = jdf.MultiTaskImageFolder(str(tmp_path), ["rgb"])[2][0]["rgb"]
+    random.seed(code)
+    got = MultiTaskImageFolder(str(tmp_path), ["rgb"])[2][0]["rgb"]
+    assert np.array_equal(got, np.asarray(ref))
+    out = capsys.readouterr().out  # each retry prints what it caught
+    assert "decoder error" in out and "i0002.tif: a TIFF with" in out
 
 
 @pytest.mark.parametrize("name", UNPORTED)

@@ -15,7 +15,10 @@ non-zero:
   3. K4 fused_block_infer against its plain twin at the encoder's shape
      (B=32, N=99, D=768, 12 heads, hidden 3072, bf16): errors, two runs
      bit-equal, times, bound and the device time of each kernel of one
-     launch (the stage split, torch.profiler);
+     launch (the stage split, torch.profiler); then K4's library yardstick
+     at every K4 shape (K4_LIBRARY_SHAPES): nn.TransformerEncoderLayer
+     with K4's weights on its one-call fast path, within TWIN_TOLERANCE of
+     K4's twin, timed beside K4;
   4. K1 fused_decoder_fwd against its plain twin at the decoders' shape
      (B=32, 196 queries, 99 context, D=256, 8 heads, depth 2) and at the
      training slice's B=128, bf16 and fp32: errors, times, at B=128 two
@@ -262,9 +265,11 @@ non-zero:
      fixture of tests/fixtures/images (Adam7 PNG, BMP, netpbm, TIFF),
      tests/fixtures/webp (VP8, VP8L, ALPH, animations) and
      tests/fixtures/jpeg2000 (JP2 and J2K: 5/3 and 9/7, every code-block
-     style, PPM, PPT, POC, ROI, sub-sampled components, pclr palettes)
-     against PIL's digests, the unported ones raising UnsupportedImage
-     naming their ROADMAP item; a MultiMAE-B params file in the JAX
+     style, PPM, PPT, POC, ROI, sub-sampled components, pclr palettes) and
+     tests/fixtures/tiff_codecs (CCITT RLE, Group 3, Group 4 and RLEW,
+     LZMA, ZSTD, ThunderScan, CIELab, the one-band planar file) against
+     PIL's digests, the damaged ones raising ValueError, and whether this
+     host's Python imports lzma; a MultiMAE-B params file in the JAX
      package's own format (flax msgpack, from seeded weights through the port's inverse
      converter and writer) starts the demo (preds bit-equal to the same
      weights as a .pth; K1 fwd 3), the cls CLI (a step and an eval batch
@@ -278,8 +283,10 @@ non-zero:
      tree_*.tif fixtures: LZW with predictor 2, Deflate, PackBits, tiled,
      planar, associated alpha, 16-bit RGB, JPEG-compressed at 4:2:0 in
      strips and in tiles, old-style JPEG at 4:2:0, LZW YCbCr at 2 x 2;
-     16-bit depth in both byte orders; palette semseg): K1 4 + 4 per step,
-     no resampled sample.
+     16-bit depth in both byte orders; palette semseg), and one over a tree
+     of the codecs of item 11h (CCITT Group 4 and 2-D Group 3, LZMA, ZSTD,
+     ThunderScan and CIELab rgb files): K1 4 + 4 per step, no resampled
+     sample.
  21. a JAX-layout resume at full width (train/checkpoint.py,
      utils/jax_state.py): the pretraining CLI (MultiMAE-B, uncertainty
      balancer, AdamW, TRAIN_BATCH, RESUME_STEPS synthetic steps an epoch)
@@ -464,6 +471,7 @@ AA_CLI, AA_INTERP = "augmix-m3-w3-mstd0.5", "lanczos"
 # one over a tree of TIFF files only (the tree_*.tif fixtures as rgb, the
 # JPEG-compressed and YCbCr ones among them).
 IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
+TIFF_CODECS_FIXTURES = os.path.join(HERE, "tests", "fixtures", "tiff_codecs")
 WEBP_FIXTURES = os.path.join(HERE, "tests", "fixtures", "webp")
 JPEG2000_FIXTURES = os.path.join(HERE, "tests", "fixtures", "jpeg2000")
 LOADER_CLS_BATCH, LOADER_SEG_BATCH, LOADER_PT_BATCH, LOADER_SAMPLES = 32, 2, 8, 16
@@ -1588,6 +1596,71 @@ def k4_at(torch, fused_block, w4, n, gen, dev, b=SEMSEG_BATCH):
                              lambda: fused_block.block_infer_ref(x, w4, heads), iters=10)
     flops, weights = block_work(b, n, d, hidden)
     return err, rel, ms, plain_ms, bound(flops, 2 * (2 * b * n * d + weights))
+
+
+# K4's library yardstick (phase 3): every shape of PERF.md's K4 rows.
+K4_LIBRARY_SHAPES = ((32, 99, 768), (4, 2049, 768), (4, 1025, 768), (4, 1174, 768),
+                     (128, 197, 768), (8, 577, 768), (256, 197, 1024), (16, 2049, 1024))
+
+
+def k4_library(torch, fused_block, gen, dev, card):
+    """K4's library yardstick at each of K4_LIBRARY_SHAPES: PyTorch's
+    nn.TransformerEncoderLayer (pre-LN, erf GELU, eps 1e-6, batch first,
+    no dropout) holding K4's weights, in bf16, in eval under
+    inference_mode, where PyTorch runs the block as one call
+    (aten::_transformer_encoder_layer_fwd, seen with torch.profiler); its
+    output held within TWIN_TOLERANCE of K4's plain twin, timed with K4 in
+    turns. Returns {"b,n,d": numbers}; where the fast path did not run,
+    "refused" says why (its module time is then no library call's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimae_tpu_torch.ops.functional import assert_matches_twin
+
+    out, weights = {}, {}
+    for b, n, d in K4_LIBRARY_SHAPES:
+        heads, hidden = d // 64, 4 * d
+        if d not in weights:
+            weights = {d: rand_block_weights(torch, fused_block, d, hidden, gen, dev)}
+        w = weights[d]
+        layer = torch.nn.TransformerEncoderLayer(d, heads, hidden, dropout=0.0, activation="gelu",
+                                                 layer_norm_eps=1e-6, batch_first=True,
+                                                 norm_first=True)
+        with torch.no_grad():
+            for dst, src in ((layer.self_attn.in_proj_weight, w.wqkv),
+                             (layer.self_attn.in_proj_bias, w.bqkv),
+                             (layer.self_attn.out_proj.weight, w.wp),
+                             (layer.self_attn.out_proj.bias, w.bp), (layer.linear1.weight, w.w1),
+                             (layer.linear1.bias, w.b1), (layer.linear2.weight, w.w2),
+                             (layer.linear2.bias, w.b2), (layer.norm1.weight, w.n1_g),
+                             (layer.norm1.bias, w.n1_b), (layer.norm2.weight, w.n2_g),
+                             (layer.norm2.bias, w.n2_b)):
+                dst.copy_(src)
+        layer = layer.to(dev, torch.bfloat16).eval()
+        x = torch.randn((b, n, d), generator=gen).to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            lib = layer(x)
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                layer(x)
+                torch.cuda.synchronize()
+            ops = {e.name for e in prof.events()}
+            fast = "aten::_transformer_encoder_layer_fwd" in ops
+            err, rel = assert_matches_twin(lib, fused_block.block_infer_ref(x, w, heads),
+                                           f"nn.TransformerEncoderLayer at ({b},{n},{d})")
+            ms, lib_ms = ab_ms(torch, lambda: fused_block.fused_block_infer(x, w, heads),
+                               lambda: layer(x), iters=5, repeats=3)
+        refused = None if fast else ("aten::_transformer_encoder_layer_fwd not called; ops: "
+                                     + ", ".join(sorted(o for o in ops if "transformer" in o
+                                                        or "attention" in o)))
+        out[f"{b},{n},{d}"] = {"ms": ms, "library_ms": lib_ms, "max_abs_err": err, "rel": rel,
+                               "refused": refused}
+        log(3, f"K4 library yardstick ({b},{n},{d}), {heads} heads: nn.TransformerEncoderLayer "
+               + ("in one call (aten::_transformer_encoder_layer_fwd)" if fast
+                  else f"off its fast path ({refused})")
+               + f", vs K4's twin max abs {err:.3e}, rel RMS {rel:.3e}; K4 {ms:.4f} ms, library "
+               f"{lib_ms:.4f} ms (card {card})")
+        del layer, x, lib
+        free_card(torch)
+    return out
 
 
 def semseg_data(root, twin=False):
@@ -3291,22 +3364,31 @@ def last_modules_slice(torch, dev, card):
 
 def image_fixture_check(card):
     """Phase 20: every fixture of tests/fixtures/images (Adam7 PNG, BMP,
-    netpbm, TIFF), tests/fixtures/webp and tests/fixtures/jpeg2000 through
-    this machine's build of the native library: the SHA-256 of its RGB and
-    raw forms equal expected.json's (PIL's; the JPEG-compressed and YCbCr
-    TIFF files of item 11g among them), a file PIL refuses raises
-    ValueError, a CCITT, LZMA or ZSTD TIFF UnsupportedImage naming the file
-    and its ROADMAP item."""
+    netpbm, TIFF), tests/fixtures/webp, tests/fixtures/jpeg2000 and
+    tests/fixtures/tiff_codecs through this machine's build of the native
+    library: the SHA-256 of its RGB and raw forms equal expected.json's
+    (PIL's; the JPEG-compressed and YCbCr TIFF files of item 11g and the
+    codecs of item 11h among them), a damaged file raises ValueError naming
+    what expected.json says. Logs whether this host's Python imports lzma
+    (LZMA strips go through it)."""
     import hashlib
 
-    from multimae_tpu_torch.data.image_io import UnsupportedImage, load_image
+    from multimae_tpu_torch.data.image_io import load_image
 
+    try:
+        import lzma
+
+        has_lzma = f"imports lzma ({lzma.__file__})"
+    except ImportError as e:
+        has_lzma = f"cannot import lzma: {e}"
+    log(20, f"this host's Python {sys.version.split()[0]} {has_lzma}")
     expected = {}
-    for folder in (IMAGE_FIXTURES, WEBP_FIXTURES, JPEG2000_FIXTURES):
+    for folder in (IMAGE_FIXTURES, WEBP_FIXTURES, JPEG2000_FIXTURES, TIFF_CODECS_FIXTURES):
         with open(os.path.join(folder, "expected.json")) as f:
             expected.update({os.path.join(folder, n): want for n, want in json.load(f).items()})
-    kinds = {"read": 0, "refused": 0, "unported": 0, "tiff": 0, "jpeg_ycbcr_tiff": 0, "webp": 0,
-             "webp_refused": 0, "jpeg2000": 0, "jpeg2000_refused": 0}
+    kinds = {"read": 0, "refused": 0, "tiff": 0, "jpeg_ycbcr_tiff": 0, "webp": 0,
+             "webp_refused": 0, "jpeg2000": 0, "jpeg2000_refused": 0, "ported_in": 0}
+    codecs = {}
     for path, want in sorted(expected.items()):
         name = os.path.basename(path)
         kinds["tiff"] += name.endswith(".tif")
@@ -3315,34 +3397,33 @@ def image_fixture_check(card):
             (".jp2", ".j2k", ".jpx"))
         kinds["jpeg_ycbcr_tiff"] += (name.endswith(".tif") and "sha256" in want
                                      and ("jpeg" in name or "ycbcr" in name))
-        if want.get("unported") or "error" in want:
-            # An unported format's message names the file and its item; a
-            # damaged one's, what expected.json says.
-            kind, error, texts = (("unported", UnsupportedImage, (name, want["unported"]))
-                                  if want.get("unported") else
-                                  ("refused", ValueError, (name, want["error"])))
+        if "error" in want:  # a damaged file: ValueError naming what expected.json says
             try:
                 load_image(path)
-            except error as e:
-                if not all(text in str(e) for text in texts):
-                    raise AssertionError(f"[20] {name}: {e}; expected {error.__name__} "
-                                         f"naming {texts}") from e
-                kinds[kind] += 1
+            except ValueError as e:
+                if not all(text in str(e) for text in (name, want["error"])):
+                    raise AssertionError(f"[20] {name}: {e}; expected ValueError naming "
+                                         f"{want['error']!r}") from e
+                kinds["refused"] += 1
                 continue
-            raise AssertionError(f"[20] {name} decoded; expected {error.__name__} naming "
-                                 f"{texts}")
+            raise AssertionError(f"[20] {name} decoded; expected ValueError naming "
+                                 f"{want['error']!r}")
         for form, array in (("sha256", load_image(path)),
                             ("raw_sha256", load_image(path, convert_rgb=False))):
             if hashlib.sha256(array.tobytes()).hexdigest() != want[form]:
                 raise AssertionError(f"[20] {name}: {form} differs from expected.json's")
         kinds["read"] += 1
+        kinds["ported_in"] += "ported_in" in want
+        if "codec" in want:
+            codecs[want["codec"]] = codecs.get(want["codec"], 0) + 1
     log(20, f"image fixtures: {kinds['read']} PNG, BMP, netpbm, TIFF, WebP and JPEG 2000 files "
             f"decode to PIL's SHA-256 in both forms ({kinds['jpeg_ycbcr_tiff']} JPEG-compressed "
-            f"or YCbCr TIFF, {kinds['webp']} WebP, {kinds['jpeg2000']} JPEG 2000), "
-            f"{kinds['refused']} damaged ones raise ValueError ({kinds['webp_refused']} WebP, "
-            f"{kinds['jpeg2000_refused']} JPEG 2000), {kinds['unported']} CCITT / LZMA / ZSTD "
-            f"TIFF files UnsupportedImage naming their item; {kinds['tiff']} of them TIFF "
-            f"(card {card})")
+            f"or YCbCr TIFF, {kinds['webp']} WebP, {kinds['jpeg2000']} JPEG 2000; of item 11h: "
+            + ", ".join(f"{v} {k}" for k, v in sorted(codecs.items()))
+            + f"; {kinds['ported_in']} once refused), {kinds['refused']} damaged ones raise "
+            f"ValueError ({kinds['webp_refused']} WebP, {kinds['jpeg2000_refused']} JPEG 2000); "
+            f"{kinds['tiff']} of them TIFF (card {card})")
+    kinds["codecs"] = codecs
     return kinds
 
 
@@ -3520,18 +3601,22 @@ def loaders_slice(torch, dev, card):
                        semseg_loss=losses[0])
         free_card(torch)
 
-        # One pretraining epoch over a tree of the new formats, then one over
-        # a TIFF tree (depth in both byte orders, palette semseg).
+        # One pretraining epoch over a tree of the new formats, one over a
+        # TIFF tree (depth in both byte orders, palette semseg), and one over
+        # a TIFF tree whose rgb files are the codecs of item 11h.
         fixtures = [os.path.join(JPEG_FIXTURES, n) for n in os.listdir(JPEG_FIXTURES)
                     if n.startswith("tree_")]
         fixtures += [os.path.join(folder, n)
                      for folder in (IMAGE_FIXTURES, WEBP_FIXTURES, JPEG2000_FIXTURES)
                      for n in os.listdir(folder) if n.startswith("tree_")]
+        codec_trees = sorted(os.path.join(TIFF_CODECS_FIXTURES, n)
+                             for n in os.listdir(TIFF_CODECS_FIXTURES) if n.startswith("tree_"))
         for key, what, fmt, rgb_files in (
                 ("pretrain_new_formats", "the new formats", "png",
                  sorted(p for p in fixtures if not p.endswith(".tif"))),
                 ("pretrain_tiff", "TIFF", "tiff",
-                 sorted(p for p in fixtures if p.endswith(".tif")))):
+                 sorted(p for p in fixtures if p.endswith(".tif"))),
+                ("pretrain_tiff_codecs", "the TIFF codecs of item 11h", "tiff", codec_trees)):
             tree = os.path.join(root, key)
             write_random_tree(tree, LOADER_SAMPLES, LOADER_HW, smooth=True, rgb_files=rgb_files,
                               fmt=fmt)
@@ -3794,12 +3879,15 @@ def main():
            f"runs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
            f"({k4_bound[1]})")
     log_split(3, f"K4 ({b},{n},{d}) by kernel", split)
+    library = k4_library(torch, fused_block, torch.Generator().manual_seed(3), dev, card)
     kernels.append({
         "name": "fused_block_infer", "route": "cuda",
         "source": "multimae_tpu_torch/csrc/fused_block_infer.cu",
         "replaces": "multimae_tpu/ops/fused_block_pallas.py:253",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+        "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+        "library_ms": (None if library[f"{b},{n},{d}"]["refused"]
+                       else library[f"{b},{n},{d}"]["library_ms"]), "library": library,
         "stages_ms": split})
 
     # 4. K1 forward against its twin, bf16 and fp32

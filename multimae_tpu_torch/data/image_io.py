@@ -48,9 +48,21 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
   decoder's JPEG-in-TIFF entry (`native.decode_jpeg_tiff`: JPEGTables
   first, YCbCr to RGB forced or no colour transform, libtiff's checks);
   old-style JPEG (compression 6) as one stream rebuilt as libtiff's codec
-  rebuilds it, its planes unupsampled; compressed YCbCr through libtiff's
-  RGBA reader in numpy (data units, chroma repeated, TIFFYCbCrtoRGB with
-  YCbCrCoefficients and ReferenceBlackWhite, its 4 x 4 quirks).
+  rebuilds it, its planes unupsampled (tiles past a frame one column of
+  tiles tall repeating its last MCU row, as libtiff's raw reads do);
+  compressed YCbCr through libtiff's RGBA reader in numpy (data units,
+  chroma repeated, TIFFYCbCrtoRGB with YCbCrCoefficients and
+  ReferenceBlackWhite, its 4 x 4 quirks). The last codecs (item 11h) as
+  libtiff 4.7.1 decodes them for Pillow: CCITT RLE, Group 3 (1-D and 2-D,
+  fill bits), Group 4 and RLEW through libtiff's tif_fax3.c state machine,
+  its bad code words decoded as libtiff decodes them (native
+  `ccitt_decode`, twin `ccitt_twin`); LZMA through the standard library's
+  lzma; ZSTD through the port's RFC 8878 decoder (`native.zstd_decode`);
+  ThunderScan (`native.tiff_thunderscan`, twin `thunderscan_twin`); the
+  predictor after LZMA and ZSTD too. CIELab in mode "LAB", its
+  convert("RGB") LittleCMS 2.17's resampled transform (`native.lab_to_rgb`,
+  twin `lab_to_rgb_twin`); a planar "P" file with an extra sample as
+  Pillow's "PX" unpacker reads its first plane's tiles.
   `write_tiff` writes uncompressed, PackBits and Deflate files for tests
   and trees.
 * WebP (Pillow's WebPImagePlugin over libwebp's WebPAnimDecoder,
@@ -75,10 +87,10 @@ and of dataset_folder.pil_loader, which opens every file with PIL).
   `jpeg2000_idwt_twin` and `jpeg2000_colour_twin` are its wavelet and
   colour stages in numpy, which `read_jpeg2000(twin=True)` takes.
 
-Files PIL reads and the port cannot (CCITT, LZMA, ZSTD, ThunderScan,
-CIELab and "tiff_raw_16" TIFF, and old-style JPEG in tiles or planes,
-items 11h and 11g) raise `UnsupportedImage`, which
-is neither a ValueError nor an OSError: the corrupt-file retries of the
+Files PIL reads and the port cannot (JPEG 2000 high-throughput code-blocks
+and Part 2 colour transforms, item 11f-b; Pillow's own netpbm variants and
+old-style JPEG TIFF in separate planes, which no item ports) raise
+`UnsupportedImage`, which is neither a ValueError nor an OSError: the corrupt-file retries of the
 datasets and the loader let it through, so a tree that holds one stops the
 run naming the file instead of training on other samples than the JAX
 package would. A damaged file, and one PIL refuses (SGILog and
@@ -414,14 +426,20 @@ class Decoded:
     native order), "I" (int32), "F" (float32), "RGB", "RGBA" or "CMYK"
     ((H, W, 3 or 4) uint8)."""
 
-    def __init__(self, mode: str, pixels: np.ndarray, palette: Optional[np.ndarray] = None):
-        self.mode, self.pixels, self.palette = mode, pixels, palette
+    def __init__(self, mode: str, pixels: np.ndarray, palette: Optional[np.ndarray] = None,
+                 twin: bool = False):
+        self.mode, self.pixels, self.palette, self.twin = mode, pixels, palette, twin
 
     def rgb(self) -> np.ndarray:
         """PIL's convert("RGB"): a palette's missing entries are black, "I"
         and "I;16" clip to 0-255, "F" clips and truncates, CMYK goes through
-        Pillow's cmyk2rgb, alpha is dropped."""
+        Pillow's cmyk2rgb, "LAB" through LittleCMS's transform
+        (`native.lab_to_rgb`, or `lab_to_rgb_twin` for a twin read), alpha is
+        dropped."""
         px = self.pixels
+        if self.mode == "LAB":  # numpy's view of "LAB" flips a and b against Pillow's storage
+            stored = px ^ np.array([0, 128, 128], np.uint8)
+            return (lab_to_rgb_twin if self.twin else native.lab_to_rgb)(stored)
         if self.mode in ("P", "PA"):
             palette = np.zeros((256, 3), np.uint8)
             palette[:len(self.palette)] = self.palette[:256]
@@ -450,6 +468,145 @@ class Decoded:
         if px.ndim == 3 and self.mode != "CMYK":
             return np.ascontiguousarray(px[:, :, :3])
         return px
+
+
+# --- CIELab to RGB: PIL's convert("RGB") through LittleCMS 2.17 ---------------------
+# (native/cielab.cpp says how lcms2 builds and evaluates the transform; this is
+# the same table and interpolation in Python and numpy, with libm's pow for the
+# sRGB curve and no numpy transcendental function, whose SIMD paths differ by
+# CPU.)
+
+_LAB_GRID = 33
+_LAB_TABLE: Optional[np.ndarray] = None
+
+
+def _lcms_floor(val: float) -> int:
+    """_cmsQuickFloor: the low word of val + 1.5 * 2^36, upper half."""
+    low = struct.unpack("<q", struct.pack("<d", val + 103079215104.0))[0] & 0xFFFFFFFF
+    return (low - (1 << 32) if low >> 31 else low) >> 16
+
+
+def _lcms_word(d: float) -> int:
+    """_cmsQuickSaturateWord."""
+    d += 0.5
+    if d <= 0:
+        return 0
+    if d >= 65535.0:
+        return 0xFFFF
+    return _lcms_floor(d - 32767.0) + 32767
+
+
+def _mat_inverse(a):
+    c0 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c1 = -a[1][0] * a[2][2] + a[1][2] * a[2][0]
+    c2 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    det = a[0][0] * c0 + a[0][1] * c1 + a[0][2] * c2
+    return [[c0 / det, (a[0][2] * a[2][1] - a[0][1] * a[2][2]) / det,
+             (a[0][1] * a[1][2] - a[0][2] * a[1][1]) / det],
+            [c1 / det, (a[0][0] * a[2][2] - a[0][2] * a[2][0]) / det,
+             (a[0][2] * a[1][0] - a[0][0] * a[1][2]) / det],
+            [c2 / det, (a[0][1] * a[2][0] - a[0][0] * a[2][1]) / det,
+             (a[0][0] * a[1][1] - a[0][1] * a[1][0]) / det]]
+
+
+def _mat_product(a, b):
+    return [[a[i][0] * b[0][j] + a[i][1] * b[1][j] + a[i][2] * b[2][j] for j in range(3)]
+            for i in range(3)]
+
+
+def _mat_apply(a, v):
+    return [a[i][0] * v[0] + a[i][1] * v[1] + a[i][2] * v[2] for i in range(3)]
+
+
+def lab_table() -> np.ndarray:
+    """lcms2's resampled transform: (33, 33, 33, 3) 16-bit RGB at the Lab
+    nodes (cielab.cpp's Table), computed once."""
+    global _LAB_TABLE
+    if _LAB_TABLE is not None:
+        return _LAB_TABLE
+    import math
+
+    f32 = lambda x: float(np.float32(x))  # noqa: E731  a float stage's rounding
+    d50 = (0.9642, 1.0, 0.8249)
+    xn, yn = 0.3127, 0.3290
+    (xr, yr), (xg, yg), (xb, yb) = (0.6400, 0.3300), (0.3000, 0.6000), (0.1500, 0.0600)
+    res = _mat_inverse([[xr, xg, xb], [yr, yg, yb], [(1 - xr - yr), (1 - xg - yg), (1 - xb - yb)]])
+    coef = _mat_apply(res, [xn / yn, 1.0, (1.0 - xn - yn) / yn])
+    rgb_xyz = [[coef[0] * xr, coef[1] * xg, coef[2] * xb],
+               [coef[0] * yr, coef[1] * yg, coef[2] * yb],
+               [coef[0] * (1.0 - xr - yr), coef[1] * (1.0 - xg - yg), coef[2] * (1.0 - xb - yb)]]
+    chad = [[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367], [0.0389, -0.0685, 1.0296]]
+    src, dst = _mat_apply(chad, [(xn / yn) * 1.0, 1.0, ((1 - xn - yn) / yn) * 1.0]), \
+        _mat_apply(chad, list(d50))
+    cone = [[dst[0] / src[0], 0.0, 0.0], [0.0, dst[1] / src[1], 0.0], [0.0, 0.0, dst[2] / src[2]]]
+    adapted = _mat_product(_mat_product(_mat_inverse(chad), _mat_product(cone, chad)), rgb_xyz)
+    adj = 1.0 + 32767.0 / 32768.0
+    inv = [[x * adj for x in row] for row in _mat_inverse(adapted)]
+    p = (2.4, 1. / 1.055, 0.055 / 1.055, 1. / 12.92, 0.04045)
+    disc = math.pow(p[1] * p[4] + p[2], p[0])
+
+    def f_1(t):
+        return (108.0 / 841.0) * (t - (16.0 / 116.0)) if t <= (24.0 / 116.0) else t * t * t
+
+    axis = [f32(_lcms_word(v * 65535. / (_LAB_GRID - 1)) / 65535.0) for v in range(_LAB_GRID)]
+    table = np.empty((_LAB_GRID,) * 3 + (3,), np.int64)
+    for i, fl in enumerate(axis):
+        y = (fl * 100.0 + 16.0) / 116.0
+        for j, fa in enumerate(axis):
+            x = y + 0.002 * (fa * 255.0 - 128.0)
+            for k, fb in enumerate(axis):
+                z = y - 0.005 * (fb * 255.0 - 128.0)
+                xyz = (f32(f_1(x) * d50[0] / adj), f32(f_1(y) * d50[1] / adj),
+                       f32(f_1(z) * d50[2] / adj))
+                for r in range(3):
+                    acc = 0.0
+                    for c in range(3):
+                        acc += xyz[c] * inv[r][c]
+                    v = f32(acc)
+                    v = (math.pow(v, 1.0 / p[0]) - p[2]) / p[1] if v >= disc else v / p[3]
+                    table[i, j, k, r] = _lcms_word(f32(v) * 65535.0)
+    _LAB_TABLE = table
+    return table
+
+
+def lab_to_rgb_twin(lab: np.ndarray) -> np.ndarray:
+    """`native.lab_to_rgb` in numpy: TetrahedralInterp16 of `lab_table`,
+    then FROM_16_TO_8."""
+    lab = np.asarray(lab)
+    if lab.dtype != np.uint8 or lab.shape[-1:] != (3,):
+        raise ValueError(f"LAB pixels must be (..., 3) uint8, not {lab.dtype} {lab.shape}")
+    n = _LAB_GRID
+    table = lab_table().reshape(-1)
+    v = np.arange(256, dtype=np.int64)
+    a = v * 257 * (n - 1)
+    fx = a + (a + 0x7FFF) // 0xFFFF  # _cmsToFixedDomain
+    x0, rest = fx >> 16, fx & 0xFFFF
+    flat = lab.reshape(-1, 3)
+    out = np.empty(flat.shape, np.uint8)
+    for s in range(0, len(flat), 1 << 20):
+        px = flat[s:s + (1 << 20)].astype(np.int64)
+        L, A, B = px[:, 0], px[:, 1], px[:, 2]
+        rx, ry, rz = rest[L], rest[A], rest[B]
+        x1 = np.where(L == 255, 0, 3 * n * n)
+        y1 = np.where(A == 255, 0, 3 * n)
+        z1 = np.where(B == 255, 0, 3)
+        base = x0[L] * 3 * n * n + x0[A] * 3 * n + x0[B] * 3
+        # the tetrahedron of (rx, ry, rz): which corners, in lcms2's test order
+        cases = [(rx >= ry) & (ry >= rz), (rx >= ry) & (ry < rz) & (rz >= rx),
+                 (rx >= ry) & (ry < rz) & (rz < rx), (rx < ry) & (rx >= rz),
+                 (rx < ry) & (rx < rz) & (ry >= rz)]
+        for ch in range(3):
+            t = lambda off: table[base + ch + off]  # noqa: E731
+            c0 = t(0)
+            cx, cy, cz = t(x1), t(y1), t(z1)
+            cxy, cxz, cyz, cxyz = t(x1 + y1), t(x1 + z1), t(y1 + z1), t(x1 + y1 + z1)
+            c1 = np.select(cases, [cx - c0, cxz - cz, cx - c0, cxy - cy, cxyz - cyz], cxyz - cyz)
+            c2 = np.select(cases, [cxy - cx, cxyz - cxz, cxyz - cxz, cy - c0, cy - c0], cyz - cz)
+            c3 = np.select(cases, [cxyz - cxy, cz - c0, cxz - cx, cxyz - cxy, cyz - cy], cz - c0)
+            r = c1 * rx + c2 * ry + c3 * rz + 0x8001
+            o = (c0 + ((r + (r >> 16)) >> 16)) & 0xFFFF
+            out[s:s + len(px), ch] = (o * 65281 + 8388608) >> 24
+    return out.reshape(lab.shape)
 
 
 # --- BMP (Pillow's BmpImagePlugin) ------------------------------------------------
@@ -770,9 +927,10 @@ TIFF_COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "ti
                      32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
                      34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                      50001: "webp"}
-# The ones PIL reads through libtiff and the port does not: the ROADMAP item of each.
-TIFF_REFUSED = {2: "11h", 3: "11h", 4: "11h", 32771: "11h", 32809: "11h", 34925: "11h",
-                50000: "11h"}
+# libtiff's CCITT codecs (tif_fax3.c) by compression.
+_CCITT = {2: "rle", 3: "g3", 4: "g4", 32771: "rlew"}
+# The codecs that take libtiff's Predictor tag: LZW, Deflate, LZMA and ZSTD.
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 # The ones PIL 12.1 opens and fails to decode: SGILog and SGILog24 are read
 # only under the LogL and LogLuv photometrics, which its OPEN_INFO lacks
 # (libtiff's LogLuvSetupDecode refuses every other), and the wheel's libtiff
@@ -789,10 +947,10 @@ _YCBCR_PUTS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 def _tiff_open_info():
     """The rows of Pillow 12.1's OPEN_INFO (TiffImagePlugin.py:151) the port
     decodes: (byte order, photometric, sample format, fill order, bits per
-    sample, extra samples) -> (mode, raw mode). CIELab is left out: the
-    port refuses it. YCbCr's "RGBX" row is the raw decoder's for an
-    uncompressed file; a compressed one comes out of libjpeg (compression
-    7) or libtiff's RGBA reader as RGB (`_TiffFile.setup`)."""
+    sample, extra samples) -> (mode, raw mode). YCbCr's "RGBX" row is the
+    raw decoder's for an uncompressed file; a compressed one comes out of
+    libjpeg (compression 7) or libtiff's RGBA reader as RGB
+    (`_TiffFile.setup`)."""
     both = [  # the same row for b"II" and b"MM"
         (0, 1, (1,), (), "1", "1;I"), (0, 2, (1,), (), "1", "1;IR"),
         (1, 1, (1,), (), "1", "1"), (1, 2, (1,), (), "1", "1;R"),
@@ -848,6 +1006,8 @@ def _tiff_open_info():
     table[(b"MM", 1, (1,), 1, (16,), ())] = ("I;16B", "I;16B")
     table[(b"II", 1, (1,), 2, (16,), ())] = ("I;16", "I;16R")
     table[(b"II", 1, (1,), 1, (32,), ())] = ("I", "I;32N")
+    for order in (b"II", b"MM"):  # CIELab: L, then a and b as stored
+        table[(order, 8, (1,), 1, (8, 8, 8), ())] = ("LAB", "LAB")
     return table
 
 
@@ -874,10 +1034,10 @@ _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[:
 _MODE_STORAGE = {"1": (np.uint8, 1), "L": (np.uint8, 1), "P": (np.uint8, 1), "LA": (np.uint8, 2),
                  "PA": (np.uint8, 2), "I;16": (np.uint16, 1), "I;16B": (np.uint16, 1),
                  "I": (np.int32, 1), "F": (np.float32, 1), "RGB": (np.uint8, 3),
-                 "RGBA": (np.uint8, 4), "CMYK": (np.uint8, 4)}
+                 "RGBA": (np.uint8, 4), "CMYK": (np.uint8, 4), "LAB": (np.uint8, 3)}
 # Each band of a mode, by the letter PIL's one-band raw modes use.
 _BAND = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "L": "L", "P": "P", "1": "1", "I": "I",
-         "F": "F"}
+         "F": "F", "LAB": "LAB"}
 
 
 def _raw_bits(rawmode: str) -> int:
@@ -1081,10 +1241,6 @@ class _TiffFile:
         if len(bits) != spp:
             raise ValueError("unknown TIFF data organization")
         self.bits, self.spp = bits, spp
-        if photo == 8:
-            raise UnsupportedImage(f"a CIELab TIFF ({TIFF_COMPRESSIONS[self.compression]} "
-                                   "compression), which PIL reads and the port does not yet "
-                                   "(ROADMAP.md queue 1 item 11h)")
         # Pillow's _decodeAsRGBA: compressed YCbCr goes through libtiff's RGBA
         # reader, but for new-style JPEG in one plane, where libjpeg converts.
         self.rgba = photo == 6 and self.compression not in (1, 7) or (
@@ -1096,11 +1252,12 @@ class _TiffFile:
             raise ValueError(f"a TIFF with {TIFF_COMPRESSIONS[self.compression]} compression "
                              f"({self.compression}), which PIL refuses: "
                              f"{TIFF_PIL_REFUSED[self.compression]}")
-        if self.compression in TIFF_REFUSED:
-            raise UnsupportedImage(
-                f"a TIFF with {TIFF_COMPRESSIONS[self.compression]} compression "
-                f"({self.compression}), which PIL reads and the port does not yet "
-                f"(ROADMAP.md queue 1 item {TIFF_REFUSED[self.compression]})")
+        if self.compression in _CCITT and bits != (1,):
+            raise ValueError(f"a {TIFF_COMPRESSIONS[self.compression]} TIFF of {bits}-bit "
+                             "samples: libtiff's CCITT codecs take 1 bit")
+        if self.compression == 32809 and bits[0] != 4:
+            raise ValueError(f"a ThunderScan TIFF of {bits}-bit samples: libtiff's decoder "
+                             "takes 4 bits")
         self.mode, self.rawmode = TIFF_OPEN_INFO[key]
         if self.compression != 1:  # libtiff's own fill order and native byte order
             if self.fill == 2:
@@ -1176,6 +1333,8 @@ class _TiffFile:
             view = np.frombuffer(self.data, np.uint8, count=len(self.data) - offset, offset=offset)
             rows = np.lib.stride_tricks.as_strided(view, (eh, row), (pitch, 1))
             px = _tiff_unpack(rows, ew, rawmode)
+            if self.mode == "LAB" and band:  # Pillow's "A" and "B" band unpackers flip a, b
+                px = px ^ np.uint8(128)
             if band is None:
                 out[y:y1, x:x1] = px
             else:
@@ -1200,6 +1359,9 @@ class _TiffFile:
         if self.palette is not None and len(self.tags[320]) != 3 << self.bits[0]:
             raise ValueError(f"a TIFF ColorMap of {len(self.tags[320])} entries for "
                              f"{self.bits[0]}-bit samples, which libtiff refuses")
+        if (322 in self.tags or 323 in self.tags) != self.tiled:
+            raise ValueError("TIFF tile dimensions beside strips, or tiles without them, which "
+                             "libtiff refuses")
         for tag, allowed in ((266, (1, 2)), (284, (1, 2)), (338, (0, 1, 2)), (339, (1, 2, 3))):
             if not set(self.tags.get(tag, allowed[:1])) <= set(allowed):
                 raise ValueError(f"TIFF tag {tag} holds {self.tags[tag]}, which libtiff refuses")
@@ -1221,13 +1383,11 @@ class _TiffFile:
         # alpha in byte 3: it stays 0.
         bands = nb if self.planar == 2 else 1
         if self.planar == 2 and spp > bands:
-            if bands == 1:
-                raise UnsupportedImage(f"a planar {self.mode} TIFF of {spp} samples, whose rows "
-                                       "Pillow's unpacker reads past (ROADMAP.md queue 1 item "
-                                       "11h)")
             if not self.tiled:
                 raise ValueError(f"a planar {self.mode} TIFF in strips with {spp - bands} extra "
                                  "samples, which Pillow's libtiff decoder refuses")
+            if bands == 1:
+                return self._one_band_planar(out, twin)
         rawmodes = ([c + (";16N" if bps == 16 else "") for c in "RGBA"[:bands]] if bands > 1
                     else [self.rawmode])
         for plane, y0, x0, chunk in self._segments(bands, twin):
@@ -1236,9 +1396,30 @@ class _TiffFile:
             if bands == 1:
                 out[y0:y1, x0:x1] = px
             elif not (nb == 2 and plane == 1):
-                out[y0:y1, x0:x1, plane] = px
+                out[y0:y1, x0:x1, plane] = px ^ np.uint8(128 if self.mode == "LAB" and plane
+                                                         else 0)
         if bands == 4 and self.mode == "RGBA" and self.extra[:1] != (2,):
             out = _tiff_unpack(out.reshape(H, -1), W, "RGBa")  # Pillow divides alpha out
+        return out
+
+    def _one_band_planar(self, out: np.ndarray, twin: bool) -> np.ndarray:
+        """A planar "P" TIFF with an extra sample ("PX"), in tiles: Pillow
+        reads the first plane's tiles alone, each row through the "PX"
+        unpacker, 2 bytes a pixel, from where that row starts in the plane
+        (a tile's width in bytes apart): a row's pixels come from every
+        other byte of it and the rows below. Pixels whose bytes lie past the
+        tile are whatever Pillow's heap holds there: ValueError."""
+        W, H = self.width, self.height
+        tw, step = self.chunk_w, _raw_bits(self.rawmode) // 8
+        for _, y0, x0, chunk in self._segments(1, twin):
+            buf = chunk.reshape(-1)
+            rows, cw = min(len(chunk), H - y0), min(tw, W - x0)
+            at = tw * np.arange(rows)[:, None] + step * np.arange(cw)
+            if at.max() >= len(buf):
+                raise ValueError(f"a planar {self.mode} TIFF of {self.spp} samples in {tw}-pixel "
+                                 "tiles: Pillow's unpacker reads past the tile, where its "
+                                 "buffer holds what the heap held")
+            out[y0:y0 + rows, x0:x0 + cw] = buf[at]
         return out
 
     def _segments(self, planes: int, twin: bool):
@@ -1281,10 +1462,20 @@ class _TiffFile:
             return self._jpeg_chunk(index, raw, segment)
         if self.fill == 2:
             raw = _REVERSE_BITS[np.frombuffer(raw, np.uint8)].tobytes()
+        if self.compression in _CCITT:
+            return self._ccitt_chunk(index, raw, offset, segment, twin)
         if self.compression == 5:
             out = lzw_twin(raw, size) if twin else native.tiff_lzw(raw, size)
         elif self.compression == 32773:
             out = packbits_twin(raw, size) if twin else native.tiff_packbits(raw, size)
+        elif self.compression == 50000:
+            out = native.zstd_decode(raw, size)
+        elif self.compression == 32809:  # rows of the image's width, as libtiff decodes them
+            line = (self.width * 4 + 7) // 8
+            out = (thunderscan_twin if twin else native.tiff_thunderscan)(raw, size, line,
+                                                                          self.width)
+        elif self.compression == 34925:
+            out = _lzma_strip(raw, size)
         else:  # 8, 32946: Deflate
             d = zlib.decompressobj()
             try:
@@ -1296,6 +1487,28 @@ class _TiffFile:
             out = np.frombuffer(out, np.uint8)
         return out
 
+    def _ccitt_chunk(self, index: int, raw: bytes, offset: int, segment, twin: bool) -> np.ndarray:
+        """A CCITT strip or tile as libtiff's tif_fax3.c decodes it (the
+        rows of a bad code word as libtiff fills them). Raises ValueError
+        where libtiff fails, where Group 4 data ends with rows undecoded
+        (libtiff leaves Pillow's buffer there as it was) and on
+        uncompressed-mode codes, which libtiff does not decode."""
+        rows, w, _ = segment
+        kind = _CCITT[self.compression]
+        if kind == "g3" and self.scalar(292, 0) & 1:
+            kind = "g3_2d"
+        decode = ccitt_twin if twin else native.ccitt_decode
+        strip = decode(raw, kind, w, (w + 7) // 8, rows, bool(offset & 1))
+        what = f"TIFF {TIFF_COMPRESSIONS[self.compression]} strip or tile {index}"
+        if strip.status == -1:
+            raise ValueError(f"{what}: the data ends or overruns libtiff's run arrays in row "
+                             f"{strip.lines} of {rows} (libtiff fails)")
+        if strip.status == -2:
+            raise ValueError(f"{what}: the Group 4 data ends after {strip.lines} of {rows} rows; "
+                             "libtiff leaves the rest of Pillow's buffer as it was")
+        if strip.extensions:
+            raise ValueError(f"{what}: uncompressed mode, which libtiff does not decode")
+        return strip.rows.reshape(-1)
 
     # --- JPEG (compression 7), libtiff's tif_jpeg.c ---------------------------------
 
@@ -1457,7 +1670,7 @@ class _TiffFile:
     def _predictor(self) -> int:
         """The Predictor tag where libtiff's codec takes one (LZW, Deflate),
         checked as PredictorSetup checks it."""
-        predictor = self.scalar(317, 1) if self.compression in (5, 8, 32946) else 1
+        predictor = self.scalar(317, 1) if self.compression in _PREDICTED else 1
         bps = self.bits[0]
         if predictor == 2 and bps not in (8, 16, 32, 64):
             raise ValueError(f"TIFF horizontal predictor on {bps}-bit samples, which libtiff "
@@ -1496,7 +1709,8 @@ class _TiffFile:
         place."""
         if self.planar != 1:
             raise UnsupportedImage("an old-style JPEG TIFF in separate planes, which the port "
-                                   "does not read (ROADMAP.md queue 1 item 11g)")
+                                   "does not read and no ROADMAP item ports: no such file PIL "
+                                   "reads is known")
         if self.spp not in (1, 3) or set(self.bits) != {8}:
             raise ValueError(f"an old-style JPEG TIFF of {self.spp} samples of {self.bits} bits, "
                              "which libtiff refuses")
@@ -1524,13 +1738,29 @@ class _TiffFile:
         w, h = (self.chunk_w, self.chunk_h) if self.tiled else (W, min(self.chunk_h, H))
         across = -(-W // w)
         out = np.empty((H, W) + px.shape[2:], np.uint8)
+        # Rows past the frame (tiles side by side, the frame one column of
+        # them tall): libjpeg gives no more lines. In raw-data mode libtiff
+        # repeats its last MCU row; reading scanlines, it writes nothing and
+        # Pillow's tile buffer keeps the tile before.
+        frame, mcu = px.shape[0], 8 * vs
+        raw_data = not (inside or gray)
+        buf = np.zeros((h, w) + px.shape[2:], np.uint8)
         for k in range(across * -(-H // h)):
             (ty, tx), top = divmod(k, across), k * h
             eh, ew = min(h, H - ty * h), min(w, W - tx * w)
-            if top + eh > px.shape[0] or ew > px.shape[1]:
+            if ew > px.shape[1]:
                 raise ValueError(f"old-style JPEG strip or tile {k} lies past the stream's "
                                  f"{px.shape[1]} x {px.shape[0]}")
-            out[ty * h:ty * h + eh, tx * w:tx * w + ew] = px[top:top + eh, :ew]
+            lines = top + np.arange(h)
+            inside_frame = lines < frame
+            buf[inside_frame, :px.shape[1]] = px[lines[inside_frame], :w]
+            if raw_data and not inside_frame[:eh].all():
+                if frame < mcu or frame % mcu:
+                    raise ValueError(f"old-style JPEG tile {k} lies past a frame of {frame} rows, "
+                                     f"no whole MCU rows of {mcu}")
+                past = lines[~inside_frame]
+                buf[~inside_frame, :px.shape[1]] = px[frame - mcu + (past - frame) % mcu, :w]
+            out[ty * h:ty * h + eh, tx * w:tx * w + ew] = buf[:eh, :ew]
         return out
 
 
@@ -1558,7 +1788,7 @@ def _ojpeg_stream(f: "_TiffFile"):
     strips, missing = [], []
     # The strips, or the tiles (one column of them), each a restart interval
     # of one image as wide as a strip and as tall as all of them.
-    width, length = f.chunk_w, min(f.chunk_h, f.height)
+    width, length = f.chunk_w, f.chunk_h if f.tiled else min(f.chunk_h, f.height)
     total = -(-f.height // length) * length if f.tiled else f.height
     count = -(-f.height // length) * (-(-f.width // width) if f.tiled else 1)
     for i in range(count):  # a strip or tile at 0 or past the end is none
@@ -1662,11 +1892,6 @@ def _ojpeg_stream(f: "_TiffFile"):
     if missing:
         raise ValueError(f"old-style JPEG {missing[0]}, outside the file")
     if sof is None:
-        if f.tiled and f.width > width:
-            raise UnsupportedImage(
-                "an old-style JPEG TIFF of tiles side by side with its tables in tags: libtiff "
-                "makes the frame one column of tiles tall and PIL repeats tiles past it, which "
-                "the port does not follow (ROADMAP.md queue 1 item 11g)")
         header = _ojpeg_tables(f, hs, vs, (width, total))
     else:
         if sos is None:
@@ -1855,6 +2080,85 @@ def _tiff_predict(rows: np.ndarray, predictor: int, bps: int, per_pixel: int,
     return samples.view(np.uint8)
 
 
+def _lzma_strip(data: bytes, size: int) -> np.ndarray:
+    """libtiff's LZMADecode: one .xz stream (no concatenated streams, any
+    memory), decoded until `size` bytes are out; an error or the stream's
+    end before then fails the strip, and nothing past them is read."""
+    import lzma
+
+    d = lzma.LZMADecompressor(format=lzma.FORMAT_XZ)
+    try:
+        out = d.decompress(data, max_length=size)
+    except lzma.LZMAError as e:
+        raise ValueError(f"TIFF LZMA data: {e}") from e
+    if len(out) < size:
+        raise ValueError(f"TIFF LZMA data ends after {len(out)} of {size} bytes")
+    return np.frombuffer(out, np.uint8)
+
+
+def thunderscan_twin(data: bytes, size: int, scanline: int, width: int) -> np.ndarray:
+    """`native.tiff_thunderscan` in Python: libtiff's ThunderDecodeRow, each
+    byte a 2-bit code and 6 bits of data (a run of the last pixel, three
+    2-bit or two 3-bit deltas from it, or a raw pixel). Raises ValueError
+    where a row ends short or long."""
+    two, three = (0, 1, 0, -1), (0, 1, 2, 3, 0, -3, -2, -1)
+    out = np.zeros(size, np.uint8)
+    if scanline <= 0 or size % scanline:
+        raise ValueError("TIFF ThunderScan data: fractional scanlines")
+    bp = 0
+    for row in range(0, size, scanline):
+        op, last, npx = row, 0, 0
+
+        def put(v):  # SETPIXEL
+            nonlocal op, last, npx
+            last = v & 15
+            if npx < width:
+                if npx & 1:
+                    out[op] |= last
+                    op += 1
+                else:
+                    out[op] = last << 4
+                npx += 1
+
+        while bp < len(data) and npx < width:
+            n = data[bp]
+            bp += 1
+            code = n & 0xC0
+            if code == 0x00:
+                if npx & 1:
+                    out[op] |= last
+                    last = int(out[op])
+                    op += 1
+                    npx += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npx += n
+                if npx <= width:
+                    while n > 0:
+                        out[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    out[op] &= 0xF0
+                last &= 15
+            elif code == 0x40:
+                for shift in (4, 2, 0):
+                    if (n >> shift) & 3 != 2:
+                        put(last + two[(n >> shift) & 3])
+            elif code == 0x80:
+                for shift in (3, 0):
+                    if (n >> shift) & 7 != 4:
+                        put(last + three[(n >> shift) & 7])
+            else:
+                put(n)
+        if npx != width:
+            raise ValueError("TIFF ThunderScan data: a row of other than its width's pixels "
+                             "(libtiff fails)")
+    return out
+
+
 def packbits_twin(data: bytes, size: int) -> np.ndarray:
     """`native.tiff_packbits` in Python: libtiff's PackBitsDecode. Raises
     ValueError where the data ends before `size` bytes."""
@@ -1945,13 +2249,403 @@ def lzw_twin(data: bytes, size: int) -> np.ndarray:
     return np.frombuffer(bytes(out[:size]), np.uint8)
 
 
+# --- CCITT (compressions 2, 3, 4, 32771), libtiff's tif_fax3.c --------------------------
+
+_FAX_NULL, _FAX_PASS, _FAX_HORIZ, _FAX_V0, _FAX_VR, _FAX_VL, _FAX_EXT, _FAX_TERMW, _FAX_TERMB, \
+    _FAX_MAKEUPW, _FAX_MAKEUPB, _FAX_MAKEUP, _FAX_EOL = range(13)
+# The T.4 codes, most significant bit first (ccitt_decode.cpp lists the same).
+_FAX_TERM_W = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 "
+    "110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 "
+    "0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 00010100 "
+    "00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 00101101 00000100 "
+    "00000101 00001010 00001011 01010010 01010011 01010100 01010101 00100100 00100101 01011000 "
+    "01011001 01011010 01011011 01001010 01001011 00110010 00110011 00110100").split()
+_FAX_MAKEUP_W = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 011001100 "
+    "011001101 011010010 011010011 011010100 011010101 011010110 011010111 011011000 011011001 "
+    "011011010 011011011 010011000 010011001 010011010 011000 010011011").split()
+_FAX_TERM_B = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 "
+    "00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 "
+    "00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 000011001100 "
+    "000011001101 000001101000 000001101001 000001101010 000001101011 000011010010 000011010011 "
+    "000011010100 000011010101 000011010110 000011010111 000001101100 000001101101 000011011010 "
+    "000011011011 000001010100 000001010101 000001010110 000001010111 000001100100 000001100101 "
+    "000001010010 000001010011 000000100100 000000110111 000000111000 000000100111 000000101000 "
+    "000001011000 000001011001 000000101011 000000101100 000001011010 000001100110 "
+    "000001100111").split()
+_FAX_MAKEUP_B = (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+    "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+    "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+    "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+    "0000001100100 0000001100101").split()
+_FAX_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 "
+               "000000010101 000000010110 000000010111 000000011100 000000011101 000000011110 "
+               "000000011111").split()
+
+
+def _fax_tables():
+    """tif_fax3sm.c's TIFFFaxMainTable, TIFFFaxWhiteTable and
+    TIFFFaxBlackTable as mkg3states.c fills them: (state, width, param) at
+    every index whose low `width` bits are a code read least significant
+    bit first, later fills overwriting earlier ones."""
+    main, white, black = ([(_FAX_NULL, 0, 0)] * (1 << n) for n in (7, 12, 13))
+
+    def fill(table, size, codes, state):
+        for bits, param in codes:
+            for c in range(int(bits[::-1], 2), 1 << size, 1 << len(bits)):
+                table[c] = (state, len(bits), param)
+
+    fill(main, 7, [("0001", 0)], _FAX_PASS)
+    fill(main, 7, [("001", 0)], _FAX_HORIZ)
+    fill(main, 7, [("1", 0)], _FAX_V0)
+    fill(main, 7, [("011", 1), ("000011", 2), ("0000011", 3)], _FAX_VR)
+    fill(main, 7, [("010", 1), ("000010", 2), ("0000010", 3)], _FAX_VL)
+    fill(main, 7, [("0000001", 0)], _FAX_EXT)
+    fill(main, 7, [("0000000", 0)], _FAX_EOL)
+    for table, size, makeup, term, states in (
+            (white, 12, _FAX_MAKEUP_W, _FAX_TERM_W, (_FAX_MAKEUPW, _FAX_TERMW)),
+            (black, 13, _FAX_MAKEUP_B, _FAX_TERM_B, (_FAX_MAKEUPB, _FAX_TERMB))):
+        fill(table, size, [(c, 64 * (i + 1)) for i, c in enumerate(makeup)], states[0])
+        fill(table, size, [(c, 1792 + 64 * i) for i, c in enumerate(_FAX_MAKEUP)], _FAX_MAKEUP)
+        fill(table, size, [(c, i) for i, c in enumerate(term)], states[1])
+        fill(table, size, [("0" * 11, 0)], _FAX_EOL)
+    return main, white, black
+
+
+_FAX_TABLES = None
+
+
+class _FaxEnd(Exception):
+    """The data ran out (libtiff's eoflab)."""
+
+
+class _FaxFail(Exception):
+    """libtiff's decode returns -1 (its run arrays would overflow)."""
+
+
+def _i32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >> 31 else v
+
+
+class _Fax:
+    """One strip of tif_fax3.c's decoding: its state (DECLARE_STATE) and
+    macros as methods; goto targets as exceptions and return values."""
+
+    def __init__(self, data: bytes, kind: str, width: int, rows: int, rowbytes: int, odd: bool):
+        global _FAX_TABLES
+        if _FAX_TABLES is None:
+            _FAX_TABLES = _fax_tables()
+        self.main, self.white, self.black = _FAX_TABLES
+        self.data = _REVERSE_BITS[np.frombuffer(data, np.uint8)].tolist()
+        self.cp, self.odd, self.lastx = 0, odd, width
+        self.acc = self.avail = self.eolcnt = 0
+        self.errors = self.extensions = 0
+        nruns = -(-(width + 1) // 32) * 32 * (2 if kind in ("g3_2d", "g4") else 1)
+        self.nruns = nruns
+        self.runs = [0] * (2 * nruns + 1)  # fillruns may write one past the last run
+        self.cur, self.ref = 0, nruns
+        self.runs[nruns] = width
+        self.out = np.zeros((rows, rowbytes), np.uint8)
+
+    # NeedBits8 / NeedBits16 / GetBits / ClrBits, LOOKUP8 / LOOKUP16
+    def need(self, n: int, two: bool):
+        if self.avail >= n:
+            return
+        for k in range(2 if two else 1):
+            if self.cp >= len(self.data):
+                if k == 0 and self.avail == 0:
+                    raise _FaxEnd
+                self.avail = n
+                return
+            self.acc |= self.data[self.cp] << self.avail
+            self.cp += 1
+            self.avail += 8
+            if self.avail >= n:
+                return
+
+    def clr(self, n: int):
+        self.avail -= n
+        self.acc >>= n
+
+    def lookup(self, wid: int, table, two: bool = True):
+        self.need(wid, two)
+        entry = table[self.acc & ((1 << wid) - 1)]
+        self.clr(entry[1])
+        return entry
+
+    # SETVALUE, CLEANUP_RUNS, CHECK_b1
+    def setvalue(self, x: int):
+        if self.pa >= self.thisrun + self.nruns:
+            raise _FaxFail
+        self.runs[self.pa] = (self.rl + x) & 0xFFFFFFFF
+        self.pa += 1
+        self.a0 = _i32(self.a0 + x)
+        self.rl = 0
+
+    def cleanup(self):
+        if self.rl:
+            self.setvalue(0)
+        if self.a0 != self.lastx:
+            self.errors += 1
+            while self.a0 > self.lastx and self.pa > self.thisrun:
+                self.pa -= 1
+                self.a0 = _i32(self.a0 - self.runs[self.pa])
+            if self.a0 < self.lastx:
+                self.a0 = max(self.a0, 0)
+                if (self.pa - self.thisrun) & 1:
+                    self.setvalue(0)
+                self.setvalue(self.lastx - self.a0)
+            elif self.a0 > self.lastx:
+                self.setvalue(self.lastx)
+                self.setvalue(0)
+
+    def check_b1(self):
+        if self.pa != self.thisrun:
+            while self.b1 <= self.a0 and self.b1 < self.lastx:
+                if self.pb + 1 >= self.ref + self.nruns:
+                    raise _FaxFail
+                self.b1 = _i32(self.b1 + self.runs[self.pb] + self.runs[self.pb + 1])
+                self.pb += 2
+
+    def sync_eol(self):
+        if self.eolcnt == 0:
+            while True:
+                self.need(11, True)
+                if self.acc & 0x7FF == 0:
+                    break
+                self.clr(1)
+        while True:
+            self.need(8, False)
+            if self.acc & 0xFF:
+                break
+            self.clr(8)
+        while self.acc & 1 == 0:
+            self.clr(1)
+        self.clr(1)
+        self.eolcnt = 0
+
+    def color_run(self, black: bool) -> bool:
+        """One run's makeup and terminating codes (EXPAND1D's and
+        EXPAND2D's loops); False on an EOL or a bad code word (reported
+        unless an EOL: `eol` tells which)."""
+        table, wid, term = ((self.black, 13, _FAX_TERMB) if black
+                            else (self.white, 12, _FAX_TERMW))
+        while True:
+            state, _, param = self.lookup(wid, table)
+            if state == term:
+                self.setvalue(param)
+                return True
+            if state in (_FAX_MAKEUPW if not black else _FAX_MAKEUPB, _FAX_MAKEUP):
+                self.a0 = _i32(self.a0 + param)
+                self.rl += param
+                continue
+            self.eol = state == _FAX_EOL
+            return False
+
+    def expand1d(self):
+        """EXPAND1D; raises _FaxEnd after its clean-up where the data ends."""
+        try:
+            while True:
+                for black in (False, True):
+                    if not self.color_run(black):
+                        if self.eol:
+                            self.eolcnt = 1
+                        else:
+                            self.errors += 1
+                        raise StopIteration
+                    if self.a0 >= self.lastx:
+                        raise StopIteration
+                if self.runs[self.pa - 1] == 0 and self.runs[self.pa - 2] == 0:
+                    self.pa -= 2
+        except StopIteration:
+            self.cleanup()
+        except _FaxEnd:
+            self.cleanup()
+            raise
+
+    def expand2d(self):
+        """EXPAND2D; raises _FaxEnd after its clean-up where the data ends."""
+        try:
+            if self._expand2d_body():
+                if self.rl:
+                    bad = False
+                    if self.rl + self.a0 < self.lastx:  # a final V0
+                        self.need(1, False)
+                        bad = not self.acc & 1
+                        if not bad:
+                            self.clr(1)
+                    if bad:
+                        self.errors += 1
+                    else:
+                        self.setvalue(0)
+        except _FaxEnd:
+            self.cleanup()
+            raise
+        self.cleanup()
+
+    def _expand2d_body(self) -> bool:
+        """EXPAND2D's loop: True where it ends with the row, False on a goto
+        eol2d."""
+        while self.a0 < self.lastx:
+            if self.pa >= self.thisrun + self.nruns:
+                raise _FaxFail
+            state, _, param = self.lookup(7, self.main, False)
+            if state == _FAX_PASS:
+                self.check_b1()
+                if self.pb + 1 >= self.ref + self.nruns:
+                    raise _FaxFail
+                self.b1 = _i32(self.b1 + self.runs[self.pb])
+                self.rl += self.b1 - self.a0
+                self.a0 = self.b1
+                self.b1 = _i32(self.b1 + self.runs[self.pb + 1])
+                self.pb += 2
+            elif state == _FAX_HORIZ:
+                first = bool((self.pa - self.thisrun) & 1)
+                for black in (first, not first):
+                    if not self.color_run(black):
+                        self.errors += 1
+                        return False
+                self.check_b1()
+            elif state in (_FAX_V0, _FAX_VR):
+                self.check_b1()
+                self.setvalue(self.b1 - self.a0 + param)
+                if self.pb >= self.ref + self.nruns:
+                    raise _FaxFail
+                self.b1 = _i32(self.b1 + self.runs[self.pb])
+                self.pb += 1
+            elif state == _FAX_VL:
+                self.check_b1()
+                if self.b1 < _i32(self.a0 + param):
+                    self.errors += 1
+                    return False
+                self.setvalue(self.b1 - self.a0 - param)
+                self.pb -= 1
+                self.b1 = _i32(self.b1 - self.runs[self.pb])
+            elif state in (_FAX_EXT, _FAX_EOL):
+                self.runs[self.pa] = (self.lastx - self.a0) & 0xFFFFFFFF
+                self.pa += 1
+                if state == _FAX_EXT:
+                    self.errors += 1
+                    self.extensions += 1
+                    return False
+                self.need(4, False)
+                if self.acc & 15:
+                    self.errors += 1
+                self.clr(4)
+                self.eolcnt = 1
+                return False
+            else:
+                self.errors += 1
+                return False
+        return True
+
+    def fill(self, row: int):
+        """_TIFFFax3fillruns into output row `row` (runs cut at lastx)."""
+        runs, start, end = self.runs, self.thisrun, self.pa
+        if (end - start) & 1:
+            runs[end] = 0
+            end += 1
+        bits = np.zeros(self.out.shape[1] * 8, np.uint8)
+        x = 0
+        for i in range(start, end):
+            run = runs[i]
+            if (x + run) & 0xFFFFFFFF > self.lastx or run > self.lastx:
+                run = runs[i] = self.lastx - x
+            if run:
+                bits[x:x + run] = (i - start) & 1
+                x += run
+        self.out[row] = np.packbits(bits)
+
+    def decode(self, kind: str):
+        """Fax3DecodeRLE, Fax3Decode1D, Fax3Decode2D or Fax4Decode over the
+        strip: (status, rows decoded), status as mm_ccitt_decode's."""
+        rows = self.out.shape[0]
+        for line in range(rows):
+            self.a0 = self.rl = 0
+            self.pa = self.thisrun = self.cur
+            self.pb, self.b1 = self.ref + 1, self.runs[self.ref]
+            try:
+                if kind in ("rle", "rlew"):
+                    self.expand1d()
+                elif kind == "g4":
+                    self.expand2d()
+                    if self.eolcnt:
+                        raise _FaxEnd
+                else:
+                    try:
+                        self.sync_eol()
+                        one_d = True
+                        if kind == "g3_2d":
+                            self.need(1, False)
+                            one_d = self.acc & 1
+                            self.clr(1)
+                    except _FaxEnd:
+                        self.cleanup()
+                        raise
+                    if one_d:
+                        try:
+                            self.expand1d()
+                        except _FaxEnd:
+                            if kind == "g3":
+                                self.cleanup()
+                            raise
+                    else:
+                        self.expand2d()
+            except _FaxEnd:
+                if kind == "g4":
+                    self.need_eofb()
+                self.fill(line)
+                if kind != "g4" or line == 0:
+                    return -1, line
+                return (-2 if line + 1 < rows else 0), line + 1
+            self.fill(line)
+            if kind in ("g3_2d", "g4"):
+                if kind == "g4" or self.pa < self.thisrun + self.nruns:
+                    self.setvalue(0)
+                self.cur, self.ref = self.ref, self.cur
+            elif kind == "rle":
+                self.clr(self.avail % 8)
+            elif kind == "rlew":
+                self.clr(self.avail % 16)
+                if self.avail == 0 and (self.cp + self.odd) % 2:
+                    self.cp += 1
+        return 0, rows
+
+    def need_eofb(self):
+        try:
+            self.need(13, True)
+        except _FaxEnd:
+            pass
+        self.clr(13)
+
+
+def ccitt_twin(data: bytes, kind: str, width: int, rowbytes: int, rows: int,
+               odd: bool) -> native.CcittStrip:
+    """`native.ccitt_decode` in Python: libtiff 4.7's tif_fax3.c over one
+    strip or tile, its bad code words and run clean-up included."""
+    if width <= 0 or rows <= 0 or rowbytes < (width + 7) // 8:
+        raise ValueError(f"CCITT strip of {rows} rows of {width} pixels in {rowbytes} bytes")
+    fax = _Fax(data, kind, width, rows, rowbytes, odd)
+    try:
+        status, lines = fax.decode(kind)
+    except _FaxFail:
+        status, lines = -1, 0
+    return native.CcittStrip(fax.out, status, fax.errors, fax.extensions, lines)
+
+
 def read_tiff(data: bytes, twin: bool = False) -> "Decoded":
     """The first image of a TIFF as PIL opens and loads it (TiffImagePlugin
     with libtiff for compressed files), its Orientation applied as PIL's
-    load applies it; `twin` decompresses LZW and PackBits with `lzw_twin`
-    and `packbits_twin`. Raises ValueError where PIL raises and
-    UnsupportedImage for a compression or photometric PIL reads and the
-    port does not."""
+    load applies it; `twin` decompresses LZW, PackBits, CCITT and
+    ThunderScan with `lzw_twin`, `packbits_twin`, `ccitt_twin` and
+    `thunderscan_twin`, and gives CIELab's RGB form by `lab_to_rgb_twin`.
+    Raises ValueError where PIL raises (or where libtiff leaves Pillow's
+    buffer as it was, or Pillow reads past it) and UnsupportedImage for
+    old-style JPEG in separate planes."""
     f = _TiffFile(data)
     f.setup()
     px = f.decode_raw() if f.compression == 1 else f.decode_libtiff(twin)
@@ -1959,7 +2653,7 @@ def read_tiff(data: bytes, twin: bool = False) -> "Decoded":
     if isinstance(orientation, tuple) and len(orientation) == 1 and orientation[0] in _ORIENT:
         px = np.ascontiguousarray(_ORIENT[orientation[0]](px))
     mode = {"I;16B": "I;16"}.get(f.mode, f.mode)
-    return Decoded(mode, px, f.palette)
+    return Decoded(mode, px, f.palette, twin)
 
 
 TIFF_WRITE_COMPRESSIONS = {"none": 1, "packbits": 32773, "deflate": 8}
@@ -2576,13 +3270,15 @@ def jpeg2000_colour_twin(canvas: np.ndarray, planes, qmfbid, comps: np.ndarray, 
 def load_image(path: str, convert_rgb: bool = True, twin: bool = False) -> np.ndarray:
     """Decode one image file (see the module docstring for what comes back);
     `twin` reads a PNG with `read_png_twin`, a run-length BMP with
-    `bmp_rle_twin`, LZW and PackBits TIFF strips with `lzw_twin` and
-    `packbits_twin`, a lossy WebP frame's colour and alpha stages with
-    `webp_colour_twin` and `alpha_unfilter_twin`, and a JPEG 2000 tile's
-    inverse wavelet transform and colour stage with `jpeg2000_idwt_twin`
-    and `jpeg2000_colour_twin` (JPEG data and the WebP and JPEG 2000
-    entropy decoders have no twin: they take the native decoder either
-    way). Raises UnsupportedImage, naming the file, for a file PIL reads
+    `bmp_rle_twin`, LZW, PackBits, CCITT and ThunderScan TIFF strips with
+    `lzw_twin`, `packbits_twin`, `ccitt_twin` and `thunderscan_twin` (and a
+    CIELab TIFF's RGB form with `lab_to_rgb_twin`), a lossy WebP frame's
+    colour and alpha stages with `webp_colour_twin` and
+    `alpha_unfilter_twin`, and a JPEG 2000 tile's inverse wavelet transform
+    and colour stage with `jpeg2000_idwt_twin` and `jpeg2000_colour_twin`
+    (JPEG data, ZSTD strips and the WebP and JPEG 2000 entropy decoders
+    have no twin: they take the native decoder either way; LZMA strips
+    take the standard library's lzma). Raises UnsupportedImage, naming the file, for a file PIL reads
     that the port cannot, and ValueError for a damaged one."""
     with open(path, "rb") as f:
         data = f.read()

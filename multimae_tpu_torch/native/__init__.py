@@ -1,10 +1,13 @@
 """ctypes bindings for the port's native image library (fastimage.cpp,
-jpeg_decode.cpp, jpeg2000_decode.cpp, pil_ops.cpp, tiff_decode.cpp and
-webp_decode.cpp), the
+jpeg_decode.cpp, jpeg2000_decode.cpp, pil_ops.cpp, tiff_decode.cpp,
+webp_decode.cpp, ccitt_decode.cpp, zstd_decode.cpp and cielab.cpp), the
 counterpart of the JAX package's multimae_tpu/native/__init__.py.
 fastimage.cpp also holds the BMP run-length decoder (`bmp_rle`);
-tiff_decode.cpp the TIFF LZW and PackBits decoders (`tiff_lzw`,
-`tiff_packbits`); jpeg_decode.cpp the JPEG decoder of JPEG files
+tiff_decode.cpp the TIFF LZW, PackBits and ThunderScan decoders
+(`tiff_lzw`, `tiff_packbits`, `tiff_thunderscan`); ccitt_decode.cpp
+libtiff's CCITT decoding (`ccitt_decode`); zstd_decode.cpp a Zstandard
+frame decoder (`zstd_decode`); cielab.cpp LittleCMS's CIELab to sRGB
+transform as Pillow builds it (`lab_to_rgb`); jpeg_decode.cpp the JPEG decoder of JPEG files
 (`decode_jpeg`) and of JPEG-compressed TIFF strips and tiles
 (`decode_jpeg_tiff`); webp_decode.cpp the WebP decoder (`decode_webp`, and
 `decode_webp_planes` for the colour and alpha twins of data/image_io.py);
@@ -15,7 +18,8 @@ for the wavelet and colour twins of data/image_io.py).
 The library is built with g++ at first use:
 
     g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off fastimage.cpp jpeg_decode.cpp \
-        pil_ops.cpp tiff_decode.cpp webp_decode.cpp jpeg2000_decode.cpp -o <lib>
+        pil_ops.cpp tiff_decode.cpp webp_decode.cpp jpeg2000_decode.cpp ccitt_decode.cpp \
+        zstd_decode.cpp cielab.cpp -o <lib>
 
 into build/native/<hash of the sources and the command>/ in the repository
 (listed in .gitignore). The compiler writes a per-process temporary that
@@ -48,7 +52,11 @@ PIL_SOURCE = SOURCE.with_name("pil_ops.cpp")
 TIFF_SOURCE = SOURCE.with_name("tiff_decode.cpp")
 WEBP_SOURCE = SOURCE.with_name("webp_decode.cpp")
 JPEG2000_SOURCE = SOURCE.with_name("jpeg2000_decode.cpp")
-SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE, WEBP_SOURCE, JPEG2000_SOURCE)
+CCITT_SOURCE = SOURCE.with_name("ccitt_decode.cpp")
+ZSTD_SOURCE = SOURCE.with_name("zstd_decode.cpp")
+CIELAB_SOURCE = SOURCE.with_name("cielab.cpp")
+SOURCES = (SOURCE, JPEG_SOURCE, PIL_SOURCE, TIFF_SOURCE, WEBP_SOURCE, JPEG2000_SOURCE,
+           CCITT_SOURCE, ZSTD_SOURCE, CIELAB_SOURCE)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
@@ -92,6 +100,10 @@ _SIGNATURES = {
     "mm_bmp_rle": [_P, _L, _L, _L, _I, _I, _I, _P],
     "mm_tiff_lzw": [_P, _L, _P, _L],
     "mm_tiff_packbits": [_P, _L, _P, _L],
+    "mm_tiff_thunderscan": [_P, _L, _P, _L, _L, _L],
+    "mm_ccitt_decode": [_P, _L, _I, _I, _I, _I, _I, _P, _P],
+    "mm_zstd_decode": [_P, _L, _P, _L, _P],
+    "mm_lab_to_rgb": [_P, _L, _P],
 }
 # The functions that return a count of bytes or pixels, not a status.
 _LONG_RESULTS = ("mm_bmp_rle", "mm_tiff_lzw", "mm_tiff_packbits")
@@ -341,6 +353,99 @@ def tiff_packbits(data: bytes, size: int) -> np.ndarray:
     n = lib().mm_tiff_packbits(data, len(data), _ptr(out), size)
     if n < size:
         raise ValueError(f"TIFF PackBits data ends after {n} of {size} bytes")
+    return out
+
+
+# CCITT kinds (ccitt_decode.cpp): compression (and 2-D rows for Group 3) -> kind.
+CCITT_KINDS = {"rle": 0, "rlew": 1, "g3": 2, "g3_2d": 3, "g4": 4}
+
+
+class CcittStrip:
+    """What `mm_ccitt_decode` gives for one strip or tile: `rows` (its
+    decoded bytes), `status` (0 success, -1 libtiff fails, -2 Group 4 data
+    ends early and libtiff leaves rows undecoded), `errors` (the bad code
+    words and rows of the wrong length libtiff reports and decodes past),
+    `extensions` (uncompressed-mode codes among them) and `lines` decoded."""
+
+    def __init__(self, rows: np.ndarray, status: int, errors: int, extensions: int, lines: int):
+        self.rows, self.status = rows, status
+        self.errors, self.extensions, self.lines = errors, extensions, lines
+
+
+def ccitt_decode(data: bytes, kind: str, width: int, rowbytes: int, rows: int,
+                 odd: bool) -> CcittStrip:
+    """A strip or tile of CCITT data (bytes in FillOrder 1) -> `rows` rows of
+    `rowbytes` bytes, 1 bits black, as libtiff 4.7's tif_fax3.c decodes it
+    (ccitt_decode.cpp): `kind` one of CCITT_KINDS, `odd` where the data
+    starts at an odd file offset (RLEW's 16-bit alignment)."""
+    if width <= 0 or rows <= 0 or rowbytes < (width + 7) // 8:
+        raise ValueError(f"CCITT strip of {rows} rows of {width} pixels in {rowbytes} bytes")
+    out = np.zeros((rows, rowbytes), np.uint8)
+    info = np.zeros(3, np.int64)
+    status = lib().mm_ccitt_decode(data, len(data), CCITT_KINDS[kind], width, rowbytes, rows,
+                                   int(odd), _ptr(out), _ptr(info))
+    return CcittStrip(out, status, int(info[0]), int(info[1]), int(info[2]))
+
+
+# mm_zstd_decode's failures (zstd_decode.cpp), as libtiff's ZSTDDecode meets them.
+ZSTD_ERRORS = {
+    -1: "the data ends inside the frame", -2: "no Zstandard frame (bad magic number)",
+    -3: "a reserved frame header bit set", -4: "a window past libzstd's 128 MiB limit",
+    -5: "a dictionary, which libtiff never loads", -6: "a block of the reserved type",
+    -7: "a block past its size limit", -8: "a corrupt literals section",
+    -9: "a corrupt Huffman table or stream", -10: "a corrupt FSE table description",
+    -11: "a corrupt sequences section", -12: "an offset past the window or the data",
+    -13: "content past or short of the frame's declared size",
+    -14: "a content checksum that does not match",
+    -15: "the frame ends before the strip is full",
+    -16: "a skippable frame where libzstd wants the data's frame"}
+# What the data held, counted by mm_zstd_decode into ZSTD_COUNTS where a test
+# sets it (np.zeros(len(ZSTD_KINDS), np.int64)).
+ZSTD_KINDS = ("raw block", "RLE block", "compressed block", "raw literals", "RLE literals",
+              "Huffman literals, 1 stream", "Huffman literals, 4 streams",
+              "treeless literals, 1 stream", "treeless literals, 4 streams",
+              "FSE-coded Huffman weights", "direct Huffman weights", "predefined table",
+              "RLE table", "FSE-compressed table", "repeated table", "repeat offset",
+              "checksum", "single segment", "no sequences")
+ZSTD_COUNTS: Optional[np.ndarray] = None
+
+
+def zstd_decode(data: bytes, size: int) -> np.ndarray:
+    """A TIFF strip or tile of Zstandard data -> its first `size` bytes, as
+    libtiff 4.7's ZSTDDecode has libzstd give them (zstd_decode.cpp).
+    Raises ValueError where libzstd or libtiff fails."""
+    out = np.empty(size, np.uint8)
+    counts = ZSTD_COUNTS
+    if counts is not None and (counts.dtype != np.int64 or counts.shape != (len(ZSTD_KINDS),)):
+        raise ValueError("ZSTD_COUNTS must be int64 of len(ZSTD_KINDS)")
+    rc = lib().mm_zstd_decode(data, len(data), _ptr(out), size,
+                              None if counts is None else _ptr(counts))
+    if rc:
+        raise ValueError(f"TIFF ZSTD data: {ZSTD_ERRORS.get(rc, rc)}")
+    return out
+
+
+def lab_to_rgb(lab: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 pixels in Pillow's "LAB" storage (L, then a and b with
+    128 neutral) -> RGB, as PIL's convert("RGB") gives them through
+    LittleCMS 2.17 (cielab.cpp)."""
+    lab = np.ascontiguousarray(lab)
+    if lab.dtype != np.uint8 or lab.shape[-1:] != (3,):
+        raise ValueError(f"LAB pixels must be (..., 3) uint8, not {lab.dtype} {lab.shape}")
+    out = np.empty(lab.shape, np.uint8)
+    _check(lib().mm_lab_to_rgb(_ptr(lab), lab.size // 3, _ptr(out)), "mm_lab_to_rgb")
+    return out
+
+
+def tiff_thunderscan(data: bytes, size: int, scanline: int, width: int) -> np.ndarray:
+    """A TIFF strip of ThunderScan data -> its `size` bytes, rows of
+    `scanline` bytes holding `width` 4-bit pixels, as libtiff's
+    ThunderDecodeRow gives them (tiff_decode.cpp `mm_tiff_thunderscan`).
+    Raises ValueError where a row ends short or long, which libtiff fails."""
+    out = np.zeros(size, np.uint8)
+    if lib().mm_tiff_thunderscan(data, len(data), _ptr(out), size, scanline, width):
+        raise ValueError("TIFF ThunderScan data: a row of other than its width's pixels "
+                         "(libtiff fails)")
     return out
 
 

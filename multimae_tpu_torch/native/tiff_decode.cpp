@@ -6,9 +6,11 @@
 //   * LZW (compression 5): codes of 9-12 bits, MSB-first, widened one code
 //     early (LZWDecode); a stream that starts with the old bit-reversed
 //     codes takes libtiff's LZWDecodeCompat (LSB-first, widened on time);
-//   * PackBits (compression 32773): PackBitsDecode.
+//   * PackBits (compression 32773): PackBitsDecode;
+//   * ThunderScan (compression 32809): ThunderDecodeRow, 4-bit samples
+//     as runs of the last one, 2- and 3-bit deltas from it, or raw.
 //
-// Both write at most `size` bytes and read at most `len`; they stop once
+// LZW and PackBits write at most `size` bytes and read at most `len`; they stop once
 // `size` bytes are out, as libtiff stops once its strip or tile is full.
 // Return: the bytes written (fewer than `size` where the data ends first),
 // or for LZW a negative code for a stream libtiff refuses:
@@ -115,6 +117,73 @@ long mm_tiff_packbits(const uint8_t* data, long len, uint8_t* out, long size) {
     }
   }
   return written;
+}
+
+// ThunderDecodeRow over `size` bytes of rows `scanline` bytes apart, each
+// `width` 4-bit pixels: returns 0, or -1 where a row ends short or long
+// (libtiff's "Not enough data" / "Too much data"), the rows before it
+// decoded and that row's tail zeroed as libtiff leaves them.
+int mm_tiff_thunderscan(const uint8_t* data, long len, uint8_t* out, long size, long scanline,
+                        long width) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  if (scanline <= 0 || size % scanline) return -1;
+  const uint8_t* bp = data;
+  long cc = len;
+  for (uint8_t* row = out; row < out + size; row += scanline) {
+    uint8_t* op = row;
+    unsigned lastpixel = 0;
+    long npixels = 0;
+    const long maxpixels = width;
+    auto set = [&](unsigned v) {  // SETPIXEL
+      lastpixel = v & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1)
+          *op++ |= uint8_t(lastpixel);
+        else
+          op[0] = uint8_t(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < maxpixels) {
+      int n = *bp++, delta;
+      --cc;
+      switch (n & 0xc0) {
+        case 0x00:  // a run of the last pixel, n times
+          if (npixels & 1) {
+            op[0] |= uint8_t(lastpixel);
+            lastpixel = *op++;
+            ++npixels;
+            --n;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= maxpixels)
+            for (; n > 0; n -= 2) *op++ = uint8_t(lastpixel);
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:  // three 2-bit deltas (2: none)
+          if ((delta = (n >> 4) & 3) != 2) set(unsigned(int(lastpixel) + two[delta]));
+          if ((delta = (n >> 2) & 3) != 2) set(unsigned(int(lastpixel) + two[delta]));
+          if ((delta = n & 3) != 2) set(unsigned(int(lastpixel) + two[delta]));
+          break;
+        case 0x80:  // two 3-bit deltas (4: none)
+          if ((delta = (n >> 3) & 7) != 4) set(unsigned(int(lastpixel) + three[delta]));
+          if ((delta = n & 7) != 4) set(unsigned(int(lastpixel) + three[delta]));
+          break;
+        default:  // raw
+          set(unsigned(n));
+          break;
+      }
+    }
+    if (npixels != maxpixels) {
+      uint8_t* end = row + (maxpixels + 1) / 2;
+      if (op < end) std::memset(op, 0, size_t(end - op));
+      return -1;
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

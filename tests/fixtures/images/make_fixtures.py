@@ -931,7 +931,7 @@ def jpeg_tiff_files(tree_hw=(48, 64)):
     out["tiff_ojpeg_420_tiles.tif"] = ojpeg_tiff(px, form="jif_header", tile=(16, 16))
     out["tiff_ojpeg_422_tile_column.tif"] = ojpeg_tiff(px, subsampling=1, tile=(16, 48))
     # The tables form with tiles side by side: libtiff's frame is one column
-    # of tiles tall, and PIL repeats tiles past it; the port refuses it.
+    # of tiles tall, and the tiles past it repeat its last MCU row.
     out["unported_ojpeg_tiles_tables.tif"] = ojpeg_tiff(px, tile=(16, 16))
     for (hs, vs), kw in [((1, 1), {"compression": 5, "rows_per_strip": 8}),
                          ((1, 2), {"compression": 8, "tile": (16, 32)}),
@@ -1077,7 +1077,8 @@ REFUSED = {"refused_bmp_gray4_wide.bmp": "hold no", "refused_bmp_truncated.bmp":
            "refused_tiff_ojpeg_no_qtables.tif": "JPEGQTables",
            "refused_tiff_ojpeg_strip_rows.tif": "no whole MCU rows",
            "refused_tiff_ycbcr_subsampling.tif": "cannot handle"}
-# The ROADMAP item of each file the port refuses with UnsupportedImage.
+# The files the port refused with UnsupportedImage until the ROADMAP item
+# given ported them; they keep their names, and expected.json gives the item.
 UNPORTED = {"unported_ccitt.tif": "11h", "unported_lzma.tif": "11h", "unported_zstd.tif": "11h",
             "unported_ojpeg_tiles_tables.tif": "11g"}
 
@@ -1173,9 +1174,8 @@ def main():
 
     written = {**files(), **tiff_files(), **refused_tiff_files(), **jpeg_tiff_files(),
                **refused_jpeg_tiff_files(), **pil_tiff_files()}
-    unported = {k: written.pop(k) for k in list(written) if k in UNPORTED}
     expected = {}
-    for name, data in sorted({**written, **unported}.items()):
+    for name, data in sorted(written.items()):
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
         if name in REFUSED:
@@ -1185,15 +1185,13 @@ def main():
                 expected[name] = {"error": REFUSED[name]}
                 continue
             raise SystemExit(f"{name}: PIL reads it, so the port must too")
-        if name in unported:
-            Image.open(io.BytesIO(data)).convert("RGB")  # PIL reads it back
-            expected[name] = {"unported": UNPORTED[name]}
-        else:
-            expected[name] = pil_digests(data)
+        expected[name] = pil_digests(data)
+        if name in UNPORTED:
+            expected[name]["ported_in"] = UNPORTED[name]
     with open(os.path.join(HERE, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
-    total = sum(len(v) for v in written.values()) + sum(len(v) for v in unported.values())
+    total = sum(len(v) for v in written.values())
     print(f"wrote {len(expected)} files, {total} bytes, and expected.json")
 
 

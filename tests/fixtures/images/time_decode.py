@@ -7,7 +7,8 @@ The PNG, BMP, netpbm and TIFF files (JPEG-compressed and YCbCr ones
 among them) come from make_fixtures.timing_files, the WebP ones (lossy at
 quality 90, lossy with alpha, lossless) from tests/fixtures/webp's
 make_fixtures.timing_files, the JPEG 2000 ones (5/3 lossless and 9/7
-lossy RGB) from tests/fixtures/jpeg2000's; the arithmetic-coded and smoothed JPEG files
+lossy RGB) from tests/fixtures/jpeg2000's, the Group 4, LZMA, ZSTD and
+CIELab TIFF ones from tests/fixtures/tiff_codecs'; the arithmetic-coded and smoothed JPEG files
 are tests/fixtures/jpeg/big_*.jpg. `--only` keeps the files whose name
 holds the word. Prints ms per file (load_image from disk, convert_rgb,
 against PIL's Image.open(path).convert("RGB"); the median of 5 windows of
@@ -65,7 +66,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
         for name, data in {**timing_files(), **folder_timing_files("webp"),
-                           **folder_timing_files("jpeg2000")}.items():
+                           **folder_timing_files("jpeg2000"),
+                           **folder_timing_files("tiff_codecs")}.items():
             paths.append(os.path.join(tmp, name))
             with open(paths[-1], "wb") as f:
                 f.write(data)

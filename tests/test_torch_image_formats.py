@@ -13,10 +13,12 @@ beside PNG and JPEG (multimae_tpu_torch/data/image_io.py) against PIL, and
 * The same kinds written here at random sizes: Adam7 PNG from numpy,
   BMP and netpbm by PIL; and seeded random RLE streams through the native
   decoder and its twin, which agree on pixels and on refusals.
-* A CCITT, LZMA or ZSTD .tif, a .jpx file, an RGB
-  semseg map or an 8-bit depth map in a tree stops `ImageFolder`,
-  `MultiTaskImageFolder` and the loader with UnsupportedImage naming the
-  file and its ROADMAP item; a truncated file is still resampled.
+* The four files the port refused with UnsupportedImage until ROADMAP
+  items 11g and 11h ported them (CCITT, LZMA and ZSTD TIFF, old-style JPEG
+  tiles side by side with tables in tags) read bit-equal to PIL, alone and
+  through `ImageFolder`, `MultiTaskImageFolder` and the loader; an RGB
+  semseg map or an 8-bit depth map in a tree stops them with
+  UnsupportedImage naming the file; a truncated file is still resampled.
 """
 
 import hashlib
@@ -43,11 +45,11 @@ sys.path.insert(0, str(FIXTURES))
 import make_fixtures as mf  # noqa: E402
 
 # TIFF files are read and refused in tests/test_torch_tiff.py and
-# tests/test_torch_tiff_jpeg.py; the refused formats (CCITT, LZMA and ZSTD
-# TIFF among them) here.
+# tests/test_torch_tiff_jpeg.py; the files once unported (their expected.json
+# entries name the ROADMAP item that ported them) through the loaders here.
 READ = sorted(n for n, e in EXPECTED.items() if "sha256" in e and not n.endswith(".tif"))
 REFUSED = sorted(n for n, e in EXPECTED.items() if "error" in e and not n.endswith(".tif"))
-UNPORTED = sorted(n for n, e in EXPECTED.items() if e.get("unported"))
+UNPORTED = sorted(n for n, e in EXPECTED.items() if e.get("ported_in"))
 
 
 def digest(a):
@@ -173,9 +175,14 @@ def test_unsupported_image_is_no_value_or_os_error():
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_format_raises_naming_file_and_item(name):
-    item = EXPECTED[name]["unported"]
-    with pytest.raises(UnsupportedImage, match=rf"{name}: .*item {item}"):
-        image_io.load_image(str(FIXTURES / name))
+    """A file item 11g or 11h ported reads as PIL reads it, in both forms,
+    through the native decoders and the twins."""
+    want = EXPECTED[name]
+    assert want["ported_in"] in ("11g", "11h")
+    for twin in (False, True):
+        rgb = image_io.load_image(str(FIXTURES / name), twin=twin)
+        raw = image_io.load_image(str(FIXTURES / name), convert_rgb=False, twin=twin)
+        assert digest(rgb) == want["sha256"] and digest(raw) == want["raw_sha256"], twin
 
 
 @pytest.fixture
@@ -186,23 +193,26 @@ def tree(tmp_path):
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_file_stops_both_loaders(tree, name):
+    """A file item 11g or 11h ported no longer stops the loaders: each reads
+    it as PIL does, and the loader's batch holds it."""
     from multimae_tpu_torch.data.loader import Loader
 
     rgb = tree / "rgb" / "c0"
     victim = rgb / ("i0002" + Path(name).suffix)
     (rgb / "i0002.png").unlink()
     shutil.copyfile(FIXTURES / name, victim)
+    want = EXPECTED[name]["sha256"]
     single = ImageFolder(str(tree / "rgb"))
-    with pytest.raises(UnsupportedImage, match=victim.name):
-        for i in range(len(single)):
-            single[i]
+    assert [digest(single[i][0]) for i in range(len(single))].count(want) == 1
     multi = MultiTaskImageFolder(str(tree), ["rgb"])
-    with pytest.raises(UnsupportedImage, match=victim.name):
-        for i in range(len(multi)):
-            multi[i]
-    loader = Loader(multi, None, global_batch_size=4, seed=0)
-    with pytest.raises(UnsupportedImage, match=victim.name):
-        next(loader)
+    assert digest(multi.load_raw(2)[0]["rgb"]) == want
+    batch = next(Loader(multi, _corner, global_batch_size=4, seed=0))
+    assert batch["rgb"].shape == (4, 16, 16, 3)
+
+
+def _corner(sample, rng=None):
+    """Each image's top-left 16 x 16 pixels, so that the batch stacks."""
+    return {k: v[:16, :16] for k, v in sample.items()}
 
 
 def test_truncated_file_is_still_resampled(tree, capsys):

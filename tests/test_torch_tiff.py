@@ -26,17 +26,18 @@ package's data pipeline over TIFF trees.
   (Resample.c reads "I;16B" as "I;16" on a little-endian host), and the
   port takes the samples' values.
 * (e) The cls ImageFolder over TIFF files against the JAX package's.
-* (f) Each compression and photometric the port refuses raises
-  UnsupportedImage naming the file and ROADMAP item 11h, and no retry
-  resamples it; the old-style and new-style JPEG and the LZW YCbCr files
-  that item 11g ported read as PIL reads them, in a tree too. SGILog and
-  WebP-in-TIFF, which PIL refuses, raise ValueError naming the file, and
-  the port's MultiTaskImageFolder resamples past them as the JAX
+* (f) Each compression and photometric the port refused until items 11g
+  and 11h ported them (old-style and new-style JPEG, LZW YCbCr, CCITT RLE,
+  Group 3, Group 4 and RLEW, ThunderScan, LZMA, ZSTD, CIELab) reads as PIL
+  reads it, in a tree too, and so do the committed files once refused.
+  SGILog and WebP-in-TIFF, which PIL refuses, raise ValueError naming the
+  file, and the port's MultiTaskImageFolder resamples past them as the JAX
   package's does.
 * (g) `write_tiff` output read back by PIL.
 """
 
 import hashlib
+import importlib.util
 import io
 import json
 import random
@@ -58,11 +59,16 @@ EXPECTED = json.loads((FIXTURES / "expected.json").read_text())
 sys.path.insert(0, str(FIXTURES))
 import make_fixtures as mf  # noqa: E402
 
+_spec = importlib.util.spec_from_file_location(
+    "tiff_codecs_make_fixtures", FIXTURES.parent / "tiff_codecs" / "make_fixtures.py")
+mk = importlib.util.module_from_spec(_spec)  # the CCITT and ThunderScan writers
+_spec.loader.exec_module(mk)
+
 # The JPEG-compressed and YCbCr files (ROADMAP item 11g) are tests/test_torch_tiff_jpeg.py's.
 TIFFS = sorted(n for n in EXPECTED if n.endswith(".tif") and not re.search(r"jpeg|ycbcr", n))
 READ = [n for n in TIFFS if "sha256" in EXPECTED[n]]
 REFUSED = [n for n in TIFFS if "error" in EXPECTED[n]]
-UNPORTED = [n for n in TIFFS if "unported" in EXPECTED[n]]
+UNPORTED = [n for n in TIFFS if "ported_in" in EXPECTED[n]]  # refused until 11h
 
 
 def digest(a):
@@ -437,51 +443,42 @@ def test_cls_image_folder_over_tiffs_matches_jax(tmp_path):
 # --- (f) refusals -------------------------------------------------------------------
 
 
-# 6, 7 and "ycbcr_lzw" were refused (item 11g) and now read.
-PORTED = (6, 7, "ycbcr_lzw")
-REFUSALS = sorted(set(image_io.TIFF_REFUSED) | {6, 7}) + ["ycbcr_lzw", "cielab"]
+# Refused until items 11g (6, 7, "ycbcr_lzw") and 11h (the rest) ported them.
+REFUSALS = [2, 3, 4, 6, 7, 32771, 32809, 34925, 50000, "ycbcr_lzw", "cielab"]
 
 
 @pytest.mark.parametrize("what", REFUSALS, ids=str)
 def test_refused_tiff_names_file_and_item(what, tmp_path):
-    """A refused file stops the read naming itself and its item; a file of
-    what item 11g ported (old-style JPEG, new-style JPEG, LZW YCbCr) reads
-    as PIL reads it, in a tree too."""
+    """A file of each compression or photometric the port once refused
+    (items 11g and 11h) reads as PIL reads it, alone and in a tree."""
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder, write_random_tree
 
     rng = np.random.default_rng(3)
     px = mf.photo((16, 24), 3)
-    if what in PORTED:
+    doc = mk.bilevel((16, 24), 3)
+    kinds = {2: "rle", 3: "g3", 4: "g4", 32771: "rlew"}
+    if what in (6, 7, "ycbcr_lzw"):
         data = (mf.ojpeg_tiff(px) if what == 6 else mf.jpeg_tiff(px) if what == 7
                 else mf.ycbcr_tiff(px, 2, 2, compression=5))
-        write_random_tree(str(tmp_path), 4, (16, 24), classes=1)
-        rgb = tmp_path / "rgb" / "c0"
-        (rgb / "i0002.png").unlink()
-        (rgb / "i0002.tif").write_bytes(data)
-        want = pil_forms(data)
-        assert np.array_equal(image_io.load_image(str(rgb / "i0002.tif")), want[0])
-        assert np.array_equal(image_io.load_image(str(rgb / "i0002.tif"), False), want[1])
-        sample = MultiTaskImageFolder(str(tmp_path), ["rgb"]).load_raw(2)[0]
-        assert np.array_equal(sample["rgb"], want[0])
-        return
-    if what == "cielab":
-        data, item = mf.tiff(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8), 8), "11h"
+    elif what in kinds:
+        data = mk.ccitt_tiff(doc, kinds[what], k=2 if what == 3 else 1, white=what == 4)
+    elif what == 32809:
+        data = mk.thunder_tiff(mk.gray4((16, 24), 3))
+    elif what in (34925, 50000):
+        data = mk.pil_save(Image.fromarray(px), compression="lzma" if what == 34925 else "zstd")
     else:
-        px, photometric = ((rng.integers(0, 2, (8, 8), dtype=np.uint8), 0) if what in (2, 3, 4)
-                           else (rng.integers(0, 256, (8, 8, 3), dtype=np.uint8), 2))
-        # the data stays uncompressed: the refusal reads the tags alone
-        data = mf.set_tiff_tag(mf.tiff(px, photometric, bits=1 if photometric == 0 else 0),
-                               259, what)
-        item = image_io.TIFF_REFUSED[what]
+        data = mf.tiff(rng.integers(0, 256, (16, 24, 3), dtype=np.uint8), 8)
+    assert image_io._TiffFile(data).scalar(259) == (1 if what == "cielab" else 5 if
+                                                    what == "ycbcr_lzw" else what)
     write_random_tree(str(tmp_path), 4, (16, 24), classes=1)
     rgb = tmp_path / "rgb" / "c0"
     (rgb / "i0002.png").unlink()
     (rgb / "i0002.tif").write_bytes(data)
-    with pytest.raises(UnsupportedImage, match=rf"i0002\.tif: .*item {item}"):
-        image_io.load_image(str(rgb / "i0002.tif"))
-    multi = MultiTaskImageFolder(str(tmp_path), ["rgb"])
-    with pytest.raises(UnsupportedImage, match=r"i0002\.tif"):
-        multi[2]  # no corrupt-file retry resamples it
+    want = pil_forms(data)
+    assert np.array_equal(image_io.load_image(str(rgb / "i0002.tif")), want[0])
+    assert np.array_equal(image_io.load_image(str(rgb / "i0002.tif"), False), want[1])
+    sample = MultiTaskImageFolder(str(tmp_path), ["rgb"]).load_raw(2)[0]
+    assert np.array_equal(sample["rgb"], want[0])
 
 
 @pytest.mark.parametrize("code", sorted(image_io.TIFF_PIL_REFUSED))
@@ -513,10 +510,13 @@ def test_tiff_pil_refuses_is_resampled_by_both_loaders(code, tmp_path, capsys):
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_refused_tiff_fixtures_pil_reads(name):
-    """The committed refused TIFFs: PIL reads each, the port names it."""
-    pil_forms((FIXTURES / name).read_bytes())
-    with pytest.raises(UnsupportedImage, match=rf"{name}: .*item {EXPECTED[name]['unported']}"):
-        image_io.load_image(str(FIXTURES / name))
+    """The committed TIFFs refused until item 11h: PIL reads each, and the
+    port reads it to PIL's pixels, natively and through the twins."""
+    rgb, raw = pil_forms((FIXTURES / name).read_bytes())
+    assert EXPECTED[name]["ported_in"] == "11h"
+    for twin in (False, True):
+        assert np.array_equal(image_io.load_image(str(FIXTURES / name), twin=twin), rgb)
+        assert np.array_equal(image_io.load_image(str(FIXTURES / name), False, twin), raw)
 
 
 # --- (g) write_tiff -------------------------------------------------------------------

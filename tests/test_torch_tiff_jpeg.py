@@ -121,7 +121,8 @@ def test_damaged_jpeg_tiff_raises_value_error(name, twin):
 def test_jpeg_tiff_fixtures_cover_the_layouts():
     """Compression 6 and 7, every subsampling of the RGBA reader, the four
     tree images of chip_smoke.py's TIFF epoch at the tree's size, and no
-    refused compression left for 11g."""
+    refused compression left (the old-style JPEG tiles side by side with
+    tables in tags, 11g's last corner, among the files read)."""
     tags = {n: image_io._TiffFile((FIXTURES / n).read_bytes()) for n in READ}
     compressions = {f.scalar(259) for f in tags.values()}
     assert {5, 6, 7, 8, 32773} <= compressions
@@ -129,7 +130,8 @@ def test_jpeg_tiff_fixtures_cover_the_layouts():
     assert set(image_io._YCBCR_PUTS) <= sampling
     trees = [n for n in READ if n.startswith("tree_")]
     assert len(trees) == 4 and {tuple(EXPECTED[n]["shape"]) for n in trees} == {(48, 64, 3)}
-    assert not {6, 7} & set(image_io.TIFF_REFUSED)
+    assert not hasattr(image_io, "TIFF_REFUSED")
+    assert "unported_ojpeg_tiles_tables.tif" in READ
 
 
 # --- (b) files at random sizes --------------------------------------------------------

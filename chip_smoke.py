@@ -288,19 +288,23 @@ non-zero:
      ThunderScan and CIELab rgb files): K1 4 + 4 per step, no resampled
      sample.
  21. a JAX-layout resume at full width (train/checkpoint.py,
-     utils/jax_state.py): the pretraining CLI (MultiMAE-B, uncertainty
-     balancer, AdamW, TRAIN_BATCH, RESUME_STEPS synthetic steps an epoch)
-     and the semseg CLI over the NYUv2 fixture's class-mapped tree (NYU
-     rgb-depth recipe at 512 px, NYU_BATCH: a step and an eval batch an
-     epoch). Run P trains two epochs; run M saves epoch 0 with
-     --ckpt_backend msgpack and is stopped after that save, and its
-     relaunch auto-resumes epoch 1 from the file: the file's every path,
-     shape and dtype as tests/fixtures/jax_state/*.json holds the JAX
-     package's layout; the relaunch's metrics, evaluation and epoch-1
-     save (parameters, optimizer moments and counts) bit-equal to run
-     P's; K1 4 + 4 per pretraining step, K2 12 + 12 and K3b 4 + 4 per
-     semseg step, K4 12 and K3b fwd 4 per eval batch in the relaunch;
-     the file's MiB, write and load seconds.
+     utils/jax_state.py, utils/orbax_ckpt.py): the pretraining CLI
+     (MultiMAE-B, uncertainty balancer, AdamW, TRAIN_BATCH, RESUME_STEPS
+     synthetic steps an epoch) and the semseg CLI over the NYUv2 fixture's
+     class-mapped tree (NYU rgb-depth recipe at 512 px, NYU_BATCH: a step
+     and an eval batch an epoch). Run P trains two epochs; run M saves
+     epoch 0 with --ckpt_backend msgpack, run O with --ckpt_backend orbax,
+     each stopped after that save, and each relaunch auto-resumes epoch 1
+     from it: the save's every path, shape and dtype as
+     tests/fixtures/jax_state/*.json (*.orbax.json for the orbax tree)
+     holds the JAX package's layout; the relaunch's metrics, evaluation
+     and epoch-1 save (parameters, optimizer moments and counts)
+     bit-equal to run P's; K1 4 + 4 per pretraining step, K2 12 + 12 and
+     K3b 4 + 4 per semseg step, K4 12 and K3b fwd 4 per eval batch in the
+     relaunch; the save's MiB, write and load seconds. Then every orbax
+     checkpoint the JAX package wrote in tests/fixtures/orbax (one
+     process; two processes, two ocdbt.process_<k> trees) reads to the
+     SHA-256 of each leaf in its expected.json.
 Then it prints the seconds each phase took, the card line, a JSON line of the kernels and, last,
 {"ok": true, "device": {...}}. A time is per call, from CUDA events
 around back-to-back calls (median of windows; kernel and plain twin
@@ -3636,13 +3640,15 @@ def loaders_slice(torch, dev, card):
 # NYUv2 fixture's class-mapped tree (FT_YAML at NYU_BATCH: one step an
 # epoch and an eval batch). Run P trains two epochs and saves a .pth; run M
 # saves epoch 0 as the JAX package's checkpoint-0.msgpack (--ckpt_backend
-# msgpack) and is stopped right after that save, as a preemption would
-# stop it, and its relaunch auto-resumes epoch 1 from the file. The file's
-# tree must be the JAX layout of tests/fixtures/jax_state/, and M's epoch
-# 1 (metrics, evaluation, final parameters and optimizer state) bit-equal
-# to P's: the fp32 trees copy exactly and the kernels are deterministic.
+# msgpack), run O as its checkpoint-0.orbax/ (--ckpt_backend orbax), each
+# stopped right after that save, as a preemption would stop it, and each
+# relaunch auto-resumes epoch 1 from it. The save's tree must be the JAX
+# layout of tests/fixtures/jax_state/, and the relaunch's epoch 1 (metrics,
+# evaluation, final parameters and optimizer state) bit-equal to P's: the
+# fp32 trees copy exactly and the kernels are deterministic.
 RESUME_STEPS = 2
 JAX_STATE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "jax_state")
+ORBAX_FIXTURES = os.path.join(HERE, "tests", "fixtures", "orbax")
 
 
 class _Preempted(Exception):
@@ -3692,18 +3698,43 @@ def run_launches(expect, steps, evals):
     return out
 
 
-def resume_pair(cli, what, base, root, manifest, expect):
-    """Phase 21's runs P and M of one CLI (`base`: its flags for two
-    epochs); returns the relaunch's launches and the numbers."""
-    from multimae_tpu_torch.train import checkpoint as ckpt_lib
-    from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+def tree_mib(path):
+    """MiB of a file, or of every file under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 2**20
+    return sum(os.path.getsize(os.path.join(r, n)) for r, _, ns in os.walk(path)
+               for n in ns) / 2**20
 
-    p_dir, m_dir = os.path.join(root, "p"), os.path.join(root, "m")
+
+def resume_pair(cli, what, base, root, manifest, expect):
+    """Phase 21's run P of one CLI (`base`: its flags for two epochs), then
+    for each JAX format the run stopped after its epoch-0 save in it (M:
+    --ckpt_backend msgpack, O: orbax) and its relaunch; returns
+    ({format: the relaunch's launches}, {format: numbers})."""
+    p_dir = os.path.join(root, "p")
     reset_launch_counts()
     first = cli.main(cli.get_args(base + ["--output_dir", p_dir]))
     expect_launches(f"[21] {what} run P", launch_counts(),
                     **run_launches(expect, len(first["steps"]), len(first.get("evals", []))))
     free_card(sys.modules["torch"])
+    launches, numbers = {}, {}
+    for run, fmt in (("M", "msgpack"), ("O", "orbax")):
+        launches[fmt], numbers[fmt] = stopped_and_resumed(
+            cli, what, base, os.path.join(root, run.lower()), run, fmt, first, p_dir,
+            manifest if fmt == "msgpack" else manifest[:-len(".json")] + ".orbax.json", expect)
+    return launches, numbers
+
+
+def stopped_and_resumed(cli, what, base, out, run, fmt, first, p_dir, manifest, expect):
+    """Run `run` saves epoch 0 with --ckpt_backend `fmt` and is stopped
+    right after; its relaunch auto-resumes epoch 1 from that save, which
+    must hold the JAX layout of `manifest` and give run P's epoch 1 bit
+    for bit. Returns the relaunch's launches and the numbers."""
+    from multimae_tpu_torch.train import checkpoint as ckpt_lib
+    from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+    import shutil
+
+    from multimae_tpu_torch.utils.orbax_ckpt import read_orbax
 
     save, timed = ckpt_lib.save_checkpoint, {}
 
@@ -3717,26 +3748,29 @@ def resume_pair(cli, what, base, root, manifest, expect):
 
     ckpt_lib.save_checkpoint = save_then_stop
     try:
-        cli.main(cli.get_args(base + ["--output_dir", m_dir, "--ckpt_backend", "msgpack",
+        cli.main(cli.get_args(base + ["--output_dir", out, "--ckpt_backend", fmt,
                                       "--save_ckpt_freq", "1"]))
-        raise AssertionError(f"[21] {what} run M went past its epoch-0 save")
+        raise AssertionError(f"[21] {what} run {run} went past its epoch-0 save")
     except _Preempted as stop:
-        msgpack = str(stop)
+        saved = str(stop)
     finally:
         ckpt_lib.save_checkpoint = save
     free_card(sys.modules["torch"])
     with open(manifest) as f:
         want = json.load(f)
-    got = state_leaves({k: v for k, v in read_msgpack(msgpack).items() if k != "extras"})
+    payload = read_msgpack(saved) if fmt == "msgpack" else read_orbax(saved)
+    got = state_leaves({k: v for k, v in payload.items()
+                        if k != "extras" and (fmt == "msgpack" or k != "epoch")})
     if got != want:
         bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
-        raise AssertionError(f"[21] {msgpack}: {len(bad)} leaves differ from "
+        raise AssertionError(f"[21] {saved}: {len(bad)} leaves differ from "
                              f"{os.path.basename(manifest)}: {bad[:6]}")
+    del payload
 
     tee = _Tee(sys.stdout)
     reset_launch_counts()
     with contextlib.redirect_stdout(tee):
-        again = cli.main(cli.get_args(base + ["--output_dir", m_dir]))
+        again = cli.main(cli.get_args(base + ["--output_dir", out]))
     launches = launch_counts()
     free_card(sys.modules["torch"])
     printed = "".join(tee.parts)
@@ -3745,30 +3779,65 @@ def resume_pair(cli, what, base, root, manifest, expect):
     p_evals = [{k: e[k] for k in ("mIoU", "images")} for e in first.get("evals", [])
                if e["epoch"] == 1]
     m_evals = [{k: e[k] for k in ("mIoU", "images")} for e in again.get("evals", [])]
+    words = expect["printed"].format(fmt=fmt)
     if (again["start_epoch"], again["resumed_from"], again.get("resume_bit_equal"),
-            expect["printed"] in printed) != (1, msgpack, True, True):
-        raise AssertionError(f"[21] {what} relaunch: start epoch {again['start_epoch']}, from "
-                             f"{again['resumed_from']}, bit-equal {again.get('resume_bit_equal')}"
-                             f", {expect['printed']!r} printed: {expect['printed'] in printed}")
+            words in printed) != (1, saved, True, True):
+        raise AssertionError(f"[21] {what} run {run}'s relaunch: start epoch "
+                             f"{again['start_epoch']}, from {again['resumed_from']}, bit-equal "
+                             f"{again.get('resume_bit_equal')}, {words!r} printed: "
+                             f"{words in printed}")
     if m_steps != p_steps or m_evals != p_evals or not p_steps:
-        raise AssertionError(f"[21] {what}: epoch 1 resumed {m_steps} {m_evals}; run P "
-                             f"{p_steps} {p_evals}")
-    expect_launches(f"[21] {what} relaunch", launches,
+        raise AssertionError(f"[21] {what} run {run}: epoch 1 resumed {m_steps} {m_evals}; "
+                             f"run P {p_steps} {p_evals}")
+    expect_launches(f"[21] {what} run {run}'s relaunch", launches,
                     **run_launches(expect, len(m_steps), len(m_evals)))
     tensors = same_saves(os.path.join(p_dir, "checkpoint-1.pth"),
-                         os.path.join(m_dir, "checkpoint-1.pth"))
-    mib = os.path.getsize(msgpack) / 2**20
-    log(21, f"{what}: checkpoint-0.msgpack ({mib:.1f} MiB, {len(got)} leaves as "
-            f"{os.path.basename(manifest)} holds them) written in {timed['write_s']:.2f} s, "
+                         os.path.join(out, "checkpoint-1.pth"))
+    mib = tree_mib(saved)
+    log(21, f"{what} run {run}: {os.path.basename(saved)} ({mib:.1f} MiB, {len(got)} leaves "
+            f"as {os.path.basename(manifest)} holds them) written in {timed['write_s']:.2f} s, "
             f"read, mapped and loaded in {again['load_s']:.2f} s; epoch 1 resumed from it "
             "bit-equal to run P's: losses " + ", ".join(f"{m['loss']:.6f}" for m in m_steps)
             + ", grad norms " + ", ".join(f"{m['grad_norm']:.6f}" for m in m_steps)
             + (f", mIoU {m_evals[0]['mIoU']:.6f}" if m_evals else "")
             + f", and the {tensors} tensors of the epoch-1 saves (the parameters and the "
             f"optimizer state); relaunch launches {launches}")
-    return launches, {"msgpack_mib": mib, "write_s": timed["write_s"],
+    shutil.rmtree(out, ignore_errors=True)
+    return launches, {f"{fmt}_mib": mib, "write_s": timed["write_s"],
                       "load_s": again["load_s"], "losses": [m["loss"] for m in m_steps],
                       "tensors_bit_equal": tensors}
+
+
+def orbax_fixtures():
+    """Every orbax checkpoint the JAX package wrote in tests/fixtures/orbax,
+    read on this host: each leaf's SHA-256 as expected.json holds it."""
+    import hashlib
+
+    from multimae_tpu_torch.utils.orbax_ckpt import read_orbax
+
+    with open(os.path.join(ORBAX_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    leaves = 0
+    for name, want in sorted(expected.items()):
+        payload = read_orbax(os.path.join(ORBAX_FIXTURES, name))
+        extras = {k: v.decode() for k, v in payload.pop("extras").items()}
+        if (payload.pop("epoch"), extras) != (want["epoch"], want["extras"]):
+            raise AssertionError(f"[21] {name}: epoch and extras differ from expected.json")
+        got = state_leaves(payload)
+        for key, (shape, dtype, digest) in want["leaves"].items():
+            path = key.split("/")
+            t = payload
+            for k in path:
+                t = t[k]
+            data = t.contiguous().reshape(-1).view(sys.modules["torch"].uint8).numpy().tobytes()
+            if got.get(key) != [shape, dtype] or hashlib.sha256(data).hexdigest() != digest:
+                raise AssertionError(f"[21] {name}: {key} differs from expected.json")
+        if set(got) != set(want["leaves"]):
+            raise AssertionError(f"[21] {name}: other leaves than expected.json's")
+        leaves += len(got)
+    log(21, f"the JAX-written orbax fixtures ({', '.join(sorted(expected))}): all {leaves} "
+            "leaves read to expected.json's SHA-256, epochs and extras")
+    return leaves
 
 
 def jax_resume_slice(torch, dev, card):
@@ -3788,12 +3857,14 @@ def jax_resume_slice(torch, dev, card):
                 "--synthetic_data", "--synthetic_steps_per_epoch", str(RESUME_STEPS),
                 "--batch_size", str(TRAIN_BATCH), "--warmup_epochs", "0", "--num_workers", "0",
                 "--epochs", "2", "--save_ckpt_freq", "2"]
-        launches["jax_resume_pretrain"], numbers["pretrain"] = resume_pair(
+        pair, numbers["pretrain"] = resume_pair(
             pt_cli, f"pretraining CLI (MultiMAE-B, batch {TRAIN_BATCH})", base,
             os.path.join(root, "pretrain"),
             os.path.join(JAX_STATE_FIXTURES, "pretrain_multimae_b.json"),
             {"step": {"fused_decoder_fwd": 4, "fused_decoder_bwd": 4}, "eval": {},
-             "printed": "checkpoint-0.msgpack holds no data position the port reads"})
+             "printed": "checkpoint-0.{fmt} holds no data position the port reads"})
+        launches["jax_resume_pretrain"] = pair["msgpack"]
+        launches["orbax_resume_pretrain"] = pair["orbax"]
 
         tree = os.path.join(root, "nyu")
         prepare_nyuv2.prepare(os.path.join(NYU_FIXTURE, "nyu_depth_v2_labeled.mat"),
@@ -3804,7 +3875,7 @@ def jax_resume_slice(torch, dev, card):
                 "--data_path", os.path.join(tree, "train"),
                 "--eval_data_path", os.path.join(tree, "test"), "--epochs", "2",
                 "--save_ckpt_freq", "2"]
-        launches["jax_resume_semseg"], numbers["semseg"] = resume_pair(
+        pair, numbers["semseg"] = resume_pair(
             seg_cli, f"semseg CLI (NYU fixture, MultiViT-B at 512 px, batch {NYU_BATCH})",
             base, os.path.join(root, "semseg"),
             os.path.join(JAX_STATE_FIXTURES, "semseg_nyu_multivit_b.json"),
@@ -3812,6 +3883,9 @@ def jax_resume_slice(torch, dev, card):
                       "fused_ln_mlp_res_fwd": 4, "fused_ln_mlp_res_bwd": 4},
              "eval": {"fused_block_infer": 12, "fused_ln_mlp_res_fwd": 4},
              "printed": "data iterator state restored"})
+        launches["jax_resume_semseg"] = pair["msgpack"]
+        launches["orbax_resume_semseg"] = pair["orbax"]
+        numbers["orbax_fixture_leaves"] = orbax_fixtures()
         log(21, f"card {card}")
         return launches, numbers
     finally:
@@ -4249,8 +4323,9 @@ def main():
             k[f"{path}_launches"] = counts[name]
 
     # 21. a JAX-layout resume at full width: the pretraining and semseg
-    # CLIs save epoch 0 as the JAX package's .msgpack and resume epoch 1
-    # from it, bit-equal to an uninterrupted run
+    # CLIs save epoch 0 as the JAX package's .msgpack, then as its .orbax/,
+    # and resume epoch 1 from each, bit-equal to an uninterrupted run; the
+    # JAX-written orbax fixtures read to their digests
     free_card(torch)
     resume_launches, resume_numbers = jax_resume_slice(torch, dev, card)
     log(21, "numbers: " + json.dumps(resume_numbers))

@@ -32,7 +32,8 @@ library's resizes of PIL's:
     (`native.pil_nearest`), for palette ("P") and 8-bit gray ("L") PNGs.
 Any other mode raises ValueError naming it, where PIL would convert or
 quantise. A checkpoint that is neither a `.pth` nor a `.msgpack` (an orbax
-directory) raises ValueError.
+directory) raises ValueError, as the JAX demo, which open()s the file,
+fails on one.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from multimae_tpu_torch import native
 from multimae_tpu_torch.cli.factory import build_pretrain_model, entry_device
 from multimae_tpu_torch.data.image_io import PNG_SIGNATURE, decode_png, load_image, write_png
 from multimae_tpu_torch.ops.masking import make_mask
-from multimae_tpu_torch.train.checkpoint import ORBAX_REFUSAL
+from multimae_tpu_torch.train.checkpoint import START_REFUSAL
 from multimae_tpu_torch.train.pretrain_step import standardize_depth
 from multimae_tpu_torch.utils.data_constants import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from multimae_tpu_torch.utils.torch_compat import load_flax_start, load_pretrained
@@ -138,7 +139,7 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> Dict[str, Any]:
     if path.endswith(".msgpack"):
         return load_flax_start(model, path, "strict")
     if not path.endswith(".pth"):
-        raise ValueError(f"{path}: neither a .pth nor a JAX .msgpack file; {ORBAX_REFUSAL}")
+        raise ValueError(f"{path}: neither a .pth nor a JAX .msgpack file; {START_REFUSAL}")
     return load_pretrained(model, path)
 
 

@@ -10,12 +10,13 @@ synthetic batch with --synthetic_data), trains with --opt, layer decay
 schedule, evaluates every --eval_freq epochs over the whole validation
 set, saves checkpoint-best.pth whenever the tracked metric improves and
 checkpoint-{epoch}.pth every --save_ckpt_freq epochs and at the end (with
---ckpt_backend msgpack the JAX package's .msgpack files instead),
+--ckpt_backend msgpack or orbax the JAX package's .msgpack files or
+.orbax/ directories instead),
 writes a JSON line per epoch to log.txt, and auto-resumes from the newest
 loadable save in --output_dir with the data order and the best metric so
 far (the JAX CLIs restart from the worst value, so their first
 evaluation after a resume overwrites checkpoint-best). A JAX training
-state (.msgpack) resumes too, by --resume or auto-resume: its optimizer
+state (.msgpack or .orbax/) resumes too, by --resume or auto-resume: its optimizer
 state and counters map onto the port's (utils/jax_state.py); it keeps no
 best metric, which starts at the worst value as in the JAX CLI, and no
 data position the port reads, so its next epoch starts at batch 0 of the
@@ -49,21 +50,20 @@ def step_seed(seed: int, step: int, rank: int) -> int:
     return int(np.random.SeedSequence([seed, step, rank]).generate_state(1)[0])
 
 
-def refuse_unported(args, flax_start: Optional[str] = None) -> str:
-    """SystemExit for every flag whose function the port does not have;
+def check_finetune_start(args, flax_start: Optional[str] = None) -> str:
+    """SystemExit for a --finetune start the JAX CLI does not take either;
     returns the save format. `flax_start` names the JAX rule by which the
     CLI starts from a JAX `.msgpack` (utils/torch_compat.load_flax_start),
     where its JAX CLI does; None where its JAX CLI reads `.pth` files only."""
-    from multimae_tpu_torch.train.checkpoint import refuse_unread, save_format
+    from multimae_tpu_torch.train import checkpoint
 
     finetune = args.finetune or ""
     if finetune and flax_start is None and not finetune.endswith(".pth"):
         raise SystemExit(f"--finetune {finetune}: not a .pth file; the JAX CLI of this task "
                          "starts from .pth files only, so a JAX .msgpack or orbax checkpoint "
                          "is not read here either")
-    refuse_unread("--finetune", finetune)
-    refuse_unread("--resume", args.resume)
-    return save_format(args.ckpt_backend)
+    checkpoint.refuse_start("--finetune", finetune)
+    return args.ckpt_backend or "pth"
 
 
 @contextlib.contextmanager
@@ -127,14 +127,14 @@ def finetune(args, *, dtype: torch.dtype, build: Callable, datasets: Callable,
     "min"): checkpoint-best follows it, and the checkpoints keep it as
     best_<name>; synthetic(batch size) -> a loader batch; report(stats)
     prints an evaluation; flax_start: the JAX rule that reads a JAX
-    `.msgpack` --finetune (refuse_unported), with the semseg head's names.
+    `.msgpack` --finetune (check_finetune_start), with the semseg head's names.
 
     The summary holds the fine-tune start's report, where it started and
     resumed from, the per-step metrics and host times (wait for the batch,
     the step), each evaluation (its stats, batches, images, ms per batch),
     the checkpoint save and load times, each epoch's log line and the best
     metric."""
-    ckpt_format = refuse_unported(args, flax_start)
+    ckpt_format = check_finetune_start(args, flax_start)
     from multimae_tpu_torch.cli.factory import entry_device
     from multimae_tpu_torch.parallel import dist as dist_lib
 
@@ -157,7 +157,8 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
     from multimae_tpu_torch.data.loader import EvalLoader, Loader
     from multimae_tpu_torch.parallel import dist as dist_lib
     from multimae_tpu_torch.train.checkpoint import (
-        auto_load_checkpoint, load_checkpoint, restore_data_order, save_checkpoint)
+        auto_load_checkpoint, jax_format, load_checkpoint, restore_data_order,
+        save_checkpoint)
     from multimae_tpu_torch.train.finetune_step import (
         make_dense_eval_step, make_dense_train_step)
     from multimae_tpu_torch.train.optim_factory import (
@@ -253,8 +254,9 @@ def _finetune(args, device, dtype, build, datasets, prepare, loss_parts_fn, eval
         summary["resume_bit_equal"] = set(saved) == set(live) and all(
             torch.equal(v.cpu(), saved[k]) for k, v in live.items())
         restore_data_order(loader, payload, summary["resumed_from"], start_epoch, args.seed)
-        if summary["resumed_from"].endswith(".msgpack"):
-            print(f"[checkpoint] a .msgpack keeps no best {best_key}: it starts at "
+        if jax_format(summary["resumed_from"]):
+            print(f"[checkpoint] a {jax_format(summary['resumed_from'])} keeps no best "
+                  f"{best_key}: it starts at "
                   f"{best_value}, as the JAX CLI's does, and the next evaluation writes "
                   "checkpoint-best", flush=True)
     summary["start_epoch"] = start_epoch

@@ -28,12 +28,13 @@ or in host memory with --model_ema_force_cpu), evaluates top-1/5 after
 every epoch over the whole validation set (the counts summed over
 processes), saves checkpoint-best.pth whenever top-1 improves and
 checkpoint-{epoch}.pth every --save_ckpt_freq epochs and at the end (with
---ckpt_backend msgpack the JAX package's .msgpack files instead),
+--ckpt_backend msgpack or orbax the JAX package's .msgpack files or
+.orbax/ directories instead),
 writes a JSON line per epoch to log.txt, and auto-resumes from the
 newest loadable save in --output_dir with the data order, the EMA and
 the best top-1 so far (the JAX CLI starts every run from a best of 0, so
 its first evaluation after a resume overwrites checkpoint-best). A JAX
-training state (.msgpack: AdamW's moments, optax.MultiSteps's
+training state (.msgpack or .orbax/: AdamW's moments, optax.MultiSteps's
 accumulation under --update_freq, the device or host EMA, the counters)
 resumes too, with no best top-1 and no data position the port reads
 (utils/jax_state.py). Several
@@ -47,8 +48,9 @@ generator (data/loader.py): RandAugment and --train_interpolation random
 included, which the JAX transforms draw from the process-global `random`.
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. An orbax start, save or --resume
-raises SystemExit (orbax's storage format needs the JAX stack);
+card is asked for and torch sees none. A --finetune that is an orbax
+directory raises SystemExit, as the JAX CLI, which open()s the file,
+fails on one;
 --log_wandb, --dist_eval, --pin_mem, --model_key and --model_prefix are
 accepted and change nothing, as in the JAX CLI.
 """
@@ -77,8 +79,9 @@ def get_args(argv=None):
     parser.add_argument("--epochs", default=100, type=int)
     parser.add_argument("--update_freq", default=1, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
-                             "instead of checkpoint-{epoch}.pth; orbax is not written")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack, "
+                             "orbax its checkpoint-{epoch}.orbax/ directory, instead of "
+                             "checkpoint-{epoch}.pth")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     parser.add_argument("--model", default="multivit_base", type=str)
@@ -191,23 +194,12 @@ def get_args(argv=None):
     return parser.parse_args(remaining)
 
 
-def refuse_unported(args) -> str:
-    """SystemExit for every flag whose function the port does not have (an
-    orbax start, save or --resume); returns the save format."""
-    from multimae_tpu_torch.train.checkpoint import refuse_unread, save_format
-
-    refuse_unread("--finetune", args.finetune or "")
-    refuse_unread("--resume", args.resume)
-    return save_format(args.ckpt_backend)
-
-
 def main(args) -> Dict[str, Any]:
     """Fine-tune; returns a summary: the fine-tune start's report, where it
     started and resumed from, the per-step metrics and host times (wait
     for the batch, the step), each evaluation (top-1, top-5, ms per
     batch, images), the checkpoint save and load times, and each epoch's
     log line."""
-    ckpt_format = refuse_unported(args)
     from multimae_tpu_torch.cli.factory import build_cls_model, entry_device
     from multimae_tpu_torch.cli.finetune_loop import step_seed
     from multimae_tpu_torch.data.cls_transforms import (
@@ -217,7 +209,8 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.data.mixup import Mixup
     from multimae_tpu_torch.parallel import dist as dist_lib
     from multimae_tpu_torch.train.checkpoint import (
-        auto_load_checkpoint, load_checkpoint, restore_data_order, save_checkpoint)
+        auto_load_checkpoint, jax_format, load_checkpoint, refuse_start, restore_data_order,
+        save_checkpoint)
     from multimae_tpu_torch.train.cross_entropy import (
         cross_entropy, label_smoothing_cross_entropy, soft_target_cross_entropy)
     from multimae_tpu_torch.train.finetune_step import make_cls_eval_step, make_cls_train_step
@@ -229,6 +222,8 @@ def main(args) -> Dict[str, Any]:
     from multimae_tpu_torch.utils.metrics import accuracy
     from multimae_tpu_torch.utils.torch_compat import load_flax_start, load_pretrained
 
+    refuse_start("--finetune", args.finetune or "")
+    ckpt_format = args.ckpt_backend or "pth"
     device = entry_device(args.device)
     from multimae_tpu_torch.parallel import mesh as mesh_lib, tp
 
@@ -370,9 +365,10 @@ def main(args) -> Dict[str, Any]:
             host_ema.load({k: tp.local_tensor(model, k, v)
                            for k, v in payload["ema_params"].items()})
         restore_data_order(loader, payload, summary["resumed_from"], start_epoch, args.seed)
-        if summary["resumed_from"].endswith(".msgpack"):
-            print("[checkpoint] a .msgpack keeps no best acc1: it starts at 0.0, as the JAX "
-                  "CLI's does, and the next evaluation writes checkpoint-best", flush=True)
+        if jax_format(summary["resumed_from"]):
+            print(f"[checkpoint] a {jax_format(summary['resumed_from'])} keeps no best acc1: it "
+                  "starts at 0.0, as the JAX CLI's does, and the next evaluation writes "
+                  "checkpoint-best", flush=True)
     summary["start_epoch"] = start_epoch
 
     step_fn = make_cls_train_step(model, loss_fn, clip_grad=args.clip_grad)

@@ -36,8 +36,8 @@ The DPT head hooks encoder layers (2, 5, 8, 11); an encoder of fewer than
 its depth instead, where the JAX CLI stops with an IndexError.
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. An orbax save or --resume and a
---finetune that is not a .pth raise SystemExit;
+card is asked for and torch sees none. A --finetune that is not a .pth
+raises SystemExit;
 --log_wandb, --log_images_wandb, --dist_eval, --pin_mem and the flags the
 JAX CLI parses but never reads are accepted and change nothing.
 """
@@ -66,8 +66,9 @@ def get_args(argv=None):
     parser.add_argument("--batch_size", default=64, type=int, help="Batch size per process")
     parser.add_argument("--epochs", default=2000, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
-                             "instead of checkpoint-{epoch}.pth; orbax is not written")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack, "
+                             "orbax its checkpoint-{epoch}.orbax/ directory, instead of "
+                             "checkpoint-{epoch}.pth")
     parser.add_argument("--save_ckpt_freq", default=200, type=int)
 
     parser.add_argument("--in_domains", default="rgb", type=str)

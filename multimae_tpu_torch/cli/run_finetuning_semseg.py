@@ -27,8 +27,9 @@ survives a resume (the JAX CLI forgets it, so its first evaluation after
 a resume overwrites checkpoint-best).
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. An orbax start, save or --resume
-raises SystemExit (orbax's storage format needs the JAX stack);
+card is asked for and torch sees none. A --finetune that is an orbax
+directory raises SystemExit, as the JAX CLI's `_load_flax_trunk`, which
+open()s the file, fails on one;
 --log_wandb and --log_images_wandb are accepted and ignored, as the JAX
 CLI ignores them.
 """
@@ -65,8 +66,9 @@ def get_args(argv=None):
     parser.add_argument("--batch_size", default=4, type=int, help="Batch size per process")
     parser.add_argument("--epochs", default=64, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
-                             "instead of checkpoint-{epoch}.pth; orbax is not written")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack, "
+                             "orbax its checkpoint-{epoch}.orbax/ directory, instead of "
+                             "checkpoint-{epoch}.pth")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     parser.add_argument("--in_domains", default="rgb", type=str)

@@ -22,8 +22,8 @@ runs the K2 kernel forward and backward and its eval blocks K4. The
 training loop, checkpoints and processes are those of the semseg and
 depth CLIs (cli/finetune_loop.py).
 
-It runs on the card unless --device cpu is given. An orbax save or
---resume and a --finetune that is not a .pth raise SystemExit;
+It runs on the card unless --device cpu is given. A --finetune that is
+not a .pth raises SystemExit;
 --log_wandb, --log_images_wandb, --dist_eval and --pin_mem are accepted
 and change nothing.
 """
@@ -67,8 +67,9 @@ def get_args(argv=None):
     parser.add_argument("--batch_size", default=32, type=int, help="Batch size per process")
     parser.add_argument("--epochs", default=100, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
-                             "instead of checkpoint-{epoch}.pth; orbax is not written")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack, "
+                             "orbax its checkpoint-{epoch}.orbax/ directory, instead of "
+                             "checkpoint-{epoch}.pth")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     parser.add_argument("--in_domains", default="rgb", type=str)

@@ -11,11 +11,11 @@ defaults, flags override them), reading the shared cfgs/. It builds the
 model, losses and balancer, reads a MultiTaskImageFolder tree (or makes
 synthetic batches with --synthetic_data) through the port's loader,
 trains with AdamW under the cosine LR/WD schedules (lr = blr x global
-batch / 256), saves checkpoint-{epoch}.pth (with --ckpt_backend msgpack
-the JAX package's checkpoint-{epoch}.msgpack) every --save_ckpt_freq
+batch / 256), saves checkpoint-{epoch}.pth (with --ckpt_backend msgpack or orbax
+the JAX package's checkpoint-{epoch}.msgpack or .orbax/) every --save_ckpt_freq
 epochs and at the end, and auto-resumes from the newest loadable save in
 --output_dir together with the data order. A JAX training state (a
-.msgpack the JAX CLI wrote: params, AdamW's moments, the counters) resumes
+.msgpack or .orbax/ the JAX CLI wrote: params, AdamW's moments, the counters) resumes
 by --resume or auto-resume; the JAX save's data position is grain's, so
 its next epoch starts at batch 0 of the port's own permutation. Several processes (torchrun,
 OpenMPI, SLURM; parallel/dist.py) train data-parallel on the global
@@ -35,8 +35,7 @@ cross-attention form); --approx_gelu gives the model's module-path GELUs
 the tanh form.
 
 It runs on the card unless --device cpu is given, and raises where the
-card is asked for and torch sees none. An orbax save or --resume raises
-SystemExit: orbax's storage format needs the JAX stack.
+card is asked for and torch sees none.
 """
 
 from __future__ import annotations
@@ -62,8 +61,9 @@ def get_args(argv=None):
                         help="Batch size per process")
     parser.add_argument("--epochs", default=1600, type=int)
     parser.add_argument("--ckpt_backend", default=None, choices=["msgpack", "orbax"],
-                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack "
-                             "instead of checkpoint-{epoch}.pth; orbax is not written")
+                        help="msgpack: save the JAX package's checkpoint-{epoch}.msgpack, "
+                             "orbax its checkpoint-{epoch}.orbax/ directory, instead of "
+                             "checkpoint-{epoch}.pth")
     parser.add_argument("--save_ckpt_freq", default=20, type=int)
 
     # Task parameters
@@ -203,15 +203,6 @@ def get_args(argv=None):
     return parser.parse_args(remaining)
 
 
-def refuse_unported(args) -> str:
-    """SystemExit for every flag whose function the port does not have (an
-    orbax save or --resume); returns the save format."""
-    from multimae_tpu_torch.train.checkpoint import refuse_unread, save_format
-
-    refuse_unread("--resume", args.resume)
-    return save_format(args.ckpt_backend)
-
-
 def build_mesh(args, device):
     """The mesh the scaling flags ask for (JAX :221-240); None for plain
     data parallelism."""
@@ -237,7 +228,7 @@ def main(args) -> Dict[str, Any]:
     """Train; returns a summary: where it started and resumed from, the
     per-step metrics and host times (wait for the batch, the step), the
     checkpoint save and load times, and each epoch's log line."""
-    ckpt_format = refuse_unported(args)
+    ckpt_format = args.ckpt_backend or "pth"
     from multimae_tpu_torch.cli.factory import (
         build_pretrain_losses, build_pretrain_model, entry_device, make_synthetic_batch)
     from multimae_tpu_torch.data.dataset_folder import MultiTaskImageFolder

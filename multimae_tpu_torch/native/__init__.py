@@ -6,7 +6,7 @@ fastimage.cpp also holds the BMP run-length decoder (`bmp_rle`);
 tiff_decode.cpp the TIFF LZW, PackBits and ThunderScan decoders
 (`tiff_lzw`, `tiff_packbits`, `tiff_thunderscan`); ccitt_decode.cpp
 libtiff's CCITT decoding (`ccitt_decode`); zstd_decode.cpp a Zstandard
-frame decoder (`zstd_decode`); cielab.cpp LittleCMS's CIELab to sRGB
+frame decoder (`zstd_decode` for TIFF strips, `zstd_frame` for whole frames); cielab.cpp LittleCMS's CIELab to sRGB
 transform as Pillow builds it (`lab_to_rgb`); jpeg_decode.cpp the JPEG decoder of JPEG files
 (`decode_jpeg`) and of JPEG-compressed TIFF strips and tiles
 (`decode_jpeg_tiff`); webp_decode.cpp the WebP decoder (`decode_webp`, and
@@ -103,10 +103,11 @@ _SIGNATURES = {
     "mm_tiff_thunderscan": [_P, _L, _P, _L, _L, _L],
     "mm_ccitt_decode": [_P, _L, _I, _I, _I, _I, _I, _P, _P],
     "mm_zstd_decode": [_P, _L, _P, _L, _P],
+    "mm_zstd_frame": [_P, _L, _P, _L, _L, _P],
     "mm_lab_to_rgb": [_P, _L, _P],
 }
 # The functions that return a count of bytes or pixels, not a status.
-_LONG_RESULTS = ("mm_bmp_rle", "mm_tiff_lzw", "mm_tiff_packbits")
+_LONG_RESULTS = ("mm_bmp_rle", "mm_tiff_lzw", "mm_tiff_packbits", "mm_zstd_frame")
 
 
 def build(sources: Union[Path, Sequence[Path]] = SOURCES, build_root: Path = BUILD_ROOT, *,
@@ -398,7 +399,9 @@ ZSTD_ERRORS = {
     -13: "content past or short of the frame's declared size",
     -14: "a content checksum that does not match",
     -15: "the frame ends before the strip is full",
-    -16: "a skippable frame where libzstd wants the data's frame"}
+    -16: "a skippable frame where libzstd wants the data's frame",
+    -17: "content of another size than expected (or past the limit)", -18: "bytes after the frame",
+    -19: "a second frame after the first"}
 # What the data held, counted by mm_zstd_decode into ZSTD_COUNTS where a test
 # sets it (np.zeros(len(ZSTD_KINDS), np.int64)).
 ZSTD_KINDS = ("raw block", "RLE block", "compressed block", "raw literals", "RLE literals",
@@ -422,6 +425,28 @@ def zstd_decode(data: bytes, size: int) -> np.ndarray:
                               None if counts is None else _ptr(counts))
     if rc:
         raise ValueError(f"TIFF ZSTD data: {ZSTD_ERRORS.get(rc, rc)}")
+    return out
+
+
+def zstd_frame(data: bytes, size: Optional[int], what: str, limit: int = 0) -> np.ndarray:
+    """One whole Zstandard frame whose content is `size` bytes -> those
+    bytes, its checksum checked; with `size` None, a frame of any content
+    up to `limit` bytes (measured first). ValueError naming `what` (a file
+    and a key) on anything else: other content, trailing bytes, a second
+    frame, a window past 128 MiB."""
+    counts = ZSTD_COUNTS
+    if counts is not None and (counts.dtype != np.int64 or counts.shape != (len(ZSTD_KINDS),)):
+        raise ValueError("ZSTD_COUNTS must be int64 of len(ZSTD_KINDS)")
+    kinds = None if counts is None else _ptr(counts)
+    if size is None:
+        size = lib().mm_zstd_frame(data, len(data), None, -1, limit, kinds)
+        if size < 0:
+            raise ValueError(f"{what}: {ZSTD_ERRORS.get(size, size)}"
+                             + (f" (limit {limit} bytes)" if size == -17 else ""))
+    out = np.empty(size, np.uint8)
+    rc = lib().mm_zstd_frame(data, len(data), _ptr(out), size, 0, kinds)
+    if rc:
+        raise ValueError(f"{what}: {ZSTD_ERRORS.get(rc, rc)}")
     return out
 
 

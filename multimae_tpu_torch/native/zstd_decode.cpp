@@ -29,6 +29,15 @@
 // mm_zstd_decode returns 0 with `size` bytes in `out`, or a negative code
 // (ZSTD_ERRORS in native/__init__.py). `kinds`, when not null, counts what
 // the data held (ZSTD_KINDS in native/__init__.py), for the tests.
+//
+// mm_zstd_frame reads one whole frame, as a Zstandard value of a zarr chunk
+// or an OCDBT node (utils/ocdbt.py, utils/orbax_ckpt.py) is read: its content
+// must be exactly `size` bytes (and the declared content size, where the
+// header has one, must say so), its checksum is always checked, and nothing
+// may follow it, a second frame least of all. It returns 0, or a negative
+// code as mm_zstd_decode. With `size` -1 it writes nothing and returns the
+// content's length, which must not pass `limit`: a frame that declares no
+// content size is measured so. Same `kinds`.
 
 #include <cstdint>
 #include <cstring>
@@ -40,7 +49,7 @@ enum Err {
   kOk = 0, kTruncated = -1, kMagic = -2, kHeader = -3, kWindow = -4, kDict = -5,
   kBlockType = -6, kBlockSize = -7, kLiterals = -8, kHuffman = -9, kFse = -10,
   kSequences = -11, kOffset = -12, kContentSize = -13, kChecksum = -14, kEarlyEnd = -15,
-  kSkippable = -16,
+  kSkippable = -16, kSizeDiffers = -17, kTrailing = -18, kSecondFrame = -19,
 };
 
 enum Kind {
@@ -613,7 +622,10 @@ uint64_t xxh64(const uint8_t* p, size_t n) {
   return h;
 }
 
-int decode(const uint8_t* src, size_t n, uint8_t* dst, size_t size, long* kinds) {
+// `whole`: mm_zstd_frame's rules, `measure` its length-only form (`size` is
+// then the limit); otherwise ZSTDDecode's for a TIFF strip.
+long decode(const uint8_t* src, size_t n, uint8_t* dst, size_t size, long* kinds, bool whole,
+            bool measure = false) {
   if (n < 4) fail(kTruncated);
   const uint32_t magic = le(src, 4);
   if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) fail(kSkippable);
@@ -649,16 +661,21 @@ int decode(const uint8_t* src, size_t n, uint8_t* dst, size_t size, long* kinds)
   if (window > (uint64_t(1) << 27)) fail(kWindow);
   const size_t block_max = size_t(window < 128 * 1024 ? window : 128 * 1024);
   if (single) count(kinds, kSingleSegment);
-  if (has_fcs && fcs < size) fail(kEarlyEnd);
+  if (measure) {
+    if (has_fcs && fcs > size) fail(kSizeDiffers);
+  } else {
+    if (has_fcs && fcs < size) fail(whole ? kSizeDiffers : kEarlyEnd);
+    if (whole && has_fcs && fcs != size) fail(kSizeDiffers);
+  }
   Frame fr;
   std::vector<uint8_t> out;
-  out.reserve(size);
+  out.reserve(measure && has_fcs ? size_t(fcs) : measure ? 0 : size);
   const size_t win = size_t(window);
   for (;;) {
     // A block not whole in the data: libzstd buffers it and the strip ends
     // there, full or short.
     if (at + 3 > n) {
-      if (out.size() >= size) break;
+      if (!whole && out.size() >= size) break;
       fail(kTruncated);
     }
     const uint32_t bh = le(src + at, 3);
@@ -669,7 +686,7 @@ int decode(const uint8_t* src, size_t n, uint8_t* dst, size_t size, long* kinds)
     const size_t csize = type == 1 ? 1 : bsize;
     if (type == 2 && bsize > block_max) fail(kBlockSize);
     if (at + 3 + csize > n) {
-      if (out.size() >= size) break;
+      if (!whole && out.size() >= size) break;
       fail(kTruncated);
     }
     at += 3;
@@ -687,6 +704,24 @@ int decode(const uint8_t* src, size_t n, uint8_t* dst, size_t size, long* kinds)
     }
     at += csize;
     if (has_fcs && out.size() > fcs) fail(kContentSize);
+    if (whole) {
+      if (out.size() > size) fail(kSizeDiffers);
+      if (!last) continue;
+      if (!measure && out.size() != size) fail(kSizeDiffers);
+      if (checksum) {
+        count(kinds, kChecksumFrame);
+        if (at + 4 > n) fail(kTruncated);
+        if (le(src + at, 4) != uint32_t(xxh64(out.data(), out.size()))) fail(kChecksum);
+        at += 4;
+      }
+      if (at != n) {
+        const uint32_t next = n - at >= 4 ? le(src + at, 4) : 0;
+        fail(next == 0xFD2FB528u || (next & 0xFFFFFFF0u) == 0x184D2A50u ? kSecondFrame
+                                                                         : kTrailing);
+      }
+      if (measure) return long(out.size());
+      break;
+    }
     if (last) {
       if (has_fcs && out.size() != fcs) fail(kContentSize);
       if (out.size() < size) fail(kEarlyEnd);
@@ -715,7 +750,19 @@ extern "C" {
 
 int mm_zstd_decode(const uint8_t* src, long len, uint8_t* dst, long size, long* kinds) {
   try {
-    return decode(src, size_t(len), dst, size_t(size), kinds);
+    return int(decode(src, size_t(len), dst, size_t(size), kinds, false));
+  } catch (const Fail& f) {
+    return f.code;
+  } catch (...) {
+    return kTruncated;
+  }
+}
+
+long mm_zstd_frame(const uint8_t* src, long len, uint8_t* dst, long size, long limit,
+                   long* kinds) {
+  try {
+    if (size < 0) return decode(src, size_t(len), nullptr, size_t(limit), kinds, true, true);
+    return decode(src, size_t(len), dst, size_t(size), kinds, true);
   } catch (const Fail& f) {
     return f.code;
   } catch (...) {

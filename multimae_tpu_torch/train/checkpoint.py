@@ -24,25 +24,32 @@ through the fine-tune start's surgeries (utils/torch_compat.py) and its
 epoch is kept, while the optimizer and the counters start fresh, as the
 JAX package does for a `.pth` (multimae_tpu/train/checkpoint.py:306-329).
 
-A JAX training state, `checkpoint-{epoch}.msgpack` (the JAX package's
-default save, multimae_tpu/train/checkpoint.py:116-172), loads through
-utils/jax_state.jax_state_to_port: its params, optax state, counters and
-EMA, mapped and checked against the live state before any tensor is
-written. `save_checkpoint(..., backend="msgpack")` (the CLIs'
---ckpt_backend msgpack) writes that layout for the JAX package to resume
-(utils/jax_state.port_state_to_jax), with the port's loader position in
-its extras. Orbax directories are not read: their storage format needs
-the JAX stack, which the card's host does not have.
+A JAX training state loads through utils/jax_state.jax_state_to_port: its
+params, optax state, counters and EMA, mapped and checked against the live
+state before any tensor is written. The JAX package saves it in two
+formats (multimae_tpu/train/checkpoint.py): `checkpoint-{epoch}.msgpack`,
+flax's msgpack (:116-172, read by utils/flax_msgpack.py), and the
+`checkpoint-{epoch}.orbax/` directory of --ckpt_backend orbax (:209-262,
+read by utils/orbax_ckpt.py without orbax or tensorstore), whose tree has
+its empty subtrees pruned. `save_checkpoint(..., backend="msgpack")` and
+`backend="orbax"` (the CLIs' --ckpt_backend) write those layouts for the
+JAX package to resume (utils/jax_state.port_state_to_jax), with the port's
+loader position in their extras. An orbax save is written as one
+process's: rank 0 writes the canonical tensors after the same gather as a
+`.pth`, where the JAX package has each host write its own shards; its
+loader is topology-free, so the save resumes there all the same.
 
-Auto-resume walks the saves newest epoch first, a `.pth` before a
-`.msgpack` of the same epoch (it carries the port's data position and best
-metric). Each candidate is read in full and its every key and shape
-checked against the live state before it is chosen, so a truncated or
-gutted newest save costs one epoch and not the run; if every candidate is
-damaged the walk raises. An orbax save newer than the one chosen stops
-the run (SystemExit naming it): resuming an older save in silence would
-throw its epochs away. With several processes, rank 0 walks and
-broadcasts the save it chose, and every rank loads that file.
+Auto-resume walks the saves newest epoch first, and at one epoch a `.pth`
+before a `.msgpack` before a `.orbax`: the `.pth` carries the port's data
+position and best metric, and of the two JAX formats the single file is
+the cheaper to read. Each candidate is read in full and its every key and
+shape checked against the live state before it is chosen, so a truncated
+or gutted newest save (a missing `_METADATA`, a node cut short or with a
+bad CRC, a missing data file or chunk) costs one epoch and not the run; if
+every candidate is damaged the walk raises. orbax's in-progress name
+(`checkpoint-N.orbax.orbax-checkpoint-tmp-<ns>`) is never a candidate. With
+several processes, rank 0 walks and broadcasts the save it chose, and
+every rank loads that file.
 """
 
 from __future__ import annotations
@@ -55,29 +62,30 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from multimae_tpu_torch.parallel.dist import is_main_process, world_size
+from multimae_tpu_torch.parallel.dist import is_main_process, process_index, world_size
 from multimae_tpu_torch.train.train_state import TrainState
 from multimae_tpu_torch.utils.torch_compat import load_pretrained, torch_load_checkpoint
 
 _NAME = re.compile(r"checkpoint-(\d+)\.(pth|msgpack|orbax)$")
-_FORMATS = ("pth", "msgpack")  # the ones read, in this order at one epoch
-ORBAX_REFUSAL = ("orbax's storage format needs the JAX stack, which the port does without; "
-                 "resume it with the JAX package and save with --ckpt_backend msgpack")
+_FORMATS = ("pth", "msgpack", "orbax")  # in this order at one epoch
+START_REFUSAL = ("the JAX package reads a start checkpoint with open() as one flax msgpack "
+                 "file, so an orbax directory does not start it either; start from the "
+                 ".msgpack or .pth of that run")
 
 
-def save_format(ckpt_backend: Optional[str]) -> str:
-    """The save format of a CLI's --ckpt_backend: None (the port's .pth) or
-    msgpack; orbax raises SystemExit."""
-    if ckpt_backend == "orbax":
-        raise SystemExit(f"--ckpt_backend orbax: {ORBAX_REFUSAL}")
-    return ckpt_backend or "pth"
+def jax_format(path: str) -> Optional[str]:
+    """".msgpack" or ".orbax" where `path` is a JAX training state (a
+    .msgpack file, an orbax directory), None otherwise."""
+    if path.endswith(".msgpack"):
+        return ".msgpack"
+    return ".orbax" if path.endswith(".orbax") or os.path.isdir(path) else None
 
 
-def refuse_unread(flag: str, path: str) -> None:
-    """SystemExit for a --resume (or start) that is neither a .pth nor a
-    .msgpack file: an orbax directory."""
+def refuse_start(flag: str, path: str) -> None:
+    """SystemExit for a fine-tune start that is neither a .pth nor a
+    .msgpack file (an orbax directory), which the JAX CLIs refuse too."""
     if path and not path.endswith((".pth", ".msgpack")):
-        raise SystemExit(f"{flag} {path}: neither a .pth nor a .msgpack file; {ORBAX_REFUSAL}")
+        raise SystemExit(f"{flag} {path}: neither a .pth nor a .msgpack file; {START_REFUSAL}")
 
 
 def restore_data_order(loader, payload: Dict[str, Any], path: str, start_epoch: int,
@@ -96,8 +104,9 @@ def restore_data_order(loader, payload: Dict[str, Any], path: str, start_epoch: 
             except ValueError as e:
                 print(f"[checkpoint] data iterator restore failed ({e}); "
                       "continuing with a fresh shuffle")
-    elif path.endswith(".msgpack"):
-        print(f"[checkpoint] {os.path.basename(path)} holds no data position the port reads "
+    elif jax_format(path):
+        name = os.path.basename(path.rstrip(os.sep))
+        print(f"[checkpoint] {name} holds no data position the port reads "
               f"(a JAX save keeps grain's iterator): epoch {start_epoch} starts at batch 0 of "
               "the port's own permutation", flush=True)
         if loader is not None:
@@ -113,30 +122,37 @@ def save_checkpoint(output_dir: str, epoch: int, state: TrainState, *,
     """Write checkpoint-{epoch}.pth (or {tag}.pth) on rank 0, with the
     plain values of `extra` as further keys; returns its path (None on the
     other ranks). backend "msgpack" writes the JAX package's
-    checkpoint-{epoch}.msgpack instead, which keeps of `extra` a host EMA
-    (`ema_params`) alone, as the JAX CLI does."""
-    if backend not in ("pth", "msgpack"):
-        raise ValueError(f"backend {backend!r}: 'pth' or 'msgpack'")
+    checkpoint-{epoch}.msgpack instead, and "orbax" its
+    checkpoint-{epoch}.orbax/ directory (with its .meta.json and
+    .extras.msgpack); both keep of `extra` a host EMA (`ema_params`) alone,
+    as the JAX CLI does."""
+    if backend not in _FORMATS:
+        raise ValueError(f"backend {backend!r}: one of {_FORMATS}")
     tensors = state.state_dict()  # every rank: FSDP and TP gather here
     if not is_main_process():
         return None
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.{backend}")
     tmp = path + ".tmp"
-    if backend == "msgpack":
+    if backend in ("msgpack", "orbax"):
         from multimae_tpu_torch.utils.flax_msgpack import msgpack_serialize
         from multimae_tpu_torch.utils.jax_state import PORT_LOADER_KEY, port_state_to_jax
+        from multimae_tpu_torch.utils.orbax_ckpt import write_orbax
 
         payload = port_state_to_jax(
             state, epoch, None if data_iter_state is None else {PORT_LOADER_KEY: data_iter_state},
             host_ema=(extra or {}).get("ema_params"), tensors=tensors)
-        with open(tmp, "wb") as f:
-            f.write(msgpack_serialize(payload))
+        if backend == "orbax":
+            write_orbax(path, payload)  # its own temporary name and rename
+        else:
+            with open(tmp, "wb") as f:
+                f.write(msgpack_serialize(payload))
+            os.replace(tmp, path)
     else:
         payload = dict(tensors, epoch=int(epoch), args=dict(args or {}),
                        data_iter_state=data_iter_state, **(extra or {}))
         torch.save(payload, tmp)
-    os.replace(tmp, path)
+        os.replace(tmp, path)
     if args is not None:
         with open(os.path.join(output_dir, "args.json"), "w") as f:
             json.dump({k: str(v) for k, v in args.items()}, f, indent=2)
@@ -153,8 +169,8 @@ def _saves(output_dir: str, formats) -> List[Tuple[int, int, str]]:
 
 
 def checkpoint_candidates(output_dir: str) -> List[str]:
-    """Every checkpoint-{epoch}.pth and .msgpack in output_dir, newest epoch
-    first, the .pth first at one epoch."""
+    """Every checkpoint-{epoch}.pth, .msgpack and .orbax in output_dir,
+    newest epoch first, in _FORMATS's order at one epoch."""
     return [p for _, _, p in _saves(output_dir, _FORMATS)]
 
 
@@ -210,13 +226,20 @@ def validate_payload(payload: Any, state: TrainState) -> None:
 
 
 def read_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
-    """torch.load (weights only), or read and map a JAX .msgpack, and
-    validate; raises on a damaged file."""
-    if path.endswith(".msgpack"):
-        from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+    """torch.load (weights only), or read and map a JAX .msgpack or orbax
+    directory, and validate; raises on a damaged save."""
+    if jax_format(path):
         from multimae_tpu_torch.utils.jax_state import jax_state_to_port
 
-        payload = jax_state_to_port(read_msgpack(path), state)
+        if jax_format(path) == ".orbax":
+            from multimae_tpu_torch.utils.orbax_ckpt import read_orbax
+
+            saved = read_orbax(path, rank=process_index())
+        else:
+            from multimae_tpu_torch.utils.flax_msgpack import read_msgpack
+
+            saved = read_msgpack(path)
+        payload = jax_state_to_port(saved, state)
     else:
         payload = torch_load_checkpoint(path)
     validate_payload(payload, state)
@@ -233,7 +256,7 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[int, Dict[str, Any]]:
     """Restore `state` in place from `path`; returns (epoch, payload). A
     reference training checkpoint restores the weights and the epoch only,
     and returns an empty payload (nothing else of it applies)."""
-    if path.endswith(".msgpack"):
+    if jax_format(path):
         payload = read_checkpoint(path, state)
         state.load_state_dict(payload)
         return int(payload["epoch"]), payload
@@ -279,21 +302,11 @@ def auto_load_checkpoint(output_dir: str, state: TrainState) -> Tuple[int, Dict[
     else:
         if cands:
             chosen = -2
-    orbax = _saves(output_dir, ("orbax",)) if is_main_process() else []
-    if orbax and orbax[0][0] > (int(_NAME.search(cands[chosen]).group(1)) if chosen >= 0
-                                else -1):
-        chosen = -3
     if world_size() > 1:
         chosen = _broadcast(chosen)  # the index in cands
         if chosen >= 0 and not is_main_process():
             cands = checkpoint_candidates(output_dir)
             payload = read_checkpoint(cands[chosen], state)
-    if chosen == -3:
-        raise SystemExit(
-            f"{orbax[0][2] if orbax else 'an orbax save'}: newer than every save the port reads "
-            f"in {output_dir}; orbax's storage format needs the JAX stack, which the port does "
-            "without. Resume it with the JAX package and save with --ckpt_backend msgpack, or "
-            "move it away")
     if chosen == -2:
         raise RuntimeError(f"every checkpoint in {output_dir} failed to load"
                            + (f"; last error: {last_err}" if last_err else "")) from last_err

@@ -53,6 +53,12 @@ The port keeps its loader position in extras[PORT_LOADER_KEY], which the
 JAX CLIs do not read: they hand extras["data_iter_state"] to grain
 (multimae_tpu/cli/run_pretraining_multimae.py:374-380).
 
+An orbax save (utils/orbax_ckpt.py) holds the same tree with its empty
+subtrees pruned: MultiSteps's skip_state, and the balancer's subtrees of
+params and of the moments where the balancer has no parameters. Reading
+takes a pruned subtree for an empty one, so a leaf the live state has is
+still wanted; writing keeps them, and orbax_ckpt prunes what it stores.
+
 Every key and shape is checked against the live state before anything is
 returned; a state of another layout, model or optimizer raises ValueError
 naming what differs. Tensors stay torch tensors (views of the file's buffer
@@ -208,7 +214,9 @@ def _chain(opt_state: Any, kind: str, update_freq: int) -> Tuple[Dict[str, Any],
     live optimizer's layout."""
     if not isinstance(opt_state, Mapping):
         raise ValueError(f"opt_state holds a {type(opt_state).__name__}")
-    multi = set(opt_state) == _MULTISTEPS
+    # (an orbax save prunes MultiSteps's empty skip_state, as it prunes every
+    # empty subtree: multimae_tpu/train/checkpoint.py _prune_empty)
+    multi = set(opt_state) in (_MULTISTEPS, _MULTISTEPS - {"skip_state"})
     if multi != (update_freq > 1):
         raise ValueError(
             f"opt_state is {'optax.MultiSteps' if multi else 'a bare chain'}'s, and this run "

@@ -13,9 +13,12 @@ shape and dtype, from `jax.eval_shape` (no array of full width is made).
   at 512 px from RGB and depth, the ConvNeXt head, AdamW with layer decay).
 
 A manifest maps "a/b/c" paths to [shape, dtype]; `step` and `epoch` are
-Python ints ([null, "int"]).
+Python ints ([null, "int"]). `{name}.orbax.json` is the tree the orbax
+backend stores of the same state (`_save_orbax`): params, opt_state and
+`step`, an int32 scalar, with empty subtrees pruned; the epoch is not in it.
 """
 
+import functools
 import json
 import os
 import sys
@@ -31,10 +34,10 @@ CONFIGS = {
 }
 
 
-def jax_payload(name):
-    """The payload save_checkpoint writes for CONFIGS[name], its arrays as
+@functools.lru_cache(maxsize=None)
+def jax_state(name):
+    """The JAX CLI's TrainState for CONFIGS[name], its arrays as
     jax.ShapeDtypeStruct."""
-    import flax.serialization
     import jax
     import jax.numpy as jnp
 
@@ -84,10 +87,28 @@ def jax_payload(name):
         tx = create_optimizer(params, opt=args.opt, lr_schedule=lambda c: 0.0,
                               layer_decay_assigner=LayerDecayValueAssigner(values),
                               filter_bias_and_bn=True, learnable_pos_emb=args.learnable_pos_emb)
-    state = jax.eval_shape(lambda p: TrainState.create(params=p, tx=tx), params)
-    to_sd = flax.serialization.to_state_dict
+    return jax.eval_shape(lambda p: TrainState.create(params=p, tx=tx), params)
+
+
+def jax_payload(name):
+    """The payload save_checkpoint writes for CONFIGS[name] (the msgpack
+    backend), its arrays as jax.ShapeDtypeStruct."""
+    import flax.serialization
+
+    state, to_sd = jax_state(name), flax.serialization.to_state_dict
     return {"params": to_sd(state.params), "opt_state": to_sd(state.opt_state), "step": 0,
             "epoch": 0}
+
+
+def jax_orbax_tree(name):
+    """The tree the orbax backend stores for CONFIGS[name] (`_save_orbax`)."""
+    import flax.serialization
+
+    from multimae_tpu.train.checkpoint import _prune_empty
+
+    state, to_sd = jax_state(name), flax.serialization.to_state_dict
+    return _prune_empty({"params": to_sd(state.params), "opt_state": to_sd(state.opt_state),
+                         "step": state.step})
 
 
 def manifest(tree, path=()):
@@ -112,11 +133,13 @@ def manifest(tree, path=()):
 def main():
     sys.path.insert(0, REPO)
     for name in CONFIGS:
-        leaves = manifest(jax_payload(name))
-        with open(os.path.join(HERE, f"{name}.json"), "w") as f:  # a leaf a line
-            f.write("{\n" + ",\n".join(f"{json.dumps(k)}: {json.dumps(v)}"
-                                        for k, v in sorted(leaves.items())) + "\n}\n")
-        print(f"{name}.json: {len(leaves)} leaves")
+        for file, tree in ((f"{name}.json", jax_payload(name)),
+                           (f"{name}.orbax.json", jax_orbax_tree(name))):
+            leaves = manifest(tree)
+            with open(os.path.join(HERE, file), "w") as f:  # a leaf a line
+                f.write("{\n" + ",\n".join(f"{json.dumps(k)}: {json.dumps(v)}"
+                                            for k, v in sorted(leaves.items())) + "\n}\n")
+            print(f"{file}: {len(leaves)} leaves")
 
 
 if __name__ == "__main__":

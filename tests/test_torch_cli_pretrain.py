@@ -5,7 +5,7 @@ against the JAX package's, and the pieces it adds.
   both pretrain YAMLs (and with flags over a YAML), `--device` aside
   (the port's default is the card).
 * The flat-YAML reader equals `yaml.safe_load` on all 32 files in cfgs/.
-* The orbax flags (--ckpt_backend orbax, an orbax --resume) exit naming orbax.
+* --ckpt_backend orbax and an orbax --resume: tests/test_torch_orbax.py.
 * The step's recipe flags against the JAX step: tests/test_torch_step_flags.py.
 * A 2-epoch tiny CLI run on the CPU from a PIL-written tree writes
   checkpoint-*.pth and log.txt, and a relaunch auto-resumes after them.
@@ -69,15 +69,6 @@ def test_flat_yaml_refuses_what_it_does_not_read(tmp_path):
         path.write_text(text)
         with pytest.raises(ValueError):
             load_flat_yaml(str(path))
-
-
-@pytest.mark.parametrize("flags,words", [
-    (["--ckpt_backend", "orbax"], "orbax's storage format"),
-    (["--resume", "checkpoint-3.orbax"], "orbax's storage format"),
-])
-def test_unported_flags_raise(flags, words):
-    with pytest.raises(SystemExit, match=words):
-        tcli.main(tcli.get_args(["--device", "cpu", "--synthetic_data"] + flags))
 
 
 def test_other_optimizers_raise():

@@ -1,9 +1,10 @@
 """The port's classification fine-tune CLI
 (multimae_tpu_torch/cli/run_finetuning_cls.py) on the CPU at tiny sizes.
 
-* get_args against the JAX CLI's on both cls YAMLs; the orbax flags
-  (--ckpt_backend orbax, an orbax --finetune or --resume) exit naming
-  orbax; the card is asked for by default.
+* get_args against the JAX CLI's on both cls YAMLs; an orbax
+  --finetune exits with the JAX CLI's reason (it open()s the file;
+  --ckpt_backend orbax and an orbax --resume: tests/test_torch_orbax.py);
+  the card is asked for by default.
 * A JAX-layout .msgpack of a pretraining save starts a synthetic run by the
   JAX CLI's rule: the encoder loads, the head does not.
 * A 1-epoch run over a tiny ImageNet-layout tree of the JPEG fixtures
@@ -54,9 +55,8 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "orbax's storage format"),
-    "orbax_finetune": (["--finetune", "checkpoint-3.orbax"], "orbax"),
-    "orbax_resume": (["--resume", "checkpoint-3.orbax"], "orbax's storage format"),
+    "orbax_finetune": (["--finetune", "checkpoint-3.orbax"],
+                       r"open\(\) as one flax msgpack file, so an orbax directory"),
 }
 
 

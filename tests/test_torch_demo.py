@@ -18,7 +18,7 @@ JAX package's demo.py.
   for bit, so within 5e-4 of the JAX model's.
 * A random-masking run keeps --num_encoded_tokens visible; a checkpoint
   that is neither a .pth nor a .msgpack (an orbax directory) raises
-  ValueError naming orbax's storage format.
+  ValueError with the JAX demo's reason (it open()s the file).
 """
 
 import os
@@ -245,7 +245,7 @@ def test_msgpack_checkpoint_gives_the_pth_preds(images, jax_run, tiny, tmp_path)
 
 
 def test_non_pth_checkpoint_raises_naming_the_exporter(images, tiny, tmp_path):
-    with pytest.raises(ValueError, match="orbax's storage format"):
+    with pytest.raises(ValueError, match=r"open\(\) as one flax msgpack file"):
         demo.main(demo_argv(images, str(tmp_path / "checkpoint-0.orbax"), tmp_path))
 
 

@@ -14,8 +14,8 @@ run_finetuning_taskonomy.py):
   checkpoint-best.pth as it was (the JAX CLIs restart from 0 and infinity
   and would rewrite it); an --eval run of checkpoint-1.pth gives run A's
   epoch-1 metrics;
-* without --device the CLIs ask for the card, and the unported flags exit
-  naming what they ask for (orbax, a .msgpack start); --synthetic_data steps on the JAX CLIs'
+* without --device the CLIs ask for the card, and a .msgpack --finetune
+  exits naming it (--ckpt_backend orbax: tests/test_torch_orbax.py); --synthetic_data steps on the JAX CLIs'
   example batch; cli/factory.py's two recipes are their YAMLs;
 * the shared loop (cli/finetune_loop.py) turns TF32 off only for an fp32
   run on the card, and gives both flags back as they were.
@@ -142,7 +142,6 @@ def test_the_card_is_asked_for_by_default(kind):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "orbax's storage format"),
     "msgpack_finetune": (["--finetune", "w.msgpack"], "msgpack"),
 }
 

@@ -22,8 +22,8 @@ train/checkpoint.py), against the JAX package on the CPU at tiny sizes.
   JAX package's load_checkpoint with no leaf left at its template value,
   and the JAX package's next step from it matches the port's.
 * Auto-resume over .pth and .msgpack saves: the newest epoch first, the
-  .pth first at one epoch; a damaged newest .msgpack falls back one save;
-  a newer orbax directory stops the run.
+  .pth first at one epoch; a damaged newest .msgpack falls back one save
+  (orbax saves among them: tests/test_torch_orbax.py).
 
 The JAX step is the package's `make_pretrain_train_step` up to its
 `apply_gradients`, compiled once for every optimizer (the state's
@@ -447,11 +447,3 @@ def test_auto_resume_over_pth_and_msgpack(case, tmp_path, capsys):
     if case == "damaged_msgpack_falls_back":
         assert "checkpoint-1.msgpack failed to load" in capsys.readouterr().out
 
-
-def test_newer_orbax_save_stops_the_auto_resume(tmp_path):
-    out, _ = saves(tmp_path, {"checkpoint-1.msgpack": 1})
-    os.makedirs(os.path.join(out, "checkpoint-2.orbax"))
-    with pytest.raises(SystemExit, match=r"checkpoint-2\.orbax: newer than every save"):
-        ckpt.auto_load_checkpoint(out, port_pretrain("adamw")[0])
-    os.rename(os.path.join(out, "checkpoint-2.orbax"), os.path.join(out, "checkpoint-1.orbax"))
-    assert ckpt.auto_load_checkpoint(out, port_pretrain("adamw")[0])[0] == 2

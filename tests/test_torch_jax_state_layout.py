@@ -9,6 +9,9 @@ MultiViT-B, the two states chip_smoke.py phase 21 writes and resumes.
 * `port_state_to_jax` of the port's state, built as the port's CLIs build
   it for the same flags on the meta device (nothing of full width
   allocated), gives the same leaves.
+* The same for the tree the orbax backend stores (`*.orbax.json`): the
+  JAX package's `_save_orbax` tree and utils/orbax_ckpt.orbax_tree of the
+  port's payload, empty subtrees pruned and `step` an int32 scalar.
 """
 
 import json
@@ -27,19 +30,25 @@ from multimae_tpu_torch.train.optim_factory import LayerDecayValueAssigner, crea
 from multimae_tpu_torch.train.task_balancing import build_balancer
 from multimae_tpu_torch.train.train_state import TrainState
 from multimae_tpu_torch.utils.jax_state import port_state_to_jax
+from multimae_tpu_torch.utils.orbax_ckpt import orbax_tree
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "jax_state"
 sys.path.insert(0, str(FIXTURES))
 import make_manifests as mm  # noqa: E402
 
 
-def committed(name):
-    return json.loads((FIXTURES / f"{name}.json").read_text())
+def committed(name, backend=""):
+    return json.loads((FIXTURES / f"{name}{backend}.json").read_text())
 
 
 @pytest.mark.parametrize("name", sorted(mm.CONFIGS))
 def test_manifest_is_the_jax_package_layout(name):
     assert mm.manifest(mm.jax_payload(name)) == committed(name)
+
+
+@pytest.mark.parametrize("name", sorted(mm.CONFIGS))
+def test_orbax_manifest_is_the_jax_package_layout(name):
+    assert mm.manifest(mm.jax_orbax_tree(name)) == committed(name, ".orbax")
 
 
 def port_state(name):
@@ -84,3 +93,4 @@ def test_port_state_writes_the_manifest_layout(name, monkeypatch):
     assert all(p.is_meta for n, p in state.named_parameters() if not n.endswith("pos_emb"))
     payload = port_state_to_jax(state, 0)
     assert mm.manifest(payload) == committed(name)
+    assert mm.manifest(orbax_tree(payload)) == committed(name, ".orbax")

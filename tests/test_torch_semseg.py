@@ -328,17 +328,18 @@ PORT_FILES = sorted(str(p.relative_to(REPO))
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_no_jax(path):
     """The port and chip_smoke.py import neither JAX nor the JAX package,
-    nor PIL, cv2, PyYAML, grain, orbax, h5py, msgpack, ml_dtypes or a TIFF
-    library (tifffile, libtiff, imageio), at any depth of the file
-    (function-level imports included). wandb stays allowed, imported
-    lazily where asked for."""
+    nor PIL, cv2, PyYAML, grain, orbax, tensorstore, zarr, zstandard, h5py,
+    msgpack, ml_dtypes or a TIFF library (tifffile, libtiff, imageio), at
+    any depth of the file (function-level imports included). wandb stays
+    allowed, imported lazily where asked for."""
     tree = ast.parse((REPO / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module and n.level == 0]
     bad = {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                                    "multimae_tpu", "PIL", "cv2", "yaml",
-                                                   "grain", "orbax", "h5py", "msgpack",
+                                                   "grain", "orbax", "tensorstore", "zarr",
+                                                   "zstandard", "h5py", "msgpack",
                                                    "ml_dtypes", "tifffile", "libtiff",
                                                    "imageio")}
     assert not bad, bad

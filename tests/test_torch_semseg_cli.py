@@ -23,8 +23,10 @@ CPU at tiny sizes.
 * A reference training .pth (argparse.Namespace args, no step) resumes
   to the weights and epoch the JAX package restores; the optimizer starts
   fresh.
-* get_args against the JAX CLI's on all ten semseg YAMLs; the orbax
-  flags exit naming orbax; the card is asked for by
+* get_args against the JAX CLI's on all ten semseg YAMLs; an orbax
+  --finetune exits with the JAX CLI's reason (`_load_flax_trunk` open()s
+  the file; --ckpt_backend orbax and an orbax --resume:
+  tests/test_torch_orbax.py); the card is asked for by
   default; a tiny one-epoch run with --output_adapter dpt (the DPT semseg
   head) trains and evaluates.
 * A tiny 2-epoch CLI run from a written NYU-shaped tree on the CPU:
@@ -337,9 +339,8 @@ def test_get_args_matches_jax(path):
 
 
 UNPORTED = {
-    "ckpt_backend": (["--ckpt_backend", "orbax"], "orbax's storage format"),
-    "orbax_finetune": (["--finetune", "checkpoint-3.orbax"], "orbax"),
-    "orbax_resume": (["--resume", "checkpoint-3.orbax"], "orbax's storage format"),
+    "orbax_finetune": (["--finetune", "checkpoint-3.orbax"],
+                       r"open\(\) as one flax msgpack file, so an orbax directory"),
 }
 
 
